@@ -13,14 +13,28 @@ line):
      llama-2-7b widths, and time kernel, plain version, bound and, for
      the GEMM, torch._int_mm on pre-unpacked int8 weights (a yardstick:
      it reads twice the weight bytes, and the port never calls it)
-  4. drive the decode-serving path at full llama-2-7b width and depth
-     (32 layers, random seeded weights, rn128 Kronecker transforms baked
-     into the weights): generate for 4 prompts of 48 tokens, 64 new
-     tokens, then 16 per-slot decode steps at ragged positions; the
-     kernels' launch counts are read around this run. The same token
-     sequence then runs teacher-forced with use_kernel=False (the plain
-     versions) and the logits are compared step by step.
-  5. print the kernel table as one JSON line, then the result line.
+     3d: the four prefill kernels (rmsnorm_right_flat, left_quant_i8_flat,
+     w4a4_matmul_i8_swiglu_right, attn_prologue) at the 4 x 512 prefill's
+     shapes, each with identity and with random orthogonal transform
+     factors (tolerances in flatquant_torch/kernels/tolerance.py), timed
+     like the others
+  4. build one random llama-2-7b (32 layers, random seeded weights, rn128
+     Kronecker transforms baked into the weights; shared by phases 4 and
+     5) and drive the decode-serving path at full width and depth:
+     generate for 4 prompts of 48 tokens, 64 new tokens, then 16 per-slot
+     decode steps at ragged positions; the kernels' launch counts are read
+     around this run. The same token sequence then runs teacher-forced
+     with use_kernel=False (the plain versions) and the logits are
+     compared step by step.
+  5. drive the fused prompt prefill: serving_prefill at B=4, S=512 (2048
+     rows: every fused route and the attention prologue) over the int4
+     cache, 16 greedy decode steps over the cache the prologue wrote, and
+     a 4 x 128 prefill (fused input and MLP routes, composed attention);
+     launch counts read around the runs, a profile of one prefill, every
+     launch of a full-depth prefill checked against its plain version,
+     and the logits compared with the same routes run on the plain
+     versions (a tripwire: random W4A4 logits are chaotic).
+  Then the kernel table as one JSON line, then the result line.
 
 Details go to chiprun_out/chip_smoke.json. Nothing here imports JAX or
 the JAX package.
@@ -30,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -40,6 +55,7 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1.979e15   # dense int8 tensor-core rate
+BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core rate
 F32_FLOPS_PER_S = 67e12     # float32 outside the tensor cores
 L2_BYTES = 50e6
 OUT_DIR = "chiprun_out"
@@ -255,6 +271,178 @@ def check_write(torch, dev, gen, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the prefill kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _factor(torch, dev, gen, n, mode):
+    """Identity, or a random orthogonal [n, n] float32 factor."""
+    if mode == "identity":
+        return torch.eye(n, device=dev)
+    qm, r = torch.linalg.qr(torch.randn((n, n), generator=gen, device=dev,
+                                        dtype=torch.float64))
+    return (qm * torch.sign(torch.diagonal(r))).float()
+
+
+def _lac_clip(torch, dev):
+    c = torch.tensor(1.0 / (1.0 + math.exp(-4.0)), device=dev)  # sigmoid(4)
+    return (c, c)
+
+
+def check_prefill_kernels(torch, dev, gen, results):
+    """The four kernels of the fused prefill at the slice's shapes (B=4,
+    S=512: T=2048 rows, llama-2-7b widths), each held to its plain version
+    with identity and with random orthogonal factors (tolerances in
+    flatquant_torch/kernels/tolerance.py), then timed (orthogonal factors)
+    beside its plain version, its bound and, where one PyTorch call
+    computes the same function, that call."""
+    from flatquant_torch.kernels import attn_prologue as ap
+    from flatquant_torch.kernels import flat_pipeline as fp
+    from flatquant_torch.kernels.int4_matmul import unpack_weight_planar
+    from flatquant_torch.kernels.tolerance import (
+        compare_bf16, compare_codes, compare_kv, compare_scales)
+    from flatquant_torch.models.config import get_config
+    from flatquant_torch.models.llama import rope_tables
+
+    cfg = get_config("llama-2-7b")
+    B, S, L = 4, 512, 1024
+    T, H, I = B * S, cfg.hidden_size, cfg.intermediate_size
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    clip = _lac_clip(torch, dev)
+
+    def timed(name, label, kernel, plain, args, nbytes, ops, rate, err,
+              lib=None):
+        ms = cuda_ms(torch, kernel, args, 40)
+        plain_ms = cuda_ms(torch, plain, args, 4)
+        lib_ms = None if lib is None else cuda_ms(torch, lib[0], lib[1], 20)
+        b_ms, b_by = bound_ms(nbytes, ops, rate)
+        r = results.setdefault(name, dict(rows=[], max_abs_err=0.0))
+        r["rows"].append(dict(case=label, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                              bytes=nbytes, ops=ops, max_abs_err=err))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        lib_s = "none" if lib_ms is None else f"{lib_ms:.4f} ({lib[2]})"
+        log(f"  {name} {label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"bound {b_ms * 1e3:.2f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.1f} G ops) library_ms {lib_s}")
+
+    # rmsnorm_right_flat: x [T, H] bf16
+    xs = [(torch.randn((T, H), generator=gen, device=dev) * 2).to(
+        torch.bfloat16) for _ in range(copies_for(4 * T * H))]
+    w = torch.rand((H,), generator=gen, device=dev) + 0.5
+    for mode in ("identity", "orthogonal"):
+        right = _factor(torch, dev, gen, 128, mode)
+        err = compare_bf16(fp.rmsnorm_right_flat(xs[0], w, right, 1e-5),
+                           fp.rmsnorm_right_flat_ref(xs[0], w, right, 1e-5),
+                           mode, f"rmsnorm_right_flat ({mode})")
+        log(f"  rmsnorm_right_flat T={T} H={H}, {mode} factors: within "
+            f"tolerance, max abs err {err:.3e}")
+    timed("rmsnorm_right_flat", f"T={T} H={H}",
+          lambda x: fp.rmsnorm_right_flat(x, w, right, 1e-5),
+          lambda x: fp.rmsnorm_right_flat_ref(x, w, right, 1e-5),
+          [(x,) for x in xs], 4 * T * H + 4 * H + 2 * 128 * 128,
+          2 * T * H * 128, BF16_FLOPS_PER_S, err)
+    del xs
+
+    # left_quant_i8_flat: ln1/ln2/o at K=4096 (G=32), down at K=11008 (G=86)
+    for k in (H, I):
+        g = k // 128
+        xs = [(torch.randn((T, k), generator=gen, device=dev) * 3).to(
+            torch.bfloat16) for _ in range(copies_for(3 * T * k))]
+        for mode in ("identity", "orthogonal"):
+            lt = _factor(torch, dev, gen, g, mode)
+            q, s = fp.left_quant_i8_flat(lt, xs[0], clip)
+            q_ref, s_ref = fp.left_quant_i8_flat_ref(lt, xs[0], clip)
+            compare_codes(q, q_ref, mode, f"left_quant_i8_flat K={k} codes")
+            err = compare_scales(s, s_ref, mode,
+                                 f"left_quant_i8_flat K={k} scales")
+            log(f"  left_quant_i8_flat T={T} K={k} (G={g}), {mode} factors: "
+                f"codes and scales within tolerance"
+                f"{' (bit-exact)' if mode == 'identity' else ''}")
+        timed("left_quant_i8_flat", f"T={T} K={k} (G={g})",
+              lambda x: fp.left_quant_i8_flat(lt, x, clip),
+              lambda x: fp.left_quant_i8_flat_ref(lt, x, clip),
+              [(x,) for x in xs], 3 * T * k + 4 * T + 2 * g * g + 8,
+              2 * T * k * g, BF16_FLOPS_PER_S, err)
+        del xs
+
+    # w4a4_matmul_i8_swiglu_right: x int8 [T, H], w [2I, H/2]
+    xq = torch.randint(-8, 8, (T, H), generator=gen, device=dev,
+                       dtype=torch.int8)
+    sx = torch.rand((T, 1), generator=gen, device=dev) * 0.1 + 1e-3
+    ws = [(torch.randint(0, 256, (2 * I, H // 2), generator=gen, device=dev,
+                         dtype=torch.uint8),
+           torch.rand((2 * I,), generator=gen, device=dev) * 0.01 + 1e-4)
+          for _ in range(copies_for(I * H))]
+    for mode in ("identity", "orthogonal"):
+        right = _factor(torch, dev, gen, 128, mode)
+        err = compare_bf16(
+            fp.w4a4_matmul_i8_swiglu_right(xq, sx, *ws[0], right),
+            fp.w4a4_matmul_i8_swiglu_right_ref(xq, sx, *ws[0], right), mode,
+            f"w4a4_matmul_i8_swiglu_right ({mode})")
+        log(f"  w4a4_matmul_i8_swiglu_right M={T} K={H} N=2x{I}, {mode} "
+            f"factors: within tolerance, max abs err {err:.3e}")
+    # yardstick: cuBLAS int8 GEMM of the merged up||gate on pre-unpacked
+    # int8 weights (twice the weight bytes, no epilogue)
+    w8 = [(xq, unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
+    timed("w4a4_matmul_i8_swiglu_right", f"M={T} K={H} N=2x{I}",
+          lambda wp, sw: fp.w4a4_matmul_i8_swiglu_right(xq, sx, wp, sw,
+                                                        right),
+          lambda wp, sw: fp.w4a4_matmul_i8_swiglu_right_ref(xq, sx, wp, sw,
+                                                            right),
+          ws, T * H + I * H + 4 * T + 8 * I + 2 * 128 * 128 + 2 * T * I,
+          2 * T * 2 * I * H + 2 * T * I * 128, INT8_OPS_PER_S, err,
+          lib=(torch._int_mm, w8, "torch._int_mm, int8 weights, GEMM only"))
+    del ws, w8
+
+    # attn_prologue: qkv [B, S, (nh + 2 nkv) * 128] bf16, cache length L
+    D = (nh + 2 * nkv) * 128
+    qkvs = [(torch.randn((B, S, D), generator=gen, device=dev) * 2).to(
+        torch.bfloat16) for _ in range(copies_for(2 * B * S * D))]
+    cos, sin = rope_tables(cfg, torch.arange(S, device=dev))
+
+    def new_cache():
+        return [torch.zeros((B, nkv, L, 64), dtype=torch.uint8, device=dev),
+                torch.zeros((B, nkv, L, 2), device=dev),
+                torch.zeros((B, nkv, L, 64), dtype=torch.uint8, device=dev),
+                torch.zeros((B, nkv, L, 2), device=dev)]
+
+    for mode in ("identity", "orthogonal"):
+        kt = _factor(torch, dev, gen, 128, mode)
+        kti = _factor(torch, dev, gen, 128, mode)
+        c, c_ref = new_cache(), new_cache()
+        got = ap.attn_prologue(qkvs[0], cos, sin, kt, kti, clip, clip, nh=nh,
+                               nkv=nkv, cache=c)
+        want = ap.attn_prologue_ref(qkvs[0], cos, sin, kt, kti, clip, clip,
+                                    nh=nh, nkv=nkv, cache=c_ref)
+        err = max(compare_bf16(got[0], want[0], mode, "attn_prologue q_rot"),
+                  compare_bf16(got[1], want[1], mode, "attn_prologue k_rot"))
+        if not torch.equal(got[2], want[2]):
+            raise AssertionError("attn_prologue: v must pass through")
+        compare_kv(c[0], c[1], c_ref[0], c_ref[1], mode, "attn_prologue K")
+        compare_kv(c[2], c[3], c_ref[2], c_ref[3], "identity",
+                   "attn_prologue V")  # quantized from the raw qkv: exact
+        log(f"  attn_prologue B={B} S={S} {nh}/{nkv} heads, {mode} factors: "
+            f"K codes/params within tolerance"
+            f"{' (bit-exact)' if mode == 'identity' else ''}, V bit-exact, "
+            f"q/k max abs err {err:.3e}")
+    caches = [new_cache() for _ in qkvs]
+    # qkv read; q_rot, k_rot written (v is a view); K/V codes and params;
+    # cos/sin and k_t/k_t_inv in bf16; the clips
+    nbytes = (2 * B * S * D + 2 * B * S * (nh + nkv) * 128
+              + 2 * B * nkv * S * (64 + 8) + 4 * S * 128 + 4 * 128 * 128 + 16)
+    timed("attn_prologue", f"B={B} S={S} {nh}/{nkv} heads",
+          lambda qkv, cc: ap.attn_prologue(qkv, cos, sin, kt, kti, clip,
+                                           clip, nh=nh, nkv=nkv, cache=cc),
+          lambda qkv, cc: ap.attn_prologue_ref(qkv, cos, sin, kt, kti, clip,
+                                               clip, nh=nh, nkv=nkv,
+                                               cache=cc),
+          list(zip(qkvs, caches)), nbytes, 2 * B * S * (nh + nkv) * 128 * 128,
+          BF16_FLOPS_PER_S, err)
+    del qkvs, caches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the decode-serving path at full llama-2-7b width and depth
 # ---------------------------------------------------------------------------
 
@@ -269,6 +457,7 @@ def build_model(torch, dev, seed):
         build_serving_layer, kron_transform)
     import dataclasses
 
+    t0 = time.perf_counter()
     cfg = get_config("llama-2-7b")
     fq = dataclasses.replace(W4A4KV4, tpu_decompose=True)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -307,14 +496,18 @@ def build_model(torch, dev, seed):
             * 0.02).to(torch.bfloat16)
     sp = {"embed": emb, "lm_head": head,
           "final_norm_w": torch.ones(H, device=dev), "layers": layers}
+    torch.cuda.synchronize()
+    log(f"  built llama-2-7b W4A4KV4 rn128, {cfg.num_layers} layers, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+        f"{time.perf_counter() - t0:.1f} s")
     return cfg, fq, sp
 
 
-def profile_steps(torch, step, n):
-    """Device time by kernel over n decode steps (torch.profiler), against
-    the host wall time of the same steps: where a step's time goes, and
-    the device's idle share. Measurement only: a profiler that records
-    no device time is reported as 'not measured', not as a failure."""
+def profile_steps(torch, step, n, label="decode"):
+    """Device time by kernel over n steps (torch.profiler), against the
+    host wall time of the same steps: where a step's time goes, and the
+    device's idle share. Measurement only: a profiler that records no
+    device time is reported as 'not measured', not as a failure."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -339,20 +532,21 @@ def profile_steps(torch, step, n):
                 kern[e.key] = kern.get(e.key, 0.0) + us / 1e3 / n
                 launches += e.count
     except Exception as exc:  # measurement only, see docstring
-        log(f"  decode profile: not measured ({type(exc).__name__}: {exc})")
+        log(f"  {label} profile: not measured ({type(exc).__name__}: {exc})")
         return None
     if not kern:
-        log("  decode profile: not measured (no device time recorded)")
+        log(f"  {label} profile: not measured (no device time recorded)")
         return None
-    groups = {"w4a4_matmul_i8": 0.0, "decode_attention_int4": 0.0,
-              "write_token": 0.0, "other kernels (torch glue)": 0.0}
+    other = "other kernels (torch glue)"
+    groups = dict.fromkeys(list(KERNELS) + [other], 0.0)
     for name, ms in kern.items():
-        g = next((k for k in KERNELS if k in name),
-                 "other kernels (torch glue)")
-        groups[g] += ms
+        # the longest kernel name in the symbol: w4a4_matmul_i8_swiglu_right
+        # before w4a4_matmul_i8
+        hits = [k for k in KERNELS if k in name]
+        groups[max(hits, key=len) if hits else other] += ms
     busy_ms = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
-    log(f"  decode profile, per step: host wall {wall_ms:.3f} ms, device "
+    log(f"  {label} profile, per step: host wall {wall_ms:.3f} ms, device "
         f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
         f"{launches / n:.0f} device kernels")
     for g, ms in groups.items():
@@ -457,19 +651,14 @@ def check_launches_on_path(torch, cfg, fq, sp, prompt, feed, slot_pos0, P,
     return dict(launches=n, attention_max_abs_err=worst[0])
 
 
-def run_main_path(torch, dev, results, smi):
+def run_main_path(torch, dev, model, results, smi):
     from flatquant_torch.kernels import common
     from flatquant_torch.serving import engine
     from flatquant_torch.serving.engine import (
         generate, init_cache, serving_decode_step, serving_prefill)
 
     B, P, NEW, SLOT, MAX_LEN = 4, 48, 64, 16, 2048
-    t0 = time.perf_counter()
-    cfg, fq, sp = build_model(torch, dev, seed=0)
-    torch.cuda.synchronize()
-    log(f"  built llama-2-7b W4A4KV4 rn128, {cfg.num_layers} layers, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
-        f"{time.perf_counter() - t0:.1f} s")
+    cfg, fq, sp = model
     gen = torch.Generator(device=dev).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                            device=dev)
@@ -516,8 +705,8 @@ def run_main_path(torch, dev, results, smi):
     got = torch.cat(feed[:NEW], 1).cpu().numpy()
     if not (got == gen_toks).all():
         raise AssertionError("generate and the step loop disagree")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in DECODE_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
     decode_ms = sorted(step_ms[1:NEW])[len(step_ms[1:NEW]) // 2]
     slot_ms = sorted(step_ms[NEW:])[len(step_ms[NEW:]) // 2]
@@ -594,6 +783,268 @@ def run_main_path(torch, dev, results, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the fused prompt prefill at full llama-2-7b width and depth
+# ---------------------------------------------------------------------------
+
+# launches of one full-depth 4 x 512 prefill: per layer two RMSNorms (ln1,
+# ln2), four left-factor quants (ln1, o, ln2, down), one swiglu GEMM, one
+# prologue, three plain GEMMs (qkv, o, down)
+PREFILL_LAUNCHES = {"rmsnorm_right_flat": 2, "left_quant_i8_flat": 4,
+                    "w4a4_matmul_i8_swiglu_right": 1, "attn_prologue": 1,
+                    "w4a4_matmul_i8": 3}
+
+
+def _plain_pairs(torch):
+    """(module, name, plain version) of every kernel wrapper the serving
+    routes call: the same routes with each kernel swapped for its plain
+    version."""
+    from flatquant_torch.kernels import attn_prologue as ap
+    from flatquant_torch.kernels import flat_pipeline as fp
+    from flatquant_torch.kernels import int4_matmul, kv_cache
+    from flatquant_torch.serving import engine, quantized
+
+    def attn(q, kp, kpar, vp, vpar, valid, sm):
+        return kv_cache.decode_attention_ref(
+            q, kp, kpar[..., :1], kpar[..., 1:], vp, vpar[..., :1],
+            vpar[..., 1:], valid, sm)
+
+    return [(quantized, "rmsnorm_right_flat", fp.rmsnorm_right_flat_ref),
+            (quantized, "left_quant_i8_flat", fp.left_quant_i8_flat_ref),
+            (quantized, "w4a4_matmul_i8_swiglu_right",
+             fp.w4a4_matmul_i8_swiglu_right_ref),
+            (quantized, "w4a4_matmul_i8", int4_matmul.w4a8_matmul_ref),
+            (engine, "attn_prologue", ap.attn_prologue_ref),
+            (engine, "left_quant_i8_flat", fp.left_quant_i8_flat_ref),
+            (engine, "w4a4_matmul_i8", int4_matmul.w4a8_matmul_ref),
+            (engine, "decode_attention_int4", attn),
+            (engine, "write_token", kv_cache.write_token_ref)]
+
+
+def check_prefill_launches(torch, cfg, fq, sp, prompt, kw):
+    """Every kernel launch of one full-depth prefill checked against its
+    plain version on the same inputs -- the path's own activations, with
+    the model's orthogonal factors: the GEMM bit-exact, the rest within
+    the 'orthogonal' tolerances (flatquant_torch/kernels/tolerance.py)."""
+    from flatquant_torch.kernels import attn_prologue as ap
+    from flatquant_torch.kernels import flat_pipeline as fp
+    from flatquant_torch.kernels import int4_matmul
+    from flatquant_torch.kernels.tolerance import (
+        compare_bf16, compare_codes, compare_kv, compare_scales)
+    from flatquant_torch.serving import engine, quantized
+
+    n = dict.fromkeys(PREFILL_LAUNCHES, 0)
+    worst = dict.fromkeys(PREFILL_LAUNCHES, 0.0)
+    mode = "orthogonal"
+
+    def rms(x, w, right, eps):
+        y = fp.rmsnorm_right_flat(x, w, right, eps)
+        err = compare_bf16(y, fp.rmsnorm_right_flat_ref(x, w, right, eps),
+                           mode, "rmsnorm_right_flat on the path")
+        worst["rmsnorm_right_flat"] = max(worst["rmsnorm_right_flat"], err)
+        n["rmsnorm_right_flat"] += 1
+        return y
+
+    def lq(left_t, x, clip=None, q_max=7):
+        q, s = fp.left_quant_i8_flat(left_t, x, clip, q_max)
+        q_ref, s_ref = fp.left_quant_i8_flat_ref(left_t, x, clip, q_max)
+        compare_codes(q, q_ref, mode, "left_quant_i8_flat codes on the path")
+        err = compare_scales(s, s_ref, mode,
+                             "left_quant_i8_flat scales on the path")
+        worst["left_quant_i8_flat"] = max(worst["left_quant_i8_flat"], err)
+        n["left_quant_i8_flat"] += 1
+        return q, s
+
+    def swi(xq, xs, wp, sw, right):
+        y = fp.w4a4_matmul_i8_swiglu_right(xq, xs, wp, sw, right)
+        err = compare_bf16(
+            y, fp.w4a4_matmul_i8_swiglu_right_ref(xq, xs, wp, sw, right),
+            mode, "w4a4_matmul_i8_swiglu_right on the path")
+        key = "w4a4_matmul_i8_swiglu_right"
+        worst[key] = max(worst[key], err)
+        n[key] += 1
+        return y
+
+    def gemm(xq, xs, wp, sw, out_dtype=torch.bfloat16):
+        y = int4_matmul.w4a4_matmul_i8(xq, xs, wp, sw, out_dtype)
+        if not torch.equal(y, int4_matmul.w4a8_matmul_ref(xq, xs, wp, sw,
+                                                          out_dtype)):
+            raise AssertionError("w4a4_matmul_i8 not bit-exact on the path")
+        n["w4a4_matmul_i8"] += 1
+        return y
+
+    def pro(qkv, cos, sin, k_t, k_t_inv, kc, vc, nh, nkv, cache, pos):
+        ref_cache = [t.clone() for t in cache]
+        out = ap.attn_prologue(qkv, cos, sin, k_t, k_t_inv, kc, vc, nh=nh,
+                               nkv=nkv, cache=cache, pos=pos)
+        ref = ap.attn_prologue_ref(qkv, cos, sin, k_t, k_t_inv, kc, vc,
+                                   nh=nh, nkv=nkv, cache=ref_cache, pos=pos)
+        err = max(compare_bf16(out[0], ref[0], mode, "q_rot on the path"),
+                  compare_bf16(out[1], ref[1], mode, "k_rot on the path"))
+        compare_kv(cache[0], cache[1], ref_cache[0], ref_cache[1], mode,
+                   "K cache on the path")
+        compare_kv(cache[2], cache[3], ref_cache[2], ref_cache[3],
+                   "identity", "V cache on the path")
+        worst["attn_prologue"] = max(worst["attn_prologue"], err)
+        n["attn_prologue"] += 1
+        return out
+
+    with patched([(quantized, "rmsnorm_right_flat", rms),
+                  (quantized, "left_quant_i8_flat", lq),
+                  (quantized, "w4a4_matmul_i8_swiglu_right", swi),
+                  (quantized, "w4a4_matmul_i8", gemm),
+                  (engine, "attn_prologue", pro),
+                  (engine, "left_quant_i8_flat", lq),
+                  (engine, "w4a4_matmul_i8", gemm)]):
+        c = engine.init_cache(cfg, prompt.shape[0], kw["max_len"],
+                              device=kw["device"])
+        engine.serving_prefill(cfg, fq, sp, prompt, c, **kw)
+    torch.cuda.synchronize()
+    for name, per_layer in PREFILL_LAUNCHES.items():
+        if n[name] != per_layer * cfg.num_layers:
+            raise AssertionError(f"{name}: {n[name]} launches checked, "
+                                 f"expected {per_layer * cfg.num_layers}")
+    log(f"  every launch of a full-depth prefill vs its plain version: {n} "
+        f"launches checked ('orthogonal' tolerances; GEMM bit-exact); max "
+        f"abs err {worst}")
+    return dict(launches=n, max_abs_err=worst)
+
+
+def run_prefill_path(torch, dev, model, results, smi):
+    """The fused prompt prefill at B=4, S=512 (2048 rows: every fused
+    route, dense attention) over the int4 cache, then 16 greedy decode
+    steps over the cache attn_prologue wrote; a 4 x 128 prefill (512 rows:
+    the fused input and MLP routes, composed attention); a profile of one
+    prefill; every launch checked; logits against the same routes with
+    every kernel swapped for its plain version."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.serving import engine
+    from flatquant_torch.serving.engine import (
+        init_cache, serving_decode_step, serving_prefill)
+
+    B, S, NEW, SHORT, MAX_LEN = 4, 512, 16, 128, 1024
+    cfg, fq, sp = model
+    L = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    kw = dict(max_len=MAX_LEN, device=dev)
+
+    # warm-up (allocator, cuBLAS handles), not counted
+    serving_prefill(cfg, fq, sp, prompt, init_cache(cfg, B, MAX_LEN,
+                                                    device=dev), **kw)
+    torch.cuda.synchronize()
+
+    common.reset_launches()
+    cache = init_cache(cfg, B, MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = serving_prefill(cfg, fq, sp, prompt, cache, **kw)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = dict(common.LAUNCHES)
+    feed, kernel_logits, step_ms = [], [logits.float().cpu()], []
+    tok = logits.argmax(-1, keepdim=True)
+    for i in range(NEW):
+        feed.append(tok)
+        t0 = time.perf_counter()
+        logits, cache = serving_decode_step(cfg, fq, sp, tok, cache, S + i,
+                                            **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        kernel_logits.append(logits.float().cpu())
+        tok = logits.argmax(-1, keepdim=True)
+    launches = dict(common.LAUNCHES)
+    for name, per_layer in PREFILL_LAUNCHES.items():
+        if prefill_launches[name] != per_layer * L:
+            raise AssertionError(
+                f"{name}: {prefill_launches[name]} launches in the prefill, "
+                f"expected {per_layer * L}")
+    if launches["decode_attention_int4"] != NEW * L:
+        raise AssertionError("the decode steps did not read the cache "
+                             "through decode_attention_int4")
+
+    # 512 rows at S=128: fused input and MLP routes, composed attention
+    before = dict(common.LAUNCHES)
+    short = init_cache(cfg, B, SHORT, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short_logits, _ = serving_prefill(cfg, fq, sp, prompt[:, :SHORT], short,
+                                      max_len=SHORT, device=dev)
+    torch.cuda.synchronize()
+    short_ms = (time.perf_counter() - t0) * 1e3
+    short_launches = {k: common.LAUNCHES[k] - before[k] for k in before}
+    want = {"rmsnorm_right_flat": 2 * L, "left_quant_i8_flat": 3 * L,
+            "w4a4_matmul_i8_swiglu_right": L, "attn_prologue": 0,
+            "w4a4_matmul_i8": 3 * L}
+    if any(short_launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"4 x {SHORT} prefill launches "
+                             f"{short_launches}, expected {want}")
+    if not torch.isfinite(short_logits).all():
+        raise AssertionError("4 x 128 prefill logits not finite")
+
+    decode_ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    log(f"  [{smi}] prefill B={B} S={S} ({B * S} rows, fused routes + "
+        f"prologue): {prefill_ms:.1f} ms")
+    log(f"  [{smi}] decode after it, median {decode_ms:.2f} ms/step, B={B}")
+    log(f"  [{smi}] prefill B={B} S={SHORT} ({B * SHORT} rows, fused input "
+        f"and MLP, composed attention): {short_ms:.1f} ms")
+    log(f"  launches, 4 x {S} prefill: {prefill_launches}")
+    log(f"  launches, prefill + {NEW} decode steps: {launches}")
+    log(f"  launches, 4 x {SHORT} prefill: {short_launches}")
+    busy = profile_steps(torch, lambda i: serving_prefill(
+        cfg, fq, sp, prompt, init_cache(cfg, B, MAX_LEN, device=dev), **kw),
+        1, "prefill")
+    if busy:
+        busy["idle_share_unprofiled"] = 1 - busy["busy_ms"] / prefill_ms
+        log(f"  device idle share against the unprofiled prefill: "
+            f"{busy['idle_share_unprofiled']:.3f}")
+    checks = check_prefill_launches(torch, cfg, fq, sp, prompt, kw)
+
+    def forced(pairs, use_kernel=True):
+        """Teacher-forced run over the kernel run's tokens -> logits."""
+        with patched(pairs):
+            c = init_cache(cfg, B, MAX_LEN, device=dev)
+            lg, c = serving_prefill(cfg, fq, sp, prompt, c,
+                                    use_kernel=use_kernel, **kw)
+            out = [lg.float().cpu()]
+            for i, t in enumerate(feed):
+                lg, c = serving_decode_step(cfg, fq, sp, t, c, S + i,
+                                            use_kernel=use_kernel, **kw)
+                out.append(lg.float().cpu())
+        return out
+
+    def cosines(xs, ys):
+        return [torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
+                .item() for a, b in zip(xs, ys)]
+
+    plain = forced(_plain_pairs(torch))
+    # the noise floor: the composed routes (use_kernel=False), another
+    # valid rounding of the same function
+    composed = forced([], use_kernel=False)
+    for a in kernel_logits + plain + composed:
+        if not (torch.isfinite(a).all() and a.shape == (B, cfg.vocab_size)):
+            raise AssertionError("logits not finite or of the wrong shape")
+    cos, cos0 = cosines(kernel_logits, plain), cosines(composed, plain)
+    mean = lambda v: sum(v) / len(v)
+    log(f"  kernels vs the same routes' plain versions, teacher-forced, "
+        f"prefill + {NEW} steps: logits cosine mean {mean(cos):.4f} min "
+        f"{min(cos):.4f}; noise floor (composed routes vs plain): mean "
+        f"{mean(cos0):.4f} min {min(cos0):.4f}")
+    if mean(cos) < mean(cos0) - COSINE_MARGIN:
+        raise AssertionError("kernel path drifts from its plain versions "
+                             "beyond the composed-route noise floor")
+    results["prefill_path"] = dict(
+        model="llama-2-7b", layers=L, batch=B, prompt=S, new_tokens=NEW,
+        max_len=MAX_LEN, prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+        step_ms=step_ms, short_prompt=SHORT, short_prefill_ms=short_ms,
+        prefill_launches=prefill_launches, launches=launches,
+        short_launches=short_launches, prefill_profile=busy,
+        logits_cosine=cos, noise_floor_cosine=cos0,
+        per_launch_checks=checks)
+    return prefill_launches
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -606,36 +1057,70 @@ KERNELS = {
     "write_token": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/kv_cache.cu",
         replaces="flatquant_tpu/kernels/kv_cache.py:735"),
+    "rmsnorm_right_flat": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
+        replaces="flatquant_tpu/kernels/flat_pipeline.py:84"),
+    "left_quant_i8_flat": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
+        replaces="flatquant_tpu/kernels/flat_pipeline.py:154"),
+    "w4a4_matmul_i8_swiglu_right": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
+        replaces="flatquant_tpu/kernels/flat_pipeline.py:235"),
+    "attn_prologue": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/attn_prologue.cu",
+        replaces="flatquant_tpu/kernels/attn_prologue.py:161"),
 }
+# the path each kernel's `launches` is read from: the decode-serving run of
+# phase 4 for slice 1's kernels, the fused prefill of phase 5 for slice 2's
+DECODE_KERNELS = ("w4a4_matmul_i8", "decode_attention_int4", "write_token")
+PREFILL_KERNELS = ("rmsnorm_right_flat", "left_quant_i8_flat",
+                   "w4a4_matmul_i8_swiglu_right", "attn_prologue")
 
 
-def kernel_line(results, launches):
-    """One entry per kernel at the main path's decode shapes: the GEMM as
-    one layer's four projections at M=4, attention at B=4 MHA over the
-    valid lengths of the last generate step, the write at B=4."""
+def kernel_line(results, decode_launches, prefill_launches):
+    """One entry per kernel at its path's shapes. Slice 1's at the decode
+    shapes: the GEMM as one layer's four projections at M=4, attention at
+    B=4 MHA over the valid lengths of the last generate step, the write at
+    B=4. Slice 2's at the 4 x 512 prefill: left_quant_i8_flat as one
+    layer's four launches (three at K=4096, one at K=11008)."""
     out = []
     for name, meta in KERNELS.items():
         r = results[name]
+        weights = None
         if name == "w4a4_matmul_i8":
             rows = [x for x in r["rows"] if x["m"] == 4]
             at = "M=4 (B=4 decode), sum of qkv+o+upgate+down of one layer"
         elif name == "decode_attention_int4":
             rows = [x for x in r["rows"] if x["case"].endswith("main path")]
             at = "B=4 MHA 32/32 S=2048, valid lengths of the last step"
-        else:
+        elif name == "write_token":
             rows = [x for x in r["rows"] if x["B"] == 4]
             at = "B=4 nkv=32 S=2048"
-        lib = ([x["library_ms"] for x in rows]
-               if all("library_ms" in x for x in rows) else None)
-        bounds = [x["bound_ms"] for x in rows]
+        elif name == "left_quant_i8_flat":
+            rows, weights = r["rows"], [3, 1]
+            at = ("T=2048, one layer: 3 x K=4096 (ln1, o, ln2) + "
+                  "1 x K=11008 (down)")
+        else:
+            rows = r["rows"]
+            at = rows[0]["case"]
+        weights = weights or [1] * len(rows)
+
+        def total(key):
+            return sum(w * x[key] for w, x in zip(weights, rows))
+
+        lib = (total("library_ms") if all(x.get("library_ms") is not None
+                                          for x in rows) else None)
         by = {x["bound_by"] for x in rows}
+        path = prefill_launches if name in PREFILL_KERNELS else \
+            decode_launches
         out.append(dict(
-            name=name, **meta, launches=launches.get(name, 0),
-            max_abs_err=r["max_abs_err"],
-            ms=sum(x["ms"] for x in rows),
-            plain_ms=sum(x["plain_ms"] for x in rows),
-            bound_ms=sum(bounds), bound_by=by.pop() if len(by) == 1 else
-            "bytes", library_ms=None if lib is None else sum(lib), at=at))
+            name=name, **meta, launches=path.get(name, 0),
+            launches_by_path={"decode": decode_launches.get(name, 0),
+                              "prefill": prefill_launches.get(name, 0)},
+            max_abs_err=r["max_abs_err"], ms=total("ms"),
+            plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            bound_by=by.pop() if len(by) == 1 else "bytes", library_ms=lib,
+            at=at))
     return {"kernels": out}
 
 
@@ -662,7 +1147,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 plain GEMM
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    failed, results, launches = [], {}, {}
+    failed, results, launches, prefill_launches = [], {}, {}, {}
 
     def phase(name, fn, *a):
         log(f"== {name}")
@@ -698,9 +1183,23 @@ def main(argv=None) -> int:
               check_attention, torch, dev, gen, results, main_valid)
         phase("phase 3c: write_token vs the masked select", check_write,
               torch, dev, gen, results)
+        phase("phase 3d: prefill kernels vs their plain versions",
+              check_prefill_kernels, torch, dev, gen, results)
+    model = None
     if not args.kernels_only and not failed:
+        # the kernel checks' inputs and graph pools go back to the card
+        # before the path runs start
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = phase("build the random llama-2-7b (shared by phases 4, 5)",
+                      build_model, torch, dev, 0)
+    if model is not None:
         launches = phase("phase 4: llama-2-7b decode-serving path",
-                         run_main_path, torch, dev, results, smi) or {}
+                         run_main_path, torch, dev, model, results,
+                         smi) or {}
+        prefill_launches = phase(
+            "phase 5: llama-2-7b fused prompt prefill (4 x 512)",
+            run_prefill_path, torch, dev, model, results, smi) or {}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,
@@ -709,7 +1208,8 @@ def main(argv=None) -> int:
         log(f"FAILED phases: {failed}")
         return 1
     if not args.kernels_only:
-        print(json.dumps(kernel_line(results, launches)), flush=True)
+        print(json.dumps(kernel_line(results, launches, prefill_launches)),
+              flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -58,6 +58,13 @@ class WeightQuantCfg:
         return 2 ** (self.bits - 1) - 1 if self.sym else 2**self.bits - 1
 
 
+def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b by IEEE division on every device, as JAX divides. (torch on a
+    CUDA tensor multiplies by the reciprocal of a Python-number divisor,
+    which can be one float32 ulp off the quotient.)"""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
 def _check_sym_perchannel(cfg: WeightQuantCfg):
     if not (cfg.sym and cfg.perchannel and cfg.group_size <= 0 and not cfg.mse):
         raise NotImplementedError(
@@ -76,7 +83,7 @@ def weight_find_params(w: torch.Tensor, cfg: WeightQuantCfg
     xmin = torch.clamp(rows.amin(dim=1), max=0.0)
     xmax = torch.clamp(rows.amax(dim=1), min=0.0)
     absmax = torch.maximum(xmin.abs(), xmax).clamp(min=1e-5)
-    scale = absmax / float(cfg.q_max)
+    scale = true_div(absmax, float(cfg.q_max))
     return scale[:, None], torch.zeros_like(scale)[:, None]
 
 

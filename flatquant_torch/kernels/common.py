@@ -36,6 +36,10 @@ LAUNCHES: Dict[str, int] = {
     "w4a4_matmul_i8": 0,
     "decode_attention_int4": 0,
     "write_token": 0,
+    "rmsnorm_right_flat": 0,
+    "left_quant_i8_flat": 0,
+    "w4a4_matmul_i8_swiglu_right": 0,
+    "attn_prologue": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -56,6 +60,21 @@ _SIGNATURES = {
         # kp, kpar, vp, vpar, kq, kpn, vq, vpn, pos, B, nkv, S, hdh, stream
         "fq_write_token": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _P],
+    },
+    "flat_pipeline": {
+        # x, w, right, y, T, H, eps, x_is_f32, stream
+        "fq_rmsnorm_right_flat": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+        # ltT, x, clip, xq, xs, T, G, q_max, stream
+        "fq_left_quant_i8_flat": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+        # xq, wp, sx, sw, right, y, M, NH, K, stream
+        "fq_w4a4_matmul_i8_swiglu_right": [_P, _P, _P, _P, _P, _P, _I, _I,
+                                           _I, _P],
+    },
+    "attn_prologue": {
+        # qkv, cos, sin, kt, kti, clip, q_out, k_out, kc, kpar, vc, vpar,
+        # B, S, nh, nkv, L, pos, is_f32, stream
+        "fq_attn_prologue": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

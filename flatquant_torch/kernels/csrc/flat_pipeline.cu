@@ -1,0 +1,552 @@
+// The flat-layout fused transform + quant pipeline of the prefill routes.
+//
+// Replaces: flatquant_tpu/kernels/flat_pipeline.py (Pallas):
+//   rmsnorm_right_flat           -> fq_rmsnorm_right_flat
+//   left_quant_i8_flat           -> fq_left_quant_i8_flat
+//   w4a4_matmul_i8_swiglu_right  -> fq_w4a4_matmul_i8_swiglu_right
+//
+// All three keep the flat [T, K] layout, K = G * 128, and round to bf16 at
+// the points the JAX kernels do (see kernels/flat_pipeline.py). Float
+// arithmetic that the plain versions do op by op is written with
+// __fmul_rn / __fadd_rn / IEEE '/' where the compiler could otherwise
+// contract it into an FMA; only the matrix-product sums use FMAs (their
+// order differs from the plain versions anyway, which the checks allow).
+//
+// What bounds each on the H100 at the prefill shapes (T = 2048 rows):
+//   - rmsnorm_right_flat, left_quant_i8_flat: bytes (a read of x and a
+//     write of the output, 25-68 MB, ~10-20 us at 3.35 TB/s); their
+//     128x128 (resp. GxG) products, 0.5-4 GFLOP, run on the CUDA cores
+//     here, so these simple versions sit above the bytes bound.
+//   - the swiglu GEMM: int8 operations (2 * 2048 * 22016 * 4096 = 369 G,
+//     187 us at 1979 TOP/s). It runs on the tensor cores through
+//     mma.sync.m16n8k32 s8 (not wgmma), one 128x(128 up + 128 gate) tile
+//     per block, with a register-prefetched single shared-memory stage.
+
+#include <cuda_bf16.h>
+
+#include "common.cuh"
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T>
+__device__ __forceinline__ float load_f(const T* p);
+template <>
+__device__ __forceinline__ float load_f<float>(const float* p) {
+  return *p;
+}
+template <>
+__device__ __forceinline__ float load_f<bf16>(const bf16* p) {
+  return __bfloat162float(*p);
+}
+
+// Opt a kernel into `bytes` of dynamic shared memory (above 48 KB), once:
+// *done remembers the largest size set so far, so a launch inside a CUDA
+// graph capture makes no runtime call after the first launch.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, int* done) {
+  if (bytes <= *done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *done = bytes;
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// rmsnorm_right_flat
+//
+// y[t, g*128 + c] = bf16(sum_d xn[t, g*128 + d] * R[d, c])
+// xn = bf16((x * rsqrt(sum(x^2) * (1/H) + eps)) * w)
+//
+// A block owns RMS_ROWS rows and every gridDim.y-th column group. Pass 1:
+// one warp per row computes the inverse RMS. Pass 2, per group: the
+// normalized [RMS_ROWS, 128] tile goes to shared memory and each thread
+// computes an 8-row x 1-column strip against R (float32, in shared
+// memory), summing over d in order.
+// ---------------------------------------------------------------------------
+
+constexpr int RMS_ROWS = 16;
+constexpr int RMS_THREADS = 256;
+constexpr int RMS_SMEM = (128 * 128 + RMS_ROWS * 128 + RMS_ROWS) * 4;
+
+template <typename InT>
+__global__ void __launch_bounds__(RMS_THREADS)
+rmsnorm_right_flat_kernel(const InT* __restrict__ x,
+                          const float* __restrict__ w,
+                          const float* __restrict__ right,
+                          bf16* __restrict__ y, int T, int H, float eps) {
+  extern __shared__ float4 smem4[];
+  float* rs = reinterpret_cast<float*>(smem4);  // [128][128]
+  float* xn = rs + 128 * 128;                   // [RMS_ROWS][128]
+  float* inv = xn + RMS_ROWS * 128;             // [RMS_ROWS]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int t0 = blockIdx.x * RMS_ROWS;
+
+  for (int i = tid; i < 128 * 128 / 4; i += RMS_THREADS)
+    smem4[i] = reinterpret_cast<const float4*>(right)[i];
+
+  for (int r = warp; r < RMS_ROWS; r += RMS_THREADS / 32) {
+    float ss = 0.f;
+    if (t0 + r < T) {
+      const InT* xr = x + static_cast<size_t>(t0 + r) * H;
+      for (int c = lane; c < H; c += 32) {
+        const float v = load_f(xr + c);
+        ss += v * v;
+      }
+    }
+    ss = warp_sum(ss);
+    // torch.mean multiplies the sum by 1/H; rsqrtf is what torch.rsqrt
+    // runs on the card
+    if (lane == 0) inv[r] = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.0f / H), eps));
+  }
+  __syncthreads();
+
+  const int c = tid & 127;
+  const int rb = (tid >> 7) * (RMS_ROWS / 2);  // first of this thread's rows
+  const int G = H / 128;
+  for (int g = blockIdx.y; g < G; g += gridDim.y) {
+    for (int i = tid; i < RMS_ROWS * 128; i += RMS_THREADS) {
+      const int r = i >> 7, col = g * 128 + (i & 127);
+      float v = 0.f;
+      if (t0 + r < T) {
+        v = load_f(x + static_cast<size_t>(t0 + r) * H + col);
+        v = bf16_round(__fmul_rn(__fmul_rn(v, inv[r]), w[col]));
+      }
+      xn[i] = v;
+    }
+    __syncthreads();
+    float acc[RMS_ROWS / 2];
+#pragma unroll
+    for (int r = 0; r < RMS_ROWS / 2; ++r) acc[r] = 0.f;
+    for (int d = 0; d < 128; d += 4) {
+      const float m0 = rs[(d + 0) * 128 + c], m1 = rs[(d + 1) * 128 + c];
+      const float m2 = rs[(d + 2) * 128 + c], m3 = rs[(d + 3) * 128 + c];
+#pragma unroll
+      for (int r = 0; r < RMS_ROWS / 2; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            xn + (rb + r) * 128 + d);
+        acc[r] = fmaf(a.x, m0, acc[r]);
+        acc[r] = fmaf(a.y, m1, acc[r]);
+        acc[r] = fmaf(a.z, m2, acc[r]);
+        acc[r] = fmaf(a.w, m3, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RMS_ROWS / 2; ++r) {
+      if (t0 + rb + r < T)
+        y[static_cast<size_t>(t0 + rb + r) * H + g * 128 + c] =
+            __float2bfloat16_rn(acc[r]);
+    }
+    __syncthreads();  // xn is overwritten by the next group
+  }
+}
+
+// ---------------------------------------------------------------------------
+// left_quant_i8_flat
+//
+// z[t, i*128 + d] = bf16(sum_j left_t[i, j] * x[t, j*128 + d])
+// xmax = max(max_i,d z, 0) * cmax; xmin = min(min z, 0) * cmin
+// s = max(|xmin|, xmax) / q_max (1 when 0); q = clamp(rint(z / s))
+//
+// One block (128 threads) per row: thread d owns column d of every group,
+// so it reads only its own column of x and z (shared memory, no
+// conflicts); left_t is shared, stored transposed and zero-padded to a
+// multiple of LQ_IC so a thread reads four coefficients per float4. Each
+// output group's sum runs over j in order. The row's extrema are taken
+// over the bf16-rounded z (as the JAX kernel does), then a block
+// reduction gives the scale, and the same thread writes its codes.
+// ---------------------------------------------------------------------------
+
+constexpr int LQ_THREADS = 128;
+constexpr int LQ_IC = 16;  // output groups per register chunk
+
+__host__ __device__ inline int lq_pad(int g) {
+  return (g + LQ_IC - 1) / LQ_IC * LQ_IC;
+}
+
+__host__ inline int lq_smem(int g) {
+  return g * lq_pad(g) * 4 + 2 * lq_pad(g) * 128 * 2 + 2 * 4 * 4;
+}
+
+__global__ void __launch_bounds__(LQ_THREADS)
+left_quant_i8_flat_kernel(const float* __restrict__ ltT,
+                          const bf16* __restrict__ x,
+                          const float* __restrict__ clip,
+                          int8_t* __restrict__ xq, float* __restrict__ xs,
+                          int G, float q_max) {
+  extern __shared__ float4 smem4[];
+  const int GP = lq_pad(G);
+  float* lt = reinterpret_cast<float*>(smem4);            // [G][GP]: ltT
+  bf16* xc = reinterpret_cast<bf16*>(lt + G * GP);        // [GP][128]
+  bf16* zc = xc + GP * 128;                               // [GP][128]
+  float* red = reinterpret_cast<float*>(zc + GP * 128);   // [2][4]
+  const int d = threadIdx.x;
+  const int lane = d & 31, warp = d >> 5;
+  const size_t row = blockIdx.x;
+  const int K = G * 128;
+
+  for (int i = d; i < G * GP; i += LQ_THREADS) {
+    const int j = i / GP, c = i % GP;
+    lt[i] = c < G ? ltT[j * G + c] : 0.f;
+  }
+  const bf16* xr = x + row * K;
+  for (int j = 0; j < G; ++j) xc[j * 128 + d] = xr[j * 128 + d];
+  __syncthreads();
+
+  float mx = 0.f, mn = 0.f;  // max(., 0) and min(., 0) folded in
+  for (int i0 = 0; i0 < G; i0 += LQ_IC) {
+    float acc[LQ_IC];
+#pragma unroll
+    for (int ii = 0; ii < LQ_IC; ++ii) acc[ii] = 0.f;
+    for (int j = 0; j < G; ++j) {
+      const float xv = __bfloat162float(xc[j * 128 + d]);
+      const float4* l4 = reinterpret_cast<const float4*>(lt + j * GP + i0);
+#pragma unroll
+      for (int q = 0; q < LQ_IC / 4; ++q) {
+        const float4 l = l4[q];
+        acc[4 * q + 0] = fmaf(l.x, xv, acc[4 * q + 0]);
+        acc[4 * q + 1] = fmaf(l.y, xv, acc[4 * q + 1]);
+        acc[4 * q + 2] = fmaf(l.z, xv, acc[4 * q + 2]);
+        acc[4 * q + 3] = fmaf(l.w, xv, acc[4 * q + 3]);
+      }
+    }
+#pragma unroll
+    for (int ii = 0; ii < LQ_IC; ++ii) {
+      if (i0 + ii < G) {
+        const bf16 z = __float2bfloat16_rn(acc[ii]);
+        zc[(i0 + ii) * 128 + d] = z;
+        const float zf = __bfloat162float(z);
+        mx = fmaxf(mx, zf);
+        mn = fminf(mn, zf);
+      }
+    }
+  }
+  mx = warp_max(mx);
+  mn = -warp_max(-mn);
+  if (lane == 0) {
+    red[warp] = mx;
+    red[4 + warp] = mn;
+  }
+  __syncthreads();
+  mx = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+  mn = fminf(fminf(red[4], red[5]), fminf(red[6], red[7]));
+  const float xmax = __fmul_rn(mx, clip[0]);
+  const float xmin = __fmul_rn(mn, clip[1]);
+  const float absmax = fmaxf(fabsf(xmin), xmax);
+  const float s = absmax == 0.f ? 1.f : absmax / q_max;
+  if (d == 0) xs[row] = s;
+  int8_t* qr = xq + row * K;
+  for (int i = 0; i < G; ++i) {
+    const float q = rintf(__bfloat162float(zc[i * 128 + d]) / s);
+    qr[i * 128 + d] =
+        static_cast<int8_t>(fminf(fmaxf(q, -q_max - 1.f), q_max));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// w4a4_matmul_i8_swiglu_right
+//
+// acc_u[m, n] = sum_k x[m, k] * nib_u[n, k] (nib = biased nibble 0..15),
+// u = (float)(acc_u - 8 * rowsum(x)) * sx[m] * sw[n], g likewise from the
+// gate rows (sw[nh + n]); act = bf16(u * (g * (1 / (1 + exp(-g)))));
+// y[m, n] = bf16(sum_d act[m, n0 + d] * R[d, n - n0]) per 128 group.
+//
+// Block tile: SW_BM = 128 rows x 128 output columns, i.e. 128 up rows and
+// the 128 gate rows of the same columns of w, so the epilogue owns whole
+// 128-column groups. 8 warps; warp w computes rows [16w, 16w + 16) against
+// all 256 weight rows with mma.sync.m16n8k32 (int8 in, int32 out): 32
+// accumulator fragments. Each step takes 32 packed bytes per weight row,
+// i.e. k in [c, c + 32) (low nibbles) and [K/2 + c, K/2 + c + 32) (high
+// nibbles), and the matching two 32-byte slices of the activation rows.
+// The next step's global loads are issued into registers before the
+// current step's products (one shared stage, prefetched through
+// registers). Rows are padded to 48 bytes in shared memory, so the
+// fragment loads (8 rows x 4 words) hit 32 distinct banks.
+// Epilogue: the activation tile goes to shared memory transposed
+// ([col][row], bf16), and each thread computes an 8x8 block of the
+// right product with R in float32 shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int SW_BM = 128;
+constexpr int SW_BN = 128;
+constexpr int SW_THREADS = 256;
+constexpr int SW_KP = 32;       // packed bytes per weight row per step
+constexpr int SW_LD = 48;       // padded shared row, bytes
+constexpr int SW_ACT_LD = 136;  // padded transposed activation row, bf16
+constexpr int SW_TILE = SW_BM * SW_LD;  // one [128][48] s8 tile
+constexpr int SW_MAIN = 6 * SW_TILE;    // A lo/hi, up lo/hi, gate lo/hi
+constexpr int SW_ACT = SW_BN * SW_ACT_LD * 2;
+constexpr int SW_UNION = SW_MAIN > SW_ACT ? SW_MAIN : SW_ACT;
+constexpr int SW_SMEM = SW_UNION + 128 * 128 * 4 + SW_BM * 4;
+
+__device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ int sum16(uint4 v, int acc) {
+  const int ones = 0x01010101;
+  acc = __dp4a(static_cast<int>(v.x), ones, acc);
+  acc = __dp4a(static_cast<int>(v.y), ones, acc);
+  acc = __dp4a(static_cast<int>(v.z), ones, acc);
+  acc = __dp4a(static_cast<int>(v.w), ones, acc);
+  return acc;
+}
+
+__global__ void __launch_bounds__(SW_THREADS, 1)
+w4a4_matmul_i8_swiglu_right_kernel(const int8_t* __restrict__ xq,
+                         const uint8_t* __restrict__ wp,
+                         const float* __restrict__ sx,
+                         const float* __restrict__ sw,
+                         const float* __restrict__ right,
+                         bf16* __restrict__ y, int M, int NH, int K) {
+  extern __shared__ float4 smem4[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
+  uint8_t* a_lo = sm;
+  uint8_t* a_hi = sm + SW_TILE;  // tiles 2-5: up lo/hi, gate lo/hi
+  float* rs_f = reinterpret_cast<float*>(sm + SW_UNION);  // [128][128]
+  int* rowsum = reinterpret_cast<int*>(rs_f + 128 * 128);  // [SW_BM]
+  bf16* actT = reinterpret_cast<bf16*>(sm);  // epilogue: [128][136]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.y * SW_BM;
+  const int n0 = blockIdx.x * SW_BN;
+  const int half = K / 2;
+
+  // global -> register loads of one step: 2 x 16 B of activations and
+  // 2 x 16 B of packed weights per thread
+  const int a_row[2] = {tid >> 2, 64 + (tid >> 2)};
+  const int a_seg = tid & 3;  // 0,1: low slice; 2,3: high slice
+  const int w_row[2] = {tid >> 1, 128 + (tid >> 1)};  // 0..255
+  const int w_seg = tid & 1;
+  uint4 ra[2], rw[2];
+  int rsum[2] = {0, 0};
+
+  auto load_step = [&](int c) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + a_row[i];
+      const int col = (a_seg < 2 ? c : half + c) + (a_seg & 1) * 16;
+      ra[i] = m < M ? ldg16(xq + static_cast<size_t>(m) * K + col)
+                    : make_uint4(0u, 0u, 0u, 0u);
+      const int r = w_row[i];
+      const size_t n = (r < 128 ? 0 : NH) + n0 + (r & 127);
+      rw[i] = ldg16(wp + n * half + c + w_seg * 16);
+    }
+  };
+  auto store_step = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      uint8_t* a = (a_seg < 2 ? a_lo : a_hi) + a_row[i] * SW_LD +
+                   (a_seg & 1) * 16;
+      *reinterpret_cast<uint4*>(a) = ra[i];
+      rsum[i] = sum16(ra[i], rsum[i]);
+      const unsigned msk = 0x0F0F0F0Fu;
+      const uint4 v = rw[i];
+      const uint4 lo = make_uint4(v.x & msk, v.y & msk, v.z & msk,
+                                  v.w & msk);
+      const uint4 hi = make_uint4((v.x >> 4) & msk, (v.y >> 4) & msk,
+                                  (v.z >> 4) & msk, (v.w >> 4) & msk);
+      const int r = w_row[i];
+      // tiles: 2 up lo, 3 up hi, 4 gate lo, 5 gate hi
+      uint8_t* wlo = sm + (r < 128 ? 2 : 4) * SW_TILE +
+                     (r & 127) * SW_LD + w_seg * 16;
+      *reinterpret_cast<uint4*>(wlo) = lo;
+      *reinterpret_cast<uint4*>(wlo + SW_TILE) = hi;
+    }
+  };
+
+  int acc[2][16][4];
+#pragma unroll
+  for (int mat = 0; mat < 2; ++mat)
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mat][nt][e] = 0;
+
+  load_step(0);
+  for (int c = 0; c < half; c += SW_KP) {
+    store_step();
+    __syncthreads();
+    if (c + SW_KP < half) load_step(c + SW_KP);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // low nibble plane, then high
+      const uint8_t* at = (h == 0 ? a_lo : a_hi) + (warp * 16) * SW_LD;
+      unsigned af[4];
+      af[0] = *reinterpret_cast<const unsigned*>(at + g8 * SW_LD + tq * 4);
+      af[1] = *reinterpret_cast<const unsigned*>(at + (g8 + 8) * SW_LD +
+                                                 tq * 4);
+      af[2] = *reinterpret_cast<const unsigned*>(at + g8 * SW_LD + 16 +
+                                                 tq * 4);
+      af[3] = *reinterpret_cast<const unsigned*>(at + (g8 + 8) * SW_LD +
+                                                 16 + tq * 4);
+#pragma unroll
+      for (int mat = 0; mat < 2; ++mat) {
+        const uint8_t* wt = sm + (2 + 2 * mat + h) * SW_TILE;
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          const uint8_t* wr = wt + (nt * 8 + g8) * SW_LD + tq * 4;
+          const unsigned b0 = *reinterpret_cast<const unsigned*>(wr);
+          const unsigned b1 = *reinterpret_cast<const unsigned*>(wr + 16);
+          mma_s8(acc[mat][nt], af, b0, b1);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // row sums of the activation codes: the 4 threads of a row are
+  // neighbouring lanes
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    int s = rsum[i];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (a_seg == 0) rowsum[a_row[i]] = s;
+  }
+  for (int i = tid; i < 128 * 128 / 4; i += SW_THREADS)
+    reinterpret_cast<float4*>(rs_f)[i] =
+        reinterpret_cast<const float4*>(right)[i];
+  __syncthreads();
+
+  // dequant + SwiGLU, into the transposed activation tile
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = warp * 16 + g8 + (e >= 2 ? 8 : 0);
+      const int col = nt * 8 + tq * 2 + (e & 1);
+      const int m = min(m0 + r, M - 1);
+      const int n = n0 + col;
+      const int bias = 8 * rowsum[r];
+      const float xsc = sx[m];
+      const float u = __fmul_rn(
+          __fmul_rn(static_cast<float>(acc[0][nt][e] - bias), xsc), sw[n]);
+      const float g = __fmul_rn(
+          __fmul_rn(static_cast<float>(acc[1][nt][e] - bias), xsc),
+          sw[NH + n]);
+      const float sig = 1.0f / __fadd_rn(1.0f, expf(-g));
+      actT[col * SW_ACT_LD + r] =
+          __float2bfloat16_rn(__fmul_rn(u, __fmul_rn(g, sig)));
+    }
+  }
+  __syncthreads();
+
+  // right product: thread -> rows [8 * (tid >> 4), +8) x cols
+  // [8 * (tid & 15), +8)
+  const int rb = (tid >> 4) * 8, cb = (tid & 15) * 8;
+  float out[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[i][j] = 0.f;
+  for (int d = 0; d < 128; ++d) {
+    const uint4 av = *reinterpret_cast<const uint4*>(actT + d * SW_ACT_LD +
+                                                     rb);
+    const bf16* ab = reinterpret_cast<const bf16*>(&av);
+    const float4 r0 = *reinterpret_cast<const float4*>(rs_f + d * 128 + cb);
+    const float4 r1 =
+        *reinterpret_cast<const float4*>(rs_f + d * 128 + cb + 4);
+    const float rv[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float a = __bfloat162float(ab[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) out[i][j] = fmaf(a, rv[j], out[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + rb + i;
+    if (m < M) {
+      __align__(16) bf16 o[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16_rn(out[i][j]);
+      *reinterpret_cast<uint4*>(y + static_cast<size_t>(m) * NH + n0 + cb) =
+          *reinterpret_cast<const uint4*>(o);
+    }
+  }
+}
+
+}  // namespace
+
+// x [T, H] bf16 (x_is_f32 = 0) or f32; w f32 [H]; right f32 [128, 128]
+// (bf16 values); y bf16 [T, H]. H % 128 == 0 (checked in Python).
+extern "C" int fq_rmsnorm_right_flat(const void* x, const void* w,
+                                     const void* right, void* y, int T,
+                                     int H, float eps, int x_is_f32,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int G = H / 128;
+  dim3 grid((T + RMS_ROWS - 1) / RMS_ROWS, G < 2 ? G : 2);
+  auto w_ = static_cast<const float*>(w);
+  auto r_ = static_cast<const float*>(right);
+  auto y_ = static_cast<bf16*>(y);
+  cudaError_t err;
+  if (x_is_f32) {
+    static int done = 0;
+    err = allow_smem(rmsnorm_right_flat_kernel<float>, RMS_SMEM, &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rmsnorm_right_flat_kernel<float><<<grid, RMS_THREADS, RMS_SMEM, s>>>(
+        static_cast<const float*>(x), w_, r_, y_, T, H, eps);
+  } else {
+    static int done = 0;
+    err = allow_smem(rmsnorm_right_flat_kernel<bf16>, RMS_SMEM, &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rmsnorm_right_flat_kernel<bf16><<<grid, RMS_THREADS, RMS_SMEM, s>>>(
+        static_cast<const bf16*>(x), w_, r_, y_, T, H, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ltT f32 [G, G] (left_t transposed, bf16 values); x bf16 [T, G*128];
+// clip f32 [2] (cmax, cmin); xq int8 [T, G*128]; xs f32 [T].
+extern "C" int fq_left_quant_i8_flat(const void* ltT, const void* x,
+                                     const void* clip, void* xq, void* xs,
+                                     int T, int G, float q_max,
+                                     void* stream) {
+  const int bytes = lq_smem(G);
+  static int done = 0;
+  cudaError_t err = allow_smem(left_quant_i8_flat_kernel, bytes, &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  left_quant_i8_flat_kernel<<<T, LQ_THREADS, bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(ltT), static_cast<const bf16*>(x),
+      static_cast<const float*>(clip), static_cast<int8_t*>(xq),
+      static_cast<float*>(xs), G, q_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xq int8 [M, K]; wp uint8 [2*NH, K/2] planar (up rows, then gate rows);
+// sx f32 [M]; sw f32 [2*NH]; right f32 [128, 128] (bf16 values);
+// y bf16 [M, NH]. NH % 128 == 0 and K % 64 == 0 (checked in Python).
+extern "C" int fq_w4a4_matmul_i8_swiglu_right(const void* xq, const void* wp,
+                                              const void* sx, const void* sw,
+                                              const void* right, void* y,
+                                              int M, int NH, int K,
+                                              void* stream) {
+  static int done = 0;
+  cudaError_t err =
+      allow_smem(w4a4_matmul_i8_swiglu_right_kernel, SW_SMEM, &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(NH / SW_BN, (M + SW_BM - 1) / SW_BM);
+  w4a4_matmul_i8_swiglu_right_kernel<<<grid, SW_THREADS, SW_SMEM,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(wp),
+      static_cast<const float*>(sx), static_cast<const float*>(sw),
+      static_cast<const float*>(right), static_cast<bf16*>(y), M, NH, K);
+  return static_cast<int>(cudaGetLastError());
+}

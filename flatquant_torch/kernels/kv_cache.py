@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from flatquant_torch.core.quant import true_div
 from flatquant_torch.kernels import common
 
 _ATTN = "decode_attention_int4"
@@ -44,7 +45,7 @@ def quantize_pack_kv(t: torch.Tensor, clip=None):
     degenerate = (tmin == 0) & (tmax == 0)
     tmin = torch.where(degenerate, -1.0, tmin)
     tmax = torch.where(degenerate, 1.0, tmax)
-    scale = (tmax - tmin) / 15.0
+    scale = true_div(tmax - tmin, 15.0)
     zero = torch.round(-tmin / scale)
     q = torch.clamp(torch.round(tf / scale) + zero, 0, 15).to(torch.uint8)
     return q[..., : hd // 2] | (q[..., hd // 2:] << 4), scale, zero

@@ -1,0 +1,112 @@
+"""How a prefill kernel is held to its plain version on the card.
+
+A kernel may sum a bf16 product in another order than its plain version;
+that moves a bf16 output by an ulp now and then, and a moved value can
+move an int4 code or a per-token scale. So each kernel is checked twice
+(chip_smoke.py phases 3d and 5, tests/test_torch_gpu.py):
+
+  "identity"   identity transform factors: no float product is
+               reordered, so codes, scales and KV params must be
+               bit-exact and bf16 outputs within one ulp;
+  "orthogonal" random orthogonal factors: the tolerances the JAX
+               package's own tests use for the same functions
+               (tests/test_flat_pipeline.py): codes within 2 on < 3% of
+               them, zero points within 1, scales within 2 bf16 ulps
+               (relative 2^-7; a scale follows the row's largest value,
+               itself a bf16 rounding), bf16 outputs within 2 ulps.
+
+An ulp of a bf16 output is taken at the larger of the value and 1/256 of
+the largest value in its row: a float32 sum's rounding error follows the
+magnitude of its terms, so an output that cancels to near zero carries an
+error of the row's scale, not of its own. With orthogonal factors, a
+bf16 value rounded before a product (RMSNorm's normalized row, the swiglu
+activation, RoPE's output) may itself round one ulp apart, and that ulp
+reaches every output of its 128-column group through the product: so up
+to 1 in 10^4 outputs may miss the 2-ulp bound as long as every output
+stays within 2 ulps of its row's largest value.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MODES = {
+    "identity": dict(ulps=1, outlier_frac=0.0, code_diff=0, code_frac=0.0,
+                     scale_rtol=0.0, zero_diff=0),
+    "orthogonal": dict(ulps=2, outlier_frac=1e-4, code_diff=2,
+                       code_frac=0.03, scale_rtol=2.0 ** -7, zero_diff=1),
+}
+
+
+def _fail(what, msg):
+    raise AssertionError(f"{what}: {msg}")
+
+
+def bf16_ulp(v):
+    """Spacing of bf16 numbers at |v| (float32 tensor)."""
+    _, e = torch.frexp(v.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+def compare_bf16(got, want, mode, what):
+    """bf16 outputs within MODES[mode] (see the module note). Returns the
+    max abs error."""
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        _fail(what, f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+    m = MODES[mode]
+    rowmax = w.abs().amax(dim=-1, keepdim=True)
+    lim = m["ulps"] * bf16_ulp(torch.maximum(w.abs(), rowmax / 256))
+    err = (g - w).abs()
+    bad = err > lim
+    frac = bad.double().mean().item()
+    worst = (err > m["ulps"] * bf16_ulp(rowmax)).any().item()
+    if not torch.isfinite(g).all() or frac > m["outlier_frac"] or worst:
+        _fail(what, f"{int(bad.sum())} of {bad.numel()} values beyond "
+              f"{m['ulps']} bf16 ulp(s) ({mode} factors allow "
+              f"{m['outlier_frac']:g} of them), max abs err "
+              f"{err.max().item():.3e}")
+    return err.max().item()
+
+
+def _nibbles(codes):
+    c = codes.to(torch.int32)
+    return torch.cat([c & 0xF, c >> 4], dim=-1)
+
+
+def compare_codes(got, want, mode, what, packed=False):
+    """int codes (packed=True: planar uint8 nibble pairs) within
+    MODES[mode]['code_diff'] on at most code_frac of them."""
+    g = _nibbles(got) if packed else got.to(torch.int32)
+    w = _nibbles(want) if packed else want.to(torch.int32)
+    d = (g - w).abs()
+    frac = (d > 0).double().mean().item()
+    m = MODES[mode]
+    if d.max().item() > m["code_diff"] or frac > m["code_frac"]:
+        _fail(what, f"codes differ by up to {d.max().item()} on {frac:.4%} "
+              f"({mode} factors allow {m['code_diff']} on "
+              f"{m['code_frac']:.0%})")
+    return float(d.max().item())
+
+
+def compare_scales(got, want, mode, what):
+    """float32 scales within MODES[mode]['scale_rtol'] (0: bit-exact).
+    Returns the max abs error."""
+    rtol = MODES[mode]["scale_rtol"]
+    err = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    if (rtol == 0 and not torch.equal(got, want)) or err > rtol:
+        _fail(what, f"scales differ, max relative err {err:.3e} ({mode} "
+              f"factors allow {rtol})")
+    return (got - want).abs().max().item()
+
+
+def compare_kv(codes, params, codes_ref, params_ref, mode, what):
+    """Packed asym-int4 KV codes and (scale, zero) params. Returns the max
+    abs error of the scales."""
+    compare_codes(codes, codes_ref, mode, what + " codes", packed=True)
+    err = compare_scales(params[..., 0], params_ref[..., 0], mode,
+                         what + " scales")
+    dz = (params[..., 1] - params_ref[..., 1]).abs().max().item()
+    if dz > MODES[mode]["zero_diff"]:
+        _fail(what, f"zero points differ by {dz} ({mode} factors)")
+    return err

@@ -1,5 +1,6 @@
 """Serving engine over the packed int4 slot cache (port of
-flatquant_tpu/serving/engine.py, the decode-serving configuration).
+flatquant_tpu/serving/engine.py: the decode-serving configuration and the
+fused prompt prefill below 1024 tokens).
 
 Semantics follow the reference deploy stack:
   - prefill attends with *unquantized* (transformed) K/V while writing the
@@ -9,14 +10,22 @@ Semantics follow the reference deploy stack:
   - KV entries are asym-int4 per (token, head), k-transform applied
     before quantization
 
+Routes, as in JAX: with use_kernel, a prompt of B*S >= 256 rows takes the
+fused flat-pipeline routes (serving/quantized.py `_grouped_attn_in`,
+`_quant_mlp_grouped[_full]`) wherever their qualifying conditions hold,
+and a prefill with S % 128 == 0 and 256 <= S takes the fused attention
+prologue (`_fused_prefill_attention`: attn_prologue, dense attention,
+left_quant_i8_flat for the o head mixing, the o GEMM).
+
 What differs from JAX: the cache is a dict of per-layer lists of tensors
 in the token-major layout (kernels/kv_cache.py), UPDATED IN PLACE by
 prefill and decode (JAX returns new, donated buffers); the layer loop is
-a Python loop over the per-layer parameter list. Branches this
-configuration never reaches raise NotImplementedError naming the ROADMAP
-item that ports them: the fused T >= 256 / S >= 256 prefill routes, flash
-prefill (S >= 1024), the paged cache, the chunk phase, tp and the bf16
-cache mode.
+a Python loop over the per-layer parameter list. Branches not ported yet
+raise NotImplementedError naming the ROADMAP item that ports them: flash
+prefill attention (S >= 1024), the paged cache, the chunk phase, tp and
+the bf16 cache mode (before any cache write, in `_check_ported`), and the
+quant_acts_i8 / unfused swiglu GEMM routes of long prompts (where JAX
+takes them, in serving/quantized.py).
 """
 
 from __future__ import annotations
@@ -24,7 +33,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flatquant_torch.kernels.attn_prologue import attn_prologue
 from flatquant_torch.kernels.common import resolve_device
+from flatquant_torch.kernels.flat_pipeline import left_quant_i8_flat
+from flatquant_torch.kernels.int4_matmul import w4a4_matmul_i8
 from flatquant_torch.kernels.kv_cache import (
     decode_attention_int4,
     decode_attention_ref,
@@ -37,8 +49,10 @@ from flatquant_torch.models.config import LlamaConfig
 from flatquant_torch.models.llama import apply_rope, rms_norm, rope_tables, rotate_half
 from flatquant_torch.quantize.spec import FQConfig
 from flatquant_torch.serving.quantized import (
-    LONG_PREFILL,
+    _grouped_attn_in,
     _quant_linear,
+    _quant_mlp_grouped,
+    _quant_mlp_grouped_full,
     _quant_swiglu,
     kron_transform,
 )
@@ -73,10 +87,22 @@ def _apply_head_matrix(t, mat):
     return t.to(mat.dtype) @ mat
 
 
-def _check_ported(cfg, fq_cfg, sl, B, S, per_slot, phase, use_kernel,
-                  tp_axis, tbl):
+def _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
+    """JAX's condition for the fused prefill attention
+    (flatquant_tpu/serving/engine.py:409-414; the merged qkv is always
+    there in the port, and tp is not ported)."""
+    a_cfg = fq_cfg.a_cfg
+    return (use_kernel and phase == "prefill" and cfg.head_dim == 128
+            and S % 128 == 0 and S >= 256 and not per_slot and "k_t" in sl
+            and sl.get("o_t") is not None
+            and sl["o_t"].shape[-1] == cfg.num_heads and "wp" in sl["o"]
+            and a_cfg.enabled and a_cfg.q_max == 7)
+
+
+def _check_ported(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel, tp_axis,
+                  tbl):
     """Raise NotImplementedError, before any cache write, for every branch
-    of JAX's serving_layer_int4cache that this slice does not port (each
+    of JAX's serving_layer_int4cache that the port does not have yet (each
     names the ROADMAP item that will), instead of taking another route."""
     a_cfg = fq_cfg.a_cfg
     if tp_axis is not None:
@@ -99,20 +125,15 @@ def _check_ported(cfg, fq_cfg, sl, B, S, per_slot, phase, use_kernel,
         raise NotImplementedError(
             "serving without the o head-mixing transform waits for ROADMAP "
             "queue 1 item 3")
-    if use_kernel and a_cfg.q_max == 7 and B * S >= 256:
-        raise NotImplementedError(
-            f"{B * S} rows take JAX's fused prefill routes "
-            f"(_grouped_attn_in, _quant_mlp_grouped[_full], the fused "
-            f"swiglu GEMM); they wait for {LONG_PREFILL}")
-    if (use_kernel and phase == "prefill" and cfg.head_dim == 128
-            and S % 128 == 0 and S >= 256 and "k_t" in sl
-            and sl["o_t"].shape[-1] == cfg.num_heads and a_cfg.q_max == 7):
-        raise NotImplementedError(
-            f"the fused attention prologue (S >= 256) waits for "
-            f"{LONG_PREFILL}")
     if phase == "prefill" and S >= 1024 and S % 128 == 0:
+        if _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
+            raise NotImplementedError(
+                "flash prefill attention with K pre-transposed "
+                "(flash_prefill_attention_kt, S >= 1024) waits for ROADMAP "
+                "queue 2 item 8")
         raise NotImplementedError(
-            f"flash prefill attention (S >= 1024) waits for {LONG_PREFILL}")
+            "flash prefill attention (S >= 1024) waits for ROADMAP queue 2 "
+            "item 15")
 
 
 def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
@@ -129,8 +150,8 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     a_cfg = fq_cfg.a_cfg
     per_slot = torch.is_tensor(pos) and pos.ndim == 1
-    _check_ported(cfg, fq_cfg, sl, B, S, per_slot, phase, use_kernel,
-                  tp_axis, tbl)
+    _check_ported(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel, tp_axis,
+                  tbl)
 
     def qlin(h, lin, bias=None):
         y = _quant_linear(h.reshape(-1, h.shape[-1]), lin, use_kernel,
@@ -138,10 +159,24 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
         y = y.reshape(h.shape[:-1] + (lin["scale"].shape[0],))
         return y if bias is None else y + bias.to(y.dtype)
 
-    h = rms_norm(x, sl["ln1_w"], cfg.rms_eps)
-    if "ln_t" in sl:
-        h = kron_transform(h, sl["ln_t"])
-    qkv = qlin(h, sl["qkv"], sl.get("bqkv"))
+    qkv = None
+    if use_kernel:
+        qkv_g = _grouped_attn_in(x.reshape(-1, H), sl, cfg.rms_eps,
+                                 compute_dtype, a_cfg.q_max)
+        if qkv_g is not None:
+            qkv = qkv_g.reshape(B, S, qkv_g.shape[-1])
+            if sl.get("bqkv") is not None:
+                qkv = qkv + sl["bqkv"].to(qkv.dtype)
+    if qkv is None:
+        h = rms_norm(x, sl["ln1_w"], cfg.rms_eps)
+        if "ln_t" in sl:
+            h = kron_transform(h, sl["ln_t"])
+        qkv = qlin(h, sl["qkv"], sl.get("bqkv"))
+
+    if _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
+        x = _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp,
+                                     kparam, vp, vparam, pos, compute_dtype)
+        return _int4cache_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
 
     q, k, v = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
     q = q.reshape(B, S, nh, hd)
@@ -197,14 +232,26 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
 
 
 def _int4cache_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
-    """The MLP half of a serving layer (the composed branch: eager ln2 +
-    Kronecker glue, the merged up||gate W4A4 GEMM, silu, the down
-    transform and the down GEMM)."""
+    """The MLP half of a serving layer: with use_kernel the fully fused
+    flat pipeline (_quant_mlp_grouped_full) or its tail after an eager ln2
+    (_quant_mlp_grouped) where they qualify; else the composed branch
+    (eager ln2 + Kronecker glue, the merged up||gate W4A4 GEMM, silu, the
+    down transform and the down GEMM)."""
     H = x.shape[-1]
     a_cfg = fq_cfg.a_cfg
+    if use_kernel:
+        y_full = _quant_mlp_grouped_full(x.reshape(-1, H), sl, cfg.rms_eps,
+                                         compute_dtype, a_cfg.q_max)
+        if y_full is not None:
+            return x + y_full.reshape(x.shape)
     h2 = rms_norm(x, sl["ln2_w"], cfg.rms_eps)
     if "ug_t" in sl:
         h2 = kron_transform(h2, sl["ug_t"])
+    if use_kernel:
+        y_mlp = _quant_mlp_grouped(h2.reshape(-1, H), sl, compute_dtype,
+                                   a_cfg.q_max)
+        if y_mlp is not None:
+            return x + y_mlp.reshape(x.shape)
     act = _quant_swiglu(h2.reshape(-1, H), sl["upgate"], use_kernel,
                         compute_dtype, True, a_cfg.q_max)
     act = act.reshape(h2.shape[:-1] + (act.shape[-1],))
@@ -213,6 +260,36 @@ def _int4cache_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
     y = _quant_linear(act.reshape(-1, act.shape[-1]), sl["down"], use_kernel,
                       compute_dtype, True, a_cfg.q_max)
     return x + y.reshape(x.shape)
+
+
+def _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp, kparam,
+                             vp, vparam, pos, compute_dtype):
+    """Prefill attention through the fused prologue and the fused o path
+    (JAX engine.py:655-717, the dense branch). qkv: the merged projection
+    output [B, S, (nh + 2*nkv)*128]. attn_prologue writes the packed int4
+    K/V into the cache tensors at [pos, pos + S) in place; attention is
+    dense and unquantized (S < 1024 here: flash kt waits for ROADMAP
+    queue 2 item 8); the o head mixing + per-token quant is one
+    left_quant_i8_flat pass (a left Kronecker factor o_t.T with identity
+    right factor) on the bf16-rounded attention output. Returns x plus the
+    o projection."""
+    B, S, _ = qkv.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qf, kf, vf = attn_prologue(
+        qkv, cos[pos:pos + S], sin[pos:pos + S], sl["k_t"], sl["k_t_inv"],
+        sl.get("kc_clip"), sl.get("vc_clip"), nh=nh, nkv=nkv,
+        cache=(kp, kparam, vp, vparam), pos=pos)[:3]
+    sm_scale = 1.0 / float(np.sqrt(hd))
+    attn = dense_causal_attention(qf.reshape(B, S, nh, hd),
+                                  kf.reshape(B, S, nkv, hd),
+                                  vf.reshape(B, S, nkv, hd), sm_scale,
+                                  compute_dtype)
+    zq, zs = left_quant_i8_flat(
+        sl["o_t"].T, attn.reshape(B * S, nh * hd).to(torch.bfloat16),
+        clip=sl["o"].get("a_clip"), q_max=fq_cfg.a_cfg.q_max)
+    y = w4a4_matmul_i8(zq, zs, sl["o"]["wp"], sl["o"]["scale"],
+                       compute_dtype)
+    return x + y.reshape(B, S, -1)
 
 
 def _forward(cfg, fq_cfg, sp, tokens, cache, pos, phase, use_kernel, max_len,

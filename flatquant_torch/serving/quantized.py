@@ -13,8 +13,13 @@ transform matrices and sigmoid-applied clip ratios directly (the values
 JAX reads out of its FQ state through decompose_matrices / single_matrix /
 _clip_sigmoid); the FQ-state objects arrive with the build chain (ROADMAP
 queue 1 item 4). Only merge_projections=True, tp=1, perm_transforms=False
-is ported. The fused prefill routes that JAX takes at T >= 256 rows raise
-NotImplementedError (ROADMAP queue 2, the long-prompt prefill slice).
+is ported. The fused prefill routes that JAX takes at T >= 256 rows
+(`_grouped_attn_in`, `_quant_mlp_grouped`, `_quant_mlp_grouped_full`) run
+through the flat-pipeline kernels (kernels/flat_pipeline.py) under JAX's
+qualifying conditions; two routes stay unported and raise
+NotImplementedError under JAX's exact conditions: the quant_acts_i8 route
+of `_quant_linear` (T >= 256, K >= 8192) and the fused swiglu GEMM of
+`_quant_swiglu` (T >= 256), which tpu_decompose models never reach.
 """
 
 from __future__ import annotations
@@ -23,7 +28,16 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from flatquant_torch.core.quant import weight_find_params, weight_quantize_int
+from flatquant_torch.core.quant import (
+    true_div,
+    weight_find_params,
+    weight_quantize_int,
+)
+from flatquant_torch.kernels.flat_pipeline import (
+    left_quant_i8_flat,
+    rmsnorm_right_flat,
+    w4a4_matmul_i8_swiglu_right,
+)
 from flatquant_torch.kernels.int4_matmul import (
     pack_weight_planar,
     w4a4_matmul_i8,
@@ -31,9 +45,6 @@ from flatquant_torch.kernels.int4_matmul import (
 )
 from flatquant_torch.models.config import LlamaConfig
 from flatquant_torch.quantize.spec import FQConfig
-
-LONG_PREFILL = ("ROADMAP queue 2 items 4-8 (the long-prompt prefill slice: "
-                "the fused T >= 256 routes)")
 
 # minimum input width at which JAX routes per-token act quant through the
 # Pallas quant_acts_i8 kernel at T >= 256 rows (quantized.py:316)
@@ -176,7 +187,7 @@ def _act_codes_i8(x2d, clip, a_q_max: int):
         xmax = xmax * clip[0]
         xmin = xmin * clip[1]
     absmax = torch.maximum(xmin.abs(), xmax)
-    xs = torch.where(absmax == 0, 1.0, absmax / a_q_max)
+    xs = torch.where(absmax == 0, 1.0, true_div(absmax, a_q_max))
     xq = torch.clamp(torch.round(xf / xs), -a_q_max - 1, a_q_max)
     return xq.to(torch.int8), xs
 
@@ -199,8 +210,8 @@ def _quant_linear(x2d, lin, use_kernel: bool, out_dtype=torch.bfloat16,
             and x2d.shape[1] >= PALLAS_QUANT_MIN_K
             and x2d.shape[1] % 128 == 0):
         raise NotImplementedError(
-            f"the quant_acts_i8 route (T >= 256, K >= 8192) waits for "
-            f"{LONG_PREFILL}")
+            "the quant_acts_i8 route (T >= 256, K >= 8192) waits for "
+            "ROADMAP queue 2 item 12")
     xq, xs = _act_codes_i8(x2d, lin.get("a_clip"), a_q_max)
     gemm = w4a4_matmul_i8 if use_kernel else w4a8_matmul_ref
     return gemm(xq, xs, lin["wp"], lin["scale"], out_dtype)
@@ -213,7 +224,8 @@ def _quant_swiglu(x2d, lin, use_kernel: bool, out_dtype=torch.bfloat16,
     if (use_kernel and quant_acts and "wp" in lin and x2d.shape[0] >= 256
             and a_q_max == 7):
         raise NotImplementedError(
-            f"the fused swiglu GEMM (T >= 256) waits for {LONG_PREFILL}")
+            "the fused swiglu GEMM w4a4_matmul_i8_swiglu (T >= 256) "
+            "waits for ROADMAP queue 2 item 13")
     y = _quant_linear(x2d, lin, use_kernel, out_dtype, quant_acts, a_q_max)
     up, gate = y.chunk(2, dim=-1)
     # jax.nn.silu's own definition, x * (1 / (1 + exp(-x))), one rounding
@@ -221,6 +233,78 @@ def _quant_swiglu(x2d, lin, use_kernel: bool, out_dtype=torch.bfloat16,
     # bit, where F.silu (one rounding at the end) differs by an ulp on a
     # third of the elements
     return gate * (1.0 / (1.0 + torch.exp(-gate))) * up
+
+
+def _quant_mlp_grouped(x2d, sl, out_dtype=torch.bfloat16, a_q_max: int = 7):
+    """Fused MLP tail on the flat pipeline: the upgate GEMM with silu and
+    the down transform's right factor in its epilogue, the left factor +
+    per-token quant, then the down GEMM. x2d: post-ln2/ug-transform hidden
+    [T, K]. Returns the down output [T, H], or None when the shape or
+    config does not qualify (the caller composes the standard path)."""
+    if not ("upgate" in sl and "down" in sl and "down_t" in sl
+            and "wp" in sl["upgate"] and "wp" in sl["down"]
+            and x2d.shape[0] >= 256 and a_q_max == 7):
+        return None
+    left, right = sl["down_t"]
+    if right.shape[0] != 128:
+        return None
+    xq, xs = _act_codes_i8(x2d, sl["upgate"].get("a_clip"), a_q_max)
+    ug = sl["upgate"]
+    yf = w4a4_matmul_i8_swiglu_right(xq, xs, ug["wp"], ug["scale"], right)
+    dn = sl["down"]
+    zq, zs = left_quant_i8_flat(left.T, yf, clip=dn.get("a_clip"),
+                                q_max=a_q_max)
+    return w4a4_matmul_i8(zq, zs, dn["wp"], dn["scale"], out_dtype)
+
+
+def _flat_ln_quant(x2d, ln_w, pair, clip, eps: float, a_q_max: int):
+    """rms_norm + full Kronecker transform + per-token quant in two fused
+    flat-layout kernels (the transform's right factor must be 128x128:
+    the tpu_decompose calibration mode)."""
+    left, right = pair
+    hf = rmsnorm_right_flat(x2d, ln_w, right, eps)
+    return left_quant_i8_flat(left.T, hf, clip=clip, q_max=a_q_max)
+
+
+def _grouped_attn_in(x2d, sl, eps: float, out_dtype=torch.bfloat16,
+                     a_q_max: int = 7):
+    """Fused attention input path: ln1 + ln-transform + quant (flat
+    pipeline) + the merged qkv W4A4 GEMM. Returns qkv
+    [T, q_dim + 2*kv_dim], or None when the config does not qualify."""
+    if not ("qkv" in sl and "ln_t" in sl and "wp" in sl["qkv"]
+            and x2d.shape[0] >= 256 and a_q_max == 7):
+        return None
+    left, right = sl["ln_t"]
+    if right.shape[0] != 128:
+        return None
+    xq, xs = _flat_ln_quant(x2d, sl["ln1_w"], sl["ln_t"],
+                            sl["qkv"].get("a_clip"), eps, a_q_max)
+    return w4a4_matmul_i8(xq, xs, sl["qkv"]["wp"], sl["qkv"]["scale"],
+                          out_dtype)
+
+
+def _quant_mlp_grouped_full(x2d, sl, eps: float, out_dtype=torch.bfloat16,
+                            a_q_max: int = 7):
+    """End-to-end fused MLP: ln2 + ug-transform + quant, the swiglu upgate
+    GEMM (+ down right factor), left factor + quant, the down GEMM, all on
+    the flat pipeline. Needs both transforms' right factors 128x128.
+    Returns the down output [T, H], or None."""
+    if not ("upgate" in sl and "down" in sl and "down_t" in sl
+            and "ug_t" in sl and "wp" in sl["upgate"] and "wp" in sl["down"]
+            and x2d.shape[0] >= 256 and a_q_max == 7):
+        return None
+    ug_l, ug_r = sl["ug_t"]
+    dn_l, dn_r = sl["down_t"]
+    if ug_r.shape[0] != 128 or dn_r.shape[0] != 128:
+        return None
+    ug = sl["upgate"]
+    dn = sl["down"]
+    xq, xs = _flat_ln_quant(x2d, sl["ln2_w"], sl["ug_t"],
+                            ug.get("a_clip"), eps, a_q_max)
+    yf = w4a4_matmul_i8_swiglu_right(xq, xs, ug["wp"], ug["scale"], dn_r)
+    zq, zs = left_quant_i8_flat(dn_l.T, yf, clip=dn.get("a_clip"),
+                                q_max=a_q_max)
+    return w4a4_matmul_i8(zq, zs, dn["wp"], dn["scale"], out_dtype)
 
 
 def quantize_kv_asym(t, clip=None, q_max: int = 15):
@@ -235,7 +319,7 @@ def quantize_kv_asym(t, clip=None, q_max: int = 15):
     degenerate = (tmin == 0) & (tmax == 0)
     tmin = torch.where(degenerate, -1.0, tmin)
     tmax = torch.where(degenerate, 1.0, tmax)
-    scale = (tmax - tmin) / q_max
+    scale = true_div(tmax - tmin, q_max)
     zero = torch.round(-tmin / scale)
     q = torch.clamp(torch.round(tf / scale) + zero, 0, q_max)
     return q, scale, zero

@@ -12,9 +12,17 @@ without them:
 import pytest
 import torch
 
+from flatquant_torch.kernels import attn_prologue as tap
 from flatquant_torch.kernels import common
+from flatquant_torch.kernels import flat_pipeline as tfp
 from flatquant_torch.kernels import int4_matmul as tmm
 from flatquant_torch.kernels import kv_cache as tkv
+from flatquant_torch.kernels.tolerance import (
+    compare_bf16,
+    compare_codes,
+    compare_kv,
+    compare_scales,
+)
 
 
 @pytest.fixture
@@ -83,3 +91,131 @@ def test_write_token_bit_exact_in_place(cuda):
     assert [c.data_ptr() for c in out] == ptrs
     for a, b in zip(caches, copies):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the prefill kernels, with identity and with random orthogonal factors
+# (flatquant_torch/kernels/tolerance.py states both modes' tolerances)
+# ---------------------------------------------------------------------------
+
+MODES = ["identity", "orthogonal"]
+
+
+def _factor(g, cuda, n, mode):
+    if mode == "identity":
+        return torch.eye(n, device=cuda)
+    q, r = torch.linalg.qr(torch.randn((n, n), generator=g, device=cuda,
+                                       dtype=torch.float64))
+    return (q * torch.sign(torch.diagonal(r))).float()
+
+
+def _launched(name, fn, *a, **kw):
+    before = common.LAUNCHES[name]
+    out = fn(*a, **kw)
+    assert common.LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("t,h,dtype", [(300, 4096, torch.bfloat16),
+                                       (40, 256, torch.float32)])
+def test_rmsnorm_right_flat_matches_plain(cuda, mode, t, h, dtype):
+    g = torch.Generator(device=cuda).manual_seed(t)
+    x = (torch.randn((t, h), generator=g, device=cuda) * 2).to(dtype)
+    w = torch.rand((h,), generator=g, device=cuda) + 0.5
+    right = _factor(g, cuda, 128, mode)
+    got = _launched("rmsnorm_right_flat", tfp.rmsnorm_right_flat, x, w,
+                    right, 1e-5)
+    want = tfp.rmsnorm_right_flat_ref(x, w, right, 1e-5)
+    compare_bf16(got, want, mode, "rmsnorm_right_flat")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("t,grp,clip", [(100, 32, None), (37, 86, (0.9, 0.95)),
+                                        (8, 2, (0.97, 0.9))])
+def test_left_quant_i8_flat_matches_plain(cuda, mode, t, grp, clip):
+    g = torch.Generator(device=cuda).manual_seed(grp)
+    x = (torch.randn((t, grp * 128), generator=g, device=cuda) * 3).to(
+        torch.bfloat16)
+    x[t // 2] = 0  # an all-zero row: scale 1, codes 0
+    left_t = _factor(g, cuda, grp, mode)
+    if clip is not None:
+        clip = tuple(torch.tensor(c, device=cuda) for c in clip)
+    q, s = _launched("left_quant_i8_flat", tfp.left_quant_i8_flat, left_t,
+                     x, clip)
+    q_ref, s_ref = tfp.left_quant_i8_flat_ref(left_t, x, clip)
+    compare_codes(q, q_ref, mode, "left_quant_i8_flat")
+    compare_scales(s, s_ref, mode, "left_quant_i8_flat")
+    assert s[t // 2].item() == 1.0 and not q[t // 2].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m,k,nh", [(200, 512, 384), (64, 4096, 256)])
+def test_w4a4_matmul_i8_swiglu_right_matches_plain(cuda, mode, m, k, nh):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    xq = torch.randint(-8, 8, (m, k), generator=g, device=cuda,
+                       dtype=torch.int8)
+    xs = torch.rand((m, 1), generator=g, device=cuda) * 0.2 + 0.01
+    wp = torch.randint(0, 256, (2 * nh, k // 2), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    sw = torch.rand((2 * nh,), generator=g, device=cuda) * 0.01 + 1e-3
+    right = _factor(g, cuda, 128, mode)
+    got = _launched("w4a4_matmul_i8_swiglu_right",
+                    tfp.w4a4_matmul_i8_swiglu_right, xq, xs, wp, sw, right)
+    want = tfp.w4a4_matmul_i8_swiglu_right_ref(xq, xs, wp, sw, right)
+    compare_bf16(got, want, mode, "w4a4_matmul_i8_swiglu_right")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attn_prologue_matches_plain(cuda, mode, dtype):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, S, L, pos, nh, nkv = 2, 256, 384, 64, 8, 2
+    qkv = (torch.randn((B, S, (nh + 2 * nkv) * 128), generator=g,
+                       device=cuda) * 2).to(dtype)
+    ang = torch.rand((S, 128), generator=g, device=cuda) * 6.3
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    k_t = _factor(g, cuda, 128, mode)
+    k_t_inv = _factor(g, cuda, 128, mode)
+    kc = (torch.tensor(0.93, device=cuda), torch.tensor(0.9, device=cuda))
+    cache = [torch.zeros((B, nkv, L, 64), dtype=torch.uint8, device=cuda),
+             torch.zeros((B, nkv, L, 2), device=cuda),
+             torch.zeros((B, nkv, L, 64), dtype=torch.uint8, device=cuda),
+             torch.zeros((B, nkv, L, 2), device=cuda)]
+    ref_cache = [c.clone() for c in cache]
+    got = _launched("attn_prologue", tap.attn_prologue, qkv, cos, sin, k_t,
+                    k_t_inv, kc, None, nh=nh, nkv=nkv, cache=cache, pos=pos)
+    want = tap.attn_prologue_ref(qkv, cos, sin, k_t, k_t_inv, kc, None,
+                                 nh=nh, nkv=nkv, cache=ref_cache, pos=pos)
+    assert all(a is b for a, b in zip(got[3:], cache))
+    for i, name in ((0, "q_rot"), (1, "k_rot")):
+        if dtype == torch.bfloat16:
+            compare_bf16(got[i], want[i], mode, name)
+        else:  # float32 sums of 128 products in another order
+            torch.testing.assert_close(got[i], want[i], rtol=1e-5,
+                                       atol=1e-5)
+    assert torch.equal(got[2], want[2])
+    compare_kv(cache[0], cache[1], ref_cache[0], ref_cache[1], mode, "K")
+    # V is quantized from the raw qkv values: exact in both modes
+    compare_kv(cache[2], cache[3], ref_cache[2], ref_cache[3], "identity",
+               "V")
+
+
+@pytest.mark.gpu
+def test_plain_quant_divides_like_the_cpu(cuda):
+    """The plain versions' per-token and KV scales use IEEE division on
+    the card too (torch on CUDA multiplies by the reciprocal of a
+    Python-number divisor, one float32 ulp off JAX's quotient)."""
+    from flatquant_torch.serving.quantized import _act_codes_i8
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((512, 1024), generator=g, device=cuda) * 3
+    for a, b in zip(_act_codes_i8(x, None, 7), _act_codes_i8(x.cpu(), None, 7)):
+        assert torch.equal(a.cpu(), b)
+    t = x.reshape(4, 128, 8, 128)
+    for a, b in zip(tkv.quantize_pack_kv(t), tkv.quantize_pack_kv(t.cpu())):
+        assert torch.equal(a.cpu(), b)

@@ -303,14 +303,24 @@ def test_default_device_raises_without_a_card(model):
 
 
 def test_unported_routes_raise(model):
-    """Branches this slice does not reach raise instead of taking another
-    route: the fused T >= 256 prefill, other cache modes."""
+    """Branches the port does not have yet raise, naming their ROADMAP
+    item, instead of taking another route: other cache modes, flash
+    prefill attention (S >= 1024), the quant_acts_i8 route (T >= 256,
+    K >= 8192) and the unfused swiglu GEMM (T >= 256)."""
+    from flatquant_torch.serving import quantized as tq
+
     cfg, fq = model["cfg"], model["fq"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         te.init_cache(cfg, 1, MAX_LEN, mode="bf16", device="cpu")
-    cache = te.init_cache(cfg, 2, 256, device="cpu")
-    toks = np.zeros((2, 128), np.int32)  # 256 rows: the fused routes
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+    cache = te.init_cache(cfg, 1, 1024, device="cpu")
+    toks = np.zeros((1, 1024), np.int32)  # the fused route's flash kt
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 8"):
         te.serving_prefill(cfg, fq, model["tsp"]["float32"], toks, cache,
-                           max_len=256, compute_dtype=torch.float32,
+                           max_len=1024, compute_dtype=torch.float32,
                            device="cpu")
+    lin = {"wp": torch.zeros((128, 4096), dtype=torch.uint8),
+           "scale": torch.ones(128)}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 12"):
+        tq._quant_linear(torch.ones((256, 8192)), lin, use_kernel=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 13"):
+        tq._quant_swiglu(torch.ones((256, 8192)), lin, use_kernel=True)
