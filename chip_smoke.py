@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (flatquant_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                # all phases, one card
-    python3 chip_smoke.py --kernels-only # phases 1-3 only
+    python3 chip_smoke.py --kernels-only # phases 1-3 only (3a-3e)
 
 Phases (any failure makes the script exit non-zero without the final
 line):
@@ -18,9 +18,13 @@ line):
      shapes, each with identity and with random orthogonal transform
      factors (tolerances in flatquant_torch/kernels/tolerance.py), timed
      like the others
+     3e: both flash prefill entry points (flash_prefill_attention,
+     flash_prefill_attention_kt) at llama-2-7b's 1 x 2048, llama-3-8b's
+     GQA heads and S=1152, within the "flash" tolerance, timed beside the
+     causal scaled_dot_product_attention call (a yardstick only)
   4. build one random llama-2-7b (32 layers, random seeded weights, rn128
-     Kronecker transforms baked into the weights; shared by phases 4 and
-     5) and drive the decode-serving path at full width and depth:
+     Kronecker transforms baked into the weights; shared by phases 4 to
+     6) and drive the decode-serving path at full width and depth:
      generate for 4 prompts of 48 tokens, 64 new tokens, then 16 per-slot
      decode steps at ragged positions; the kernels' launch counts are read
      around this run. The same token sequence then runs teacher-forced
@@ -34,6 +38,15 @@ line):
      launch of a full-depth prefill checked against its plain version,
      and the logits compared with the same routes run on the plain
      versions (a tripwire: random W4A4 logits are chaotic).
+  6. long prompts with tools/fulldepth_bench.py's protocol (1 x 2048,
+     max_len 2304): (a) serving_prefill over the int4 cache (prologue and
+     flash kt) and 32 decode steps, a profile of one prefill and every
+     launch of one prefill checked; (b) serving_all_logits through the
+     bf16-cache engine (flash on the [B, S, nkv, hd] layout), every flash
+     launch checked, its last logits against (a)'s; (c) the bf16
+     comparator (serving/baseline.py) on a random bf16 llama-2-7b:
+     prefill and 32 decode steps timed, its flash launches checked, then
+     freed.
   Then the kernel table as one JSON line, then the result line.
 
 Details go to chiprun_out/chip_smoke.json. Nothing here imports JAX or
@@ -443,6 +456,94 @@ def check_prefill_kernels(torch, dev, gen, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: flash prefill attention, both entry points
+# ---------------------------------------------------------------------------
+
+
+def _sdpa(torch):
+    """One PyTorch call computing the flash kernels' function on the same
+    tensors (the yardstick of library_ms; the port never calls it):
+    causal scaled_dot_product_attention on [B, h, S, hd] views (GQA
+    through enable_gqa)."""
+    F = torch.nn.functional
+
+    def call(q, k, v, sm):
+        kw = {} if k.shape[2] == q.shape[2] else {"enable_gqa": True}
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=sm, **kw)
+
+    return call
+
+
+def check_flash(torch, dev, gen, results):
+    """flash_prefill_attention and flash_prefill_attention_kt against their
+    plain versions at the long prefill's shapes (bf16, head_dim 128):
+    llama-2-7b's 1 x 2048 (32/32 heads), llama-3-8b's GQA (32/8 heads) and
+    S = 1152 (blocks shrink to divisors of S), within the "flash"
+    tolerance of flatquant_torch/kernels/tolerance.py (the kernel's
+    64-key tiles round p at other running maxima than the plain version's
+    512-key blocks). The kt entry point reads K through the strided
+    [B, nkv, hd, S] view of a token-major tensor, as the fused route
+    passes it; JAX's contiguous kt layout (copied by the wrapper) is
+    checked at the first shape. Each is timed beside its plain version,
+    its bound and the causal SDPA call on the same tensors."""
+    from flatquant_torch.kernels import prefill_attention as pa
+    from flatquant_torch.kernels.tolerance import compare_bf16
+    from flatquant_torch.models.config import get_config
+
+    l2, l3 = get_config("llama-2-7b"), get_config("llama-3-8b")
+    cases = [(f"llama-2-7b B=1 S=2048 {l2.num_heads}/{l2.num_kv_heads} heads",
+              1, 2048, l2.num_heads, l2.num_kv_heads),
+             (f"llama-3-8b B=1 S=2048 {l3.num_heads}/{l3.num_kv_heads} heads",
+              1, 2048, l3.num_heads, l3.num_kv_heads),
+             (f"llama-2-7b B=1 S=1152 {l2.num_heads}/{l2.num_kv_heads} heads",
+              1, 1152, l2.num_heads, l2.num_kv_heads)]
+    entries = {
+        "flash_prefill_attention": (
+            pa.flash_prefill_attention, pa.flash_prefill_attention_ref,
+            lambda q, k, v: (q, k, v)),
+        "flash_prefill_attention_kt": (
+            pa.flash_prefill_attention_kt, pa.flash_prefill_attention_kt_ref,
+            lambda q, k, v: (q, k.permute(0, 2, 3, 1), v)),
+    }
+    sm = 1.0 / math.sqrt(128)
+    sdpa = _sdpa(torch)
+    for label, B, S, nh, nkv in cases:
+        # q, k, v read once and o written once, bf16
+        nbytes = 2 * B * S * 128 * (2 * nh + 2 * nkv)
+        flops = 2 * S * (S + 1) * 128 * nh * B
+        sets = [[(torch.randn((B, S, n, 128), generator=gen, device=dev)
+                  ).to(torch.bfloat16) for n in (nh, nkv, nkv)]
+                for _ in range(copies_for(nbytes))]
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+        lib_ms = cuda_ms(torch, sdpa, [(*t, sm) for t in sets], 20)
+        for name, (kernel, plain, layout) in entries.items():
+            args = [(*layout(*t), sm) for t in sets]
+            err = compare_bf16(kernel(*args[0]), plain(*args[0]), "flash",
+                               f"{name} {label}")
+            if name.endswith("_kt") and label == cases[0][0]:
+                q, kt, v, _ = args[0]
+                compare_bf16(kernel(q, kt.contiguous(), v, sm),
+                             plain(q, kt, v, sm), "flash",
+                             f"{name} {label}, contiguous kt")
+            ms = cuda_ms(torch, kernel, args, 20)
+            plain_ms = cuda_ms(torch, plain, args, 2)
+            r = results.setdefault(name, dict(rows=[], max_abs_err=0.0))
+            r["rows"].append(dict(case=label, B=B, S=S, nh=nh, nkv=nkv,
+                                  ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=lib_ms,
+                                  bytes=nbytes, ops=flops, max_abs_err=err))
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            log(f"  {name} {label}: within the 'flash' tolerance, max abs "
+                f"err {err:.3e}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                f"bound {b_ms * 1e3:.2f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.1f} GFLOP) library_ms {lib_ms:.4f} (causal "
+                f"SDPA)")
+        del sets
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the decode-serving path at full llama-2-7b width and depth
 # ---------------------------------------------------------------------------
 
@@ -538,12 +639,18 @@ def profile_steps(torch, step, n, label="decode"):
         log(f"  {label} profile: not measured (no device time recorded)")
         return None
     other = "other kernels (torch glue)"
-    groups = dict.fromkeys(list(KERNELS) + [other], 0.0)
+    # both flash entry points launch one CUDA kernel, flash_prefill_kernel
+    flash = "flash_prefill_kernel (both flash entry points)"
+    groups = dict.fromkeys([k for k in KERNELS if "flash" not in k]
+                           + [flash, other], 0.0)
     for name, ms in kern.items():
         # the longest kernel name in the symbol: w4a4_matmul_i8_swiglu_right
         # before w4a4_matmul_i8
-        hits = [k for k in KERNELS if k in name]
-        groups[max(hits, key=len) if hits else other] += ms
+        hits = [k for k in groups if k in name]
+        if "flash_prefill_kernel" in name:
+            groups[flash] += ms
+        else:
+            groups[max(hits, key=len) if hits else other] += ms
     busy_ms = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
     log(f"  {label} profile, per step: host wall {wall_ms:.3f} ms, device "
@@ -635,13 +742,13 @@ def check_launches_on_path(torch, cfg, fq, sp, prompt, feed, slot_pos0, P,
                   (engine, "decode_attention_int4", attn),
                   (engine, "write_token", write)]):
         c = engine.init_cache(cfg, prompt.shape[0], kw["max_len"],
-                              device=kw["device"])
+                              mode="int4", device=kw["device"])
         engine.serving_prefill(cfg, fq, sp, prompt, c, **kw)
         for i in list(range(4)) + list(range(NEW, NEW + 4)):
             pos = P + i if i < NEW else slot_pos0 + (i - NEW)
             if i == NEW:  # jump the cache to the per-slot phase
                 c = engine.init_cache(cfg, prompt.shape[0], kw["max_len"],
-                                      device=kw["device"])
+                                      mode="int4", device=kw["device"])
                 engine.serving_prefill(cfg, fq, sp, prompt, c, **kw)
             engine.serving_decode_step(cfg, fq, sp, feed[i], c, pos, **kw)
     torch.cuda.synchronize()
@@ -667,7 +774,7 @@ def run_main_path(torch, dev, model, results, smi):
     kw = dict(max_len=MAX_LEN, device=dev)
 
     # warm-up (allocator, cuBLAS handles), not counted
-    cache = init_cache(cfg, B, MAX_LEN, device=dev)
+    cache = init_cache(cfg, B, MAX_LEN, mode="int4", device=dev)
     serving_prefill(cfg, fq, sp, prompt, cache, **kw)
     serving_decode_step(cfg, fq, sp, prompt[:, -1:], cache, P, **kw)
     del cache
@@ -676,12 +783,12 @@ def run_main_path(torch, dev, model, results, smi):
     common.reset_launches()
     t0 = time.perf_counter()
     gen_toks = generate(cfg, fq, sp, prompt.cpu().numpy(),
-                        max_new_tokens=NEW, **kw)
+                        max_new_tokens=NEW, cache_mode="int4", **kw)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
 
     # the same run through the step entry points, timed per step
-    cache = init_cache(cfg, B, MAX_LEN, device=dev)
+    cache = init_cache(cfg, B, MAX_LEN, mode="int4", device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = serving_prefill(cfg, fq, sp, prompt, cache, **kw)
@@ -723,7 +830,7 @@ def run_main_path(torch, dev, model, results, smi):
 
     def forced(use_kernel):
         """Teacher-forced run over the kernel run's tokens -> logits."""
-        c = init_cache(cfg, B, MAX_LEN, device=dev)
+        c = init_cache(cfg, B, MAX_LEN, mode="int4", device=dev)
         lg, c = serving_prefill(cfg, fq, sp, prompt, c, use_kernel=use_kernel,
                                 **kw)
         out = [lg.float().cpu()]
@@ -801,6 +908,7 @@ def _plain_pairs(torch):
     from flatquant_torch.kernels import attn_prologue as ap
     from flatquant_torch.kernels import flat_pipeline as fp
     from flatquant_torch.kernels import int4_matmul, kv_cache
+    from flatquant_torch.kernels import prefill_attention as pa
     from flatquant_torch.serving import engine, quantized
 
     def attn(q, kp, kpar, vp, vpar, valid, sm):
@@ -817,23 +925,31 @@ def _plain_pairs(torch):
             (engine, "left_quant_i8_flat", fp.left_quant_i8_flat_ref),
             (engine, "w4a4_matmul_i8", int4_matmul.w4a8_matmul_ref),
             (engine, "decode_attention_int4", attn),
-            (engine, "write_token", kv_cache.write_token_ref)]
+            (engine, "write_token", kv_cache.write_token_ref),
+            (engine, "flash_prefill_attention_kt",
+             pa.flash_prefill_attention_kt_ref),
+            (pa, "flash_prefill_attention", pa.flash_prefill_attention_ref)]
 
 
-def check_prefill_launches(torch, cfg, fq, sp, prompt, kw):
-    """Every kernel launch of one full-depth prefill checked against its
-    plain version on the same inputs -- the path's own activations, with
-    the model's orthogonal factors: the GEMM bit-exact, the rest within
-    the 'orthogonal' tolerances (flatquant_torch/kernels/tolerance.py)."""
+def check_prefill_launches(torch, cfg, fq, sp, prompt, kw,
+                           expected=PREFILL_LAUNCHES):
+    """Every kernel launch of one full-depth prefill over the int4 cache
+    checked against its plain version on the same inputs -- the path's own
+    activations, with the model's orthogonal factors: the GEMM bit-exact,
+    flash kt within the 'flash' tolerance, the rest within the
+    'orthogonal' tolerances (flatquant_torch/kernels/tolerance.py).
+    expected: launches per layer of each kernel."""
     from flatquant_torch.kernels import attn_prologue as ap
     from flatquant_torch.kernels import flat_pipeline as fp
     from flatquant_torch.kernels import int4_matmul
+    from flatquant_torch.kernels import prefill_attention as pa
     from flatquant_torch.kernels.tolerance import (
         compare_bf16, compare_codes, compare_kv, compare_scales)
     from flatquant_torch.serving import engine, quantized
 
-    n = dict.fromkeys(PREFILL_LAUNCHES, 0)
-    worst = dict.fromkeys(PREFILL_LAUNCHES, 0.0)
+    names = list(PREFILL_LAUNCHES) + ["flash_prefill_attention_kt"]
+    n = dict.fromkeys(names, 0)
+    worst = dict.fromkeys(names, 0.0)
     mode = "orthogonal"
 
     def rms(x, w, right, eps):
@@ -888,23 +1004,35 @@ def check_prefill_launches(torch, cfg, fq, sp, prompt, kw):
         n["attn_prologue"] += 1
         return out
 
+    def fkt(q, kt, v, sm):
+        o = pa.flash_prefill_attention_kt(q, kt, v, sm)
+        err = compare_bf16(o, pa.flash_prefill_attention_kt_ref(q, kt, v, sm),
+                           "flash", "flash_prefill_attention_kt on the path")
+        key = "flash_prefill_attention_kt"
+        worst[key] = max(worst[key], err)
+        n[key] += 1
+        return o
+
     with patched([(quantized, "rmsnorm_right_flat", rms),
                   (quantized, "left_quant_i8_flat", lq),
                   (quantized, "w4a4_matmul_i8_swiglu_right", swi),
                   (quantized, "w4a4_matmul_i8", gemm),
                   (engine, "attn_prologue", pro),
                   (engine, "left_quant_i8_flat", lq),
-                  (engine, "w4a4_matmul_i8", gemm)]):
+                  (engine, "w4a4_matmul_i8", gemm),
+                  (engine, "flash_prefill_attention_kt", fkt)]):
         c = engine.init_cache(cfg, prompt.shape[0], kw["max_len"],
-                              device=kw["device"])
+                              mode="int4", device=kw["device"])
         engine.serving_prefill(cfg, fq, sp, prompt, c, **kw)
     torch.cuda.synchronize()
-    for name, per_layer in PREFILL_LAUNCHES.items():
+    for name in names:
+        per_layer = expected.get(name, 0)
         if n[name] != per_layer * cfg.num_layers:
             raise AssertionError(f"{name}: {n[name]} launches checked, "
                                  f"expected {per_layer * cfg.num_layers}")
     log(f"  every launch of a full-depth prefill vs its plain version: {n} "
-        f"launches checked ('orthogonal' tolerances; GEMM bit-exact); max "
+        f"launches checked ('orthogonal' tolerances, flash kt 'flash'; GEMM "
+        f"bit-exact); max "
         f"abs err {worst}")
     return dict(launches=n, max_abs_err=worst)
 
@@ -930,12 +1058,12 @@ def run_prefill_path(torch, dev, model, results, smi):
     kw = dict(max_len=MAX_LEN, device=dev)
 
     # warm-up (allocator, cuBLAS handles), not counted
-    serving_prefill(cfg, fq, sp, prompt, init_cache(cfg, B, MAX_LEN,
-                                                    device=dev), **kw)
+    serving_prefill(cfg, fq, sp, prompt,
+                    init_cache(cfg, B, MAX_LEN, mode="int4", device=dev), **kw)
     torch.cuda.synchronize()
 
     common.reset_launches()
-    cache = init_cache(cfg, B, MAX_LEN, device=dev)
+    cache = init_cache(cfg, B, MAX_LEN, mode="int4", device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = serving_prefill(cfg, fq, sp, prompt, cache, **kw)
@@ -965,7 +1093,7 @@ def run_prefill_path(torch, dev, model, results, smi):
 
     # 512 rows at S=128: fused input and MLP routes, composed attention
     before = dict(common.LAUNCHES)
-    short = init_cache(cfg, B, SHORT, device=dev)
+    short = init_cache(cfg, B, SHORT, mode="int4", device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     short_logits, _ = serving_prefill(cfg, fq, sp, prompt[:, :SHORT], short,
@@ -992,7 +1120,8 @@ def run_prefill_path(torch, dev, model, results, smi):
     log(f"  launches, prefill + {NEW} decode steps: {launches}")
     log(f"  launches, 4 x {SHORT} prefill: {short_launches}")
     busy = profile_steps(torch, lambda i: serving_prefill(
-        cfg, fq, sp, prompt, init_cache(cfg, B, MAX_LEN, device=dev), **kw),
+        cfg, fq, sp, prompt,
+        init_cache(cfg, B, MAX_LEN, mode="int4", device=dev), **kw),
         1, "prefill")
     if busy:
         busy["idle_share_unprofiled"] = 1 - busy["busy_ms"] / prefill_ms
@@ -1003,7 +1132,7 @@ def run_prefill_path(torch, dev, model, results, smi):
     def forced(pairs, use_kernel=True):
         """Teacher-forced run over the kernel run's tokens -> logits."""
         with patched(pairs):
-            c = init_cache(cfg, B, MAX_LEN, device=dev)
+            c = init_cache(cfg, B, MAX_LEN, mode="int4", device=dev)
             lg, c = serving_prefill(cfg, fq, sp, prompt, c,
                                     use_kernel=use_kernel, **kw)
             out = [lg.float().cpu()]
@@ -1045,6 +1174,277 @@ def run_prefill_path(torch, dev, model, results, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: long prompts at full llama-2-7b width and depth
+# ---------------------------------------------------------------------------
+
+# launches of one full-depth 1 x 2048 prefill over the int4 cache: the
+# 4 x 512 prefill's, plus one flash kt attention per layer
+LONG_PREFILL_LAUNCHES = dict(PREFILL_LAUNCHES, flash_prefill_attention_kt=1)
+# the tripwire of path (b) against path (a): random W4A4 logits are
+# chaotic, rounding variants of the same function at full depth gave
+# logits cosines of 0.31-0.34 (PERF.md, phase 5), while two unrelated
+# 4096-wide hidden states give |cosine| ~ 1/64
+LONG_COSINE_FLOOR = 0.05
+# path (c) against the same path with every flash launch swapped for its
+# plain version: no quantizer amplifies the p roundings of a bf16 model
+BF16_COSINE_FLOOR = 0.99
+
+
+def _cosine(torch, a, b):
+    return torch.nn.functional.cosine_similarity(
+        a.double().flatten(), b.double().flatten(), dim=0).item()
+
+
+def _checked_flash(torch, n, worst):
+    """flash_prefill_attention that holds every launch to its plain
+    version ('flash' tolerance), counting the checks in n."""
+    from flatquant_torch.kernels import prefill_attention as pa
+    from flatquant_torch.kernels.tolerance import compare_bf16
+
+    kernel, plain = pa.flash_prefill_attention, pa.flash_prefill_attention_ref
+
+    def flash(q, k, v, sm):
+        o = kernel(q, k, v, sm)
+        err = compare_bf16(o, plain(q, k, v, sm), "flash",
+                           "flash_prefill_attention on the path")
+        worst[0] = max(worst[0], err)
+        n[0] += 1
+        return o
+
+    return flash
+
+
+def run_long_prefill_path(torch, dev, model, results, smi):
+    """fulldepth_bench.py's protocol on the int4-cache engine: (a) a 1 x
+    2048 prompt (max_len 2304) through serving_prefill (fused routes,
+    prologue, flash kt), then 32 greedy decode steps over the cache the
+    prologue wrote; a profile of one prefill; every launch of one prefill
+    checked. (b) serving_all_logits on the same tokens through the
+    bf16-cache engine with use_kernel=True (composed attention input,
+    flash on the [B, S, nkv, hd] layout), every flash launch checked, its
+    last-position logits against (a)'s. Returns the launches of (a) and
+    of (b)."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.kernels import prefill_attention as pa
+    from flatquant_torch.serving.engine import (
+        init_cache, serving_all_logits, serving_decode_step, serving_prefill)
+
+    B, S, NEW, MAX_LEN = 1, 2048, 32, 2304
+    cfg, fq, sp = model
+    L = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    kw = dict(max_len=MAX_LEN, device=dev)
+
+    # warm-up (allocator, cuBLAS handles), not counted
+    serving_prefill(cfg, fq, sp, prompt,
+                    init_cache(cfg, B, MAX_LEN, mode="int4", device=dev), **kw)
+    torch.cuda.synchronize()
+
+    # (a) the int4-cache engine
+    common.reset_launches()
+    cache = init_cache(cfg, B, MAX_LEN, mode="int4", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_a, cache = serving_prefill(cfg, fq, sp, prompt, cache, **kw)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = dict(common.LAUNCHES)
+    step_ms = []
+    tok = logits_a.argmax(-1, keepdim=True)
+    for i in range(NEW):
+        t0 = time.perf_counter()
+        logits, cache = serving_decode_step(cfg, fq, sp, tok, cache, S + i,
+                                            **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"decode step {i} logits not finite")
+        tok = logits.argmax(-1, keepdim=True)
+    launches_a = dict(common.LAUNCHES)
+    del cache
+    for name, per_layer in LONG_PREFILL_LAUNCHES.items():
+        if prefill_launches[name] != per_layer * L:
+            raise AssertionError(
+                f"{name}: {prefill_launches[name]} launches in the 1 x {S} "
+                f"prefill, expected {per_layer * L}")
+    if launches_a["decode_attention_int4"] != NEW * L:
+        raise AssertionError("the decode steps did not read the cache "
+                             "through decode_attention_int4")
+    decode_ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    log(f"  [{smi}] (a) int4 engine prefill B={B} S={S} (fused routes, "
+        f"prologue, flash kt): {prefill_ms:.1f} ms")
+    log(f"  [{smi}] (a) decode after it, median {decode_ms:.2f} ms/step, "
+        f"B={B}, {NEW} steps")
+    log(f"  launches, (a) 1 x {S} prefill: {prefill_launches}")
+    log(f"  launches, (a) prefill + {NEW} decode steps: {launches_a}")
+    busy = profile_steps(torch, lambda i: serving_prefill(
+        cfg, fq, sp, prompt,
+        init_cache(cfg, B, MAX_LEN, mode="int4", device=dev), **kw),
+        1, f"(a) prefill 1 x {S}")
+    if busy:
+        busy["idle_share_unprofiled"] = 1 - busy["busy_ms"] / prefill_ms
+        log(f"  device idle share against the unprofiled prefill: "
+            f"{busy['idle_share_unprofiled']:.3f}")
+    checks = check_prefill_launches(torch, cfg, fq, sp, prompt, kw,
+                                    LONG_PREFILL_LAUNCHES)
+    # another valid rounding of (a): the same engine on the plain versions
+    logits_plain, _ = serving_prefill(
+        cfg, fq, sp, prompt,
+        init_cache(cfg, B, MAX_LEN, mode="int4", device=dev),
+        use_kernel=False, **kw)
+
+    # (b) the bf16-cache engine's full-sequence logits, every flash launch
+    # checked against its plain version
+    n, worst = [0], [0.0]
+    common.reset_launches()
+    with patched([(pa, "flash_prefill_attention",
+                   _checked_flash(torch, n, worst))]):
+        t0 = time.perf_counter()
+        all_logits = serving_all_logits(cfg, fq, sp, prompt, use_kernel=True,
+                                        device=dev)
+        torch.cuda.synchronize()
+        all_ms = (time.perf_counter() - t0) * 1e3
+    launches_b = dict(common.LAUNCHES)
+    if launches_b["flash_prefill_attention"] != L or n[0] != L:
+        raise AssertionError(
+            f"serving_all_logits: {launches_b['flash_prefill_attention']} "
+            f"flash launches ({n[0]} checked), expected {L}")
+    if not (tuple(all_logits.shape) == (B, S, cfg.vocab_size)
+            and torch.isfinite(all_logits).all()):
+        raise AssertionError("serving_all_logits: not finite or of the "
+                             "wrong shape")
+    for a in (logits_a, logits_plain):
+        if not (torch.isfinite(a).all() and a.shape == (B, cfg.vocab_size)):
+            raise AssertionError("prefill logits not finite or of the wrong "
+                                 "shape")
+    cos_ab = _cosine(torch, all_logits[:, -1], logits_a)
+    cos_noise = _cosine(torch, logits_plain, logits_a)
+    log(f"  (b) serving_all_logits B={B} S={S}, use_kernel=True: "
+        f"{all_ms:.1f} ms (with the per-launch checks); {n[0]} flash "
+        f"launches checked ('flash' tolerance, max abs err {worst[0]:.3e})")
+    log(f"  launches, (b): {launches_b}")
+    log(f"  last-position logits cosine, (b) vs (a): {cos_ab:.4f} (floor "
+        f"{LONG_COSINE_FLOOR}); (a) on the plain versions vs (a): "
+        f"{cos_noise:.4f} (noise floor, not gated)")
+    if cos_ab < LONG_COSINE_FLOOR:
+        raise AssertionError("serving_all_logits' last position does not "
+                             "follow the int4 engine's prefill")
+    results["long_prefill_path"] = dict(
+        model="llama-2-7b", layers=L, batch=B, prompt=S, new_tokens=NEW,
+        max_len=MAX_LEN, prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+        step_ms=step_ms, prefill_launches=prefill_launches,
+        launches=launches_a, prefill_profile=busy, per_launch_checks=checks,
+        all_logits_ms_checked=all_ms, all_logits_launches=launches_b,
+        all_logits_flash_max_abs_err=worst[0], cosine_b_vs_a=cos_ab,
+        cosine_plain_vs_a=cos_noise)
+    return prefill_launches, launches_b
+
+
+def run_bf16_comparator(torch, dev, results, smi):
+    """(c) The bf16 comparator at the same shape: a random bf16 llama-2-7b
+    (seed 0), bf16_prefill 1 x 2048 and 32 bf16_decode_steps over the bf16
+    cache (max_len 2304), timed; a profile of one prefill; every flash
+    launch of one prefill checked against its plain version, and its
+    logits against the same prefill with every flash launch swapped for
+    its plain version. The model is freed afterwards. Returns the
+    launches of the timed prefill and decode steps."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.kernels import prefill_attention as pa
+    from flatquant_torch.models.config import get_config
+    from flatquant_torch.models.llama import init_params
+    from flatquant_torch.serving.baseline import (
+        bf16_decode_step, bf16_prefill, build_bf16_params)
+    from flatquant_torch.serving.engine import init_cache
+
+    B, S, NEW, MAX_LEN = 1, 2048, 32, 2304
+    cfg = get_config("llama-2-7b")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    bp = build_bf16_params(cfg, init_params(cfg, seed=0,
+                                            dtype=torch.bfloat16, device=dev))
+    torch.cuda.synchronize()
+    log(f"  built bf16 llama-2-7b, {L} layers, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card in "
+        f"all, {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    kw = dict(max_len=MAX_LEN, device=dev)
+    bf16_prefill(cfg, bp, prompt, init_cache(cfg, B, MAX_LEN, device=dev),
+                 **kw)  # warm-up, not counted
+    torch.cuda.synchronize()
+
+    common.reset_launches()
+    cache = init_cache(cfg, B, MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = bf16_prefill(cfg, bp, prompt, cache, **kw)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = dict(common.LAUNCHES)
+    step_ms = []
+    tok = logits.argmax(-1, keepdim=True)
+    for i in range(NEW):
+        t0 = time.perf_counter()
+        lg, cache = bf16_decode_step(cfg, bp, tok, cache, S + i, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"bf16 decode step {i} logits not finite")
+        tok = lg.argmax(-1, keepdim=True)
+    launches = dict(common.LAUNCHES)
+    del cache
+    if prefill_launches["flash_prefill_attention"] != L:
+        raise AssertionError(
+            f"bf16_prefill: {prefill_launches['flash_prefill_attention']} "
+            f"flash launches, expected {L}")
+    decode_ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    log(f"  [{smi}] (c) bf16 comparator prefill B={B} S={S}: "
+        f"{prefill_ms:.1f} ms")
+    log(f"  [{smi}] (c) bf16 comparator decode, median {decode_ms:.2f} "
+        f"ms/step, B={B}, {NEW} steps")
+    log(f"  launches, (c) prefill + {NEW} decode steps: {launches}")
+    busy = profile_steps(torch, lambda i: bf16_prefill(
+        cfg, bp, prompt, init_cache(cfg, B, MAX_LEN, device=dev), **kw),
+        1, f"(c) bf16 prefill 1 x {S}")
+    if busy:
+        busy["idle_share_unprofiled"] = 1 - busy["busy_ms"] / prefill_ms
+    n, worst = [0], [0.0]
+    with patched([(pa, "flash_prefill_attention",
+                   _checked_flash(torch, n, worst))]):
+        checked, _ = bf16_prefill(cfg, bp, prompt,
+                                  init_cache(cfg, B, MAX_LEN, device=dev),
+                                  **kw)
+    with patched([(pa, "flash_prefill_attention",
+                   pa.flash_prefill_attention_ref)]):
+        plain, _ = bf16_prefill(cfg, bp, prompt,
+                                init_cache(cfg, B, MAX_LEN, device=dev), **kw)
+    torch.cuda.synchronize()
+    if n[0] != L:
+        raise AssertionError(f"{n[0]} flash launches checked, expected {L}")
+    cos = _cosine(torch, checked, plain)
+    log(f"  (c) every flash launch of a prefill vs its plain version: {n[0]} "
+        f"checked ('flash' tolerance, max abs err {worst[0]:.3e}); logits "
+        f"cosine against the prefill on the plain flash version {cos:.6f} "
+        f"(floor {BF16_COSINE_FLOOR})")
+    if not (torch.isfinite(checked).all() and cos >= BF16_COSINE_FLOOR):
+        raise AssertionError("bf16 comparator logits off their plain "
+                             "versions'")
+    results["bf16_comparator"] = dict(
+        model="llama-2-7b bf16", layers=L, batch=B, prompt=S, new_tokens=NEW,
+        max_len=MAX_LEN, prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+        step_ms=step_ms, prefill_launches=prefill_launches, launches=launches,
+        prefill_profile=busy, flash_max_abs_err=worst[0],
+        logits_cosine_vs_plain_flash=cos)
+    del bp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -1069,20 +1469,37 @@ KERNELS = {
     "attn_prologue": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/attn_prologue.cu",
         replaces="flatquant_tpu/kernels/attn_prologue.py:161"),
+    "flash_prefill_attention_kt": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/flash_prefill.cu",
+        replaces="flatquant_tpu/kernels/prefill_attention.py:233"),
+    "flash_prefill_attention": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/flash_prefill.cu",
+        replaces="flatquant_tpu/kernels/prefill_attention.py:117"),
 }
-# the path each kernel's `launches` is read from: the decode-serving run of
-# phase 4 for slice 1's kernels, the fused prefill of phase 5 for slice 2's
-DECODE_KERNELS = ("w4a4_matmul_i8", "decode_attention_int4", "write_token")
-PREFILL_KERNELS = ("rmsnorm_right_flat", "left_quant_i8_flat",
-                   "w4a4_matmul_i8_swiglu_right", "attn_prologue")
+# the path each kernel's `launches` is read from (each path's counts set to
+# 0 just before it and read just after): the decode-serving run of phase 4
+# for slice 1's kernels, the 4 x 512 prefill of phase 5 for slice 2's, the
+# int4 engine's 1 x 2048 prefill + decode (phase 6a) for flash kt and the
+# bf16 comparator's (phase 6c) for flash
+KERNEL_PATH = dict(
+    dict.fromkeys(("w4a4_matmul_i8", "decode_attention_int4", "write_token"),
+                  "decode"),
+    **dict.fromkeys(("rmsnorm_right_flat", "left_quant_i8_flat",
+                     "w4a4_matmul_i8_swiglu_right", "attn_prologue"),
+                    "prefill"),
+    flash_prefill_attention_kt="long_prefill",
+    flash_prefill_attention="bf16_comparator")
+DECODE_KERNELS = [k for k, p in KERNEL_PATH.items() if p == "decode"]
 
 
-def kernel_line(results, decode_launches, prefill_launches):
+def kernel_line(results, paths):
     """One entry per kernel at its path's shapes. Slice 1's at the decode
     shapes: the GEMM as one layer's four projections at M=4, attention at
     B=4 MHA over the valid lengths of the last generate step, the write at
     B=4. Slice 2's at the 4 x 512 prefill: left_quant_i8_flat as one
-    layer's four launches (three at K=4096, one at K=11008)."""
+    layer's four launches (three at K=4096, one at K=11008). Slice 3's at
+    llama-2-7b's 1 x 2048 prefill (32/32 heads). paths: {path: launches
+    read around it}."""
     out = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -1100,6 +1517,9 @@ def kernel_line(results, decode_launches, prefill_launches):
             rows, weights = r["rows"], [3, 1]
             at = ("T=2048, one layer: 3 x K=4096 (ln1, o, ln2) + "
                   "1 x K=11008 (down)")
+        elif name.startswith("flash_prefill"):
+            rows = r["rows"][:1]
+            at = rows[0]["case"]
         else:
             rows = r["rows"]
             at = rows[0]["case"]
@@ -1111,12 +1531,10 @@ def kernel_line(results, decode_launches, prefill_launches):
         lib = (total("library_ms") if all(x.get("library_ms") is not None
                                           for x in rows) else None)
         by = {x["bound_by"] for x in rows}
-        path = prefill_launches if name in PREFILL_KERNELS else \
-            decode_launches
         out.append(dict(
-            name=name, **meta, launches=path.get(name, 0),
-            launches_by_path={"decode": decode_launches.get(name, 0),
-                              "prefill": prefill_launches.get(name, 0)},
+            name=name, **meta,
+            launches=paths.get(KERNEL_PATH[name], {}).get(name, 0),
+            launches_by_path={p: c.get(name, 0) for p, c in paths.items()},
             max_abs_err=r["max_abs_err"], ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by=by.pop() if len(by) == 1 else "bytes", library_ms=lib,
@@ -1147,7 +1565,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 plain GEMM
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    failed, results, launches, prefill_launches = [], {}, {}, {}
+    failed, results, paths = [], {}, {}
 
     def phase(name, fn, *a):
         log(f"== {name}")
@@ -1185,21 +1603,33 @@ def main(argv=None) -> int:
               torch, dev, gen, results)
         phase("phase 3d: prefill kernels vs their plain versions",
               check_prefill_kernels, torch, dev, gen, results)
+        phase("phase 3e: flash prefill attention vs its plain versions",
+              check_flash, torch, dev, gen, results)
     model = None
     if not args.kernels_only and not failed:
         # the kernel checks' inputs and graph pools go back to the card
         # before the path runs start
         gc.collect()
         torch.cuda.empty_cache()
-        model = phase("build the random llama-2-7b (shared by phases 4, 5)",
+        model = phase("build the random llama-2-7b (shared by phases 4-6)",
                       build_model, torch, dev, 0)
     if model is not None:
-        launches = phase("phase 4: llama-2-7b decode-serving path",
-                         run_main_path, torch, dev, model, results,
-                         smi) or {}
-        prefill_launches = phase(
+        paths["decode"] = phase("phase 4: llama-2-7b decode-serving path",
+                                run_main_path, torch, dev, model, results,
+                                smi) or {}
+        paths["prefill"] = phase(
             "phase 5: llama-2-7b fused prompt prefill (4 x 512)",
             run_prefill_path, torch, dev, model, results, smi) or {}
+        paths["long_prefill"], paths["all_logits"] = phase(
+            "phase 6a/b: llama-2-7b 1 x 2048 prefill, int4 and bf16 caches",
+            run_long_prefill_path, torch, dev, model, results,
+            smi) or ({}, {})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["bf16_comparator"] = phase(
+            "phase 6c: the bf16 comparator, llama-2-7b 1 x 2048",
+            run_bf16_comparator, torch, dev, results, smi) or {}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,
@@ -1208,8 +1638,7 @@ def main(argv=None) -> int:
         log(f"FAILED phases: {failed}")
         return 1
     if not args.kernels_only:
-        print(json.dumps(kernel_line(results, launches, prefill_launches)),
-              flush=True)
+        print(json.dumps(kernel_line(results, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

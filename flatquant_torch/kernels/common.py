@@ -40,6 +40,8 @@ LAUNCHES: Dict[str, int] = {
     "left_quant_i8_flat": 0,
     "w4a4_matmul_i8_swiglu_right": 0,
     "attn_prologue": 0,
+    "flash_prefill_attention": 0,
+    "flash_prefill_attention_kt": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -75,6 +77,12 @@ _SIGNATURES = {
         # B, S, nh, nkv, L, pos, is_f32, stream
         "fq_attn_prologue": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "flash_prefill": {
+        # q, k, v, out, q strides (b, s, h), k strides (b, h, s), v strides
+        # (b, s, h), B, S, nh, nkv, scale, stream
+        "fq_flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _P],
     },
 }
 

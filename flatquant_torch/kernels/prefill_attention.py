@@ -1,15 +1,208 @@
 """Prefill attention (port of flatquant_tpu/kernels/prefill_attention.py).
 
-Only the dense causal path is ported: it is plain tensor math, which the
-JAX package also runs outside any Pallas kernel, and it is what prompts
-shorter than 1024 tokens take. The flash kernels (Pallas
-flash_prefill_attention / _kt) arrive with the long-prompt slices
-(ROADMAP queue 2).
+Causal GQA self-attention over a whole prompt, in three forms, routed by
+`prefill_attention` with JAX's thresholds:
+
+  dense_causal_attention  the O(S^2)-memory path of short prompts
+                          (S < 1024 or S % 128 != 0): plain tensor math,
+                          as in JAX
+  flash_prefill_ref       JAX's blockwise oracle (float32 softmax over
+                          q blocks of 256), the long-prompt path of
+                          use_kernel=False
+  flash kernels           the long-prompt path of use_kernel=True, one
+                          CUDA kernel (csrc/flash_prefill.cu) behind two
+                          entry points with JAX's public layouts:
+      flash_prefill_attention     q [B,S,nh,hd], k/v [B,S,nkv,hd]
+      flash_prefill_attention_kt  q [B,S,nh,hd], kt [B,nkv,hd,S],
+                                  v [B,S,nkv,hd]
+
+Query head h reads kv head h // (nh // nkv); K/V are never repeated.
+
+The plain versions of the flash entry points (`*_ref`) mirror the Pallas
+body's rounding, not flash_prefill_ref's: q is scaled by sm_scale *
+log2(e) in float32 and cast back to its dtype; scores are float32 and the
+softmax runs in the exp2 domain with an online max and sum over JAX's
+blocks (blk_q 256, blk_k 512, shrunk to divisors of S; full blocks
+unmasked, diagonal blocks masked with -inf, upper blocks skipped); p is
+cast to the input dtype before the PV product; the float32 accumulator is
+divided by max(l, 1e-30) and cast to q's dtype. The kernel keeps those
+rounding points but walks the keys in tiles of 64, so its running max,
+and with it the rounding of p, differs from the plain version's
+(kernels/tolerance.py, mode "flash").
+
+Each flash wrapper launches the kernel for CUDA tensors (bf16, head_dim
+128, S % 128 == 0) or raises, and runs its plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from flatquant_torch.kernels import common
+
+_LIB = "flash_prefill"
+_NAME = "flash_prefill_attention"
+_NAME_KT = "flash_prefill_attention_kt"
+_LOG2E = 1.4426950408889634
+FLASH_THRESHOLD = 1024
+HD = 128
+
+
+def _shrink_to_divisor(b: int, S: int) -> int:
+    """Largest power-of-two reduction of b that divides S (S is a multiple
+    of 128 here, so 128 always terminates the loop)."""
+    while S % b:
+        b //= 2
+    return b
+
+
+def _heads_first(t, n_rep):
+    """[B, S, n, hd] -> [B, n * n_rep, S, hd]: kv head j serves query
+    heads j * n_rep ... (j + 1) * n_rep - 1 (a view plus one copy)."""
+    B, S, n, hd = t.shape
+    t = t.permute(0, 2, 1, 3)
+    if n_rep > 1:
+        t = t[:, :, None].expand(B, n, n_rep, S, hd).reshape(B, n * n_rep,
+                                                              S, hd)
+    return t
+
+
+def _flash_body_ref(q, k, v, sm_scale: float, blk_q: int, blk_k: int):
+    """The Pallas flash body in plain PyTorch. q [B, S, nh, hd]; k, v
+    [B, S, nkv, hd] (any strides) -> [B, S, nh, hd] in q.dtype."""
+    B, S, nh, hd = q.shape
+    n_rep = nh // k.shape[2]
+    dt = q.dtype
+    bq = _shrink_to_divisor(min(blk_q, S), S)
+    bk = _shrink_to_divisor(min(blk_k, S), S)
+    scale = torch.full((), sm_scale * _LOG2E, dtype=torch.float32,
+                       device=q.device)
+    qs = (q.to(torch.float32) * scale).to(dt).to(torch.float32)
+    qs = qs.permute(0, 2, 1, 3)  # [B, nh, S, hd]
+    kf = _heads_first(k.to(dt), n_rep).to(torch.float32)
+    vf = _heads_first(v.to(dt), n_rep).to(torch.float32)
+    out = torch.empty((B, nh, S, hd), dtype=dt, device=q.device)
+    col = torch.arange(bk, device=q.device)
+    for i in range(S // bq):
+        q_start = i * bq
+        qi = qs[:, :, q_start:q_start + bq]
+        row = q_start + torch.arange(bq, device=q.device)[:, None]
+        n_full = q_start // bk
+        n_kblk = (q_start + bq + bk - 1) // bk
+        m = torch.full((B, nh, bq, 1), -math.inf, device=q.device)
+        l = torch.zeros((B, nh, bq, 1), device=q.device)
+        acc = torch.zeros((B, nh, bq, hd), device=q.device)
+        for j in range(n_kblk):
+            k_start = j * bk
+            s = qi @ kf[:, :, k_start:k_start + bk].transpose(-1, -2)
+            if j >= n_full:
+                s = torch.where(row >= k_start + col, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp2(s - m_new)
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            pv = p.to(dt).to(torch.float32) @ vf[:, :, k_start:k_start + bk]
+            acc = acc * corr + pv
+            m = m_new
+        out[:, :, q_start:q_start + bq] = (
+            acc / torch.clamp_min(l, 1e-30)).to(dt)
+    return out.permute(0, 2, 1, 3)
+
+
+def flash_prefill_attention_ref(q, k, v, sm_scale: float, blk_q: int = 256,
+                                blk_k: int = 512):
+    """Plain version of flash_prefill_attention (the Pallas body's rounding
+    and blocking)."""
+    return _flash_body_ref(q, k, v, sm_scale, blk_q, blk_k)
+
+
+def flash_prefill_attention_kt_ref(q, kt, v, sm_scale: float,
+                                   blk_q: int = 256, blk_k: int = 512):
+    """Plain version of flash_prefill_attention_kt: K arrives as
+    [B, nkv, hd, S]."""
+    return _flash_body_ref(q, kt.permute(0, 3, 1, 2), v, sm_scale, blk_q,
+                           blk_k)
+
+
+def _launch(name, q, k_bhs, v, sm_scale):
+    """Launch csrc/flash_prefill.cu. k_bhs: K as [B, nkv, S, hd] (any
+    batch/head/token strides, head-dim stride 1)."""
+    B, S, nh, hd = q.shape
+    nkv = v.shape[2]
+    req = common.require
+    req(all(t.is_cuda and t.device == q.device for t in (k_bhs, v)), name,
+        "q, k and v must be on the same CUDA device")
+    req(q.dtype == k_bhs.dtype == v.dtype == torch.bfloat16, name,
+        f"dtypes {q.dtype}, {k_bhs.dtype}, {v.dtype}: the kernel takes "
+        "bfloat16")
+    req(hd == HD and S % 128 == 0 and S > 0, name,
+        f"head_dim {hd} must be 128 and S {S} a multiple of 128")
+    req(nkv > 0 and nh % nkv == 0 and tuple(v.shape) == (B, S, nkv, hd)
+        and tuple(k_bhs.shape) == (B, nkv, S, hd), name,
+        f"shapes q {tuple(q.shape)}, k {tuple(k_bhs.shape)} (as "
+        f"[B, nkv, S, hd]), v {tuple(v.shape)}")
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    if v.stride(3) != 1:
+        v = v.contiguous()
+    if k_bhs.stride(3) != 1:  # e.g. JAX's [B, nkv, hd, S]: token-major copy
+        k_bhs = k_bhs.contiguous()
+    strides = [q.stride(0), q.stride(1), q.stride(2),
+               k_bhs.stride(0), k_bhs.stride(1), k_bhs.stride(2),
+               v.stride(0), v.stride(1), v.stride(2)]
+    req(all(s % 8 == 0 for s in strides)
+        and all(t.data_ptr() % 16 == 0 for t in (q, k_bhs, v)), name,
+        "16-byte aligned rows needed (strides a multiple of 8 elements)")
+    out = torch.empty((B, S, nh, hd), dtype=q.dtype, device=q.device)
+    rc = common.lib(_LIB).fq_flash_prefill(
+        q.data_ptr(), k_bhs.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *strides, B, S, nh, nkv, sm_scale * _LOG2E, common.stream_ptr(q))
+    common.check(_LIB, name, rc)
+    common.LAUNCHES[name] += 1
+    return out
+
+
+def flash_prefill_attention(q, k, v, sm_scale: float):
+    """Causal GQA attention over a whole prompt. q [B, S, nh, hd]; k, v
+    [B, S, nkv, hd] -> [B, S, nh, hd] in q.dtype. CUDA tensors launch the
+    kernel (bf16, hd 128, S % 128 == 0) or raise; CPU tensors run the
+    plain version."""
+    if q.device.type == "cpu":
+        return flash_prefill_attention_ref(q, k, v, sm_scale)
+    return _launch(_NAME, q, k.permute(0, 2, 1, 3), v, sm_scale)
+
+
+def flash_prefill_attention_kt(q, kt, v, sm_scale: float):
+    """flash_prefill_attention with K as [B, nkv, hd, S] (the layout the
+    JAX prologue emits). The port's prologue passes its token-major k_rot
+    as a strided view of that shape, which the kernel reads in place; a kt
+    whose head-dim stride is not 1 is copied token-major first."""
+    if q.device.type == "cpu":
+        return flash_prefill_attention_kt_ref(q, kt, v, sm_scale)
+    return _launch(_NAME_KT, q, kt.permute(0, 1, 3, 2), v, sm_scale)
+
+
+def flash_prefill_ref(q, k, v, sm_scale: float, blk_q: int = 256):
+    """JAX's pure-XLA blockwise oracle: for each q block, float32 scores
+    against keys [0, S) with an elementwise causal mask and a float32
+    softmax -> [B, S, nh, hd] in q.dtype."""
+    B, S, nh, hd = q.shape
+    n_rep = nh // k.shape[2]
+    bq = _shrink_to_divisor(min(blk_q, S), S)
+    kf = _heads_first(k.to(torch.float32), n_rep)  # [B, nh, S, hd]
+    vf = _heads_first(v.to(torch.float32), n_rep)
+    qf = q.to(torch.float32).permute(0, 2, 1, 3)
+    scale = torch.full((), sm_scale, dtype=torch.float32, device=q.device)
+    col = torch.arange(S, device=q.device)
+    out = torch.empty((B, nh, S, hd), dtype=torch.float32, device=q.device)
+    for i in range(S // bq):
+        s = (qf[:, :, i * bq:(i + 1) * bq] @ kf.transpose(-1, -2)) * scale
+        row = i * bq + torch.arange(bq, device=q.device)[:, None]
+        s = torch.where(row >= col, s, -math.inf)
+        out[:, :, i * bq:(i + 1) * bq] = torch.softmax(s, dim=-1) @ vf
+    return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
 def dense_causal_attention(q, k, v, sm_scale: float,
@@ -29,3 +222,17 @@ def dense_causal_attention(q, k, v, sm_scale: float,
     scores = scores.to(torch.float32) * sm_scale + bias
     probs = torch.softmax(scores, dim=-1).to(compute_dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(compute_dtype))
+
+
+def prefill_attention(q, k, v, sm_scale: float, use_kernel: bool,
+                      compute_dtype=torch.bfloat16,
+                      flash_threshold: int = FLASH_THRESHOLD):
+    """JAX's dispatch: dense for short prompts (S < flash_threshold or
+    S % 128 != 0), else the flash kernel with use_kernel, else the
+    blockwise oracle."""
+    S = q.shape[1]
+    if S < flash_threshold or S % 128 != 0:
+        return dense_causal_attention(q, k, v, sm_scale, compute_dtype)
+    if use_kernel:
+        return flash_prefill_attention(q, k, v, sm_scale)
+    return flash_prefill_ref(q, k, v, sm_scale)

@@ -105,6 +105,14 @@ def rope_tables(cfg: LlamaConfig, positions: torch.Tensor):
     return torch.cos(emb), torch.sin(emb)
 
 
+def silu(x):
+    """jax.nn.silu's own definition, x * (1 / (1 + exp(-x))), one rounding
+    per op in x's dtype: in bf16 it then matches JAX bit for bit, where
+    F.silu (one rounding at the end) differs by an ulp on a third of the
+    elements."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def rotate_half(x):
     half = x.shape[-1] // 2
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)

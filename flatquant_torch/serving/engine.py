@@ -1,6 +1,5 @@
-"""Serving engine over the packed int4 slot cache (port of
-flatquant_tpu/serving/engine.py: the decode-serving configuration and the
-fused prompt prefill below 1024 tokens).
+"""Serving engine over the packed int4 slot cache and the bf16 cache
+(port of flatquant_tpu/serving/engine.py).
 
 Semantics follow the reference deploy stack:
   - prefill attends with *unquantized* (transformed) K/V while writing the
@@ -10,22 +9,30 @@ Semantics follow the reference deploy stack:
   - KV entries are asym-int4 per (token, head), k-transform applied
     before quantization
 
+Two cache modes, as in JAX: "bf16" (the default) holds dequantized values
+(quantize -> dequantize at write for k/v bits < 16; `serving_layer`),
+"int4" packed nibbles read by the decode kernel (`serving_layer_int4cache`).
+
 Routes, as in JAX: with use_kernel, a prompt of B*S >= 256 rows takes the
 fused flat-pipeline routes (serving/quantized.py `_grouped_attn_in`,
-`_quant_mlp_grouped[_full]`) wherever their qualifying conditions hold,
-and a prefill with S % 128 == 0 and 256 <= S takes the fused attention
-prologue (`_fused_prefill_attention`: attn_prologue, dense attention,
-left_quant_i8_flat for the o head mixing, the o GEMM).
+`_quant_mlp_grouped[_full]`) wherever their qualifying conditions hold.
+Over the int4 cache a prefill with S % 128 == 0 and 256 <= S takes the
+fused attention prologue (`_fused_prefill_attention`: attn_prologue, flash
+kt attention at S >= 1024 or dense attention below, left_quant_i8_flat for
+the o head mixing, the o GEMM). Every other prefill attends through
+kernels/prefill_attention.py `prefill_attention` (dense below 1024 tokens,
+flash above: the kernel with use_kernel, JAX's blockwise oracle without).
 
 What differs from JAX: the cache is a dict of per-layer lists of tensors
-in the token-major layout (kernels/kv_cache.py), UPDATED IN PLACE by
-prefill and decode (JAX returns new, donated buffers); the layer loop is
-a Python loop over the per-layer parameter list. Branches not ported yet
-raise NotImplementedError naming the ROADMAP item that ports them: flash
-prefill attention (S >= 1024), the paged cache, the chunk phase, tp and
-the bf16 cache mode (before any cache write, in `_check_ported`), and the
-quant_acts_i8 / unfused swiglu GEMM routes of long prompts (where JAX
-takes them, in serving/quantized.py).
+(the int4 codes in the token-major layout of kernels/kv_cache.py), UPDATED
+IN PLACE by prefill and decode (JAX returns new, donated buffers); the
+layer loop is a Python loop over the per-layer parameter list. Branches
+not ported yet raise NotImplementedError naming the ROADMAP item that
+ports them, before any cache write (`_check_ported`): the paged cache,
+the chunk phase, tp and ring attention, the perm layouts, unmerged
+projections, weight-only and int8-weight linears, serving without the o
+transform; and, where JAX takes them, the quant_acts_i8 / unfused swiglu
+GEMM routes of long prompts (serving/quantized.py).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flatquant_torch.core.quant import true_div
 from flatquant_torch.kernels.attn_prologue import attn_prologue
 from flatquant_torch.kernels.common import resolve_device
 from flatquant_torch.kernels.flat_pipeline import left_quant_i8_flat
@@ -44,7 +52,11 @@ from flatquant_torch.kernels.kv_cache import (
     write_token,
     write_token_ref,
 )
-from flatquant_torch.kernels.prefill_attention import dense_causal_attention
+from flatquant_torch.kernels.prefill_attention import (
+    dense_causal_attention,
+    flash_prefill_attention_kt,
+    prefill_attention,
+)
 from flatquant_torch.models.config import LlamaConfig
 from flatquant_torch.models.llama import apply_rope, rms_norm, rope_tables, rotate_half
 from flatquant_torch.quantize.spec import FQConfig
@@ -54,26 +66,35 @@ from flatquant_torch.serving.quantized import (
     _quant_mlp_grouped,
     _quant_mlp_grouped_full,
     _quant_swiglu,
+    dequantize_kv,
     kron_transform,
+    quantize_kv_asym,
 )
 
-_OTHER_CACHES = ("bf16 and paged cache modes wait for ROADMAP queue 1 "
-                 "items 3 and 6")
+_PAGED = "the paged cache mode waits for ROADMAP queue 1 item 6"
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               mode: str = "int4", device="cuda") -> dict:
-    """Packed int4 KV cache, one zeroed tensor per layer:
-    "kp"/"vp" [B, nkv, max_len, hd/2] uint8 and "kparam"/"vparam"
-    [B, nkv, max_len, 2] float32 (scale, zero). Prefill and decode update
-    these tensors in place."""
-    if mode != "int4":
-        raise NotImplementedError(_OTHER_CACHES)
+               dtype=torch.bfloat16, mode: str = "bf16",
+               device="cuda") -> dict:
+    """KV cache, one zeroed tensor per layer, updated in place by prefill
+    and decode. mode="bf16": "k"/"v" [B, max_len, nkv, hd] in `dtype`
+    (dequantized values). mode="int4": "kp"/"vp" [B, nkv, max_len, hd/2]
+    uint8 and "kparam"/"vparam" [B, nkv, max_len, 2] float32 (scale,
+    zero); `dtype` is not used."""
+    if mode == "paged":
+        raise NotImplementedError(_PAGED)
+    if mode not in ("bf16", "int4"):
+        raise ValueError(f"cache mode {mode!r}: 'bf16', 'int4' or 'paged'")
     dev = resolve_device(device)
     L, nkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    if mode == "bf16":
+        return {key: [torch.zeros((batch, max_len, nkv, hd), dtype=dtype,
+                                  device=dev) for _ in range(L)]
+                for key in ("k", "v")}
 
-    def zeros(last, dtype):
-        return [torch.zeros((batch, nkv, max_len, last), dtype=dtype,
+    def zeros(last, dt):
+        return [torch.zeros((batch, nkv, max_len, last), dtype=dt,
                             device=dev) for _ in range(L)]
 
     return {"kp": zeros(hd // 2, torch.uint8),
@@ -99,41 +120,166 @@ def _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
             and a_cfg.enabled and a_cfg.q_max == 7)
 
 
-def _check_ported(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel, tp_axis,
-                  tbl):
+def _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis=None, tbl=None,
+                  attn_fn=None):
     """Raise NotImplementedError, before any cache write, for every branch
-    of JAX's serving_layer_int4cache that the port does not have yet (each
-    names the ROADMAP item that will), instead of taking another route."""
-    a_cfg = fq_cfg.a_cfg
+    of JAX's serving_layer / serving_layer_int4cache that the port does not
+    have yet (each names the ROADMAP item that will), instead of taking
+    another route."""
     if tp_axis is not None:
         raise NotImplementedError("tp waits for ROADMAP queue 1 item 9")
+    if attn_fn is not None:
+        raise NotImplementedError(
+            "attn_fn (ring attention, sequence-parallel serving) waits for "
+            "ROADMAP queue 1 item 9")
     if tbl is not None:
-        raise NotImplementedError(_OTHER_CACHES)
+        raise NotImplementedError(_PAGED)
     if phase not in ("prefill", "decode") or (phase == "decode" and S != 1):
         raise NotImplementedError(
             f"phase {phase!r} with {S} tokens (chunked prefill) waits for "
             "ROADMAP queue 1 item 6")
     if per_slot and S != 1:
         raise ValueError("per-slot positions only in single-token decode")
-    if not a_cfg.enabled:
+    if not fq_cfg.a_cfg.enabled:
         raise NotImplementedError(
             "weight-only serving waits for ROADMAP queue 1 item 3")
+    if any(key.endswith("_tp") for key in sl):
+        raise NotImplementedError(
+            "the perm layouts (ln_tp, ug_tp, down_tp, o_tp) wait for "
+            "ROADMAP queue 1 item 4")
     if "qkv" not in sl or "upgate" not in sl:
         raise NotImplementedError(
             "unmerged projections wait for ROADMAP queue 1 item 4")
+    if any("wp" not in sl[nm] for nm in ("qkv", "o", "upgate", "down")):
+        raise NotImplementedError(
+            "int8 ('w8') weights wait for ROADMAP queue 1 item 3")
     if sl.get("o_t") is None:
         raise NotImplementedError(
             "serving without the o head-mixing transform waits for ROADMAP "
             "queue 1 item 3")
-    if phase == "prefill" and S >= 1024 and S % 128 == 0:
-        if _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
-            raise NotImplementedError(
-                "flash prefill attention with K pre-transposed "
-                "(flash_prefill_attention_kt, S >= 1024) waits for ROADMAP "
-                "queue 2 item 8")
-        raise NotImplementedError(
-            "flash prefill attention (S >= 1024) waits for ROADMAP queue 2 "
-            "item 15")
+
+
+def _qlin(fq_cfg, h, lin, use_kernel, compute_dtype, bias=None):
+    """Per-token quant + W4A4 GEMM of h [..., K] -> [..., N] (+ bias)."""
+    y = _quant_linear(h.reshape(-1, h.shape[-1]), lin, use_kernel,
+                      compute_dtype, quant_acts=True,
+                      a_q_max=fq_cfg.a_cfg.q_max)
+    y = y.reshape(h.shape[:-1] + (lin["scale"].shape[0],))
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
+    """The merged qkv projection [B, S, q_dim + 2*kv_dim]: with use_kernel
+    the fused flat-pipeline input route where it qualifies, else RMSNorm,
+    the Kronecker transform and the quantized linear."""
+    B, S, H = x.shape
+    if use_kernel:
+        qkv_g = _grouped_attn_in(x.reshape(-1, H), sl, cfg.rms_eps,
+                                 compute_dtype, fq_cfg.a_cfg.q_max)
+        if qkv_g is not None:
+            qkv = qkv_g.reshape(B, S, qkv_g.shape[-1])
+            if sl.get("bqkv") is not None:
+                qkv = qkv + sl["bqkv"].to(qkv.dtype)
+            return qkv
+    h = rms_norm(x, sl["ln1_w"], cfg.rms_eps)
+    if "ln_t" in sl:
+        h = kron_transform(h, sl["ln_t"])
+    return _qlin(fq_cfg, h, sl["qkv"], use_kernel, compute_dtype,
+                 sl.get("bqkv"))
+
+
+def _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot):
+    """Split qkv into q [B, S, nh, hd], k, v [B, S, nkv, hd]; RoPE at
+    positions [pos, pos + S) (or each slot's own position); k by k_t and q
+    by k_t_inv into the cache's K space."""
+    B, S, _ = qkv.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+    q = q.reshape(B, S, nh, hd)
+    k = k.reshape(B, S, nkv, hd)
+    v = v.reshape(B, S, nkv, hd)
+    if per_slot:
+        cb = cos[pos][:, None, None, :]  # [B, 1, 1, d]
+        sb = sin[pos][:, None, None, :]
+        q = q * cb.to(q.dtype) + rotate_half(q) * sb.to(q.dtype)
+        k = k * cb.to(k.dtype) + rotate_half(k) * sb.to(k.dtype)
+    else:
+        q, k = apply_rope(q, k, cos[pos:pos + S], sin[pos:pos + S])
+    if "k_t" in sl:
+        k = _apply_head_matrix(k, sl["k_t"])
+        q = _apply_head_matrix(q, sl["k_t_inv"])
+    return q, k, v
+
+
+def _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype):
+    """x plus the o projection of attn [B, S, nh, hd]: the o_t head mixing
+    (einsum), per-token quant and the o GEMM."""
+    B, S = attn.shape[:2]
+    o_mat = sl["o_t"].to(attn.dtype)
+    g = o_mat.shape[0]
+    attn = attn.reshape(B, S, cfg.num_heads // g, g, cfg.head_dim)
+    attn = torch.einsum("ji,bstjd->bstid", o_mat, attn).reshape(
+        B, S, cfg.num_heads * cfg.head_dim)
+    return x + _qlin(fq_cfg, attn, sl["o"], use_kernel, compute_dtype)
+
+
+def serving_layer(cfg, fq_cfg, sl, x, cos, sin, ck, cv, pos, phase,
+                  use_kernel, compute_dtype=torch.bfloat16, tp_axis=None,
+                  attn_fn=None):
+    """One quantized decoder layer over the bf16 cache (JAX
+    engine.py:115-336).
+
+    x [B, S, H]; ck/cv: this layer's cache [B, Smax, nkv, hd], written IN
+    PLACE at [pos, pos + S) (per-slot decode: at each slot's position, by
+    masked select). K/V go through quantize -> dequantize at write when
+    their bits are < 16. Prefill attends with the unquantized K/V through
+    `prefill_attention`; decode attends over the cache. Returns the layer
+    output."""
+    B, S, H = x.shape
+    nkv, hd = cfg.num_kv_heads, cfg.head_dim
+    per_slot = torch.is_tensor(pos) and pos.ndim == 1
+    _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis, attn_fn=attn_fn)
+    qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
+    q, k, v = _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot)
+
+    stores = []
+    for t, bits_cfg, clip, cache in ((k, fq_cfg.k_cfg, sl.get("kc_clip"), ck),
+                                     (v, fq_cfg.v_cfg, sl.get("vc_clip"), cv)):
+        if bits_cfg.enabled:
+            # serving KV is asymmetric, so the grid is 2^bits - 1 whatever
+            # the sym flag (as in JAX)
+            tq, ts, tz = quantize_kv_asym(t, clip, q_max=(1 << bits_cfg.bits)
+                                          - 1)
+            stores.append(dequantize_kv(tq, ts, tz, cache.dtype))
+        else:
+            stores.append(t.to(cache.dtype))
+    for cache, new in zip((ck, cv), stores):
+        if per_slot:
+            row = torch.arange(cache.shape[1], device=x.device)
+            hit = row[None, :, None, None] == pos[:, None, None, None]
+            cache.copy_(torch.where(hit, new, cache))
+        else:
+            cache[:, pos:pos + S] = new
+
+    sm_scale = 1.0 / float(np.sqrt(hd))
+    if phase == "prefill":
+        attn = prefill_attention(q, k, v, sm_scale, use_kernel, compute_dtype)
+    else:
+        # decode: attend over the cache, row s seeing positions <= pos + s
+        ids = torch.arange(ck.shape[1], device=x.device)[None, None, None]
+        iq = torch.arange(S, device=x.device)[None, None, :, None]
+        limit = (pos.reshape(-1, 1, 1, 1) if per_slot else pos) + iq
+        bias = torch.where(ids <= limit, 0.0, -1e9)
+        n_rep = cfg.num_heads // nkv
+        k_att = ck.repeat_interleave(n_rep, dim=2) if n_rep > 1 else ck
+        v_att = cv.repeat_interleave(n_rep, dim=2) if n_rep > 1 else cv
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.to(compute_dtype),
+                              k_att.to(compute_dtype))
+        scores = true_div(scores.to(torch.float32), float(np.sqrt(hd))) + bias
+        probs = torch.softmax(scores, dim=-1).to(compute_dtype)
+        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v_att.to(compute_dtype))
+    x = _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype)
+    return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
 
 
 def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
@@ -147,53 +293,16 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
     and attends unquantized; decode writes one token and attends over the
     cache through decode_attention_int4. Returns the layer output."""
     B, S, H = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    a_cfg = fq_cfg.a_cfg
     per_slot = torch.is_tensor(pos) and pos.ndim == 1
-    _check_ported(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel, tp_axis,
-                  tbl)
-
-    def qlin(h, lin, bias=None):
-        y = _quant_linear(h.reshape(-1, h.shape[-1]), lin, use_kernel,
-                          compute_dtype, quant_acts=True, a_q_max=a_cfg.q_max)
-        y = y.reshape(h.shape[:-1] + (lin["scale"].shape[0],))
-        return y if bias is None else y + bias.to(y.dtype)
-
-    qkv = None
-    if use_kernel:
-        qkv_g = _grouped_attn_in(x.reshape(-1, H), sl, cfg.rms_eps,
-                                 compute_dtype, a_cfg.q_max)
-        if qkv_g is not None:
-            qkv = qkv_g.reshape(B, S, qkv_g.shape[-1])
-            if sl.get("bqkv") is not None:
-                qkv = qkv + sl["bqkv"].to(qkv.dtype)
-    if qkv is None:
-        h = rms_norm(x, sl["ln1_w"], cfg.rms_eps)
-        if "ln_t" in sl:
-            h = kron_transform(h, sl["ln_t"])
-        qkv = qlin(h, sl["qkv"], sl.get("bqkv"))
+    _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis, tbl)
+    qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
 
     if _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
         x = _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp,
                                      kparam, vp, vparam, pos, compute_dtype)
-        return _int4cache_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
+        return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
 
-    q, k, v = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
-    q = q.reshape(B, S, nh, hd)
-    k = k.reshape(B, S, nkv, hd)
-    v = v.reshape(B, S, nkv, hd)
-
-    if per_slot:
-        cb = cos[pos][:, None, None, :]  # [B, 1, 1, d]
-        sb = sin[pos][:, None, None, :]
-        q = q * cb.to(q.dtype) + rotate_half(q) * sb.to(q.dtype)
-        k = k * cb.to(k.dtype) + rotate_half(k) * sb.to(k.dtype)
-    else:
-        q, k = apply_rope(q, k, cos[pos:pos + S], sin[pos:pos + S])
-    if "k_t" in sl:
-        k = _apply_head_matrix(k, sl["k_t"])
-        q = _apply_head_matrix(q, sl["k_t_inv"])
-
+    q, k, v = _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot)
     kq, kpar = pack_kv_token_major(k, sl.get("kc_clip"))  # [B, nkv, S, .]
     vq, vpar = pack_kv_token_major(v, sl.get("vc_clip"))
     if per_slot:
@@ -205,9 +314,9 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
         vp[:, :, pos:pos + S] = vq
         vparam[:, :, pos:pos + S] = vpar
 
-    sm_scale = 1.0 / float(np.sqrt(hd))
+    sm_scale = 1.0 / float(np.sqrt(cfg.head_dim))
     if phase == "prefill":
-        attn = dense_causal_attention(q, k, v, sm_scale, compute_dtype)
+        attn = prefill_attention(q, k, v, sm_scale, use_kernel, compute_dtype)
     else:
         if per_slot:
             valid = (pos + 1).to(torch.int32)
@@ -222,21 +331,16 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
                 q[:, 0], kp, kparam[..., 0:1], kparam[..., 1:2], vp,
                 vparam[..., 0:1], vparam[..., 1:2], valid, sm_scale)
         attn = attn[:, None]
-
-    o_mat = sl["o_t"].to(attn.dtype)
-    g = o_mat.shape[0]
-    attn = attn.reshape(B, S, nh // g, g, hd)
-    attn = torch.einsum("ji,bstjd->bstid", o_mat, attn).reshape(B, S, nh * hd)
-    x = x + qlin(attn, sl["o"])
-    return _int4cache_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
+    x = _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype)
+    return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
 
 
-def _int4cache_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
-    """The MLP half of a serving layer: with use_kernel the fully fused
-    flat pipeline (_quant_mlp_grouped_full) or its tail after an eager ln2
-    (_quant_mlp_grouped) where they qualify; else the composed branch
-    (eager ln2 + Kronecker glue, the merged up||gate W4A4 GEMM, silu, the
-    down transform and the down GEMM)."""
+def _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
+    """The MLP half of a serving layer (both cache modes): with use_kernel
+    the fully fused flat pipeline (_quant_mlp_grouped_full) or its tail
+    after an eager ln2 (_quant_mlp_grouped) where they qualify; else the
+    composed branch (eager ln2 + Kronecker glue, the merged up||gate W4A4
+    GEMM, silu, the down transform and the down GEMM)."""
     H = x.shape[-1]
     a_cfg = fq_cfg.a_cfg
     if use_kernel:
@@ -257,22 +361,20 @@ def _int4cache_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
     act = act.reshape(h2.shape[:-1] + (act.shape[-1],))
     if "down_t" in sl:
         act = kron_transform(act, sl["down_t"])
-    y = _quant_linear(act.reshape(-1, act.shape[-1]), sl["down"], use_kernel,
-                      compute_dtype, True, a_cfg.q_max)
-    return x + y.reshape(x.shape)
+    return x + _qlin(fq_cfg, act, sl["down"], use_kernel, compute_dtype)
 
 
 def _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp, kparam,
                              vp, vparam, pos, compute_dtype):
     """Prefill attention through the fused prologue and the fused o path
-    (JAX engine.py:655-717, the dense branch). qkv: the merged projection
-    output [B, S, (nh + 2*nkv)*128]. attn_prologue writes the packed int4
-    K/V into the cache tensors at [pos, pos + S) in place; attention is
-    dense and unquantized (S < 1024 here: flash kt waits for ROADMAP
-    queue 2 item 8); the o head mixing + per-token quant is one
-    left_quant_i8_flat pass (a left Kronecker factor o_t.T with identity
-    right factor) on the bf16-rounded attention output. Returns x plus the
-    o projection."""
+    (JAX engine.py:655-717). qkv: the merged projection output
+    [B, S, (nh + 2*nkv)*128]. attn_prologue writes the packed int4 K/V
+    into the cache tensors at [pos, pos + S) in place; attention is
+    unquantized: flash kt at S >= 1024 (the prologue's token-major k_rot
+    passed as a strided [B, nkv, hd, S] view, no copy), dense below; the o
+    head mixing + per-token quant is one left_quant_i8_flat pass (a left
+    Kronecker factor o_t.T with identity right factor) on the
+    bf16-rounded attention output. Returns x plus the o projection."""
     B, S, _ = qkv.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qf, kf, vf = attn_prologue(
@@ -280,10 +382,14 @@ def _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp, kparam,
         sl.get("kc_clip"), sl.get("vc_clip"), nh=nh, nkv=nkv,
         cache=(kp, kparam, vp, vparam), pos=pos)[:3]
     sm_scale = 1.0 / float(np.sqrt(hd))
-    attn = dense_causal_attention(qf.reshape(B, S, nh, hd),
-                                  kf.reshape(B, S, nkv, hd),
-                                  vf.reshape(B, S, nkv, hd), sm_scale,
-                                  compute_dtype)
+    q4 = qf.reshape(B, S, nh, hd)
+    k4 = kf.reshape(B, S, nkv, hd)
+    v4 = vf.reshape(B, S, nkv, hd)
+    if S >= 1024 and S % 128 == 0:
+        attn = flash_prefill_attention_kt(q4, k4.permute(0, 2, 3, 1), v4,
+                                          sm_scale)
+    else:
+        attn = dense_causal_attention(q4, k4, v4, sm_scale, compute_dtype)
     zq, zs = left_quant_i8_flat(
         sl["o_t"].T, attn.reshape(B * S, nh * hd).to(torch.bfloat16),
         clip=sl["o"].get("a_clip"), q_max=fq_cfg.a_cfg.q_max)
@@ -296,21 +402,50 @@ def _forward(cfg, fq_cfg, sp, tokens, cache, pos, phase, use_kernel, max_len,
              compute_dtype=torch.bfloat16, last_idx=None):
     """Embed, run every layer (cache updated in place), final norm and
     lm_head on the last (or last_idx) token -> float32 logits [B, V]."""
-    if fq_cfg.k_cfg.bits != 4 or fq_cfg.v_cfg.bits != 4:
-        raise NotImplementedError(
-            "the packed cache holds int4 nibbles; kv8/kv16 configs need the "
-            "bf16 cache mode (ROADMAP queue 1 item 3)")
     x = sp["embed"][tokens].to(compute_dtype)
     cos, sin = rope_tables(cfg, torch.arange(max_len, device=x.device))
-    for i, sl in enumerate(sp["layers"]):
-        x = serving_layer_int4cache(
-            cfg, fq_cfg, sl, x, cos, sin, cache["kp"][i], cache["kparam"][i],
-            cache["vp"][i], cache["vparam"][i], pos, phase, use_kernel,
-            compute_dtype)
+    if "kp" in cache:
+        if fq_cfg.k_cfg.bits != 4 or fq_cfg.v_cfg.bits != 4:
+            raise ValueError(
+                "the packed cache holds int4 nibbles; kv8/kv16 configs use "
+                "the bf16 cache mode (kv8 quantizes at write there)")
+        for i, sl in enumerate(sp["layers"]):
+            x = serving_layer_int4cache(
+                cfg, fq_cfg, sl, x, cos, sin, cache["kp"][i],
+                cache["kparam"][i], cache["vp"][i], cache["vparam"][i], pos,
+                phase, use_kernel, compute_dtype)
+    else:
+        for i, sl in enumerate(sp["layers"]):
+            x = serving_layer(cfg, fq_cfg, sl, x, cos, sin, cache["k"][i],
+                              cache["v"][i], pos, phase, use_kernel,
+                              compute_dtype)
     x = rms_norm(x, sp["final_norm_w"], cfg.rms_eps)
     last = (x[:, -1] if last_idx is None
             else x[torch.arange(x.shape[0], device=x.device), last_idx])
     return (last @ sp["lm_head"].T.to(x.dtype)).to(torch.float32)
+
+
+@torch.no_grad()
+def serving_all_logits(cfg, fq_cfg, sp, tokens, use_kernel=False,
+                       compute_dtype=torch.bfloat16, device="cuda"):
+    """Full-sequence logits [B, S, V] float32 through the real-quant
+    serving stack (prefill-phase serving_layer over the bf16 cache): the
+    lm-eval loglikelihood / perplexity path over packed weights. JAX
+    allocates a whole cache it then discards; the port gives every layer
+    the same scratch pair [B, S, nkv, hd]."""
+    dev = resolve_device(device)
+    tokens = _as_tokens(tokens, dev)
+    B, S = tokens.shape
+    ck = torch.zeros((B, S, cfg.num_kv_heads, cfg.head_dim),
+                     dtype=compute_dtype, device=dev)
+    cv = torch.zeros_like(ck)
+    x = sp["embed"][tokens].to(compute_dtype)
+    cos, sin = rope_tables(cfg, torch.arange(S, device=dev))
+    for sl in sp["layers"]:
+        x = serving_layer(cfg, fq_cfg, sl, x, cos, sin, ck, cv, 0,
+                          "prefill", use_kernel, compute_dtype)
+    x = rms_norm(x, sp["final_norm_w"], cfg.rms_eps)
+    return (x @ sp["lm_head"].T.to(x.dtype)).to(torch.float32)
 
 
 def _as_tokens(tokens, dev):
@@ -360,7 +495,7 @@ def sample_token(logits, temperature: float = 0.0, generator=None):
 def generate(cfg: LlamaConfig, fq_cfg: FQConfig, sp: dict, prompt,
              max_new_tokens: int = 32, max_len: int = 2048,
              use_kernel: bool = True, temperature: float = 0.0, seed: int = 0,
-             cache_mode: str = "int4", compute_dtype=torch.bfloat16,
+             cache_mode: str = "bf16", compute_dtype=torch.bfloat16,
              device="cuda"):
     """Prefill `prompt` [B, S], then decode max_new_tokens tokens; greedy
     at temperature 0. Returns the generated tokens [B, max_new_tokens] as
@@ -368,7 +503,9 @@ def generate(cfg: LlamaConfig, fq_cfg: FQConfig, sp: dict, prompt,
     dev = resolve_device(device)
     prompt = _as_tokens(prompt, dev)
     B, S = prompt.shape
-    cache = init_cache(cfg, B, max_len, mode=cache_mode, device=dev)
+    cache = init_cache(cfg, B, max_len, mode=cache_mode, device=dev,
+                       dtype=compute_dtype if cache_mode == "bf16"
+                       else torch.bfloat16)
     logits, cache = serving_prefill(cfg, fq_cfg, sp, prompt, cache,
                                     use_kernel, max_len, compute_dtype, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -44,6 +44,7 @@ from flatquant_torch.kernels.int4_matmul import (
     w4a8_matmul_ref,
 )
 from flatquant_torch.models.config import LlamaConfig
+from flatquant_torch.models.llama import silu
 from flatquant_torch.quantize.spec import FQConfig
 
 # minimum input width at which JAX routes per-token act quant through the
@@ -228,11 +229,7 @@ def _quant_swiglu(x2d, lin, use_kernel: bool, out_dtype=torch.bfloat16,
             "waits for ROADMAP queue 2 item 13")
     y = _quant_linear(x2d, lin, use_kernel, out_dtype, quant_acts, a_q_max)
     up, gate = y.chunk(2, dim=-1)
-    # jax.nn.silu's own definition, x * (1 / (1 + exp(-x))), one rounding
-    # per op in the working dtype: in bf16 it then matches JAX bit for
-    # bit, where F.silu (one rounding at the end) differs by an ulp on a
-    # third of the elements
-    return gate * (1.0 / (1.0 + torch.exp(-gate))) * up
+    return silu(gate) * up
 
 
 def _quant_mlp_grouped(x2d, sl, out_dtype=torch.bfloat16, a_q_max: int = 7):

@@ -1,4 +1,5 @@
-"""Conversion of the JAX package's serving params into the port's.
+"""Conversion of the JAX package's serving params (and the bf16
+comparator's) into the port's.
 
 The JAX package stacks every layer leaf on a leading [L] axis (for
 lax.scan); the port keeps a list of per-layer dicts. Only numpy arrays
@@ -48,3 +49,11 @@ def from_jax_serving_params(sp_numpy: dict, device="cuda") -> dict:
     out = {k: _convert(v, dev) for k, v in sp_numpy.items() if k != "layers"}
     out["layers"] = per_layer
     return out
+
+
+def from_jax_bf16_params(bp_numpy: dict, device="cuda") -> dict:
+    """The JAX bf16 comparator's params (serving/baseline.py
+    build_bf16_params) as numpy arrays -> the port's baseline params on
+    `device`: the same {"embed", "final_norm_w", "lm_head", "layers":
+    [dict]} tree, with per-layer "wq" ... "wdown" and the norms."""
+    return from_jax_serving_params(bp_numpy, device)

@@ -17,6 +17,7 @@ from flatquant_torch.kernels import common
 from flatquant_torch.kernels import flat_pipeline as tfp
 from flatquant_torch.kernels import int4_matmul as tmm
 from flatquant_torch.kernels import kv_cache as tkv
+from flatquant_torch.kernels import prefill_attention as tpa
 from flatquant_torch.kernels.tolerance import (
     compare_bf16,
     compare_codes,
@@ -219,3 +220,57 @@ def test_plain_quant_divides_like_the_cpu(cuda):
     t = x.reshape(4, 128, 8, 128)
     for a, b in zip(tkv.quantize_pack_kv(t), tkv.quantize_pack_kv(t.cpu())):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# flash prefill attention, both entry points (tolerance mode "flash")
+# ---------------------------------------------------------------------------
+
+
+def _flash_inputs(g, cuda, B, S, nh, nkv, hd=128, dtype=torch.bfloat16):
+    return [torch.randn((B, S, n, hd), generator=g, device=cuda).to(dtype)
+            for n in (nh, nkv, nkv)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,nh,nkv", [(1, 1024, 4, 4), (2, 1152, 8, 2),
+                                        (1, 2048, 32, 8)])
+def test_flash_prefill_attention_matches_plain(cuda, B, S, nh, nkv):
+    g = torch.Generator(device=cuda).manual_seed(S + nkv)
+    q, k, v = _flash_inputs(g, cuda, B, S, nh, nkv)
+    got = _launched("flash_prefill_attention", tpa.flash_prefill_attention,
+                    q, k, v, 0.088)
+    want = tpa.flash_prefill_attention_ref(q, k, v, 0.088)
+    compare_bf16(got, want, "flash", "flash_prefill_attention")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["token-major view", "contiguous"])
+def test_flash_prefill_attention_kt_matches_plain(cuda, layout):
+    """The fused route's strided view of the prologue's token-major K, and
+    JAX's contiguous [B, nkv, hd, S] (copied token-major by the wrapper)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = _flash_inputs(g, cuda, 2, 1024, 8, 4)
+    kt = k.permute(0, 2, 3, 1)
+    if layout == "contiguous":
+        kt = kt.contiguous()
+    got = _launched("flash_prefill_attention_kt",
+                    tpa.flash_prefill_attention_kt, q, kt, v, 0.088)
+    want = tpa.flash_prefill_attention_kt_ref(q, kt, v, 0.088)
+    compare_bf16(got, want, "flash", "flash_prefill_attention_kt")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["float32", "head_dim 64", "S 1000"])
+def test_flash_prefill_attention_raises_on_what_it_does_not_take(cuda, what):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    S = 1000 if what == "S 1000" else 1024
+    hd = 64 if what == "head_dim 64" else 128
+    dtype = torch.float32 if what == "float32" else torch.bfloat16
+    q, k, v = _flash_inputs(g, cuda, 1, S, 4, 2, hd, dtype)
+    before = dict(common.LAUNCHES)
+    with pytest.raises(ValueError):
+        tpa.flash_prefill_attention(q, k, v, 0.1)
+    with pytest.raises(ValueError):
+        tpa.flash_prefill_attention_kt(q, k.permute(0, 2, 3, 1), v, 0.1)
+    assert common.LAUNCHES == before

@@ -296,7 +296,7 @@ def _run_both(model, dt, B, S, n_decode):
     jc = je.init_cache(jcfg, B, MAX_LEN, mode="int4")
     jl, jc = je.serving_prefill(jcfg, jfq, sp, jnp.asarray(toks), jc,
                                 use_kernel=True, compute_dtype=jdt, **kw)
-    tc = te.init_cache(cfg, B, MAX_LEN, device="cpu")
+    tc = te.init_cache(cfg, B, MAX_LEN, mode="int4", device="cpu")
     with _count_routes() as routes:
         tl, tc = te.serving_prefill(cfg, fq, tsp, toks, tc, compute_dtype=tdt,
                                     device="cpu", **kw)

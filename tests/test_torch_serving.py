@@ -150,7 +150,7 @@ def _run_both(model, jdt, use_kernel_jax, n_scalar, n_slot, max_len=MAX_LEN):
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
     jc = je.init_cache(jcfg, B, max_len, mode="int4")
-    tc = te.init_cache(cfg, B, max_len, device="cpu")
+    tc = te.init_cache(cfg, B, max_len, mode="int4", device="cpu")
     kw = dict(max_len=max_len)
     jl, jc = je.serving_prefill(jcfg, jfq, sp, jnp.asarray(toks), jc,
                                 use_kernel=use_kernel_jax,
@@ -218,7 +218,7 @@ def test_generate_matches_jax(model):
                        max_new_tokens=6, max_len=MAX_LEN, use_kernel=True,
                        cache_mode="int4", compute_dtype=jnp.float32)
     got = te.generate(cfg, fq, model["tsp"]["float32"], prompt,
-                      max_new_tokens=6, max_len=MAX_LEN,
+                      max_new_tokens=6, max_len=MAX_LEN, cache_mode="int4",
                       compute_dtype=torch.float32, device="cpu")
     np.testing.assert_array_equal(got, want)
 
@@ -293,7 +293,7 @@ def test_default_device_raises_without_a_card(model):
     cfg, fq = model["cfg"], model["fq"]
     with pytest.raises(RuntimeError, match="cuda"):
         te.init_cache(cfg, 1, MAX_LEN)
-    cache = te.init_cache(cfg, 1, MAX_LEN, device="cpu")
+    cache = te.init_cache(cfg, 1, MAX_LEN, mode="int4", device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         te.serving_prefill(cfg, fq, model["tsp"]["float32"],
                            np.zeros((1, 4), np.int32), cache)
@@ -304,20 +304,22 @@ def test_default_device_raises_without_a_card(model):
 
 def test_unported_routes_raise(model):
     """Branches the port does not have yet raise, naming their ROADMAP
-    item, instead of taking another route: other cache modes, flash
-    prefill attention (S >= 1024), the quant_acts_i8 route (T >= 256,
-    K >= 8192) and the unfused swiglu GEMM (T >= 256)."""
+    item, instead of taking another route: the paged cache, the chunk
+    phase, the quant_acts_i8 route (T >= 256, K >= 8192) and the unfused
+    swiglu GEMM (T >= 256)."""
     from flatquant_torch.serving import quantized as tq
 
     cfg, fq = model["cfg"], model["fq"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.init_cache(cfg, 1, MAX_LEN, mode="bf16", device="cpu")
-    cache = te.init_cache(cfg, 1, 1024, device="cpu")
-    toks = np.zeros((1, 1024), np.int32)  # the fused route's flash kt
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 8"):
-        te.serving_prefill(cfg, fq, model["tsp"]["float32"], toks, cache,
-                           max_len=1024, compute_dtype=torch.float32,
-                           device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        te.init_cache(cfg, 1, MAX_LEN, mode="paged", device="cpu")
+    cache = te.init_cache(cfg, 1, MAX_LEN, mode="int4", device="cpu")
+    sl = model["tsp"]["float32"]["layers"][0]
+    x = torch.zeros((1, 4, cfg.hidden_size))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        te.serving_layer_int4cache(cfg, fq, sl, x, None, None,
+                                   *[cache[k][0] for k in
+                                     ("kp", "kparam", "vp", "vparam")],
+                                   0, "chunk", False, torch.float32)
     lin = {"wp": torch.zeros((128, 4096), dtype=torch.uint8),
            "scale": torch.ones(128)}
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 12"):
