@@ -1181,18 +1181,75 @@ def run_prefill_path(torch, dev, model, results, smi):
 # 4 x 512 prefill's, plus one flash kt attention per layer
 LONG_PREFILL_LAUNCHES = dict(PREFILL_LAUNCHES, flash_prefill_attention_kt=1)
 # the tripwire of path (b) against path (a): random W4A4 logits are
-# chaotic, rounding variants of the same function at full depth gave
-# logits cosines of 0.31-0.34 (PERF.md, phase 5), while two unrelated
-# 4096-wide hidden states give |cosine| ~ 1/64
-LONG_COSINE_FLOOR = 0.05
+# chaotic, so rounding variants of the same prefill gave last-position
+# cosines of 0.38 and 0.54, and (a) on an unrelated prompt ending in the
+# same token -0.02 (PERF.md, phase 6b)
+LONG_COSINE_FLOOR = 0.2
 # path (c) against the same path with every flash launch swapped for its
 # plain version: no quantizer amplifies the p roundings of a bf16 model
 BF16_COSINE_FLOOR = 0.99
+# path (b) layer by layer: each serving_layer call against the same layer
+# from the same input on JAX's composed routes (use_kernel=False) with
+# each kernel's plain version, flash's being flash_prefill_attention_ref
+# (use_kernel=False alone would attend through JAX's float32 oracle, a
+# rounding variant that random W4A4 layers amplify to 0.2-0.3 of their
+# update). ||kernel - plain|| / ||plain|| over the whole layer, of its
+# update (output minus input) and of the K and V cache rows it wrote. The
+# two sides round apart (fused against composed routes, kernels against
+# plain versions), and random W4A4 layers amplify the codes that move by
+# one step: on the card the updates read 0.145-0.271, the caches 0.005.
+# A wrong layout, mask or cache write moves them by order 1 (1.4 for
+# uncorrelated rows; 0.65-1.5 for rolled kv heads or a missing diagonal
+# mask in a CPU rehearsal) (PERF.md, phase 6b)
+LAYER_REL_LIMIT = 0.5
 
 
 def _cosine(torch, a, b):
     return torch.nn.functional.cosine_similarity(
         a.double().flatten(), b.double().flatten(), dim=0).item()
+
+
+def _rel(torch, got, want):
+    """||got - want|| / ||want|| over the whole tensor, and the largest of
+    the same per token row [B, S, ...]."""
+    g = got.float().reshape(got.shape[0] * got.shape[1], -1)
+    w = want.float().reshape(g.shape)
+    rows = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+    return ((g - w).norm() / w.norm().clamp_min(1e-30)).item(), \
+        rows.max().item()
+
+
+def _checked_layer(torch, rec):
+    """serving_layer that also runs the same layer on its plain versions
+    from the same input into a scratch cache pair (LAYER_REL_LIMIT), and
+    appends to rec its measure, over the layer and at the worst token row,
+    of the layer's update and of the K and V cache rows written. The plain
+    run launches no kernel."""
+    from flatquant_torch.kernels import prefill_attention as pa
+    from flatquant_torch.serving import engine
+
+    layer = engine.serving_layer
+
+    def run(cfg, fq, sl, x, cos, sin, ck, cv, pos, phase, use_kernel,
+            compute_dtype=torch.bfloat16, **kw):
+        y = layer(cfg, fq, sl, x, cos, sin, ck, cv, pos, phase, use_kernel,
+                  compute_dtype, **kw)
+        pk, pv = torch.zeros_like(ck), torch.zeros_like(cv)
+        with patched([(pa, "flash_prefill_ref",
+                       pa.flash_prefill_attention_ref)]):
+            yp = layer(cfg, fq, sl, x, cos, sin, pk, pv, pos, phase, False,
+                       compute_dtype, **kw)
+        S = x.shape[1]
+        r = {}
+        for key, got, want in (
+                ("update", y - x, yp - x),
+                ("k", ck[:, pos:pos + S], pk[:, pos:pos + S]),
+                ("v", cv[:, pos:pos + S], pv[:, pos:pos + S])):
+            r[key], r[key + "_worst_row"] = _rel(torch, got, want)
+        rec.append(r)
+        return y
+
+    return run
 
 
 def _checked_flash(torch, n, worst):
@@ -1221,11 +1278,13 @@ def run_long_prefill_path(torch, dev, model, results, smi):
     prologue wrote; a profile of one prefill; every launch of one prefill
     checked. (b) serving_all_logits on the same tokens through the
     bf16-cache engine with use_kernel=True (composed attention input,
-    flash on the [B, S, nkv, hd] layout), every flash launch checked, its
-    last-position logits against (a)'s. Returns the launches of (a) and
-    of (b)."""
+    flash on the [B, S, nkv, hd] layout), every flash launch checked,
+    every layer against the same layer on its plain versions from the same
+    input (LAYER_REL_LIMIT), its last-position logits against (a)'s.
+    Returns the launches of (a) and of (b)."""
     from flatquant_torch.kernels import common
     from flatquant_torch.kernels import prefill_attention as pa
+    from flatquant_torch.serving import engine
     from flatquant_torch.serving.engine import (
         init_cache, serving_all_logits, serving_decode_step, serving_prefill)
 
@@ -1295,12 +1354,23 @@ def run_long_prefill_path(torch, dev, model, results, smi):
         init_cache(cfg, B, MAX_LEN, mode="int4", device=dev),
         use_kernel=False, **kw)
 
+    # a control for the tripwire below: (a) on an unrelated prompt that
+    # ends in the same token
+    other = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                          device=dev)
+    other[:, -1] = prompt[:, -1]
+    logits_other, _ = serving_prefill(
+        cfg, fq, sp, other,
+        init_cache(cfg, B, MAX_LEN, mode="int4", device=dev), **kw)
+
     # (b) the bf16-cache engine's full-sequence logits, every flash launch
-    # checked against its plain version
-    n, worst = [0], [0.0]
+    # checked against its plain version and every layer against the same
+    # layer on its plain versions
+    n, worst, layers = [0], [0.0], []
     common.reset_launches()
     with patched([(pa, "flash_prefill_attention",
-                   _checked_flash(torch, n, worst))]):
+                   _checked_flash(torch, n, worst)),
+                  (engine, "serving_layer", _checked_layer(torch, layers))]):
         t0 = time.perf_counter()
         all_logits = serving_all_logits(cfg, fq, sp, prompt, use_kernel=True,
                                         device=dev)
@@ -1315,19 +1385,33 @@ def run_long_prefill_path(torch, dev, model, results, smi):
             and torch.isfinite(all_logits).all()):
         raise AssertionError("serving_all_logits: not finite or of the "
                              "wrong shape")
-    for a in (logits_a, logits_plain):
+    for a in (logits_a, logits_plain, logits_other):
         if not (torch.isfinite(a).all() and a.shape == (B, cfg.vocab_size)):
             raise AssertionError("prefill logits not finite or of the wrong "
                                  "shape")
     cos_ab = _cosine(torch, all_logits[:, -1], logits_a)
     cos_noise = _cosine(torch, logits_plain, logits_a)
+    cos_control = _cosine(torch, logits_other, logits_a)
+    layer_worst = {key: max(r[key] for r in layers) for key in layers[0]}
     log(f"  (b) serving_all_logits B={B} S={S}, use_kernel=True: "
-        f"{all_ms:.1f} ms (with the per-launch checks); {n[0]} flash "
-        f"launches checked ('flash' tolerance, max abs err {worst[0]:.3e})")
+        f"{all_ms:.1f} ms (with the per-launch and per-layer checks); "
+        f"{n[0]} flash launches checked ('flash' tolerance, max abs err "
+        f"{worst[0]:.3e})")
+    log(f"  (b) {len(layers)} layers against the same layers on their plain "
+        f"versions, ||kernel - plain|| / ||plain|| (limit "
+        f"{LAYER_REL_LIMIT} on update, k, v; worst rows not gated), the "
+        f"largest over the layers: {layer_worst}; update by layer: "
+        f"{[round(r['update'], 4) for r in layers]}")
     log(f"  launches, (b): {launches_b}")
     log(f"  last-position logits cosine, (b) vs (a): {cos_ab:.4f} (floor "
         f"{LONG_COSINE_FLOOR}); (a) on the plain versions vs (a): "
-        f"{cos_noise:.4f} (noise floor, not gated)")
+        f"{cos_noise:.4f}; control, (a) on an unrelated prompt ending in the "
+        f"same token vs (a): {cos_control:.4f} (neither gated)")
+    if len(layers) != L or max(layer_worst[key] for key in
+                               ("update", "k", "v")) > LAYER_REL_LIMIT:
+        raise AssertionError(
+            f"serving_all_logits: {len(layers)} layers checked, worst "
+            f"{layer_worst} against the limit {LAYER_REL_LIMIT}")
     if cos_ab < LONG_COSINE_FLOOR:
         raise AssertionError("serving_all_logits' last position does not "
                              "follow the int4 engine's prefill")
@@ -1337,8 +1421,9 @@ def run_long_prefill_path(torch, dev, model, results, smi):
         step_ms=step_ms, prefill_launches=prefill_launches,
         launches=launches_a, prefill_profile=busy, per_launch_checks=checks,
         all_logits_ms_checked=all_ms, all_logits_launches=launches_b,
-        all_logits_flash_max_abs_err=worst[0], cosine_b_vs_a=cos_ab,
-        cosine_plain_vs_a=cos_noise)
+        all_logits_flash_max_abs_err=worst[0], all_logits_layers=layers,
+        all_logits_layer_worst=layer_worst, cosine_b_vs_a=cos_ab,
+        cosine_plain_vs_a=cos_noise, cosine_control_vs_a=cos_control)
     return prefill_launches, launches_b
 
 

@@ -22,7 +22,7 @@ The plain versions of the flash entry points (`*_ref`) mirror the Pallas
 body's rounding, not flash_prefill_ref's: q is scaled by sm_scale *
 log2(e) in float32 and cast back to its dtype; scores are float32 and the
 softmax runs in the exp2 domain with an online max and sum over JAX's
-blocks (blk_q 256, blk_k 512, shrunk to divisors of S; full blocks
+blocks (Q_BLK 256, K_BLK 512, shrunk to divisors of S; full blocks
 unmasked, diagonal blocks masked with -inf, upper blocks skipped); p is
 cast to the input dtype before the PV product; the float32 accumulator is
 divided by max(l, 1e-30) and cast to q's dtype. The kernel keeps those
@@ -47,7 +47,15 @@ _NAME = "flash_prefill_attention"
 _NAME_KT = "flash_prefill_attention_kt"
 _LOG2E = 1.4426950408889634
 FLASH_THRESHOLD = 1024
+Q_BLK = 256  # JAX's q block, shrunk to a divisor of S
+K_BLK = 512  # JAX's k block, shrunk to a divisor of S
 HD = 128
+
+
+def is_flash(S: int) -> bool:
+    """JAX's long-prompt test: a prompt of S tokens takes flash attention
+    (kernel or blockwise oracle) instead of dense."""
+    return S >= FLASH_THRESHOLD and S % 128 == 0
 
 
 def _shrink_to_divisor(b: int, S: int) -> int:
@@ -69,14 +77,14 @@ def _heads_first(t, n_rep):
     return t
 
 
-def _flash_body_ref(q, k, v, sm_scale: float, blk_q: int, blk_k: int):
+def _flash_body_ref(q, k, v, sm_scale: float):
     """The Pallas flash body in plain PyTorch. q [B, S, nh, hd]; k, v
     [B, S, nkv, hd] (any strides) -> [B, S, nh, hd] in q.dtype."""
     B, S, nh, hd = q.shape
     n_rep = nh // k.shape[2]
     dt = q.dtype
-    bq = _shrink_to_divisor(min(blk_q, S), S)
-    bk = _shrink_to_divisor(min(blk_k, S), S)
+    bq = _shrink_to_divisor(min(Q_BLK, S), S)
+    bk = _shrink_to_divisor(min(K_BLK, S), S)
     scale = torch.full((), sm_scale * _LOG2E, dtype=torch.float32,
                        device=q.device)
     qs = (q.to(torch.float32) * scale).to(dt).to(torch.float32)
@@ -111,19 +119,16 @@ def _flash_body_ref(q, k, v, sm_scale: float, blk_q: int, blk_k: int):
     return out.permute(0, 2, 1, 3)
 
 
-def flash_prefill_attention_ref(q, k, v, sm_scale: float, blk_q: int = 256,
-                                blk_k: int = 512):
+def flash_prefill_attention_ref(q, k, v, sm_scale: float):
     """Plain version of flash_prefill_attention (the Pallas body's rounding
     and blocking)."""
-    return _flash_body_ref(q, k, v, sm_scale, blk_q, blk_k)
+    return _flash_body_ref(q, k, v, sm_scale)
 
 
-def flash_prefill_attention_kt_ref(q, kt, v, sm_scale: float,
-                                   blk_q: int = 256, blk_k: int = 512):
+def flash_prefill_attention_kt_ref(q, kt, v, sm_scale: float):
     """Plain version of flash_prefill_attention_kt: K arrives as
     [B, nkv, hd, S]."""
-    return _flash_body_ref(q, kt.permute(0, 3, 1, 2), v, sm_scale, blk_q,
-                           blk_k)
+    return _flash_body_ref(q, kt.permute(0, 3, 1, 2), v, sm_scale)
 
 
 def _launch(name, q, k_bhs, v, sm_scale):
@@ -184,13 +189,13 @@ def flash_prefill_attention_kt(q, kt, v, sm_scale: float):
     return _launch(_NAME_KT, q, kt.permute(0, 1, 3, 2), v, sm_scale)
 
 
-def flash_prefill_ref(q, k, v, sm_scale: float, blk_q: int = 256):
-    """JAX's pure-XLA blockwise oracle: for each q block, float32 scores
-    against keys [0, S) with an elementwise causal mask and a float32
-    softmax -> [B, S, nh, hd] in q.dtype."""
+def flash_prefill_ref(q, k, v, sm_scale: float):
+    """JAX's pure-XLA blockwise oracle: for each q block (Q_BLK), float32
+    scores against keys [0, S) with an elementwise causal mask and a
+    float32 softmax -> [B, S, nh, hd] in q.dtype."""
     B, S, nh, hd = q.shape
     n_rep = nh // k.shape[2]
-    bq = _shrink_to_divisor(min(blk_q, S), S)
+    bq = _shrink_to_divisor(min(Q_BLK, S), S)
     kf = _heads_first(k.to(torch.float32), n_rep)  # [B, nh, S, hd]
     vf = _heads_first(v.to(torch.float32), n_rep)
     qf = q.to(torch.float32).permute(0, 2, 1, 3)
@@ -225,13 +230,10 @@ def dense_causal_attention(q, k, v, sm_scale: float,
 
 
 def prefill_attention(q, k, v, sm_scale: float, use_kernel: bool,
-                      compute_dtype=torch.bfloat16,
-                      flash_threshold: int = FLASH_THRESHOLD):
-    """JAX's dispatch: dense for short prompts (S < flash_threshold or
-    S % 128 != 0), else the flash kernel with use_kernel, else the
-    blockwise oracle."""
-    S = q.shape[1]
-    if S < flash_threshold or S % 128 != 0:
+                      compute_dtype=torch.bfloat16):
+    """JAX's dispatch: dense for short prompts (not is_flash(S)), else the
+    flash kernel with use_kernel, else the blockwise oracle."""
+    if not is_flash(q.shape[1]):
         return dense_causal_attention(q, k, v, sm_scale, compute_dtype)
     if use_kernel:
         return flash_prefill_attention(q, k, v, sm_scale)

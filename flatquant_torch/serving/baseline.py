@@ -8,7 +8,8 @@ transforms, no quantization. The linears are plain bf16 `torch.matmul`
 `prefill_attention` (the flash kernel for long prompts on a card, as the
 JAX baseline takes its Pallas kernel on a TPU: on the CPU both packages
 take the blockwise oracle); decode is the plain einsum over the bf16
-cache of `engine.init_cache(mode="bf16")`, updated IN PLACE.
+cache of `engine.init_cache(mode="bf16")` (engine `_cache_attention`),
+updated IN PLACE.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from flatquant_torch.core.quant import true_div
 from flatquant_torch.kernels.common import resolve_device
 from flatquant_torch.kernels.prefill_attention import prefill_attention
 from flatquant_torch.models.config import LlamaConfig
@@ -26,6 +26,7 @@ from flatquant_torch.models.llama import (
     rope_tables,
     silu,
 )
+from flatquant_torch.serving.engine import _cache_attention
 
 
 def build_bf16_params(cfg: LlamaConfig, params: dict) -> dict:
@@ -66,15 +67,7 @@ def _layer(cfg, lp, x, cos, sin, ck, cv, pos, phase):
         attn = prefill_attention(q, k, v, 1.0 / float(np.sqrt(hd)),
                                  q.is_cuda, q.dtype)
     else:
-        ids = torch.arange(ck.shape[1], device=x.device)[None, None, None]
-        bias = torch.where(ids <= pos + S - 1, 0.0, -1e9)
-        n_rep = nh // nkv
-        k_att = ck.repeat_interleave(n_rep, dim=2) if n_rep > 1 else ck
-        v_att = cv.repeat_interleave(n_rep, dim=2) if n_rep > 1 else cv
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k_att.to(q.dtype))
-        scores = true_div(scores.to(torch.float32), float(np.sqrt(hd))) + bias
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v_att.to(q.dtype))
+        attn = _cache_attention(q, ck, cv, pos, q.dtype)
     x = x + _lin(attn.reshape(B, S, nh * hd), lp["wo"])
 
     h2 = rms_norm(x, lp["ln2_w"], cfg.rms_eps)

@@ -55,6 +55,7 @@ from flatquant_torch.kernels.kv_cache import (
 from flatquant_torch.kernels.prefill_attention import (
     dense_causal_attention,
     flash_prefill_attention_kt,
+    is_flash,
     prefill_attention,
 )
 from flatquant_torch.models.config import LlamaConfig
@@ -223,6 +224,29 @@ def _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype):
     return x + _qlin(fq_cfg, attn, sl["o"], use_kernel, compute_dtype)
 
 
+def _cache_attention(q, ck, cv, pos, compute_dtype):
+    """Attention of q [B, S, nh, hd] over a bf16 cache ck/cv
+    [B, Smax, nkv, hd], row s seeing positions <= pos + s (pos an int, or
+    a per-slot tensor [B]); plain tensor math, as in JAX: float32 scores
+    divided by sqrt(hd) with a -1e9 bias, probs cast to compute_dtype
+    before the PV product. Shared by serving_layer and the bf16
+    comparator."""
+    S, nh, hd = q.shape[1:]
+    ids = torch.arange(ck.shape[1], device=q.device)[None, None, None]
+    iq = torch.arange(S, device=q.device)[None, None, :, None]
+    per_slot = torch.is_tensor(pos) and pos.ndim == 1
+    limit = (pos.reshape(-1, 1, 1, 1) if per_slot else pos) + iq
+    bias = torch.where(ids <= limit, 0.0, -1e9)
+    n_rep = nh // ck.shape[2]
+    k_att = ck.repeat_interleave(n_rep, dim=2) if n_rep > 1 else ck
+    v_att = cv.repeat_interleave(n_rep, dim=2) if n_rep > 1 else cv
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(compute_dtype),
+                          k_att.to(compute_dtype))
+    scores = true_div(scores.to(torch.float32), float(np.sqrt(hd))) + bias
+    probs = torch.softmax(scores, dim=-1).to(compute_dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v_att.to(compute_dtype))
+
+
 def serving_layer(cfg, fq_cfg, sl, x, cos, sin, ck, cv, pos, phase,
                   use_kernel, compute_dtype=torch.bfloat16, tp_axis=None,
                   attn_fn=None):
@@ -235,8 +259,7 @@ def serving_layer(cfg, fq_cfg, sl, x, cos, sin, ck, cv, pos, phase,
     their bits are < 16. Prefill attends with the unquantized K/V through
     `prefill_attention`; decode attends over the cache. Returns the layer
     output."""
-    B, S, H = x.shape
-    nkv, hd = cfg.num_kv_heads, cfg.head_dim
+    S = x.shape[1]
     per_slot = torch.is_tensor(pos) and pos.ndim == 1
     _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis, attn_fn=attn_fn)
     qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
@@ -261,23 +284,11 @@ def serving_layer(cfg, fq_cfg, sl, x, cos, sin, ck, cv, pos, phase,
         else:
             cache[:, pos:pos + S] = new
 
-    sm_scale = 1.0 / float(np.sqrt(hd))
+    sm_scale = 1.0 / float(np.sqrt(cfg.head_dim))
     if phase == "prefill":
         attn = prefill_attention(q, k, v, sm_scale, use_kernel, compute_dtype)
     else:
-        # decode: attend over the cache, row s seeing positions <= pos + s
-        ids = torch.arange(ck.shape[1], device=x.device)[None, None, None]
-        iq = torch.arange(S, device=x.device)[None, None, :, None]
-        limit = (pos.reshape(-1, 1, 1, 1) if per_slot else pos) + iq
-        bias = torch.where(ids <= limit, 0.0, -1e9)
-        n_rep = cfg.num_heads // nkv
-        k_att = ck.repeat_interleave(n_rep, dim=2) if n_rep > 1 else ck
-        v_att = cv.repeat_interleave(n_rep, dim=2) if n_rep > 1 else cv
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.to(compute_dtype),
-                              k_att.to(compute_dtype))
-        scores = true_div(scores.to(torch.float32), float(np.sqrt(hd))) + bias
-        probs = torch.softmax(scores, dim=-1).to(compute_dtype)
-        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v_att.to(compute_dtype))
+        attn = _cache_attention(q, ck, cv, pos, compute_dtype)
     x = _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype)
     return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
 
@@ -385,7 +396,7 @@ def _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp, kparam,
     q4 = qf.reshape(B, S, nh, hd)
     k4 = kf.reshape(B, S, nkv, hd)
     v4 = vf.reshape(B, S, nkv, hd)
-    if S >= 1024 and S % 128 == 0:
+    if is_flash(S):
         attn = flash_prefill_attention_kt(q4, k4.permute(0, 2, 3, 1), v4,
                                           sm_scale)
     else:

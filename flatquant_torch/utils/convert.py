@@ -38,7 +38,9 @@ def _convert(tree, dev, index=None):
 def from_jax_serving_params(sp_numpy: dict, device="cuda") -> dict:
     """JAX serving params as numpy arrays (stacked over layers, or a
     per-layer list from unstack_serving_layers) -> the port's params on
-    `device`: {"embed", "final_norm_w", "lm_head", "layers": [dict]}."""
+    `device`: {"embed", "final_norm_w", "lm_head", "layers": [dict]}.
+    The bf16 comparator's params (serving/baseline.py build_bf16_params)
+    are the same tree and convert through this function too."""
     dev = resolve_device(device)
     layers = sp_numpy["layers"]
     if isinstance(layers, dict):
@@ -50,10 +52,3 @@ def from_jax_serving_params(sp_numpy: dict, device="cuda") -> dict:
     out["layers"] = per_layer
     return out
 
-
-def from_jax_bf16_params(bp_numpy: dict, device="cuda") -> dict:
-    """The JAX bf16 comparator's params (serving/baseline.py
-    build_bf16_params) as numpy arrays -> the port's baseline params on
-    `device`: the same {"embed", "final_norm_w", "lm_head", "layers":
-    [dict]} tree, with per-layer "wq" ... "wdown" and the norms."""
-    return from_jax_serving_params(bp_numpy, device)

@@ -63,10 +63,7 @@ from flatquant_torch.models.llama import rope_tables
 from flatquant_torch.quantize.spec import W4A4KV4
 from flatquant_torch.serving import baseline as tb
 from flatquant_torch.serving import engine as te
-from flatquant_torch.utils.convert import (
-    from_jax_bf16_params,
-    from_jax_serving_params,
-)
+from flatquant_torch.utils.convert import from_jax_serving_params
 
 torch.set_num_threads(2)
 
@@ -189,7 +186,7 @@ def model():
                 fq=dataclasses.replace(W4A4KV4, tpu_decompose=True),
                 tsp=from_jax_serving_params(jax.tree.map(np.asarray, sp),
                                             device="cpu"),
-                tbp=from_jax_bf16_params(jax.tree.map(np.asarray, jbp),
+                tbp=from_jax_serving_params(jax.tree.map(np.asarray, jbp),
                                          device="cpu"))
 
 
