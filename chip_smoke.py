@@ -22,6 +22,11 @@ line):
      flash_prefill_attention_kt) at llama-2-7b's 1 x 2048, llama-3-8b's
      GQA heads and S=1152, within the "flash" tolerance, timed beside the
      causal scaled_dot_product_attention call (a yardstick only)
+     3f: chunk_attention_int4 (Sq=256 at pos 0, 768, 1792 over S=2048),
+     paged_decode_attention_int4 (B=4, valid 1..2048, block 256, shuffled
+     tables) and paged_chunk_attention_int4 (chunks straddling a block
+     edge), MHA 32/32 and GQA 32/8, each paged kernel also bit for bit
+     against its slot twin on the gathered cache
   4. build one random llama-2-7b (32 layers, random seeded weights, rn128
      Kronecker transforms baked into the weights; shared by phases 4 to
      6) and drive the decode-serving path at full width and depth:
@@ -47,6 +52,17 @@ line):
      comparator (serving/baseline.py) on a random bf16 llama-2-7b:
      prefill and 32 decode steps timed, its flash launches checked, then
      freed.
+  7. the continuous batcher (serving/batcher.py) over the phase-4 model,
+     rebuilt from its seed (use_kernel=True, bf16 compute, 4 slots,
+     max_len 2048): (a) the int4 slot cache with chunked prefill of 256
+     on eight requests (prompts of 40 to 1500 tokens, 16 to 32 new
+     tokens each), (b) the same over the paged pool (block 256, the
+     default half-capacity pool: admission defers), (c)/(d) int4 and
+     paged with prefill buckets of 128 on the first four, (e) the bf16
+     cache, chunked, on two. One line per run (wall s, tokens, tokens/s,
+     median decode step and chunk, launches); (a) and (b) again with
+     every launch of rows 9-11 held to its plain version; (b) = (a) and
+     (d) = (c) token for token; every pool block returned.
   Then the kernel table as one JSON line, then the result line.
 
 Details go to chiprun_out/chip_smoke.json. Nothing here imports JAX or
@@ -544,6 +560,149 @@ def check_flash(torch, dev, gen, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: chunk attention and the paged attention kernels
+# ---------------------------------------------------------------------------
+
+
+def _slot_view(torch, kp, kpar, vp, vpar, tbl):
+    """The pool gathered slot-major through tbl, contiguous (the slot
+    kernels' input)."""
+    from flatquant_torch.kernels.paged_kv import gather_kv_paged
+
+    kc, kpr = gather_kv_paged(kp, kpar, tbl)
+    vc, vpr = gather_kv_paged(vp, vpar, tbl)
+    return tuple(t.contiguous() for t in (kc, kpr, vc, vpr))
+
+
+def _paged_pool(torch, dev, gen, B, nkv, mb, bs):
+    """A random pool of 1 + B*mb blocks with a shuffled block table, and
+    the same cache gathered slot-major (the slot kernels' input)."""
+    pool = _rand_cache(torch, dev, gen, 1 + B * mb, nkv, bs)
+    perm = torch.randperm(B * mb, generator=gen, device=dev) + 1
+    tbl = perm.reshape(B, mb).to(torch.int32)
+    return pool, tbl, _slot_view(torch, *pool, tbl)
+
+
+def check_chunk_paged(torch, dev, gen, results):
+    """Rows 9-11 against their plain versions at llama-2-7b widths (MHA
+    32/32) and llama-3-8b's GQA 32/8, bf16 queries, within ATTN_TOL, and
+    each paged kernel bit for bit against its slot twin on the gathered
+    cache (one body: the property that makes paged serving equal the slot
+    cache's): chunk_attention_int4 at Sq=256, pos 0, 768 and 1792 over
+    S=2048; paged_decode_attention_int4 at B=4 over valid lengths 1, 255,
+    256, 1000 and 2048, block 256, shuffled tables;
+    paged_chunk_attention_int4 with the chunk straddling a block edge.
+    Each timed like phase 3b beside its plain version and its bound (float
+    operations at the CUDA cores' float32 rate, or cache bytes)."""
+    from flatquant_torch.kernels import kv_cache as kv
+    from flatquant_torch.kernels import paged_kv as pk
+
+    S, SQ, BS, sm = 2048, 256, 256, 1.0 / math.sqrt(128)
+    heads = [("MHA 32/32", 32, 32), ("GQA 32/8", 32, 8)]
+
+    def record(name, label, kernel, plain, args, nbytes, flops, err, **kw):
+        ms = cuda_ms(torch, kernel, args, 40)
+        plain_ms = cuda_ms(torch, plain, args, 4)
+        b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+        r = results.setdefault(name, dict(rows=[], max_abs_err=0.0))
+        r["rows"].append(dict(case=label, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                              bytes=nbytes, ops=flops, max_abs_err=err, **kw))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        log(f"  {name} {label}: max abs err {err:.3e} (tol rtol/atol "
+            f"{ATTN_TOL['rtol']}){'; bit-equal to its slot twin' if 'paged' in name else ''}; "
+            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP); library_ms none")
+
+    def held(got, want):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL)
+        return (got.float() - want.float()).abs().max().item()
+
+    def chunk_work(pos_l, nh, nkv, sq, kv_tokens):
+        # q read and output written in bf16; K/V codes and params of the
+        # keys the rows see; 4 flops per (row, key, dim): QK and PV
+        nbytes = 2 * 2 * len(pos_l) * sq * nh * 128 + kv_tokens * nkv * 144
+        pairs = sum(sq * (p + 1) + sq * (sq - 1) // 2 for p in pos_l)
+        return nbytes, 4 * 128 * nh * pairs
+
+    # chunk_attention_int4: B=1 (the batcher's chunk), S=2048
+    for hlabel, nh, nkv in heads:
+        for pos_v in (0, 768, 1792):
+            full = nkv * S * 144
+            caches = [_rand_cache(torch, dev, gen, 1, nkv, S)
+                      for _ in range(copies_for(full))]
+            q = torch.randn((1, SQ, nh, 128), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            pos = torch.tensor([pos_v], device=dev, dtype=torch.int32)
+            err = held(kv.chunk_attention_int4(q, *caches[0], pos, sm),
+                       kv.chunk_attention_ref(q, *caches[0], pos, sm))
+            nbytes, flops = chunk_work([pos_v], nh, nkv, SQ, pos_v + SQ)
+            record("chunk_attention_int4",
+                   f"B=1 Sq={SQ} {hlabel} pos={pos_v} S={S}",
+                   kv.chunk_attention_int4, kv.chunk_attention_ref,
+                   [(q, *c, pos, sm) for c in caches], nbytes, flops, err,
+                   pos=pos_v, nh=nh, nkv=nkv)
+            del caches
+
+    # paged_decode_attention_int4: B=4, block 256, shuffled tables
+    mb = S // BS
+    cases = [("MHA 32/32", 32, 32, [1, 255, 256, 1000]),
+             ("MHA 32/32", 32, 32, [2048, 1000, 256, 1]),
+             ("GQA 32/8", 32, 8, [2048, 255, 1000, 1])]
+    for hlabel, nh, nkv, valid_l in cases:
+        B = len(valid_l)
+        full = (1 + B * mb) * nkv * BS * 144
+        states = [_paged_pool(torch, dev, gen, B, nkv, mb, BS)
+                  for _ in range(copies_for(full))]
+        q = torch.randn((B, nh, 128), generator=gen, device=dev).to(
+            torch.bfloat16)
+        valid = torch.tensor(valid_l, device=dev, dtype=torch.int32)
+        pool, tbl, slot = states[0]
+        got = pk.paged_decode_attention_int4(q, *pool, tbl, valid, sm)
+        err = held(got, pk.paged_decode_attention_ref(q, *pool, tbl, valid,
+                                                      sm))
+        if not torch.equal(got, kv.decode_attention_int4(q, *slot, valid,
+                                                         sm)):
+            raise AssertionError("paged decode differs from the slot kernel")
+        tokens = sum(valid_l)
+        nbytes = tokens * nkv * 144 + 2 * 2 * B * nh * 128 + 4 * B * (mb + 1)
+        record("paged_decode_attention_int4",
+               f"B={B} {hlabel} valid={valid_l} block {BS}",
+               pk.paged_decode_attention_int4, pk.paged_decode_attention_ref,
+               [(q, *pl, t, valid, sm) for pl, t, _ in states], nbytes,
+               tokens * nh * 128 * 4, err, valid=valid_l, nh=nh, nkv=nkv)
+        del states
+
+    # paged_chunk_attention_int4: B=1, the chunk straddling a block edge
+    for hlabel, nh, nkv in heads:
+        for pos_v in (640, 1000):
+            full = (1 + mb) * nkv * BS * 144
+            states = [_paged_pool(torch, dev, gen, 1, nkv, mb, BS)
+                      for _ in range(copies_for(full))]
+            q = torch.randn((1, SQ, nh, 128), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            pos = torch.tensor([pos_v], device=dev, dtype=torch.int32)
+            pool, tbl, slot = states[0]
+            got = pk.paged_chunk_attention_int4(q, *pool, tbl, pos, sm)
+            err = held(got, pk.paged_chunk_attention_ref(q, *pool, tbl, pos,
+                                                         sm))
+            if not torch.equal(got, kv.chunk_attention_int4(q, *slot, pos,
+                                                            sm)):
+                raise AssertionError("paged chunk differs from the slot "
+                                     "kernel")
+            nbytes, flops = chunk_work([pos_v], nh, nkv, SQ, pos_v + SQ)
+            record("paged_chunk_attention_int4",
+                   f"B=1 Sq={SQ} {hlabel} pos={pos_v} block {BS}",
+                   pk.paged_chunk_attention_int4,
+                   pk.paged_chunk_attention_ref,
+                   [(q, *pl, t, pos, sm) for pl, t, _ in states], nbytes,
+                   flops, err, pos=pos_v, nh=nh, nkv=nkv)
+            del states
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the decode-serving path at full llama-2-7b width and depth
 # ---------------------------------------------------------------------------
 
@@ -649,6 +808,10 @@ def profile_steps(torch, step, n, label="decode"):
         hits = [k for k in groups if k in name]
         if "flash_prefill_kernel" in name:
             groups[flash] += ms
+        elif hits and "true>" in name and "paged_" + max(hits, key=len) \
+                in groups:
+            # the paged twins are the slot kernels' templates on <..., true>
+            groups["paged_" + max(hits, key=len)] += ms
         else:
             groups[max(hits, key=len) if hits else other] += ms
     busy_ms = sum(kern.values())
@@ -1530,6 +1693,231 @@ def run_bf16_comparator(torch, dev, results, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the continuous batcher at full llama-2-7b width and depth
+# ---------------------------------------------------------------------------
+
+# the requests of runs (a) and (b): prompt lengths and max_new_tokens
+BATCH_PROMPTS = [48, 300, 1100, 96, 700, 1500, 200, 40]
+BATCH_NEW = [32, 24, 16, 32, 24, 16, 32, 24]
+BATCH_MAX_LEN, BATCH_SLOTS = 2048, 4
+
+
+def _checked_batch_attention(torch, n, worst):
+    """(module, name, wrapper) for the engine's calls of rows 9-11: every
+    launch held to its plain version on the same inputs (ATTN_TOL), and
+    each paged launch bit for bit to its slot twin on the gathered cache.
+    n / worst: checks and largest abs error per kernel."""
+    from flatquant_torch.kernels import kv_cache as kv
+    from flatquant_torch.kernels import paged_kv as pk
+    from flatquant_torch.serving import engine
+
+    def note(name, got, want):
+        torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL)
+        worst[name] = max(worst[name],
+                          (got.float() - want.float()).abs().max().item())
+        n[name] += 1
+
+    def chunk(q, kp, kpar, vp, vpar, pos, sm):
+        y = kv.chunk_attention_int4(q, kp, kpar, vp, vpar, pos, sm)
+        note("chunk_attention_int4", y,
+             kv.chunk_attention_ref(q, kp, kpar, vp, vpar, pos, sm))
+        return y
+
+    def pdecode(q, kp, kpar, vp, vpar, tbl, valid, sm):
+        y = pk.paged_decode_attention_int4(q, kp, kpar, vp, vpar, tbl, valid,
+                                           sm)
+        note("paged_decode_attention_int4", y,
+             pk.paged_decode_attention_ref(q, kp, kpar, vp, vpar, tbl, valid,
+                                           sm))
+        slot = _slot_view(torch, kp, kpar, vp, vpar, tbl)
+        if not torch.equal(y, kv.decode_attention_int4(q, *slot, valid, sm)):
+            raise AssertionError("paged decode differs from the slot kernel "
+                                 "on the path")
+        return y
+
+    def pchunk(q, kp, kpar, vp, vpar, tbl, pos, sm):
+        y = pk.paged_chunk_attention_int4(q, kp, kpar, vp, vpar, tbl, pos, sm)
+        note("paged_chunk_attention_int4", y,
+             pk.paged_chunk_attention_ref(q, kp, kpar, vp, vpar, tbl, pos,
+                                          sm))
+        slot = _slot_view(torch, kp, kpar, vp, vpar, tbl)
+        if not torch.equal(y, kv.chunk_attention_int4(q, *slot, pos, sm)):
+            raise AssertionError("paged chunk differs from the slot kernel "
+                                 "on the path")
+        return y
+
+    return [(engine, "chunk_attention_int4", chunk),
+            (engine, "paged_decode_attention_int4", pdecode),
+            (engine, "paged_chunk_attention_int4", pchunk)]
+
+
+def _serve(torch, dev, model, requests, **kw):
+    """One ContinuousBatcher run (use_kernel=True, bf16 compute, 4 slots,
+    max_len 2048) over requests [(prompt, max_new_tokens)], launch counts
+    set to 0 just before and read just after. Returns (tokens by request
+    in submission order, record)."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.serving.batcher import ContinuousBatcher
+
+    cfg, fq, sp = model
+    b = ContinuousBatcher(cfg, fq, sp, batch_slots=BATCH_SLOTS,
+                          max_len=BATCH_MAX_LEN, use_kernel=True,
+                          compute_dtype=torch.bfloat16, device=dev, **kw)
+    times = {"decode": [], "chunk": [], "prefill": []}
+
+    def timed(name, fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    b._decode_multi = timed("decode", b._decode_multi)
+    b._chunk_one = timed("chunk", b._chunk_one)
+    b._prefill_one = timed("prefill", b._prefill_one)
+    rids = [b.submit(p, m) for p, m in requests]
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    out = b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    if set(out) != set(rids):
+        raise AssertionError(f"served {sorted(out)} of {rids}")
+    toks = [out[r] for r in rids]
+    for t, (_, m) in zip(toks, requests):
+        if len(t) != m or not all(0 <= x < cfg.vocab_size for x in t):
+            raise AssertionError(f"request served {len(t)} of {m} tokens, or "
+                                 "a token outside the vocabulary")
+    free = None
+    if b.cache_mode == "paged":
+        free = b.alloc.free_count
+        if free != b.alloc.n_blocks - 1:
+            raise AssertionError(f"{free} of {b.alloc.n_blocks - 1} pool "
+                                 "blocks back in the allocator")
+    med = lambda v: sorted(v)[len(v) // 2] if v else None
+    n_out = sum(len(t) for t in toks)
+    rec = dict(requests=len(requests), wall_s=wall, output_tokens=n_out,
+               tokens_per_s=n_out / wall, decode_steps=len(times["decode"]),
+               decode_ms_median=med(times["decode"]),
+               chunks=len(times["chunk"]), chunk_ms_median=med(times["chunk"]),
+               prefills=len(times["prefill"]),
+               prefill_ms_median=med(times["prefill"]), launches=launches,
+               pool_blocks=(None if free is None else b.alloc.n_blocks),
+               options=kw)
+    return toks, rec
+
+
+def run_batcher_path(torch, dev, model, results, smi):
+    """The continuous batcher over the full-depth model: (a) int4 slot
+    cache, chunked prefill of 256; (b) the same requests over the paged
+    pool (block 256, the default half-capacity pool of 17 blocks: 16
+    usable against reservations of 20, so admission defers); (c) and (d)
+    int4 and paged, bucketed prefill of 128, the first four requests; (e)
+    the bf16 cache, chunked, two requests. Then (a) and (b) again with
+    every launch of rows 9-11 held to its plain version (and each paged
+    launch to its slot twin), their tokens equal to the unchecked runs'.
+    Checks: (b) = (a) and (d) = (c) token for token, every request served
+    in full, every pool block returned. Returns {run: launches}."""
+    cfg = model[0]
+    gen = torch.Generator().manual_seed(7)
+    reqs = [(torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+             .to(torch.int32).numpy(), m)
+            for n, m in zip(BATCH_PROMPTS, BATCH_NEW)]
+    runs = {
+        "batcher_int4": ("(a) int4, chunks of 256", reqs,
+                         dict(cache_mode="int4", prefill_chunk=256)),
+        "batcher_paged": ("(b) paged, chunks of 256, block 256, default pool",
+                          reqs, dict(cache_mode="paged", prefill_chunk=256,
+                                     block_size=256)),
+        "batcher_int4_bucket": ("(c) int4, buckets of 128", reqs[:4],
+                                dict(cache_mode="int4", prefill_bucket=128)),
+        "batcher_paged_bucket": ("(d) paged, buckets of 128, block 256",
+                                 reqs[:4], dict(cache_mode="paged",
+                                                prefill_bucket=128,
+                                                block_size=256)),
+        "batcher_bf16": ("(e) bf16 cache, chunks of 256", reqs[:2],
+                         dict(cache_mode="bf16", prefill_chunk=256)),
+    }
+    toks, recs, paths = {}, {}, {}
+    for key, (label, rq, kw) in runs.items():
+        toks[key], rec = _serve(torch, dev, model, rq, **kw)
+        recs[key] = rec
+        paths[key] = rec["launches"]
+        dm, cm = rec["decode_ms_median"], rec["chunk_ms_median"]
+        log(f"  [{smi}] phase 7 {label}: {rec['requests']} requests, wall "
+            f"{rec['wall_s']:.2f} s, {rec['output_tokens']} output tokens, "
+            f"{rec['tokens_per_s']:.2f} tokens/s; decode step median "
+            f"{dm:.2f} ms ({rec['decode_steps']} steps); chunk median "
+            f"{'-' if cm is None else f'{cm:.2f} ms'} ({rec['chunks']} "
+            f"chunks); prefills {rec['prefills']}; launches {rec['launches']}"
+            + ("" if rec["pool_blocks"] is None else
+               f"; all {rec['pool_blocks'] - 1} pool blocks returned"))
+        gc.collect()
+        torch.cuda.empty_cache()
+    for x, y in (("batcher_paged", "batcher_int4"),
+                 ("batcher_paged_bucket", "batcher_int4_bucket")):
+        if toks[x] != toks[y]:
+            raise AssertionError(f"{x} tokens differ from {y}'s")
+    log("  (b) = (a) and (d) = (c), token for token")
+    for key, name in (("batcher_int4", "chunk_attention_int4"),
+                      ("batcher_paged", "paged_decode_attention_int4"),
+                      ("batcher_paged", "paged_chunk_attention_int4")):
+        if paths[key].get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched in {key}")
+
+    # every launch of rows 9-11 in (a) and (b) against its plain version
+    names = ("chunk_attention_int4", "paged_decode_attention_int4",
+             "paged_chunk_attention_int4")
+    n, worst = dict.fromkeys(names, 0), dict.fromkeys(names, 0.0)
+    for key in ("batcher_int4", "batcher_paged"):
+        label, rq, kw = runs[key]
+        with patched(_checked_batch_attention(torch, n, worst)):
+            checked, _ = _serve(torch, dev, model, rq, **kw)
+        if checked != toks[key]:
+            raise AssertionError(f"{key}: the checked run's tokens differ")
+    for key, name in (("batcher_int4", "chunk_attention_int4"),
+                      ("batcher_paged", "paged_decode_attention_int4"),
+                      ("batcher_paged", "paged_chunk_attention_int4")):
+        if n[name] != paths[key][name]:
+            raise AssertionError(f"{name}: {n[name]} launches checked, "
+                                 f"{paths[key][name]} in {key}")
+    log(f"  every launch of rows 9-11 in (a) and (b) vs its plain version: "
+        f"{n} checked (tol rtol/atol {ATTN_TOL['rtol']}; paged bit-equal to "
+        f"the slot kernels); max abs err {worst}")
+    busy = {key: _profile_batcher(torch, dev, model, reqs[:4], runs[key][2])
+            for key in ("batcher_int4", "batcher_paged")}
+    results["batcher_path"] = dict(
+        model="llama-2-7b", layers=cfg.num_layers, slots=BATCH_SLOTS,
+        max_len=BATCH_MAX_LEN, prompts=BATCH_PROMPTS, new_tokens=BATCH_NEW,
+        runs=recs, per_launch_checks=dict(launches=n, max_abs_err=worst),
+        decode_step_profiles=busy)
+    return paths
+
+
+def _profile_batcher(torch, dev, model, requests, kw):
+    """Device time by kernel over 3 scheduler steps of a batcher whose four
+    slots all decode (no chunk in flight): where a decode step's time
+    goes, and the device's idle share."""
+    from flatquant_torch.serving.batcher import ContinuousBatcher
+
+    cfg, fq, sp = model
+    b = ContinuousBatcher(cfg, fq, sp, batch_slots=BATCH_SLOTS,
+                          max_len=BATCH_MAX_LEN, use_kernel=True,
+                          compute_dtype=torch.bfloat16, device=dev, **kw)
+    for p, _ in requests:
+        b.submit(p, 64)
+    while b.pending is not None or b.queue:
+        b.step()
+    return profile_steps(torch, lambda i: b.step(), 3,
+                         f"batcher decode step ({kw['cache_mode']}, 4 slots)")
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -1560,12 +1948,22 @@ KERNELS = {
     "flash_prefill_attention": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flash_prefill.cu",
         replaces="flatquant_tpu/kernels/prefill_attention.py:117"),
+    "chunk_attention_int4": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/kv_cache.cu",
+        replaces="flatquant_tpu/kernels/kv_cache.py:624"),
+    "paged_decode_attention_int4": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/kv_cache.cu",
+        replaces="flatquant_tpu/kernels/paged_kv.py:213"),
+    "paged_chunk_attention_int4": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/kv_cache.cu",
+        replaces="flatquant_tpu/kernels/paged_kv.py:337"),
 }
 # the path each kernel's `launches` is read from (each path's counts set to
 # 0 just before it and read just after): the decode-serving run of phase 4
 # for slice 1's kernels, the 4 x 512 prefill of phase 5 for slice 2's, the
-# int4 engine's 1 x 2048 prefill + decode (phase 6a) for flash kt and the
-# bf16 comparator's (phase 6c) for flash
+# int4 engine's 1 x 2048 prefill + decode (phase 6a) for flash kt, the
+# bf16 comparator's (phase 6c) for flash, and the batcher's runs (a) int4
+# and (b) paged (phase 7) for slice 4's
 KERNEL_PATH = dict(
     dict.fromkeys(("w4a4_matmul_i8", "decode_attention_int4", "write_token"),
                   "decode"),
@@ -1573,7 +1971,10 @@ KERNEL_PATH = dict(
                      "w4a4_matmul_i8_swiglu_right", "attn_prologue"),
                     "prefill"),
     flash_prefill_attention_kt="long_prefill",
-    flash_prefill_attention="bf16_comparator")
+    flash_prefill_attention="bf16_comparator",
+    chunk_attention_int4="batcher_int4",
+    paged_decode_attention_int4="batcher_paged",
+    paged_chunk_attention_int4="batcher_paged")
 DECODE_KERNELS = [k for k, p in KERNEL_PATH.items() if p == "decode"]
 
 
@@ -1604,6 +2005,13 @@ def kernel_line(results, paths):
                   "1 x K=11008 (down)")
         elif name.startswith("flash_prefill"):
             rows = r["rows"][:1]
+            at = rows[0]["case"]
+        elif name in ("chunk_attention_int4", "paged_chunk_attention_int4",
+                      "paged_decode_attention_int4"):
+            # MHA at a middle chunk (768; paged: 640, straddling a block
+            # edge), and the paged decode at valid [1, 255, 256, 1000]
+            rows = [x for x in r["rows"] if x["nkv"] == 32][1:2] \
+                if name == "chunk_attention_int4" else r["rows"][:1]
             at = rows[0]["case"]
         else:
             rows = r["rows"]
@@ -1690,6 +2098,8 @@ def main(argv=None) -> int:
               check_prefill_kernels, torch, dev, gen, results)
         phase("phase 3e: flash prefill attention vs its plain versions",
               check_flash, torch, dev, gen, results)
+        phase("phase 3f: chunk and paged attention vs their plain versions",
+              check_chunk_paged, torch, dev, gen, results)
     model = None
     if not args.kernels_only and not failed:
         # the kernel checks' inputs and graph pools go back to the card
@@ -1715,6 +2125,13 @@ def main(argv=None) -> int:
         paths["bf16_comparator"] = phase(
             "phase 6c: the bf16 comparator, llama-2-7b 1 x 2048",
             run_bf16_comparator, torch, dev, results, smi) or {}
+        model = phase("rebuild the random llama-2-7b (seed 0) for phase 7",
+                      build_model, torch, dev, 0)
+    if model is not None:
+        paths.update(phase(
+            "phase 7: llama-2-7b under the continuous batcher",
+            run_batcher_path, torch, dev, model, results, smi) or {})
+        del model
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,

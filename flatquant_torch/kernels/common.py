@@ -42,6 +42,9 @@ LAUNCHES: Dict[str, int] = {
     "attn_prologue": 0,
     "flash_prefill_attention": 0,
     "flash_prefill_attention_kt": 0,
+    "chunk_attention_int4": 0,
+    "paged_decode_attention_int4": 0,
+    "paged_chunk_attention_int4": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -62,6 +65,17 @@ _SIGNATURES = {
         # kp, kpar, vp, vpar, kq, kpn, vq, vpn, pos, B, nkv, S, hdh, stream
         "fq_write_token": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _P],
+        # q, kp, kpar, vp, vpar, pos, out, B, nkv, R, Sq, S, sm_scale, stream
+        "fq_chunk_attention_int4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _F, _P],
+        # q, kp, kpar, vp, vpar, tbl, valid, out, B, nkv, n_rep, mb, bs,
+        # sm_scale, stream
+        "fq_paged_decode_attention_int4": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _I, _I, _I, _I, _I, _F, _P],
+        # q, kp, kpar, vp, vpar, tbl, pos, out, B, nkv, R, Sq, mb, bs,
+        # sm_scale, stream
+        "fq_paged_chunk_attention_int4": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                          _I, _I, _I, _I, _I, _F, _P],
     },
     "flat_pipeline": {
         # x, w, right, y, T, H, eps, x_is_f32, stream

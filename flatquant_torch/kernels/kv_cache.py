@@ -9,9 +9,11 @@ which is the layout of the JAX package's `decode_attention_ref` and
 TPU's lanes) is a VMEM choice; `pack_kv_transposed` / `untranspose_kv`
 convert to and from it for the tests.
 
-Kernels (csrc/kv_cache.cu): `decode_attention_int4` and `write_token`.
-Each wrapper launches its kernel for CUDA tensors (or raises) and runs
-its plain version for CPU tensors.
+Kernels (csrc/kv_cache.cu): `decode_attention_int4`,
+`chunk_attention_int4` and `write_token` (the block-pool twins of the
+attention kernels are in kernels/paged_kv.py). Each wrapper launches its
+kernel for CUDA tensors (or raises) and runs its plain version for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from flatquant_torch.core.quant import true_div
 from flatquant_torch.kernels import common
 
 _ATTN = "decode_attention_int4"
+_CHUNK = "chunk_attention_int4"
 _WRITE = "write_token"
 
 
@@ -111,6 +114,28 @@ def decode_attention_ref(q, kp, ks, kz, vp, vs, vz, valid_len, sm_scale):
     return out.to(q.dtype)
 
 
+def check_attention_args(name, q, nkv, codes, params):
+    """The attention kernels' common argument checks: q (bf16 or f32) and
+    the cache on one CUDA device, head_dim 128, n_rep in {1, 2, 4, 8},
+    uint8 codes and float32 params, contiguous and 16-byte aligned."""
+    nh, hd = q.shape[-2], q.shape[-1]
+    req = common.require
+    req(all(t.device == q.device for t in (*codes, *params)), name,
+        "all inputs must be on the same CUDA device")
+    req(q.dtype in (torch.bfloat16, torch.float32), name,
+        f"q dtype {q.dtype} must be bfloat16 or float32")
+    req(hd == 128 and all(c.shape[-1] == 64 for c in codes), name,
+        f"head_dim must be 128, got {hd}")
+    req(nh % nkv == 0 and nh // nkv in (1, 2, 4, 8), name,
+        f"n_rep = {nh}/{nkv} must be 1, 2, 4 or 8")
+    req(all(c.dtype == torch.uint8 for c in codes)
+        and all(p.dtype == torch.float32 for p in params), name,
+        "codes must be uint8 and params float32")
+    req(all(t.is_contiguous() and t.data_ptr() % 16 == 0
+            for t in (*codes, *params)), name,
+        "cache tensors must be contiguous and 16-byte aligned")
+
+
 def decode_attention_int4(q, kp, kparam, vp, vparam, valid_len,
                           sm_scale: float):
     """One-token GQA attention over the token-major int4 cache.
@@ -126,21 +151,12 @@ def decode_attention_int4(q, kp, kparam, vp, vparam, valid_len,
                                     valid_len, sm_scale)
     B, nh, hd = q.shape
     _, nkv, S, hdh = kp.shape
-    req = common.require
-    req(all(t.device == q.device for t in (kp, kparam, vp, vparam, valid_len)),
-        _ATTN, "all inputs must be on the same CUDA device")
-    req(hd == 128 and hdh == 64, _ATTN, f"head_dim must be 128, got {hd}")
-    req(nh % nkv == 0 and nh // nkv in (1, 2, 4, 8), _ATTN,
-        f"n_rep = {nh}/{nkv} must be 1, 2, 4 or 8")
-    req(kp.dtype == torch.uint8 and vp.dtype == torch.uint8
-        and kparam.dtype == torch.float32 and vparam.dtype == torch.float32,
-        _ATTN, "codes must be uint8 and params float32")
-    req(tuple(kp.shape) == tuple(vp.shape) == (B, nkv, S, hdh)
+    check_attention_args(_ATTN, q, nkv, (kp, vp), (kparam, vparam))
+    common.require(
+        tuple(kp.shape) == tuple(vp.shape) == (B, nkv, S, hdh)
         and tuple(kparam.shape) == tuple(vparam.shape) == (B, nkv, S, 2)
-        and valid_len.numel() == B, _ATTN, "cache shapes disagree")
-    req(all(t.is_contiguous() and t.data_ptr() % 16 == 0
-            for t in (kp, kparam, vp, vparam)), _ATTN,
-        "cache tensors must be contiguous and 16-byte aligned")
+        and valid_len.numel() == B and valid_len.device == q.device, _ATTN,
+        "cache shapes disagree")
     qf = q.to(torch.float32).contiguous()
     valid = valid_len.to(torch.int32).contiguous()
     out = torch.empty((B, nh, hd), dtype=torch.float32, device=q.device)
@@ -151,6 +167,94 @@ def decode_attention_int4(q, kp, kparam, vp, vparam, valid_len,
     common.check("kv_cache", _ATTN, rc)
     common.LAUNCHES[_ATTN] += 1
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chunk attention (chunked prefill over the cache)
+# ---------------------------------------------------------------------------
+
+
+def chunk_scores_ref(q, k_codes, k_par, v_codes, v_par, pos, sm_scale):
+    """The masked-softmax chain of flatquant_tpu/serving/engine.py:538-560
+    on token-major codes [B, nkv, S, hd/2] and params [B, nkv, S, 2]:
+    q [B, Sq, nh, hd] rows s attend ids <= pos + s (pos an int or a [B]
+    tensor), float32 dequantized K/V, a -1e9 bias. Returns float32
+    [B, Sq, nh, hd]. Shared with the paged plain version."""
+    sq, nh = q.shape[1], q.shape[2]
+    k = unpack_dequant_kv(k_codes, k_par[..., 0:1], k_par[..., 1:2],
+                          torch.float32)
+    v = unpack_dequant_kv(v_codes, v_par[..., 0:1], v_par[..., 1:2],
+                          torch.float32)
+    n_rep = nh // k.shape[1]
+    if n_rep > 1:
+        k = k.repeat_interleave(n_rep, dim=1)
+        v = v.repeat_interleave(n_rep, dim=1)
+    ids = torch.arange(k.shape[2], device=q.device).reshape(1, 1, 1, -1)
+    iq = torch.arange(sq, device=q.device).reshape(1, 1, -1, 1)
+    if torch.is_tensor(pos):
+        pos = pos.to(q.device).reshape(-1, 1, 1, 1)
+    bias = torch.where(ids <= pos + iq, 0.0, -1e9)
+    scores = torch.einsum("bqhd,bhkd->bhqk", q.to(torch.float32), k)
+    probs = torch.softmax(scores * sm_scale + bias, dim=-1)
+    return torch.einsum("bhqk,bhkd->bqhd", probs, v)
+
+
+def chunk_attention_ref(q, kp, kparam, vp, vparam, pos, sm_scale):
+    """Plain version of chunk_attention_int4: q [B, Sq, nh, hd]; the
+    token-major cache kp/vp [B, nkv, S, hd/2], kparam/vparam
+    [B, nkv, S, 2]; pos [B] (or an int), the chunk's first position.
+    Row s sees ids <= pos + s; there is no valid_len. Returns
+    [B, Sq, nh, hd] in q.dtype."""
+    return chunk_scores_ref(q, kp, kparam, vp, vparam, pos,
+                            sm_scale).to(q.dtype)
+
+
+def _chunk_rows(q, nkv):
+    """q [B, Sq, nh, hd] -> float32 [B, nkv, n_rep * Sq, hd], row
+    r = rep * Sq + s (the kernels' row order, JAX's too)."""
+    B, sq, nh, hd = q.shape
+    n_rep = nh // nkv
+    return (q.to(torch.float32).reshape(B, sq, nkv, n_rep, hd)
+            .permute(0, 2, 3, 1, 4).reshape(B, nkv, n_rep * sq, hd)
+            .contiguous())
+
+
+def _chunk_unrows(out, q):
+    B, sq, nh, hd = q.shape
+    nkv = out.shape[1]
+    return (out.reshape(B, nkv, nh // nkv, sq, hd).permute(0, 3, 1, 2, 4)
+            .reshape(B, sq, nh, hd).to(q.dtype))
+
+
+def chunk_attention_int4(q, kp, kparam, vp, vparam, pos, sm_scale: float):
+    """Chunked-prefill attention over the token-major int4 cache.
+
+    q [B, Sq, nh, hd] (the chunk's queries, rotated into the K space);
+    kp/vp [B, nkv, S, hd/2] uint8 and kparam/vparam [B, nkv, S, 2] f32,
+    already holding the chunk's own K/V; pos [B] int, the chunk's first
+    position: row s attends ids <= pos + s. Returns [B, Sq, nh, hd] in
+    q.dtype. CUDA tensors launch the kernel (hd 128, n_rep in
+    {1, 2, 4, 8}) or raise; CPU tensors run chunk_attention_ref."""
+    if q.device.type == "cpu":
+        return chunk_attention_ref(q, kp, kparam, vp, vparam, pos, sm_scale)
+    B, sq, nh, _ = q.shape
+    _, nkv, S, _ = kp.shape
+    check_attention_args(_CHUNK, q, nkv, (kp, vp), (kparam, vparam))
+    common.require(
+        tuple(kp.shape) == tuple(vp.shape) == (B, nkv, S, 64)
+        and tuple(kparam.shape) == tuple(vparam.shape) == (B, nkv, S, 2)
+        and torch.is_tensor(pos) and pos.numel() == B
+        and pos.device == q.device, _CHUNK, "cache or pos shapes disagree")
+    qr = _chunk_rows(q, nkv)
+    out = torch.empty_like(qr)
+    pos32 = pos.to(torch.int32).contiguous()
+    rc = common.lib("kv_cache").fq_chunk_attention_int4(
+        qr.data_ptr(), kp.data_ptr(), kparam.data_ptr(), vp.data_ptr(),
+        vparam.data_ptr(), pos32.data_ptr(), out.data_ptr(), B, nkv,
+        qr.shape[2], sq, S, float(sm_scale), common.stream_ptr(q))
+    common.check("kv_cache", _CHUNK, rc)
+    common.LAUNCHES[_CHUNK] += 1
+    return _chunk_unrows(out, q)
 
 
 # ---------------------------------------------------------------------------

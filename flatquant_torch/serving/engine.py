@@ -9,9 +9,18 @@ Semantics follow the reference deploy stack:
   - KV entries are asym-int4 per (token, head), k-transform applied
     before quantization
 
-Two cache modes, as in JAX: "bf16" (the default) holds dequantized values
-(quantize -> dequantize at write for k/v bits < 16; `serving_layer`),
-"int4" packed nibbles read by the decode kernel (`serving_layer_int4cache`).
+Three cache modes, as in JAX: "bf16" (the default) holds dequantized
+values (quantize -> dequantize at write for k/v bits < 16;
+`serving_layer`), "int4" packed nibbles read by the decode kernel
+(`serving_layer_int4cache`), "paged" the same packed entries in a block
+pool read through a block table (kernels/paged_kv.py; the cache dict
+carries the table as "tbl").
+
+Phases: "prefill" (the prompt from position 0), "decode" (one token per
+slot, at a scalar or per-slot position) and "chunk" (S prompt tokens from
+position pos, chunked prefill: row s attends the cache at ids <= pos + s,
+decode semantics over the quantized history; chunk_attention_int4 /
+paged_chunk_attention_int4 with use_kernel, their plain chain without).
 
 Routes, as in JAX: with use_kernel, a prompt of B*S >= 256 rows takes the
 fused flat-pipeline routes (serving/quantized.py `_grouped_attn_in`,
@@ -24,15 +33,15 @@ kernels/prefill_attention.py `prefill_attention` (dense below 1024 tokens,
 flash above: the kernel with use_kernel, JAX's blockwise oracle without).
 
 What differs from JAX: the cache is a dict of per-layer lists of tensors
-(the int4 codes in the token-major layout of kernels/kv_cache.py), UPDATED
-IN PLACE by prefill and decode (JAX returns new, donated buffers); the
-layer loop is a Python loop over the per-layer parameter list. Branches
-not ported yet raise NotImplementedError naming the ROADMAP item that
-ports them, before any cache write (`_check_ported`): the paged cache,
-the chunk phase, tp and ring attention, the perm layouts, unmerged
-projections, weight-only and int8-weight linears, serving without the o
-transform; and, where JAX takes them, the quant_acts_i8 / unfused swiglu
-GEMM routes of long prompts (serving/quantized.py).
+(the int4 codes in the token-major layout of kernels/kv_cache.py, the
+pool's blocks token-major too), UPDATED IN PLACE by every phase (JAX
+returns new, donated buffers); the layer loop is a Python loop over the
+per-layer parameter list. Branches not ported yet raise
+NotImplementedError naming the ROADMAP item that ports them, before any
+cache write (`_check_ported`): tp and ring attention, the perm layouts,
+unmerged projections, weight-only and int8-weight linears, serving
+without the o transform; and, where JAX takes them, the quant_acts_i8 /
+unfused swiglu GEMM routes of long prompts (serving/quantized.py).
 """
 
 from __future__ import annotations
@@ -46,11 +55,23 @@ from flatquant_torch.kernels.common import resolve_device
 from flatquant_torch.kernels.flat_pipeline import left_quant_i8_flat
 from flatquant_torch.kernels.int4_matmul import w4a4_matmul_i8
 from flatquant_torch.kernels.kv_cache import (
+    chunk_attention_int4,
+    chunk_scores_ref,
     decode_attention_int4,
     decode_attention_ref,
     pack_kv_token_major,
     write_token,
     write_token_ref,
+)
+from flatquant_torch.kernels.paged_kv import (
+    init_paged_pool,
+    paged_chunk_attention_int4,
+    paged_chunk_attention_ref,
+    paged_decode_attention_int4,
+    paged_decode_attention_ref,
+    write_chunk_paged,
+    write_prompt_paged,
+    write_token_paged,
 )
 from flatquant_torch.kernels.prefill_attention import (
     dense_causal_attention,
@@ -72,23 +93,33 @@ from flatquant_torch.serving.quantized import (
     quantize_kv_asym,
 )
 
-_PAGED = "the paged cache mode waits for ROADMAP queue 1 item 6"
-
-
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, mode: str = "bf16",
-               device="cuda") -> dict:
-    """KV cache, one zeroed tensor per layer, updated in place by prefill
-    and decode. mode="bf16": "k"/"v" [B, max_len, nkv, hd] in `dtype`
+               dtype=torch.bfloat16, mode: str = "bf16", n_blocks: int = 0,
+               block_size: int = 256, device="cuda") -> dict:
+    """KV cache, one zeroed tensor per layer, updated in place by every
+    phase. mode="bf16": "k"/"v" [B, max_len, nkv, hd] in `dtype`
     (dequantized values). mode="int4": "kp"/"vp" [B, nkv, max_len, hd/2]
     uint8 and "kparam"/"vparam" [B, nkv, max_len, 2] float32 (scale,
-    zero); `dtype` is not used."""
-    if mode == "paged":
-        raise NotImplementedError(_PAGED)
-    if mode not in ("bf16", "int4"):
+    zero). mode="paged": the block pool of kernels/paged_kv.py
+    (n_blocks=0 sizes it for batch x max_len plus the trash block 0) and
+    "tbl" [B, ceil(max_len / block_size)] int32, JAX's static table: slot
+    b holds contiguous blocks from 1 + b * n_per. `dtype` is used by
+    "bf16" only."""
+    if mode not in ("bf16", "int4", "paged"):
         raise ValueError(f"cache mode {mode!r}: 'bf16', 'int4' or 'paged'")
     dev = resolve_device(device)
     L, nkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    if mode == "paged":
+        mb = -(-max_len // block_size)
+        if n_blocks <= 0:
+            n_blocks = 1 + batch * mb
+        pool = init_paged_pool(L, n_blocks, nkv, hd, block_size, dev)
+        n_per = min(mb, (n_blocks - 1) // max(batch, 1))
+        tbl = torch.zeros((batch, mb), dtype=torch.int32)
+        for b in range(batch):
+            tbl[b, :n_per] = 1 + b * n_per + torch.arange(n_per)
+        pool["tbl"] = tbl.to(dev)
+        return pool
     if mode == "bf16":
         return {key: [torch.zeros((batch, max_len, nkv, hd), dtype=dtype,
                                   device=dev) for _ in range(L)]
@@ -121,26 +152,24 @@ def _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
             and a_cfg.enabled and a_cfg.q_max == 7)
 
 
-def _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis=None, tbl=None,
+def _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis=None,
                   attn_fn=None):
-    """Raise NotImplementedError, before any cache write, for every branch
-    of JAX's serving_layer / serving_layer_int4cache that the port does not
-    have yet (each names the ROADMAP item that will), instead of taking
-    another route."""
+    """Check the phase, then raise NotImplementedError, before any cache
+    write, for every branch of JAX's serving_layer /
+    serving_layer_int4cache that the port does not have yet (each names
+    the ROADMAP item that will), instead of taking another route."""
+    if phase not in ("prefill", "decode", "chunk") or (
+            phase == "decode" and S != 1):
+        raise ValueError(f"phase {phase!r} with {S} tokens: 'prefill', "
+                         "'chunk', or 'decode' of one token")
+    if per_slot and phase != "decode":
+        raise ValueError("per-slot positions only in single-token decode")
     if tp_axis is not None:
         raise NotImplementedError("tp waits for ROADMAP queue 1 item 9")
     if attn_fn is not None:
         raise NotImplementedError(
             "attn_fn (ring attention, sequence-parallel serving) waits for "
             "ROADMAP queue 1 item 9")
-    if tbl is not None:
-        raise NotImplementedError(_PAGED)
-    if phase not in ("prefill", "decode") or (phase == "decode" and S != 1):
-        raise NotImplementedError(
-            f"phase {phase!r} with {S} tokens (chunked prefill) waits for "
-            "ROADMAP queue 1 item 6")
-    if per_slot and S != 1:
-        raise ValueError("per-slot positions only in single-token decode")
     if not fq_cfg.a_cfg.enabled:
         raise NotImplementedError(
             "weight-only serving waits for ROADMAP queue 1 item 3")
@@ -298,25 +327,43 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
                             tp_axis=None, tbl=None):
     """One quantized decoder layer over the packed int4 cache.
 
-    x [B, S, H]; kp/kparam/vp/vparam: this layer's cache tensors, written
-    IN PLACE; pos: an int (the first position of x) or, in single-token
-    decode, a per-slot tensor [B]. Prefill writes the quantized prompt K/V
-    and attends unquantized; decode writes one token and attends over the
-    cache through decode_attention_int4. Returns the layer output."""
+    x [B, S, H]; kp/kparam/vp/vparam: this layer's cache tensors (slot
+    cache, or with `tbl` [B, mb] the block pool), written IN PLACE; pos:
+    an int (the first position of x) or, in single-token decode, a
+    per-slot tensor [B]. Prefill writes the quantized prompt K/V and
+    attends unquantized; a chunk writes its K/V at [pos, pos + S) and
+    attends over the cache (chunk_attention_int4 or, paged,
+    paged_chunk_attention_int4); decode writes one token and attends over
+    the cache through decode_attention_int4 or, paged,
+    paged_decode_attention_int4. Returns the layer output."""
     B, S, H = x.shape
     per_slot = torch.is_tensor(pos) and pos.ndim == 1
-    _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis, tbl)
+    _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis)
     qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
 
     if _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
         x = _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp,
-                                     kparam, vp, vparam, pos, compute_dtype)
+                                     kparam, vp, vparam, pos, compute_dtype,
+                                     tbl)
         return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
 
     q, k, v = _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot)
     kq, kpar = pack_kv_token_major(k, sl.get("kc_clip"))  # [B, nkv, S, .]
     vq, vpar = pack_kv_token_major(v, sl.get("vc_clip"))
-    if per_slot:
+    if tbl is not None and phase == "prefill":
+        assert pos == 0, "a paged prefill starts at position 0"
+        write_prompt_paged(kp, kparam, kq, kpar, tbl)
+        write_prompt_paged(vp, vparam, vq, vpar, tbl)
+    elif tbl is not None and phase == "chunk":
+        write_chunk_paged(kp, kparam, kq, kpar, tbl, pos)
+        write_chunk_paged(vp, vparam, vq, vpar, tbl, pos)
+    elif tbl is not None:
+        pos_vec = pos if per_slot else torch.full((B,), pos, device=x.device)
+        write_token_paged(kp, kparam, kq[:, :, 0], kpar[:, :, 0], tbl,
+                          pos_vec)
+        write_token_paged(vp, vparam, vq[:, :, 0], vpar[:, :, 0], tbl,
+                          pos_vec)
+    elif per_slot:
         put = write_token if use_kernel else write_token_ref
         put(kp, kparam, vp, vparam, kq, kpar, vq, vpar, pos)
     else:
@@ -328,13 +375,33 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
     sm_scale = 1.0 / float(np.sqrt(cfg.head_dim))
     if phase == "prefill":
         attn = prefill_attention(q, k, v, sm_scale, use_kernel, compute_dtype)
+    elif phase == "chunk":
+        pos_vec = torch.full((B,), pos, dtype=torch.int32, device=x.device)
+        if tbl is not None:
+            chunk_fn = (paged_chunk_attention_int4 if use_kernel
+                        else paged_chunk_attention_ref)
+            attn = chunk_fn(q, kp, kparam, vp, vparam, tbl, pos_vec,
+                            sm_scale).to(compute_dtype)
+        elif use_kernel:
+            attn = chunk_attention_int4(q, kp, kparam, vp, vparam, pos_vec,
+                                        sm_scale).to(compute_dtype)
+        else:
+            # JAX's chain casts its float32 result to compute_dtype
+            # directly (engine.py:538-560), not through q's dtype
+            attn = chunk_scores_ref(q, kp, kparam, vp, vparam, pos,
+                                    sm_scale).to(compute_dtype)
     else:
         if per_slot:
             valid = (pos + 1).to(torch.int32)
         else:
             valid = torch.full((B,), pos + 1, dtype=torch.int32,
                                device=x.device)
-        if use_kernel:
+        if tbl is not None:
+            paged_fn = (paged_decode_attention_int4 if use_kernel
+                        else paged_decode_attention_ref)
+            attn = paged_fn(q[:, 0], kp, kparam, vp, vparam, tbl, valid,
+                            sm_scale)
+        elif use_kernel:
             attn = decode_attention_int4(q[:, 0], kp, kparam, vp, vparam,
                                          valid, sm_scale)
         else:
@@ -376,11 +443,13 @@ def _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
 
 
 def _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp, kparam,
-                             vp, vparam, pos, compute_dtype):
+                             vp, vparam, pos, compute_dtype, tbl=None):
     """Prefill attention through the fused prologue and the fused o path
     (JAX engine.py:655-717). qkv: the merged projection output
     [B, S, (nh + 2*nkv)*128]. attn_prologue writes the packed int4 K/V
-    into the cache tensors at [pos, pos + S) in place; attention is
+    into the cache tensors at [pos, pos + S) in place (with `tbl`, it
+    returns fresh token-major codes that write_prompt_paged puts into the
+    block pool); attention is
     unquantized: flash kt at S >= 1024 (the prologue's token-major k_rot
     passed as a strided [B, nkv, hd, S] view, no copy), dense below; the o
     head mixing + per-token quant is one left_quant_i8_flat pass (a left
@@ -388,10 +457,13 @@ def _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp, kparam,
     bf16-rounded attention output. Returns x plus the o projection."""
     B, S, _ = qkv.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    qf, kf, vf = attn_prologue(
+    qf, kf, vf, kq, kpar, vq, vpar = attn_prologue(
         qkv, cos[pos:pos + S], sin[pos:pos + S], sl["k_t"], sl["k_t_inv"],
         sl.get("kc_clip"), sl.get("vc_clip"), nh=nh, nkv=nkv,
-        cache=(kp, kparam, vp, vparam), pos=pos)[:3]
+        cache=None if tbl is not None else (kp, kparam, vp, vparam), pos=pos)
+    if tbl is not None:
+        write_prompt_paged(kp, kparam, kq, kpar, tbl)
+        write_prompt_paged(vp, vparam, vq, vpar, tbl)
     sm_scale = 1.0 / float(np.sqrt(hd))
     q4 = qf.reshape(B, S, nh, hd)
     k4 = kf.reshape(B, S, nkv, hd)
@@ -411,7 +483,8 @@ def _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp, kparam,
 
 def _forward(cfg, fq_cfg, sp, tokens, cache, pos, phase, use_kernel, max_len,
              compute_dtype=torch.bfloat16, last_idx=None):
-    """Embed, run every layer (cache updated in place), final norm and
+    """Embed, run every layer (cache updated in place; a paged cache's
+    "tbl" goes to every layer and stays in the dict), final norm and
     lm_head on the last (or last_idx) token -> float32 logits [B, V]."""
     x = sp["embed"][tokens].to(compute_dtype)
     cos, sin = rope_tables(cfg, torch.arange(max_len, device=x.device))
@@ -424,7 +497,7 @@ def _forward(cfg, fq_cfg, sp, tokens, cache, pos, phase, use_kernel, max_len,
             x = serving_layer_int4cache(
                 cfg, fq_cfg, sl, x, cos, sin, cache["kp"][i],
                 cache["kparam"][i], cache["vp"][i], cache["vparam"][i], pos,
-                phase, use_kernel, compute_dtype)
+                phase, use_kernel, compute_dtype, tbl=cache.get("tbl"))
     else:
         for i, sl in enumerate(sp["layers"]):
             x = serving_layer(cfg, fq_cfg, sl, x, cos, sin, cache["k"][i],

@@ -1,10 +1,10 @@
 """Conversion of the JAX package's serving params (and the bf16
-comparator's) into the port's.
+comparator's) into the port's, and of serving caches in both directions.
 
 The JAX package stacks every layer leaf on a leading [L] axis (for
-lax.scan); the port keeps a list of per-layer dicts. Only numpy arrays
-cross the boundary: callers pass `jax.tree.map(np.asarray, sp)`, so this
-module never imports JAX.
+lax.scan); the port keeps a list of per-layer dicts (params) or tensors
+(caches). Only numpy arrays cross the boundary: callers pass
+`jax.tree.map(np.asarray, sp)`, so this module never imports JAX.
 """
 
 from __future__ import annotations
@@ -52,3 +52,46 @@ def from_jax_serving_params(sp_numpy: dict, device="cuda") -> dict:
     out["layers"] = per_layer
     return out
 
+
+
+# the packed cache's keys; JAX keeps their token index last (v4 layout:
+# slot cache [L, B, nkv, hd/2 | 2, S], pool [L, nb, nkv, hd/2 | 2, bs]),
+# the port second to last, per layer
+_PACKED = ("kp", "kparam", "vp", "vparam")
+
+
+def from_jax_cache(cache_numpy: dict, device="cuda") -> dict:
+    """A JAX serving cache as numpy arrays (int4 slot cache, paged pool
+    with or without "tbl", or bf16 cache; stacked [L, ...] or per-layer
+    tuples) -> the port's cache dict of per-layer tensors on `device`:
+    codes and params token-major, "tbl" int32, bf16-cache "k"/"v" as
+    they are."""
+    dev = resolve_device(device)
+    out = {}
+    for key, val in cache_numpy.items():
+        if key == "tbl":
+            out[key] = torch.tensor(np.asarray(val, np.int32), device=dev)
+            continue
+        layers = [np.asarray(v) for v in val]
+        if key in _PACKED:
+            layers = [np.swapaxes(a, -1, -2) for a in layers]
+        out[key] = [_to_torch(np.ascontiguousarray(a), dev) for a in layers]
+    return out
+
+
+def to_jax_cache(cache: dict) -> dict:
+    """Inverse of from_jax_cache: the port's cache -> numpy arrays in the
+    JAX package's layout, stacked over layers (bf16 values widened to
+    float32, exactly)."""
+    out = {}
+    for key, val in cache.items():
+        if key == "tbl":
+            out[key] = val.cpu().numpy()
+            continue
+        layers = [t.cpu() for t in val]
+        layers = [(t.float() if t.dtype == torch.bfloat16 else t).numpy()
+                  for t in layers]
+        if key in _PACKED:
+            layers = [np.swapaxes(a, -1, -2) for a in layers]
+        out[key] = np.stack(layers)
+    return out

@@ -17,6 +17,7 @@ from flatquant_torch.kernels import common
 from flatquant_torch.kernels import flat_pipeline as tfp
 from flatquant_torch.kernels import int4_matmul as tmm
 from flatquant_torch.kernels import kv_cache as tkv
+from flatquant_torch.kernels import paged_kv as tpk
 from flatquant_torch.kernels import prefill_attention as tpa
 from flatquant_torch.kernels.tolerance import (
     compare_bf16,
@@ -273,4 +274,92 @@ def test_flash_prefill_attention_raises_on_what_it_does_not_take(cuda, what):
         tpa.flash_prefill_attention(q, k, v, 0.1)
     with pytest.raises(ValueError):
         tpa.flash_prefill_attention_kt(q, k.permute(0, 2, 3, 1), v, 0.1)
+    assert common.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# chunk attention and the paged twins (one body each with the slot kernels)
+# ---------------------------------------------------------------------------
+
+
+def _paged_state(g, cuda, B, nkv, mb, bs):
+    """A random pool of 1 + B*mb blocks, a shuffled table, and the same
+    cache gathered slot-major (the slot kernels' input)."""
+    pool = _cache(g, cuda, 1 + B * mb, nkv, bs)
+    perm = torch.randperm(B * mb, generator=g, device=cuda) + 1
+    tbl = perm.reshape(B, mb).to(torch.int32)
+    kc, kpr = tpk.gather_kv_paged(pool[0], pool[1], tbl)
+    vc, vpr = tpk.gather_kv_paged(pool[2], pool[3], tbl)
+    return pool, tbl, (kc.contiguous(), kpr.contiguous(), vc.contiguous(),
+                       vpr.contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nh,nkv,sq", [(8, 8, 64), (8, 2, 40), (4, 4, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_attention_int4_matches_plain(cuda, nh, nkv, sq, dtype):
+    g = torch.Generator(device=cuda).manual_seed(nh + sq)
+    B, S = 3, 640
+    cache = _cache(g, cuda, B, nkv, S)
+    q = torch.randn((B, sq, nh, 128), generator=g, device=cuda).to(dtype)
+    pos = torch.tensor([0, 300, S - sq], device=cuda, dtype=torch.int32)
+    got = _launched("chunk_attention_int4", tkv.chunk_attention_int4, q,
+                    *cache, pos, 0.088)
+    want = tkv.chunk_attention_ref(q, *cache, pos, 0.088)
+    assert got.dtype == dtype and got.shape == q.shape
+    # float32: scale/zero folded into the epilogues, another summation
+    # order; bf16 outputs may round one ulp apart
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nh,nkv", [(8, 8), (8, 2)])
+def test_paged_decode_attention_int4_equals_the_slot_kernel(cuda, nh, nkv):
+    g = torch.Generator(device=cuda).manual_seed(nkv)
+    B, mb, bs = 4, 3, 256
+    pool, tbl, slot = _paged_state(g, cuda, B, nkv, mb, bs)
+    q = torch.randn((B, nh, 128), generator=g, device=cuda)
+    valid = torch.tensor([0, 255, 256, 700], device=cuda, dtype=torch.int32)
+    got = _launched("paged_decode_attention_int4",
+                    tpk.paged_decode_attention_int4, q, *pool, tbl, valid,
+                    0.088)
+    want = tpk.paged_decode_attention_ref(q, *pool, tbl, valid, 0.088)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    # the same body as the slot kernel, tile by tile: bit for bit
+    assert torch.equal(got, tkv.decode_attention_int4(q, *slot, valid, 0.088))
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nh,nkv", [(8, 8), (8, 2)])
+def test_paged_chunk_attention_int4_equals_the_slot_kernel(cuda, nh, nkv):
+    g = torch.Generator(device=cuda).manual_seed(10 + nkv)
+    B, mb, bs, sq = 2, 4, 128, 96
+    pool, tbl, slot = _paged_state(g, cuda, B, nkv, mb, bs)
+    q = torch.randn((B, sq, nh, 128), generator=g, device=cuda)
+    pos = torch.tensor([100, 400], device=cuda, dtype=torch.int32)  # straddle
+    got = _launched("paged_chunk_attention_int4",
+                    tpk.paged_chunk_attention_int4, q, *pool, tbl, pos, 0.088)
+    want = tpk.paged_chunk_attention_ref(q, *pool, tbl, pos, 0.088)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, tkv.chunk_attention_int4(q, *slot, pos, 0.088))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["head_dim 64", "n_rep 3", "block 64"])
+def test_paged_attention_raises_on_what_it_does_not_take(cuda, what):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    bs = 64 if what == "block 64" else 128
+    nkv = 1 if what == "n_rep 3" else 2
+    nh = 3 if what == "n_rep 3" else 4
+    pool, tbl, _ = _paged_state(g, cuda, 2, nkv, 2, bs)
+    hd = 64 if what == "head_dim 64" else 128
+    q = torch.randn((2, 8, nh, hd), generator=g, device=cuda)
+    pos = torch.tensor([0, 8], device=cuda, dtype=torch.int32)
+    before = dict(common.LAUNCHES)
+    with pytest.raises(ValueError):
+        tpk.paged_chunk_attention_int4(q, *pool, tbl, pos, 0.1)
+    with pytest.raises(ValueError):
+        tpk.paged_decode_attention_int4(q[:, 0], *pool, tbl, pos + 1, 0.1)
     assert common.LAUNCHES == before

@@ -304,22 +304,37 @@ def test_default_device_raises_without_a_card(model):
 
 def test_unported_routes_raise(model):
     """Branches the port does not have yet raise, naming their ROADMAP
-    item, instead of taking another route: the paged cache, the chunk
-    phase, the quant_acts_i8 route (T >= 256, K >= 8192) and the unfused
-    swiglu GEMM (T >= 256)."""
+    item, instead of taking another route: tp and ring attention (item 9),
+    unmerged projections and the perm layouts (item 4), weight-only
+    serving and serving without the o transform (item 3), the
+    quant_acts_i8 route (T >= 256, K >= 8192) and the unfused swiglu GEMM
+    (T >= 256). The paged cache and the chunk phase run
+    (tests/test_torch_batcher.py)."""
     from flatquant_torch.serving import quantized as tq
 
     cfg, fq = model["cfg"], model["fq"]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        te.init_cache(cfg, 1, MAX_LEN, mode="paged", device="cpu")
     cache = te.init_cache(cfg, 1, MAX_LEN, mode="int4", device="cpu")
+    layer_cache = [cache[k][0] for k in ("kp", "kparam", "vp", "vparam")]
     sl = model["tsp"]["float32"]["layers"][0]
     x = torch.zeros((1, 4, cfg.hidden_size))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        te.serving_layer_int4cache(cfg, fq, sl, x, None, None,
-                                   *[cache[k][0] for k in
-                                     ("kp", "kparam", "vp", "vparam")],
-                                   0, "chunk", False, torch.float32)
+
+    def chunk_layer(sl=sl, fq=fq, **kw):
+        te.serving_layer_int4cache(cfg, fq, sl, x, None, None, *layer_cache,
+                                   0, "chunk", False, torch.float32, **kw)
+
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        chunk_layer(tp_axis="tp")
+    bf16 = te.init_cache(cfg, 1, MAX_LEN, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        te.serving_layer(cfg, fq, sl, x, None, None, bf16["k"][0],
+                         bf16["v"][0], 0, "chunk", False, torch.float32,
+                         attn_fn=lambda *a: None)
+    for key in ("qkv", "o_t"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+            chunk_layer(sl={k: v for k, v in sl.items() if k != key})
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+        chunk_layer(fq=dataclasses.replace(fq, act_quant_enabled=False))
+    assert not any(bool(t.any()) for t in layer_cache)  # nothing written
     lin = {"wp": torch.zeros((128, 4096), dtype=torch.uint8),
            "scale": torch.ones(128)}
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 12"):
