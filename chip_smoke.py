@@ -25,8 +25,15 @@ line):
      3f: chunk_attention_int4 (Sq=256 at pos 0, 768, 1792 over S=2048),
      paged_decode_attention_int4 (B=4, valid 1..2048, block 256, shuffled
      tables) and paged_chunk_attention_int4 (chunks straddling a block
-     edge), MHA 32/32 and GQA 32/8, each paged kernel also bit for bit
-     against its slot twin on the gathered cache
+     edge), MHA 32/32, GQA 32/8 and Qwen-2.5-7B's 28/4 (n_rep 7; 3b has
+     it too), each paged kernel also bit for bit against its slot twin on
+     the gathered cache
+     3g: quant_acts_i8 at [2048, 18944] (clips, q_max 7) and [256, 8192]
+     (q_max 127, a zero row), codes and scales bit for bit;
+     w4a4_matmul_i8_swiglu at Qwen-2.5-7B's MLP (M=2048, K=3584,
+     NH=18944); w4a8_matmul at llama-2-7b's four linears at M = 1, 4 and
+     2048; timed beside their bounds and library yardsticks
+     (torch._int_mm, torch.matmul on bf16 weights)
   4. build one random llama-2-7b (32 layers, random seeded weights, rn128
      Kronecker transforms baked into the weights; shared by phases 4 to
      6) and drive the decode-serving path at full width and depth:
@@ -63,7 +70,19 @@ line):
      median decode step and chunk, launches); (a) and (b) again with
      every launch of rows 9-11 held to its plain version; (b) = (a) and
      (d) = (c) token for token; every pool block returned.
-  Then the kernel table as one JSON line, then the result line.
+  8. Qwen-2.5-7B at full width and depth (28 layers, 28/4 heads, qkv
+     bias), W4A4KV4 in JAX's default configuration (no tpu_decompose: the
+     balanced Kronecker split, flatquant_torch/core/kron.py), over the
+     int4 cache: serving_prefill 1 x 2048 (rows 12 and 13 in every layer)
+     and 32 greedy decode steps at B=1; a profile of one prefill; every
+     launch of one prefill and every decode attention launch of two steps
+     checked against its plain version.
+  9. llama-2-7b weight-only W4A16 (bf16 cache) at full width and depth,
+     with phase 6c's protocol (1 x 2048 prefill, 32 decode steps): every
+     linear through w4a8_matmul (row 14), every launch of a prefill and
+     two decode steps checked; a profile of one decode step.
+  Each model is freed before the next is built. Then the kernel table as
+  one JSON line, then the result line.
 
 Details go to chiprun_out/chip_smoke.json. Nothing here imports JAX or
 the JAX package.
@@ -231,7 +250,10 @@ def check_attention(torch, dev, gen, results, main_valid):
     cases = [("B=1 MHA 32/32", 1, 32, 32, [S]),
              ("B=4 MHA 32/32 ragged", 4, 32, 32, [0, 700, 1500, S]),
              ("B=4 GQA 32/8 ragged", 4, 32, 8, [S, 0, 1023, 77]),
-             ("B=4 MHA 32/32 main path", 4, 32, 32, main_valid)]
+             ("B=4 MHA 32/32 main path", 4, 32, 32, main_valid),
+             # Qwen-2.5-7B: 7 query heads per kv head
+             ("B=1 GQA 28/4 (n_rep 7)", 1, 28, 4, [S]),
+             ("B=4 GQA 28/4 (n_rep 7) ragged", 4, 28, 4, [S, 0, 1023, 77])]
     rows, worst = [], 0.0
     for label, B, nh, nkv, valid_l in cases:
         valid = torch.tensor(valid_l, device=dev, dtype=torch.int32)
@@ -339,21 +361,8 @@ def check_prefill_kernels(torch, dev, gen, results):
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
     clip = _lac_clip(torch, dev)
 
-    def timed(name, label, kernel, plain, args, nbytes, ops, rate, err,
-              lib=None):
-        ms = cuda_ms(torch, kernel, args, 40)
-        plain_ms = cuda_ms(torch, plain, args, 4)
-        lib_ms = None if lib is None else cuda_ms(torch, lib[0], lib[1], 20)
-        b_ms, b_by = bound_ms(nbytes, ops, rate)
-        r = results.setdefault(name, dict(rows=[], max_abs_err=0.0))
-        r["rows"].append(dict(case=label, ms=ms, plain_ms=plain_ms,
-                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                              bytes=nbytes, ops=ops, max_abs_err=err))
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        lib_s = "none" if lib_ms is None else f"{lib_ms:.4f} ({lib[2]})"
-        log(f"  {name} {label}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"bound {b_ms * 1e3:.2f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
-            f"{ops / 1e9:.1f} G ops) library_ms {lib_s}")
+    def timed(*a, **kw):
+        _kernel_row(torch, results, *a, **kw)
 
     # rmsnorm_right_flat: x [T, H] bf16
     xs = [(torch.randn((T, H), generator=gen, device=dev) * 2).to(
@@ -594,26 +603,19 @@ def check_chunk_paged(torch, dev, gen, results):
     paged_chunk_attention_int4 with the chunk straddling a block edge.
     Each timed like phase 3b beside its plain version and its bound (float
     operations at the CUDA cores' float32 rate, or cache bytes)."""
+    log(f"  (tolerance rtol/atol {ATTN_TOL['rtol']}; each paged launch also "
+        f"bit-equal to its slot twin)")
     from flatquant_torch.kernels import kv_cache as kv
     from flatquant_torch.kernels import paged_kv as pk
 
     S, SQ, BS, sm = 2048, 256, 256, 1.0 / math.sqrt(128)
-    heads = [("MHA 32/32", 32, 32), ("GQA 32/8", 32, 8)]
+    # llama-2-7b, llama-3-8b and Qwen-2.5-7B (n_rep 7) heads
+    heads = [("MHA 32/32", 32, 32), ("GQA 32/8", 32, 8),
+             ("GQA 28/4", 28, 4)]
 
     def record(name, label, kernel, plain, args, nbytes, flops, err, **kw):
-        ms = cuda_ms(torch, kernel, args, 40)
-        plain_ms = cuda_ms(torch, plain, args, 4)
-        b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
-        r = results.setdefault(name, dict(rows=[], max_abs_err=0.0))
-        r["rows"].append(dict(case=label, ms=ms, plain_ms=plain_ms,
-                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                              bytes=nbytes, ops=flops, max_abs_err=err, **kw))
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        log(f"  {name} {label}: max abs err {err:.3e} (tol rtol/atol "
-            f"{ATTN_TOL['rtol']}){'; bit-equal to its slot twin' if 'paged' in name else ''}; "
-            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound "
-            f"{b_ms * 1e3:.2f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP); library_ms none")
+        _kernel_row(torch, results, name, label, kernel, plain, args, nbytes,
+                    flops, F32_FLOPS_PER_S, err, **kw)
 
     def held(got, want):
         torch.cuda.synchronize()
@@ -650,7 +652,8 @@ def check_chunk_paged(torch, dev, gen, results):
     mb = S // BS
     cases = [("MHA 32/32", 32, 32, [1, 255, 256, 1000]),
              ("MHA 32/32", 32, 32, [2048, 1000, 256, 1]),
-             ("GQA 32/8", 32, 8, [2048, 255, 1000, 1])]
+             ("GQA 32/8", 32, 8, [2048, 255, 1000, 1]),
+             ("GQA 28/4", 28, 4, [2048, 255, 1000, 1])]
     for hlabel, nh, nkv, valid_l in cases:
         B = len(valid_l)
         full = (1 + B * mb) * nkv * BS * 144
@@ -703,13 +706,144 @@ def check_chunk_paged(torch, dev, gen, results):
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: rows 12-14, the balanced split's and weight-only serving's
+# ---------------------------------------------------------------------------
+
+
+def _kernel_row(torch, results, name, label, kernel, plain, args, nbytes,
+                ops, rate, err, lib=None, iters=40, **kw):
+    """Time kernel and plain version on the same argument sets (CUDA graph
+    of `iters` launches, cycling through copies above the L2 size), the
+    bound and, where given, the library call [fn, arg sets, label]; record
+    and print one row of `name`."""
+    ms = cuda_ms(torch, kernel, args, iters)
+    plain_ms = cuda_ms(torch, plain, args, 4)
+    lib_ms = None if lib is None else cuda_ms(torch, lib[0], lib[1], 20)
+    b_ms, b_by = bound_ms(nbytes, ops, rate)
+    r = results.setdefault(name, dict(rows=[], max_abs_err=0.0))
+    r["rows"].append(dict(case=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms, bytes=nbytes,
+                          ops=ops, max_abs_err=err, **kw))
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    lib_s = "none" if lib_ms is None else f"{lib_ms:.4f} ({lib[2]})"
+    log(f"  {name} {label}: max abs err {err:.3e}; kernel_ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} bound {b_ms * 1e3:.2f} us ({b_by}: "
+        f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} G ops) library_ms {lib_s}")
+
+
+def check_quant_mode_kernels(torch, dev, gen, results):
+    """Rows 12-14 against their plain versions at the main paths' shapes,
+    then timed beside the bound and a library yardstick the port never
+    calls: quant_acts_i8 at Qwen-2.5-7B's down input [2048, 18944] bf16
+    with LAC clips and q_max 7, and at [256, 8192] with q_max 127 and a
+    zero row, codes and scales bit for bit (library: none);
+    w4a4_matmul_i8_swiglu at Qwen-2.5-7B's MLP (M=2048, K=3584, NH=18944)
+    within the "identity" tolerance of flatquant_torch/kernels/tolerance.py
+    (exact integer sums, the float32 epilogue's exp against torch.exp;
+    library: torch._int_mm of the GEMM part on pre-unpacked int8 weights);
+    w4a8_matmul at llama-2-7b's four W4A16 linears at M = 1, 4 and 2048,
+    bf16 activations, within the "identity" tolerance (float32 sums in
+    another order: bf16 outputs one ulp apart at most; library:
+    torch.matmul of x by pre-dequantized bf16 weights)."""
+    from flatquant_torch.kernels import int4_matmul as im
+    from flatquant_torch.kernels.tolerance import compare_bf16
+    from flatquant_torch.models.config import get_config
+
+    # row 12
+    clip = _lac_clip(torch, dev)
+    for M, K, q_max, c in ((2048, 18944, 7, clip), (256, 8192, 127, None)):
+        xs = [(torch.randn((M, K), generator=gen, device=dev) * 3).to(
+            torch.bfloat16) for _ in range(copies_for(3 * M * K))]
+        xs[0][1] = 0  # a zero row: scale 1, codes 0
+        q, sc = im.quant_acts_i8(xs[0], c, q_max)
+        q_ref, sc_ref = im.quant_acts_i8_ref(xs[0], c, q_max)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, q_ref) and torch.equal(sc, sc_ref)):
+            raise AssertionError(f"quant_acts_i8 [{M}, {K}] q_max {q_max}: "
+                                 "codes or scales not bit-exact")
+        _kernel_row(torch, results, "quant_acts_i8",
+                    f"[{M}, {K}] bf16 q_max {q_max}"
+                    f"{', LAC clips' if c else ', a zero row'}",
+                    lambda x: im.quant_acts_i8(x, c, q_max),
+                    lambda x: im.quant_acts_i8_ref(x, c, q_max),
+                    [(x,) for x in xs], 3 * M * K + 4 * M + 8, 4 * M * K,
+                    F32_FLOPS_PER_S, 0.0)
+        log(f"    quant_acts_i8 [{M}, {K}]: codes and scales bit-exact")
+        del xs
+
+    # row 13
+    qcfg = get_config("qwen-2.5-7b")
+    M, K, NH = 2048, qcfg.hidden_size, qcfg.intermediate_size
+    xq = torch.randint(-8, 8, (M, K), generator=gen, device=dev,
+                       dtype=torch.int8)
+    sx = torch.rand((M, 1), generator=gen, device=dev) * 0.1 + 1e-3
+    ws = [(torch.randint(0, 256, (2 * NH, K // 2), generator=gen, device=dev,
+                         dtype=torch.uint8),
+           torch.rand((2 * NH,), generator=gen, device=dev) * 0.01 + 1e-4)
+          for _ in range(copies_for(NH * K))]
+    err = compare_bf16(im.w4a4_matmul_i8_swiglu(xq, sx, *ws[0]),
+                       im.w4a4_matmul_i8_swiglu_ref(xq, sx, *ws[0]),
+                       "identity", "w4a4_matmul_i8_swiglu")
+    w8 = [(xq, im.unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
+    _kernel_row(torch, results, "w4a4_matmul_i8_swiglu",
+                f"M={M} K={K} N=2x{NH} (Qwen-2.5-7B MLP)",
+                lambda wp, sw: im.w4a4_matmul_i8_swiglu(xq, sx, wp, sw),
+                lambda wp, sw: im.w4a4_matmul_i8_swiglu_ref(xq, sx, wp, sw),
+                ws, M * K + NH * K + 4 * M + 8 * NH + 2 * M * NH,
+                2 * M * 2 * NH * K, INT8_OPS_PER_S, err, iters=20,
+                lib=(torch._int_mm, w8, "torch._int_mm, int8 weights, GEMM "
+                     "only"))
+    del ws, w8, xq
+
+    # row 14
+    lcfg = get_config("llama-2-7b")
+    H, I = lcfg.hidden_size, lcfg.intermediate_size
+    shapes = {"qkv": (3 * H, H), "o": (H, H), "upgate": (2 * I, H),
+              "down": (H, I)}
+    for m in (1, 4, 2048):
+        for proj, (n, k) in shapes.items():
+            wbytes = n * k // 2
+            ws = [(torch.randint(0, 256, (n, k // 2), generator=gen,
+                                 device=dev, dtype=torch.uint8),
+                   torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-4)
+                  for _ in range(copies_for(wbytes))]
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            ones = torch.ones((m, 1), device=dev)
+            err = compare_bf16(im.w4a8_matmul(x, ones, *ws[0]),
+                               im.w4a8_matmul_rowsum_ref(x, ones, *ws[0]),
+                               "identity", f"w4a8_matmul M={m} {proj}")
+            wd = [(x, ((im.unpack_weight_planar(wp).float() * sw[:, None])
+                       .to(torch.bfloat16).t()))
+                  for wp, sw in ws[:2]]
+            _kernel_row(torch, results, "w4a8_matmul",
+                        f"M={m} {proj} {n}x{k} (llama-2-7b W4A16)",
+                        lambda wp, sw: im.w4a8_matmul(x, ones, wp, sw),
+                        lambda wp, sw: im.w4a8_matmul_rowsum_ref(x, ones, wp,
+                                                                 sw),
+                        ws, 2 * m * k + wbytes + 4 * m + 4 * n + 2 * m * n,
+                        2 * m * n * k, BF16_FLOPS_PER_S, err,
+                        iters=60 if m < 2048 else 20,
+                        lib=(torch.matmul, wd, "torch.matmul, bf16 weights"),
+                        m=m, proj=proj)
+            del ws, wd
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the decode-serving path at full llama-2-7b width and depth
 # ---------------------------------------------------------------------------
 
 
-def build_model(torch, dev, seed):
-    """Random llama-2-7b with random orthogonal transforms, baked and
-    packed one layer at a time through the port's build_serving_layer."""
+def build_model(torch, dev, seed, name="llama-2-7b", fq=None):
+    """A random model of the registry's `name` at full width and depth,
+    built through the port's build_serving_layer one layer at a time:
+    seeded N(0, 0.02^2) weights (and qkv bias, where the model has one),
+    random orthogonal transforms in fq's Kronecker split (core/kron.py:
+    rn128 under tpu_decompose, else FlatQuant's balanced split) baked into
+    the weights, the LAC clips at their init (sigmoid(4)) when activations
+    are quantized, the kcache transform when K is. fq defaults to
+    W4A4KV4 with tpu_decompose (the llama-2-7b of phases 4-7)."""
+    from flatquant_torch.core.kron import get_decompose_dim
     from flatquant_torch.models.config import get_config
     from flatquant_torch.models.llama import init_layer_params
     from flatquant_torch.quantize.spec import W4A4KV4
@@ -718,8 +852,8 @@ def build_model(torch, dev, seed):
     import dataclasses
 
     t0 = time.perf_counter()
-    cfg = get_config("llama-2-7b")
-    fq = dataclasses.replace(W4A4KV4, tpu_decompose=True)
+    cfg = get_config(name)
+    fq = fq or dataclasses.replace(W4A4KV4, tpu_decompose=True)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def orth(n):
@@ -727,19 +861,28 @@ def build_model(torch, dev, seed):
                                             device=dev, dtype=torch.float64))
         return (qm * torch.sign(torch.diagonal(r))).float()
 
+    def split(n):
+        return tuple(orth(d) for d in get_decompose_dim(n, fq.tpu_decompose))
+
     H, I, nh, hd = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
                     cfg.head_dim)
     clip = (1.0 / (1.0 + math.exp(-4.0)),) * 2  # sigmoid(4): the LAC init
     layers = []
     for _ in range(cfg.num_layers):
         lp = init_layer_params(cfg, gen, torch.float32, dev)
-        lt = {"ln_t": (orth(H // 128), orth(128)),
-              "ug_t": (orth(H // 128), orth(128)),
-              "down_t": (orth(I // 128), orth(128)),
-              "o_t": orth(nh), "k_t": orth(hd)}
-        lt["k_t_inv"] = torch.linalg.inv(lt["k_t"]).T.contiguous()
-        lt["a_clip"] = {nm: clip for nm in ("qkv", "o", "upgate", "down")}
-        lt["kc_clip"] = lt["vc_clip"] = clip
+        if cfg.attn_bias:
+            for key in ("bq", "bk", "bv"):
+                lp[key] = torch.randn(lp[key].shape, generator=gen,
+                                      device=dev) * 0.02
+        lt = {"ln_t": split(H), "ug_t": split(H), "down_t": split(I),
+              "o_t": orth(nh)}
+        if fq.k_cfg.enabled:
+            lt["k_t"] = orth(hd)
+            lt["k_t_inv"] = torch.linalg.inv(lt["k_t"]).T.contiguous()
+            lt["kc_clip"] = lt["vc_clip"] = clip
+        if fq.a_cfg.enabled:
+            lt["a_clip"] = {nm: clip for nm in ("qkv", "o", "upgate",
+                                                "down")}
         eye = torch.eye(hd, device=dev)
         # bake: y = x W^T = (x T)(W T)^T for orthogonal T, so W <- W T
         for key, tr in (("wq", "ln_t"), ("wk", "ln_t"), ("wv", "ln_t"),
@@ -757,7 +900,11 @@ def build_model(torch, dev, seed):
     sp = {"embed": emb, "lm_head": head,
           "final_norm_w": torch.ones(H, device=dev), "layers": layers}
     torch.cuda.synchronize()
-    log(f"  built llama-2-7b W4A4KV4 rn128, {cfg.num_layers} layers, "
+    split_s = ("rn128" if fq.tpu_decompose else "balanced") + " split " + \
+        f"{get_decompose_dim(H, fq.tpu_decompose)} / " \
+        f"{get_decompose_dim(I, fq.tpu_decompose)}"
+    log(f"  built {name} W{fq.w_bits}A{fq.a_bits}KV{fq.k_bits} {split_s}, "
+        f"{cfg.num_layers} layers, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
         f"{time.perf_counter() - t0:.1f} s")
     return cfg, fq, sp
@@ -861,6 +1008,28 @@ def _attention_f64(q, kp, ks, kz, vp, vs, vz, valid_len, sm_scale):
     return torch.where(lim > 0, out, 0.0).to(q.dtype)
 
 
+def _checked_decode_attention(torch, n, worst):
+    """decode_attention_int4 that holds every launch to its plain version
+    on the same inputs (ATTN_TOL), counting the checks in
+    n["decode_attention_int4"] and keeping the largest abs error in
+    worst["decode_attention_int4"]."""
+    from flatquant_torch.kernels import kv_cache
+
+    def attn(q, kp, kpar, vp, vpar, valid, sm):
+        y = kv_cache.decode_attention_int4(q, kp, kpar, vp, vpar, valid, sm)
+        ref = kv_cache.decode_attention_ref(
+            q, kp, kpar[..., :1], kpar[..., 1:], vp, vpar[..., :1],
+            vpar[..., 1:], valid, sm)
+        torch.testing.assert_close(y.float(), ref.float(), **ATTN_TOL)
+        key = "decode_attention_int4"
+        worst[key] = max(worst[key],
+                         (y.float() - ref.float()).abs().max().item())
+        n[key] += 1
+        return y
+
+    return attn
+
+
 def check_launches_on_path(torch, cfg, fq, sp, prompt, feed, slot_pos0, P,
                            NEW, kw):
     """Every kernel launch of a short kernel-path run (prefill, 4 scalar and
@@ -871,7 +1040,7 @@ def check_launches_on_path(torch, cfg, fq, sp, prompt, feed, slot_pos0, P,
     from flatquant_torch.serving import engine, quantized
 
     n = {"w4a4_matmul_i8": 0, "decode_attention_int4": 0, "write_token": 0}
-    worst = [0.0]
+    worst = {"decode_attention_int4": 0.0}
 
     def gemm(xq, xs, wp, sw, out_dtype=torch.bfloat16):
         y = int4_matmul.w4a4_matmul_i8(xq, xs, wp, sw, out_dtype)
@@ -879,16 +1048,6 @@ def check_launches_on_path(torch, cfg, fq, sp, prompt, feed, slot_pos0, P,
                                                           out_dtype)):
             raise AssertionError("w4a4_matmul_i8 not bit-exact on the path")
         n["w4a4_matmul_i8"] += 1
-        return y
-
-    def attn(q, kp, kpar, vp, vpar, valid, sm):
-        y = kv_cache.decode_attention_int4(q, kp, kpar, vp, vpar, valid, sm)
-        ref = kv_cache.decode_attention_ref(
-            q, kp, kpar[..., :1], kpar[..., 1:], vp, vpar[..., :1],
-            vpar[..., 1:], valid, sm)
-        torch.testing.assert_close(y.float(), ref.float(), **ATTN_TOL)
-        worst[0] = max(worst[0], (y.float() - ref.float()).abs().max().item())
-        n["decode_attention_int4"] += 1
         return y
 
     def write(*a):
@@ -902,7 +1061,8 @@ def check_launches_on_path(torch, cfg, fq, sp, prompt, feed, slot_pos0, P,
         return a[:4]
 
     with patched([(quantized, "w4a4_matmul_i8", gemm),
-                  (engine, "decode_attention_int4", attn),
+                  (engine, "decode_attention_int4",
+                   _checked_decode_attention(torch, n, worst)),
                   (engine, "write_token", write)]):
         c = engine.init_cache(cfg, prompt.shape[0], kw["max_len"],
                               mode="int4", device=kw["device"])
@@ -917,8 +1077,9 @@ def check_launches_on_path(torch, cfg, fq, sp, prompt, feed, slot_pos0, P,
     torch.cuda.synchronize()
     log(f"  every launch on the path vs its plain version: {n} launches "
         f"checked; GEMM and write bit-exact, attention max abs err "
-        f"{worst[0]:.3e}")
-    return dict(launches=n, attention_max_abs_err=worst[0])
+        f"{worst['decode_attention_int4']:.3e}")
+    return dict(launches=n,
+                attention_max_abs_err=worst["decode_attention_int4"])
 
 
 def run_main_path(torch, dev, model, results, smi):
@@ -1110,10 +1271,31 @@ def check_prefill_launches(torch, cfg, fq, sp, prompt, kw,
         compare_bf16, compare_codes, compare_kv, compare_scales)
     from flatquant_torch.serving import engine, quantized
 
-    names = list(PREFILL_LAUNCHES) + ["flash_prefill_attention_kt"]
+    names = list(PREFILL_LAUNCHES) + ["flash_prefill_attention_kt",
+                                      "quant_acts_i8", "w4a4_matmul_i8_swiglu"]
     n = dict.fromkeys(names, 0)
     worst = dict.fromkeys(names, 0.0)
     mode = "orthogonal"
+
+    def qa(x, clip=None, q_max=7):
+        q, s = int4_matmul.quant_acts_i8(x, clip, q_max)
+        q_ref, s_ref = int4_matmul.quant_acts_i8_ref(x, clip, q_max)
+        if not (torch.equal(q, q_ref) and torch.equal(s, s_ref)):
+            raise AssertionError("quant_acts_i8 not bit-exact on the path")
+        n["quant_acts_i8"] += 1
+        return q, s
+
+    def swi13(xq, xs, wp, sw, out_dtype=torch.bfloat16):
+        # no transform factor in this GEMM: exact integer sums, the
+        # float32 epilogue's exp against torch.exp
+        y = int4_matmul.w4a4_matmul_i8_swiglu(xq, xs, wp, sw, out_dtype)
+        err = compare_bf16(y, int4_matmul.w4a4_matmul_i8_swiglu_ref(
+            xq, xs, wp, sw, out_dtype), "identity",
+            "w4a4_matmul_i8_swiglu on the path")
+        worst["w4a4_matmul_i8_swiglu"] = max(worst["w4a4_matmul_i8_swiglu"],
+                                             err)
+        n["w4a4_matmul_i8_swiglu"] += 1
+        return y
 
     def rms(x, w, right, eps):
         y = fp.rmsnorm_right_flat(x, w, right, eps)
@@ -1180,6 +1362,8 @@ def check_prefill_launches(torch, cfg, fq, sp, prompt, kw,
                   (quantized, "left_quant_i8_flat", lq),
                   (quantized, "w4a4_matmul_i8_swiglu_right", swi),
                   (quantized, "w4a4_matmul_i8", gemm),
+                  (quantized, "quant_acts_i8", qa),
+                  (quantized, "w4a4_matmul_i8_swiglu", swi13),
                   (engine, "attn_prologue", pro),
                   (engine, "left_quant_i8_flat", lq),
                   (engine, "w4a4_matmul_i8", gemm),
@@ -1194,9 +1378,9 @@ def check_prefill_launches(torch, cfg, fq, sp, prompt, kw,
             raise AssertionError(f"{name}: {n[name]} launches checked, "
                                  f"expected {per_layer * cfg.num_layers}")
     log(f"  every launch of a full-depth prefill vs its plain version: {n} "
-        f"launches checked ('orthogonal' tolerances, flash kt 'flash'; GEMM "
-        f"bit-exact); max "
-        f"abs err {worst}")
+        f"launches checked ('orthogonal' tolerances, flash kt 'flash', "
+        f"w4a4_matmul_i8_swiglu 'identity'; GEMM and quant_acts_i8 "
+        f"bit-exact); max abs err {worst}")
     return dict(launches=n, max_abs_err=worst)
 
 
@@ -1918,6 +2102,260 @@ def _profile_batcher(torch, dev, model, requests, kw):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: Qwen-2.5-7B in FlatQuant's balanced split (rows 12 and 13)
+# ---------------------------------------------------------------------------
+
+# launches of one full-depth 1 x 2048 prefill of Qwen-2.5-7B over the int4
+# cache, per layer: the balanced split's right factors (64 for the hidden
+# width, 148 for the intermediate) leave out every rn128 kernel; the
+# prologue, flash kt and the o path's left quant (G = 28 heads) carry the
+# attention; the MLP is the swiglu GEMM (row 13, K = 3584 < 8192: eager
+# quant) and the down linear, whose input (K = 18944) takes quant_acts_i8
+# (row 12); three plain GEMMs: qkv, o, down
+QWEN_PREFILL_LAUNCHES = {"attn_prologue": 1, "flash_prefill_attention_kt": 1,
+                         "left_quant_i8_flat": 1, "w4a4_matmul_i8_swiglu": 1,
+                         "quant_acts_i8": 1, "w4a4_matmul_i8": 3}
+
+
+def check_decode_attention(torch, cfg, fq, sp, prompt, kw, steps=2):
+    """Every decode_attention_int4 launch of `steps` greedy decode steps
+    after a prefill, against its plain version on the same inputs
+    (ATTN_TOL). Returns the checks' count and largest abs error."""
+    from flatquant_torch.serving import engine
+
+    key = "decode_attention_int4"
+    n, worst = {key: 0}, {key: 0.0}
+    S = prompt.shape[1]
+    c = engine.init_cache(cfg, prompt.shape[0], kw["max_len"], mode="int4",
+                          device=kw["device"])
+    logits, c = engine.serving_prefill(cfg, fq, sp, prompt, c, **kw)
+    with patched([(engine, key, _checked_decode_attention(torch, n,
+                                                          worst))]):
+        for i in range(steps):
+            logits, c = engine.serving_decode_step(
+                cfg, fq, sp, logits.argmax(-1, keepdim=True), c, S + i, **kw)
+    torch.cuda.synchronize()
+    if n[key] != steps * cfg.num_layers:
+        raise AssertionError(f"{n[key]} decode attention launches checked, "
+                             f"expected {steps * cfg.num_layers}")
+    log(f"  every decode_attention_int4 launch of {steps} decode steps vs its "
+        f"plain version: {n[key]} checked (tol rtol/atol {ATTN_TOL['rtol']}), "
+        f"max abs err {worst[key]:.3e}")
+    return dict(launches=n[key], max_abs_err=worst[key])
+
+
+def _timed_serving(torch, cfg, fq, sp, prompt, new, kw, mode):
+    """A warm-up prefill (not counted), then serving_prefill of `prompt`
+    and `new` greedy decode steps over a fresh `mode` cache, each timed on
+    the host clock up to torch.cuda.synchronize(); the launch counts are
+    set to 0 just before the prefill and read after it and after the
+    steps; every logits row finite and of the vocabulary's width. Returns
+    a dict of the times, launches and greedy tokens, with the cache and
+    the next token for further steps."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.serving.engine import (
+        init_cache, serving_decode_step, serving_prefill)
+
+    B, S = prompt.shape
+    dev, max_len = kw["device"], kw["max_len"]
+    serving_prefill(cfg, fq, sp, prompt,
+                    init_cache(cfg, B, max_len, mode=mode, device=dev), **kw)
+    torch.cuda.synchronize()
+
+    def checked(logits, what):
+        if not (torch.isfinite(logits).all()
+                and tuple(logits.shape) == (B, cfg.vocab_size)):
+            raise AssertionError(f"{what} logits not finite or of the wrong "
+                                 "shape")
+        return logits.argmax(-1, keepdim=True)
+
+    common.reset_launches()
+    cache = init_cache(cfg, B, max_len, mode=mode, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = serving_prefill(cfg, fq, sp, prompt, cache, **kw)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = dict(common.LAUNCHES)
+    tok = checked(logits, "prefill")
+    step_ms, toks = [], []
+    for i in range(new):
+        toks.append(int(tok[0, 0]))
+        t0 = time.perf_counter()
+        logits, cache = serving_decode_step(cfg, fq, sp, tok, cache, S + i,
+                                            **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        tok = checked(logits, f"decode step {i}")
+    return dict(prefill_ms=prefill_ms, prefill_launches=prefill_launches,
+                launches=dict(common.LAUNCHES), step_ms=step_ms,
+                decode_ms=sorted(step_ms[1:])[len(step_ms[1:]) // 2],
+                tokens=toks, cache=cache, tok=tok)
+
+
+def run_qwen_path(torch, dev, results, smi):
+    """Qwen-2.5-7B at full width and depth (28 layers, 28/4 heads: n_rep 7,
+    qkv bias), W4A4KV4 in JAX's default FlatQuant configuration (no
+    tpu_decompose: the balanced Kronecker split), random seeded weights,
+    over the int4 cache: serving_prefill 1 x 2048 (max_len 2304), then 32
+    greedy decode steps at B=1, timed; launch counts read around them; a
+    profile of one prefill; every launch of one prefill against its plain
+    version (rows 12 and 13 among them); every decode attention launch of
+    two steps against its plain version. The model is freed afterwards.
+    Returns the launches of the timed prefill and decode steps."""
+    from flatquant_torch.quantize.spec import W4A4KV4
+    from flatquant_torch.serving.engine import init_cache, serving_prefill
+
+    B, S, NEW, MAX_LEN = 1, 2048, 32, 2304
+    cfg, fq, sp = build_model(torch, dev, 0, "qwen-2.5-7b", W4A4KV4)
+    L = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    kw = dict(max_len=MAX_LEN, device=dev)
+    run = _timed_serving(torch, cfg, fq, sp, prompt, NEW, kw, "int4")
+    prefill_launches, launches = run["prefill_launches"], run["launches"]
+    del run["cache"], run["tok"]
+    for name, per_layer in dict(
+            QWEN_PREFILL_LAUNCHES, rmsnorm_right_flat=0,
+            w4a4_matmul_i8_swiglu_right=0).items():
+        if prefill_launches[name] != per_layer * L:
+            raise AssertionError(
+                f"{name}: {prefill_launches[name]} launches in the Qwen "
+                f"prefill, expected {per_layer * L}")
+    if launches["decode_attention_int4"] != NEW * L:
+        raise AssertionError("the Qwen decode steps did not read the cache "
+                             "through decode_attention_int4")
+    log(f"  [{smi}] Qwen-2.5-7B prefill B={B} S={S} (balanced split, rows 12 "
+        f"and 13, prologue, flash kt): {run['prefill_ms']:.1f} ms")
+    log(f"  [{smi}] Qwen-2.5-7B decode after it, median "
+        f"{run['decode_ms']:.2f} ms/step, B={B}, {NEW} steps")
+    log(f"  launches, prefill: {prefill_launches}")
+    log(f"  launches, prefill + {NEW} decode steps: {launches}")
+    log(f"  greedy tokens: {run['tokens']}")
+    busy = profile_steps(torch, lambda i: serving_prefill(
+        cfg, fq, sp, prompt,
+        init_cache(cfg, B, MAX_LEN, mode="int4", device=dev), **kw),
+        1, f"Qwen-2.5-7B prefill 1 x {S}")
+    if busy:
+        busy["idle_share_unprofiled"] = 1 - busy["busy_ms"] / run["prefill_ms"]
+        log(f"  device idle share against the unprofiled prefill: "
+            f"{busy['idle_share_unprofiled']:.3f}")
+    checks = check_prefill_launches(torch, cfg, fq, sp, prompt, kw,
+                                    QWEN_PREFILL_LAUNCHES)
+    dchecks = check_decode_attention(torch, cfg, fq, sp, prompt, kw)
+    results["qwen_path"] = dict(
+        model="qwen-2.5-7b", layers=L, batch=B, prompt=S, new_tokens=NEW,
+        max_len=MAX_LEN, prefill_profile=busy, per_launch_checks=checks,
+        decode_attention_checks=dchecks, **run)
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: llama-2-7b weight-only W4A16 (row 14)
+# ---------------------------------------------------------------------------
+
+
+def _checked_w4a8(torch, n, worst):
+    """w4a8_matmul that holds every launch to its plain version (the
+    "identity" tolerance: float32 sums in another order), counting the
+    checks in n."""
+    from flatquant_torch.kernels import int4_matmul as im
+    from flatquant_torch.kernels.tolerance import compare_bf16
+
+    def w4a8(x, xs, wp, sw, out_dtype=torch.bfloat16):
+        y = im.w4a8_matmul(x, xs, wp, sw, out_dtype)
+        err = compare_bf16(y, im.w4a8_matmul_rowsum_ref(x, xs, wp, sw,
+                                                        out_dtype),
+                           "identity", "w4a8_matmul on the path")
+        worst[0] = max(worst[0], err)
+        n[0] += 1
+        return y
+
+    return w4a8
+
+
+def run_w4a16_path(torch, dev, results, smi):
+    """llama-2-7b weight-only W4A16 (FQConfig(w_bits=4, a_bits=16,
+    k_bits=16, v_bits=16): every linear through w4a8_matmul on bf16
+    activations with unit scales; the bf16 cache) at full width and depth,
+    rebuilt from phase 4's seed in the balanced split, with the bf16
+    comparator's protocol (phase 6c): a 1 x 2048 prefill (flash on the
+    [B, S, nkv, hd] layout) and 32 greedy decode steps at B=1, max_len
+    2304, timed; every w4a8_matmul launch of one prefill and two decode
+    steps against its plain version; a profile of one decode step. The
+    model is freed afterwards. Returns the launches of the timed prefill
+    and decode steps."""
+    from flatquant_torch.quantize.spec import FQConfig
+    from flatquant_torch.serving import quantized
+    from flatquant_torch.serving.engine import (
+        init_cache, serving_decode_step, serving_prefill)
+
+    B, S, NEW, MAX_LEN = 1, 2048, 32, 2304
+    fq = FQConfig(w_bits=4, a_bits=16, k_bits=16, v_bits=16)
+    cfg, fq, sp = build_model(torch, dev, 0, "llama-2-7b", fq)
+    L = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    kw = dict(max_len=MAX_LEN, device=dev)
+    run = _timed_serving(torch, cfg, fq, sp, prompt, NEW, kw, "bf16")
+    prefill_launches, launches = run["prefill_launches"], run["launches"]
+    cache, tok = run.pop("cache"), run.pop("tok")
+    want = {"w4a8_matmul": 4 * L, "flash_prefill_attention": L}
+    if any(prefill_launches[k] != v for k, v in want.items()) or any(
+            v for k, v in prefill_launches.items() if k not in want):
+        raise AssertionError(f"W4A16 prefill launches {prefill_launches}, "
+                             f"expected {want} and nothing else")
+    if launches["w4a8_matmul"] != 4 * L * (1 + NEW):
+        raise AssertionError("the W4A16 decode steps did not run every "
+                             "linear through w4a8_matmul")
+    log(f"  [{smi}] llama-2-7b W4A16 prefill B={B} S={S} (w4a8_matmul "
+        f"tensor-core tiles, flash): {run['prefill_ms']:.1f} ms")
+    log(f"  [{smi}] llama-2-7b W4A16 decode after it, median "
+        f"{run['decode_ms']:.2f} ms/step, B={B}, {NEW} steps (w4a8_matmul "
+        f"weight stream)")
+    log(f"  launches, prefill + {NEW} decode steps: {launches}")
+
+    # every w4a8_matmul launch of one prefill and two decode steps
+    n, worst = [0], [0.0]
+    with patched([(quantized, "w4a8_matmul", _checked_w4a8(torch, n,
+                                                            worst))]):
+        c = init_cache(cfg, B, MAX_LEN, device=dev)
+        lg, c = serving_prefill(cfg, fq, sp, prompt, c, **kw)
+        for i in range(2):
+            lg, c = serving_decode_step(cfg, fq, sp,
+                                        lg.argmax(-1, keepdim=True), c,
+                                        S + i, **kw)
+        torch.cuda.synchronize()
+        del c
+    if n[0] != 4 * L * 3:
+        raise AssertionError(f"{n[0]} w4a8_matmul launches checked, "
+                             f"expected {4 * L * 3}")
+    log(f"  every w4a8_matmul launch of a prefill and 2 decode steps vs its "
+        f"plain version: {n[0]} checked ('identity' tolerance), max abs err "
+        f"{worst[0]:.3e}")
+    busy = profile_steps(torch, lambda i: serving_decode_step(
+        cfg, fq, sp, tok, cache, S + NEW + i, **kw), 1,
+        "llama-2-7b W4A16 decode step")
+    if busy:
+        busy["idle_share_unprofiled"] = 1 - busy["busy_ms"] / run["decode_ms"]
+        log(f"  device idle share against the unprofiled step: "
+            f"{busy['idle_share_unprofiled']:.3f}")
+    results["w4a16_path"] = dict(
+        model="llama-2-7b W4A16", layers=L, batch=B, prompt=S,
+        new_tokens=NEW, max_len=MAX_LEN, decode_profile=busy,
+        per_launch_checks=dict(launches=n[0], max_abs_err=worst[0]), **run)
+    del sp, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -1957,13 +2395,24 @@ KERNELS = {
     "paged_chunk_attention_int4": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/kv_cache.cu",
         replaces="flatquant_tpu/kernels/paged_kv.py:337"),
+    "quant_acts_i8": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/int4_matmul.cu",
+        replaces="flatquant_tpu/kernels/int4_matmul.py:139"),
+    "w4a4_matmul_i8_swiglu": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
+        replaces="flatquant_tpu/kernels/int4_matmul.py:417"),
+    "w4a8_matmul": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/int4_matmul.cu",
+        replaces="flatquant_tpu/kernels/int4_matmul.py:213"),
 }
 # the path each kernel's `launches` is read from (each path's counts set to
 # 0 just before it and read just after): the decode-serving run of phase 4
 # for slice 1's kernels, the 4 x 512 prefill of phase 5 for slice 2's, the
 # int4 engine's 1 x 2048 prefill + decode (phase 6a) for flash kt, the
-# bf16 comparator's (phase 6c) for flash, and the batcher's runs (a) int4
-# and (b) paged (phase 7) for slice 4's
+# bf16 comparator's (phase 6c) for flash, the batcher's runs (a) int4
+# and (b) paged (phase 7) for slice 4's, Qwen-2.5-7B's prefill + decode
+# (phase 8) for rows 12 and 13 and the W4A16 llama-2-7b's (phase 9) for
+# row 14
 KERNEL_PATH = dict(
     dict.fromkeys(("w4a4_matmul_i8", "decode_attention_int4", "write_token"),
                   "decode"),
@@ -1974,7 +2423,8 @@ KERNEL_PATH = dict(
     flash_prefill_attention="bf16_comparator",
     chunk_attention_int4="batcher_int4",
     paged_decode_attention_int4="batcher_paged",
-    paged_chunk_attention_int4="batcher_paged")
+    paged_chunk_attention_int4="batcher_paged",
+    quant_acts_i8="qwen", w4a4_matmul_i8_swiglu="qwen", w4a8_matmul="w4a16")
 DECODE_KERNELS = [k for k, p in KERNEL_PATH.items() if p == "decode"]
 
 
@@ -1984,8 +2434,11 @@ def kernel_line(results, paths):
     B=4 MHA over the valid lengths of the last generate step, the write at
     B=4. Slice 2's at the 4 x 512 prefill: left_quant_i8_flat as one
     layer's four launches (three at K=4096, one at K=11008). Slice 3's at
-    llama-2-7b's 1 x 2048 prefill (32/32 heads). paths: {path: launches
-    read around it}."""
+    llama-2-7b's 1 x 2048 prefill (32/32 heads). Rows 12 and 13 at
+    Qwen-2.5-7B's prefill shapes (the down input [2048, 18944], the MLP
+    GEMM at M=2048); row 14 as one W4A16 llama-2-7b layer's four linears
+    at M=1 (the B=1 decode of phase 9). paths: {path: launches read around
+    it}."""
     out = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -1999,6 +2452,12 @@ def kernel_line(results, paths):
         elif name == "write_token":
             rows = [x for x in r["rows"] if x["B"] == 4]
             at = "B=4 nkv=32 S=2048"
+        elif name == "quant_acts_i8":
+            rows = [x for x in r["rows"] if x["case"].startswith("[2048,")]
+            at = rows[0]["case"]
+        elif name == "w4a8_matmul":
+            rows = [x for x in r["rows"] if x["m"] == 1]
+            at = "M=1 (B=1 decode), sum of qkv+o+upgate+down of one layer"
         elif name == "left_quant_i8_flat":
             rows, weights = r["rows"], [3, 1]
             at = ("T=2048, one layer: 3 x K=4096 (ln1, o, ln2) + "
@@ -2100,6 +2559,9 @@ def main(argv=None) -> int:
               check_flash, torch, dev, gen, results)
         phase("phase 3f: chunk and paged attention vs their plain versions",
               check_chunk_paged, torch, dev, gen, results)
+        phase("phase 3g: quant_acts_i8, w4a4_matmul_i8_swiglu, w4a8_matmul "
+              "vs their plain versions", check_quant_mode_kernels, torch, dev,
+              gen, results)
     model = None
     if not args.kernels_only and not failed:
         # the kernel checks' inputs and graph pools go back to the card
@@ -2132,6 +2594,14 @@ def main(argv=None) -> int:
             "phase 7: llama-2-7b under the continuous batcher",
             run_batcher_path, torch, dev, model, results, smi) or {})
         del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["qwen"] = phase(
+            "phase 8: Qwen-2.5-7B, balanced split, 1 x 2048 + 32 decode "
+            "steps", run_qwen_path, torch, dev, results, smi) or {}
+        paths["w4a16"] = phase(
+            "phase 9: llama-2-7b W4A16, 1 x 2048 + 32 decode steps",
+            run_w4a16_path, torch, dev, results, smi) or {}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,

@@ -31,7 +31,6 @@ from __future__ import annotations
 import torch
 
 from flatquant_torch.kernels import common
-from flatquant_torch.kernels.flat_pipeline import clip_vector
 from flatquant_torch.kernels.kv_cache import quantize_pack_kv
 from flatquant_torch.models.llama import rotate_half
 
@@ -128,7 +127,7 @@ def attn_prologue(qkv, cos, sin, k_t, k_t_inv, kc_clip=None, vc_clip=None,
     sin_b = sin.to(torch.bfloat16).contiguous()
     kt = _bf16_as(k_t, torch.float32).contiguous()
     kti = _bf16_as(k_t_inv, torch.float32).contiguous()
-    clips = clip_vector([kc_clip, vc_clip], dev)
+    clips = common.clip_vector([kc_clip, vc_clip], dev)
     q_rot = torch.empty((B, S, nh * HD), dtype=qkv.dtype, device=dev)
     k_rot = torch.empty((B, S, nkv * HD), dtype=qkv.dtype, device=dev)
     kp, kparam, vp, vparam = cache

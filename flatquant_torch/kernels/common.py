@@ -45,6 +45,9 @@ LAUNCHES: Dict[str, int] = {
     "chunk_attention_int4": 0,
     "paged_decode_attention_int4": 0,
     "paged_chunk_attention_int4": 0,
+    "quant_acts_i8": 0,
+    "w4a4_matmul_i8_swiglu": 0,
+    "w4a8_matmul": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -57,6 +60,10 @@ _SIGNATURES = {
     "int4_matmul": {
         # xq, wp, sx, sw, y, M, N, K, out_is_f32, stream
         "fq_w4a4_matmul_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x, clip, xq, xs, M, K, q_max, x_is_f32, stream
+        "fq_quant_acts_i8": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+        # x, wp, sx, sw, y, M, N, K, out_is_f32, stream
+        "fq_w4a8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "kv_cache": {
         # q, kp, kpar, vp, vpar, valid, out, B, nkv, n_rep, S, sm_scale, stream
@@ -85,6 +92,8 @@ _SIGNATURES = {
         # xq, wp, sx, sw, right, y, M, NH, K, stream
         "fq_w4a4_matmul_i8_swiglu_right": [_P, _P, _P, _P, _P, _P, _I, _I,
                                            _I, _P],
+        # xq, wp, sx, sw, y, M, NH, K, out_is_f32, stream
+        "fq_w4a4_matmul_i8_swiglu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "attn_prologue": {
         # qkv, cos, sin, kt, kti, clip, q_out, k_out, kc, kpar, vc, vpar,
@@ -205,6 +214,19 @@ def check(stem: str, name: str, rc: int) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def clip_vector(clips, device):
+    """LAC clip pairs (each (cmax, cmin) tensors, or None for (1, 1)) as
+    one float32 tensor on `device` that a kernel reads: no host sync."""
+    parts = []
+    for clip in clips:
+        if clip is None:
+            parts.append(torch.ones(2, dtype=torch.float32, device=device))
+        else:
+            parts += [torch.as_tensor(c, device=device).to(torch.float32)
+                      .reshape(1) for c in clip]
+    return torch.cat(parts)
 
 
 def require(cond: bool, name: str, what: str) -> None:

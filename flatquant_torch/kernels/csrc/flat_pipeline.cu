@@ -4,6 +4,9 @@
 //   rmsnorm_right_flat           -> fq_rmsnorm_right_flat
 //   left_quant_i8_flat           -> fq_left_quant_i8_flat
 //   w4a4_matmul_i8_swiglu_right  -> fq_w4a4_matmul_i8_swiglu_right
+// and flatquant_tpu/kernels/int4_matmul.py (Pallas):
+//   w4a4_matmul_i8_swiglu        -> fq_w4a4_matmul_i8_swiglu, the same
+//                                   GEMM without the right factor
 //
 // All three keep the flat [T, K] layout, K = G * 128, and round to bf16 at
 // the points the JAX kernels do (see kernels/flat_pipeline.py). Float
@@ -21,6 +24,10 @@
 //     187 us at 1979 TOP/s). It runs on the tensor cores through
 //     mma.sync.m16n8k32 s8 (not wgmma), one 128x(128 up + 128 gate) tile
 //     per block, with a register-prefetched single shared-memory stage.
+//     Without the right factor (w4a4_matmul_i8_swiglu, the balanced
+//     Kronecker split's MLP, e.g. Qwen-2.5-7B: 2 * 2048 * 37888 * 3584 =
+//     556 G, 281 us) the same main loop ends in an epilogue that writes
+//     u * silu(g) straight from the accumulators.
 
 #include <cuda_bf16.h>
 
@@ -268,9 +275,11 @@ left_quant_i8_flat_kernel(const float* __restrict__ ltT,
 // current step's products (one shared stage, prefetched through
 // registers). Rows are padded to 48 bytes in shared memory, so the
 // fragment loads (8 rows x 4 words) hit 32 distinct banks.
-// Epilogue: the activation tile goes to shared memory transposed
+// Epilogue (RIGHT): the activation tile goes to shared memory transposed
 // ([col][row], bf16), and each thread computes an 8x8 block of the
-// right product with R in float32 shared memory.
+// right product with R in float32 shared memory. Without RIGHT
+// (w4a4_matmul_i8_swiglu): out_dtype(u * (g * (1 / (1 + exp(-g))))) is
+// written from the accumulators, in bf16 or float32.
 // ---------------------------------------------------------------------------
 
 constexpr int SW_BM = 128;
@@ -284,6 +293,7 @@ constexpr int SW_MAIN = 6 * SW_TILE;    // A lo/hi, up lo/hi, gate lo/hi
 constexpr int SW_ACT = SW_BN * SW_ACT_LD * 2;
 constexpr int SW_UNION = SW_MAIN > SW_ACT ? SW_MAIN : SW_ACT;
 constexpr int SW_SMEM = SW_UNION + 128 * 128 * 4 + SW_BM * 4;
+constexpr int SW_SMEM_PLAIN = SW_MAIN + SW_BM * 4;  // no right factor
 
 __device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
                                        unsigned b0, unsigned b1) {
@@ -304,19 +314,32 @@ __device__ __forceinline__ int sum16(uint4 v, int acc) {
   return acc;
 }
 
-__global__ void __launch_bounds__(SW_THREADS, 1)
-w4a4_matmul_i8_swiglu_right_kernel(const int8_t* __restrict__ xq,
-                         const uint8_t* __restrict__ wp,
-                         const float* __restrict__ sx,
-                         const float* __restrict__ sw,
-                         const float* __restrict__ right,
-                         bf16* __restrict__ y, int M, int NH, int K) {
+template <typename OutT>
+__device__ __forceinline__ OutT to_out(float v);
+template <>
+__device__ __forceinline__ float to_out<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 to_out<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// The body of both swiglu GEMMs; each __global__ below carries its
+// wrapper's name (the profiles group kernels by it).
+template <bool RIGHT, typename OutT>
+__device__ __forceinline__ void swiglu_gemm(const int8_t* __restrict__ xq,
+                                            const uint8_t* __restrict__ wp,
+                                            const float* __restrict__ sx,
+                                            const float* __restrict__ sw,
+                                            const float* __restrict__ right,
+                                            OutT* __restrict__ y, int M,
+                                            int NH, int K) {
   extern __shared__ float4 smem4[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
   uint8_t* a_lo = sm;
   uint8_t* a_hi = sm + SW_TILE;  // tiles 2-5: up lo/hi, gate lo/hi
   float* rs_f = reinterpret_cast<float*>(sm + SW_UNION);  // [128][128]
-  int* rowsum = reinterpret_cast<int*>(rs_f + 128 * 128);  // [SW_BM]
+  int* rowsum = RIGHT ? reinterpret_cast<int*>(rs_f + 128 * 128)
+                      : reinterpret_cast<int*>(sm + SW_MAIN);  // [SW_BM]
   bf16* actT = reinterpret_cast<bf16*>(sm);  // epilogue: [128][136]
 
   const int tid = threadIdx.x;
@@ -417,68 +440,116 @@ w4a4_matmul_i8_swiglu_right_kernel(const int8_t* __restrict__ xq,
     s += __shfl_xor_sync(0xffffffffu, s, 2);
     if (a_seg == 0) rowsum[a_row[i]] = s;
   }
-  for (int i = tid; i < 128 * 128 / 4; i += SW_THREADS)
-    reinterpret_cast<float4*>(rs_f)[i] =
-        reinterpret_cast<const float4*>(right)[i];
-  __syncthreads();
-
-  // dequant + SwiGLU, into the transposed activation tile
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = warp * 16 + g8 + (e >= 2 ? 8 : 0);
-      const int col = nt * 8 + tq * 2 + (e & 1);
-      const int m = min(m0 + r, M - 1);
-      const int n = n0 + col;
-      const int bias = 8 * rowsum[r];
-      const float xsc = sx[m];
-      const float u = __fmul_rn(
-          __fmul_rn(static_cast<float>(acc[0][nt][e] - bias), xsc), sw[n]);
-      const float g = __fmul_rn(
-          __fmul_rn(static_cast<float>(acc[1][nt][e] - bias), xsc),
-          sw[NH + n]);
-      const float sig = 1.0f / __fadd_rn(1.0f, expf(-g));
-      actT[col * SW_ACT_LD + r] =
-          __float2bfloat16_rn(__fmul_rn(u, __fmul_rn(g, sig)));
-    }
+  if constexpr (RIGHT) {
+    for (int i = tid; i < 128 * 128 / 4; i += SW_THREADS)
+      reinterpret_cast<float4*>(rs_f)[i] =
+          reinterpret_cast<const float4*>(right)[i];
   }
   __syncthreads();
 
-  // right product: thread -> rows [8 * (tid >> 4), +8) x cols
-  // [8 * (tid & 15), +8)
-  const int rb = (tid >> 4) * 8, cb = (tid & 15) * 8;
-  float out[8][8];
+  if constexpr (!RIGHT) {
+    // dequant + SwiGLU, straight to y
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int nt = 0; nt < 16; ++nt) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) out[i][j] = 0.f;
-  for (int d = 0; d < 128; ++d) {
-    const uint4 av = *reinterpret_cast<const uint4*>(actT + d * SW_ACT_LD +
-                                                     rb);
-    const bf16* ab = reinterpret_cast<const bf16*>(&av);
-    const float4 r0 = *reinterpret_cast<const float4*>(rs_f + d * 128 + cb);
-    const float4 r1 =
-        *reinterpret_cast<const float4*>(rs_f + d * 128 + cb + 4);
-    const float rv[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+      for (int e = 0; e < 4; ++e) {
+        const int r = warp * 16 + g8 + (e >= 2 ? 8 : 0);
+        const int m = m0 + r;
+        if (m < M) {
+          const int n = n0 + nt * 8 + tq * 2 + (e & 1);
+          const int bias = 8 * rowsum[r];
+          const float xsc = sx[m];
+          const float u = __fmul_rn(
+              __fmul_rn(static_cast<float>(acc[0][nt][e] - bias), xsc), sw[n]);
+          const float g = __fmul_rn(
+              __fmul_rn(static_cast<float>(acc[1][nt][e] - bias), xsc),
+              sw[NH + n]);
+          const float sig = 1.0f / __fadd_rn(1.0f, expf(-g));
+          y[static_cast<size_t>(m) * NH + n] =
+              to_out<OutT>(__fmul_rn(u, __fmul_rn(g, sig)));
+        }
+      }
+    }
+  } else {
+    // dequant + SwiGLU, into the transposed activation tile
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = warp * 16 + g8 + (e >= 2 ? 8 : 0);
+        const int col = nt * 8 + tq * 2 + (e & 1);
+        const int m = min(m0 + r, M - 1);
+        const int n = n0 + col;
+        const int bias = 8 * rowsum[r];
+        const float xsc = sx[m];
+        const float u = __fmul_rn(
+            __fmul_rn(static_cast<float>(acc[0][nt][e] - bias), xsc), sw[n]);
+        const float g = __fmul_rn(
+            __fmul_rn(static_cast<float>(acc[1][nt][e] - bias), xsc),
+            sw[NH + n]);
+        const float sig = 1.0f / __fadd_rn(1.0f, expf(-g));
+        actT[col * SW_ACT_LD + r] =
+            __float2bfloat16_rn(__fmul_rn(u, __fmul_rn(g, sig)));
+      }
+    }
+    __syncthreads();
+
+    // right product: thread -> rows [8 * (tid >> 4), +8) x cols
+    // [8 * (tid & 15), +8)
+    const int rb = (tid >> 4) * 8, cb = (tid & 15) * 8;
+    float out[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) out[i][j] = 0.f;
+    for (int d = 0; d < 128; ++d) {
+      const uint4 av = *reinterpret_cast<const uint4*>(actT + d * SW_ACT_LD +
+                                                       rb);
+      const bf16* ab = reinterpret_cast<const bf16*>(&av);
+      const float4 r0 = *reinterpret_cast<const float4*>(rs_f + d * 128 + cb);
+      const float4 r1 =
+          *reinterpret_cast<const float4*>(rs_f + d * 128 + cb + 4);
+      const float rv[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float a = __bfloat162float(ab[i]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) out[i][j] = fmaf(a, rv[j], out[i][j]);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const float a = __bfloat162float(ab[i]);
+      const int m = m0 + rb + i;
+      if (m < M) {
+        __align__(16) bf16 o[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) out[i][j] = fmaf(a, rv[j], out[i][j]);
+        for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16_rn(out[i][j]);
+        *reinterpret_cast<uint4*>(y + static_cast<size_t>(m) * NH + n0 + cb) =
+            *reinterpret_cast<const uint4*>(o);
+      }
     }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + rb + i;
-    if (m < M) {
-      __align__(16) bf16 o[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16_rn(out[i][j]);
-      *reinterpret_cast<uint4*>(y + static_cast<size_t>(m) * NH + n0 + cb) =
-          *reinterpret_cast<const uint4*>(o);
-    }
-  }
+  }  // RIGHT
+}
+
+__global__ void __launch_bounds__(SW_THREADS, 1)
+w4a4_matmul_i8_swiglu_right_kernel(const int8_t* __restrict__ xq,
+                                   const uint8_t* __restrict__ wp,
+                                   const float* __restrict__ sx,
+                                   const float* __restrict__ sw,
+                                   const float* __restrict__ right,
+                                   bf16* __restrict__ y, int M, int NH,
+                                   int K) {
+  swiglu_gemm<true, bf16>(xq, wp, sx, sw, right, y, M, NH, K);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(SW_THREADS, 1)
+w4a4_matmul_i8_swiglu_kernel(const int8_t* __restrict__ xq,
+                             const uint8_t* __restrict__ wp,
+                             const float* __restrict__ sx,
+                             const float* __restrict__ sw,
+                             OutT* __restrict__ y, int M, int NH, int K) {
+  swiglu_gemm<false, OutT>(xq, wp, sx, sw, nullptr, y, M, NH, K);
 }
 
 }  // namespace
@@ -538,15 +609,46 @@ extern "C" int fq_w4a4_matmul_i8_swiglu_right(const void* xq, const void* wp,
                                               const void* right, void* y,
                                               int M, int NH, int K,
                                               void* stream) {
+  auto kern = w4a4_matmul_i8_swiglu_right_kernel;
   static int done = 0;
-  cudaError_t err =
-      allow_smem(w4a4_matmul_i8_swiglu_right_kernel, SW_SMEM, &done);
+  cudaError_t err = allow_smem(kern, SW_SMEM, &done);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(NH / SW_BN, (M + SW_BM - 1) / SW_BM);
-  w4a4_matmul_i8_swiglu_right_kernel<<<grid, SW_THREADS, SW_SMEM,
-                             static_cast<cudaStream_t>(stream)>>>(
+  kern<<<grid, SW_THREADS, SW_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(wp),
       static_cast<const float*>(sx), static_cast<const float*>(sw),
       static_cast<const float*>(right), static_cast<bf16*>(y), M, NH, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xq int8 [M, K]; wp uint8 [2*NH, K/2] planar (up rows, then gate rows);
+// sx f32 [M]; sw f32 [2*NH]; y [M, NH] bf16 (out_is_f32 = 0) or f32.
+// NH % 128 == 0 and K % 64 == 0 (checked in Python).
+extern "C" int fq_w4a4_matmul_i8_swiglu(const void* xq, const void* wp,
+                                        const void* sx, const void* sw,
+                                        void* y, int M, int NH, int K,
+                                        int out_is_f32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid(NH / SW_BN, (M + SW_BM - 1) / SW_BM);
+  auto x_ = static_cast<const int8_t*>(xq);
+  auto w_ = static_cast<const uint8_t*>(wp);
+  auto a_ = static_cast<const float*>(sx);
+  auto b_ = static_cast<const float*>(sw);
+  cudaError_t err;
+  if (out_is_f32) {
+    auto kern = w4a4_matmul_i8_swiglu_kernel<float>;
+    static int done = 0;
+    err = allow_smem(kern, SW_SMEM_PLAIN, &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, SW_THREADS, SW_SMEM_PLAIN, s>>>(
+        x_, w_, a_, b_, static_cast<float*>(y), M, NH, K);
+  } else {
+    auto kern = w4a4_matmul_i8_swiglu_kernel<bf16>;
+    static int done = 0;
+    err = allow_smem(kern, SW_SMEM_PLAIN, &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, SW_THREADS, SW_SMEM_PLAIN, s>>>(
+        x_, w_, a_, b_, static_cast<bf16*>(y), M, NH, K);
+  }
   return static_cast<int>(cudaGetLastError());
 }

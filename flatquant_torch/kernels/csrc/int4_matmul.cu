@@ -1,3 +1,13 @@
+// The int4-weight GEMMs of the serving linears and the one-pass
+// per-token activation quant (port of flatquant_tpu/kernels/int4_matmul.py):
+//   w4a4_matmul_i8  -> fq_w4a4_matmul_i8   (int8 codes x int4 weights)
+//   quant_acts_i8   -> fq_quant_acts_i8    (per-token symmetric quant)
+//   w4a8_matmul     -> fq_w4a8_matmul      (bf16 activations x int4 weights)
+// Weights are planar-packed biased nibbles everywhere:
+//   packed byte c of row n = nib[n, c] | nib[n, c + K/2] << 4, nib = q + 8
+// and the -8 zero point folds into each epilogue as -8 * rowsum(x).
+//
+// ---------------------------------------------------------------------
 // w4a4_matmul_i8: int8 activation codes x planar int4 weights, int32
 // accumulation, fused dequant epilogue.
 //
@@ -6,7 +16,6 @@
 //
 //   y[m, n] = (float)(acc[m, n] - 8 * rowsum[m]) * sx[m] * sw[n]
 //   acc     = sum_k x_q[m, k] * nib[n, k],   nib = q + 8 in [0, 15]
-//   packed  byte c of row n = nib[n, c] | nib[n, c + K/2] << 4
 //
 // What bounds it on the H100: at decode (M <= 8) the weight stream. Every
 // packed byte is read once (N * K/2 bytes: 25 MB for the merged qkv of
@@ -25,12 +34,60 @@
 // is later work). The int32 sums are exact and the epilogue multiplies in
 // the plain version's order, so the result is bit-identical to
 // w4a8_matmul_ref (float32 products of integers below 2^24, TF32 off).
+//
+// ---------------------------------------------------------------------
+// quant_acts_i8: x [M, K] (bf16 or f32) -> int8 codes [M, K], f32 scales
+// [M, 1], per row: xmax = max(x, 0) * cmax, xmin = min(x, 0) * cmin,
+// s = max(|xmin|, xmax) / q_max (1 for a zero row), q = clamp(rint(x / s),
+// -q_max - 1, q_max).
+//
+// Replaces: flatquant_tpu/kernels/int4_matmul.py:quant_acts_i8 (Pallas).
+//
+// What bounds it on the H100: bytes. One read of x and one write of the
+// codes (at Qwen-2.5-7B's down input, [2048, 18944] bf16: 77.6 MB read,
+// 38.8 MB written, 35 us at 3.35 TB/s); a few operations per element.
+//
+// Design: one block per row. The row is read once, 16 bytes a thread,
+// into shared memory while the extrema are taken; a block reduction gives
+// the scale, and the codes are written from shared memory. The division
+// is IEEE ('/', not a reciprocal multiply) and the clip products are
+// __fmul_rn, so codes and scales equal the plain version's bit for bit.
+//
+// ---------------------------------------------------------------------
+// w4a8_matmul: bf16 activations x planar int4 weights, float32 sums.
+//
+// Replaces: flatquant_tpu/kernels/int4_matmul.py:w4a8_matmul (Pallas, the
+// weight-only W4A16 linear; the engine passes unit activation scales).
+//
+//   y[m, n] = (acc[m, n] - 8 * rowsum[m]) * sx[m] * sw[n]
+//   acc     = sum_k x[m, k] * nib[n, k]  (float32),  rowsum = sum_k x[m, k]
+//
+// What bounds it on the H100: at decode (M = 1..4) the weight stream,
+// N * K/2 bytes (101 MB per llama-2-7b layer, 30 us); at prefill (M =
+// 2048) the bf16 operations, 2*M*N*K (829 GFLOP per llama-2-7b layer,
+// 0.84 ms at 989 TFLOP/s).
+//
+// Design: two kernels behind one entry point. M <= 8: a weight stream
+// like w4a4_matmul_i8's (four weight rows per warp, a lane per 16-byte
+// chunk), with the nibbles and the bf16 activations widened to float32
+// and summed with FMAs. M > 8: a 128 x 128 tile per block on the tensor
+// cores, mma.sync.m16n8k16 bf16 with float32 accumulators; each step
+// takes 32 packed bytes per weight row (64 k: 32 of the low nibble plane,
+// 32 of the high), converts the nibbles to bf16 once in shared memory
+// (exact: 0..15), and prefetches the next step's global loads into
+// registers (one shared stage). Each step's partial sums are promoted to
+// the running sums with an IEEE add (the tensor cores truncate). The row
+// sums of x are taken from the same loads, in float32. The sums run in
+// another order than the plain version's, so outputs agree to float32
+// rounding (bf16 outputs to one ulp), not bit for bit.
 
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
 
 constexpr int WARPS = 4;  // warps per block
 constexpr int ROWS = 4;   // weight rows (outputs n) per warp
@@ -141,6 +198,396 @@ w4a4_matmul_i8_kernel(const int8_t* __restrict__ xq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// quant_acts_i8
+// ---------------------------------------------------------------------------
+
+constexpr int QA_THREADS = 256;
+
+// the 16 / sizeof(T) values of one 16-byte vector, widened to float32
+template <typename T>
+__device__ __forceinline__ void widen16(uint4 v, float* f);
+template <>
+__device__ __forceinline__ void widen16<bf16>(uint4 v, float* f) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+template <>
+__device__ __forceinline__ void widen16<float>(uint4 v, float* f) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(QA_THREADS)
+quant_acts_i8_kernel(const T* __restrict__ x, const float* __restrict__ clip,
+                     int8_t* __restrict__ xq, float* __restrict__ xs, int K,
+                     float q_max) {
+  constexpr int E = 16 / sizeof(T);  // values per 16-byte vector
+  extern __shared__ uint4 qa_row[];  // the row, as read
+  __shared__ float red[2][QA_THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row = blockIdx.x;
+  const int nvec = K / E;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * K);
+
+  float mx = 0.f, mn = 0.f;  // max(., 0) and min(., 0) folded in
+  for (int i = tid; i < nvec; i += QA_THREADS) {
+    const uint4 v = ldg16(xr + i);
+    qa_row[i] = v;
+    float f[E];
+    widen16<T>(v, f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      mx = fmaxf(mx, f[e]);
+      mn = fminf(mn, f[e]);
+    }
+  }
+  mx = warp_max(mx);
+  mn = -warp_max(-mn);
+  if (lane == 0) {
+    red[0][warp] = mx;
+    red[1][warp] = mn;
+  }
+  __syncthreads();
+  mx = red[0][0];
+  mn = red[1][0];
+#pragma unroll
+  for (int w = 1; w < QA_THREADS / 32; ++w) {
+    mx = fmaxf(mx, red[0][w]);
+    mn = fminf(mn, red[1][w]);
+  }
+  const float xmax = __fmul_rn(mx, clip[0]);
+  const float xmin = __fmul_rn(mn, clip[1]);
+  const float absmax = fmaxf(fabsf(xmin), xmax);
+  const float s = absmax == 0.f ? 1.f : absmax / q_max;
+  if (tid == 0) xs[row] = s;
+
+  int8_t* qr = xq + row * K;
+  for (int i = tid; i < nvec; i += QA_THREADS) {
+    float f[E];
+    widen16<T>(qa_row[i], f);
+    unsigned p[E / 4];
+#pragma unroll
+    for (int j = 0; j < E / 4; ++j) p[j] = 0u;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float q = fminf(fmaxf(rintf(f[e] / s), -q_max - 1.f), q_max);
+      p[e / 4] |= (static_cast<unsigned>(static_cast<int>(q)) & 0xFFu)
+                  << (8 * (e % 4));
+    }
+    if constexpr (E == 8) {
+      *reinterpret_cast<uint2*>(qr + i * 8) = make_uint2(p[0], p[1]);
+    } else {
+      *reinterpret_cast<unsigned*>(qr + i * 4) = p[0];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// w4a8_matmul, decode: the weight stream (M <= W8_MT * gridDim.y)
+// ---------------------------------------------------------------------------
+
+constexpr int W8_WARPS = 4;  // warps per block
+constexpr int W8_ROWS = 4;   // weight rows per warp
+constexpr int W8_MT = 4;     // activation rows per block
+constexpr int W8_MAX_M = 8;  // the stream kernel serves M up to this
+
+__device__ __forceinline__ void bf16x2_widen(unsigned w, float& a, float& b) {
+  a = __uint_as_float(w << 16);
+  b = __uint_as_float(w & 0xFFFF0000u);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(W8_WARPS * 32)
+w4a8_matmul_stream_kernel(const bf16* __restrict__ x,
+                          const uint8_t* __restrict__ wp,
+                          const float* __restrict__ sx,
+                          const float* __restrict__ sw, OutT* __restrict__ y,
+                          int M, int N, int K) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n0 = (blockIdx.x * W8_WARPS + warp) * W8_ROWS;
+  const int m0 = blockIdx.y * W8_MT;
+  if (n0 >= N) return;  // no block-level barrier follows
+  const int mt = min(W8_MT, M - m0);
+  const int half = K / 2;
+  const int chunks = half / 16;  // 16-byte chunks per packed row
+
+  float acc[W8_MT][W8_ROWS];
+  float rsum[W8_MT];
+#pragma unroll
+  for (int m = 0; m < W8_MT; ++m) {
+    rsum[m] = 0.f;
+#pragma unroll
+    for (int r = 0; r < W8_ROWS; ++r) acc[m][r] = 0.f;
+  }
+
+  for (int c = lane; c < chunks; c += 32) {
+    unsigned w[W8_ROWS][4];
+#pragma unroll
+    for (int r = 0; r < W8_ROWS; ++r) {
+      const uint4 v =
+          (n0 + r < N) ? ldg16(wp + static_cast<size_t>(n0 + r) * half + c * 16)
+                       : make_uint4(0u, 0u, 0u, 0u);
+      w[r][0] = v.x;
+      w[r][1] = v.y;
+      w[r][2] = v.z;
+      w[r][3] = v.w;
+    }
+#pragma unroll
+    for (int wi = 0; wi < 4; ++wi) {  // packed bytes 4wi..4wi+3 of the chunk
+      float nl[W8_ROWS][4], nh[W8_ROWS][4];
+#pragma unroll
+      for (int r = 0; r < W8_ROWS; ++r) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          nl[r][b] = static_cast<float>((w[r][wi] >> (8 * b)) & 0xFu);
+          nh[r][b] = static_cast<float>((w[r][wi] >> (8 * b + 4)) & 0xFu);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < W8_MT; ++m) {
+        if (m < mt) {
+          // activations k = c*16 + 4wi .. +3 (low plane) and the same
+          // offsets past half (high plane): 8 bytes each
+          const bf16* xr =
+              x + static_cast<size_t>(m0 + m) * K + c * 16 + 4 * wi;
+          const uint2 lo = __ldg(reinterpret_cast<const uint2*>(xr));
+          const uint2 hi = __ldg(reinterpret_cast<const uint2*>(xr + half));
+          float xl[4], xh[4];
+          bf16x2_widen(lo.x, xl[0], xl[1]);
+          bf16x2_widen(lo.y, xl[2], xl[3]);
+          bf16x2_widen(hi.x, xh[0], xh[1]);
+          bf16x2_widen(hi.y, xh[2], xh[3]);
+#pragma unroll
+          for (int b = 0; b < 4; ++b) rsum[m] += xl[b] + xh[b];
+#pragma unroll
+          for (int r = 0; r < W8_ROWS; ++r) {
+            float a = acc[m][r];
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              a = fmaf(xl[b], nl[r][b], a);
+              a = fmaf(xh[b], nh[r][b], a);
+            }
+            acc[m][r] = a;
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < W8_MT; ++m) {
+    rsum[m] = warp_sum(rsum[m]);
+#pragma unroll
+    for (int r = 0; r < W8_ROWS; ++r) acc[m][r] = warp_sum(acc[m][r]);
+  }
+#pragma unroll
+  for (int m = 0; m < W8_MT; ++m) {
+#pragma unroll
+    for (int r = 0; r < W8_ROWS; ++r) {
+      if (lane == ((m * W8_ROWS + r) & 31) && m < mt && n0 + r < N) {
+        float v = __fsub_rn(acc[m][r], __fmul_rn(8.f, rsum[m]));
+        v = __fmul_rn(v, sx[m0 + m]);
+        v = __fmul_rn(v, sw[n0 + r]);
+        y[static_cast<size_t>(m0 + m) * N + n0 + r] = to_out<OutT>(v);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// w4a8_matmul, prefill: 128 x 128 tiles on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int WM_BM = 128;
+constexpr int WM_BN = 128;
+constexpr int WM_THREADS = 256;
+constexpr int WM_KP = 32;  // packed bytes per weight row per step (64 k)
+constexpr int WM_LD = 72;  // padded shared row, bf16: 64 k + 8
+
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two nibbles (0..15) as a bf16 pair, low half first (exact)
+__device__ __forceinline__ unsigned nib_pair(unsigned a, unsigned b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(a),
+                                                 static_cast<float>(b));
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Block tile: 128 activation rows x 128 weight rows. Warp w computes rows
+// [16w, 16w + 16) against all 128 weight rows (16 n-tiles of 8). Shared
+// k slot s of a step maps to k = c + s (s < 32, low plane) and k = K/2 + c
+// + s - 32 (high plane), the same for x and for the weights. Rows are
+// padded to 72 bf16 (36 words), so the fragment loads (8 rows x 4 words)
+// hit 32 distinct banks.
+template <typename OutT>
+__global__ void __launch_bounds__(WM_THREADS)
+w4a8_matmul_mma_kernel(const bf16* __restrict__ x,
+                       const uint8_t* __restrict__ wp,
+                       const float* __restrict__ sx,
+                       const float* __restrict__ sw, OutT* __restrict__ y,
+                       int M, int N, int K) {
+  __shared__ __align__(16) bf16 a_s[WM_BM * WM_LD];
+  __shared__ __align__(16) bf16 b_s[WM_BN * WM_LD];
+  __shared__ float rowsum_s[WM_BM];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.y * WM_BM;
+  const int n0 = blockIdx.x * WM_BN;
+  const int half = K / 2;
+
+  // per step: x is 128 rows x 8 16-byte segments (4 low plane, 4 high),
+  // four per thread (rows tid/8 + 32j, segment tid % 8); the weights are
+  // 128 rows x 2 segments, one per thread
+  const int xseg = tid & 7, xrow = tid >> 3;
+  const int wrow = tid >> 1, wseg = tid & 1;
+  uint4 rx[4], rw;
+  float rsum[4] = {0.f, 0.f, 0.f, 0.f};
+
+  auto load_step = [&](int c) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + xrow + 32 * j;
+      const int col = (xseg < 4 ? c : half + c) + (xseg & 3) * 8;
+      rx[j] = m < M ? ldg16(x + static_cast<size_t>(m) * K + col)
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+    const int n = n0 + wrow;
+    rw = n < N ? ldg16(wp + static_cast<size_t>(n) * half + c + wseg * 16)
+               : make_uint4(0u, 0u, 0u, 0u);
+  };
+  auto store_step = [&]() {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int slot = (xseg < 4 ? 0 : 32) + (xseg & 3) * 8;
+      *reinterpret_cast<uint4*>(a_s + (xrow + 32 * j) * WM_LD + slot) = rx[j];
+      float f[8];
+      widen16<bf16>(rx[j], f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) rsum[j] += f[e];
+    }
+    const unsigned v[4] = {rw.x, rw.y, rw.z, rw.w};
+    unsigned lo[8], hi[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned u = v[i];
+      lo[2 * i] = nib_pair(u & 0xFu, (u >> 8) & 0xFu);
+      lo[2 * i + 1] = nib_pair((u >> 16) & 0xFu, (u >> 24) & 0xFu);
+      hi[2 * i] = nib_pair((u >> 4) & 0xFu, (u >> 12) & 0xFu);
+      hi[2 * i + 1] = nib_pair((u >> 20) & 0xFu, (u >> 28) & 0xFu);
+    }
+    bf16* br = b_s + wrow * WM_LD + wseg * 16;
+    *reinterpret_cast<uint4*>(br) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    *reinterpret_cast<uint4*>(br + 8) = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+    *reinterpret_cast<uint4*>(br + 32) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(br + 40) = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+  };
+
+  float acc[16][4];
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  load_step(0);
+  for (int c = 0; c < half; c += WM_KP) {
+    store_step();
+    __syncthreads();
+    if (c + WM_KP < half) load_step(c + WM_KP);
+    // the step's 64-k partial sums start from zero on the tensor cores and
+    // are added to acc on the CUDA cores (IEEE round to nearest): the
+    // tensor cores' float32 accumulation truncates, and chained over all
+    // of K that bias reaches ~2e-5 of a row's largest output at K = 11008
+    // (acc carries 7.5 * rowsum(x) besides the output)
+    float part[16][4];
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
+    const bf16* at = a_s + (warp * 16) * WM_LD;
+#pragma unroll
+    for (int kk = 0; kk < 2 * WM_KP; kk += 16) {
+      unsigned af[4];
+      af[0] = *reinterpret_cast<const unsigned*>(at + g8 * WM_LD + kk + tq * 2);
+      af[1] = *reinterpret_cast<const unsigned*>(at + (g8 + 8) * WM_LD + kk +
+                                                 tq * 2);
+      af[2] = *reinterpret_cast<const unsigned*>(at + g8 * WM_LD + kk + 8 +
+                                                 tq * 2);
+      af[3] = *reinterpret_cast<const unsigned*>(at + (g8 + 8) * WM_LD + kk +
+                                                 8 + tq * 2);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const bf16* bt = b_s + (nt * 8 + g8) * WM_LD + kk + tq * 2;
+        const unsigned b0 = *reinterpret_cast<const unsigned*>(bt);
+        const unsigned b1 = *reinterpret_cast<const unsigned*>(bt + 8);
+        mma_bf16(part[nt], af, b0, b1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[nt][e] = __fadd_rn(acc[nt][e], part[nt][e]);
+    __syncthreads();
+  }
+
+  // row sums: the 8 threads of a row are neighbouring lanes
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float s = rsum[j];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    if (xseg == 0) rowsum_s[xrow + 32 * j] = s;
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = warp * 16 + g8 + (e >= 2 ? 8 : 0);
+      const int m = m0 + r;
+      const int n = n0 + nt * 8 + tq * 2 + (e & 1);
+      if (m < M && n < N) {
+        float v = __fsub_rn(acc[nt][e], __fmul_rn(8.f, rowsum_s[r]));
+        v = __fmul_rn(v, sx[m]);
+        v = __fmul_rn(v, sw[n]);
+        y[static_cast<size_t>(m) * N + n] = to_out<OutT>(v);
+      }
+    }
+  }
+}
+
+// Opt a kernel into `bytes` of dynamic shared memory (above 48 KB), once:
+// *done remembers the largest size set so far, so a launch inside a CUDA
+// graph capture makes no runtime call after the first launch.
+template <typename Kern>
+cudaError_t allow_smem(Kern kernel, int bytes, int* done) {
+  if (bytes <= *done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *done = bytes;
+  return err;
+}
+
 }  // namespace
 
 // x_q int8 [M, K]; w_packed uint8 [N, K/2]; sx f32 [M]; sw f32 [N];
@@ -164,6 +611,69 @@ extern "C" int fq_w4a4_matmul_i8(const void* xq, const void* wp,
   } else {
     w4a4_matmul_i8_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
         x, w, a, b, static_cast<__nv_bfloat16*>(y), M, N, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x [M, K] bf16 (x_is_f32 = 0) or f32, K % 128 == 0, 16-byte aligned;
+// clip f32 [2] (cmax, cmin); xq int8 [M, K]; xs f32 [M].
+extern "C" int fq_quant_acts_i8(const void* x, const void* clip, void* xq,
+                                void* xs, int M, int K, float q_max,
+                                int x_is_f32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto c = static_cast<const float*>(clip);
+  auto q = static_cast<int8_t*>(xq);
+  auto sc = static_cast<float*>(xs);
+  cudaError_t err;
+  if (x_is_f32) {
+    static int done = 0;
+    const int bytes = K * 4;
+    err = allow_smem(quant_acts_i8_kernel<float>, bytes, &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    quant_acts_i8_kernel<float><<<M, QA_THREADS, bytes, s>>>(
+        static_cast<const float*>(x), c, q, sc, K, q_max);
+  } else {
+    static int done = 0;
+    const int bytes = K * 2;
+    err = allow_smem(quant_acts_i8_kernel<bf16>, bytes, &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    quant_acts_i8_kernel<bf16><<<M, QA_THREADS, bytes, s>>>(
+        static_cast<const bf16*>(x), c, q, sc, K, q_max);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x bf16 [M, K]; w_packed uint8 [N, K/2]; sx f32 [M]; sw f32 [N]; y [M, N]
+// bf16 (out_is_f32 = 0) or f32. K % 64 == 0 and 16-byte aligned rows are
+// the caller's contract (checked in Python).
+extern "C" int fq_w4a8_matmul(const void* x, const void* wp, const void* sx,
+                              const void* sw, void* y, int M, int N, int K,
+                              int out_is_f32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto x_ = static_cast<const bf16*>(x);
+  auto w = static_cast<const uint8_t*>(wp);
+  auto a = static_cast<const float*>(sx);
+  auto b = static_cast<const float*>(sw);
+  if (M <= W8_MAX_M) {
+    const int rows_per_block = W8_WARPS * W8_ROWS;
+    dim3 grid((N + rows_per_block - 1) / rows_per_block,
+              (M + W8_MT - 1) / W8_MT);
+    if (out_is_f32) {
+      w4a8_matmul_stream_kernel<float><<<grid, W8_WARPS * 32, 0, s>>>(
+          x_, w, a, b, static_cast<float*>(y), M, N, K);
+    } else {
+      w4a8_matmul_stream_kernel<bf16><<<grid, W8_WARPS * 32, 0, s>>>(
+          x_, w, a, b, static_cast<bf16*>(y), M, N, K);
+    }
+  } else {
+    dim3 grid((N + WM_BN - 1) / WM_BN, (M + WM_BM - 1) / WM_BM);
+    if (out_is_f32) {
+      w4a8_matmul_mma_kernel<float><<<grid, WM_THREADS, 0, s>>>(
+          x_, w, a, b, static_cast<float*>(y), M, N, K);
+    } else {
+      w4a8_matmul_mma_kernel<bf16><<<grid, WM_THREADS, 0, s>>>(
+          x_, w, a, b, static_cast<bf16*>(y), M, N, K);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

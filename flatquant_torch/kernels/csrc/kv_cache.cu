@@ -23,7 +23,8 @@
 // the v4 lane-transposed layout is a TPU VMEM choice and is not carried
 // over; the paged kernel's clamped index map becomes the skipped tiles).
 //
-// One query token per slot, GQA: query head h*n_rep + r reads kv head h.
+// One query token per slot, GQA: query head h*n_rep + r reads kv head h,
+// for every n_rep from 1 to 8 (a template instance each).
 // Scale and zero fold into the epilogues (no per-element dequant):
 //   score[r, t] = (q_r . c_t - sum(q_r) * z_t) * s_t * sm_scale
 //   out[r]      = (sum_t p'_t c_t - sum_t p'_t zv_t) / l,  p' = p * sv_t
@@ -53,7 +54,8 @@
 // A prefill chunk of Sq query tokens starting at position pos[b] attends
 // the cache, which already holds the chunk's own K/V: query row s sees
 // cache ids <= pos + s. Per kv head the n_rep * Sq rows are flattened,
-// row r = rep * Sq + s. Same algebraic dequant and online softmax as the
+// row r = rep * Sq + s, for any n_rep (R = n_rep * Sq is a runtime count
+// and each row's limit is pos + r % Sq). Same algebraic dequant and online softmax as the
 // decode kernel, float32 throughout (q arrives in float32).
 //
 // What bounds it on the H100: operations. At the serving chunk (Sq = 256
@@ -507,10 +509,16 @@ int launch_decode(const void* q, const void* kp, const void* kpar,
       static_cast<const float*>(vpar), static_cast<const int*>(valid),     \
       static_cast<const int*>(tbl), static_cast<float*>(out), nkv, S_eff,  \
       mb, bs, sm_scale)
+  // every GQA group size of the registered models: Qwen-2.5-7B has 7
+  // query heads per kv head, Qwen-2.5-32B 5
   switch (n_rep) {
     case 1: FQ_LAUNCH(1); break;
     case 2: FQ_LAUNCH(2); break;
+    case 3: FQ_LAUNCH(3); break;
     case 4: FQ_LAUNCH(4); break;
+    case 5: FQ_LAUNCH(5); break;
+    case 6: FQ_LAUNCH(6); break;
+    case 7: FQ_LAUNCH(7); break;
     case 8: FQ_LAUNCH(8); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

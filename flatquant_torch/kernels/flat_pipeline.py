@@ -32,25 +32,15 @@ from __future__ import annotations
 import torch
 
 from flatquant_torch.kernels import common
-from flatquant_torch.kernels.int4_matmul import unpack_weight_planar
+from flatquant_torch.kernels.int4_matmul import (
+    quant_acts_i8_ref,
+    w4a4_matmul_i8_swiglu_ref,
+)
 
 _RMS = "rmsnorm_right_flat"
 _LQ = "left_quant_i8_flat"
 _SWI = "w4a4_matmul_i8_swiglu_right"
 _LIB = "flat_pipeline"
-
-
-def clip_vector(clips, device):
-    """LAC clip pairs (each (cmax, cmin) tensors, or None for (1, 1)) as
-    one float32 tensor on `device` that a kernel reads: no host sync."""
-    parts = []
-    for clip in clips:
-        if clip is None:
-            parts.append(torch.ones(2, dtype=torch.float32, device=device))
-        else:
-            parts += [torch.as_tensor(c, device=device).to(torch.float32)
-                      .reshape(1) for c in clip]
-    return torch.cat(parts)
 
 
 def _group_right(x, right):
@@ -115,14 +105,12 @@ def left_quant_i8_flat_ref(left_t, x, clip=None, q_max: int = 7):
     the serving per-token scale rule on z: xmax/xmin clipped by their LAC
     ratios, scale = max(|xmin|, xmax) / q_max (1 for a zero row), codes
     round-half-even(z / scale) clamped to [-q_max-1, q_max]."""
-    from flatquant_torch.serving.quantized import _act_codes_i8
-
     t, k = x.shape
     g = k // 128
     lt = left_t.to(torch.bfloat16).to(torch.float32)
     xg = x.to(torch.float32).reshape(t, g, 128)
     z = torch.einsum("ij,tjd->tid", lt, xg).to(torch.bfloat16)
-    return _act_codes_i8(z.reshape(t, k), clip, q_max)
+    return quant_acts_i8_ref(z.reshape(t, k), clip, q_max)
 
 
 def left_quant_i8_flat(left_t, x, clip=None, q_max: int = 7):
@@ -146,7 +134,7 @@ def left_quant_i8_flat(left_t, x, clip=None, q_max: int = 7):
     x = x.contiguous()
     # transposed, so a thread reads four outputs' coefficients at once
     ltT = left_t.to(torch.bfloat16).to(torch.float32).t().contiguous()
-    cl = clip_vector([clip], x.device)
+    cl = common.clip_vector([clip], x.device)
     xq = torch.empty((t, k), dtype=torch.int8, device=x.device)
     xs = torch.empty((t, 1), dtype=torch.float32, device=x.device)
     rc = common.lib(_LIB).fq_left_quant_i8_flat(
@@ -163,16 +151,12 @@ def left_quant_i8_flat(left_t, x, clip=None, q_max: int = 7):
 
 
 def w4a4_matmul_i8_swiglu_right_ref(x_q, x_scale, w_packed, w_scale, right):
-    """Plain version. u, g = dequant(x_q @ w^T) for the up rows [0, nh)
-    and the gate rows [nh, 2nh) of w (float32 product of integer codes:
-    exact with TF32 off, multiplied by x_scale then w_scale);
-    act = bf16(u * (g * (1 / (1 + exp(-g))))) in float32; returns
-    act @ bf16(right) per 128-column group -> bf16 [M, nh]."""
-    w = unpack_weight_planar(w_packed).to(torch.float32)
-    acc = x_q.to(torch.float32) @ w.T
-    y = acc * x_scale.reshape(-1, 1) * w_scale.reshape(1, -1)
-    u, g = y.chunk(2, dim=-1)
-    act = (u * (g * (1.0 / (1.0 + torch.exp(-g))))).to(torch.bfloat16)
+    """Plain version: act = w4a4_matmul_i8_swiglu's plain version in bf16
+    (u, g dequantized from exact float32 products of integer codes, then
+    bf16(u * (g * (1 / (1 + exp(-g)))))); returns act @ bf16(right) per
+    128-column group -> bf16 [M, nh]."""
+    act = w4a4_matmul_i8_swiglu_ref(x_q, x_scale, w_packed, w_scale,
+                                    torch.bfloat16)
     return _group_right(act, right)
 
 

@@ -1,22 +1,43 @@
-"""W4A4 GEMM over planar-packed int4 weights (port of
-flatquant_tpu/kernels/int4_matmul.py, the serving path's functions).
+"""The int4-weight GEMMs of the serving linears and the one-pass
+per-token activation quant (port of flatquant_tpu/kernels/int4_matmul.py,
+the serving path's functions).
 
 Weights are packed two int4 codes per byte in the planar layout shared
 with the JAX package: byte c of row n = (q[n, c] + 8) | (q[n, c + K/2] + 8)
-<< 4. The biased nibbles feed the integer dot product directly and the
--8 zero point folds into the epilogue as -8 * rowsum(x).
+<< 4. The biased nibbles feed the products directly and the -8 zero
+point folds into the epilogue as -8 * rowsum(x).
 
-`w4a4_matmul_i8` launches the CUDA kernel (csrc/int4_matmul.cu) for CUDA
-tensors and runs the plain version `w4a8_matmul_ref` for CPU tensors.
+Kernels (each wrapper launches its CUDA kernel for CUDA tensors, or
+raises, and runs its plain version for CPU tensors):
+
+    w4a4_matmul_i8         int8 codes x int4 weights   (csrc/int4_matmul.cu)
+                           plain: w4a8_matmul_ref
+    quant_acts_i8          per-token symmetric quant   (csrc/int4_matmul.cu)
+                           plain: quant_acts_i8_ref
+    w4a8_matmul            bf16 activations x int4     (csrc/int4_matmul.cu)
+                           weights, float32 sums
+                           plain: w4a8_matmul_rowsum_ref
+    w4a4_matmul_i8_swiglu  merged up||gate W4A4 GEMM   (csrc/flat_pipeline.cu,
+                           with u * silu(g) in its      row 6's main loop)
+                           float32 epilogue
+                           plain: w4a4_matmul_i8_swiglu_ref
+
+`w4a8_matmul_ref` is also JAX's pure-XLA reference of w4a8_matmul
+(x @ (nib - 8)^T in float32), which the engine calls with
+use_kernel=False, as JAX's does.
 """
 
 from __future__ import annotations
 
 import torch
 
+from flatquant_torch.core.quant import true_div
 from flatquant_torch.kernels import common
 
 _NAME = "w4a4_matmul_i8"
+_QA = "quant_acts_i8"
+_W4A8 = "w4a8_matmul"
+_SWI = "w4a4_matmul_i8_swiglu"
 
 
 def pack_weight_planar(q: torch.Tensor) -> torch.Tensor:
@@ -37,15 +58,27 @@ def unpack_weight_planar(wp: torch.Tensor) -> torch.Tensor:
 
 def w4a8_matmul_ref(x_q, x_scale, w_packed, w_scale,
                     out_dtype=torch.bfloat16):
-    """Plain version: y = (x_q @ unpack(w)^T) * x_scale * w_scale.
+    """Plain version of w4a4_matmul_i8, and JAX's w4a8_matmul_ref:
+    y = (x_q @ unpack(w)^T) * x_scale * w_scale in float32.
 
-    The float32 product of integer codes is exact (sums below 2^24), so
-    with TF32 off this equals the kernel's int32 accumulation bit for bit,
-    and the epilogue multiplies in the same order."""
+    For integer codes the float32 product is exact (sums below 2^24), so
+    with TF32 off this equals w4a4_matmul_i8's int32 accumulation bit for
+    bit, and the epilogue multiplies in the same order."""
     w = unpack_weight_planar(w_packed).to(torch.float32)
     acc = x_q.to(torch.float32) @ w.T
     out = acc * x_scale.reshape(-1, 1) * w_scale.reshape(1, -1)
     return out.to(out_dtype)
+
+
+def _on_device(name, *tensors):
+    common.require(all(t.is_cuda and t.device == tensors[0].device
+                       for t in tensors), name,
+                   "all inputs must be on the same CUDA device")
+
+
+def _out_dtype(name, out_dtype):
+    common.require(out_dtype in (torch.bfloat16, torch.float32), name,
+                   f"out_dtype {out_dtype} must be bfloat16 or float32")
 
 
 def w4a4_matmul_i8(x_q, x_scale, w_packed, w_scale,
@@ -61,9 +94,7 @@ def w4a4_matmul_i8(x_q, x_scale, w_packed, w_scale,
     m, k = x_q.shape
     n = w_packed.shape[0]
     req = common.require
-    req(x_q.is_cuda and w_packed.device == x_q.device
-        and x_scale.device == x_q.device and w_scale.device == x_q.device,
-        _NAME, "all inputs must be on the same CUDA device")
+    _on_device(_NAME, x_q, x_scale, w_packed, w_scale)
     req(x_q.dtype == torch.int8 and w_packed.dtype == torch.uint8
         and x_scale.dtype == torch.float32 and w_scale.dtype == torch.float32,
         _NAME, "dtypes must be x_q int8, w_packed uint8, scales float32")
@@ -72,8 +103,7 @@ def w4a4_matmul_i8(x_q, x_scale, w_packed, w_scale,
         f"shapes x_q {tuple(x_q.shape)}, w_packed {tuple(w_packed.shape)}, "
         f"x_scale {tuple(x_scale.shape)}, w_scale {tuple(w_scale.shape)}")
     req(k % 32 == 0, _NAME, f"K={k} must be a multiple of 32")
-    req(out_dtype in (torch.bfloat16, torch.float32), _NAME,
-        f"out_dtype {out_dtype} must be bfloat16 or float32")
+    _out_dtype(_NAME, out_dtype)
     x_q, w_packed = x_q.contiguous(), w_packed.contiguous()
     x_scale, w_scale = x_scale.contiguous(), w_scale.contiguous()
     req(x_q.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0, _NAME,
@@ -85,4 +115,169 @@ def w4a4_matmul_i8(x_q, x_scale, w_packed, w_scale,
         int(out_dtype == torch.float32), common.stream_ptr(x_q))
     common.check("int4_matmul", _NAME, rc)
     common.LAUNCHES[_NAME] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# one-pass per-token activation quant
+# ---------------------------------------------------------------------------
+
+
+def quant_acts_i8_ref(x, clip=None, q_max: int = 7):
+    """Plain version (the serving engine's per-token quant chain, JAX's
+    `_act_codes_i8`): (int8 codes [T, K], f32 scales [T, 1]).
+
+    xmax/xmin clip separately by their LAC ratios, absmax = max(|xmin|,
+    xmax), scale = absmax / q_max (1 for an all-zero row), codes =
+    clamp(round(x / scale), -q_max-1, q_max) with round half to even."""
+    xf = x.to(torch.float32)
+    xmax = torch.clamp(xf.amax(dim=-1, keepdim=True), min=0.0)
+    xmin = torch.clamp(xf.amin(dim=-1, keepdim=True), max=0.0)
+    if clip is not None:
+        xmax = xmax * clip[0]
+        xmin = xmin * clip[1]
+    absmax = torch.maximum(xmin.abs(), xmax)
+    xs = torch.where(absmax == 0, 1.0, true_div(absmax, q_max))
+    xq = torch.clamp(torch.round(xf / xs), -q_max - 1, q_max)
+    return xq.to(torch.int8), xs
+
+
+def quant_acts_i8(x, clip=None, q_max: int = 7):
+    """Per-token symmetric quant of x [M, K] (bf16 or f32, K % 128 == 0)
+    in one read of x: (int8 codes [M, K], f32 scales [M, 1]). clip: the
+    (rmax, rmin) LAC ratios, or None. CUDA tensors launch the kernel (or
+    raise); CPU tensors run quant_acts_i8_ref."""
+    if x.device.type == "cpu":
+        return quant_acts_i8_ref(x, clip, q_max)
+    m, k = x.shape
+    req = common.require
+    _on_device(_QA, x)
+    req(x.dtype in (torch.bfloat16, torch.float32), _QA,
+        f"x dtype {x.dtype} must be bfloat16 or float32")
+    req(k % 128 == 0, _QA, f"K={k} must be a multiple of 128")
+    x = x.contiguous()
+    cl = common.clip_vector([clip], x.device)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    rc = common.lib("int4_matmul").fq_quant_acts_i8(
+        x.data_ptr(), cl.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k,
+        float(q_max), int(x.dtype == torch.float32), common.stream_ptr(x))
+    common.check("int4_matmul", _QA, rc)
+    common.LAUNCHES[_QA] += 1
+    return xq, xs
+
+
+# ---------------------------------------------------------------------------
+# bf16 activations x int4 weights (weight-only W4A16 linears)
+# ---------------------------------------------------------------------------
+
+
+def w4a8_matmul_rowsum_ref(x, x_scale, w_packed, w_scale,
+                           out_dtype=torch.bfloat16):
+    """Plain version of w4a8_matmul, in the kernel's algebra: acc = x @
+    nib^T over the biased nibbles (0..15) and rowsum = sum(x), both in
+    float32; y = (acc - 8 * rowsum) * x_scale * w_scale. It equals
+    w4a8_matmul_ref's x @ (nib - 8)^T up to float32 rounding."""
+    nib = torch.cat([w_packed & 0xF, w_packed >> 4], dim=1).to(torch.float32)
+    xf = x.to(torch.float32)
+    acc = xf @ nib.T
+    rowsum = xf.sum(dim=-1, keepdim=True)
+    out = ((acc - 8.0 * rowsum) * x_scale.reshape(-1, 1)
+           * w_scale.reshape(1, -1))
+    return out.to(out_dtype)
+
+
+def w4a8_matmul(x, x_scale, w_packed, w_scale, out_dtype=torch.bfloat16):
+    """y[M, N] = (x @ nib^T - 8 * rowsum(x)) * x_scale * w_scale.
+
+    x bf16 activations [M, K] (any values, not codes); x_scale f32 [M, 1]
+    (ones for weight-only serving); w_packed uint8 [N, K/2] planar;
+    w_scale f32 [N]. Output bf16 or f32. CUDA tensors launch the kernel
+    (a weight stream for M <= 8, tensor-core tiles above; K % 64 == 0) or
+    raise; CPU tensors run w4a8_matmul_rowsum_ref."""
+    if x.device.type == "cpu":
+        return w4a8_matmul_rowsum_ref(x, x_scale, w_packed, w_scale,
+                                      out_dtype)
+    m, k = x.shape
+    n = w_packed.shape[0]
+    req = common.require
+    _on_device(_W4A8, x, x_scale, w_packed, w_scale)
+    req(x.dtype == torch.bfloat16 and w_packed.dtype == torch.uint8
+        and x_scale.dtype == torch.float32 and w_scale.dtype == torch.float32,
+        _W4A8, "dtypes must be x bfloat16, w_packed uint8, scales float32")
+    req(tuple(w_packed.shape) == (n, k // 2) and x_scale.numel() == m
+        and w_scale.numel() == n, _W4A8,
+        f"shapes x {tuple(x.shape)}, w_packed {tuple(w_packed.shape)}, "
+        f"x_scale {tuple(x_scale.shape)}, w_scale {tuple(w_scale.shape)}")
+    req(k % 64 == 0, _W4A8, f"K={k} must be a multiple of 64")
+    _out_dtype(_W4A8, out_dtype)
+    x, w_packed = x.contiguous(), w_packed.contiguous()
+    x_scale, w_scale = x_scale.contiguous(), w_scale.contiguous()
+    req(x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0, _W4A8,
+        "x and w_packed must be 16-byte aligned")
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    rc = common.lib("int4_matmul").fq_w4a8_matmul(
+        x.data_ptr(), w_packed.data_ptr(), x_scale.data_ptr(),
+        w_scale.data_ptr(), y.data_ptr(), m, n, k,
+        int(out_dtype == torch.float32), common.stream_ptr(x))
+    common.check("int4_matmul", _W4A8, rc)
+    common.LAUNCHES[_W4A8] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# merged up||gate W4A4 GEMM with the SwiGLU in its epilogue
+# ---------------------------------------------------------------------------
+
+
+def w4a4_matmul_i8_swiglu_ref(x_q, x_scale, w_packed, w_scale,
+                              out_dtype=torch.bfloat16):
+    """Plain version, the kernel's float32 epilogue: u, g = dequant(x_q @
+    w^T) for the up rows [0, nh) and the gate rows [nh, 2nh) (exact
+    float32 products of integer codes, times x_scale then w_scale);
+    out_dtype(u * (g * (1 / (1 + exp(-g))))), rounded once at the end.
+    (The engine's composed route, silu(gate) * up on the rounded GEMM
+    output, rounds after every op instead.)"""
+    y = w4a8_matmul_ref(x_q, x_scale, w_packed, w_scale, torch.float32)
+    u, g = y.chunk(2, dim=-1)
+    return (u * (g * (1.0 / (1.0 + torch.exp(-g))))).to(out_dtype)
+
+
+def w4a4_matmul_i8_swiglu(x_q, x_scale, w_packed, w_scale,
+                          out_dtype=torch.bfloat16):
+    """out[M, nh] = silu(deq(x @ gate^T)) * deq(x @ up^T), the SwiGLU in a
+    float32 epilogue.
+
+    x_q int8 [M, K]; x_scale f32 [M, 1]; w_packed uint8 [2*nh, K/2]
+    planar (rows [0, nh) up, [nh, 2nh) gate); w_scale f32 [2*nh]. Output
+    bf16 or f32. CUDA tensors launch the kernel (nh % 128 == 0, K % 64 ==
+    0) or raise; CPU tensors run w4a4_matmul_i8_swiglu_ref."""
+    if x_q.device.type == "cpu":
+        return w4a4_matmul_i8_swiglu_ref(x_q, x_scale, w_packed, w_scale,
+                                         out_dtype)
+    m, k = x_q.shape
+    n2 = w_packed.shape[0]
+    nh = n2 // 2
+    req = common.require
+    _on_device(_SWI, x_q, x_scale, w_packed, w_scale)
+    req(x_q.dtype == torch.int8 and w_packed.dtype == torch.uint8
+        and x_scale.dtype == torch.float32 and w_scale.dtype == torch.float32,
+        _SWI, "dtypes must be x_q int8, w_packed uint8, scales float32")
+    req(tuple(w_packed.shape) == (n2, k // 2) and n2 % 256 == 0
+        and k % 64 == 0 and x_scale.numel() == m and w_scale.numel() == n2,
+        _SWI, f"shapes x_q {tuple(x_q.shape)}, w_packed "
+        f"{tuple(w_packed.shape)}, x_scale {tuple(x_scale.shape)}, w_scale "
+        f"{tuple(w_scale.shape)} (nh % 128 == 0, K % 64 == 0)")
+    _out_dtype(_SWI, out_dtype)
+    x_q, w_packed = x_q.contiguous(), w_packed.contiguous()
+    x_scale, w_scale = x_scale.contiguous(), w_scale.contiguous()
+    req(x_q.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0, _SWI,
+        "x_q and w_packed must be 16-byte aligned")
+    y = torch.empty((m, nh), dtype=out_dtype, device=x_q.device)
+    rc = common.lib("flat_pipeline").fq_w4a4_matmul_i8_swiglu(
+        x_q.data_ptr(), w_packed.data_ptr(), x_scale.data_ptr(),
+        w_scale.data_ptr(), y.data_ptr(), m, nh, k,
+        int(out_dtype == torch.float32), common.stream_ptr(x_q))
+    common.check("flat_pipeline", _SWI, rc)
+    common.LAUNCHES[_SWI] += 1
     return y

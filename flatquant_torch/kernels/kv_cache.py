@@ -116,7 +116,7 @@ def decode_attention_ref(q, kp, ks, kz, vp, vs, vz, valid_len, sm_scale):
 
 def check_attention_args(name, q, nkv, codes, params):
     """The attention kernels' common argument checks: q (bf16 or f32) and
-    the cache on one CUDA device, head_dim 128, n_rep in {1, 2, 4, 8},
+    the cache on one CUDA device, head_dim 128, n_rep from 1 to 8,
     uint8 codes and float32 params, contiguous and 16-byte aligned."""
     nh, hd = q.shape[-2], q.shape[-1]
     req = common.require
@@ -126,8 +126,8 @@ def check_attention_args(name, q, nkv, codes, params):
         f"q dtype {q.dtype} must be bfloat16 or float32")
     req(hd == 128 and all(c.shape[-1] == 64 for c in codes), name,
         f"head_dim must be 128, got {hd}")
-    req(nh % nkv == 0 and nh // nkv in (1, 2, 4, 8), name,
-        f"n_rep = {nh}/{nkv} must be 1, 2, 4 or 8")
+    req(nh % nkv == 0 and 1 <= nh // nkv <= 8, name,
+        f"n_rep = {nh}/{nkv} must be a whole number from 1 to 8")
     req(all(c.dtype == torch.uint8 for c in codes)
         and all(p.dtype == torch.float32 for p in params), name,
         "codes must be uint8 and params float32")
@@ -143,8 +143,8 @@ def decode_attention_int4(q, kp, kparam, vp, vparam, valid_len,
     q [B, nh, hd] (already rotated into the K space); kp/vp
     [B, nkv, S, hd/2] uint8; kparam/vparam [B, nkv, S, 2] f32;
     valid_len [B] int. Returns [B, nh, hd] in q.dtype. CUDA tensors
-    launch the kernel (hd 128, n_rep in {1, 2, 4, 8}) or raise; CPU
-    tensors run decode_attention_ref."""
+    launch the kernel (hd 128, n_rep from 1 to 8) or raise; CPU tensors
+    run decode_attention_ref."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, kp, kparam[..., 0:1], kparam[..., 1:2],
                                     vp, vparam[..., 0:1], vparam[..., 1:2],
@@ -233,8 +233,8 @@ def chunk_attention_int4(q, kp, kparam, vp, vparam, pos, sm_scale: float):
     kp/vp [B, nkv, S, hd/2] uint8 and kparam/vparam [B, nkv, S, 2] f32,
     already holding the chunk's own K/V; pos [B] int, the chunk's first
     position: row s attends ids <= pos + s. Returns [B, Sq, nh, hd] in
-    q.dtype. CUDA tensors launch the kernel (hd 128, n_rep in
-    {1, 2, 4, 8}) or raise; CPU tensors run chunk_attention_ref."""
+    q.dtype. CUDA tensors launch the kernel (hd 128, n_rep from 1 to 8)
+    or raise; CPU tensors run chunk_attention_ref."""
     if q.device.type == "cpu":
         return chunk_attention_ref(q, kp, kparam, vp, vparam, pos, sm_scale)
     B, sq, nh, _ = q.shape

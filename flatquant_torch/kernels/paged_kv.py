@@ -177,8 +177,8 @@ def paged_decode_attention_int4(q, kp, kparam, vp, vparam, tbl, valid_len,
     q [B, nh, hd] (rotated into the K space); kp/vp [nb, nkv, bs, hd/2]
     uint8, kparam/vparam [nb, nkv, bs, 2] f32; tbl [B, mb] int; valid_len
     [B] int: positions < valid_len attend, 0 gives 0. Returns [B, nh, hd]
-    in q.dtype. CUDA tensors launch the kernel (hd 128, n_rep in
-    {1, 2, 4, 8}, bs % 128 == 0) or raise; CPU tensors run
+    in q.dtype. CUDA tensors launch the kernel (hd 128, n_rep from 1 to
+    8, bs % 128 == 0) or raise; CPU tensors run
     paged_decode_attention_ref."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, kp, kparam, vp, vparam, tbl,

@@ -22,9 +22,14 @@ position pos, chunked prefill: row s attends the cache at ids <= pos + s,
 decode semantics over the quantized history; chunk_attention_int4 /
 paged_chunk_attention_int4 with use_kernel, their plain chain without).
 
-Routes, as in JAX: with use_kernel, a prompt of B*S >= 256 rows takes the
-fused flat-pipeline routes (serving/quantized.py `_grouped_attn_in`,
-`_quant_mlp_grouped[_full]`) wherever their qualifying conditions hold.
+Routes, as in JAX: with use_kernel and quantized activations, a prompt
+of B*S >= 256 rows takes the fused flat-pipeline routes
+(serving/quantized.py `_grouped_attn_in`, `_quant_mlp_grouped[_full]`)
+wherever their qualifying conditions hold (the rn128 split's 128-wide
+right factors); the balanced split's MLP takes the fused swiglu GEMM and,
+at K >= 8192, the one-pass quant kernel (`_quant_swiglu`, `_quant_linear`).
+Weight-only configs (a_bits 16) send every linear through the
+weight-only branch of `_quant_linear` and take no fused route.
 Over the int4 cache a prefill with S % 128 == 0 and 256 <= S takes the
 fused attention prologue (`_fused_prefill_attention`: attn_prologue, flash
 kt attention at S >= 1024 or dense attention below, left_quant_i8_flat for
@@ -39,9 +44,7 @@ returns new, donated buffers); the layer loop is a Python loop over the
 per-layer parameter list. Branches not ported yet raise
 NotImplementedError naming the ROADMAP item that ports them, before any
 cache write (`_check_ported`): tp and ring attention, the perm layouts,
-unmerged projections, weight-only and int8-weight linears, serving
-without the o transform; and, where JAX takes them, the quant_acts_i8 /
-unfused swiglu GEMM routes of long prompts (serving/quantized.py).
+unmerged projections.
 """
 
 from __future__ import annotations
@@ -170,9 +173,6 @@ def _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis=None,
         raise NotImplementedError(
             "attn_fn (ring attention, sequence-parallel serving) waits for "
             "ROADMAP queue 1 item 9")
-    if not fq_cfg.a_cfg.enabled:
-        raise NotImplementedError(
-            "weight-only serving waits for ROADMAP queue 1 item 3")
     if any(key.endswith("_tp") for key in sl):
         raise NotImplementedError(
             "the perm layouts (ln_tp, ug_tp, down_tp, o_tp) wait for "
@@ -180,19 +180,14 @@ def _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis=None,
     if "qkv" not in sl or "upgate" not in sl:
         raise NotImplementedError(
             "unmerged projections wait for ROADMAP queue 1 item 4")
-    if any("wp" not in sl[nm] for nm in ("qkv", "o", "upgate", "down")):
-        raise NotImplementedError(
-            "int8 ('w8') weights wait for ROADMAP queue 1 item 3")
-    if sl.get("o_t") is None:
-        raise NotImplementedError(
-            "serving without the o head-mixing transform waits for ROADMAP "
-            "queue 1 item 3")
 
 
 def _qlin(fq_cfg, h, lin, use_kernel, compute_dtype, bias=None):
-    """Per-token quant + W4A4 GEMM of h [..., K] -> [..., N] (+ bias)."""
+    """The quantized linear of h [..., K] -> [..., N] (+ bias): per-token
+    quant and the quantized-weight GEMM, or the weight-only branch when
+    activations are not quantized."""
     y = _quant_linear(h.reshape(-1, h.shape[-1]), lin, use_kernel,
-                      compute_dtype, quant_acts=True,
+                      compute_dtype, quant_acts=fq_cfg.a_cfg.enabled,
                       a_q_max=fq_cfg.a_cfg.q_max)
     y = y.reshape(h.shape[:-1] + (lin["scale"].shape[0],))
     return y if bias is None else y + bias.to(y.dtype)
@@ -200,10 +195,11 @@ def _qlin(fq_cfg, h, lin, use_kernel, compute_dtype, bias=None):
 
 def _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
     """The merged qkv projection [B, S, q_dim + 2*kv_dim]: with use_kernel
-    the fused flat-pipeline input route where it qualifies, else RMSNorm,
-    the Kronecker transform and the quantized linear."""
+    and quantized activations the fused flat-pipeline input route where it
+    qualifies, else RMSNorm, the Kronecker transform and the quantized
+    linear."""
     B, S, H = x.shape
-    if use_kernel:
+    if use_kernel and fq_cfg.a_cfg.enabled:
         qkv_g = _grouped_attn_in(x.reshape(-1, H), sl, cfg.rms_eps,
                                  compute_dtype, fq_cfg.a_cfg.q_max)
         if qkv_g is not None:
@@ -243,13 +239,17 @@ def _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot):
 
 def _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype):
     """x plus the o projection of attn [B, S, nh, hd]: the o_t head mixing
-    (einsum), per-token quant and the o GEMM."""
+    (einsum) or, without o_t, the v transform's inverse per head
+    (v_t_inv), then the quantized o linear."""
     B, S = attn.shape[:2]
-    o_mat = sl["o_t"].to(attn.dtype)
-    g = o_mat.shape[0]
-    attn = attn.reshape(B, S, cfg.num_heads // g, g, cfg.head_dim)
-    attn = torch.einsum("ji,bstjd->bstid", o_mat, attn).reshape(
-        B, S, cfg.num_heads * cfg.head_dim)
+    if sl.get("o_t") is not None:
+        o_mat = sl["o_t"].to(attn.dtype)
+        g = o_mat.shape[0]
+        attn = attn.reshape(B, S, cfg.num_heads // g, g, cfg.head_dim)
+        attn = torch.einsum("ji,bstjd->bstid", o_mat, attn)
+    elif sl.get("v_t_inv") is not None:
+        attn = attn @ sl["v_t_inv"].T.to(attn.dtype)
+    attn = attn.reshape(B, S, cfg.num_heads * cfg.head_dim)
     return x + _qlin(fq_cfg, attn, sl["o"], use_kernel, compute_dtype)
 
 
@@ -415,13 +415,16 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
 
 def _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
     """The MLP half of a serving layer (both cache modes): with use_kernel
-    the fully fused flat pipeline (_quant_mlp_grouped_full) or its tail
-    after an eager ln2 (_quant_mlp_grouped) where they qualify; else the
-    composed branch (eager ln2 + Kronecker glue, the merged up||gate W4A4
-    GEMM, silu, the down transform and the down GEMM)."""
+    and quantized activations the fully fused flat pipeline
+    (_quant_mlp_grouped_full) or its tail after an eager ln2
+    (_quant_mlp_grouped) where they qualify; else the composed branch
+    (eager ln2 + Kronecker glue, the merged up||gate projection with silu
+    (_quant_swiglu: the fused swiglu GEMM at 256+ rows), the down
+    transform and the down linear)."""
     H = x.shape[-1]
     a_cfg = fq_cfg.a_cfg
-    if use_kernel:
+    fused = use_kernel and a_cfg.enabled
+    if fused:
         y_full = _quant_mlp_grouped_full(x.reshape(-1, H), sl, cfg.rms_eps,
                                          compute_dtype, a_cfg.q_max)
         if y_full is not None:
@@ -429,13 +432,13 @@ def _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
     h2 = rms_norm(x, sl["ln2_w"], cfg.rms_eps)
     if "ug_t" in sl:
         h2 = kron_transform(h2, sl["ug_t"])
-    if use_kernel:
+    if fused:
         y_mlp = _quant_mlp_grouped(h2.reshape(-1, H), sl, compute_dtype,
                                    a_cfg.q_max)
         if y_mlp is not None:
             return x + y_mlp.reshape(x.shape)
     act = _quant_swiglu(h2.reshape(-1, H), sl["upgate"], use_kernel,
-                        compute_dtype, True, a_cfg.q_max)
+                        compute_dtype, a_cfg.enabled, a_cfg.q_max)
     act = act.reshape(h2.shape[:-1] + (act.shape[-1],))
     if "down_t" in sl:
         act = kron_transform(act, sl["down_t"])

@@ -1,25 +1,31 @@
-"""Real-quant serving model: packed int4 weights + online transforms
-(port of flatquant_tpu/serving/quantized.py, the decode-serving subset).
+"""Real-quant serving model: packed int4 or int8 weights + online
+transforms (port of flatquant_tpu/serving/quantized.py).
 
 A baked model converts once into
-  - planar-packed int4 weights + per-out-channel f32 scales
+  - planar-packed int4 weights ("wp") or plain int8 codes ("w8") +
+    per-out-channel f32 scales
   - fixed Kronecker / single transform matrices in the serving dtype
   - LAC clip factors as sigmoid-applied ratios
 and each projection at serving time runs the eager glue (RMSNorm,
-Kronecker transform, per-token symmetric quant) plus the W4A4 GEMM kernel.
+Kronecker transform, per-token quant) plus a quantized-weight GEMM.
+
+`_quant_linear` takes JAX's branches in JAX's order: weight-only (W4A16
+through w4a8_matmul with unit activation scales, W8A16 through a float
+matmul of the int8 codes), the one-pass quant_acts_i8 kernel at T >= 256
+rows and K >= 8192, else the eager per-token quant; then the int4 GEMM
+(w4a4_matmul_i8) or, for "w8", an exact int8 x int8 -> int32 product.
+`_quant_swiglu` takes the fused swiglu GEMM (w4a4_matmul_i8_swiglu) at
+T >= 256 rows. The fused prefill routes of the rn128 split
+(`_grouped_attn_in`, `_quant_mlp_grouped`, `_quant_mlp_grouped_full`) run
+through the flat-pipeline kernels (kernels/flat_pipeline.py) under JAX's
+qualifying conditions.
 
 What differs from JAX: `build_serving_params` takes each layer's baked
 transform matrices and sigmoid-applied clip ratios directly (the values
 JAX reads out of its FQ state through decompose_matrices / single_matrix /
 _clip_sigmoid); the FQ-state objects arrive with the build chain (ROADMAP
 queue 1 item 4). Only merge_projections=True, tp=1, perm_transforms=False
-is ported. The fused prefill routes that JAX takes at T >= 256 rows
-(`_grouped_attn_in`, `_quant_mlp_grouped`, `_quant_mlp_grouped_full`) run
-through the flat-pipeline kernels (kernels/flat_pipeline.py) under JAX's
-qualifying conditions; two routes stay unported and raise
-NotImplementedError under JAX's exact conditions: the quant_acts_i8 route
-of `_quant_linear` (T >= 256, K >= 8192) and the fused swiglu GEMM of
-`_quant_swiglu` (T >= 256), which tpu_decompose models never reach.
+is ported.
 """
 
 from __future__ import annotations
@@ -40,7 +46,11 @@ from flatquant_torch.kernels.flat_pipeline import (
 )
 from flatquant_torch.kernels.int4_matmul import (
     pack_weight_planar,
+    quant_acts_i8,
+    quant_acts_i8_ref,
     w4a4_matmul_i8,
+    w4a4_matmul_i8_swiglu,
+    w4a8_matmul,
     w4a8_matmul_ref,
 )
 from flatquant_torch.models.config import LlamaConfig
@@ -58,13 +68,14 @@ PALLAS_QUANT_MIN_K = 8192
 
 
 def _pack_linear(w: torch.Tensor, w_cfg) -> Dict[str, Any]:
-    """fp weight [out, in] -> {"wp": planar int4 [out, in/2] uint8,
-    "scale": f32 [out]} (RTN against the per-channel absmax scale)."""
-    if w_cfg.bits != 4:
-        raise NotImplementedError(
-            "int8 ('w8') weights wait for ROADMAP queue 1 item 3")
+    """fp weight [out, in] -> packed codes + per-channel scale (RTN
+    against the per-channel absmax scale): w_bits 4 gives {"wp": planar
+    int4 [out, in/2] uint8, "scale": f32 [out]}, w_bits 8 {"w8": int8
+    codes [out, in], "scale"}."""
     scale, zero = weight_find_params(w, w_cfg)
     q = weight_quantize_int(w, scale, zero, w_cfg)
+    if w_cfg.bits == 8:
+        return {"w8": q, "scale": scale[:, 0].contiguous()}
     return {"wp": pack_weight_planar(q), "scale": scale[:, 0].contiguous()}
 
 
@@ -93,15 +104,20 @@ def build_serving_layer(cfg: LlamaConfig, fq_cfg: FQConfig, lp: dict,
     "wup", "wgate", "wdown"[, "bq", "bk", "bv"]}, [out, in] layout.
     lt: the layer's baked transforms and clip ratios:
       "ln_t", "ug_t", "down_t": (left, right) Kronecker factors
-      "o_t": [g, g] head mixing; "k_t", "k_t_inv" [hd, hd];
-      "v_t_inv" [hd, hd] (optional)
-      "a_clip": {"qkv"|"o"|"upgate"|"down": (rmax, rmin)} (optional)
+      "o_t": [g, g] head mixing; "k_t", "k_t_inv" [hd, hd] (absent
+      without k/q quant: no kcache transform); "v_t_inv" [hd, hd]
+      (optional)
+      "a_clip": {"qkv"|"o"|"upgate"|"down": (rmax, rmin)} (absent in a
+      weight-only model)
       "kc_clip", "vc_clip": (cmax, cmin) (optional)
     Clip values are the sigmoid-applied ratios, not the raw factors."""
     w_cfg = fq_cfg.w_cfg
     if not (w_cfg.sym and w_cfg.group_size <= 0):
         raise NotImplementedError(
             "real-quant path supports symmetric per-channel weights only")
+    if w_cfg.bits not in (4, 8):
+        raise ValueError(f"real-quant weights are int4 or int8, not "
+                         f"{w_cfg.bits} bits")
     if not merge_projections or perm_transforms:
         raise NotImplementedError(
             "merge_projections=False and perm_transforms=True wait for "
@@ -175,45 +191,64 @@ def kron_transform(x, left_right):
     return xm.reshape(shape)
 
 
-def _act_codes_i8(x2d, clip, a_q_max: int):
-    """Per-token symmetric quant -> (int8 codes [T, K], f32 scales [T, 1]).
+# JAX's name of the eager per-token quant chain; the kernel module keeps
+# it as quant_acts_i8's plain version
+_act_codes_i8 = quant_acts_i8_ref
 
-    xmax/xmin clip separately by their LAC ratios, absmax = max(|xmin|,
-    xmax), scale = absmax / a_q_max (1 for an all-zero row), codes =
-    clamp(round(x / scale), -a_q_max-1, a_q_max) with round half to even."""
-    xf = x2d.to(torch.float32)
-    xmax = torch.clamp(xf.amax(dim=-1, keepdim=True), min=0.0)
-    xmin = torch.clamp(xf.amin(dim=-1, keepdim=True), max=0.0)
-    if clip is not None:
-        xmax = xmax * clip[0]
-        xmin = xmin * clip[1]
-    absmax = torch.maximum(xmin.abs(), xmax)
-    xs = torch.where(absmax == 0, 1.0, true_div(absmax, a_q_max))
-    xq = torch.clamp(torch.round(xf / xs), -a_q_max - 1, a_q_max)
-    return xq.to(torch.int8), xs
+
+def _int8_matmul(xq, w8):
+    """Exact int32 product of int8 codes xq [T, K] and w8 [N, K] (JAX's
+    int8 dot with an int32 accumulation, which it leaves to XLA outside any
+    Pallas kernel: a float32 sum is not exact at 127 * 127 * K). torch's
+    int8 GEMM takes more than 16 rows, so a shorter xq is padded with zero
+    rows."""
+    t = xq.shape[0]
+    if t <= 16:
+        xq = torch.cat([xq, xq.new_zeros((17 - t, xq.shape[1]))])
+    return torch._int_mm(xq.contiguous(), w8.T)[:t]
 
 
 def _quant_linear(x2d, lin, use_kernel: bool, out_dtype=torch.bfloat16,
                   quant_acts: bool = True, a_q_max: int = 7,
                   axis_name: Optional[str] = None):
-    """Per-token quant + W4A4 GEMM. x2d: [T, K] fp; returns [T, N].
+    """Per-token quant + quantized-weight matmul. x2d: [T, K] fp; returns
+    [T, N]. JAX's branches, in its order:
 
-    use_kernel=True goes through w4a4_matmul_i8 (the kernel on a card);
-    False calls the plain version directly (the engine's comparison
-    switch)."""
+    quant_acts=False (weight-only, W4A16 / W8A16): raw activations with
+    unit activation scales: "wp" through w4a8_matmul on x cast to bf16
+    (as JAX casts, whatever the compute dtype) with use_kernel, JAX's
+    float32 w4a8_matmul_ref without; "w8" as a float32 matmul of the int8
+    codes (exact products of bf16 or f32 values and int8 codes, float32
+    sums).
+    quant_acts: at T >= 256 rows, K >= PALLAS_QUANT_MIN_K and K % 128 == 0
+    with use_kernel, the one-pass quant_acts_i8 kernel, else the eager
+    chain (_act_codes_i8); then "w8" as an exact int8 x int8 -> int32
+    product, or "wp" through w4a4_matmul_i8 (use_kernel) or its plain
+    version. The scale rule is a_q_max = 7 (A4) or 127 (A8)."""
     if axis_name is not None:
         raise NotImplementedError("tp waits for ROADMAP queue 1 item 9")
-    if not quant_acts or "wp" not in lin:
-        raise NotImplementedError(
-            "weight-only and int8-weight linears wait for ROADMAP queue 1 "
-            "item 3")
+    w8 = lin.get("w8")
+    if not quant_acts:
+        if w8 is not None:
+            y = x2d.to(torch.float32) @ w8.T.to(torch.float32)
+            return (y * lin["scale"].reshape(1, -1)).to(out_dtype)
+        ones = torch.ones((x2d.shape[0], 1), dtype=torch.float32,
+                          device=x2d.device)
+        if use_kernel:
+            return w4a8_matmul(x2d.to(torch.bfloat16), ones, lin["wp"],
+                               lin["scale"], out_dtype)
+        return w4a8_matmul_ref(x2d, ones, lin["wp"], lin["scale"], out_dtype)
+    clip = lin.get("a_clip")
     if (use_kernel and x2d.shape[0] >= 256
             and x2d.shape[1] >= PALLAS_QUANT_MIN_K
             and x2d.shape[1] % 128 == 0):
-        raise NotImplementedError(
-            "the quant_acts_i8 route (T >= 256, K >= 8192) waits for "
-            "ROADMAP queue 2 item 12")
-    xq, xs = _act_codes_i8(x2d, lin.get("a_clip"), a_q_max)
+        xq, xs = quant_acts_i8(x2d, clip=clip, q_max=a_q_max)
+    else:
+        xq, xs = _act_codes_i8(x2d, clip, a_q_max)
+    if w8 is not None:
+        acc = _int8_matmul(xq, w8)
+        out = acc.to(torch.float32) * xs * lin["scale"].reshape(1, -1)
+        return out.to(out_dtype)
     gemm = w4a4_matmul_i8 if use_kernel else w4a8_matmul_ref
     return gemm(xq, xs, lin["wp"], lin["scale"], out_dtype)
 
@@ -221,12 +256,23 @@ def _quant_linear(x2d, lin, use_kernel: bool, out_dtype=torch.bfloat16,
 def _quant_swiglu(x2d, lin, use_kernel: bool, out_dtype=torch.bfloat16,
                   quant_acts: bool = True, a_q_max: int = 7):
     """silu(gate) * up for a merged up||gate projection (rows [0, N/2) =
-    up, [N/2, N) = gate), composed from the quantized linear."""
+    up, [N/2, N) = gate).
+
+    With use_kernel, A4 codes, "wp" weights and T >= 256 rows: one GEMM
+    with the SwiGLU in its float32 epilogue (w4a4_matmul_i8_swiglu), its
+    input quantized by quant_acts_i8 at K >= PALLAS_QUANT_MIN_K (K % 128
+    == 0), else by the eager chain. Otherwise the quantized linear, then
+    silu(gate) * up in out_dtype."""
     if (use_kernel and quant_acts and "wp" in lin and x2d.shape[0] >= 256
             and a_q_max == 7):
-        raise NotImplementedError(
-            "the fused swiglu GEMM w4a4_matmul_i8_swiglu (T >= 256) "
-            "waits for ROADMAP queue 2 item 13")
+        clip = lin.get("a_clip")
+        if (x2d.shape[1] >= PALLAS_QUANT_MIN_K
+                and x2d.shape[1] % 128 == 0):
+            xq, xs = quant_acts_i8(x2d, clip=clip, q_max=a_q_max)
+        else:
+            xq, xs = _act_codes_i8(x2d, clip, a_q_max)
+        return w4a4_matmul_i8_swiglu(xq, xs, lin["wp"], lin["scale"],
+                                     out_dtype)
     y = _quant_linear(x2d, lin, use_kernel, out_dtype, quant_acts, a_q_max)
     up, gate = y.chunk(2, dim=-1)
     return silu(gate) * up

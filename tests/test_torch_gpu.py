@@ -25,6 +25,7 @@ from flatquant_torch.kernels.tolerance import (
     compare_kv,
     compare_scales,
 )
+from flatquant_torch.models.config import LlamaConfig
 
 
 @pytest.fixture
@@ -63,7 +64,7 @@ def _cache(g, cuda, B, nkv, S):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nh,nkv", [(8, 8), (8, 2)])
+@pytest.mark.parametrize("nh,nkv", [(8, 8), (8, 2), (28, 4), (10, 2)])
 def test_decode_attention_int4_matches_plain(cuda, nh, nkv):
     g = torch.Generator(device=cuda).manual_seed(nkv)
     B, S = 3, 512
@@ -295,7 +296,8 @@ def _paged_state(g, cuda, B, nkv, mb, bs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nh,nkv,sq", [(8, 8, 64), (8, 2, 40), (4, 4, 1)])
+@pytest.mark.parametrize("nh,nkv,sq", [(8, 8, 64), (8, 2, 40), (4, 4, 1),
+                                       (28, 4, 40), (10, 2, 24)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chunk_attention_int4_matches_plain(cuda, nh, nkv, sq, dtype):
     g = torch.Generator(device=cuda).manual_seed(nh + sq)
@@ -314,7 +316,7 @@ def test_chunk_attention_int4_matches_plain(cuda, nh, nkv, sq, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nh,nkv", [(8, 8), (8, 2)])
+@pytest.mark.parametrize("nh,nkv", [(8, 8), (8, 2), (28, 4)])
 def test_paged_decode_attention_int4_equals_the_slot_kernel(cuda, nh, nkv):
     g = torch.Generator(device=cuda).manual_seed(nkv)
     B, mb, bs = 4, 3, 256
@@ -332,7 +334,7 @@ def test_paged_decode_attention_int4_equals_the_slot_kernel(cuda, nh, nkv):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nh,nkv", [(8, 8), (8, 2)])
+@pytest.mark.parametrize("nh,nkv", [(8, 8), (8, 2), (28, 4)])
 def test_paged_chunk_attention_int4_equals_the_slot_kernel(cuda, nh, nkv):
     g = torch.Generator(device=cuda).manual_seed(10 + nkv)
     B, mb, bs, sq = 2, 4, 128, 96
@@ -347,12 +349,12 @@ def test_paged_chunk_attention_int4_equals_the_slot_kernel(cuda, nh, nkv):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("what", ["head_dim 64", "n_rep 3", "block 64"])
+@pytest.mark.parametrize("what", ["head_dim 64", "n_rep 9", "block 64"])
 def test_paged_attention_raises_on_what_it_does_not_take(cuda, what):
     g = torch.Generator(device=cuda).manual_seed(3)
     bs = 64 if what == "block 64" else 128
-    nkv = 1 if what == "n_rep 3" else 2
-    nh = 3 if what == "n_rep 3" else 4
+    nkv = 1 if what == "n_rep 9" else 2
+    nh = 9 if what == "n_rep 9" else 4
     pool, tbl, _ = _paged_state(g, cuda, 2, nkv, 2, bs)
     hd = 64 if what == "head_dim 64" else 128
     q = torch.randn((2, 8, nh, hd), generator=g, device=cuda)
@@ -363,3 +365,171 @@ def test_paged_attention_raises_on_what_it_does_not_take(cuda, what):
     with pytest.raises(ValueError):
         tpk.paged_decode_attention_int4(q[:, 0], *pool, tbl, pos + 1, 0.1)
     assert common.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# rows 12-14: quant_acts_i8, w4a4_matmul_i8_swiglu, w4a8_matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,dtype,q_max,clip", [
+    (300, 384, torch.bfloat16, 7, (0.83, 0.91)),
+    (256, 18944, torch.bfloat16, 7, None),
+    (64, 8192, torch.float32, 127, None),
+    (5, 28672, torch.float32, 7, (0.98, 0.98)),
+])
+def test_quant_acts_i8_bit_exact(cuda, m, k, dtype, q_max, clip):
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = (torch.randn((m, k), generator=g, device=cuda) * 3).to(dtype)
+    x[1] = 0  # zero row: scale 1, codes 0
+    x[2] = -x[2].abs()  # no positive value
+    c = None if clip is None else tuple(torch.tensor(v, device=cuda)
+                                        for v in clip)
+    q, s = _launched("quant_acts_i8", tmm.quant_acts_i8, x, c, q_max)
+    q_ref, s_ref = tmm.quant_acts_i8_ref(x, c, q_max)
+    # IEEE division in both: codes and scales bit for bit
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    assert not q[1].any() and s[1].item() == 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,nh", [(200, 512, 384), (300, 3584, 256),
+                                    (64, 896, 8448)])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_w4a4_matmul_i8_swiglu_matches_plain(cuda, m, k, nh, out):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    xq = torch.randint(-8, 8, (m, k), generator=g, device=cuda,
+                       dtype=torch.int8)
+    xs = torch.rand((m, 1), generator=g, device=cuda) * 0.1 + 1e-3
+    wp = torch.randint(0, 256, (2 * nh, k // 2), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    sw = torch.rand((2 * nh,), generator=g, device=cuda) * 0.01 + 1e-4
+    got = _launched("w4a4_matmul_i8_swiglu", tmm.w4a4_matmul_i8_swiglu, xq,
+                    xs, wp, sw, out)
+    want = tmm.w4a4_matmul_i8_swiglu_ref(xq, xs, wp, sw, out)
+    assert got.dtype == out and got.shape == (m, nh)
+    # exact integer sums; the epilogue's expf may be an ulp from torch.exp
+    if out == torch.bfloat16:
+        compare_bf16(got, want, "identity", "w4a4_matmul_i8_swiglu")
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 300])
+@pytest.mark.parametrize("n,k", [(384, 512), (4096, 11008)])
+@pytest.mark.parametrize("acts", ["codes", "bf16 activations"])
+def test_w4a8_matmul_matches_plain(cuda, m, n, k, acts):
+    g = torch.Generator(device=cuda).manual_seed(m * n)
+    if acts == "codes":
+        x = torch.randint(-8, 8, (m, k), generator=g, device=cuda).to(
+            torch.bfloat16)
+        xs = torch.rand((m, 1), generator=g, device=cuda) + 0.01
+    else:
+        x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+        xs = torch.ones((m, 1), device=cuda)
+    wp = torch.randint(0, 256, (n, k // 2), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    sw = torch.rand((n,), generator=g, device=cuda) * 0.01 + 1e-4
+    for out in (torch.float32, torch.bfloat16):
+        got = _launched("w4a8_matmul", tmm.w4a8_matmul, x, xs, wp, sw, out)
+        want = tmm.w4a8_matmul_rowsum_ref(x, xs, wp, sw, out)
+        if acts == "codes":  # integer sums: exact in any order
+            assert torch.equal(got, want), out
+        elif out == torch.float32:  # float32 sums in another order
+            scale = want.abs().amax(dim=-1, keepdim=True)
+            assert ((got - want).abs() <= 1e-5 * scale).all()
+        else:
+            compare_bf16(got, want, "identity", "w4a8_matmul")
+
+
+def _small_model(fq, seed=0):
+    """A 2-layer model of mini widths (head_dim 128, K % 64 == 0), random
+    weights and orthogonal balanced-split transforms, packed by the port
+    on the CPU."""
+    from flatquant_torch.core.kron import get_decompose_dim
+    from flatquant_torch.models.llama import init_params
+    from flatquant_torch.serving.quantized import (
+        build_serving_params, kron_transform)
+
+    cfg = LlamaConfig(name="mini", vocab_size=256, hidden_size=512,
+                      intermediate_size=1536, num_layers=2, num_heads=4,
+                      num_kv_heads=2, head_dim=128, attn_bias=True)
+    p = init_params(cfg, seed=seed, device="cpu")
+    p["lm_head"] = p["lm_head"] * 6.0
+    g = torch.Generator().manual_seed(seed)
+
+    def orth(n):
+        q, r = torch.linalg.qr(torch.randn((n, n), generator=g,
+                                           dtype=torch.float64))
+        return (q * torch.sign(torch.diagonal(r))).float()
+
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    transforms = []
+    for lp in p["layers"]:
+        lt = {"ln_t": tuple(orth(d) for d in get_decompose_dim(H)),
+              "ug_t": tuple(orth(d) for d in get_decompose_dim(H)),
+              "down_t": tuple(orth(d) for d in get_decompose_dim(I)),
+              "o_t": orth(cfg.num_heads), "v_t_inv": orth(128)}
+        for key, tr in (("wq", "ln_t"), ("wk", "ln_t"), ("wv", "ln_t"),
+                        ("wup", "ug_t"), ("wgate", "ug_t"),
+                        ("wdown", "down_t")):
+            lp[key] = kron_transform(lp[key], lt[tr])
+        lp["wo"] = kron_transform(lp["wo"], (lt["o_t"], torch.eye(128)))
+        for key in ("bq", "bk", "bv"):
+            lp[key] = torch.randn(lp[key].shape, generator=g) * 0.02
+        transforms.append(lt)
+    sp = build_serving_params(cfg, fq, p, transforms, dtype=torch.float32)
+    return cfg, sp
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_bits,a_bits", [(4, 16), (8, 8), (4, 8), (8, 16)])
+def test_quant_modes_on_the_card_match_the_cpu(cuda, w_bits, a_bits):
+    """W4A16 (w4a8_matmul), W8A8 / W4A8 (A8 codes; "w8" through an exact
+    int32 product) and W8A16 served on the card with use_kernel=True
+    against the same model on the CPU (plain versions), float32 compute,
+    a 2 x 300 prefill (600 rows) and 2 decode steps over the bf16 cache.
+    The two sides sum in other orders, so a quantizer tie may round apart:
+    logits by cosine."""
+    from flatquant_torch.quantize.spec import FQConfig
+    from flatquant_torch.serving import engine as te
+
+    fq = FQConfig(w_bits=w_bits, a_bits=a_bits, k_bits=16, v_bits=16,
+                  lac=False)
+    cfg, sp = _small_model(fq)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    common.reset_launches()
+    for dev in ("cpu", "cuda"):
+        spd = _to(sp, dev)
+        c = te.init_cache(cfg, 2, 384, dtype=torch.float32, device=dev)
+        lg, c = te.serving_prefill(cfg, fq, spd, toks, c, max_len=384,
+                                   compute_dtype=torch.float32, device=dev)
+        steps = [lg.cpu()]
+        for i in range(2):
+            tok = steps[-1].argmax(-1, keepdim=True)
+            lg, c = te.serving_decode_step(cfg, fq, spd, tok, c, 300 + i,
+                                           max_len=384,
+                                           compute_dtype=torch.float32,
+                                           device=dev)
+            steps.append(lg.cpu())
+        out[dev] = steps
+    if w_bits == 4 and a_bits == 16:
+        assert common.LAUNCHES["w4a8_matmul"] == 4 * 2 * 3
+    elif w_bits == 4:
+        assert common.LAUNCHES["w4a4_matmul_i8"] > 0
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.isfinite(b).all()
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
+        assert cos > 0.99, cos

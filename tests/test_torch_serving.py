@@ -305,11 +305,13 @@ def test_default_device_raises_without_a_card(model):
 def test_unported_routes_raise(model):
     """Branches the port does not have yet raise, naming their ROADMAP
     item, instead of taking another route: tp and ring attention (item 9),
-    unmerged projections and the perm layouts (item 4), weight-only
-    serving and serving without the o transform (item 3), the
-    quant_acts_i8 route (T >= 256, K >= 8192) and the unfused swiglu GEMM
-    (T >= 256). The paged cache and the chunk phase run
-    (tests/test_torch_batcher.py)."""
+    unmerged projections and the perm layouts (item 4). Weight-only
+    serving, serving without the o transform, the quant_acts_i8 route (T
+    >= 256, K >= 8192) and the fused swiglu GEMM (T >= 256) run
+    (tests/test_torch_quant_modes.py), as do the paged cache and the chunk
+    phase (tests/test_torch_batcher.py)."""
+    from flatquant_torch.kernels.int4_matmul import (
+        quant_acts_i8_ref, w4a4_matmul_i8_swiglu_ref)
     from flatquant_torch.serving import quantized as tq
 
     cfg, fq = model["cfg"], model["fq"]
@@ -329,15 +331,23 @@ def test_unported_routes_raise(model):
         te.serving_layer(cfg, fq, sl, x, None, None, bf16["k"][0],
                          bf16["v"][0], 0, "chunk", False, torch.float32,
                          attn_fn=lambda *a: None)
-    for key in ("qkv", "o_t"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-            chunk_layer(sl={k: v for k, v in sl.items() if k != key})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        chunk_layer(fq=dataclasses.replace(fq, act_quant_enabled=False))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+        chunk_layer(sl={k: v for k, v in sl.items() if k != "qkv"})
+    perm = dict(sl, ln_tp=sl["ln_t"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+        chunk_layer(sl=perm)
     assert not any(bool(t.any()) for t in layer_cache)  # nothing written
-    lin = {"wp": torch.zeros((128, 4096), dtype=torch.uint8),
-           "scale": torch.ones(128)}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 12"):
-        tq._quant_linear(torch.ones((256, 8192)), lin, use_kernel=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 13"):
-        tq._quant_swiglu(torch.ones((256, 8192)), lin, use_kernel=True)
+
+    # the routes that raised before this slice: rows 12 and 13 run (their
+    # plain versions, on CPU tensors)
+    g = torch.Generator().manual_seed(0)
+    lin = {"wp": torch.randint(0, 256, (256, 4096), dtype=torch.uint8,
+                               generator=g),
+           "scale": torch.rand(256, generator=g) * 0.01}
+    xl = torch.randn((256, 8192), generator=g)
+    y = tq._quant_linear(xl, lin, use_kernel=True)
+    assert torch.equal(y, tq._quant_linear(xl, lin, use_kernel=False))
+    act = tq._quant_swiglu(xl, lin, use_kernel=True)
+    xq, xs = quant_acts_i8_ref(xl, None, 7)
+    assert torch.equal(act, w4a4_matmul_i8_swiglu_ref(xq, xs, lin["wp"],
+                                                      lin["scale"]))
