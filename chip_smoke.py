@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (flatquant_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                # all phases, one card
-    python3 chip_smoke.py --kernels-only # phases 1-3 only (3a-3e)
+    python3 chip_smoke.py --phases 3     # phases 1-3 only (3a-3h)
+    python3 chip_smoke.py --phases 3h,10 # phases 1-2, 3h and 10
 
 Phases (any failure makes the script exit non-zero without the final
 line):
@@ -34,6 +35,12 @@ line):
      NH=18944); w4a8_matmul at llama-2-7b's four linears at M = 1, 4 and
      2048; timed beside their bounds and library yardsticks
      (torch._int_mm, torch.matmul on bf16 weights)
+     3h: fp8_matmul (row 16) on all 254 non-NaN e4m3 codes in both
+     decodes, bit for bit, and at DeepSeek-V2-Lite's fp8 linears (wq,
+     wo, the shared experts, the 64 routed experts batched in one launch
+     at decode and at the gather capacity) and DeepSeek-V3's padded
+     wkv_a, timed beside torch.matmul on pre-dequantized bf16 weights;
+     w4a4_matmul_i8 at K = 10944 and 2816, bit for bit
   4. build one random llama-2-7b (32 layers, random seeded weights, rn128
      Kronecker transforms baked into the weights; shared by phases 4 to
      6) and drive the decode-serving path at full width and depth:
@@ -81,6 +88,17 @@ line):
      with phase 6c's protocol (1 x 2048 prefill, 32 decode steps): every
      linear through w4a8_matmul (row 14), every launch of a prefill and
      two decode steps checked; a profile of one decode step.
+  10. DeepSeek-V2-Lite at full width and depth (27 layers, 64 routed
+     experts), random seeded weights, serve mode, bf16: (a) native FP8,
+     deepseek_generate of a 1 x 2048 prompt (gather MoE) and 32 decode
+     steps (dense-masked MoE), a profile of one prefill and one step,
+     every fp8_matmul launch of a prefill and two steps checked, the
+     plain-route calls of fp8_linear (wkv_a and the dense FFN in
+     64-blocks) counted; (b) the continuous batcher with the DeepSeek
+     hooks on six requests (chunks of 256), a tripwire against
+     single-request generation; (c) packed W4A4 (random orthogonal
+     Kronecker factors folded in), a 1 x 2048 prefill and 32 decode
+     steps, every w4a4_matmul_i8 launch of a prefill checked.
   Each model is freed before the next is built. Then the kernel table as
   one JSON line, then the result line.
 
@@ -827,6 +845,166 @@ def check_quant_mode_kernels(torch, dev, gen, results):
                         lib=(torch.matmul, wd, "torch.matmul, bf16 weights"),
                         m=m, proj=proj)
             del ws, wd
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: row 16 (fp8_matmul) and row 1 at DeepSeek-V2-Lite's shapes
+# ---------------------------------------------------------------------------
+
+
+def _fp8_weights(torch, dev, gen, shape, copies):
+    """`copies` random e4m3 weights [..., N, K] with their expanded
+    128-block scales: N(0, 0.05^2) values packed by fp8_block_quantize."""
+    from flatquant_torch.kernels import fp8_matmul as f8
+
+    out = []
+    for _ in range(copies):
+        w = torch.randn(shape, generator=gen, device=dev) * 0.05
+        lin = f8.prep_fp8_weight(w)
+        out.append((lin["w8"], lin["se"]))
+        del w
+    return out
+
+
+def _dequant_bf16(torch, w8, se):
+    """w8 * blockscale in bf16, transposed [..., K, N] (the yardstick's
+    pre-dequantized weights)."""
+    b = w8.shape[-1] // se.shape[-2]
+    s = se.repeat_interleave(b, dim=-2)  # [..., K, N]
+    return (w8.float().transpose(-1, -2) * s).to(torch.bfloat16)
+
+
+def check_fp8_kernels(torch, dev, gen, results):
+    """Row 16 (fp8_matmul) against fp8_matmul_ref on the card: all 254
+    non-NaN e4m3 codes through an identity x in both decodes (bit for
+    bit: exact decodes every code to its IEEE value, FTZ zeroes only the
+    subnormal codes); DeepSeek-V2-Lite's fp8 linears, bf16 in and out,
+    within the "identity" tolerance (one bf16 ulp: the float32 sums run in
+    another order; kernels/tolerance.py): wq and wo at M = 1, 4 and 2048,
+    the shared experts at M = 1 and 2048, the expert-batched e_w1/e_w3/
+    e_w2 over all 64 experts at M = 1 and 4 (dense-masked decode, one x
+    shared by every expert) and M = 384 (the gather capacity of a 2048-
+    token prefill), and DeepSeek-V3's wkv_a (N = 576, K = 7168, 128-block
+    scales) through fp8_linear's ragged-N pad; each timed beside its bound
+    and torch.matmul on pre-dequantized bf16 weights (a yardstick the port
+    never calls). Then row 1 (w4a4_matmul_i8) at the two K of the packed
+    W4A4 form it had not met, bit for bit: the dense w2 (K = 10944) and
+    the shared s_w2 (K = 2816)."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.kernels import fp8_matmul as f8
+    from flatquant_torch.kernels import int4_matmul as im
+    from flatquant_torch.kernels.tolerance import compare_bf16
+    from flatquant_torch.models.deepseek import DEEPSEEK_V3, DeepSeekConfig
+
+    # every code through an identity x
+    codes = torch.arange(256, device=dev, dtype=torch.int32).repeat(64)
+    codes = codes.reshape(128, 128).to(torch.uint8)
+    codes[(codes & 0x7F) == 0x7F] = 0  # the two NaN codes
+    w8 = codes.view(torch.float8_e4m3fn)
+    eye = torch.eye(128, device=dev).to(torch.bfloat16)
+    ones = torch.ones((1, 128), device=dev)
+    ieee = w8.float().t()
+    sub = ((codes & 0x7F) > 0) & ((codes & 0x7F) < 8)
+    for exact in (True, False):
+        got = f8.fp8_matmul(eye, w8, ones, torch.float32, exact)
+        want = f8.fp8_matmul_ref(eye, w8, ones, torch.float32, exact)
+        flush = torch.where(sub.t(), torch.zeros_like(ieee), ieee)
+        if not (torch.equal(got, want)
+                and torch.equal(got, ieee if exact else flush)):
+            raise AssertionError(f"fp8_matmul exact={exact}: the decode of "
+                                 "the 254 codes is not bit-exact")
+    log("  fp8_matmul: all 254 non-NaN codes decode bit-exact, exact and "
+        "FTZ (FTZ zeroes exactly the 14 subnormal codes)")
+
+    cfg = DeepSeekConfig()
+    D, nh = cfg.dim, cfg.n_heads
+    E, mi = cfg.n_routed_experts, cfg.moe_inter_dim
+    si = cfg.n_shared_experts * mi
+    flat = {"wq": (nh * cfg.qk_head_dim, D), "wo": (D, nh * cfg.v_head_dim),
+            "s_w1": (si, D), "s_w2": (D, si)}
+    cases = [(m, p) for m in (1, 4, 2048) for p in ("wq", "wo")]
+    cases += [(m, p) for m in (1, 2048) for p in ("s_w1", "s_w2")]
+    cases += [(m, p) for m in (1, 4, 384) for p in ("e_w1", "e_w2")]
+    for m, proj in cases:
+        experts = proj.startswith("e_")
+        n, k = ((mi, D) if proj == "e_w1" else (D, mi)) if experts \
+            else flat[proj]
+        shape = (E, n, k) if experts else (n, k)
+        wbytes = n * k * (E if experts else 1)
+        ws = _fp8_weights(torch, dev, gen, shape, copies_for(wbytes))
+        xe = E if experts and m == 384 else 1
+        x = torch.randn((xe, m, k) if experts else (m, k), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        if experts and m < 384:
+            x = x.expand(E, m, k)  # one x read by every expert
+        err = compare_bf16(f8.fp8_matmul(x, *ws[0]),
+                           f8.fp8_matmul_ref(x, *ws[0]), "identity",
+                           f"fp8_matmul M={m} {proj}")
+        wd = [(x, _dequant_bf16(torch, *w)) for w in ws[:2]]
+        ne = E if experts else 1
+        label = (f"M={m} {proj} {ne} x {n}x{k}" if experts else
+                 f"M={m} {proj} {n}x{k}") + " (DeepSeek-V2-Lite)"
+        _kernel_row(torch, results, "fp8_matmul", label,
+                    lambda w, s: f8.fp8_matmul(x, w, s),
+                    lambda w, s: f8.fp8_matmul_ref(x, w, s), ws,
+                    2 * xe * m * k + wbytes + 4 * ne * (k // 128) * n
+                    + 2 * ne * m * n, 2 * ne * m * n * k, BF16_FLOPS_PER_S,
+                    err, iters=60 if m < 384 else 20,
+                    lib=(torch.matmul, wd, "torch.matmul, bf16 weights"),
+                    m=m, proj=proj)
+        del ws, wd, x
+
+    # V3's wkv_a: K-aligned 128-block scales, N = 576 padded to 640
+    n, k = DEEPSEEK_V3.kv_lora_rank + DEEPSEEK_V3.qk_rope_head_dim, \
+        DEEPSEEK_V3.dim
+    w = torch.randn((n, k), generator=gen, device=dev) * 0.05
+    q, sc = f8.fp8_block_quantize(w, 128)
+    lin = {"w8": q, "se": f8.expand_fp8_scales(sc, n, k)}
+    x = torch.randn((4, k), generator=gen, device=dev).to(torch.bfloat16)
+    before = common.LAUNCHES["fp8_matmul"]
+    got = f8.fp8_linear(x, lin, use_kernel=True)
+    if common.LAUNCHES["fp8_matmul"] != before + 1:
+        raise AssertionError("fp8_linear did not take the kernel for V3's "
+                             "128-block wkv_a")
+    err = compare_bf16(got, f8.fp8_matmul_ref(x, lin["w8"], lin["se"]),
+                       "identity", "fp8_linear V3 wkv_a (N padded)")
+    results["fp8_matmul"]["max_abs_err"] = max(
+        results["fp8_matmul"]["max_abs_err"], err)
+    results["fp8_matmul"]["v3_wkv_a_padded"] = dict(n=n, k=k,
+                                                    max_abs_err=err)
+    log(f"  fp8_linear V3 wkv_a M=4 N={n} (padded to 640) K={k}: kernel "
+        f"route, max abs err {err:.3e}")
+    del w, q, lin
+
+    # row 1 at the packed W4A4 form's new K
+    for m in (1, 2048):
+        for proj, (n, k) in (("ds dense w2", (D, cfg.inter_dim)),
+                             ("ds s_w2", (D, si))):
+            xq = torch.randint(-8, 8, (m, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            xs = torch.rand((m, 1), generator=gen, device=dev) * 0.1 + 1e-3
+            ws = [(torch.randint(0, 256, (n, k // 2), generator=gen,
+                                 device=dev, dtype=torch.uint8),
+                   torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-4)
+                  for _ in range(copies_for(n * k // 2))]
+            got = im.w4a4_matmul_i8(xq, xs, *ws[0])
+            if not torch.equal(got, im.w4a8_matmul_ref(xq, xs, *ws[0])):
+                raise AssertionError(f"w4a4_matmul_i8 M={m} K={k}: not "
+                                     "bit-exact")
+            args = [(xq, xs, wp, sw) for wp, sw in ws]
+            ms = cuda_ms(torch, im.w4a4_matmul_i8, args, 40)
+            plain = cuda_ms(torch, im.w4a8_matmul_ref, args, 4)
+            nbytes = m * k + n * k // 2 + 4 * m + 4 * n + 2 * m * n
+            b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
+            results.setdefault("w4a4_matmul_i8", dict(
+                rows=[], max_abs_err=0.0))["rows"].append(dict(
+                m=m, proj=proj, n=n, k=k, ms=ms, plain_ms=plain,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=0.0))
+            log(f"  w4a4_matmul_i8 M={m} {proj} {n}x{k}: bit-exact; "
+                f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound "
+                f"{b_ms * 1e3:.2f} us ({b_by})")
+            del ws, args
 
 
 # ---------------------------------------------------------------------------
@@ -1992,7 +2170,7 @@ def _serve(torch, dev, model, requests, **kw):
                prefills=len(times["prefill"]),
                prefill_ms_median=med(times["prefill"]), launches=launches,
                pool_blocks=(None if free is None else b.alloc.n_blocks),
-               options=kw)
+               options={k: getattr(v, "__name__", v) for k, v in kw.items()})
     return toks, rec
 
 
@@ -2356,6 +2534,405 @@ def run_w4a16_path(torch, dev, results, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: DeepSeek-V2-Lite, native FP8 (row 16) and packed W4A4 (row 1)
+# ---------------------------------------------------------------------------
+
+# the batcher's requests of phase 10 (b): prompt lengths, 16 new tokens each
+DS_BATCH_PROMPTS = [40, 600, 200, 350, 90, 480]
+DS_BATCH_NEW = 16
+
+
+def _ds_cfg(cfg):
+    from flatquant_torch.models.deepseek import DeepSeekConfig
+
+    return cfg or DeepSeekConfig()
+
+
+def _ds_embed_head(torch, dev, gen, cfg):
+    def w():
+        return (torch.randn((cfg.vocab_size, cfg.dim), generator=gen,
+                            device=dev) * 0.02).to(torch.bfloat16)
+
+    return {"embed": w(), "head": w(),
+            "final_norm": torch.ones(cfg.dim, device=dev)}
+
+
+def build_ds_fp8_model(torch, dev, seed, cfg=None):
+    """A random DeepSeek (default DeepSeekConfig: V2-Lite's shapes, 27
+    layers) in native FP8, built layer by layer: seeded N(0, 0.02^2)
+    weights packed by the port's build_ds_fp8_serving_layer (128-blocks
+    where they divide; wkv_a and the dense FFN fall to 64-blocks, as in
+    JAX). Returns the serving params."""
+    from flatquant_torch.models.deepseek import (
+        build_ds_fp8_serving_layer, init_ds_layer_params)
+
+    t0 = time.perf_counter()
+    cfg = _ds_cfg(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def layer(moe):
+        lp = init_ds_layer_params(cfg, moe, gen, torch.float32, dev)
+        return build_ds_fp8_serving_layer(cfg, lp, moe, torch.bfloat16)
+
+    sp = {"dense_layers": [layer(False) for _ in range(cfg.n_dense_layers)],
+          "moe_layers": [layer(True) for _ in range(cfg.n_moe_layers)],
+          **_ds_embed_head(torch, dev, gen, cfg)}
+    torch.cuda.synchronize()
+    log(f"  built {cfg.name} native FP8, {cfg.n_layers} layers "
+        f"({cfg.n_routed_experts} routed experts), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return sp
+
+
+def build_ds_w4a4_model(torch, dev, seed, cfg=None):
+    """A random DeepSeek in packed W4A4 (FQConfig W4A4), built layer by
+    layer as build_model builds Llama: seeded weights, random orthogonal
+    Kronecker factors in FlatQuant's balanced split for every transform
+    (qkv, wo, the dense FFN's up/gate and down, the MoE's shared w1 and
+    w2 and the routed w2), folded into the weights (W <- W T) and packed
+    by the port's _pack_linear, LAC clips at their init sigmoid(4); wkv_b
+    bf16. Returns (serving params, (dense_fq, moe_fq))."""
+    from flatquant_torch.core.kron import get_decompose_dim
+    from flatquant_torch.core.transforms import BakedDecompose
+    from flatquant_torch.models.deepseek import init_ds_layer_params
+    from flatquant_torch.quantize.spec import W4A4
+    from flatquant_torch.serving.quantized import _pack_linear, kron_transform
+
+    t0 = time.perf_counter()
+    cfg = _ds_cfg(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    clip = torch.full((1,), 1.0 / (1.0 + math.exp(-4.0)), device=dev)
+
+    def orth(n):
+        qm, r = torch.linalg.qr(torch.randn((n, n), generator=gen,
+                                            device=dev, dtype=torch.float64))
+        return (qm * torch.sign(torch.diagonal(r))).float()
+
+    def trans(n):
+        # orthogonal factors are their own inverse-transposes
+        left, right = (orth(d) for d in get_decompose_dim(n))
+        return BakedDecompose(left, right, left, right)
+
+    def pack(w, t):
+        shape = w.shape
+        w = kron_transform(w.reshape(-1, shape[-1]), (t.left, t.right))
+        d = _pack_linear(w, W4A4.w_cfg)
+        if len(shape) == 3:  # an expert stack: per-row scales, reshaped
+            d = {"wp": d["wp"].reshape(shape[0], shape[1], -1),
+                 "scale": d["scale"].reshape(shape[0], shape[1])}
+        d["a_clip"] = (clip, clip)
+        return d
+
+    def layer(moe):
+        lp = init_ds_layer_params(cfg, moe, gen, torch.float32, dev)
+        a = {"qkv_trans": trans(cfg.dim),
+             "wqb_trans": trans(cfg.q_lora_rank) if cfg.q_lora_rank else None,
+             "wo_trans": trans(cfg.n_heads * cfg.v_head_dim)}
+        if moe:
+            f = {"w1_trans": trans(cfg.dim),
+                 "w2_trans": trans(cfg.n_shared_experts * cfg.moe_inter_dim),
+                 "routed_w2_trans": trans(cfg.moe_inter_dim)}
+            by = {"s_w1": "w1_trans", "s_w3": "w1_trans", "e_w1": "w1_trans",
+                  "e_w3": "w1_trans", "s_w2": "w2_trans",
+                  "e_w2": "routed_w2_trans"}
+        else:
+            f = {"up_gate_trans": trans(cfg.dim),
+                 "down_trans": trans(cfg.inter_dim)}
+            by = {"w1": "up_gate_trans", "w3": "up_gate_trans",
+                  "w2": "down_trans"}
+        out = {}
+        for key, v in lp.items():
+            if key in ("wq", "wq_a", "wkv_a"):
+                out[key] = pack(v, a["qkv_trans"])
+            elif key == "wq_b":
+                out[key] = pack(v, a["wqb_trans"])
+            elif key == "wo":
+                out[key] = pack(v, a["wo_trans"])
+            elif key in by:
+                out[key] = pack(v, f[by[key]])
+            elif key == "wkv_b":
+                out[key] = v.to(torch.bfloat16)
+            else:  # norms, the gate
+                out[key] = v.to(torch.float32)
+        return out, {"attn": a, "ffn": f}
+
+    dense = [layer(False) for _ in range(cfg.n_dense_layers)]
+    moe = [layer(True) for _ in range(cfg.n_moe_layers)]
+    sp = {"dense_layers": [d[0] for d in dense],
+          "moe_layers": [m[0] for m in moe],
+          **_ds_embed_head(torch, dev, gen, cfg)}
+    torch.cuda.synchronize()
+    log(f"  built {cfg.name} packed W4A4 (balanced split "
+        f"{get_decompose_dim(cfg.dim)}), {cfg.n_layers} layers, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return sp, ([d[1] for d in dense], [m[1] for m in moe])
+
+
+def _timed_generate(torch, cfg, fq, fq_cfg, sp, prompt, new, max_len, dev):
+    """deepseek_generate of `prompt` with `new` greedy tokens (a prefill
+    and `new` decode steps over the latent caches, serve mode, bf16,
+    use_kernel=True) after a warm-up generate of one token; each step
+    timed on the host clock up to torch.cuda.synchronize() (its _ds_step
+    wrapped); launch counts set to 0 just before and read after the
+    prefill and at the end, and the calls of fp8_linear's plain route
+    (fp8_matmul_ref) counted; every logits row finite and of the
+    vocabulary's width."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.kernels import fp8_matmul as f8
+    from flatquant_torch.models import deepseek as ds
+
+    kw = dict(max_len=max_len, mode="serve", compute_dtype=torch.bfloat16,
+              device=dev)
+    ds.deepseek_generate(cfg, sp, fq, fq_cfg, prompt, max_new_tokens=1, **kw)
+    step, ref = ds._ds_step, f8.fp8_matmul_ref
+    times, snaps, ref_calls = [], [], [0]
+
+    def counted_ref(*a, **k):
+        ref_calls[0] += 1
+        return ref(*a, **k)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = step(*a, **k)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not (torch.isfinite(logits).all() and tuple(logits.shape)
+                == (prompt.shape[0], cfg.vocab_size)):
+            raise AssertionError(f"step {len(times) - 1}: logits not finite "
+                                 "or of the wrong shape")
+        snaps.append((dict(common.LAUNCHES), ref_calls[0]))
+        return logits, cache
+
+    torch.cuda.synchronize()
+    common.reset_launches()
+    with patched([(ds, "_ds_step", timed), (f8, "fp8_matmul_ref",
+                                            counted_ref)]):
+        toks = ds.deepseek_generate(cfg, sp, fq, fq_cfg, prompt,
+                                    max_new_tokens=new, **kw)
+    dec = sorted(times[2:])
+    return dict(prefill_ms=times[0], step_ms=times[1:],
+                decode_ms=dec[len(dec) // 2], tokens=toks[0].tolist(),
+                prefill_launches={k: v for k, v in snaps[0][0].items() if v},
+                prefill_ref_route_calls=snaps[0][1],
+                launches={k: v for k, v in snaps[-1][0].items() if v},
+                ref_route_calls=snaps[-1][1])
+
+
+def _checked_fp8(torch, n, worst):
+    """fp8_matmul that holds every launch to fp8_matmul_ref on the same
+    inputs (bf16 outputs within one ulp: the "identity" tolerance of
+    kernels/tolerance.py), counting the checks in n."""
+    from flatquant_torch.kernels import fp8_matmul as f8
+    from flatquant_torch.kernels.tolerance import compare_bf16
+
+    kernel = f8.fp8_matmul
+
+    def fp8(x, w8, se, out_dtype=torch.bfloat16, exact=True):
+        y = kernel(x, w8, se, out_dtype, exact)
+        err = compare_bf16(y, f8.fp8_matmul_ref(x, w8, se, out_dtype, exact),
+                           "identity", "fp8_matmul on the path")
+        worst[0] = max(worst[0], err)
+        n[0] += 1
+        return y
+
+    return fp8
+
+
+def _checked_w4a4(torch, n):
+    """w4a4_matmul_i8 held bit for bit to w4a8_matmul_ref on every launch."""
+    from flatquant_torch.kernels import int4_matmul as im
+
+    def gemm(xq, xs, wp, sw, out_dtype=torch.bfloat16):
+        y = im.w4a4_matmul_i8(xq, xs, wp, sw, out_dtype)
+        if not torch.equal(y, im.w4a8_matmul_ref(xq, xs, wp, sw, out_dtype)):
+            raise AssertionError("w4a4_matmul_i8 not bit-exact on the path")
+        n[0] += 1
+        return y
+
+    return gemm
+
+
+def run_deepseek_path(torch, dev, results, smi, cfg=None):
+    """DeepSeek-V2-Lite at full width and depth (the default
+    DeepSeekConfig: dim 2048, 27 layers with 1 dense, 16 heads, kv_lora
+    512, 64 routed experts with 6 active and 2 shared), random seeded
+    weights, serve mode, bf16:
+    (a) native FP8: deepseek_generate of a 1 x 2048 prompt (max_len 2304;
+        the gather MoE, C = 384) and 32 greedy decode steps at B=1 (the
+        dense-masked MoE), timed; launch counts read around the prefill
+        and the steps; fp8_linear's plain-route calls counted (wkv_a and
+        the dense FFN, packed in 64-blocks); a profile of one prefill and
+        one decode step; every fp8_matmul launch of one prefill and two
+        decode steps against its plain version;
+    (b) the continuous batcher over (a)'s model with the DeepSeek hooks
+        (ds_batch_forward, ds_init_batch_cache): 4 slots, six requests of
+        40-600 prompt tokens and 16 new tokens, chunks of 256 (per-slot
+        rope and masked latent writes in every decode step); tokens
+        compared with single-request deepseek_generate as a tripwire;
+    (c) packed W4A4 (build_ds_w4a4_model), (a)'s model freed first: a
+        1 x 2048 prefill and 32 decode steps, every w4a4_matmul_i8 launch
+        of one prefill bit for bit against its plain version.
+    Returns {path: launches} for "deepseek_fp8", "deepseek_batcher",
+    "deepseek_w4a4"."""
+    from flatquant_torch.kernels import fp8_matmul as f8
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.quantize.spec import W4A4
+    from flatquant_torch.serving import quantized
+
+    cfg = _ds_cfg(cfg)
+    B, S, NEW, MAX_LEN = 1, 2048, 32, 2304
+    L, Lm = cfg.n_layers, cfg.n_moe_layers
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    rec, paths = {}, {}
+
+    # (a) native FP8
+    sp = build_ds_fp8_model(torch, dev, 0, cfg)
+    run = _timed_generate(torch, cfg, None, None, sp, prompt, NEW, MAX_LEN,
+                          dev)
+    # per forward: wq and wo in every layer, the shared s_w1/s_w3/s_w2 and
+    # the expert-batched e_w1/e_w3/e_w2 (one launch each) in every MoE
+    # layer; fp8_matmul_ref for wkv_a everywhere and the dense FFN
+    fwd = 2 * L + 6 * Lm
+    ref_fwd = L + 3 * cfg.n_dense_layers
+    pl = run["prefill_launches"]
+    if pl.get("fp8_matmul") != fwd or set(pl) != {"fp8_matmul"}:
+        raise AssertionError(f"FP8 prefill launches {pl}, expected "
+                             f"fp8_matmul {fwd} and nothing else")
+    if run["launches"]["fp8_matmul"] != fwd * (1 + NEW):
+        raise AssertionError("the FP8 decode steps did not run every "
+                             "128-block linear through fp8_matmul")
+    if (run["prefill_ref_route_calls"] != ref_fwd
+            or run["ref_route_calls"] != ref_fwd * (1 + NEW)):
+        raise AssertionError(f"{run['ref_route_calls']} fp8_matmul_ref "
+                             f"route calls, expected {ref_fwd} per forward")
+    log(f"  [{smi}] {cfg.name} FP8 prefill B={B} S={S} (gather MoE): "
+        f"{run['prefill_ms']:.1f} ms")
+    log(f"  [{smi}] {cfg.name} FP8 decode after it, median "
+        f"{run['decode_ms']:.2f} ms/step, B={B}, {NEW} steps (dense-masked "
+        "MoE)")
+    log(f"  launches, prefill + {NEW} decode steps: {run['launches']}; "
+        f"fp8_matmul_ref route calls {run['ref_route_calls']} "
+        f"({ref_fwd} per forward: wkv_a and the dense FFN, 64-blocks)")
+    log(f"  greedy tokens: {run['tokens']}")
+    step_kw = dict(max_len=MAX_LEN, compute_dtype=torch.bfloat16)
+
+    def prefill(i):
+        c = ds.init_ds_cache(cfg, B, MAX_LEN, device=dev)
+        return ds._ds_step(cfg, None, "serve", sp, None, prompt, c, 0,
+                           **step_kw)
+
+    busy_p = profile_steps(torch, prefill, 1, f"{cfg.name} FP8 prefill "
+                           f"1 x {S}")
+    lg, cache = prefill(0)
+    tok = lg.argmax(-1, keepdim=True)
+    busy_d = profile_steps(torch, lambda i: ds._ds_step(
+        cfg, None, "serve", sp, None, tok, cache, S, **step_kw), 1,
+        f"{cfg.name} FP8 decode step")
+    for what, busy, ms in (("prefill", busy_p, run["prefill_ms"]),
+                           ("decode step", busy_d, run["decode_ms"])):
+        if busy:
+            busy["idle_share_unprofiled"] = 1 - busy["busy_ms"] / ms
+            log(f"  device idle share against the unprofiled {what}: "
+                f"{busy['idle_share_unprofiled']:.3f}")
+    n, worst = [0], [0.0]
+    with patched([(f8, "fp8_matmul", _checked_fp8(torch, n, worst))]):
+        lg, cache = prefill(0)
+        for i in range(2):
+            lg, cache = ds._ds_step(cfg, None, "serve", sp, None,
+                                    lg.argmax(-1, keepdim=True), cache,
+                                    S + i, **step_kw)
+        torch.cuda.synchronize()
+    del cache
+    if n[0] != 3 * fwd:
+        raise AssertionError(f"{n[0]} fp8_matmul launches checked, expected "
+                             f"{3 * fwd}")
+    log(f"  every fp8_matmul launch of a prefill and 2 decode steps vs its "
+        f"plain version: {n[0]} checked ('identity' tolerance), max abs err "
+        f"{worst[0]:.3e}")
+    rec["fp8"] = dict(prefill_profile=busy_p, decode_profile=busy_d,
+                      per_launch_checks=dict(launches=n[0],
+                                             max_abs_err=worst[0]), **run)
+    paths["deepseek_fp8"] = run["launches"]
+
+    # (b) the continuous batcher with the DeepSeek hooks
+    requests = [(torch.randint(0, cfg.vocab_size, (p,), generator=gen,
+                               device=dev).cpu().numpy(), DS_BATCH_NEW)
+                for p in DS_BATCH_PROMPTS]
+    toks, brec = _serve(torch, dev, (cfg, None, {"params": sp, "fq": None}),
+                        requests, prefill_chunk=256,
+                        forward_fn=ds.ds_batch_forward,
+                        init_cache_fn=ds.ds_init_batch_cache)
+    single = [ds.deepseek_generate(cfg, sp, None, None, p[None],
+                                   max_new_tokens=m, max_len=BATCH_MAX_LEN,
+                                   mode="serve", device=dev)[0].tolist()
+              for p, m in requests]
+    first = sum(a[0] == b[0] for a, b in zip(toks, single))
+    whole = sum(a == b for a, b in zip(toks, single))
+    brec.update(first_tokens_equal=first, requests_equal=whole)
+    log(f"  [{smi}] batcher, {len(requests)} requests "
+        f"({DS_BATCH_PROMPTS} prompt tokens, {DS_BATCH_NEW} new), chunks of "
+        f"256: wall {brec['wall_s']:.2f} s, {brec['tokens_per_s']:.2f} "
+        f"tokens/s, median decode step {brec['decode_ms_median']:.2f} ms, "
+        f"median chunk {brec['chunk_ms_median']:.2f} ms")
+    log(f"  launches: {brec['launches']}")
+    log(f"  tripwire against single-request deepseek_generate: first tokens "
+        f"equal in {first} of {len(requests)}, whole outputs in {whole}")
+    if 2 * first < len(requests):
+        raise AssertionError("the batcher's first tokens disagree with "
+                             "single-request generation on most requests")
+    rec["batcher"] = brec
+    paths["deepseek_batcher"] = brec["launches"]
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) packed W4A4
+    sp, fq = build_ds_w4a4_model(torch, dev, 0, cfg)
+    run = _timed_generate(torch, cfg, fq, W4A4, sp, prompt, NEW, MAX_LEN,
+                          dev)
+    # per forward: wq, wkv_a, wo and the three dense-FFN or shared-expert
+    # linears in every layer (the routed experts run plain, as in JAX)
+    fwd = 6 * L if cfg.q_lora_rank == 0 else 7 * L
+    pl = run["prefill_launches"]
+    if pl.get("w4a4_matmul_i8") != fwd or set(pl) != {"w4a4_matmul_i8"}:
+        raise AssertionError(f"W4A4 prefill launches {pl}, expected "
+                             f"w4a4_matmul_i8 {fwd} and nothing else")
+    if run["launches"]["w4a4_matmul_i8"] != fwd * (1 + NEW):
+        raise AssertionError("the W4A4 decode steps did not run every "
+                             "packed linear through w4a4_matmul_i8")
+    log(f"  [{smi}] {cfg.name} W4A4 prefill B={B} S={S}: "
+        f"{run['prefill_ms']:.1f} ms; decode median {run['decode_ms']:.2f} "
+        f"ms/step, {NEW} steps")
+    log(f"  launches, prefill + {NEW} decode steps: {run['launches']}")
+    n = [0]
+    with patched([(quantized, "w4a4_matmul_i8", _checked_w4a4(torch, n))]):
+        c = ds.init_ds_cache(cfg, B, MAX_LEN, device=dev)
+        ds._ds_step(cfg, W4A4, "serve", sp, fq, prompt, c, 0, **step_kw)
+        torch.cuda.synchronize()
+        del c
+    if n[0] != fwd:
+        raise AssertionError(f"{n[0]} w4a4_matmul_i8 launches checked, "
+                             f"expected {fwd}")
+    log(f"  every w4a4_matmul_i8 launch of a prefill vs its plain version: "
+        f"{n[0]} checked, bit-exact")
+    rec["w4a4"] = dict(per_launch_checks=dict(launches=n[0],
+                                              max_abs_err=0.0), **run)
+    paths["deepseek_w4a4"] = run["launches"]
+    results["deepseek_path"] = dict(model=cfg.name, layers=L, batch=B,
+                                    prompt=S, new_tokens=NEW,
+                                    max_len=MAX_LEN, **rec)
+    del sp, fq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -2404,6 +2981,9 @@ KERNELS = {
     "w4a8_matmul": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/int4_matmul.cu",
         replaces="flatquant_tpu/kernels/int4_matmul.py:213"),
+    "fp8_matmul": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/fp8_matmul.cu",
+        replaces="flatquant_tpu/kernels/fp8_matmul.py:188"),
 }
 # the path each kernel's `launches` is read from (each path's counts set to
 # 0 just before it and read just after): the decode-serving run of phase 4
@@ -2411,8 +2991,9 @@ KERNELS = {
 # int4 engine's 1 x 2048 prefill + decode (phase 6a) for flash kt, the
 # bf16 comparator's (phase 6c) for flash, the batcher's runs (a) int4
 # and (b) paged (phase 7) for slice 4's, Qwen-2.5-7B's prefill + decode
-# (phase 8) for rows 12 and 13 and the W4A16 llama-2-7b's (phase 9) for
-# row 14
+# (phase 8) for rows 12 and 13, the W4A16 llama-2-7b's (phase 9) for
+# row 14 and DeepSeek-V2-Lite's native-FP8 prefill + decode (phase 10 (a))
+# for row 16
 KERNEL_PATH = dict(
     dict.fromkeys(("w4a4_matmul_i8", "decode_attention_int4", "write_token"),
                   "decode"),
@@ -2424,7 +3005,8 @@ KERNEL_PATH = dict(
     chunk_attention_int4="batcher_int4",
     paged_decode_attention_int4="batcher_paged",
     paged_chunk_attention_int4="batcher_paged",
-    quant_acts_i8="qwen", w4a4_matmul_i8_swiglu="qwen", w4a8_matmul="w4a16")
+    quant_acts_i8="qwen", w4a4_matmul_i8_swiglu="qwen", w4a8_matmul="w4a16",
+    fp8_matmul="deepseek_fp8")
 DECODE_KERNELS = [k for k, p in KERNEL_PATH.items() if p == "decode"]
 
 
@@ -2458,6 +3040,13 @@ def kernel_line(results, paths):
         elif name == "w4a8_matmul":
             rows = [x for x in r["rows"] if x["m"] == 1]
             at = "M=1 (B=1 decode), sum of qkv+o+upgate+down of one layer"
+        elif name == "fp8_matmul":
+            # s_w1/s_w3 and e_w1/e_w3 share a shape: timed once, counted twice
+            rows = [x for x in r["rows"] if x["m"] == 1]
+            weights = [2 if x["proj"] in ("s_w1", "e_w1") else 1
+                       for x in rows]
+            at = ("M=1 (B=1 decode), one MoE layer's 8 fp8 linears: wq, wo, "
+                  "s_w1, s_w3, s_w2 and the 64-expert e_w1, e_w3, e_w2")
         elif name == "left_quant_i8_flat":
             rows, weights = r["rows"], [3, 1]
             at = ("T=2048, one layer: 3 x K=4096 (ln1, o, ln2) + "
@@ -2496,9 +3085,15 @@ def kernel_line(results, paths):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel checks (phases 1-3)")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run after 1-2 (3a-3h, "
+                    "3 for all of them, 4-10; 6 runs 6a-6c); the default "
+                    "is all. A partial run prints no kernel table")
     args = ap.parse_args(argv)
+    only = set(filter(None, args.phases.split(",")))
+
+    def want(*names):
+        return not only or bool(only & set(names))
 
     import torch
 
@@ -2546,24 +3141,27 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     # valid lengths of the main path's last generate step (prompt 48 + 64)
     main_valid = [48 + 64] * 4
-    if not failed:
-        phase("phase 3a: w4a4_matmul_i8 vs w4a8_matmul_ref", check_gemm,
-              torch, dev, gen, results)
-        phase("phase 3b: decode_attention_int4 vs decode_attention_ref",
-              check_attention, torch, dev, gen, results, main_valid)
-        phase("phase 3c: write_token vs the masked select", check_write,
-              torch, dev, gen, results)
-        phase("phase 3d: prefill kernels vs their plain versions",
-              check_prefill_kernels, torch, dev, gen, results)
-        phase("phase 3e: flash prefill attention vs its plain versions",
-              check_flash, torch, dev, gen, results)
-        phase("phase 3f: chunk and paged attention vs their plain versions",
-              check_chunk_paged, torch, dev, gen, results)
-        phase("phase 3g: quant_acts_i8, w4a4_matmul_i8_swiglu, w4a8_matmul "
-              "vs their plain versions", check_quant_mode_kernels, torch, dev,
-              gen, results)
+    kernel_phases = [
+        ("3a", "w4a4_matmul_i8 vs w4a8_matmul_ref", check_gemm),
+        ("3b", "decode_attention_int4 vs decode_attention_ref",
+         lambda *a: check_attention(*a, main_valid)),
+        ("3c", "write_token vs the masked select", check_write),
+        ("3d", "prefill kernels vs their plain versions",
+         check_prefill_kernels),
+        ("3e", "flash prefill attention vs its plain versions", check_flash),
+        ("3f", "chunk and paged attention vs their plain versions",
+         check_chunk_paged),
+        ("3g", "quant_acts_i8, w4a4_matmul_i8_swiglu, w4a8_matmul vs their "
+         "plain versions", check_quant_mode_kernels),
+        ("3h", "fp8_matmul (row 16) and w4a4_matmul_i8 at DeepSeek-V2-Lite's "
+         "shapes vs their plain versions", check_fp8_kernels)]
+    for key, what, fn in kernel_phases:
+        if not failed and want(key, "3"):
+            phase(f"phase {key}: {what}", fn, torch, dev, gen, results)
+    # the serving phases run when every kernel check passed
+    serve = not failed
     model = None
-    if not args.kernels_only and not failed:
+    if serve and want("4", "5", "6"):
         # the kernel checks' inputs and graph pools go back to the card
         # before the path runs start
         gc.collect()
@@ -2571,22 +3169,27 @@ def main(argv=None) -> int:
         model = phase("build the random llama-2-7b (shared by phases 4-6)",
                       build_model, torch, dev, 0)
     if model is not None:
-        paths["decode"] = phase("phase 4: llama-2-7b decode-serving path",
-                                run_main_path, torch, dev, model, results,
-                                smi) or {}
-        paths["prefill"] = phase(
-            "phase 5: llama-2-7b fused prompt prefill (4 x 512)",
-            run_prefill_path, torch, dev, model, results, smi) or {}
-        paths["long_prefill"], paths["all_logits"] = phase(
-            "phase 6a/b: llama-2-7b 1 x 2048 prefill, int4 and bf16 caches",
-            run_long_prefill_path, torch, dev, model, results,
-            smi) or ({}, {})
+        if want("4"):
+            paths["decode"] = phase("phase 4: llama-2-7b decode-serving path",
+                                    run_main_path, torch, dev, model,
+                                    results, smi) or {}
+        if want("5"):
+            paths["prefill"] = phase(
+                "phase 5: llama-2-7b fused prompt prefill (4 x 512)",
+                run_prefill_path, torch, dev, model, results, smi) or {}
+        if want("6"):
+            paths["long_prefill"], paths["all_logits"] = phase(
+                "phase 6a/b: llama-2-7b 1 x 2048 prefill, int4 and bf16 "
+                "caches", run_long_prefill_path, torch, dev, model, results,
+                smi) or ({}, {})
         del model
         gc.collect()
         torch.cuda.empty_cache()
-        paths["bf16_comparator"] = phase(
-            "phase 6c: the bf16 comparator, llama-2-7b 1 x 2048",
-            run_bf16_comparator, torch, dev, results, smi) or {}
+        if want("6"):
+            paths["bf16_comparator"] = phase(
+                "phase 6c: the bf16 comparator, llama-2-7b 1 x 2048",
+                run_bf16_comparator, torch, dev, results, smi) or {}
+    if serve and want("7"):
         model = phase("rebuild the random llama-2-7b (seed 0) for phase 7",
                       build_model, torch, dev, 0)
     if model is not None:
@@ -2596,12 +3199,18 @@ def main(argv=None) -> int:
         del model
         gc.collect()
         torch.cuda.empty_cache()
-        paths["qwen"] = phase(
-            "phase 8: Qwen-2.5-7B, balanced split, 1 x 2048 + 32 decode "
-            "steps", run_qwen_path, torch, dev, results, smi) or {}
-        paths["w4a16"] = phase(
-            "phase 9: llama-2-7b W4A16, 1 x 2048 + 32 decode steps",
-            run_w4a16_path, torch, dev, results, smi) or {}
+    serving = [("8", "qwen", "phase 8: Qwen-2.5-7B, balanced split, 1 x 2048 "
+                "+ 32 decode steps", run_qwen_path),
+               ("9", "w4a16", "phase 9: llama-2-7b W4A16, 1 x 2048 + 32 "
+                "decode steps", run_w4a16_path)]
+    for key, path, what, fn in serving:
+        if serve and want(key):
+            paths[path] = phase(what, fn, torch, dev, results, smi) or {}
+    if serve and want("10"):
+        paths.update(phase(
+            "phase 10: DeepSeek-V2-Lite, native FP8 (1 x 2048 + 32 decode "
+            "steps, the batcher) and packed W4A4", run_deepseek_path, torch,
+            dev, results, smi) or {})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,
@@ -2609,7 +3218,7 @@ def main(argv=None) -> int:
     if failed:
         log(f"FAILED phases: {failed}")
         return 1
-    if not args.kernels_only:
+    if not only:
         print(json.dumps(kernel_line(results, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,6 +48,7 @@ LAUNCHES: Dict[str, int] = {
     "quant_acts_i8": 0,
     "w4a4_matmul_i8_swiglu": 0,
     "w4a8_matmul": 0,
+    "fp8_matmul": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -55,6 +56,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of each exported launch function (all return cudaError_t)
 _SIGNATURES = {
     "int4_matmul": {
@@ -106,6 +108,11 @@ _SIGNATURES = {
         # (b, s, h), B, S, nh, nkv, scale, stream
         "fq_flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _F, _P],
+    },
+    "fp8_matmul": {
+        # x, x expert stride, w8, se, y, E, M, N, K, exact, out_is_f32,
+        # stream
+        "fq_fp8_matmul": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -38,6 +38,15 @@ and 6, tests/test_torch_gpu.py):
                over its row's keys, of the order of 2^-9 of the values of
                V it averages, whatever its own size: every output within 2
                bf16 ulps of the largest value of its (token, head) row.
+
+The fp8 GEMM (kernels/fp8_matmul.py, chip_smoke.py phases 3h and 10,
+tests/test_torch_gpu.py) decodes every code exactly and multiplies exact
+bf16 values, so kernel and plain version differ only in the order of
+their float32 sums (the tensor cores' within a 128-k chunk; the chunks
+are added in the same order): float32 outputs within FP8_F32_TOL, the
+JAX package's own bound for its kernel against its reference
+(tests/test_fp8_gemm.py), and bf16 outputs within the "identity" mode's
+one ulp. Decoding alone (an identity x) is exact.
 """
 
 from __future__ import annotations
@@ -52,6 +61,9 @@ MODES = {
                        zero_diff=1),
     "flash": dict(ulps=2, row_floor=1.0, outlier_frac=0.0),
 }
+
+
+FP8_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def _fail(what, msg):
@@ -127,3 +139,18 @@ def compare_kv(codes, params, codes_ref, params_ref, mode, what):
     if dz > MODES[mode]["zero_diff"]:
         _fail(what, f"zero points differ by {dz} ({mode} factors)")
     return err
+
+
+def compare_f32(got, want, what, rtol=FP8_F32_TOL["rtol"],
+                atol=FP8_F32_TOL["atol"]):
+    """float32 outputs: |got - want| <= atol + rtol * |want| everywhere.
+    Returns the max abs error."""
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        _fail(what, f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+    err = (g - w).abs()
+    bad = ~(err <= atol + rtol * w.abs())
+    if bad.any():
+        _fail(what, f"{int(bad.sum())} of {bad.numel()} values beyond rtol "
+              f"{rtol:g} / atol {atol:g}, max abs err {err.max().item():.3e}")
+    return err.max().item()

@@ -123,3 +123,6 @@ W4A4KV4 = FQConfig(
     k_groupsize=128,
     v_groupsize=128,
 )
+
+# weights and activations only (the DeepSeek packed-serving recipe)
+W4A4 = FQConfig(w_bits=4, a_bits=4)

@@ -10,11 +10,15 @@ flatquant_tpu/serving/batcher.py).
     steps in between, while other slots' state is untouched
 
 Greedy results equal single-request generation, and the paged pool's
-equal the int4 slot cache's token for token.
+equal the int4 slot cache's token for token. The engine hooks
+`forward_fn` / `init_cache_fn` serve another model family through the
+same scheduler (models/deepseek.py ds_batch_forward and
+ds_init_batch_cache: DeepSeek over its latent caches).
 
 What differs from JAX: there is no jit and no program cache. Prefill,
-decode and chunk are direct `_forward` calls, and every cache updates in
-place where JAX donates it.
+decode and chunk are direct calls of the forward function, and every
+cache updates in place where JAX donates it (a hook's forward returns
+only the logits, as `_forward` does).
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ class ContinuousBatcher:
         serving_params: dict,
         batch_slots: int = 4,
         max_len: int = 2048,
-        use_kernel: bool = True,
+        use_kernel: bool = False,
         compute_dtype=torch.float32,
         cache_mode: str = "bf16",
         prefill_bucket: int = 0,
@@ -77,23 +81,32 @@ class ContinuousBatcher:
         attention reads the quantized cache for history (decode
         semantics).
 
-        use_kernel defaults to True, as the port's serving entry points
-        do (JAX's batcher defaults to False): on a CUDA device every
-        kernel of the path launches; CPU tensors run the plain versions
-        either way. device: where the cache and the calls run (default
-        "cuda"; a host without a card raises).
+        use_kernel defaults to False, as JAX's batcher does: the same
+        call takes the same route in both packages (the composed chain at
+        every row count). use_kernel=True runs the fused routes and
+        launches every kernel of the path on a CUDA device; CPU tensors
+        run the plain versions either way. device: where the cache and
+        the calls run (default "cuda"; a host without a card raises).
+
+        forward_fn / init_cache_fn: engine hooks with the signatures of
+        engine._forward and engine.init_cache (cache updated in place,
+        the forward returning the logits), e.g. ds_batch_forward and
+        ds_init_batch_cache for DeepSeek; they run the bf16-cache
+        scheduler only.
 
         Not ported yet: mesh/tp_axis (tensor-parallel serving) and pp_mesh
-        (pipelined layers) wait for ROADMAP queue 1 item 9, forward_fn /
-        init_cache_fn (DeepSeek under the batcher) for item 8."""
+        (pipelined layers) wait for ROADMAP queue 1 item 9."""
         if mesh is not None or pp_mesh is not None:
             raise NotImplementedError(
                 "mesh/tp_axis and pp_mesh (tensor-parallel and pipelined "
                 "serving) wait for ROADMAP queue 1 item 9")
-        if forward_fn is not None or init_cache_fn is not None:
-            raise NotImplementedError(
-                "forward_fn/init_cache_fn (DeepSeek under the batcher) wait "
-                "for ROADMAP queue 1 item 8")
+        if forward_fn is not None and cache_mode != "bf16":
+            raise ValueError("engine hooks run the bf16-cache scheduler; "
+                             f"cache_mode {cache_mode!r} is the Llama "
+                             "engine's")
+        self._forward = forward_fn if forward_fn is not None else _forward
+        self._init_cache = (init_cache_fn if init_cache_fn is not None
+                            else init_cache)
         self.cfg = cfg
         self.fq_cfg = fq_cfg
         self.sp = serving_params
@@ -161,9 +174,9 @@ class ContinuousBatcher:
         tokens = torch.as_tensor(tokens, device=self.dev).to(torch.long)
         if last_idx is not None:
             last_idx = torch.as_tensor(last_idx, device=self.dev)
-        return _forward(self.cfg, self.fq_cfg, self.sp, tokens, cache, pos,
-                        phase, self.use_kernel, self.max_len,
-                        self.compute_dtype, last_idx=last_idx)
+        return self._forward(self.cfg, self.fq_cfg, self.sp, tokens, cache,
+                             pos, phase, self.use_kernel, self.max_len,
+                             self.compute_dtype, last_idx=last_idx)
 
     def _prefill_one(self, tokens, cache1, last_idx):
         return self._call(tokens, cache1, 0, "prefill", last_idx)
@@ -178,9 +191,9 @@ class ContinuousBatcher:
     # -- internals ----------------------------------------------------------
 
     def _new_cache(self, batch):
-        return init_cache(self.cfg, batch, self.max_len,
-                          dtype=self.compute_dtype, mode=self.cache_mode,
-                          device=self.dev)
+        return self._init_cache(self.cfg, batch, self.max_len,
+                                dtype=self.compute_dtype,
+                                mode=self.cache_mode, device=self.dev)
 
     def _new_cache1(self):
         """A zeroed single-slot staging cache for one prefill."""

@@ -1,5 +1,6 @@
-"""Conversion of the JAX package's serving params (and the bf16
-comparator's) into the port's, and of serving caches in both directions.
+"""Conversion of the JAX package's serving params (the Llama engine's,
+the bf16 comparator's and DeepSeek's) into the port's, and of serving
+caches in both directions.
 
 The JAX package stacks every layer leaf on a leading [L] axis (for
 lax.scan); the port keeps a list of per-layer dicts (params) or tensors
@@ -12,11 +13,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flatquant_torch.core.transforms import BakedDecompose
 from flatquant_torch.kernels.common import resolve_device
 
 
 def _to_torch(a, dev):
     a = np.asarray(a)
+    if a.dtype.name == "float8_e4m3fn":
+        # ml_dtypes' float8 crosses as its bytes
+        return torch.tensor(np.ascontiguousarray(a).view(np.uint8),
+                            device=dev).view(torch.float8_e4m3fn)
     if a.dtype.name == "bfloat16":
         # ml_dtypes' bfloat16 is not a dtype torch.from_numpy takes; the
         # widening to float32 and the cast back are both exact
@@ -52,6 +58,67 @@ def from_jax_serving_params(sp_numpy: dict, device="cuda") -> dict:
     out["layers"] = per_layer
     return out
 
+
+def from_jax_ds_serving_params(sp_numpy: dict, device="cuda") -> dict:
+    """JAX DeepSeek params as numpy arrays, stacked over layers (raw
+    bf16/f32 params, build_ds_fp8_serving_params' fp8 dicts or
+    build_ds_serving_params' packed int4 dicts with their a_clip pairs) ->
+    the port's: {"embed", "final_norm", "head", "dense_layers": [dict],
+    "moe_layers": [dict]}. float8 codes cross byte for byte."""
+    dev = resolve_device(device)
+    out = {k: _convert(v, dev) for k, v in sp_numpy.items()
+           if k not in ("dense_layers", "moe_layers")}
+    for key in ("dense_layers", "moe_layers"):
+        stacked = sp_numpy[key]
+        n = np.asarray(stacked["attn_norm"]).shape[0]
+        out[key] = [_convert(stacked, dev, i) for i in range(n)]
+    return out
+
+
+_DS_TRANSFORMS = {"attn": ("qkv_trans", "wqb_trans", "wo_trans"),
+                  "ffn": ("up_gate_trans", "down_trans", "w1_trans",
+                          "w2_trans", "routed_w2_trans")}
+
+
+def _baked(t, i, dev):
+    if t is None:
+        return None
+    if not hasattr(t, "left_inv"):
+        raise ValueError(f"{type(t).__name__} is not baked: convert the "
+                         "output of bake_ds_fq / build_ds_serving_params")
+
+    def pick(a):
+        return None if a is None else _to_torch(np.asarray(a)[i], dev)
+
+    return BakedDecompose(left=pick(t.left), right=pick(t.right),
+                          left_inv=pick(t.left_inv),
+                          right_inv=pick(t.right_inv),
+                          diag_scale=pick(t.diag_scale),
+                          perm=bool(getattr(t, "perm", False)))
+
+
+def from_jax_ds_fq(fq_numpy, device="cuda"):
+    """JAX's baked DeepSeek state (dense_fq, moe_fq), stacks of
+    DSDenseLayerFQ / DSMoELayerFQ with numpy leaves (jax.tree.map(
+    np.asarray, baked)) -> the port's (dense_fq, moe_fq): lists of
+    per-layer {"attn": {...}, "ffn": {...}} dicts of BakedDecompose (None
+    where JAX has none). Only the transforms cross: the serving forward
+    reads no linear state."""
+    dev = resolve_device(device)
+    out = []
+    for stack in fq_numpy:
+        if stack is None:
+            out.append(None)
+            continue
+        parts = {part: {k: getattr(getattr(stack, part), k)
+                        for k in keys if hasattr(getattr(stack, part), k)}
+                 for part, keys in _DS_TRANSFORMS.items()}
+        lefts = [t.left for p in parts.values() for t in p.values()
+                 if t is not None]
+        n = np.asarray(lefts[0]).shape[0] if lefts else 0
+        out.append([{part: {k: _baked(t, i, dev) for k, t in p.items()}
+                     for part, p in parts.items()} for i in range(n)])
+    return tuple(out)
 
 
 # the packed cache's keys; JAX keeps their token index last (v4 layout:

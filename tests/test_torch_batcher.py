@@ -457,11 +457,14 @@ def _near_state(jcache, tcache):
 def test_unported_batcher_options_raise(tiny):
     cfg, fq, tsp = tiny["cfg"], tiny["fq"], tiny["tsp"]
     for kw, item in ((dict(mesh=object()), "item 9"),
-                     (dict(pp_mesh=object()), "item 9"),
-                     (dict(forward_fn=len), "item 8"),
-                     (dict(init_cache_fn=len), "item 8")):
+                     (dict(pp_mesh=object()), "item 9")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
             ContinuousBatcher(cfg, fq, tsp, device="cpu", **kw)
+    # engine hooks (DeepSeek, tests/test_torch_deepseek.py) run the bf16
+    # cache only, as JAX's
+    with pytest.raises(ValueError, match="bf16"):
+        ContinuousBatcher(cfg, fq, tsp, device="cpu", forward_fn=len,
+                          cache_mode="int4")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ContinuousBatcher(cfg, fq, tsp)

@@ -533,3 +533,130 @@ def test_quant_modes_on_the_card_match_the_cpu(cuda, w_bits, a_bits):
         assert torch.isfinite(b).all()
         cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
         assert cos > 0.99, cos
+
+
+# ---------------------------------------------------------------------------
+# row 16: fp8_matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+def test_fp8_matmul_decodes_every_code(cuda, exact):
+    """All 254 non-NaN codes through an identity x, float32 out: exact
+    decodes each to its IEEE value, FTZ zeroes only the subnormal codes."""
+    from flatquant_torch.kernels import fp8_matmul as f8
+
+    codes = torch.arange(256, device=cuda, dtype=torch.int32).repeat(64)
+    codes = codes.reshape(128, 128).to(torch.uint8)
+    codes[(codes & 0x7F) == 0x7F] = 0
+    w8 = codes.view(torch.float8_e4m3fn)
+    eye = torch.eye(128, device=cuda).to(torch.bfloat16)
+    ones = torch.ones((1, 128), device=cuda)
+    got = f8.fp8_matmul(eye, w8, ones, torch.float32, exact)
+    want = w8.float().t()
+    if not exact:
+        sub = (((codes & 0x7F) > 0) & ((codes & 0x7F) < 8)).t()
+        want = torch.where(sub, torch.zeros_like(want), want)
+    assert torch.equal(got, want)
+    assert torch.equal(got, f8.fp8_matmul_ref(eye, w8, ones, torch.float32,
+                                              exact))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,m,n,k", [(0, 1, 384, 256), (0, 4, 3072, 2048),
+                                     (0, 300, 256, 1408), (3, 1, 256, 512),
+                                     (3, 70, 384, 256)])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_fp8_matmul_matches_plain(cuda, e, m, n, k, out):
+    """Both tile shapes (M <= 64 and above), with and without an expert
+    axis (x shared by the experts at M = 1: stride 0), within the fp8
+    tolerance of kernels/tolerance.py."""
+    from flatquant_torch.kernels import fp8_matmul as f8
+    from flatquant_torch.kernels.tolerance import compare_f32
+
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    lead = (e,) if e else ()
+    lin = f8.prep_fp8_weight(torch.randn(lead + (n, k), generator=g,
+                                         device=cuda) * 0.05)
+    x = torch.randn(lead + (m, k), generator=g, device=cuda).to(
+        torch.bfloat16)
+    if e and m == 1:
+        x = x[:1].expand(e, m, k)
+    before = common.LAUNCHES["fp8_matmul"]
+    got = f8.fp8_matmul(x, lin["w8"], lin["se"], out)
+    assert common.LAUNCHES["fp8_matmul"] == before + 1
+    want = f8.fp8_matmul_ref(x, lin["w8"], lin["se"], out)
+    if out == torch.float32:
+        compare_f32(got, want, "fp8_matmul")
+    else:
+        compare_bf16(got, want, "identity", "fp8_matmul")
+
+
+@pytest.mark.gpu
+def test_fp8_linear_pads_a_ragged_n_on_the_kernel(cuda):
+    """DeepSeek-V3's wkv_a (N = 576, K = 7168) in 128-blocks takes the
+    kernel on N padded to 640; in 64-blocks (prep_fp8_weight's choice for
+    N = 576) fp8_matmul_ref, JAX's route."""
+    from flatquant_torch.kernels import fp8_matmul as f8
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.randn((576, 7168), generator=g, device=cuda) * 0.05
+    q, s = f8.fp8_block_quantize(w, 128)
+    lin = {"w8": q, "se": f8.expand_fp8_scales(s, 576, 7168)}
+    x = torch.randn((3, 7168), generator=g, device=cuda).to(torch.bfloat16)
+    before = common.LAUNCHES["fp8_matmul"]
+    got = f8.fp8_linear(x, lin)
+    assert common.LAUNCHES["fp8_matmul"] == before + 1
+    assert got.shape == (3, 576)
+    compare_bf16(got, f8.fp8_matmul_ref(x, q, lin["se"]), "identity",
+                 "fp8_linear padded")
+    lin64 = f8.prep_fp8_weight(w)
+    assert lin64["se"].shape == (112, 576)
+    f8.fp8_linear(x, lin64)
+    assert common.LAUNCHES["fp8_matmul"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["K % 128", "N % 128", "fp16 x", "se shape"])
+def test_fp8_matmul_raises_on_what_it_does_not_take(cuda, what):
+    from flatquant_torch.kernels import fp8_matmul as f8
+
+    n, k = {"K % 128": (128, 192), "N % 128": (192, 128)}.get(what,
+                                                              (128, 256))
+    w8 = torch.zeros((n, k), device=cuda).to(torch.float8_e4m3fn)
+    se = torch.ones((max(k // 128, 1), n), device=cuda)
+    x = torch.zeros((2, k), device=cuda,
+                    dtype=torch.float16 if what == "fp16 x" else torch.bfloat16)
+    if what == "se shape":
+        se = torch.ones((k // 64, n), device=cuda)
+    with pytest.raises(ValueError, match="fp8_matmul"):
+        f8.fp8_matmul(x, w8, se)
+
+
+@pytest.mark.gpu
+def test_deepseek_fp8_on_the_card_matches_the_plain_path(cuda):
+    """mini-deepseek (V2-Lite's routes at small widths) in native FP8,
+    float32: the kernel route (10 fp8_matmul launches per forward: wq and
+    wo, the shared and the batched routed experts) against use_kernel=False
+    on the card, every logits row within 1% of its norm (bf16 roundings of
+    the GEMM inputs may move at float32 ties between the two)."""
+    from flatquant_torch.models import deepseek as ds
+
+    cfg = ds.DeepSeekConfig(
+        name="mini-deepseek", vocab_size=128, dim=256, inter_dim=320,
+        moe_inter_dim=256, n_layers=2, n_dense_layers=1, n_heads=2,
+        n_routed_experts=8, n_shared_experts=2, n_activated_experts=2,
+        kv_lora_rank=128, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, original_seq_len=64, max_seq_len=256)
+    sp = ds.build_ds_fp8_serving_params(
+        cfg, ds.init_ds_params(cfg, 0, device=cuda), dtype=torch.float32)
+    toks = torch.randint(0, 128, (1, 256), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    kw = dict(mode="serve", compute_dtype=torch.float32, device=cuda)
+    before = common.LAUNCHES["fp8_matmul"]
+    got = ds.deepseek_forward(cfg, sp, toks, **kw)
+    assert common.LAUNCHES["fp8_matmul"] == before + 10
+    want = ds.deepseek_forward(cfg, sp, toks, use_kernel=False, **kw)
+    rel = ((got - want).abs().amax(-1) / want.norm(dim=-1)).max().item()
+    assert rel < 0.01, rel

@@ -53,6 +53,7 @@ from flatquant_tpu.quantize.spec import W4A4KV4 as J_W4A4KV4
 from flatquant_tpu.quantize.state import init_model_fq
 from flatquant_tpu.serving import baseline as jb
 from flatquant_tpu.serving import engine as je
+from flatquant_tpu.serving.batcher import ContinuousBatcher as JBatcher
 from flatquant_tpu.serving.quantized import (
     build_serving_params as j_build_serving_params,
 )
@@ -63,6 +64,7 @@ from flatquant_torch.models.llama import rope_tables
 from flatquant_torch.quantize.spec import W4A4KV4
 from flatquant_torch.serving import baseline as tb
 from flatquant_torch.serving import engine as te
+from flatquant_torch.serving.batcher import ContinuousBatcher
 from flatquant_torch.utils.convert import from_jax_serving_params
 
 torch.set_num_threads(2)
@@ -442,6 +444,41 @@ def test_bf16_baseline_matches_jax_op_by_op(model):
         np.testing.assert_allclose(tl, jl, atol=0.07, rtol=0,
                                    err_msg=f"step {i}")
         np.testing.assert_array_equal(tl.argmax(-1), jl.argmax(-1))
+
+
+def test_batcher_default_use_kernel_matches_jax(model):
+    """ContinuousBatcher's use_kernel defaults to JAX's (False), so the
+    same call takes the same route in both packages: a 300-token prompt
+    prefilled through each batcher's default gives the same logits within
+    1e-4. The port's old default (True) took the fused routes at 256+
+    rows, which round at the kernels' points; the size of that difference
+    on this prompt is printed (pytest -s)."""
+    jdef = inspect.signature(JBatcher.__init__).parameters["use_kernel"]
+    tdef = inspect.signature(ContinuousBatcher.__init__).parameters[
+        "use_kernel"]
+    assert jdef.default is tdef.default is False
+    S = 300
+    toks = np.random.default_rng(11).integers(
+        0, model["cfg"].vocab_size, (1, S)).astype(np.int32)
+    kw = dict(batch_slots=1, max_len=512, cache_mode="int4")
+    jbat = JBatcher(model["jcfg"], model["jfq"], model["sp"],
+                    compute_dtype=jnp.float32, **kw)
+    want, _ = jbat._prefill_one(jbat.sp, jnp.asarray(toks),
+                                jbat._new_cache1(),
+                                jnp.asarray([S - 1], np.int32))
+    logits = {}
+    for uk in (False, True):
+        extra = {} if uk is False else dict(use_kernel=True)
+        tbat = ContinuousBatcher(model["cfg"], model["fq"], model["tsp"],
+                                 compute_dtype=torch.float32, device="cpu",
+                                 **kw, **extra)
+        logits[uk] = tbat._prefill_one(toks[None, 0], tbat._new_cache1(),
+                                       [S - 1]).numpy()
+    np.testing.assert_allclose(logits[False], np.asarray(want), rtol=0,
+                               atol=1e-4)
+    moved = np.abs(logits[True] - np.asarray(want)).max()
+    print(f"old default (use_kernel=True) moved the mini-128 prefill logits "
+          f"by up to {moved:.3e} (scale {np.abs(want).max():.2f})")
 
 
 def test_default_cache_mode_matches_jax(model):
