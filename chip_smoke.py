@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (flatquant_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                # all phases, one card
-    python3 chip_smoke.py --phases 3     # phases 1-3 only (3a-3h)
+    python3 chip_smoke.py --phases 3     # phases 1-3 only (3a-3i)
     python3 chip_smoke.py --phases 3h,10 # phases 1-2, 3h and 10
+    python3 chip_smoke.py --phases 3i,11 # phases 1-2, 3i and 11
 
 Phases (any failure makes the script exit non-zero without the final
 line):
@@ -41,6 +42,14 @@ line):
      at decode and at the gather capacity) and DeepSeek-V3's padded
      wkv_a, timed beside torch.matmul on pre-dequantized bf16 weights;
      w4a4_matmul_i8 at K = 10944 and 2816, bit for bit
+     3i: rows 17-21, the JAX package's measured kernel baselines:
+     w4a4_matmul_i8_fusedq (one layer's four linears at M=4, the merged
+     qkv at M=2048) bit for bit against quant_acts_i8 + w4a4_matmul_i8;
+     flash_prefill_attention_kt_i8 in both pv_i8 modes (3e's shapes)
+     within the "flash" tolerance, its prepass bit for bit, its rel-RMS
+     against the float32 oracle; decode_attention_int4_v1, _wide and _v3
+     at row 2's and Qwen-2.5-7B's shapes within ATTN_TOL; each timed
+     beside its bound and yardstick
   4. build one random llama-2-7b (32 layers, random seeded weights, rn128
      Kronecker transforms baked into the weights; shared by phases 4 to
      6) and drive the decode-serving path at full width and depth:
@@ -99,6 +108,16 @@ line):
      single-request generation; (c) packed W4A4 (random orthogonal
      Kronecker factors folded in), a 1 x 2048 prefill and 32 decode
      steps, every w4a4_matmul_i8 launch of a prefill checked.
+  11. rows 17-21 each in place of its twin on phase 7's llama-2-7b (the
+     phase-4 model rebuilt from its seed): (a) phase 4's generate protocol
+     with every A4 linear below 256 rows through w4a4_matmul_i8_fusedq,
+     tokens and logits bit-identical to the composed run; (b) the same
+     decode with rows 19, 20, 21 in turn at decode_attention_int4's call
+     site, every launch of two steps checked; the decode step of (a) and
+     (b) timed against the composed run's in interleaved rounds; (c) the
+     1 x 2048 prefill with flash_prefill_attention_kt_i8 (pv_i8 on, off)
+     at flash_prefill_attention_kt's, every launch checked, wall times
+     interleaved with row 8's.
   Each model is freed before the next is built. Then the kernel table as
   one JSON line, then the result line.
 
@@ -1012,6 +1031,223 @@ def check_fp8_kernels(torch, dev, gen, results):
                 f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound "
                 f"{b_ms * 1e3:.2f} us ({b_by})")
             del ws, args
+
+
+# ---------------------------------------------------------------------------
+# phase 3i: rows 17-21, the JAX package's measured kernel baselines
+# ---------------------------------------------------------------------------
+
+# row 18's rel-RMS against the float32 oracle on unit-normal inputs: the
+# JAX package's own bounds (tests/test_prefill_attention.py)
+I8_ORACLE_REL_RMS = {True: 0.035, False: 0.02}
+# phase 11's interleaved decode timing: rounds of every variant, steps each
+DECODE_ROUNDS, DECODE_STEPS = 3, 16
+
+
+def _flash_i8_bound(S, nh, B, nkv, pv_i8):
+    """Bytes and operation time of one flash_prefill_attention_kt_i8 call:
+    q, k, v read once and o written once (bf16); the causal QK^T at the
+    int8 rate and PV at the int8 (pv_i8) or bf16 rate. Returns (bound ms,
+    bound_by, bytes, operations)."""
+    nbytes = 2 * B * S * 128 * (2 * nh + 2 * nkv)
+    half = S * (S + 1) * 128 * nh * B  # one causal product, 2 ops a MAC
+    t_ops = (half / INT8_OPS_PER_S
+             + half / (INT8_OPS_PER_S if pv_i8 else BF16_FLOPS_PER_S)) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, nbytes, 2 * half
+
+
+def check_baseline_kernels(torch, dev, gen, results):
+    """Rows 17-21 against their plain versions at llama-2-7b widths, timed
+    beside their bounds and library yardsticks the port never calls.
+    Row 17 (w4a4_matmul_i8_fusedq): one layer's four linears at M=4 and the
+    merged qkv at M=2048 (bf16 activations, LAC clips), bit for bit
+    against quant_acts_i8 followed by w4a4_matmul_i8 (rows 12 and 1) and
+    against the plain version; yardstick torch._int_mm on pre-unpacked
+    int8 weights, as row 1's. Row 18 (flash_prefill_attention_kt_i8), both
+    pv_i8 modes, at 1 x 2048 with 32/32 and 32/8 heads and at S=1152 (key
+    blocks shrunk to 128): the prepass's codes and scales bit for bit, the
+    output within tolerance.py's "flash" mode of the plain version at
+    JAX's blk_k 512, and its rel-RMS against the float32 oracle under the
+    JAX package's bounds at 1 x 2048; yardstick causal SDPA. Rows 19-21
+    (decode_attention_int4_v1, _wide, _v3) at row 2's B=4 MHA shapes and
+    Qwen-2.5-7B's 28/4 heads, valid lengths 0 and 1 among them: within
+    ATTN_TOL of decode_attention_ref, valid_len 0 exactly 0, and their
+    distance to row 2 on the same inputs; no library call."""
+    from flatquant_torch.kernels import int4_matmul as im
+    from flatquant_torch.kernels import kv_cache as kv
+    from flatquant_torch.kernels import prefill_attention as pa
+    from flatquant_torch.kernels.tolerance import bf16_ulp, compare_bf16
+    from flatquant_torch.models.config import get_config
+
+    # row 17
+    lcfg = get_config("llama-2-7b")
+    H, I = lcfg.hidden_size, lcfg.intermediate_size
+    shapes = {"qkv": (3 * H, H), "o": (H, H), "upgate": (2 * I, H),
+              "down": (H, I)}
+    clip = _lac_clip(torch, dev)
+    for m, projs in ((4, list(shapes)), (2048, ["qkv"])):
+        for proj in projs:
+            n, k = shapes[proj]
+            wbytes = n * k // 2
+            ws = [(torch.randint(0, 256, (n, k // 2), generator=gen,
+                                 device=dev, dtype=torch.uint8),
+                   torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-4)
+                  for _ in range(copies_for(wbytes))]
+            x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
+                torch.bfloat16)
+            x[m // 2] = 0  # a zero row: scale 1, codes 0
+            got = im.w4a4_matmul_i8_fusedq(x, *ws[0], clip)
+            xq, xs = im.quant_acts_i8(x, clip, 7)
+            composed = im.w4a4_matmul_i8(xq, xs, *ws[0])
+            plain = im.w4a4_matmul_i8_fusedq_ref(x, *ws[0], clip)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, composed) and torch.equal(got, plain)):
+                raise AssertionError(
+                    f"w4a4_matmul_i8_fusedq M={m} {proj}: not bit-exact "
+                    "against quant_acts_i8 + w4a4_matmul_i8 and its plain "
+                    "version")
+            mp = m if m > 16 else 32
+            xp = torch.randint(-8, 8, (mp, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            w8 = [(xp, im.unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
+            _kernel_row(torch, results, "w4a4_matmul_i8_fusedq",
+                        f"M={m} {proj} {n}x{k} (llama-2-7b, bf16 x, LAC "
+                        "clips)",
+                        lambda wp, sw: im.w4a4_matmul_i8_fusedq(x, wp, sw,
+                                                                clip),
+                        lambda wp, sw: im.w4a4_matmul_i8_fusedq_ref(x, wp, sw,
+                                                                    clip),
+                        ws, 2 * m * k + wbytes + 4 * n + 2 * m * n + 8,
+                        2 * m * n * k, INT8_OPS_PER_S, 0.0,
+                        iters=60 if m < 2048 else 20,
+                        lib=(torch._int_mm, w8, f"torch._int_mm, int8 "
+                             f"weights, M={mp}"), m=m, proj=proj)
+            log(f"    w4a4_matmul_i8_fusedq M={m} {proj}: bit-exact against "
+                "quant_acts_i8 + w4a4_matmul_i8 and the plain version")
+            del ws, w8
+
+    # row 18
+    l3 = get_config("llama-3-8b")
+    cases = [(f"llama-2-7b B=1 S=2048 {lcfg.num_heads}/"
+              f"{lcfg.num_kv_heads} heads", 2048, lcfg.num_heads,
+              lcfg.num_kv_heads),
+             (f"llama-3-8b B=1 S=2048 {l3.num_heads}/{l3.num_kv_heads} "
+              "heads", 2048, l3.num_heads, l3.num_kv_heads),
+             (f"llama-2-7b B=1 S=1152 {lcfg.num_heads}/"
+              f"{lcfg.num_kv_heads} heads", 1152, lcfg.num_heads,
+              lcfg.num_kv_heads)]
+    sm = 1.0 / math.sqrt(128)
+    sdpa = _sdpa(torch)
+    for label, S, nh, nkv in cases:
+        B = 1
+        sets = [[torch.randn((B, S, n, 128), generator=gen, device=dev).to(
+            torch.bfloat16) for n in (nh, nkv, nkv)]
+            for _ in range(copies_for(2 * B * S * 128 * (2 * nh + 2 * nkv)))]
+        # the kt layout as the fused route passes it: a strided view
+        args = [(q, k.permute(0, 2, 3, 1), v) for q, k, v in sets]
+        lib_ms = cuda_ms(torch, sdpa, [(*t, sm) for t in sets], 20)
+        q, kt, v = args[0]
+        oracle = pa.flash_prefill_ref(q.float(),
+                                      kt.permute(0, 3, 1, 2).float(),
+                                      v.float(), sm).float()
+        k8r, v8r, scr = pa.quantize_kv_i8_ref(kt, v)
+        for pv_i8 in (True, False):
+            out, k8, v8t, sc = pa._launch_i8(q, kt, v, sm, pv_i8, pa.K_BLK)
+            torch.cuda.synchronize()
+            same = (torch.equal(k8, k8r) and torch.equal(sc[..., 0],
+                                                          scr[..., 0])
+                    and (not pv_i8 or (torch.equal(v8t, v8r)
+                                       and torch.equal(sc[..., 1],
+                                                       scr[..., 1]))))
+            if not same:
+                raise AssertionError(f"flash_prefill_attention_kt_i8 {label}"
+                                     f" pv_i8={pv_i8}: prepass codes or "
+                                     "scales not bit-exact")
+            plain = pa.flash_prefill_attention_kt_i8_ref(q, kt, v, sm, pv_i8)
+            what = f"flash_prefill_attention_kt_i8 {label} pv_i8={pv_i8}"
+            err = compare_bf16(out, plain, "flash", what)
+            # the error in bf16 ulps of its row's largest value (at most 2)
+            ulps = ((out.float() - plain.float()).abs() / bf16_ulp(
+                plain.float().abs().amax(-1, keepdim=True))).max().item()
+            rel = ((out.float() - oracle).norm() / oracle.norm()).item()
+            if S == 2048 and rel >= I8_ORACLE_REL_RMS[pv_i8]:
+                raise AssertionError(f"{what}: rel-RMS {rel:.4f} against the "
+                                     f"float32 oracle, bound "
+                                     f"{I8_ORACLE_REL_RMS[pv_i8]}")
+            b_ms, b_by, nbytes, ops = _flash_i8_bound(S, nh, B, nkv, pv_i8)
+            ms = cuda_ms(torch, lambda *a: pa.flash_prefill_attention_kt_i8(
+                *a, sm, pv_i8), args, 20)
+            plain_ms = cuda_ms(torch, lambda *a: (
+                pa.flash_prefill_attention_kt_i8_ref(*a, sm, pv_i8)), args, 2)
+            r = results.setdefault("flash_prefill_attention_kt_i8",
+                                   dict(rows=[], max_abs_err=0.0))
+            r["rows"].append(dict(case=f"{label}, pv_i8={pv_i8}", B=B, S=S,
+                                  nh=nh, nkv=nkv, pv_i8=pv_i8, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=lib_ms,
+                                  bytes=nbytes, ops=ops, max_abs_err=err,
+                                  max_row_ulps=ulps, oracle_rel_rms=rel))
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            log(f"  {what}: prepass bit-exact, within 'flash', max abs err "
+                f"{err:.3e} ({ulps:.2f} bf16 ulps of its row's largest "
+                f"value), rel-RMS vs the float32 oracle {rel:.4f}; "
+                f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
+                f"{ops / 1e9:.1f} G ops) library_ms {lib_ms:.4f} (causal "
+                "SDPA)")
+        del sets, args, oracle
+
+    # rows 19-21
+    S = 2048
+    cases = [("B=4 MHA 32/32 main path", 4, 32, 32, [48 + 64] * 4),
+             ("B=4 MHA 32/32 ragged", 4, 32, 32, [0, 1, 1500, S]),
+             ("B=1 GQA 28/4 (n_rep 7)", 1, 28, 4, [S]),
+             ("B=4 GQA 28/4 (n_rep 7) ragged", 4, 28, 4, [1, 0, 1023, 77])]
+
+    def plain(q, kp, kpar, vp, vpar, valid, sm):
+        return kv.decode_attention_ref(q, kp, kpar[..., :1], kpar[..., 1:], vp,
+                                       vpar[..., :1], vpar[..., 1:], valid,
+                                       sm)
+
+    for label, B, nh, nkv, valid_l in cases:
+        valid = torch.tensor(valid_l, device=dev, dtype=torch.int32)
+        full = B * nkv * S * (64 * 2 + 16)
+        caches = [_rand_cache(torch, dev, gen, B, nkv, S)
+                  for _ in range(copies_for(full))]
+        q = torch.randn((B, nh, 128), generator=gen, device=dev).to(
+            torch.bfloat16)
+        args = [(q, *c, valid, sm) for c in caches]
+        want = plain(*args[0])
+        row2 = kv.decode_attention_int4(*args[0])
+        plain_ms = cuda_ms(torch, plain, args, 6)
+        tokens = sum(min(x, S) for x in valid_l)
+        nbytes = tokens * nkv * (64 * 2 + 16) + B * nh * 128 * 2 * 2 + 4 * B
+        b_ms, b_by = bound_ms(nbytes, tokens * nh * 128 * 4, F32_FLOPS_PER_S)
+        for name in ("decode_attention_int4_v1", "decode_attention_int4_wide",
+                     "decode_attention_int4_v3"):
+            fn = getattr(kv, name)
+            got = fn(*args[0])
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL)
+            if not bool((got[valid == 0] == 0).all()):
+                raise AssertionError(f"{name}: valid_len 0 must give 0")
+            d2 = (got.float() - row2.float()).abs().max().item()
+            ms = cuda_ms(torch, fn, args, 60)
+            r = results.setdefault(name, dict(rows=[], max_abs_err=0.0))
+            r["rows"].append(dict(case=label, B=B, nh=nh, nkv=nkv, S=S,
+                                  valid=valid_l, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=None, max_abs_err=err,
+                                  max_abs_diff_row2=d2))
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            log(f"  {name} {label} S={S} valid={valid_l}: max abs err "
+                f"{err:.3e} (tol rtol/atol {ATTN_TOL['rtol']}), against row 2 "
+                f"{d2:.3e}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}); library_ms none")
+        del caches, args
 
 
 # ---------------------------------------------------------------------------
@@ -2940,6 +3176,306 @@ def run_deepseek_path(torch, dev, results, smi, cfg=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: rows 17-21 in place of their twins on the llama-2-7b path
+# ---------------------------------------------------------------------------
+
+
+def _decode_run(torch, cfg, fq, sp, prompt, new, kw):
+    """Phase 4's generate protocol through the step entry points: a prefill
+    over a fresh int4 cache, then `new` greedy decode steps. Returns the
+    tokens [B, new], the logits of every step (prefill first) and the
+    decode steps' host ms."""
+    from flatquant_torch.serving.engine import (
+        init_cache, serving_decode_step, serving_prefill)
+
+    P = prompt.shape[1]
+    c = init_cache(cfg, prompt.shape[0], kw["max_len"], mode="int4",
+                   device=kw["device"])
+    logits, c = serving_prefill(cfg, fq, sp, prompt, c, **kw)
+    out, toks, step_ms = [logits], [], []
+    for i in range(new):
+        tok = logits.argmax(-1, keepdim=True)
+        toks.append(tok)
+        t0 = time.perf_counter()
+        logits, c = serving_decode_step(cfg, fq, sp, tok, c, P + i, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits)
+    return torch.cat(toks, 1), out, step_ms
+
+
+def _fusedq_linear(torch, orig):
+    """_quant_linear with its A4 "wp" route below 256 rows (the eager
+    quant chain, then w4a4_matmul_i8) sent through w4a4_matmul_i8_fusedq;
+    every other route unchanged."""
+    from flatquant_torch.kernels import int4_matmul
+
+    def linear(x2d, lin, use_kernel, out_dtype=torch.bfloat16,
+               quant_acts=True, a_q_max=7, axis_name=None):
+        if (use_kernel and quant_acts and a_q_max == 7 and axis_name is None
+                and "wp" in lin and "w8" not in lin and x2d.shape[0] < 256):
+            return int4_matmul.w4a4_matmul_i8_fusedq(
+                x2d, lin["wp"], lin["scale"], lin.get("a_clip"), out_dtype)
+        return orig(x2d, lin, use_kernel, out_dtype, quant_acts, a_q_max,
+                    axis_name)
+
+    return linear
+
+
+def _checked_decode_baseline(torch, fn, n, worst):
+    """fn (a row 19-21 entry point) holding every launch to the plain
+    version (ATTN_TOL; valid_len 0 gives 0) and recording its distance to
+    row 2 (decode_attention_int4) on the same inputs."""
+    from flatquant_torch.kernels import kv_cache
+
+    row2 = kv_cache.decode_attention_int4
+
+    def attn(q, kp, kpar, vp, vpar, valid, sm):
+        y = fn(q, kp, kpar, vp, vpar, valid, sm)
+        ref = kv_cache.decode_attention_ref(
+            q, kp, kpar[..., :1], kpar[..., 1:], vp, vpar[..., :1],
+            vpar[..., 1:], valid, sm)
+        torch.testing.assert_close(y.float(), ref.float(), **ATTN_TOL)
+        if not bool((y[valid == 0] == 0).all()):
+            raise AssertionError(f"{fn.__name__}: valid_len 0 must give 0")
+        worst["plain"] = max(worst["plain"],
+                             (y.float() - ref.float()).abs().max().item())
+        worst["row2"] = max(worst["row2"], (y.float() - row2(
+            q, kp, kpar, vp, vpar, valid, sm).float()).abs().max().item())
+        n[0] += 1
+        return y
+
+    return attn
+
+
+def _checked_flash_i8(torch, pv_i8, n, worst):
+    """flash_prefill_attention_kt_i8 (mode pv_i8) at the engine's
+    flash_prefill_attention_kt call site, holding every launch to its
+    plain version ("flash")."""
+    from flatquant_torch.kernels import prefill_attention as pa
+    from flatquant_torch.kernels.tolerance import compare_bf16
+
+    def flash(q, kt, v, sm):
+        o = pa.flash_prefill_attention_kt_i8(q, kt, v, sm, pv_i8)
+        err = compare_bf16(
+            o, pa.flash_prefill_attention_kt_i8_ref(q, kt, v, sm, pv_i8),
+            "flash", f"flash_prefill_attention_kt_i8 pv_i8={pv_i8} on the "
+            "path")
+        worst[0] = max(worst[0], err)
+        n[0] += 1
+        return o
+
+    return flash
+
+
+def run_baseline_paths(torch, dev, model, results, smi):
+    """Rows 17-21 each in place of its twin on phase 4's llama-2-7b W4A4KV4.
+    (a) phase 4's generate protocol (B=4, 48-token prompts, 64 greedy
+    steps over the int4 cache) with _quant_linear's A4 route below 256
+    rows through w4a4_matmul_i8_fusedq instead of the eager quant chain
+    and w4a4_matmul_i8: tokens and every step's logits bit-identical to
+    the composed run. (b) the same decode with the engine's
+    decode_attention_int4 replaced by rows 19, 20 and 21 in turn, and
+    every launch of two more steps held to the plain version (ATTN_TOL)
+    and compared with row 2. The decode step of (a) and (b) is timed
+    against the composed run's in DECODE_ROUNDS interleaved rounds of
+    DECODE_STEPS steps (medians). (c) phase 6a's 1 x 2048 prefill with the
+    engine's flash_prefill_attention_kt replaced by row 18, pv_i8 on and
+    off: every launch held to its plain version, the prefill's wall time
+    interleaved with the row-8 prefill's (medians), and the last-position
+    logits against row 8's as a tripwire (LONG_COSINE_FLOOR). Returns the
+    launches of each path."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.kernels import kv_cache
+    from flatquant_torch.kernels import prefill_attention as pa
+    from flatquant_torch.serving import engine, quantized
+    from flatquant_torch.serving.engine import init_cache, serving_prefill
+
+    cfg, fq, sp = model
+    L = cfg.num_layers
+    B, P, NEW, MAX_LEN = 4, 48, 64, 2048
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    kw = dict(max_len=MAX_LEN, device=dev)
+    paths, rec = {}, {}
+    med = lambda v: sorted(v)[len(v) // 2]
+
+    # (a) row 17 at every A4 linear of the decode path
+    _decode_run(torch, cfg, fq, sp, prompt, 1, kw)  # warm-up
+    toks_c, logits_c, _ = _decode_run(torch, cfg, fq, sp, prompt, NEW, kw)
+    fused = _fusedq_linear(torch, quantized._quant_linear)
+    common.reset_launches()
+    with patched([(quantized, "_quant_linear", fused),
+                  (engine, "_quant_linear", fused)]):
+        toks_f, logits_f, _ = _decode_run(torch, cfg, fq, sp, prompt, NEW,
+                                             kw)
+    paths["baseline_fusedq"] = dict(common.LAUNCHES)
+    n_f = paths["baseline_fusedq"]["w4a4_matmul_i8_fusedq"]
+    if n_f != 4 * L * (1 + NEW) or paths["baseline_fusedq"][
+            "w4a4_matmul_i8"] != 0:
+        raise AssertionError(f"(a) {n_f} fused-quant launches, expected "
+                             f"{4 * L * (1 + NEW)}, and no w4a4_matmul_i8")
+    same = torch.equal(toks_c, toks_f) and all(
+        torch.equal(a, b) for a, b in zip(logits_c, logits_f))
+    if not same:
+        raise AssertionError("(a) the fused-quant path's tokens or logits "
+                             "differ from the composed run's")
+    rec["fusedq"] = dict(launches=n_f)
+    log(f"  (a) B={B} prompt={P} new={NEW}: {n_f} w4a4_matmul_i8_fusedq "
+        f"launches in place of the eager quant chain + w4a4_matmul_i8; "
+        f"tokens and all {len(logits_f)} steps' logits bit-identical to the "
+        "composed run")
+
+    # (b) rows 19-21 at the engine's decode attention call site
+    for name in ("decode_attention_int4_v1", "decode_attention_int4_wide",
+                 "decode_attention_int4_v3"):
+        fn = getattr(kv_cache, name)
+        common.reset_launches()
+        with patched([(engine, "decode_attention_int4", fn)]):
+            toks_b, logits_b, _ = _decode_run(torch, cfg, fq, sp, prompt,
+                                                 NEW, kw)
+        launches = dict(common.LAUNCHES)
+        paths["baseline_" + name[len("decode_attention_int4_"):]] = launches
+        if launches[name] != L * NEW or launches["decode_attention_int4"]:
+            raise AssertionError(f"(b) {launches[name]} {name} launches, "
+                                 f"expected {L * NEW}")
+        if not all(torch.isfinite(x).all() for x in logits_b):
+            raise AssertionError(f"(b) {name}: logits not finite")
+        n, worst = [0], {"plain": 0.0, "row2": 0.0}
+        c = init_cache(cfg, B, MAX_LEN, mode="int4", device=dev)
+        lg, c = serving_prefill(cfg, fq, sp, prompt, c, **kw)
+        with patched([(engine, "decode_attention_int4",
+                       _checked_decode_baseline(torch, fn, n, worst))]):
+            for i in range(2):
+                lg, c = engine.serving_decode_step(
+                    cfg, fq, sp, lg.argmax(-1, keepdim=True), c, P + i, **kw)
+        torch.cuda.synchronize()
+        if n[0] != 2 * L:
+            raise AssertionError(f"(b) {name}: {n[0]} launches checked")
+        agree = int((toks_b == toks_c).all(0).sum())
+        rec[name] = dict(launches=launches[name], checked=n[0],
+                         max_abs_err=worst["plain"],
+                         max_abs_diff_row2=worst["row2"],
+                         tokens_agreeing_with_row2=agree)
+        log(f"  (b) {name}: {launches[name]} launches in {NEW} steps; "
+            f"{n[0]} launches of 2 steps checked, max abs err "
+            f"{worst['plain']:.3e} "
+            f"(tol rtol/atol {ATTN_TOL['rtol']}), against row 2 "
+            f"{worst['row2']:.3e}; greedy tokens equal to row 2's run at "
+            f"{agree}/{NEW} steps (not gated: random W4A4 logits are "
+            "chaotic)")
+
+    # the decode step of (a) and (b) against the composed run (rows 1 and
+    # 2), interleaved: the host's speed swings between calls and drifts
+    # within one, so each round runs every variant once
+    attn = lambda name: [(engine, "decode_attention_int4",
+                          getattr(kv_cache, name))]
+    rotation = {"composed": [],
+                "fusedq": [(quantized, "_quant_linear", fused),
+                           (engine, "_quant_linear", fused)],
+                **{name: attn(name) for name in (
+                    "decode_attention_int4_v1", "decode_attention_int4_wide",
+                    "decode_attention_int4_v3")}}
+    steps = {key: [] for key in rotation}
+    ratio = {key: [] for key in rotation}
+    for _ in range(DECODE_ROUNDS):
+        for key, pairs in rotation.items():
+            with patched(pairs):
+                ms = _decode_run(torch, cfg, fq, sp, prompt, DECODE_STEPS,
+                                 kw)[2]
+            steps[key].append(med(ms[1:]))
+            ratio[key].append(steps[key][-1] / steps["composed"][-1])
+    for key in rotation:
+        rec.setdefault(key, {}).update(
+            decode_ms=steps[key], decode_ms_median=med(steps[key]),
+            decode_ratio_to_composed=ratio[key])
+        log(f"  [{smi}] (a/b) decode, {key}: median {med(steps[key]):.2f} "
+            f"ms/step of the round medians "
+            f"{[round(x, 2) for x in steps[key]]}; against the composed "
+            f"run (rows 1, 2) of the same round "
+            f"{[round(x, 3) for x in ratio[key]]}")
+
+    # (c) row 18 at the engine's flash_prefill_attention_kt call site
+    S, MAX_LONG = 2048, 2304
+    gen = torch.Generator(device=dev).manual_seed(3)
+    long = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                         device=dev)
+    kwl = dict(max_len=MAX_LONG, device=dev)
+    variants = {"flash_prefill_attention_kt (row 8)": None,
+                "kt_i8 pv_i8=True": True, "kt_i8 pv_i8=False": False}
+
+    def prefill(pv_i8):
+        c = init_cache(cfg, 1, MAX_LONG, mode="int4", device=dev)
+        torch.cuda.synchronize()
+        if pv_i8 is None:
+            t0 = time.perf_counter()
+            lg, _ = serving_prefill(cfg, fq, sp, long, c, **kwl)
+        else:
+            fn = lambda q, kt, v, sm: pa.flash_prefill_attention_kt_i8(
+                q, kt, v, sm, pv_i8)
+            with patched([(engine, "flash_prefill_attention_kt", fn)]):
+                t0 = time.perf_counter()
+                lg, _ = serving_prefill(cfg, fq, sp, long, c, **kwl)
+        torch.cuda.synchronize()
+        return lg, (time.perf_counter() - t0) * 1e3
+
+    last = {}
+    for label, pv_i8 in variants.items():  # warm-up, and the logits
+        last[label] = prefill(pv_i8)[0]
+    for pv_i8, tag in ((True, "baseline_i8_prefill"),
+                       (False, "baseline_i8_prefill_bf16pv")):
+        common.reset_launches()
+        prefill(pv_i8)
+        paths[tag] = dict(common.LAUNCHES)
+        got = paths[tag]["flash_prefill_attention_kt_i8"]
+        if got != L or paths[tag]["flash_prefill_attention_kt"]:
+            raise AssertionError(f"(c) pv_i8={pv_i8}: {got} int8 flash "
+                                 f"launches, expected {L}")
+        n, worst = [0], [0.0]
+        with patched([(engine, "flash_prefill_attention_kt",
+                       _checked_flash_i8(torch, pv_i8, n, worst))]):
+            serving_prefill(cfg, fq, sp, long,
+                            init_cache(cfg, 1, MAX_LONG, mode="int4",
+                                       device=dev), **kwl)
+        torch.cuda.synchronize()
+        if n[0] != L:
+            raise AssertionError(f"(c) pv_i8={pv_i8}: {n[0]} launches "
+                                 "checked")
+        rec[tag] = dict(checked=n[0], max_abs_err=worst[0])
+        log(f"  (c) pv_i8={pv_i8}: {n[0]} flash_prefill_attention_kt_i8 "
+            f"launches of a 1 x {S} prefill within 'flash' of the plain "
+            f"version, max abs err {worst[0]:.3e}")
+    walls = {label: [] for label in variants}
+    repeat = True  # every timed prefill's logits equal the first run's
+    for _ in range(3):  # interleaved
+        for label, pv_i8 in variants.items():
+            lg, ms = prefill(pv_i8)
+            walls[label].append(ms)
+            repeat = repeat and torch.equal(lg, last[label])
+    ref_label = next(iter(variants))
+    for label in variants:
+        cos = _cosine(torch, last[label], last[ref_label])
+        if not torch.isfinite(last[label]).all():
+            raise AssertionError(f"(c) {label}: logits not finite")
+        if cos < LONG_COSINE_FLOOR:
+            raise AssertionError(f"(c) {label}: last-position logits cosine "
+                                 f"{cos:.4f} against row 8's")
+        rec[label] = dict(rec.get(label, {}), prefill_ms=walls[label],
+                          prefill_ms_median=med(walls[label]),
+                          cosine_vs_row8=cos)
+        runs = [round(w, 1) for w in walls[label]]
+        log(f"  [{smi}] (c) 1 x {S} prefill, {label}: median "
+            f"{med(walls[label]):.1f} ms of {runs}; last-position logits "
+            f"cosine against row 8's {cos:.4f} (floor {LONG_COSINE_FLOOR})")
+    log(f"  (c) the timed prefills' logits equal each variant's first run: "
+        f"{repeat}")
+    rec["prefill_logits_repeat"] = repeat
+    results["baseline_paths"] = rec
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -2991,6 +3527,22 @@ KERNELS = {
     "fp8_matmul": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/fp8_matmul.cu",
         replaces="flatquant_tpu/kernels/fp8_matmul.py:188"),
+    "w4a4_matmul_i8_fusedq": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/int4_matmul.cu",
+        replaces="flatquant_tpu/kernels/int4_matmul.py:553"),
+    "flash_prefill_attention_kt_i8": dict(
+        route="cuda",
+        source="flatquant_torch/kernels/csrc/flash_prefill_i8.cu",
+        replaces="flatquant_tpu/kernels/prefill_attention.py:377"),
+    "decode_attention_int4_v1": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/kv_cache.cu",
+        replaces="flatquant_tpu/kernels/kv_cache.py:190"),
+    "decode_attention_int4_wide": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/kv_cache.cu",
+        replaces="flatquant_tpu/kernels/kv_cache.py:291"),
+    "decode_attention_int4_v3": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/kv_cache.cu",
+        replaces="flatquant_tpu/kernels/kv_cache.py:386"),
 }
 # the path each kernel's `launches` is read from (each path's counts set to
 # 0 just before it and read just after): the decode-serving run of phase 4
@@ -2999,8 +3551,11 @@ KERNELS = {
 # bf16 comparator's (phase 6c) for flash, the batcher's runs (a) int4
 # and (b) paged (phase 7) for slice 4's, Qwen-2.5-7B's prefill + decode
 # (phase 8) for rows 12 and 13, the W4A16 llama-2-7b's (phase 9) for
-# row 14 and DeepSeek-V2-Lite's native-FP8 prefill + decode (phase 10 (a))
-# for row 16
+# row 14, DeepSeek-V2-Lite's native-FP8 prefill + decode (phase 10 (a))
+# for row 16, and phase 11's runs of rows 17-21 in place of their twins:
+# (a) the fused-quant decode for row 17, (b) the decode with each of rows
+# 19-21 at row 2's call site, (c) the 1 x 2048 prefill with row 18 (pv_i8,
+# JAX's default) at row 8's
 KERNEL_PATH = dict(
     dict.fromkeys(("w4a4_matmul_i8", "decode_attention_int4", "write_token"),
                   "decode"),
@@ -3013,7 +3568,11 @@ KERNEL_PATH = dict(
     paged_decode_attention_int4="batcher_paged",
     paged_chunk_attention_int4="batcher_paged",
     quant_acts_i8="qwen", w4a4_matmul_i8_swiglu="qwen", w4a8_matmul="w4a16",
-    fp8_matmul="deepseek_fp8")
+    fp8_matmul="deepseek_fp8", w4a4_matmul_i8_fusedq="baseline_fusedq",
+    flash_prefill_attention_kt_i8="baseline_i8_prefill",
+    decode_attention_int4_v1="baseline_v1",
+    decode_attention_int4_wide="baseline_wide",
+    decode_attention_int4_v3="baseline_v3")
 DECODE_KERNELS = [k for k, p in KERNEL_PATH.items() if p == "decode"]
 
 
@@ -3026,16 +3585,17 @@ def kernel_line(results, paths):
     llama-2-7b's 1 x 2048 prefill (32/32 heads). Rows 12 and 13 at
     Qwen-2.5-7B's prefill shapes (the down input [2048, 18944], the MLP
     GEMM at M=2048); row 14 as one W4A16 llama-2-7b layer's four linears
-    at M=1 (the B=1 decode of phase 9). paths: {path: launches read around
-    it}."""
+    at M=1 (the B=1 decode of phase 9). Row 17 as row 1 (one layer's four
+    linears at M=4), row 18 at llama-2-7b's 1 x 2048 with pv_i8, rows
+    19-21 at row 2's shape. paths: {path: launches read around it}."""
     out = []
     for name, meta in KERNELS.items():
         r = results[name]
         weights = None
-        if name == "w4a4_matmul_i8":
+        if name in ("w4a4_matmul_i8", "w4a4_matmul_i8_fusedq"):
             rows = [x for x in r["rows"] if x["m"] == 4]
             at = "M=4 (B=4 decode), sum of qkv+o+upgate+down of one layer"
-        elif name == "decode_attention_int4":
+        elif name.startswith("decode_attention_int4"):
             rows = [x for x in r["rows"] if x["case"].endswith("main path")]
             at = "B=4 MHA 32/32 S=2048, valid lengths of the last step"
         elif name == "write_token":
@@ -3093,8 +3653,8 @@ def kernel_line(results, paths):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases to run after 1-2 (3a-3h, "
-                    "3 for all of them, 4-10; 6 runs 6a-6c); the default "
+                    help="comma-separated phases to run after 1-2 (3a-3i, "
+                    "3 for all of them, 4-11; 6 runs 6a-6c); the default "
                     "is all. A partial run prints no kernel table")
     args = ap.parse_args(argv)
     only = set(filter(None, args.phases.split(",")))
@@ -3161,7 +3721,9 @@ def main(argv=None) -> int:
         ("3g", "quant_acts_i8, w4a4_matmul_i8_swiglu, w4a8_matmul vs their "
          "plain versions", check_quant_mode_kernels),
         ("3h", "fp8_matmul (row 16) and w4a4_matmul_i8 at DeepSeek-V2-Lite's "
-         "shapes vs their plain versions", check_fp8_kernels)]
+         "shapes vs their plain versions", check_fp8_kernels),
+        ("3i", "rows 17-21, the JAX package's kernel baselines, vs their "
+         "plain versions", check_baseline_kernels)]
     for key, what, fn in kernel_phases:
         if not failed and want(key, "3"):
             phase(f"phase {key}: {what}", fn, torch, dev, gen, results)
@@ -3196,13 +3758,19 @@ def main(argv=None) -> int:
             paths["bf16_comparator"] = phase(
                 "phase 6c: the bf16 comparator, llama-2-7b 1 x 2048",
                 run_bf16_comparator, torch, dev, results, smi) or {}
-    if serve and want("7"):
-        model = phase("rebuild the random llama-2-7b (seed 0) for phase 7",
-                      build_model, torch, dev, 0)
+    if serve and want("7", "11"):
+        model = phase("rebuild the random llama-2-7b (seed 0) for phases 7 "
+                      "and 11", build_model, torch, dev, 0)
     if model is not None:
-        paths.update(phase(
-            "phase 7: llama-2-7b under the continuous batcher",
-            run_batcher_path, torch, dev, model, results, smi) or {})
+        if want("7"):
+            paths.update(phase(
+                "phase 7: llama-2-7b under the continuous batcher",
+                run_batcher_path, torch, dev, model, results, smi) or {})
+        if want("11"):
+            paths.update(phase(
+                "phase 11: rows 17-21 in place of their twins on llama-2-7b "
+                "(decode B=4, prefill 1 x 2048)", run_baseline_paths, torch,
+                dev, model, results, smi) or {})
         del model
         gc.collect()
         torch.cuda.empty_cache()

@@ -49,6 +49,11 @@ LAUNCHES: Dict[str, int] = {
     "w4a4_matmul_i8_swiglu": 0,
     "w4a8_matmul": 0,
     "fp8_matmul": 0,
+    "w4a4_matmul_i8_fusedq": 0,
+    "flash_prefill_attention_kt_i8": 0,
+    "decode_attention_int4_v1": 0,
+    "decode_attention_int4_wide": 0,
+    "decode_attention_int4_v3": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -66,11 +71,17 @@ _SIGNATURES = {
         "fq_quant_acts_i8": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
         # x, wp, sx, sw, y, M, N, K, out_is_f32, stream
         "fq_w4a8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x, clip, wp, sw, y, M, N, K, x_is_f32, out_is_f32, stream
+        "fq_w4a4_matmul_i8_fusedq": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P],
     },
     "kv_cache": {
         # q, kp, kpar, vp, vpar, valid, out, B, nkv, n_rep, S, sm_scale, stream
         "fq_decode_attention_int4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _F, _P],
+        # the same, each K/V element dequantized before both products
+        "fq_decode_attention_int4_dequant": [_P, _P, _P, _P, _P, _P, _P, _I,
+                                             _I, _I, _I, _F, _P],
         # kp, kpar, vp, vpar, kq, kpn, vq, vpn, pos, B, nkv, S, hdh, stream
         "fq_write_token": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _P],
@@ -108,6 +119,14 @@ _SIGNATURES = {
         # (b, s, h), B, S, nh, nkv, scale, stream
         "fq_flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _F, _P],
+    },
+    "flash_prefill_i8": {
+        # q, k, v, k8, v8t, sc, out, q strides (b, s, h), k strides
+        # (b, h, s), v strides (b, s, h), B, S, nh, nkv, blk_k, pv_i8,
+        # scale, stream
+        "fq_flash_prefill_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _P],
     },
     "fp8_matmul": {
         # x, x expert stride, w8, se, y, E, M, N, K, exact, out_is_f32,

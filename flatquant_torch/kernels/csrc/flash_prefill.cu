@@ -44,6 +44,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -56,66 +57,6 @@ constexpr int FP_THREADS = 128;
 constexpr int FP_LD = FP_HD + 8;        // padded shared row, bf16
 constexpr int FP_TILE = FP_BK * FP_LD;  // one K or V tile, bf16
 constexpr int FP_SMEM = 4 * FP_TILE * 2;  // K[2], V[2], bytes
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as a bf16 pair, lo in the low half (the lower column)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // Fragment layouts of mma.m16n8k16 (g8 = lane / 4, tq = lane % 4):
 //   A regs 0..3: (row g8, cols 2tq..), (row g8 + 8, cols 2tq..),

@@ -3,6 +3,8 @@
 //   w4a4_matmul_i8  -> fq_w4a4_matmul_i8   (int8 codes x int4 weights)
 //   quant_acts_i8   -> fq_quant_acts_i8    (per-token symmetric quant)
 //   w4a8_matmul     -> fq_w4a8_matmul      (bf16 activations x int4 weights)
+//   w4a4_matmul_i8_fusedq -> fq_w4a4_matmul_i8_fusedq (quant_acts_i8 in
+//                      the prologue of w4a4_matmul_i8)
 // Weights are planar-packed biased nibbles everywhere:
 //   packed byte c of row n = nib[n, c] | nib[n, c + K/2] << 4, nib = q + 8
 // and the -8 zero point folds into each epilogue as -8 * rowsum(x).
@@ -54,6 +56,37 @@
 // __fmul_rn, so codes and scales equal the plain version's bit for bit.
 //
 // ---------------------------------------------------------------------
+// w4a4_matmul_i8_fusedq: per-token symmetric int4 quant of bf16 or f32
+// activations (LAC clips, q_max 7) in the prologue of w4a4_matmul_i8.
+//
+// Replaces: flatquant_tpu/kernels/int4_matmul.py:w4a4_matmul_i8_fusedq
+// (Pallas; a measured baseline there, not on JAX's serving path).
+//
+//   y = w4a4_matmul_i8(quant_acts_i8(x, clip, 7), wp, sw), bit for bit:
+// the quant arithmetic is quant_acts_i8_kernel's (IEEE division, rintf,
+// __fmul_rn clips) and the GEMM is w4a4_matmul_i8's warp body and
+// epilogue (w4a4_warp_rows), so codes, int32 sums and the epilogue's
+// roundings are the composed route's.
+//
+// What bounds it on the H100: as w4a4_matmul_i8 -- at decode the weight
+// stream (N * K/2 bytes; one llama-2-7b layer's four linears: 101 MB,
+// 30 us), at prefill the int8 operations (2 M N K).
+//
+// Design: the Pallas kernel quantizes each m-block once, at the first
+// n step, into scratch that the later (sequential) grid steps read. CUDA
+// blocks run in parallel and share nothing, so every block quantizes its
+// own MT rows into shared memory (MT * K bytes of codes: 88 KB at K =
+// 11008): one pass over its rows for their extrema, a second that writes
+// the codes. It then walks groups of FQ_WARPS * ROWS weight rows with
+// stride gridDim.x. What that re-reads: each block reads its rows of x
+// twice (from L2 after the first block), and an m-tile's rows are
+// quantized gridDim.x times. The launch sizes gridDim.x so that about
+// FQ_TARGET_BLOCKS blocks run: at M = 4 (one m-tile) every group is a
+// block (384 for llama-2-7b's merged qkv), each reading the 32 KB of bf16
+// rows twice (25 MB from L2, beside the 25 MB weight stream from HBM); at
+// M = 2048 (256 m-tiles) two blocks per m-tile, so x is read four times.
+//
+// ---------------------------------------------------------------------
 // w4a8_matmul: bf16 activations x planar int4 weights, float32 sums.
 //
 // Replaces: flatquant_tpu/kernels/int4_matmul.py:w4a8_matmul (Pallas, the
@@ -82,6 +115,8 @@
 // rounding (bf16 outputs to one ulp), not bit for bit.
 
 #include <cuda_bf16.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -124,19 +159,17 @@ __device__ __forceinline__ int sum16(uint4 x, int acc) {
   return acc;
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(WARPS * 32)
-w4a4_matmul_i8_kernel(const int8_t* __restrict__ xq,
-                      const uint8_t* __restrict__ wp,
-                      const float* __restrict__ sx,
-                      const float* __restrict__ sw, OutT* __restrict__ y,
-                      int M, int N, int K) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = (blockIdx.x * WARPS + warp) * ROWS;
-  const int m0 = blockIdx.y * MT;
-  if (n0 >= N) return;  // no block-level barrier follows
-  const int mt = min(MT, M - m0);
+// One warp's share of w4a4_matmul_i8: ROWS weight rows from n0 against
+// the mt <= MT activation rows whose codes start at x (row stride K) and
+// whose scales start at sx. Each lane streams 16-byte chunks of the packed
+// rows; the int32 sums are exact and the epilogue multiplies in the plain
+// version's order. X_SMEM: x lies in shared memory (plain loads), else in
+// global memory (read-only path).
+template <typename OutT, bool X_SMEM>
+__device__ __forceinline__ void w4a4_warp_rows(
+    const int8_t* __restrict__ x, const float* __restrict__ sx,
+    const uint8_t* __restrict__ wp, const float* __restrict__ sw,
+    OutT* __restrict__ y, int m0, int mt, int n0, int N, int K, int lane) {
   const int half = K / 2;        // packed bytes per row = hi-plane offset
   const int chunks = half / 16;  // 16-byte chunks per packed row
 
@@ -160,9 +193,11 @@ w4a4_matmul_i8_kernel(const int8_t* __restrict__ xq,
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       if (m < mt) {
-        const int8_t* xr = xq + static_cast<size_t>(m0 + m) * K + c * 16;
-        const uint4 xl = ldg16(xr);
-        const uint4 xh = ldg16(xr + half);
+        const int8_t* xr = x + static_cast<size_t>(m) * K + c * 16;
+        const uint4 xl = X_SMEM ? *reinterpret_cast<const uint4*>(xr)
+                                : ldg16(xr);
+        const uint4 xh = X_SMEM ? *reinterpret_cast<const uint4*>(xr + half)
+                                : ldg16(xr + half);
         rsum[m] = sum16(xh, sum16(xl, rsum[m]));
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) acc[m][r] = dot8(xl, xh, w[r], acc[m][r]);
@@ -190,12 +225,28 @@ w4a4_matmul_i8_kernel(const int8_t* __restrict__ xq,
     for (int r = 0; r < ROWS; ++r) {
       if (lane == ((m * ROWS + r) & 31) && m < mt && n0 + r < N) {
         float v = static_cast<float>(acc[m][r] - 8 * rsum[m]);
-        v = v * sx[m0 + m];
+        v = v * sx[m];
         v = v * sw[n0 + r];
         y[static_cast<size_t>(m0 + m) * N + n0 + r] = to_out<OutT>(v);
       }
     }
   }
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(WARPS * 32)
+w4a4_matmul_i8_kernel(const int8_t* __restrict__ xq,
+                      const uint8_t* __restrict__ wp,
+                      const float* __restrict__ sx,
+                      const float* __restrict__ sw, OutT* __restrict__ y,
+                      int M, int N, int K) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n0 = (blockIdx.x * WARPS + warp) * ROWS;
+  const int m0 = blockIdx.y * MT;
+  if (n0 >= N) return;  // no block-level barrier follows
+  w4a4_warp_rows<OutT, false>(xq + static_cast<size_t>(m0) * K, sx + m0, wp,
+                              sw, y, m0, min(MT, M - m0), n0, N, K, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -287,6 +338,95 @@ quant_acts_i8_kernel(const T* __restrict__ x, const float* __restrict__ clip,
     } else {
       *reinterpret_cast<unsigned*>(qr + i * 4) = p[0];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// w4a4_matmul_i8_fusedq: quant_acts_i8 (q_max 7) in the prologue of
+// w4a4_matmul_i8
+// ---------------------------------------------------------------------------
+
+constexpr int FQ_WARPS = 8;  // warps per block: 8 * ROWS weight rows a group
+// blocks to aim for: 4 on each of the H100's 132 SMs
+constexpr int FQ_TARGET_BLOCKS = 4 * 132;
+
+// Block (gridDim.x blocks per m-tile): quantize the m-tile's mt <= MT rows
+// of x into shared memory (pass 1: each warp takes a row's extrema and
+// scale; pass 2: 16 codes per thread step), then walk the groups of
+// FQ_WARPS * ROWS weight rows g = blockIdx.x, + gridDim.x, ... with
+// w4a4_matmul_i8's warp body reading the codes from shared memory.
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(FQ_WARPS * 32)
+w4a4_matmul_i8_fusedq_kernel(const T* __restrict__ x,
+                             const float* __restrict__ clip,
+                             const uint8_t* __restrict__ wp,
+                             const float* __restrict__ sw,
+                             OutT* __restrict__ y, int M, int N, int K) {
+  constexpr int E = 16 / sizeof(T);  // values per 16-byte vector
+  extern __shared__ uint4 fq_codes[];  // [MT][K / 16] 16-code chunks
+  __shared__ float fq_scale[MT];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * MT;
+  const int mt = min(MT, M - m0);
+  const int nvec = K / E;
+
+  // pass 1: quant_acts_i8_kernel's scale rule
+  for (int m = warp; m < mt; m += FQ_WARPS) {
+    const uint4* xr =
+        reinterpret_cast<const uint4*>(x + static_cast<size_t>(m0 + m) * K);
+    float mx = 0.f, mn = 0.f;  // max(., 0) and min(., 0) folded in
+    for (int i = lane; i < nvec; i += 32) {
+      float f[E];
+      widen16<T>(ldg16(xr + i), f);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        mx = fmaxf(mx, f[e]);
+        mn = fminf(mn, f[e]);
+      }
+    }
+    mx = warp_max(mx);
+    mn = -warp_max(-mn);
+    if (lane == 0) {
+      const float xmax = __fmul_rn(mx, clip[0]);
+      const float xmin = __fmul_rn(mn, clip[1]);
+      const float absmax = fmaxf(fabsf(xmin), xmax);
+      fq_scale[m] = absmax == 0.f ? 1.f : absmax / 7.f;
+    }
+  }
+  __syncthreads();
+
+  // pass 2: codes, IEEE division and round half to even
+  const int nc = K / 16;
+  for (int i = tid; i < mt * nc; i += FQ_WARPS * 32) {
+    const int m = i / nc, c = i - m * nc;
+    const float s = fq_scale[m];
+    const uint4* xr = reinterpret_cast<const uint4*>(
+        x + static_cast<size_t>(m0 + m) * K + c * 16);
+    unsigned p[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int v = 0; v < 16 / E; ++v) {
+      float f[E];
+      widen16<T>(ldg16(xr + v), f);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int j = v * E + e;
+        const float q = fminf(fmaxf(rintf(f[e] / s), -8.f), 7.f);
+        p[j / 4] |= (static_cast<unsigned>(static_cast<int>(q)) & 0xFFu)
+                    << (8 * (j % 4));
+      }
+    }
+    fq_codes[i] = make_uint4(p[0], p[1], p[2], p[3]);
+  }
+  __syncthreads();
+
+  const int8_t* codes = reinterpret_cast<const int8_t*>(fq_codes);
+  const int per_group = FQ_WARPS * ROWS;
+  const int groups = (N + per_group - 1) / per_group;
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int n0 = g * per_group + warp * ROWS;
+    if (n0 < N)  // no barrier follows
+      w4a4_warp_rows<OutT, true>(codes, fq_scale, wp, sw, y, m0, mt, n0, N,
+                                 K, lane);
   }
 }
 
@@ -584,8 +724,31 @@ cudaError_t allow_smem(Kern kernel, int bytes, int* done) {
   if (bytes <= *done) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) *done = bytes;
+  if (err == cudaSuccess)
+    *done = bytes;
+  else
+    cudaGetLastError();  // returned to the caller; no later launch sees it
   return err;
+}
+
+template <typename T, typename OutT>
+int launch_fusedq(const void* x, const void* clip, const void* wp,
+                  const void* sw, void* y, int M, int N, int K,
+                  cudaStream_t s) {
+  static int done = 0;
+  const int bytes = MT * K;
+  const cudaError_t err =
+      allow_smem(w4a4_matmul_i8_fusedq_kernel<T, OutT>, bytes, &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int mtiles = (M + MT - 1) / MT;
+  const int groups = (N + FQ_WARPS * ROWS - 1) / (FQ_WARPS * ROWS);
+  const int gx = std::max(1, std::min(groups, FQ_TARGET_BLOCKS / mtiles));
+  w4a4_matmul_i8_fusedq_kernel<T, OutT>
+      <<<dim3(gx, mtiles), FQ_WARPS * 32, bytes, s>>>(
+          static_cast<const T*>(x), static_cast<const float*>(clip),
+          static_cast<const uint8_t*>(wp), static_cast<const float*>(sw),
+          static_cast<OutT*>(y), M, N, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -641,6 +804,26 @@ extern "C" int fq_quant_acts_i8(const void* x, const void* clip, void* xq,
         static_cast<const bf16*>(x), c, q, sc, K, q_max);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// x [M, K] bf16 (x_is_f32 = 0) or f32; clip f32 [2] (cmax, cmin);
+// w_packed uint8 [N, K/2]; sw f32 [N]; y [M, N] bf16 (out_is_f32 = 0) or
+// f32. K % 32 == 0 and 16-byte aligned rows are the caller's contract
+// (checked in Python); a K whose MT * K bytes of codes exceed the opt-in
+// shared memory returns cudaFuncSetAttribute's error.
+extern "C" int fq_w4a4_matmul_i8_fusedq(const void* x, const void* clip,
+                                        const void* wp, const void* sw,
+                                        void* y, int M, int N, int K,
+                                        int x_is_f32, int out_is_f32,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_is_f32)
+    return out_is_f32
+               ? launch_fusedq<float, float>(x, clip, wp, sw, y, M, N, K, s)
+               : launch_fusedq<float, bf16>(x, clip, wp, sw, y, M, N, K, s);
+  return out_is_f32
+             ? launch_fusedq<bf16, float>(x, clip, wp, sw, y, M, N, K, s)
+             : launch_fusedq<bf16, bf16>(x, clip, wp, sw, y, M, N, K, s);
 }
 
 // x bf16 [M, K]; w_packed uint8 [N, K/2]; sx f32 [M]; sw f32 [N]; y [M, N]

@@ -45,6 +45,18 @@
 // query heads; after another, thread d accumulates output dimension d.
 // At B=1 with MHA that is only 32 CTAs on 132 SMs, so a single slot sits
 // far below the bandwidth bound; splitting S across CTAs is later work.
+//
+// The same body, with DEQUANT, also replaces the JAX package's measured
+// baselines flatquant_tpu/kernels/kv_cache.py:decode_attention_int4 (the
+// port's decode_attention_int4_v1) and decode_attention_int4_wide: both
+// dequantize every K/V element, (code - zero) * scale, before the q.k and
+// p.v products, which rounds otherwise than the folded epilogues. Their
+// blocks of 128 (v1) and 512 keys (wide) and the wide kernel's one grid
+// step per batch element are TPU grid choices: the block only moves where
+// the online max is taken, which the float32 softmax absorbs, so one
+// launch serves both. kv_cache.py:decode_attention_int4_v3 (scale and
+// zero folded, on this same token-major layout) is the body without
+// DEQUANT, i.e. fq_decode_attention_int4 itself.
 // ---------------------------------------------------------------------
 // chunk_attention_int4 / paged_chunk_attention_int4
 //
@@ -113,7 +125,10 @@ __device__ __forceinline__ size_t tile_offset(int b, int h, int t0, int nkv,
 }
 
 // S_eff: tokens per slot (the slot cache's S, or mb * bs for the pool).
-template <int NREP, bool PAGED>
+// DEQUANT: every K/V element is dequantized, (code - zero) * scale, before
+// both products (rows 19 and 20 of the kernel table); else scale and zero
+// fold into the epilogues.
+template <int NREP, bool PAGED, bool DEQUANT>
 __global__ void __launch_bounds__(TS)
 decode_attention_int4_kernel(const float* __restrict__ q,
                              const uint8_t* __restrict__ kp,
@@ -174,6 +189,7 @@ decode_attention_int4_kernel(const float* __restrict__ q,
       float raw[NREP];
 #pragma unroll
       for (int r = 0; r < NREP; ++r) raw[r] = 0.f;
+      const float2 kpr = kpar2[tok];  // (scale, zero)
       const uint8_t* kt = kp + tok * HB;
 #pragma unroll
       for (int j16 = 0; j16 < HB / 16; ++j16) {
@@ -185,18 +201,22 @@ decode_attention_int4_kernel(const float* __restrict__ q,
           for (int bi = 0; bi < 4; ++bi) {
             const int d = 16 * j16 + 4 * wi + bi;
             const unsigned byte = (words[wi] >> (8 * bi)) & 0xFFu;
-            const float lo = static_cast<float>(byte & 0xFu);
-            const float hi = static_cast<float>(byte >> 4);
+            float lo = static_cast<float>(byte & 0xFu);
+            float hi = static_cast<float>(byte >> 4);
+            if (DEQUANT) {
+              lo = (lo - kpr.y) * kpr.x;
+              hi = (hi - kpr.y) * kpr.x;
+            }
 #pragma unroll
             for (int r = 0; r < NREP; ++r)
               raw[r] = fmaf(q_s[r][d], lo, fmaf(q_s[r][d + HB], hi, raw[r]));
           }
         }
       }
-      const float2 kpr = kpar2[tok];  // (scale, zero)
 #pragma unroll
       for (int r = 0; r < NREP; ++r)
-        sc[r] = (raw[r] - qsum_s[r] * kpr.y) * kpr.x * sm_scale;
+        sc[r] = DEQUANT ? raw[r] * sm_scale
+                        : (raw[r] - qsum_s[r] * kpr.y) * kpr.x * sm_scale;
       const uint8_t* vt = vp + tok * HB;
 #pragma unroll
       for (int j16 = 0; j16 < HB / 16; ++j16)
@@ -228,10 +248,14 @@ decode_attention_int4_kernel(const float* __restrict__ q,
       for (int i = 0; i < TS / 32; ++i) {
         const int j = lane + 32 * i;
         const float p = expf(p_s[r][j] - m_new);
-        const float pv = p * vs_s[j];
         ps += p;
-        zs += pv * vz_s[j];
-        p_s[r][j] = pv;
+        if (DEQUANT) {
+          p_s[r][j] = p;
+        } else {
+          const float pv = p * vs_s[j];
+          zs += pv * vz_s[j];
+          p_s[r][j] = pv;
+        }
       }
       ps = warp_sum(ps);
       zs = warp_sum(zs);
@@ -255,8 +279,8 @@ decode_attention_int4_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int r = 0; r < NREP; ++r) part[r] = 0.f;
       for (int j = 0; j < n; ++j) {
-        const float c =
-            static_cast<float>((v_s[j * VROW + col] >> shift) & 0xF);
+        float c = static_cast<float>((v_s[j * VROW + col] >> shift) & 0xF);
+        if (DEQUANT) c = (c - vz_s[j]) * vs_s[j];
 #pragma unroll
         for (int r = 0; r < NREP; ++r) part[r] = fmaf(p_s[r][j], c, part[r]);
       }
@@ -495,7 +519,7 @@ __global__ void write_token_kernel(uint8_t* __restrict__ kp,
   }
 }
 
-template <bool PAGED>
+template <bool PAGED, bool DEQUANT>
 int launch_decode(const void* q, const void* kp, const void* kpar,
                   const void* vp, const void* vpar, const void* tbl,
                   const void* valid, void* out, int B, int nkv, int n_rep,
@@ -503,7 +527,7 @@ int launch_decode(const void* q, const void* kp, const void* kpar,
   dim3 grid(nkv, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FQ_LAUNCH(NR)                                                       \
-  decode_attention_int4_kernel<NR, PAGED><<<grid, TS, 0, s>>>(             \
+  decode_attention_int4_kernel<NR, PAGED, DEQUANT><<<grid, TS, 0, s>>>(    \
       static_cast<const float*>(q), static_cast<const uint8_t*>(kp),       \
       static_cast<const float*>(kpar), static_cast<const uint8_t*>(vp),    \
       static_cast<const float*>(vpar), static_cast<const int*>(valid),     \
@@ -551,8 +575,20 @@ extern "C" int fq_decode_attention_int4(const void* q, const void* kp,
                                         const void* vpar, const void* valid,
                                         void* out, int B, int nkv, int n_rep,
                                         int S, float sm_scale, void* stream) {
-  return launch_decode<false>(q, kp, kpar, vp, vpar, nullptr, valid, out, B,
-                              nkv, n_rep, S, 0, 1, sm_scale, stream);
+  return launch_decode<false, false>(q, kp, kpar, vp, vpar, nullptr, valid,
+                                     out, B, nkv, n_rep, S, 0, 1, sm_scale,
+                                     stream);
+}
+
+// fq_decode_attention_int4's arguments; every K/V element dequantized
+// before the products (decode_attention_int4_v1 and _wide).
+extern "C" int fq_decode_attention_int4_dequant(
+    const void* q, const void* kp, const void* kpar, const void* vp,
+    const void* vpar, const void* valid, void* out, int B, int nkv, int n_rep,
+    int S, float sm_scale, void* stream) {
+  return launch_decode<false, true>(q, kp, kpar, vp, vpar, nullptr, valid,
+                                    out, B, nkv, n_rep, S, 0, 1, sm_scale,
+                                    stream);
 }
 
 // q, valid, out as above; kp/vp u8 [nb, nkv, bs, 64]; kpar/vpar f32
@@ -562,8 +598,9 @@ extern "C" int fq_paged_decode_attention_int4(
     const void* vpar, const void* tbl, const void* valid, void* out, int B,
     int nkv, int n_rep, int mb, int bs, float sm_scale, void* stream) {
   if (bs % TS != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_decode<true>(q, kp, kpar, vp, vpar, tbl, valid, out, B, nkv,
-                             n_rep, mb * bs, mb, bs, sm_scale, stream);
+  return launch_decode<true, false>(q, kp, kpar, vp, vpar, tbl, valid, out,
+                                    B, nkv, n_rep, mb * bs, mb, bs, sm_scale,
+                                    stream);
 }
 
 // q f32 [B, nkv, R, 128] (R = n_rep * Sq, row r = rep * Sq + s); caches as

@@ -1,0 +1,82 @@
+// Warp-level tensor-core and copy helpers shared by the flash attention
+// kernels (flash_prefill.cu, flash_prefill_i8.cu): cp.async staging,
+// ldmatrix, mma.sync in bf16 and in s8, and the quad reductions over the
+// four lanes that hold one accumulator row.
+#pragma once
+
+#include <cuda_bf16.h>
+
+namespace {
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r,
+                                            const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
+                                                  const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c[16x8] += a[16x16] * b[16x8], bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, lo in the low half (the lower column)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// c[16x8] += a[16x32] * b[32x8], int8 in, exact int32 accumulate
+__device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+}  // namespace

@@ -21,6 +21,10 @@ raises, and runs its plain version for CPU tensors):
                            with u * silu(g) in its      row 6's main loop)
                            float32 epilogue
                            plain: w4a4_matmul_i8_swiglu_ref
+    w4a4_matmul_i8_fusedq  quant_acts_i8 (q_max 7) in   (csrc/int4_matmul.cu)
+                           the prologue of
+                           w4a4_matmul_i8, bit for bit
+                           plain: w4a4_matmul_i8_fusedq_ref
 
 `w4a8_matmul_ref` is also JAX's pure-XLA reference of w4a8_matmul
 (x @ (nib - 8)^T in float32), which the engine calls with
@@ -38,6 +42,7 @@ _NAME = "w4a4_matmul_i8"
 _QA = "quant_acts_i8"
 _W4A8 = "w4a8_matmul"
 _SWI = "w4a4_matmul_i8_swiglu"
+_FUSEDQ = "w4a4_matmul_i8_fusedq"
 
 
 def pack_weight_planar(q: torch.Tensor) -> torch.Tensor:
@@ -280,4 +285,59 @@ def w4a4_matmul_i8_swiglu(x_q, x_scale, w_packed, w_scale,
         int(out_dtype == torch.float32), common.stream_ptr(x_q))
     common.check("flat_pipeline", _SWI, rc)
     common.LAUNCHES[_SWI] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# per-token quant in the GEMM's prologue
+# ---------------------------------------------------------------------------
+
+
+def w4a4_matmul_i8_fusedq_ref(x, w_packed, w_scale, clip=None,
+                              out_dtype=torch.bfloat16):
+    """Plain version of w4a4_matmul_i8_fusedq: the composed route,
+    quant_acts_i8_ref(x, clip, 7) then w4a8_matmul_ref."""
+    xq, xs = quant_acts_i8_ref(x, clip, 7)
+    return w4a8_matmul_ref(xq, xs, w_packed, w_scale, out_dtype)
+
+
+def w4a4_matmul_i8_fusedq(x, w_packed, w_scale, clip=None,
+                          out_dtype=torch.bfloat16):
+    """y[M, N] = w4a4_matmul_i8(quant_acts_i8(x, clip, 7), w_packed,
+    w_scale) in one launch (JAX's w4a4_matmul_i8_fusedq,
+    flatquant_tpu/kernels/int4_matmul.py:553), bit for bit.
+
+    x bf16 or f32 activations [M, K] (not codes); w_packed uint8 [N, K/2]
+    planar; w_scale f32 [N]; clip the (rmax, rmin) LAC ratios or None.
+    Output bf16 or f32. CUDA tensors launch the kernel (K % 32 == 0; a K
+    whose rows of codes overflow the block's shared memory fails the
+    launch) or raise; CPU tensors run w4a4_matmul_i8_fusedq_ref."""
+    if x.device.type == "cpu":
+        return w4a4_matmul_i8_fusedq_ref(x, w_packed, w_scale, clip,
+                                         out_dtype)
+    m, k = x.shape
+    n = w_packed.shape[0]
+    req = common.require
+    _on_device(_FUSEDQ, x, w_packed, w_scale)
+    req(x.dtype in (torch.bfloat16, torch.float32)
+        and w_packed.dtype == torch.uint8 and w_scale.dtype == torch.float32,
+        _FUSEDQ, "dtypes must be x bfloat16 or float32, w_packed uint8, "
+        "w_scale float32")
+    req(tuple(w_packed.shape) == (n, k // 2) and w_scale.numel() == n,
+        _FUSEDQ, f"shapes x {tuple(x.shape)}, w_packed "
+        f"{tuple(w_packed.shape)}, w_scale {tuple(w_scale.shape)}")
+    req(k % 32 == 0 and k > 0, _FUSEDQ, f"K={k} must be a multiple of 32")
+    _out_dtype(_FUSEDQ, out_dtype)
+    x, w_packed, w_scale = (x.contiguous(), w_packed.contiguous(),
+                            w_scale.contiguous())
+    req(x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0, _FUSEDQ,
+        "x and w_packed must be 16-byte aligned")
+    cl = common.clip_vector([clip], x.device)
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    rc = common.lib("int4_matmul").fq_w4a4_matmul_i8_fusedq(
+        x.data_ptr(), cl.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
+        y.data_ptr(), m, n, k, int(x.dtype == torch.float32),
+        int(out_dtype == torch.float32), common.stream_ptr(x))
+    common.check("int4_matmul", _FUSEDQ, rc)
+    common.LAUNCHES[_FUSEDQ] += 1
     return y

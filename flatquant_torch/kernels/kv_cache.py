@@ -11,9 +11,14 @@ convert to and from it for the tests.
 
 Kernels (csrc/kv_cache.cu): `decode_attention_int4`,
 `chunk_attention_int4` and `write_token` (the block-pool twins of the
-attention kernels are in kernels/paged_kv.py). Each wrapper launches its
-kernel for CUDA tensors (or raises) and runs its plain version for CPU
-tensors.
+attention kernels are in kernels/paged_kv.py), and three more entry points
+to the decode body, the JAX package's measured decode baselines:
+`decode_attention_int4_v1` (JAX's `decode_attention_int4`, which
+dequantizes every element) and `decode_attention_int4_wide` through the
+body's DEQUANT instance, `decode_attention_int4_v3` (scale and zero folded)
+through the body as `decode_attention_int4` runs it. Each wrapper launches
+its kernel for CUDA tensors (or raises) and runs its plain version for CPU
+tensors; the three baselines share decode_attention_ref.
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ from flatquant_torch.core.quant import true_div
 from flatquant_torch.kernels import common
 
 _ATTN = "decode_attention_int4"
+_V1 = "decode_attention_int4_v1"
+_WIDE = "decode_attention_int4_wide"
+_V3 = "decode_attention_int4_v3"
 _CHUNK = "chunk_attention_int4"
 _WRITE = "write_token"
 
@@ -136,6 +144,36 @@ def check_attention_args(name, q, nkv, codes, params):
         "cache tensors must be contiguous and 16-byte aligned")
 
 
+def _decode_ref(q, kp, kparam, vp, vparam, valid_len, sm_scale):
+    return decode_attention_ref(q, kp, kparam[..., 0:1], kparam[..., 1:2],
+                                vp, vparam[..., 0:1], vparam[..., 1:2],
+                                valid_len, sm_scale)
+
+
+def _launch_decode(name, symbol, q, kp, kparam, vp, vparam, valid_len,
+                   sm_scale):
+    """Check the arguments of a decode entry point and launch `symbol` of
+    csrc/kv_cache.cu, counting the launch under `name`."""
+    B, nh, hd = q.shape
+    _, nkv, S, hdh = kp.shape
+    check_attention_args(name, q, nkv, (kp, vp), (kparam, vparam))
+    common.require(
+        tuple(kp.shape) == tuple(vp.shape) == (B, nkv, S, hdh)
+        and tuple(kparam.shape) == tuple(vparam.shape) == (B, nkv, S, 2)
+        and valid_len.numel() == B and valid_len.device == q.device, name,
+        "cache shapes disagree")
+    qf = q.to(torch.float32).contiguous()
+    valid = valid_len.to(torch.int32).contiguous()
+    out = torch.empty((B, nh, hd), dtype=torch.float32, device=q.device)
+    rc = getattr(common.lib("kv_cache"), symbol)(
+        qf.data_ptr(), kp.data_ptr(), kparam.data_ptr(), vp.data_ptr(),
+        vparam.data_ptr(), valid.data_ptr(), out.data_ptr(), B, nkv,
+        nh // nkv, S, float(sm_scale), common.stream_ptr(q))
+    common.check("kv_cache", name, rc)
+    common.LAUNCHES[name] += 1
+    return out.to(q.dtype)
+
+
 def decode_attention_int4(q, kp, kparam, vp, vparam, valid_len,
                           sm_scale: float):
     """One-token GQA attention over the token-major int4 cache.
@@ -146,27 +184,49 @@ def decode_attention_int4(q, kp, kparam, vp, vparam, valid_len,
     launch the kernel (hd 128, n_rep from 1 to 8) or raise; CPU tensors
     run decode_attention_ref."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, kp, kparam[..., 0:1], kparam[..., 1:2],
-                                    vp, vparam[..., 0:1], vparam[..., 1:2],
-                                    valid_len, sm_scale)
-    B, nh, hd = q.shape
-    _, nkv, S, hdh = kp.shape
-    check_attention_args(_ATTN, q, nkv, (kp, vp), (kparam, vparam))
-    common.require(
-        tuple(kp.shape) == tuple(vp.shape) == (B, nkv, S, hdh)
-        and tuple(kparam.shape) == tuple(vparam.shape) == (B, nkv, S, 2)
-        and valid_len.numel() == B and valid_len.device == q.device, _ATTN,
-        "cache shapes disagree")
-    qf = q.to(torch.float32).contiguous()
-    valid = valid_len.to(torch.int32).contiguous()
-    out = torch.empty((B, nh, hd), dtype=torch.float32, device=q.device)
-    rc = common.lib("kv_cache").fq_decode_attention_int4(
-        qf.data_ptr(), kp.data_ptr(), kparam.data_ptr(), vp.data_ptr(),
-        vparam.data_ptr(), valid.data_ptr(), out.data_ptr(), B, nkv,
-        nh // nkv, S, float(sm_scale), common.stream_ptr(q))
-    common.check("kv_cache", _ATTN, rc)
-    common.LAUNCHES[_ATTN] += 1
-    return out.to(q.dtype)
+        return _decode_ref(q, kp, kparam, vp, vparam, valid_len, sm_scale)
+    return _launch_decode(_ATTN, "fq_decode_attention_int4", q, kp, kparam,
+                          vp, vparam, valid_len, sm_scale)
+
+
+def decode_attention_int4_v1(q, kp, kparam, vp, vparam, valid_len,
+                             sm_scale: float):
+    """JAX's `decode_attention_int4` (flatquant_tpu/kernels/kv_cache.py:190,
+    a measured baseline there; the port's decode_attention_int4 is JAX's
+    v4): decode_attention_int4's arguments and function, every K/V element
+    dequantized, (code - zero) * scale, before the q.k and p.v products.
+    CUDA tensors launch the decode kernel's DEQUANT instance (or raise);
+    CPU tensors run decode_attention_ref."""
+    if q.device.type == "cpu":
+        return _decode_ref(q, kp, kparam, vp, vparam, valid_len, sm_scale)
+    return _launch_decode(_V1, "fq_decode_attention_int4_dequant", q, kp,
+                          kparam, vp, vparam, valid_len, sm_scale)
+
+
+def decode_attention_int4_wide(q, kp, kparam, vp, vparam, valid_len,
+                               sm_scale: float):
+    """JAX's `decode_attention_int4_wide` (kv_cache.py:291): v1's function
+    with one TPU grid step per batch element and key blocks of 512, which
+    move only where the online max is taken. CUDA tensors launch the same
+    DEQUANT instance as decode_attention_int4_v1 (or raise); CPU tensors
+    run decode_attention_ref."""
+    if q.device.type == "cpu":
+        return _decode_ref(q, kp, kparam, vp, vparam, valid_len, sm_scale)
+    return _launch_decode(_WIDE, "fq_decode_attention_int4_dequant", q, kp,
+                          kparam, vp, vparam, valid_len, sm_scale)
+
+
+def decode_attention_int4_v3(q, kp, kparam, vp, vparam, valid_len,
+                             sm_scale: float):
+    """JAX's `decode_attention_int4_v3` (kv_cache.py:386): scale and zero
+    folded into the score and output epilogues on the token-major layout,
+    which is decode_attention_int4's function and body. CUDA tensors launch
+    that body (or raise), counted under this name; CPU tensors run
+    decode_attention_ref."""
+    if q.device.type == "cpu":
+        return _decode_ref(q, kp, kparam, vp, vparam, valid_len, sm_scale)
+    return _launch_decode(_V3, "fq_decode_attention_int4", q, kp, kparam, vp,
+                          vparam, valid_len, sm_scale)
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,27 @@ rounding points but walks the keys in tiles of 64, so its running max,
 and with it the rounding of p, differs from the plain version's
 (kernels/tolerance.py, mode "flash").
 
-Each flash wrapper launches the kernel for CUDA tensors (bf16, head_dim
+`flash_prefill_attention_kt_i8` (csrc/flash_prefill_i8.cu) is the JAX
+package's int8 variant of the kt entry point, a measured baseline there:
+K and V get one symmetric int8 scale per (batch, kv head) over the whole
+prompt, q one per row after the sm_scale * log2(e) fold, and QK^T runs in
+int8 with int32 sums; with pv_i8 (the default) p is rounded to int8 codes,
+round(p * 127), and PV runs in int8 too, else in bf16. Its plain version,
+`flash_prefill_attention_kt_i8_ref`, follows the Pallas body
+(prefill_attention.py:265-371) op for op. p is rounded against the running
+max of its key block, so the function depends on blk_k (JAX's 512, shrunk
+to a divisor of S); the kernel keeps JAX's key blocks and takes each
+block's row maxima before it forms p, so kernel and plain version compute
+the same p, codes and int32 sums wherever their exp2 agree, and differ
+only in the order of the float32 sums of l (and, without pv_i8, of p.V):
+kernels/tolerance.py, mode "flash" (compare_flash_i8 against the JAX
+package's on the CPU, whose exp2 differs). (Rows are independent of JAX's
+blk_q: a key block above a row's diagonal leaves it unchanged.) The float32
+products of the plain version are exact: int8 codes multiply to at most
+127^2, and the sums over head_dim 128 and over a key block of up to 1024
+stay below 2^24.
+
+Each flash wrapper launches its kernel for CUDA tensors (bf16, head_dim
 128, S % 128 == 0) or raises, and runs its plain version for CPU tensors.
 """
 
@@ -40,11 +60,14 @@ import math
 
 import torch
 
+from flatquant_torch.core.quant import true_div
 from flatquant_torch.kernels import common
 
 _LIB = "flash_prefill"
 _NAME = "flash_prefill_attention"
 _NAME_KT = "flash_prefill_attention_kt"
+_LIB_I8 = "flash_prefill_i8"
+_NAME_I8 = "flash_prefill_attention_kt_i8"
 _LOG2E = 1.4426950408889634
 FLASH_THRESHOLD = 1024
 Q_BLK = 256  # JAX's q block, shrunk to a divisor of S
@@ -131,9 +154,10 @@ def flash_prefill_attention_kt_ref(q, kt, v, sm_scale: float):
     return _flash_body_ref(q, kt.permute(0, 3, 1, 2), v, sm_scale)
 
 
-def _launch(name, q, k_bhs, v, sm_scale):
-    """Launch csrc/flash_prefill.cu. k_bhs: K as [B, nkv, S, hd] (any
-    batch/head/token strides, head-dim stride 1)."""
+def _flash_args(name, q, k_bhs, v):
+    """The flash kernels' argument checks. k_bhs: K as [B, nkv, S, hd]
+    (any batch/head/token strides). Returns q, k_bhs, v with head-dim
+    stride 1 (copied where it is not) and their nine strides."""
     B, S, nh, hd = q.shape
     nkv = v.shape[2]
     req = common.require
@@ -160,10 +184,18 @@ def _launch(name, q, k_bhs, v, sm_scale):
     req(all(s % 8 == 0 for s in strides)
         and all(t.data_ptr() % 16 == 0 for t in (q, k_bhs, v)), name,
         "16-byte aligned rows needed (strides a multiple of 8 elements)")
+    return q, k_bhs, v, strides
+
+
+def _launch(name, q, k_bhs, v, sm_scale):
+    """Launch csrc/flash_prefill.cu. k_bhs: K as [B, nkv, S, hd]."""
+    B, S, nh, hd = q.shape
+    q, k_bhs, v, strides = _flash_args(name, q, k_bhs, v)
     out = torch.empty((B, S, nh, hd), dtype=q.dtype, device=q.device)
     rc = common.lib(_LIB).fq_flash_prefill(
         q.data_ptr(), k_bhs.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *strides, B, S, nh, nkv, sm_scale * _LOG2E, common.stream_ptr(q))
+        *strides, B, S, nh, v.shape[2], sm_scale * _LOG2E,
+        common.stream_ptr(q))
     common.check(_LIB, name, rc)
     common.LAUNCHES[name] += 1
     return out
@@ -187,6 +219,142 @@ def flash_prefill_attention_kt(q, kt, v, sm_scale: float):
     if q.device.type == "cpu":
         return flash_prefill_attention_kt_ref(q, kt, v, sm_scale)
     return _launch(_NAME_KT, q, kt.permute(0, 1, 3, 2), v, sm_scale)
+
+
+# ---------------------------------------------------------------------------
+# int8 score products (flash_prefill_attention_kt_i8)
+# ---------------------------------------------------------------------------
+
+
+def _div(num: float, t):
+    """num / t by IEEE division (torch turns a Python number divided by a
+    tensor into a reciprocal times the number)."""
+    return torch.full((), num, dtype=torch.float32, device=t.device) / t
+
+
+def quantize_kv_i8_ref(kt, v):
+    """The per-(batch, kv head) int8 quant of K and V: kt [B, nkv, hd, S],
+    v [B, S, nkv, hd] -> (k8 int8 [B, nkv, S, hd], v8t int8 [B, nkv, hd,
+    S], sc float32 [B, nkv, 2] = (ks / 127, vs / 127^2)), ks = max(max|K|,
+    1e-30) over the head's whole prompt, codes clip(round(K * (127 / ks)),
+    -127, 127) (prefill_attention.py:304-316)."""
+    ktf = kt.to(torch.float32)
+    vtf = v.to(torch.float32).permute(0, 2, 3, 1)  # [B, nkv, hd, S]
+    ks = ktf.abs().amax(dim=(2, 3)).clamp_min(1e-30)
+    vs = vtf.abs().amax(dim=(2, 3)).clamp_min(1e-30)
+
+    def codes(t, amax):
+        r = _div(127.0, amax)[..., None, None]
+        return torch.clamp(torch.round(t * r), -127, 127).to(torch.int8)
+
+    k8 = codes(ktf, ks).transpose(2, 3).contiguous()
+    v8t = codes(vtf, vs).contiguous()
+    return k8, v8t, torch.stack([true_div(ks, 127.0),
+                                 true_div(vs, 127.0 * 127.0)], -1)
+
+
+def quantize_q_i8_ref(q, sm_scale: float):
+    """q [B, S, nh, hd] -> (float32 codes [B, S, nh, hd] in [-127, 127],
+    q_amax [B, S, nh, 1]): qf = q * (sm_scale * log2 e) in float32, q_amax =
+    max(max|qf|, 1e-30) per row, codes clip(round(qf * (127 / q_amax)),
+    -127, 127) (prefill_attention.py:329-334)."""
+    qf = q.to(torch.float32) * torch.full((), sm_scale * _LOG2E,
+                                          dtype=torch.float32,
+                                          device=q.device)
+    qa = qf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.clamp(torch.round(qf * _div(127.0, qa)), -127, 127), qa
+
+
+def flash_prefill_attention_kt_i8_ref(q, kt, v, sm_scale: float,
+                                      pv_i8: bool = True, blk_k: int = K_BLK):
+    """Plain version of flash_prefill_attention_kt_i8: the Pallas body's
+    blocking and rounding over key blocks of blk_k (shrunk to a divisor of
+    S), all query rows at once. q [B, S, nh, hd] bf16; kt [B, nkv, hd, S];
+    v [B, S, nkv, hd] -> [B, S, nh, hd] in q.dtype."""
+    B, S, nh, hd = q.shape
+    n_rep = nh // kt.shape[1]
+    bk = _shrink_to_divisor(min(blk_k, S), S)
+    k8, v8t, sc = quantize_kv_i8_ref(kt, v)
+    q8, qa = quantize_q_i8_ref(q, sm_scale)
+    q8, qa = q8.permute(0, 2, 1, 3), qa.permute(0, 2, 1, 3)  # heads first
+
+    def per_query_head(t):
+        return t.repeat_interleave(n_rep, dim=1) if n_rep > 1 else t
+
+    s_scale = qa * per_query_head(true_div(sc[..., 0], 127.0))[..., None,
+                                                              None]
+    kf = per_query_head(k8.to(torch.float32))  # [B, nh, S, hd]
+    if pv_i8:
+        vf = per_query_head(v8t.to(torch.float32))  # [B, nh, hd, S]
+        pv_scale = per_query_head(sc[..., 1])[..., None, None]
+    else:
+        vf = _heads_first(v, n_rep).to(torch.float32)  # [B, nh, S, hd]
+    row = torch.arange(S, device=q.device)[:, None]
+    col = torch.arange(bk, device=q.device)
+    m = torch.full((B, nh, S, 1), -math.inf, device=q.device)
+    l = torch.zeros((B, nh, S, 1), device=q.device)
+    acc = torch.zeros((B, nh, S, hd), device=q.device)
+    for j in range(S // bk):
+        k0 = j * bk
+        s = (q8 @ kf[:, :, k0:k0 + bk].transpose(-1, -2)) * s_scale
+        s = torch.where(row >= k0 + col, s, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if pv_i8:
+            pv = torch.round(p * 127.0) @ vf[..., k0:k0 + bk].transpose(-1,
+                                                                       -2)
+            acc = acc * corr + pv * pv_scale
+        else:
+            pv = p.to(v.dtype).to(torch.float32) @ vf[:, :, k0:k0 + bk]
+            acc = acc * corr + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.to(q.dtype).permute(0, 2, 1, 3)
+
+
+def _launch_i8(q, kt, v, sm_scale, pv_i8, blk_k):
+    """Launch csrc/flash_prefill_i8.cu (the prepass, then the flash
+    kernel). Returns the output and the prepass's scratch: k8 [B, nkv, S,
+    hd], v8t [B, nkv, hd, S] (written with pv_i8) and sc [B, nkv, 2], which
+    equal quantize_kv_i8_ref's."""
+    B, S, nh, hd = q.shape
+    nkv = kt.shape[1]
+    q, k_bhs, v, strides = _flash_args(_NAME_I8, q, kt.permute(0, 1, 3, 2),
+                                       v)
+    bk = _shrink_to_divisor(min(blk_k, S), S)
+    common.require(1 <= nh // nkv <= 8 and bk % 64 == 0, _NAME_I8,
+                   f"n_rep {nh}/{nkv} must be from 1 to 8 and the key block "
+                   f"{bk} a multiple of 64")
+    dev = q.device
+    k8 = torch.empty((B, nkv, S, HD), dtype=torch.int8, device=dev)
+    v8t = torch.empty((B, nkv, HD, S), dtype=torch.int8, device=dev)
+    sc = torch.empty((B, nkv, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((B, S, nh, hd), dtype=q.dtype, device=dev)
+    rc = common.lib(_LIB_I8).fq_flash_prefill_i8(
+        q.data_ptr(), k_bhs.data_ptr(), v.data_ptr(), k8.data_ptr(),
+        v8t.data_ptr(), sc.data_ptr(), out.data_ptr(), *strides, B, S, nh,
+        nkv, bk, int(pv_i8), sm_scale * _LOG2E, common.stream_ptr(q))
+    common.check(_LIB_I8, _NAME_I8, rc)
+    common.LAUNCHES[_NAME_I8] += 1
+    return out, k8, v8t, sc
+
+
+def flash_prefill_attention_kt_i8(q, kt, v, sm_scale: float,
+                                  pv_i8: bool = True, blk_k: int = K_BLK):
+    """flash_prefill_attention_kt with int8 score products (JAX's
+    flash_prefill_attention_kt_i8, prefill_attention.py:377): q
+    [B, S, nh, hd]; kt [B, nkv, hd, S] (a strided view of token-major K is
+    read in place); v [B, S, nkv, hd] -> [B, S, nh, hd]. pv_i8: PV in int8
+    on p's codes (default), else in bf16. CUDA tensors launch the prepass
+    and the flash kernel (bf16, hd 128, S % 128 == 0, n_rep 1-8, the key
+    block a multiple of 64) and count one launch, or raise; CPU tensors
+    run flash_prefill_attention_kt_i8_ref."""
+    if q.device.type == "cpu":
+        return flash_prefill_attention_kt_i8_ref(q, kt, v, sm_scale, pv_i8,
+                                                 blk_k)
+    return _launch_i8(q, kt, v, sm_scale, pv_i8, blk_k)[0]
 
 
 def flash_prefill_ref(q, k, v, sm_scale: float):

@@ -39,6 +39,19 @@ and 6, tests/test_torch_gpu.py):
                V it averages, whatever its own size: every output within 2
                bf16 ulps of the largest value of its (token, head) row.
 
+The int8 flash attention (flash_prefill_attention_kt_i8) keeps the plain
+version's key blocks and rounding points, and on the card kernel and
+plain version take the same exp2f: its p, codes and int32 sums are the
+plain version's, and only the float32 sums of l (and of p.V without
+pv_i8) run in another order. So on the card (chip_smoke.py phases 3i and
+11, tests/test_torch_gpu.py) it is held to the "flash" mode. Against the
+JAX package on the CPU (tests/test_torch_baselines.py) XLA's exp2 and
+torch's differ by an ulp on most inputs, and a p * 127 that lies at a
+rounding tie then takes the other int8 code, which moves an output by
+|v| / (127 l) for a row whose softmax sums to l >= 1. compare_flash_i8
+holds that parity to the "flash" bound plus one int8 code of V at l = 1
+(the head's max|V| / 127): the "flash_i8" bound, for the CPU only.
+
 The fp8 GEMM (kernels/fp8_matmul.py, chip_smoke.py phases 3h and 10,
 tests/test_torch_gpu.py) decodes every code exactly and multiplies exact
 bf16 values, so kernel and plain version differ only in the order of
@@ -95,6 +108,28 @@ def compare_bf16(got, want, mode, what):
               f"{m['ulps']} bf16 ulp(s) ({mode} factors allow "
               f"{m['outlier_frac']:g} of them), max abs err "
               f"{err.max().item():.3e}")
+    return err.max().item()
+
+
+def compare_flash_i8(got, want, v, what):
+    """flash_prefill_attention_kt_i8's outputs [B, S, nh, hd] against the
+    JAX package's on the CPU: within 2 bf16 ulps of their (token, head)
+    row's largest value plus one int8 code of V, the head's max|V| / 127
+    (the module note); v [B, S, nkv, hd] is the attention's V. Returns the
+    max abs error."""
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        _fail(what, f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+    nh, nkv = g.shape[2], v.shape[2]
+    vcode = (v.float().abs().amax(dim=(1, 3)) / 127.0).repeat_interleave(
+        nh // nkv, dim=1)[:, None, :, None]
+    lim = 2 * bf16_ulp(w.abs().amax(dim=-1, keepdim=True)) + vcode
+    err = (g - w).abs()
+    bad = ~(err <= lim)
+    if bad.any():
+        _fail(what, f"{int(bad.sum())} of {bad.numel()} values beyond 2 "
+              f"bf16 ulps of their row's largest value plus one V code, "
+              f"max abs err {err.max().item():.3e}")
     return err.max().item()
 
 

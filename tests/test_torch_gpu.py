@@ -660,3 +660,97 @@ def test_deepseek_fp8_on_the_card_matches_the_plain_path(cuda):
     want = ds.deepseek_forward(cfg, sp, toks, use_kernel=False, **kw)
     rel = ((got - want).abs().amax(-1) / want.norm(dim=-1)).max().item()
     assert rel < 0.01, rel
+
+
+# ---------------------------------------------------------------------------
+# rows 17-21: the JAX package's measured kernel baselines
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(1, 4096, 4096), (4, 1024, 11008),
+                                   (40, 384, 512), (300, 256, 1024)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("use_clip", [False, True])
+def test_w4a4_matmul_i8_fusedq_bit_exact(cuda, m, n, k, dtype, use_clip):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = (torch.randn((m, k), generator=g, device=cuda) * 3).to(dtype)
+    x[m // 2] = 0
+    wp = torch.randint(0, 256, (n, k // 2), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    sw = torch.rand((n,), generator=g, device=cuda) * 0.05
+    clip = ((torch.tensor(0.93, device=cuda), torch.tensor(0.9, device=cuda))
+            if use_clip else None)
+    out = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    got = _launched("w4a4_matmul_i8_fusedq", tmm.w4a4_matmul_i8_fusedq, x,
+                    wp, sw, clip, out)
+    xq, xs = tmm.quant_acts_i8(x, clip, 7)
+    assert torch.equal(got, tmm.w4a4_matmul_i8(xq, xs, wp, sw, out))
+    assert torch.equal(got, tmm.w4a4_matmul_i8_fusedq_ref(x, wp, sw, clip,
+                                                          out))
+
+
+@pytest.mark.gpu
+def test_w4a4_matmul_i8_fusedq_shared_memory_limit(cuda):
+    # 8 rows of int8 codes must fit the block's shared memory: the launch
+    # reports a K past it, launches nothing, and leaves no error behind
+    g = torch.Generator(device=cuda).manual_seed(7)
+    sw = torch.rand((128,), generator=g, device=cuda) * 0.05
+    before = common.LAUNCHES["w4a4_matmul_i8_fusedq"]
+    x = torch.randn((2, 32768), generator=g, device=cuda)
+    wp = torch.randint(0, 256, (128, 16384), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        tmm.w4a4_matmul_i8_fusedq(x, wp, sw)
+    assert common.LAUNCHES["w4a4_matmul_i8_fusedq"] == before
+    x, wp = x[:, :28672].contiguous(), wp[:, :14336].contiguous()
+    got = _launched("w4a4_matmul_i8_fusedq", tmm.w4a4_matmul_i8_fusedq, x,
+                    wp, sw)
+    assert torch.equal(got, tmm.w4a4_matmul_i8_fusedq_ref(x, wp, sw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["decode_attention_int4_v1",
+                                  "decode_attention_int4_wide",
+                                  "decode_attention_int4_v3"])
+@pytest.mark.parametrize("nh,nkv", [(8, 8), (8, 2), (28, 4)])
+def test_decode_baselines_match_plain(cuda, name, nh, nkv):
+    g = torch.Generator(device=cuda).manual_seed(nh + nkv)
+    B, S = 4, 512
+    kp, kpar, vp, vpar = _cache(g, cuda, B, nkv, S)
+    q = torch.randn((B, nh, 128), generator=g, device=cuda)
+    valid = torch.tensor([0, 1, 200, 512], device=cuda, dtype=torch.int32)
+    got = _launched(name, getattr(tkv, name), q, kp, kpar, vp, vpar, valid,
+                    0.088)
+    want = tkv.decode_attention_ref(q, kp, kpar[..., :1], kpar[..., 1:], vp,
+                                    vpar[..., :1], vpar[..., 1:], valid,
+                                    0.088)
+    # float32 outputs, summed in another order than the plain version
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pv_i8", [True, False])
+@pytest.mark.parametrize("S,nh,nkv,blk_k", [(256, 4, 2, 512),
+                                            (384, 4, 4, 512),
+                                            (1024, 8, 1, 256)])
+def test_flash_prefill_kt_i8_matches_plain(cuda, pv_i8, S, nh, nkv, blk_k):
+    g = torch.Generator(device=cuda).manual_seed(S + nh)
+    q, k, v = (torch.randn((1, S, n, 128), generator=g, device=cuda).to(
+        torch.bfloat16) for n in (nh, nkv, nkv))
+    kt = k.permute(0, 2, 3, 1)  # the strided view the fused route passes
+    sm = 0.088
+    before = common.LAUNCHES["flash_prefill_attention_kt_i8"]
+    got, k8, v8t, sc = tpa._launch_i8(q, kt, v, sm, pv_i8, blk_k)
+    assert common.LAUNCHES["flash_prefill_attention_kt_i8"] == before + 1
+    k8r, v8r, scr = tpa.quantize_kv_i8_ref(kt, v)
+    assert torch.equal(k8, k8r) and torch.equal(sc[..., 0], scr[..., 0])
+    if pv_i8:
+        assert torch.equal(v8t, v8r) and torch.equal(sc[..., 1], scr[..., 1])
+    want = tpa.flash_prefill_attention_kt_i8_ref(q, kt, v, sm, pv_i8, blk_k)
+    # the same exp2f on both sides: p, codes and int32 sums are the plain
+    # version's, only float32 sums run in another order
+    compare_bf16(got, want, "flash", "flash_prefill_attention_kt_i8")
+    assert torch.equal(got, tpa.flash_prefill_attention_kt_i8(
+        q, kt.contiguous(), v, sm, pv_i8, blk_k))
