@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (flatquant_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                # all phases, one card
-    python3 chip_smoke.py --phases 3     # phases 1-3 only (3a-3i)
+    python3 chip_smoke.py --phases 3     # phases 1-3 only (3a-3j)
     python3 chip_smoke.py --phases 3h,10 # phases 1-2, 3h and 10
     python3 chip_smoke.py --phases 3i,11 # phases 1-2, 3i and 11
+    python3 chip_smoke.py --phases 3j,12 # phases 1-2, 3j and 12
 
 Phases (any failure makes the script exit non-zero without the final
 line):
@@ -50,6 +51,14 @@ line):
      against the float32 oracle; decode_attention_int4_v1, _wide and _v3
      at row 2's and Qwen-2.5-7B's shapes within ATTN_TOL; each timed
      beside its bound and yardstick
+     3j: rows 22-27, the grouped layout [G, T, 128], at llama-2-7b's
+     1 x 2048 shapes (rmsnorm_right_grouped, left_quant_i8_grouped at G=32
+     and 86, w4a4_swiglu_grouped and _gx at N=2x11008,
+     w4a4_matmul_i8_grouped at qkv and down, quant_acts_i8_grouped at
+     [86, 2048, 128]) and edge shapes (M=300, no clips, f32 input): each
+     held to its plain version and bit for bit to its flat twin (rows 4,
+     5, 6, 1, 12); timed beside its bound and, for the GEMMs,
+     torch._int_mm; w4a4_matmul_i8 itself timed at M=2048
   4. build one random llama-2-7b (32 layers, random seeded weights, rn128
      Kronecker transforms baked into the weights; shared by phases 4 to
      6) and drive the decode-serving path at full width and depth:
@@ -118,6 +127,15 @@ line):
      1 x 2048 prefill with flash_prefill_attention_kt_i8 (pv_i8 on, off)
      at flash_prefill_attention_kt's, every launch checked, wall times
      interleaved with row 8's.
+  12. rows 22-27 at their flat twins' call sites in phase 6a's 1 x 2048
+     prefill on phase 7's llama-2-7b: (a) the fused attention input (rows
+     26 -> 23 -> 25) and MLP (26 -> 23 -> 27 -> 23 -> 25) on the grouped
+     layout, every launch checked against its plain version and bit for
+     bit against its flat twin, the logits bit-identical to the flat
+     routes'; (b) the MLP's round-2 tail (rows 4 -> 5 -> 22 -> a bf16
+     torch.matmul of the left factor -> 24 -> 25), every launch checked,
+     the logits a tripwire; the flat, (a) and (b) prefills timed in 3
+     interleaved rounds.
   Each model is freed before the next is built. Then the kernel table as
   one JSON line, then the result line.
 
@@ -1248,6 +1266,242 @@ def check_baseline_kernels(torch, dev, gen, results):
                 f"{d2:.3e}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}); library_ms none")
         del caches, args
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: rows 22-27, the grouped layout, and row 1 at the prefill's M
+# ---------------------------------------------------------------------------
+
+
+def _rand_weights(torch, dev, gen, n, k, copies=None):
+    """`copies` (default: enough to pass the L2 cache) sets of random
+    planar int4 weights [n, k/2] and their scales [n]."""
+    return [(torch.randint(0, 256, (n, k // 2), generator=gen, device=dev,
+                           dtype=torch.uint8),
+             torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-4)
+            for _ in range(copies or copies_for(n * k // 2))]
+
+
+def _twin_equal(torch, name, got, want):
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: not bit-identical to its flat "
+                                 "twin on the same values")
+
+
+def check_grouped_kernels(torch, dev, gen, results):
+    """Rows 22-27 at llama-2-7b's 1 x 2048 prefill shapes (T = 2048): each
+    held to its plain version (its twin's tolerance mode, tolerance.py)
+    with identity and random orthogonal factors, and bit for bit to its
+    flat twin on the same values through the layout glue; then timed
+    (orthogonal factors) beside its bound, its plain version and, for the
+    GEMMs, torch._int_mm of the GEMM part on pre-unpacked int8 weights (a
+    yardstick the port never calls). Row 26 at [2048, 4096] -> [32, 2048,
+    128]; row 23 at G = 32 and 86; row 27 [32, 2048, 128] -> [86, 2048,
+    128], N = 2 x 11008; row 22 [2048, 4096] -> [86, 2048, 128]; row 25 at
+    qkv (K 4096, N 12288) and down (K 11008, N 4096); row 24 at [86, 2048,
+    128] with LAC clips. Edge shapes are checked, not timed: M = 300,
+    float32 inputs, no clips, q_max 127 and a zero row. Row 1 itself is
+    timed at M = 2048, qkv and down, beside torch._int_mm."""
+    from flatquant_torch.kernels import flat_pipeline as fp
+    from flatquant_torch.kernels import grouped_mlp as gm
+    from flatquant_torch.kernels import int4_matmul as im
+    from flatquant_torch.kernels.tolerance import (
+        compare_bf16, compare_codes, compare_scales)
+    from flatquant_torch.models.config import get_config
+
+    cfg = get_config("llama-2-7b")
+    T, H, I = 2048, cfg.hidden_size, cfg.intermediate_size
+    clip = _lac_clip(torch, dev)
+    ug = gm.ungroup_layout
+
+    # row 26
+    def rms(x, w, right, mode, label):
+        y = gm.rmsnorm_right_grouped(x, w, right, 1e-5)
+        err = compare_bf16(ug(y), ug(gm.rmsnorm_right_grouped_ref(
+            x, w, right, 1e-5)), mode, f"rmsnorm_right_grouped {label}")
+        _twin_equal(torch, "rmsnorm_right_grouped", [ug(y)],
+                    [fp.rmsnorm_right_flat(x, w, right, 1e-5)])
+        return err
+
+    w = torch.rand((H,), generator=gen, device=dev) + 0.5
+    x300 = torch.randn((300, H), generator=gen, device=dev) * 2
+    rms(x300, w, _factor(torch, dev, gen, 128, "orthogonal"), "orthogonal",
+        "T=300 f32")
+    xs = [(torch.randn((T, H), generator=gen, device=dev) * 2).to(
+        torch.bfloat16) for _ in range(copies_for(4 * T * H))]
+    for mode in ("identity", "orthogonal"):
+        right = _factor(torch, dev, gen, 128, mode)
+        err = rms(xs[0], w, right, mode, mode)
+    log(f"  rmsnorm_right_grouped T={T} H={H} (also T=300 f32): within "
+        f"tolerance of the plain version, bit-identical to "
+        f"rmsnorm_right_flat")
+    _kernel_row(torch, results, "rmsnorm_right_grouped",
+                f"T={T} H={H} -> [{H // 128}, {T}, 128]",
+                lambda x: gm.rmsnorm_right_grouped(x, w, right, 1e-5),
+                lambda x: gm.rmsnorm_right_grouped_ref(x, w, right, 1e-5),
+                [(x,) for x in xs], 4 * T * H + 4 * H + 2 * 128 * 128,
+                2 * T * H * 128, BF16_FLOPS_PER_S, err)
+    del xs, x300
+
+    # row 23
+    def lq(lt, xg, c, mode, label):
+        q, sc = gm.left_quant_i8_grouped(lt, xg, c)
+        q_ref, sc_ref = gm.left_quant_i8_grouped_ref(lt, xg, c)
+        compare_codes(q, q_ref, mode, f"left_quant_i8_grouped {label} codes")
+        err = compare_scales(sc, sc_ref, mode,
+                             f"left_quant_i8_grouped {label} scales")
+        _twin_equal(torch, "left_quant_i8_grouped", [ug(q), sc],
+                    fp.left_quant_i8_flat(lt, ug(xg), c))
+        return err
+
+    x300 = (torch.randn((300, I), generator=gen, device=dev) * 3).to(
+        torch.bfloat16)
+    x300[7] = 0
+    lq(_factor(torch, dev, gen, I // 128, "orthogonal"),
+       gm.group_layout(x300, I // 128), None, "orthogonal",
+       "T=300 G=86 no clip")
+    for k in (H, I):
+        g = k // 128
+        xs = [gm.group_layout((torch.randn((T, k), generator=gen, device=dev)
+                               * 3).to(torch.bfloat16), g)
+              for _ in range(copies_for(3 * T * k))]
+        for mode in ("identity", "orthogonal"):
+            lt = _factor(torch, dev, gen, g, mode)
+            err = lq(lt, xs[0], clip, mode, f"G={g} {mode}")
+        log(f"  left_quant_i8_grouped [{g}, {T}, 128] (also "
+            f"[{I // 128}, 300, 128] without clips): codes and scales within "
+            "tolerance, bit-identical to left_quant_i8_flat")
+        _kernel_row(torch, results, "left_quant_i8_grouped",
+                    f"[{g}, {T}, 128] (G={g})",
+                    lambda x: gm.left_quant_i8_grouped(lt, x, clip),
+                    lambda x: gm.left_quant_i8_grouped_ref(lt, x, clip),
+                    [(x,) for x in xs], 3 * T * k + 4 * T + 2 * g * g + 8,
+                    2 * T * k * g, BF16_FLOPS_PER_S, err, g=g)
+        del xs
+    del x300
+
+    # rows 22 and 27: the merged up||gate GEMM of the MLP
+    def swi(name, fn, plain, xq, xin, sx, wp, sw, right, mode, label):
+        y = fn(xin, sx, wp, sw, right)
+        err = compare_bf16(ug(y), ug(plain(xin, sx, wp, sw, right)), mode,
+                           f"{name} {label}")
+        _twin_equal(torch, name, [ug(y)],
+                    [fp.w4a4_matmul_i8_swiglu_right(xq, sx, wp, sw, right)])
+        return err
+
+    rows2227 = (("w4a4_swiglu_grouped", gm.w4a4_swiglu_grouped,
+                 gm.w4a4_swiglu_grouped_ref, False),
+                ("w4a4_swiglu_grouped_gx", gm.w4a4_swiglu_grouped_gx,
+                 gm.w4a4_swiglu_grouped_gx_ref, True))
+    for m in (300, T):
+        xq = torch.randint(-8, 8, (m, H), generator=gen, device=dev,
+                           dtype=torch.int8)
+        xqg = gm.group_layout(xq, H // 128)
+        sx = torch.rand((m, 1), generator=gen, device=dev) * 0.1 + 1e-3
+        ws = _rand_weights(torch, dev, gen, 2 * I, H, None if m == T else 1)
+        modes = ("identity", "orthogonal") if m == T else ("orthogonal",)
+        for name, fn, plain, gx in rows2227:
+            xin = xqg if gx else xq
+            for mode in modes:
+                right = _factor(torch, dev, gen, 128, mode)
+                err = swi(name, fn, plain, xq, xin, sx, *ws[0], right, mode,
+                          f"M={m} {mode}")
+            if m < T:
+                continue
+            log(f"  {name} M={T} K={H} N=2x{I} (also M=300): within "
+                "tolerance, bit-identical to w4a4_matmul_i8_swiglu_right")
+            w8 = [(xq, im.unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
+            _kernel_row(
+                torch, results, name,
+                f"M={T} {f'[{H // 128}, {T}, 128]' if gx else f'[{T}, {H}]'}"
+                f" -> "
+                f"[{I // 128}, {T}, 128], N=2x{I}",
+                lambda wp, sw: fn(xin, sx, wp, sw, right),
+                lambda wp, sw: plain(xin, sx, wp, sw, right),
+                ws, T * H + I * H + 4 * T + 8 * I + 2 * 128 * 128 + 2 * T * I,
+                2 * T * 2 * I * H + 2 * T * I * 128, INT8_OPS_PER_S, err,
+                lib=(torch._int_mm, w8, "torch._int_mm, int8 weights, GEMM "
+                     "only"))
+            del w8
+        del ws
+
+    # row 25, and row 1 at the same shapes
+    for m, proj, n, k in ((300, "down", H, I), (T, "qkv", 3 * H, H),
+                          (T, "down", H, I)):
+        xq = torch.randint(-8, 8, (m, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        xqg = gm.group_layout(xq, k // 128)
+        sx = torch.rand((m, 1), generator=gen, device=dev) * 0.1 + 1e-3
+        ws = _rand_weights(torch, dev, gen, n, k, None if m == T else 1)
+        out = torch.float32 if m < T else torch.bfloat16
+        y = gm.w4a4_matmul_i8_grouped(xqg, sx, *ws[0], out)
+        if not torch.equal(y, gm.w4a4_matmul_i8_grouped_ref(xqg, sx, *ws[0],
+                                                            out)):
+            raise AssertionError(f"w4a4_matmul_i8_grouped M={m} {proj}: not "
+                                 "bit-exact against its plain version")
+        _twin_equal(torch, "w4a4_matmul_i8_grouped", [y],
+                    [im.w4a4_matmul_i8(xq, sx, *ws[0], out)])
+        log(f"  w4a4_matmul_i8_grouped M={m} {proj} {n}x{k} ({out}): "
+            "bit-exact against its plain version and w4a4_matmul_i8")
+        if m < T:
+            continue
+        w8 = [(xq, im.unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
+        lib = (torch._int_mm, w8, "torch._int_mm, int8 weights")
+        nbytes = m * k + n * k // 2 + 4 * m + 4 * n + 2 * m * n
+        for name, x_in, fn, plain in (
+                ("w4a4_matmul_i8_grouped", xqg, gm.w4a4_matmul_i8_grouped,
+                 gm.w4a4_matmul_i8_grouped_ref),
+                ("w4a4_matmul_i8", xq, im.w4a4_matmul_i8,
+                 im.w4a8_matmul_ref)):
+            _kernel_row(torch, results, name,
+                        f"M={m} {proj} {n}x{k} (1 x 2048 prefill)",
+                        lambda wp, sw: fn(x_in, sx, wp, sw),
+                        lambda wp, sw: plain(x_in, sx, wp, sw), ws, nbytes,
+                        2 * m * n * k, INT8_OPS_PER_S, 0.0, iters=20,
+                        lib=lib, m=m, proj=proj)
+        del ws, w8
+
+    # row 24
+    x300 = gm.group_layout(torch.randn((300, H), generator=gen, device=dev)
+                           * 3, H // 128)
+    x300[:, 5] = 0
+    xs = [gm.group_layout((torch.randn((T, I), generator=gen, device=dev)
+                           * 3).to(torch.bfloat16), I // 128)
+          for _ in range(copies_for(3 * T * I))]
+    xs[0][:, 1] = 0  # a zero row: scale 1, codes 0
+    for x, c, q_max, label in ((x300, None, 127, f"[{H // 128}, 300, 128] "
+                                "f32 q_max 127, no clips"),
+                               (xs[0], clip, 7, f"[{I // 128}, {T}, 128] "
+                                "bf16")):
+        q, sc = gm.quant_acts_i8_grouped(x, c, q_max)
+        q_ref, sc_ref = gm.quant_acts_i8_grouped_ref(x, c, q_max)
+        if not (torch.equal(q, q_ref) and torch.equal(sc, sc_ref)):
+            raise AssertionError(f"quant_acts_i8_grouped {label}: codes or "
+                                 "scales not bit-exact")
+        _twin_equal(torch, "quant_acts_i8_grouped", [ug(q), sc],
+                    im.quant_acts_i8(ug(x), c, q_max))
+        log(f"  quant_acts_i8_grouped {label}: codes and scales bit-exact, "
+            "bit-identical to quant_acts_i8")
+    _kernel_row(torch, results, "quant_acts_i8_grouped",
+                f"[{I // 128}, {T}, 128] bf16, LAC clips, q_max 7",
+                lambda x: gm.quant_acts_i8_grouped(x, clip, 7),
+                lambda x: gm.quant_acts_i8_grouped_ref(x, clip, 7),
+                [(x,) for x in xs], 3 * T * I + 4 * T + 8, 4 * T * I,
+                F32_FLOPS_PER_S, 0.0)
+    # the round-2 tail's left product on row 24's inputs (phase 12 (b)
+    # runs it between rows 22 and 24): one bf16 torch.matmul, no kernel
+    g = I // 128
+    lt = _factor(torch, dev, gen, g, "orthogonal").to(torch.bfloat16)
+    ms = cuda_ms(torch, lambda x: torch.matmul(lt, x.reshape(g, -1)),
+                 [(x,) for x in xs], 20)
+    b_ms, b_by = bound_ms(4 * T * I, 2 * T * I * g, BF16_FLOPS_PER_S)
+    results["round2_left_matmul"] = dict(ms=ms, bound_ms=b_ms,
+                                         bound_by=b_by)
+    log(f"  the round-2 tail's left product, torch.matmul [{g}, {g}] x "
+        f"[{g}, {T * 128}] bf16: {ms:.4f} ms, bound {b_ms * 1e3:.2f} us "
+        f"({b_by})")
+    del xs, x300
 
 
 # ---------------------------------------------------------------------------
@@ -3476,6 +3730,220 @@ def run_baseline_paths(torch, dev, model, results, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: rows 22-27 at their flat twins' call sites
+# ---------------------------------------------------------------------------
+
+# launches per layer of one 1 x 2048 prefill: (a) the attention input and
+# the MLP on the grouped layout (the o projection stays flat); (b) the flat
+# ln2 + quant, then the round-2 tail
+GROUPED_FULL_LAUNCHES = {
+    "rmsnorm_right_grouped": 2, "left_quant_i8_grouped": 3,
+    "w4a4_swiglu_grouped_gx": 1, "w4a4_matmul_i8_grouped": 2,
+    "rmsnorm_right_flat": 0, "left_quant_i8_flat": 1,
+    "w4a4_matmul_i8_swiglu_right": 0, "w4a4_matmul_i8": 1}
+GROUPED_ROUND2_LAUNCHES = {
+    "w4a4_swiglu_grouped": 1, "quant_acts_i8_grouped": 1,
+    "w4a4_matmul_i8_grouped": 1, "rmsnorm_right_flat": 2,
+    "left_quant_i8_flat": 3, "w4a4_matmul_i8_swiglu_right": 0,
+    "w4a4_matmul_i8": 2}
+
+
+def _checked_grouped(torch, n, worst):
+    """(quantized, name, checking wrapper) for each grouped wrapper the
+    grouped routes call: every launch held to its plain version (the
+    "orthogonal" mode, the model's factors; rows 24 and 25 bit for bit)
+    and bit for bit to its flat twin on the same values."""
+    from flatquant_torch.kernels import flat_pipeline as fp
+    from flatquant_torch.kernels import grouped_mlp as gm
+    from flatquant_torch.kernels import int4_matmul as im
+    from flatquant_torch.kernels.tolerance import (
+        compare_bf16, compare_codes, compare_scales)
+    from flatquant_torch.serving import quantized
+
+    mode, ug = "orthogonal", gm.ungroup_layout
+
+    def note(name, err):
+        n[name] = n.get(name, 0) + 1
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    def rms(x, w, right, eps):
+        y = gm.rmsnorm_right_grouped(x, w, right, eps)
+        err = compare_bf16(ug(y), ug(gm.rmsnorm_right_grouped_ref(
+            x, w, right, eps)), mode, "rmsnorm_right_grouped on the path")
+        _twin_equal(torch, "rmsnorm_right_grouped on the path", [ug(y)],
+                    [fp.rmsnorm_right_flat(x, w, right, eps)])
+        note("rmsnorm_right_grouped", err)
+        return y
+
+    def lq(left_t, x, clip=None, q_max=7):
+        q, s = gm.left_quant_i8_grouped(left_t, x, clip, q_max)
+        q_ref, s_ref = gm.left_quant_i8_grouped_ref(left_t, x, clip, q_max)
+        compare_codes(q, q_ref, mode, "left_quant_i8_grouped on the path")
+        err = compare_scales(s, s_ref, mode,
+                             "left_quant_i8_grouped scales on the path")
+        _twin_equal(torch, "left_quant_i8_grouped on the path", [ug(q), s],
+                    fp.left_quant_i8_flat(left_t, ug(x), clip, q_max))
+        note("left_quant_i8_grouped", err)
+        return q, s
+
+    def swiglu(name, xq_flat):
+        fn, plain = getattr(gm, name), getattr(gm, name + "_ref")
+
+        def swi(xq, xs, wp, sw, right):
+            y = fn(xq, xs, wp, sw, right)
+            err = compare_bf16(ug(y), ug(plain(xq, xs, wp, sw, right)), mode,
+                               f"{name} on the path")
+            _twin_equal(torch, f"{name} on the path", [ug(y)],
+                        [fp.w4a4_matmul_i8_swiglu_right(
+                            xq_flat(xq), xs, wp, sw, right)])
+            note(name, err)
+            return y
+
+        return swi
+
+    def qa(x, clip=None, q_max=7):
+        q, s = gm.quant_acts_i8_grouped(x, clip, q_max)
+        if not all(torch.equal(a, b) for a, b in zip(
+                (q, s), gm.quant_acts_i8_grouped_ref(x, clip, q_max))):
+            raise AssertionError("quant_acts_i8_grouped not bit-exact on the "
+                                 "path")
+        _twin_equal(torch, "quant_acts_i8_grouped on the path", [ug(q), s],
+                    im.quant_acts_i8(ug(x), clip, q_max))
+        note("quant_acts_i8_grouped", 0.0)
+        return q, s
+
+    def gemm(xq, xs, wp, sw, out_dtype=torch.bfloat16):
+        y = gm.w4a4_matmul_i8_grouped(xq, xs, wp, sw, out_dtype)
+        if not torch.equal(y, gm.w4a4_matmul_i8_grouped_ref(xq, xs, wp, sw,
+                                                            out_dtype)):
+            raise AssertionError("w4a4_matmul_i8_grouped not bit-exact on "
+                                 "the path")
+        _twin_equal(torch, "w4a4_matmul_i8_grouped on the path", [y],
+                    [im.w4a4_matmul_i8(ug(xq), xs, wp, sw, out_dtype)])
+        note("w4a4_matmul_i8_grouped", 0.0)
+        return y
+
+    return [(quantized, "rmsnorm_right_grouped", rms),
+            (quantized, "left_quant_i8_grouped", lq),
+            (quantized, "w4a4_swiglu_grouped",
+             swiglu("w4a4_swiglu_grouped", lambda x: x)),
+            (quantized, "w4a4_swiglu_grouped_gx",
+             swiglu("w4a4_swiglu_grouped_gx", ug)),
+            (quantized, "quant_acts_i8_grouped", qa),
+            (quantized, "w4a4_matmul_i8_grouped", gemm)]
+
+
+def run_grouped_paths(torch, dev, model, results, smi):
+    """Rows 22-27 at their flat twins' call sites in phase 6a's 1 x 2048
+    prefill over the int4 cache (phase 7's llama-2-7b, rebuilt from seed
+    0; the same prompt). (a) The fused attention input through rows 26 ->
+    23 -> 25 and the fused MLP through 26 -> 23 -> 27 -> 23 -> 25
+    (quantized._grouped_layout_attn_in and _grouped_layout_mlp_full at
+    _grouped_attn_in and _quant_mlp_grouped_full; the o projection stays
+    flat): the launches counted, every launch of a prefill held to its
+    plain version and bit for bit to its flat twin, and the last-position
+    logits bit-identical to the flat routes'. (b) The MLP through rows 4
+    -> 5 -> 22 -> the left factor as one bf16 torch.matmul -> 24 -> 25
+    (_grouped_layout_mlp_round2): counted, every launch checked (rows 22,
+    24 and 25 bit for bit against rows 6, 12 and 1), the logits against
+    the flat route's as a tripwire (LONG_COSINE_FLOOR: cuBLAS sums the
+    left product in another order than row 5). The prefill of the flat
+    routes, (a) and (b) timed in 3 interleaved rounds (medians). Returns
+    the launches of (a) and (b)."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.serving import engine, quantized
+    from flatquant_torch.serving.engine import init_cache, serving_prefill
+
+    cfg, fq, sp = model
+    L = cfg.num_layers
+    B, S, MAX_LEN = 1, 2048, 2304
+    gen = torch.Generator(device=dev).manual_seed(3)  # phase 6a's prompt
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    kw = dict(max_len=MAX_LEN, device=dev)
+    at_sites = lambda attn_in, mlp: [
+        (m, name, fn) for m in (quantized, engine)
+        for name, fn in (("_grouped_attn_in", attn_in),
+                         ("_quant_mlp_grouped_full", mlp)) if fn]
+    routes = {"flat": [],
+              "grouped_full": at_sites(quantized._grouped_layout_attn_in,
+                                       quantized._grouped_layout_mlp_full),
+              "grouped_round2": at_sites(
+                  None, quantized._grouped_layout_mlp_round2)}
+    expected = {"grouped_full": GROUPED_FULL_LAUNCHES,
+                "grouped_round2": GROUPED_ROUND2_LAUNCHES}
+
+    def prefill(key, checks=()):
+        c = init_cache(cfg, B, MAX_LEN, mode="int4", device=dev)
+        torch.cuda.synchronize()
+        with patched(routes[key] + list(checks)):
+            t0 = time.perf_counter()
+            lg, _ = serving_prefill(cfg, fq, sp, prompt, c, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        return lg, ms
+
+    last = {key: prefill(key)[0] for key in routes}  # warm-up, the logits
+    paths, rec = {}, {}
+    for key, tag in (("grouped_full", "(a)"), ("grouped_round2", "(b)")):
+        common.reset_launches()
+        prefill(key)
+        paths[key] = dict(common.LAUNCHES)
+        bad = {name: paths[key][name] for name, per_layer in
+               expected[key].items() if paths[key][name] != per_layer * L}
+        if bad:
+            raise AssertionError(f"{tag} launches {bad}, expected per layer "
+                                 f"{expected[key]} x {L}")
+        n, worst = {}, {}
+        prefill(key, _checked_grouped(torch, n, worst))
+        want = {name: c * L for name, c in expected[key].items()
+                if name.endswith(("_grouped", "_grouped_gx"))}
+        if n != want:
+            raise AssertionError(f"{tag} launches checked {n}, expected "
+                                 f"{want}")
+        rec[key] = dict(launches=want, checked=n, max_abs_err=worst)
+        log(f"  {tag} {key}: launches per 1 x {S} prefill {want}; every one "
+            f"held to its plain version and bit-identical to its flat twin, "
+            f"max abs err {worst}")
+    for key in routes:
+        if not torch.isfinite(last[key]).all():
+            raise AssertionError(f"{key}: logits not finite")
+    if not torch.equal(last["grouped_full"], last["flat"]):
+        raise AssertionError("(a) the fully grouped prefill's last-position "
+                             "logits differ from the flat routes'")
+    cos = _cosine(torch, last["grouped_round2"], last["flat"])
+    if cos < LONG_COSINE_FLOOR:
+        raise AssertionError(f"(b) last-position logits cosine {cos:.4f} "
+                             "against the flat routes'")
+    rec["grouped_full"]["logits_equal_flat"] = True
+    rec["grouped_round2"]["cosine_vs_flat"] = cos
+    log(f"  (a) last-position logits bit-identical to the flat routes'; (b) "
+        f"cosine against them {cos:.4f} (floor {LONG_COSINE_FLOOR})")
+
+    med = lambda v: sorted(v)[len(v) // 2]
+    walls = {key: [] for key in routes}
+    repeat = True  # every timed prefill's logits equal the first run's
+    for _ in range(3):  # interleaved
+        for key in routes:
+            lg, ms = prefill(key)
+            walls[key].append(ms)
+            repeat = repeat and torch.equal(lg, last[key])
+    for key in routes:
+        ratio = [w / f for w, f in zip(walls[key], walls["flat"])]
+        rec.setdefault(key, {}).update(prefill_ms=walls[key],
+                                       prefill_ms_median=med(walls[key]),
+                                       ratio_to_flat=ratio)
+        log(f"  [{smi}] 1 x {S} prefill, {key}: median {med(walls[key]):.1f}"
+            f" ms of {[round(w, 1) for w in walls[key]]}; against the flat "
+            f"routes' of the same round {[round(r, 4) for r in ratio]}")
+    log(f"  the timed prefills' logits equal each route's first run: "
+        f"{repeat}")
+    rec["prefill_logits_repeat"] = repeat
+    results["grouped_paths"] = rec
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -3543,6 +4011,24 @@ KERNELS = {
     "decode_attention_int4_v3": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/kv_cache.cu",
         replaces="flatquant_tpu/kernels/kv_cache.py:386"),
+    "w4a4_swiglu_grouped": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
+        replaces="flatquant_tpu/kernels/grouped_mlp.py:71"),
+    "left_quant_i8_grouped": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
+        replaces="flatquant_tpu/kernels/grouped_mlp.py:170"),
+    "quant_acts_i8_grouped": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/int4_matmul.cu",
+        replaces="flatquant_tpu/kernels/grouped_mlp.py:238"),
+    "w4a4_matmul_i8_grouped": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/int4_matmul.cu",
+        replaces="flatquant_tpu/kernels/grouped_mlp.py:323"),
+    "rmsnorm_right_grouped": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
+        replaces="flatquant_tpu/kernels/grouped_mlp.py:424"),
+    "w4a4_swiglu_grouped_gx": dict(
+        route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
+        replaces="flatquant_tpu/kernels/grouped_mlp.py:505"),
 }
 # the path each kernel's `launches` is read from (each path's counts set to
 # 0 just before it and read just after): the decode-serving run of phase 4
@@ -3555,7 +4041,9 @@ KERNELS = {
 # for row 16, and phase 11's runs of rows 17-21 in place of their twins:
 # (a) the fused-quant decode for row 17, (b) the decode with each of rows
 # 19-21 at row 2's call site, (c) the 1 x 2048 prefill with row 18 (pv_i8,
-# JAX's default) at row 8's
+# JAX's default) at row 8's; and phase 12's 1 x 2048 prefills, (a) fully
+# grouped for rows 23, 25, 26 and 27, (b) the round-2 tail for rows 22 and
+# 24
 KERNEL_PATH = dict(
     dict.fromkeys(("w4a4_matmul_i8", "decode_attention_int4", "write_token"),
                   "decode"),
@@ -3572,7 +4060,12 @@ KERNEL_PATH = dict(
     flash_prefill_attention_kt_i8="baseline_i8_prefill",
     decode_attention_int4_v1="baseline_v1",
     decode_attention_int4_wide="baseline_wide",
-    decode_attention_int4_v3="baseline_v3")
+    decode_attention_int4_v3="baseline_v3",
+    **dict.fromkeys(("rmsnorm_right_grouped", "left_quant_i8_grouped",
+                     "w4a4_swiglu_grouped_gx", "w4a4_matmul_i8_grouped"),
+                    "grouped_full"),
+    w4a4_swiglu_grouped="grouped_round2",
+    quant_acts_i8_grouped="grouped_round2")
 DECODE_KERNELS = [k for k, p in KERNEL_PATH.items() if p == "decode"]
 
 
@@ -3587,7 +4080,10 @@ def kernel_line(results, paths):
     GEMM at M=2048); row 14 as one W4A16 llama-2-7b layer's four linears
     at M=1 (the B=1 decode of phase 9). Row 17 as row 1 (one layer's four
     linears at M=4), row 18 at llama-2-7b's 1 x 2048 with pv_i8, rows
-    19-21 at row 2's shape. paths: {path: launches read around it}."""
+    19-21 at row 2's shape. Rows 22-27 at the 1 x 2048 prefill's shapes:
+    row 25 as one layer's qkv + down, row 23 as one layer's three
+    launches (2 x G=32, 1 x G=86). paths: {path: launches read around
+    it}."""
     out = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -3618,6 +4114,13 @@ def kernel_line(results, paths):
             rows, weights = r["rows"], [3, 1]
             at = ("T=2048, one layer: 3 x K=4096 (ln1, o, ln2) + "
                   "1 x K=11008 (down)")
+        elif name == "left_quant_i8_grouped":
+            rows, weights = r["rows"], [2, 1]
+            at = ("T=2048, one layer: 2 x G=32 (ln1, ln2) + 1 x G=86 "
+                  "(down)")
+        elif name == "w4a4_matmul_i8_grouped":
+            rows = r["rows"]
+            at = "M=2048 (1 x 2048 prefill), sum of qkv + down of one layer"
         elif name.startswith("flash_prefill"):
             rows = r["rows"][:1]
             at = rows[0]["case"]
@@ -3653,8 +4156,8 @@ def kernel_line(results, paths):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases to run after 1-2 (3a-3i, "
-                    "3 for all of them, 4-11; 6 runs 6a-6c); the default "
+                    help="comma-separated phases to run after 1-2 (3a-3j, "
+                    "3 for all of them, 4-12; 6 runs 6a-6c); the default "
                     "is all. A partial run prints no kernel table")
     args = ap.parse_args(argv)
     only = set(filter(None, args.phases.split(",")))
@@ -3723,7 +4226,9 @@ def main(argv=None) -> int:
         ("3h", "fp8_matmul (row 16) and w4a4_matmul_i8 at DeepSeek-V2-Lite's "
          "shapes vs their plain versions", check_fp8_kernels),
         ("3i", "rows 17-21, the JAX package's kernel baselines, vs their "
-         "plain versions", check_baseline_kernels)]
+         "plain versions", check_baseline_kernels),
+        ("3j", "rows 22-27, the grouped layout, vs their plain versions and "
+         "flat twins; row 1 at M=2048", check_grouped_kernels)]
     for key, what, fn in kernel_phases:
         if not failed and want(key, "3"):
             phase(f"phase {key}: {what}", fn, torch, dev, gen, results)
@@ -3758,9 +4263,9 @@ def main(argv=None) -> int:
             paths["bf16_comparator"] = phase(
                 "phase 6c: the bf16 comparator, llama-2-7b 1 x 2048",
                 run_bf16_comparator, torch, dev, results, smi) or {}
-    if serve and want("7", "11"):
-        model = phase("rebuild the random llama-2-7b (seed 0) for phases 7 "
-                      "and 11", build_model, torch, dev, 0)
+    if serve and want("7", "11", "12"):
+        model = phase("rebuild the random llama-2-7b (seed 0) for phases 7, "
+                      "11 and 12", build_model, torch, dev, 0)
     if model is not None:
         if want("7"):
             paths.update(phase(
@@ -3770,6 +4275,11 @@ def main(argv=None) -> int:
             paths.update(phase(
                 "phase 11: rows 17-21 in place of their twins on llama-2-7b "
                 "(decode B=4, prefill 1 x 2048)", run_baseline_paths, torch,
+                dev, model, results, smi) or {})
+        if want("12"):
+            paths.update(phase(
+                "phase 12: rows 22-27 at their flat twins' call sites on "
+                "llama-2-7b (1 x 2048 prefill)", run_grouped_paths, torch,
                 dev, model, results, smi) or {})
         del model
         gc.collect()

@@ -54,6 +54,12 @@ LAUNCHES: Dict[str, int] = {
     "decode_attention_int4_v1": 0,
     "decode_attention_int4_wide": 0,
     "decode_attention_int4_v3": 0,
+    "w4a4_swiglu_grouped": 0,
+    "left_quant_i8_grouped": 0,
+    "quant_acts_i8_grouped": 0,
+    "w4a4_matmul_i8_grouped": 0,
+    "rmsnorm_right_grouped": 0,
+    "w4a4_swiglu_grouped_gx": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -74,6 +80,11 @@ _SIGNATURES = {
         # x, clip, wp, sw, y, M, N, K, x_is_f32, out_is_f32, stream
         "fq_w4a4_matmul_i8_fusedq": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _P],
+        # fq_w4a4_matmul_i8's, xq grouped [K/128, M, 128]
+        "fq_w4a4_matmul_i8_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _P],
+        # fq_quant_acts_i8's, x and xq grouped [K/128, M, 128]
+        "fq_quant_acts_i8_grouped": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     },
     "kv_cache": {
         # q, kp, kpar, vp, vpar, valid, out, B, nkv, n_rep, S, sm_scale, stream
@@ -107,6 +118,12 @@ _SIGNATURES = {
                                            _I, _P],
         # xq, wp, sx, sw, y, M, NH, K, out_is_f32, stream
         "fq_w4a4_matmul_i8_swiglu": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # the flat ones' arguments, grouped layouts (see csrc)
+        "fq_rmsnorm_right_grouped": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+        "fq_left_quant_i8_grouped": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+        # xq, wp, sx, sw, right, y, M, NH, K, x_grouped, stream
+        "fq_w4a4_swiglu_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _P],
     },
     "attn_prologue": {
         # qkv, cos, sin, kt, kti, clip, q_out, k_out, kc, kpar, vc, vpar,

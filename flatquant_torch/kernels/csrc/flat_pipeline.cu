@@ -7,9 +7,23 @@
 // and flatquant_tpu/kernels/int4_matmul.py (Pallas):
 //   w4a4_matmul_i8_swiglu        -> fq_w4a4_matmul_i8_swiglu, the same
 //                                   GEMM without the right factor
+// and flatquant_tpu/kernels/grouped_mlp.py (Pallas), the same functions on
+// the grouped layout [G, T, 128] (flat column c of token t at
+// (c / 128) * T * 128 + t * 128 + c % 128):
+//   rmsnorm_right_grouped        -> fq_rmsnorm_right_grouped (grouped out)
+//   left_quant_i8_grouped        -> fq_left_quant_i8_grouped (in and out)
+//   w4a4_swiglu_grouped          -> fq_w4a4_swiglu_grouped (grouped out)
+//   w4a4_swiglu_grouped_gx       -> fq_w4a4_swiglu_grouped (x_grouped: in
+//                                   and out)
+// Each grouped kernel is its flat twin's device body with a layout flag
+// that changes only addresses: every 16-byte chunk and every 128-wide
+// tile a body touches lies inside one group. So a grouped kernel runs its
+// twin's instructions in its twin's order and equals it bit for bit on
+// group_layout of the same input.
 //
-// All three keep the flat [T, K] layout, K = G * 128, and round to bf16 at
-// the points the JAX kernels do (see kernels/flat_pipeline.py). Float
+// The flat kernels keep the flat [T, K] layout, K = G * 128, and all
+// round to bf16 at the points the JAX kernels do (see
+// kernels/flat_pipeline.py). Float
 // arithmetic that the plain versions do op by op is written with
 // __fmul_rn / __fadd_rn / IEEE '/' where the compiler could otherwise
 // contract it into an FMA; only the matrix-product sums use FMAs (their
@@ -65,7 +79,7 @@ cudaError_t allow_smem(K kernel, int bytes, int* done) {
 }
 
 // ---------------------------------------------------------------------------
-// rmsnorm_right_flat
+// rmsnorm_right_flat, rmsnorm_right_grouped
 //
 // y[t, g*128 + c] = bf16(sum_d xn[t, g*128 + d] * R[d, c])
 // xn = bf16((x * rsqrt(sum(x^2) * (1/H) + eps)) * w)
@@ -81,12 +95,14 @@ constexpr int RMS_ROWS = 16;
 constexpr int RMS_THREADS = 256;
 constexpr int RMS_SMEM = (128 * 128 + RMS_ROWS * 128 + RMS_ROWS) * 4;
 
-template <typename InT>
-__global__ void __launch_bounds__(RMS_THREADS)
-rmsnorm_right_flat_kernel(const InT* __restrict__ x,
-                          const float* __restrict__ w,
-                          const float* __restrict__ right,
-                          bf16* __restrict__ y, int T, int H, float eps) {
+// GROUPED: y is [H / 128, T, 128] (rmsnorm_right_grouped) instead of
+// [T, H]; nothing else changes.
+template <typename InT, bool GROUPED>
+__device__ __forceinline__ void rmsnorm_right(const InT* __restrict__ x,
+                                              const float* __restrict__ w,
+                                              const float* __restrict__ right,
+                                              bf16* __restrict__ y, int T,
+                                              int H, float eps) {
   extern __shared__ float4 smem4[];
   float* rs = reinterpret_cast<float*>(smem4);  // [128][128]
   float* xn = rs + 128 * 128;                   // [RMS_ROWS][128]
@@ -146,16 +162,37 @@ rmsnorm_right_flat_kernel(const InT* __restrict__ x,
     }
 #pragma unroll
     for (int r = 0; r < RMS_ROWS / 2; ++r) {
-      if (t0 + rb + r < T)
-        y[static_cast<size_t>(t0 + rb + r) * H + g * 128 + c] =
-            __float2bfloat16_rn(acc[r]);
+      if (t0 + rb + r < T) {
+        const size_t t = t0 + rb + r;
+        const size_t at = GROUPED ? (g * static_cast<size_t>(T) + t) * 128 + c
+                                  : t * H + g * 128 + c;
+        y[at] = __float2bfloat16_rn(acc[r]);
+      }
     }
     __syncthreads();  // xn is overwritten by the next group
   }
 }
 
+template <typename InT>
+__global__ void __launch_bounds__(RMS_THREADS)
+rmsnorm_right_flat_kernel(const InT* __restrict__ x,
+                          const float* __restrict__ w,
+                          const float* __restrict__ right,
+                          bf16* __restrict__ y, int T, int H, float eps) {
+  rmsnorm_right<InT, false>(x, w, right, y, T, H, eps);
+}
+
+template <typename InT>
+__global__ void __launch_bounds__(RMS_THREADS)
+rmsnorm_right_grouped_kernel(const InT* __restrict__ x,
+                             const float* __restrict__ w,
+                             const float* __restrict__ right,
+                             bf16* __restrict__ y, int T, int H, float eps) {
+  rmsnorm_right<InT, true>(x, w, right, y, T, H, eps);
+}
+
 // ---------------------------------------------------------------------------
-// left_quant_i8_flat
+// left_quant_i8_flat, left_quant_i8_grouped
 //
 // z[t, i*128 + d] = bf16(sum_j left_t[i, j] * x[t, j*128 + d])
 // xmax = max(max_i,d z, 0) * cmax; xmin = min(min z, 0) * cmin
@@ -181,12 +218,15 @@ __host__ inline int lq_smem(int g) {
   return g * lq_pad(g) * 4 + 2 * lq_pad(g) * 128 * 2 + 2 * 4 * 4;
 }
 
-__global__ void __launch_bounds__(LQ_THREADS)
-left_quant_i8_flat_kernel(const float* __restrict__ ltT,
-                          const bf16* __restrict__ x,
-                          const float* __restrict__ clip,
-                          int8_t* __restrict__ xq, float* __restrict__ xs,
-                          int G, float q_max) {
+// GROUPED: x and xq are [G, T, 128] (left_quant_i8_grouped) instead of
+// [T, G * 128]; only the row's addresses change.
+template <bool GROUPED>
+__device__ __forceinline__ void left_quant_i8(const float* __restrict__ ltT,
+                                              const bf16* __restrict__ x,
+                                              const float* __restrict__ clip,
+                                              int8_t* __restrict__ xq,
+                                              float* __restrict__ xs, int G,
+                                              int T, float q_max) {
   extern __shared__ float4 smem4[];
   const int GP = lq_pad(G);
   float* lt = reinterpret_cast<float*>(smem4);            // [G][GP]: ltT
@@ -202,8 +242,12 @@ left_quant_i8_flat_kernel(const float* __restrict__ ltT,
     const int j = i / GP, c = i % GP;
     lt[i] = c < G ? ltT[j * G + c] : 0.f;
   }
-  const bf16* xr = x + row * K;
-  for (int j = 0; j < G; ++j) xc[j * 128 + d] = xr[j * 128 + d];
+  // offset of (this row, column group j, column 0) in x and xq
+  auto at = [&](int j) -> size_t {
+    if constexpr (GROUPED) return (j * static_cast<size_t>(T) + row) * 128;
+    else return row * K + j * 128;
+  };
+  for (int j = 0; j < G; ++j) xc[j * 128 + d] = x[at(j) + d];
   __syncthreads();
 
   float mx = 0.f, mn = 0.f;  // max(., 0) and min(., 0) folded in
@@ -248,16 +292,34 @@ left_quant_i8_flat_kernel(const float* __restrict__ ltT,
   const float absmax = fmaxf(fabsf(xmin), xmax);
   const float s = absmax == 0.f ? 1.f : absmax / q_max;
   if (d == 0) xs[row] = s;
-  int8_t* qr = xq + row * K;
   for (int i = 0; i < G; ++i) {
     const float q = rintf(__bfloat162float(zc[i * 128 + d]) / s);
-    qr[i * 128 + d] =
+    xq[at(i) + d] =
         static_cast<int8_t>(fminf(fmaxf(q, -q_max - 1.f), q_max));
   }
 }
 
+__global__ void __launch_bounds__(LQ_THREADS)
+left_quant_i8_flat_kernel(const float* __restrict__ ltT,
+                          const bf16* __restrict__ x,
+                          const float* __restrict__ clip,
+                          int8_t* __restrict__ xq, float* __restrict__ xs,
+                          int G, int T, float q_max) {
+  left_quant_i8<false>(ltT, x, clip, xq, xs, G, T, q_max);
+}
+
+__global__ void __launch_bounds__(LQ_THREADS)
+left_quant_i8_grouped_kernel(const float* __restrict__ ltT,
+                             const bf16* __restrict__ x,
+                             const float* __restrict__ clip,
+                             int8_t* __restrict__ xq, float* __restrict__ xs,
+                             int G, int T, float q_max) {
+  left_quant_i8<true>(ltT, x, clip, xq, xs, G, T, q_max);
+}
+
 // ---------------------------------------------------------------------------
-// w4a4_matmul_i8_swiglu_right
+// w4a4_matmul_i8_swiglu_right (and w4a4_matmul_i8_swiglu, w4a4_swiglu_grouped,
+// w4a4_swiglu_grouped_gx)
 //
 // acc_u[m, n] = sum_k x[m, k] * nib_u[n, k] (nib = biased nibble 0..15),
 // u = (float)(acc_u - 8 * rowsum(x)) * sx[m] * sw[n], g likewise from the
@@ -323,9 +385,14 @@ __device__ __forceinline__ bf16 to_out<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// The body of both swiglu GEMMs; each __global__ below carries its
-// wrapper's name (the profiles group kernels by it).
-template <bool RIGHT, typename OutT>
+// The body of the four swiglu GEMMs; each __global__ below carries its
+// wrapper's name (the profiles group kernels by it). GROUPED_IN: xq is
+// [K / 128, M, 128] (w4a4_swiglu_grouped_gx); GROUPED_OUT (with RIGHT): y
+// is [NH / 128, M, 128]. A load step's 16-byte slices start at multiples
+// of 16 and an output tile is one 128-column group, so only addresses
+// change.
+template <bool RIGHT, typename OutT, bool GROUPED_IN = false,
+          bool GROUPED_OUT = false>
 __device__ __forceinline__ void swiglu_gemm(const int8_t* __restrict__ xq,
                                             const uint8_t* __restrict__ wp,
                                             const float* __restrict__ sx,
@@ -363,8 +430,11 @@ __device__ __forceinline__ void swiglu_gemm(const int8_t* __restrict__ xq,
     for (int i = 0; i < 2; ++i) {
       const int m = m0 + a_row[i];
       const int col = (a_seg < 2 ? c : half + c) + (a_seg & 1) * 16;
-      ra[i] = m < M ? ldg16(xq + static_cast<size_t>(m) * K + col)
-                    : make_uint4(0u, 0u, 0u, 0u);
+      const size_t at =
+          GROUPED_IN ? ((col >> 7) * static_cast<size_t>(M) + m) * 128 +
+                           (col & 127)
+                     : static_cast<size_t>(m) * K + col;
+      ra[i] = m < M ? ldg16(xq + at) : make_uint4(0u, 0u, 0u, 0u);
       const int r = w_row[i];
       const size_t n = (r < 128 ? 0 : NH) + n0 + (r & 127);
       rw[i] = ldg16(wp + n * half + c + w_seg * 16);
@@ -524,7 +594,10 @@ __device__ __forceinline__ void swiglu_gemm(const int8_t* __restrict__ xq,
         __align__(16) bf16 o[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16_rn(out[i][j]);
-        *reinterpret_cast<uint4*>(y + static_cast<size_t>(m) * NH + n0 + cb) =
+        const size_t at =
+            GROUPED_OUT ? ((n0 >> 7) * static_cast<size_t>(M) + m) * 128 + cb
+                        : static_cast<size_t>(m) * NH + n0 + cb;
+        *reinterpret_cast<uint4*>(y + at) =
             *reinterpret_cast<const uint4*>(o);
       }
     }
@@ -542,6 +615,26 @@ w4a4_matmul_i8_swiglu_right_kernel(const int8_t* __restrict__ xq,
   swiglu_gemm<true, bf16>(xq, wp, sx, sw, right, y, M, NH, K);
 }
 
+__global__ void __launch_bounds__(SW_THREADS, 1)
+w4a4_swiglu_grouped_kernel(const int8_t* __restrict__ xq,
+                           const uint8_t* __restrict__ wp,
+                           const float* __restrict__ sx,
+                           const float* __restrict__ sw,
+                           const float* __restrict__ right,
+                           bf16* __restrict__ y, int M, int NH, int K) {
+  swiglu_gemm<true, bf16, false, true>(xq, wp, sx, sw, right, y, M, NH, K);
+}
+
+__global__ void __launch_bounds__(SW_THREADS, 1)
+w4a4_swiglu_grouped_gx_kernel(const int8_t* __restrict__ xq,
+                              const uint8_t* __restrict__ wp,
+                              const float* __restrict__ sx,
+                              const float* __restrict__ sw,
+                              const float* __restrict__ right,
+                              bf16* __restrict__ y, int M, int NH, int K) {
+  swiglu_gemm<true, bf16, true, true>(xq, wp, sx, sw, right, y, M, NH, K);
+}
+
 template <typename OutT>
 __global__ void __launch_bounds__(SW_THREADS, 1)
 w4a4_matmul_i8_swiglu_kernel(const int8_t* __restrict__ xq,
@@ -552,6 +645,71 @@ w4a4_matmul_i8_swiglu_kernel(const int8_t* __restrict__ xq,
   swiglu_gemm<false, OutT>(xq, wp, sx, sw, nullptr, y, M, NH, K);
 }
 
+template <bool GROUPED>
+int launch_rmsnorm_right(const void* x, const void* w, const void* right,
+                         void* y, int T, int H, float eps, int x_is_f32,
+                         cudaStream_t s) {
+  const int G = H / 128;
+  dim3 grid((T + RMS_ROWS - 1) / RMS_ROWS, G < 2 ? G : 2);
+  auto w_ = static_cast<const float*>(w);
+  auto r_ = static_cast<const float*>(right);
+  auto y_ = static_cast<bf16*>(y);
+  cudaError_t err;
+  if (x_is_f32) {
+    auto kern = GROUPED ? &rmsnorm_right_grouped_kernel<float>
+                        : &rmsnorm_right_flat_kernel<float>;
+    static int done = 0;
+    err = allow_smem(kern, RMS_SMEM, &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, RMS_THREADS, RMS_SMEM, s>>>(static_cast<const float*>(x),
+                                             w_, r_, y_, T, H, eps);
+  } else {
+    auto kern = GROUPED ? &rmsnorm_right_grouped_kernel<bf16>
+                        : &rmsnorm_right_flat_kernel<bf16>;
+    static int done = 0;
+    err = allow_smem(kern, RMS_SMEM, &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, RMS_THREADS, RMS_SMEM, s>>>(static_cast<const bf16*>(x),
+                                             w_, r_, y_, T, H, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool GROUPED>
+int launch_left_quant(const void* ltT, const void* x, const void* clip,
+                      void* xq, void* xs, int T, int G, float q_max,
+                      cudaStream_t s) {
+  auto kern = GROUPED ? &left_quant_i8_grouped_kernel
+                      : &left_quant_i8_flat_kernel;
+  const int bytes = lq_smem(G);
+  static int done = 0;
+  cudaError_t err = allow_smem(kern, bytes, &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<T, LQ_THREADS, bytes, s>>>(
+      static_cast<const float*>(ltT), static_cast<const bf16*>(x),
+      static_cast<const float*>(clip), static_cast<int8_t*>(xq),
+      static_cast<float*>(xs), G, T, q_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool GROUPED>
+int launch_swiglu_right(const void* xq, const void* wp, const void* sx,
+                        const void* sw, const void* right, void* y, int M,
+                        int NH, int K, bool x_grouped, cudaStream_t s) {
+  auto kern = !GROUPED   ? &w4a4_matmul_i8_swiglu_right_kernel
+              : x_grouped ? &w4a4_swiglu_grouped_gx_kernel
+                          : &w4a4_swiglu_grouped_kernel;
+  static int done[2] = {0, 0};
+  cudaError_t err = allow_smem(kern, SW_SMEM, &done[x_grouped]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(NH / SW_BN, (M + SW_BM - 1) / SW_BM);
+  kern<<<grid, SW_THREADS, SW_SMEM, s>>>(
+      static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(wp),
+      static_cast<const float*>(sx), static_cast<const float*>(sw),
+      static_cast<const float*>(right), static_cast<bf16*>(y), M, NH, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x [T, H] bf16 (x_is_f32 = 0) or f32; w f32 [H]; right f32 [128, 128]
@@ -560,27 +718,17 @@ extern "C" int fq_rmsnorm_right_flat(const void* x, const void* w,
                                      const void* right, void* y, int T,
                                      int H, float eps, int x_is_f32,
                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = H / 128;
-  dim3 grid((T + RMS_ROWS - 1) / RMS_ROWS, G < 2 ? G : 2);
-  auto w_ = static_cast<const float*>(w);
-  auto r_ = static_cast<const float*>(right);
-  auto y_ = static_cast<bf16*>(y);
-  cudaError_t err;
-  if (x_is_f32) {
-    static int done = 0;
-    err = allow_smem(rmsnorm_right_flat_kernel<float>, RMS_SMEM, &done);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rmsnorm_right_flat_kernel<float><<<grid, RMS_THREADS, RMS_SMEM, s>>>(
-        static_cast<const float*>(x), w_, r_, y_, T, H, eps);
-  } else {
-    static int done = 0;
-    err = allow_smem(rmsnorm_right_flat_kernel<bf16>, RMS_SMEM, &done);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rmsnorm_right_flat_kernel<bf16><<<grid, RMS_THREADS, RMS_SMEM, s>>>(
-        static_cast<const bf16*>(x), w_, r_, y_, T, H, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_rmsnorm_right<false>(x, w, right, y, T, H, eps, x_is_f32,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// fq_rmsnorm_right_flat with y bf16 [H / 128, T, 128].
+extern "C" int fq_rmsnorm_right_grouped(const void* x, const void* w,
+                                        const void* right, void* y, int T,
+                                        int H, float eps, int x_is_f32,
+                                        void* stream) {
+  return launch_rmsnorm_right<true>(x, w, right, y, T, H, eps, x_is_f32,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // ltT f32 [G, G] (left_t transposed, bf16 values); x bf16 [T, G*128];
@@ -589,16 +737,17 @@ extern "C" int fq_left_quant_i8_flat(const void* ltT, const void* x,
                                      const void* clip, void* xq, void* xs,
                                      int T, int G, float q_max,
                                      void* stream) {
-  const int bytes = lq_smem(G);
-  static int done = 0;
-  cudaError_t err = allow_smem(left_quant_i8_flat_kernel, bytes, &done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  left_quant_i8_flat_kernel<<<T, LQ_THREADS, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ltT), static_cast<const bf16*>(x),
-      static_cast<const float*>(clip), static_cast<int8_t*>(xq),
-      static_cast<float*>(xs), G, q_max);
-  return static_cast<int>(cudaGetLastError());
+  return launch_left_quant<false>(ltT, x, clip, xq, xs, T, G, q_max,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// fq_left_quant_i8_flat with x bf16 and xq int8 [G, T, 128].
+extern "C" int fq_left_quant_i8_grouped(const void* ltT, const void* x,
+                                        const void* clip, void* xq, void* xs,
+                                        int T, int G, float q_max,
+                                        void* stream) {
+  return launch_left_quant<true>(ltT, x, clip, xq, xs, T, G, q_max,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // xq int8 [M, K]; wp uint8 [2*NH, K/2] planar (up rows, then gate rows);
@@ -609,16 +758,20 @@ extern "C" int fq_w4a4_matmul_i8_swiglu_right(const void* xq, const void* wp,
                                               const void* right, void* y,
                                               int M, int NH, int K,
                                               void* stream) {
-  auto kern = w4a4_matmul_i8_swiglu_right_kernel;
-  static int done = 0;
-  cudaError_t err = allow_smem(kern, SW_SMEM, &done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(NH / SW_BN, (M + SW_BM - 1) / SW_BM);
-  kern<<<grid, SW_THREADS, SW_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(wp),
-      static_cast<const float*>(sx), static_cast<const float*>(sw),
-      static_cast<const float*>(right), static_cast<bf16*>(y), M, NH, K);
-  return static_cast<int>(cudaGetLastError());
+  return launch_swiglu_right<false>(xq, wp, sx, sw, right, y, M, NH, K,
+                                    false, static_cast<cudaStream_t>(stream));
+}
+
+// fq_w4a4_matmul_i8_swiglu_right with y bf16 [NH / 128, M, 128] and, with
+// x_grouped, xq int8 [K / 128, M, 128].
+extern "C" int fq_w4a4_swiglu_grouped(const void* xq, const void* wp,
+                                      const void* sx, const void* sw,
+                                      const void* right, void* y, int M,
+                                      int NH, int K, int x_grouped,
+                                      void* stream) {
+  return launch_swiglu_right<true>(xq, wp, sx, sw, right, y, M, NH, K,
+                                   x_grouped != 0,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // xq int8 [M, K]; wp uint8 [2*NH, K/2] planar (up rows, then gate rows);

@@ -5,6 +5,15 @@
 //   w4a8_matmul     -> fq_w4a8_matmul      (bf16 activations x int4 weights)
 //   w4a4_matmul_i8_fusedq -> fq_w4a4_matmul_i8_fusedq (quant_acts_i8 in
 //                      the prologue of w4a4_matmul_i8)
+// and, from flatquant_tpu/kernels/grouped_mlp.py (Pallas), the first two
+// on the grouped activation layout [K / 128, M, 128] (flat column c of row
+// m at (c / 128) * M * 128 + m * 128 + c % 128):
+//   w4a4_matmul_i8_grouped -> fq_w4a4_matmul_i8_grouped
+//   quant_acts_i8_grouped  -> fq_quant_acts_i8_grouped
+// Each is its flat twin's body with a layout flag that changes only the
+// addresses of 16-byte chunks (each inside one group): the same
+// instructions in the same order, so it equals its twin bit for bit on
+// group_layout of the same codes or values.
 // Weights are planar-packed biased nibbles everywhere:
 //   packed byte c of row n = nib[n, c] | nib[n, c + K/2] << 4, nib = q + 8
 // and the -8 zero point folds into each epilogue as -8 * rowsum(x).
@@ -164,12 +173,17 @@ __device__ __forceinline__ int sum16(uint4 x, int acc) {
 // whose scales start at sx. Each lane streams 16-byte chunks of the packed
 // rows; the int32 sums are exact and the epilogue multiplies in the plain
 // version's order. X_SMEM: x lies in shared memory (plain loads), else in
-// global memory (read-only path).
-template <typename OutT, bool X_SMEM>
+// global memory (read-only path). GROUPED (w4a4_matmul_i8_grouped): the
+// codes are the grouped layout [K / 128, M, 128], x points at row m0 of
+// group 0 and gstride is M * 128; a 16-byte chunk (16 columns from a
+// multiple of 16, K / 2 % 16 == 0) lies inside one group, so only its
+// address changes.
+template <typename OutT, bool X_SMEM, bool GROUPED = false>
 __device__ __forceinline__ void w4a4_warp_rows(
     const int8_t* __restrict__ x, const float* __restrict__ sx,
     const uint8_t* __restrict__ wp, const float* __restrict__ sw,
-    OutT* __restrict__ y, int m0, int mt, int n0, int N, int K, int lane) {
+    OutT* __restrict__ y, int m0, int mt, int n0, int N, int K, int lane,
+    size_t gstride = 0) {
   const int half = K / 2;        // packed bytes per row = hi-plane offset
   const int chunks = half / 16;  // 16-byte chunks per packed row
 
@@ -193,11 +207,18 @@ __device__ __forceinline__ void w4a4_warp_rows(
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       if (m < mt) {
-        const int8_t* xr = x + static_cast<size_t>(m) * K + c * 16;
-        const uint4 xl = X_SMEM ? *reinterpret_cast<const uint4*>(xr)
-                                : ldg16(xr);
-        const uint4 xh = X_SMEM ? *reinterpret_cast<const uint4*>(xr + half)
-                                : ldg16(xr + half);
+        uint4 xl, xh;
+        if constexpr (GROUPED) {
+          const int lo = c * 16, hi = half + c * 16;
+          const int8_t* xr = x + static_cast<size_t>(m) * 128;
+          xl = ldg16(xr + (lo >> 7) * gstride + (lo & 127));
+          xh = ldg16(xr + (hi >> 7) * gstride + (hi & 127));
+        } else {
+          const int8_t* xr = x + static_cast<size_t>(m) * K + c * 16;
+          xl = X_SMEM ? *reinterpret_cast<const uint4*>(xr) : ldg16(xr);
+          xh = X_SMEM ? *reinterpret_cast<const uint4*>(xr + half)
+                      : ldg16(xr + half);
+        }
         rsum[m] = sum16(xh, sum16(xl, rsum[m]));
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) acc[m][r] = dot8(xl, xh, w[r], acc[m][r]);
@@ -249,6 +270,24 @@ w4a4_matmul_i8_kernel(const int8_t* __restrict__ xq,
                               sw, y, m0, min(MT, M - m0), n0, N, K, lane);
 }
 
+// w4a4_matmul_i8_kernel on the grouped codes [K / 128, M, 128]
+template <typename OutT>
+__global__ void __launch_bounds__(WARPS * 32)
+w4a4_matmul_i8_grouped_kernel(const int8_t* __restrict__ xq,
+                              const uint8_t* __restrict__ wp,
+                              const float* __restrict__ sx,
+                              const float* __restrict__ sw,
+                              OutT* __restrict__ y, int M, int N, int K) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n0 = (blockIdx.x * WARPS + warp) * ROWS;
+  const int m0 = blockIdx.y * MT;
+  if (n0 >= N) return;  // no block-level barrier follows
+  w4a4_warp_rows<OutT, false, true>(
+      xq + static_cast<size_t>(m0) * 128, sx + m0, wp, sw, y, m0,
+      min(MT, M - m0), n0, N, K, lane, static_cast<size_t>(M) * 128);
+}
+
 // ---------------------------------------------------------------------------
 // quant_acts_i8
 // ---------------------------------------------------------------------------
@@ -275,22 +314,30 @@ __device__ __forceinline__ void widen16<float>(uint4 v, float* f) {
   f[3] = __uint_as_float(v.w);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(QA_THREADS)
-quant_acts_i8_kernel(const T* __restrict__ x, const float* __restrict__ clip,
-                     int8_t* __restrict__ xq, float* __restrict__ xs, int K,
-                     float q_max) {
+// GROUPED (quant_acts_i8_grouped): x and xq are [K / 128, M, 128] instead
+// of [M, K]; a 16-byte vector lies inside one group (K % 128 == 0), so
+// only the addresses of the row's vectors change.
+template <typename T, bool GROUPED>
+__device__ __forceinline__ void quant_acts_i8_row(
+    const T* __restrict__ x, const float* __restrict__ clip,
+    int8_t* __restrict__ xq, float* __restrict__ xs, int M, int K,
+    float q_max) {
   constexpr int E = 16 / sizeof(T);  // values per 16-byte vector
   extern __shared__ uint4 qa_row[];  // the row, as read
   __shared__ float red[2][QA_THREADS / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t row = blockIdx.x;
   const int nvec = K / E;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * K);
+  // offset of the row's element at column col (a multiple of E)
+  auto at = [&](int col) -> size_t {
+    if constexpr (GROUPED)
+      return ((col >> 7) * static_cast<size_t>(M) + row) * 128 + (col & 127);
+    else return row * K + col;
+  };
 
   float mx = 0.f, mn = 0.f;  // max(., 0) and min(., 0) folded in
   for (int i = tid; i < nvec; i += QA_THREADS) {
-    const uint4 v = ldg16(xr + i);
+    const uint4 v = ldg16(x + at(i * E));
     qa_row[i] = v;
     float f[E];
     widen16<T>(v, f);
@@ -320,7 +367,6 @@ quant_acts_i8_kernel(const T* __restrict__ x, const float* __restrict__ clip,
   const float s = absmax == 0.f ? 1.f : absmax / q_max;
   if (tid == 0) xs[row] = s;
 
-  int8_t* qr = xq + row * K;
   for (int i = tid; i < nvec; i += QA_THREADS) {
     float f[E];
     widen16<T>(qa_row[i], f);
@@ -334,11 +380,28 @@ quant_acts_i8_kernel(const T* __restrict__ x, const float* __restrict__ clip,
                   << (8 * (e % 4));
     }
     if constexpr (E == 8) {
-      *reinterpret_cast<uint2*>(qr + i * 8) = make_uint2(p[0], p[1]);
+      *reinterpret_cast<uint2*>(xq + at(i * 8)) = make_uint2(p[0], p[1]);
     } else {
-      *reinterpret_cast<unsigned*>(qr + i * 4) = p[0];
+      *reinterpret_cast<unsigned*>(xq + at(i * 4)) = p[0];
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(QA_THREADS)
+quant_acts_i8_kernel(const T* __restrict__ x, const float* __restrict__ clip,
+                     int8_t* __restrict__ xq, float* __restrict__ xs, int M,
+                     int K, float q_max) {
+  quant_acts_i8_row<T, false>(x, clip, xq, xs, M, K, q_max);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(QA_THREADS)
+quant_acts_i8_grouped_kernel(const T* __restrict__ x,
+                             const float* __restrict__ clip,
+                             int8_t* __restrict__ xq, float* __restrict__ xs,
+                             int M, int K, float q_max) {
+  quant_acts_i8_row<T, true>(x, clip, xq, xs, M, K, q_max);
 }
 
 // ---------------------------------------------------------------------------
@@ -751,6 +814,44 @@ int launch_fusedq(const void* x, const void* clip, const void* wp,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool GROUPED>
+int launch_w4a4(const void* xq, const void* wp, const void* sx,
+                const void* sw, void* y, int M, int N, int K, int out_is_f32,
+                cudaStream_t s) {
+  const int rows_per_block = WARPS * ROWS;
+  dim3 grid((N + rows_per_block - 1) / rows_per_block, (M + MT - 1) / MT);
+  dim3 block(WARPS * 32);
+  auto x = static_cast<const int8_t*>(xq);
+  auto w = static_cast<const uint8_t*>(wp);
+  auto a = static_cast<const float*>(sx);
+  auto b = static_cast<const float*>(sw);
+  if (out_is_f32) {
+    auto kern = GROUPED ? &w4a4_matmul_i8_grouped_kernel<float>
+                        : &w4a4_matmul_i8_kernel<float>;
+    kern<<<grid, block, 0, s>>>(x, w, a, b, static_cast<float*>(y), M, N, K);
+  } else {
+    auto kern = GROUPED ? &w4a4_matmul_i8_grouped_kernel<bf16>
+                        : &w4a4_matmul_i8_kernel<bf16>;
+    kern<<<grid, block, 0, s>>>(x, w, a, b, static_cast<bf16*>(y), M, N, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool GROUPED, typename T>
+int launch_quant_acts(const void* x, const void* clip, void* xq, void* xs,
+                      int M, int K, float q_max, cudaStream_t s) {
+  auto kern = GROUPED ? &quant_acts_i8_grouped_kernel<T>
+                      : &quant_acts_i8_kernel<T>;
+  static int done = 0;
+  const int bytes = K * static_cast<int>(sizeof(T));
+  const cudaError_t err = allow_smem(kern, bytes, &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<M, QA_THREADS, bytes, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(clip),
+      static_cast<int8_t*>(xq), static_cast<float*>(xs), M, K, q_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x_q int8 [M, K]; w_packed uint8 [N, K/2]; sx f32 [M]; sw f32 [N];
@@ -760,22 +861,17 @@ extern "C" int fq_w4a4_matmul_i8(const void* xq, const void* wp,
                                  const void* sx, const void* sw, void* y,
                                  int M, int N, int K, int out_is_f32,
                                  void* stream) {
-  const int rows_per_block = WARPS * ROWS;
-  dim3 grid((N + rows_per_block - 1) / rows_per_block, (M + MT - 1) / MT);
-  dim3 block(WARPS * 32);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto x = static_cast<const int8_t*>(xq);
-  auto w = static_cast<const uint8_t*>(wp);
-  auto a = static_cast<const float*>(sx);
-  auto b = static_cast<const float*>(sw);
-  if (out_is_f32) {
-    w4a4_matmul_i8_kernel<float><<<grid, block, 0, s>>>(
-        x, w, a, b, static_cast<float*>(y), M, N, K);
-  } else {
-    w4a4_matmul_i8_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        x, w, a, b, static_cast<__nv_bfloat16*>(y), M, N, K);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_w4a4<false>(xq, wp, sx, sw, y, M, N, K, out_is_f32,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// fq_w4a4_matmul_i8 with x_q int8 [K / 128, M, 128]; K % 128 == 0.
+extern "C" int fq_w4a4_matmul_i8_grouped(const void* xq, const void* wp,
+                                         const void* sx, const void* sw,
+                                         void* y, int M, int N, int K,
+                                         int out_is_f32, void* stream) {
+  return launch_w4a4<true>(xq, wp, sx, sw, y, M, N, K, out_is_f32,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // x [M, K] bf16 (x_is_f32 = 0) or f32, K % 128 == 0, 16-byte aligned;
@@ -784,26 +880,20 @@ extern "C" int fq_quant_acts_i8(const void* x, const void* clip, void* xq,
                                 void* xs, int M, int K, float q_max,
                                 int x_is_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto c = static_cast<const float*>(clip);
-  auto q = static_cast<int8_t*>(xq);
-  auto sc = static_cast<float*>(xs);
-  cudaError_t err;
-  if (x_is_f32) {
-    static int done = 0;
-    const int bytes = K * 4;
-    err = allow_smem(quant_acts_i8_kernel<float>, bytes, &done);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    quant_acts_i8_kernel<float><<<M, QA_THREADS, bytes, s>>>(
-        static_cast<const float*>(x), c, q, sc, K, q_max);
-  } else {
-    static int done = 0;
-    const int bytes = K * 2;
-    err = allow_smem(quant_acts_i8_kernel<bf16>, bytes, &done);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    quant_acts_i8_kernel<bf16><<<M, QA_THREADS, bytes, s>>>(
-        static_cast<const bf16*>(x), c, q, sc, K, q_max);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return x_is_f32
+             ? launch_quant_acts<false, float>(x, clip, xq, xs, M, K, q_max, s)
+             : launch_quant_acts<false, bf16>(x, clip, xq, xs, M, K, q_max, s);
+}
+
+// fq_quant_acts_i8 with x and xq [K / 128, M, 128].
+extern "C" int fq_quant_acts_i8_grouped(const void* x, const void* clip,
+                                        void* xq, void* xs, int M, int K,
+                                        float q_max, int x_is_f32,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return x_is_f32
+             ? launch_quant_acts<true, float>(x, clip, xq, xs, M, K, q_max, s)
+             : launch_quant_acts<true, bf16>(x, clip, xq, xs, M, K, q_max, s);
 }
 
 // x [M, K] bf16 (x_is_f32 = 0) or f32; clip f32 [2] (cmax, cmin);

@@ -18,7 +18,11 @@ rows and K >= 8192, else the eager per-token quant; then the int4 GEMM
 T >= 256 rows. The fused prefill routes of the rn128 split
 (`_grouped_attn_in`, `_quant_mlp_grouped`, `_quant_mlp_grouped_full`) run
 through the flat-pipeline kernels (kernels/flat_pipeline.py) under JAX's
-qualifying conditions.
+qualifying conditions. `_grouped_layout_attn_in`, `_grouped_layout_mlp_full`
+and `_grouped_layout_mlp_round2` compute the same functions on JAX's
+superseded grouped layout (kernels/grouped_mlp.py); the engine never takes
+them, a caller patches them in at `_grouped_attn_in` /
+`_quant_mlp_grouped_full` to run those kernels on the serving path.
 
 What differs from JAX: `build_serving_params` takes each layer's baked
 transform matrices and sigmoid-applied clip ratios directly (the values
@@ -43,6 +47,14 @@ from flatquant_torch.kernels.flat_pipeline import (
     left_quant_i8_flat,
     rmsnorm_right_flat,
     w4a4_matmul_i8_swiglu_right,
+)
+from flatquant_torch.kernels.grouped_mlp import (
+    left_quant_i8_grouped,
+    quant_acts_i8_grouped,
+    rmsnorm_right_grouped,
+    w4a4_matmul_i8_grouped,
+    w4a4_swiglu_grouped,
+    w4a4_swiglu_grouped_gx,
 )
 from flatquant_torch.kernels.int4_matmul import (
     pack_weight_planar,
@@ -309,16 +321,26 @@ def _flat_ln_quant(x2d, ln_w, pair, clip, eps: float, a_q_max: int):
     return left_quant_i8_flat(left.T, hf, clip=clip, q_max=a_q_max)
 
 
+def _attn_in_qualifies(x2d, sl, a_q_max: int) -> bool:
+    return ("qkv" in sl and "ln_t" in sl and "wp" in sl["qkv"]
+            and x2d.shape[0] >= 256 and a_q_max == 7
+            and sl["ln_t"][1].shape[0] == 128)
+
+
+def _mlp_full_qualifies(x2d, sl, a_q_max: int) -> bool:
+    return ("upgate" in sl and "down" in sl and "down_t" in sl
+            and "ug_t" in sl and "wp" in sl["upgate"] and "wp" in sl["down"]
+            and x2d.shape[0] >= 256 and a_q_max == 7
+            and sl["ug_t"][1].shape[0] == 128
+            and sl["down_t"][1].shape[0] == 128)
+
+
 def _grouped_attn_in(x2d, sl, eps: float, out_dtype=torch.bfloat16,
                      a_q_max: int = 7):
     """Fused attention input path: ln1 + ln-transform + quant (flat
     pipeline) + the merged qkv W4A4 GEMM. Returns qkv
     [T, q_dim + 2*kv_dim], or None when the config does not qualify."""
-    if not ("qkv" in sl and "ln_t" in sl and "wp" in sl["qkv"]
-            and x2d.shape[0] >= 256 and a_q_max == 7):
-        return None
-    left, right = sl["ln_t"]
-    if right.shape[0] != 128:
+    if not _attn_in_qualifies(x2d, sl, a_q_max):
         return None
     xq, xs = _flat_ln_quant(x2d, sl["ln1_w"], sl["ln_t"],
                             sl["qkv"].get("a_clip"), eps, a_q_max)
@@ -332,14 +354,9 @@ def _quant_mlp_grouped_full(x2d, sl, eps: float, out_dtype=torch.bfloat16,
     GEMM (+ down right factor), left factor + quant, the down GEMM, all on
     the flat pipeline. Needs both transforms' right factors 128x128.
     Returns the down output [T, H], or None."""
-    if not ("upgate" in sl and "down" in sl and "down_t" in sl
-            and "ug_t" in sl and "wp" in sl["upgate"] and "wp" in sl["down"]
-            and x2d.shape[0] >= 256 and a_q_max == 7):
+    if not _mlp_full_qualifies(x2d, sl, a_q_max):
         return None
-    ug_l, ug_r = sl["ug_t"]
     dn_l, dn_r = sl["down_t"]
-    if ug_r.shape[0] != 128 or dn_r.shape[0] != 128:
-        return None
     ug = sl["upgate"]
     dn = sl["down"]
     xq, xs = _flat_ln_quant(x2d, sl["ln2_w"], sl["ug_t"],
@@ -348,6 +365,76 @@ def _quant_mlp_grouped_full(x2d, sl, eps: float, out_dtype=torch.bfloat16,
     zq, zs = left_quant_i8_flat(dn_l.T, yf, clip=dn.get("a_clip"),
                                 q_max=a_q_max)
     return w4a4_matmul_i8(zq, zs, dn["wp"], dn["scale"], out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# the same routes on the grouped layout [G, T, 128] (JAX's round-2
+# pipeline, kernels/grouped_mlp.py): each kernel equals its flat twin on
+# the same values, so the first two return what the flat routes return
+# ---------------------------------------------------------------------------
+
+
+def _grouped_layout_attn_in(x2d, sl, eps: float, out_dtype=torch.bfloat16,
+                            a_q_max: int = 7):
+    """_grouped_attn_in through rmsnorm_right_grouped ->
+    left_quant_i8_grouped -> w4a4_matmul_i8_grouped."""
+    if not _attn_in_qualifies(x2d, sl, a_q_max):
+        return None
+    left, right = sl["ln_t"]
+    hg = rmsnorm_right_grouped(x2d, sl["ln1_w"], right, eps)
+    xq, xs = left_quant_i8_grouped(left.T, hg, clip=sl["qkv"].get("a_clip"),
+                                   q_max=a_q_max)
+    return w4a4_matmul_i8_grouped(xq, xs, sl["qkv"]["wp"],
+                                  sl["qkv"]["scale"], out_dtype)
+
+
+def _grouped_layout_mlp_full(x2d, sl, eps: float, out_dtype=torch.bfloat16,
+                             a_q_max: int = 7):
+    """_quant_mlp_grouped_full through rmsnorm_right_grouped ->
+    left_quant_i8_grouped -> w4a4_swiglu_grouped_gx ->
+    left_quant_i8_grouped -> w4a4_matmul_i8_grouped."""
+    if not _mlp_full_qualifies(x2d, sl, a_q_max):
+        return None
+    ug_l, ug_r = sl["ug_t"]
+    dn_l, dn_r = sl["down_t"]
+    ug, dn = sl["upgate"], sl["down"]
+    hg = rmsnorm_right_grouped(x2d, sl["ln2_w"], ug_r, eps)
+    xq, xs = left_quant_i8_grouped(ug_l.T, hg, clip=ug.get("a_clip"),
+                                   q_max=a_q_max)
+    yg = w4a4_swiglu_grouped_gx(xq, xs, ug["wp"], ug["scale"], dn_r)
+    zq, zs = left_quant_i8_grouped(dn_l.T, yg, clip=dn.get("a_clip"),
+                                   q_max=a_q_max)
+    return w4a4_matmul_i8_grouped(zq, zs, dn["wp"], dn["scale"], out_dtype)
+
+
+def _round2_mlp_tail(xq, xs, ug, dn, down_t, out_dtype=torch.bfloat16,
+                     a_q_max: int = 7):
+    """JAX's round-2 MLP tail on the upgate GEMM's codes xq [T, K]:
+    w4a4_swiglu_grouped (with the down transform's right factor), the left
+    factor as one bf16 product over the group axis (JAX computed it
+    outside any kernel), quant_acts_i8_grouped, w4a4_matmul_i8_grouped.
+    The left product sums in another order than left_quant_i8_flat's, so
+    this is not the flat route's function bit for bit."""
+    dn_l, dn_r = down_t
+    yg = w4a4_swiglu_grouped(xq, xs, ug["wp"], ug["scale"], dn_r)
+    g = yg.shape[0]
+    zg = torch.matmul(dn_l.T.to(torch.bfloat16),
+                      yg.reshape(g, -1)).reshape(yg.shape)
+    zq, zs = quant_acts_i8_grouped(zg, clip=dn.get("a_clip"), q_max=a_q_max)
+    return w4a4_matmul_i8_grouped(zq, zs, dn["wp"], dn["scale"], out_dtype)
+
+
+def _grouped_layout_mlp_round2(x2d, sl, eps: float,
+                               out_dtype=torch.bfloat16, a_q_max: int = 7):
+    """_quant_mlp_grouped_full with the flat ln2 + quant
+    (rmsnorm_right_flat, left_quant_i8_flat), then _round2_mlp_tail."""
+    if not _mlp_full_qualifies(x2d, sl, a_q_max):
+        return None
+    ug = sl["upgate"]
+    xq, xs = _flat_ln_quant(x2d, sl["ln2_w"], sl["ug_t"], ug.get("a_clip"),
+                            eps, a_q_max)
+    return _round2_mlp_tail(xq, xs, ug, sl["down"], sl["down_t"], out_dtype,
+                            a_q_max)
 
 
 def quantize_kv_asym(t, clip=None, q_max: int = 15):

@@ -15,6 +15,7 @@ import torch
 from flatquant_torch.kernels import attn_prologue as tap
 from flatquant_torch.kernels import common
 from flatquant_torch.kernels import flat_pipeline as tfp
+from flatquant_torch.kernels import grouped_mlp as tgm
 from flatquant_torch.kernels import int4_matmul as tmm
 from flatquant_torch.kernels import kv_cache as tkv
 from flatquant_torch.kernels import paged_kv as tpk
@@ -754,3 +755,138 @@ def test_flash_prefill_kt_i8_matches_plain(cuda, pv_i8, S, nh, nkv, blk_k):
     compare_bf16(got, want, "flash", "flash_prefill_attention_kt_i8")
     assert torch.equal(got, tpa.flash_prefill_attention_kt_i8(
         q, kt.contiguous(), v, sm, pv_i8, blk_k))
+
+
+# ---------------------------------------------------------------------------
+# rows 22-27: the grouped-layout kernels, each against its plain version
+# and, bit for bit, against its flat twin on the same values
+# ---------------------------------------------------------------------------
+
+
+def _codes(g, cuda, *shape):
+    return torch.randint(-8, 8, shape, generator=g, device=cuda,
+                         dtype=torch.int8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("t,h,dtype", [(300, 4096, torch.bfloat16),
+                                       (40, 640, torch.float32)])
+def test_rmsnorm_right_grouped_matches_plain_and_twin(cuda, mode, t, h,
+                                                      dtype):
+    g = torch.Generator(device=cuda).manual_seed(t)
+    x = (torch.randn((t, h), generator=g, device=cuda) * 2).to(dtype)
+    w = torch.rand((h,), generator=g, device=cuda) + 0.5
+    right = _factor(g, cuda, 128, mode)
+    got = _launched("rmsnorm_right_grouped", tgm.rmsnorm_right_grouped, x, w,
+                    right, 1e-5)
+    assert got.shape == (h // 128, t, 128)
+    flat = tgm.ungroup_layout(got)
+    compare_bf16(flat, tgm.ungroup_layout(
+        tgm.rmsnorm_right_grouped_ref(x, w, right, 1e-5)), mode,
+        "rmsnorm_right_grouped")
+    assert torch.equal(flat, tfp.rmsnorm_right_flat(x, w, right, 1e-5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("t,grp,clip", [(300, 32, None),
+                                        (37, 86, (0.9, 0.95)),
+                                        (8, 2, (0.97, 0.9))])
+def test_left_quant_i8_grouped_matches_plain_and_twin(cuda, mode, t, grp,
+                                                      clip):
+    g = torch.Generator(device=cuda).manual_seed(grp)
+    x = (torch.randn((t, grp * 128), generator=g, device=cuda) * 3).to(
+        torch.bfloat16)
+    x[t // 2] = 0  # an all-zero row: scale 1, codes 0
+    left_t = _factor(g, cuda, grp, mode)
+    if clip is not None:
+        clip = tuple(torch.tensor(c, device=cuda) for c in clip)
+    xg = tgm.group_layout(x, grp)
+    q, s = _launched("left_quant_i8_grouped", tgm.left_quant_i8_grouped,
+                     left_t, xg, clip)
+    q_ref, s_ref = tgm.left_quant_i8_grouped_ref(left_t, xg, clip)
+    compare_codes(q, q_ref, mode, "left_quant_i8_grouped")
+    compare_scales(s, s_ref, mode, "left_quant_i8_grouped")
+    q_flat, s_flat = tfp.left_quant_i8_flat(left_t, x, clip)
+    assert torch.equal(tgm.ungroup_layout(q), q_flat)
+    assert torch.equal(s, s_flat)
+    assert s[t // 2].item() == 1.0 and not q[:, t // 2].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,grp,q_max,clip,dtype", [
+    (300, 86, 7, (0.9, 0.95), torch.bfloat16),
+    (64, 32, 7, None, torch.bfloat16),
+    (40, 6, 127, (0.97, 0.9), torch.float32)])
+def test_quant_acts_i8_grouped_matches_plain_and_twin(cuda, t, grp, q_max,
+                                                      clip, dtype):
+    g = torch.Generator(device=cuda).manual_seed(t + grp)
+    x = (torch.randn((t, grp * 128), generator=g, device=cuda) * 3).to(dtype)
+    x[1] = 0  # a zero row: scale 1, codes 0
+    if clip is not None:
+        clip = tuple(torch.tensor(c, device=cuda) for c in clip)
+    xg = tgm.group_layout(x, grp)
+    q, s = _launched("quant_acts_i8_grouped", tgm.quant_acts_i8_grouped, xg,
+                     clip, q_max)
+    q_ref, s_ref = tgm.quant_acts_i8_grouped_ref(xg, clip, q_max)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    q_flat, s_flat = tmm.quant_acts_i8(x, clip, q_max)
+    assert torch.equal(tgm.ungroup_layout(q), q_flat)
+    assert torch.equal(s, s_flat)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,grp", [(300, 384, 86), (4, 1024, 32),
+                                     (40, 256, 5)])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_w4a4_matmul_i8_grouped_bit_exact(cuda, m, n, grp, out):
+    g = torch.Generator(device=cuda).manual_seed(m + grp)
+    k = grp * 128
+    xq = _codes(g, cuda, m, k)
+    xs = torch.rand((m, 1), generator=g, device=cuda) + 0.01
+    wp = torch.randint(0, 256, (n, k // 2), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    sw = torch.rand((n,), generator=g, device=cuda) * 0.05
+    xg = tgm.group_layout(xq, grp)
+    got = _launched("w4a4_matmul_i8_grouped", tgm.w4a4_matmul_i8_grouped, xg,
+                    xs, wp, sw, out)
+    assert torch.equal(got, tgm.w4a4_matmul_i8_grouped_ref(xg, xs, wp, sw,
+                                                           out))
+    assert torch.equal(got, tmm.w4a4_matmul_i8(xq, xs, wp, sw, out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m,gin,nh", [(300, 32, 384), (64, 86, 256),
+                                      (200, 4, 512)])
+def test_w4a4_swiglu_grouped_matches_plain_and_twin(cuda, mode, m, gin, nh):
+    g = torch.Generator(device=cuda).manual_seed(m + gin)
+    k = gin * 128
+    xq = _codes(g, cuda, m, k)
+    xs = torch.rand((m, 1), generator=g, device=cuda) * 0.2 + 0.01
+    wp = torch.randint(0, 256, (2 * nh, k // 2), generator=g, device=cuda,
+                       dtype=torch.uint8)
+    sw = torch.rand((2 * nh,), generator=g, device=cuda) * 0.01 + 1e-3
+    right = _factor(g, cuda, 128, mode)
+    twin = tfp.w4a4_matmul_i8_swiglu_right(xq, xs, wp, sw, right)
+    for name, fn, x in (
+            ("w4a4_swiglu_grouped", tgm.w4a4_swiglu_grouped, xq),
+            ("w4a4_swiglu_grouped_gx", tgm.w4a4_swiglu_grouped_gx,
+             tgm.group_layout(xq, gin))):
+        got = _launched(name, fn, x, xs, wp, sw, right)
+        assert got.shape == (nh // 128, m, 128)
+        flat = tgm.ungroup_layout(got)
+        compare_bf16(flat, tgm.ungroup_layout(
+            tgm.w4a4_swiglu_grouped_ref(xq, xs, wp, sw, right)), mode, name)
+        assert torch.equal(flat, twin), name
+
+
+@pytest.mark.gpu
+def test_grouped_wrappers_raise_on_what_they_do_not_take(cuda):
+    x = torch.zeros((4, 64, 100), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="quant_acts_i8_grouped"):
+        tgm.quant_acts_i8_grouped(x)
+    with pytest.raises(ValueError, match="left_quant_i8_grouped"):
+        tgm.left_quant_i8_grouped(torch.eye(4, device=cuda),
+                                  x[..., :64].float())
