@@ -16,6 +16,11 @@ line):
      llama-2-7b widths, and time kernel, plain version, bound and, for
      the GEMM, torch._int_mm on pre-unpacked int8 weights (a yardstick:
      it reads twice the weight bytes, and the port never calls it)
+     3a: w4a4_matmul_i8's two bodies (the dp4a stream, the wgmma tile),
+     each bit for bit and timed at M = 1 to 2048 on the four linears,
+     the crossover they give against the route's TILE_MIN_M (the phase
+     fails if the route picks the tile where the stream was faster), and
+     edge shapes (ragged M and N, K % 64 == 32, DeepSeek's K) on both
      3d: the four prefill kernels (rmsnorm_right_flat, left_quant_i8_flat,
      w4a4_matmul_i8_swiglu_right, attn_prologue) at the 4 x 512 prefill's
      shapes, each with identity and with random orthogonal transform
@@ -42,7 +47,8 @@ line):
      wo, the shared experts, the 64 routed experts batched in one launch
      at decode and at the gather capacity) and DeepSeek-V3's padded
      wkv_a, timed beside torch.matmul on pre-dequantized bf16 weights;
-     w4a4_matmul_i8 at K = 10944 and 2816, bit for bit
+     w4a4_matmul_i8 at K = 10944 and 2816 and N = 576, both bodies bit
+     for bit
      3i: rows 17-21, the JAX package's measured kernel baselines:
      w4a4_matmul_i8_fusedq (one layer's four linears at M=4, the merged
      qkv at M=2048) bit for bit against quant_acts_i8 + w4a4_matmul_i8;
@@ -57,8 +63,9 @@ line):
      w4a4_matmul_i8_grouped at qkv and down, quant_acts_i8_grouped at
      [86, 2048, 128]) and edge shapes (M=300, no clips, f32 input): each
      held to its plain version and bit for bit to its flat twin (rows 4,
-     5, 6, 1, 12); timed beside its bound and, for the GEMMs,
-     torch._int_mm; w4a4_matmul_i8 itself timed at M=2048
+     5, 6, 1, 12; row 25 in both of row 1's bodies); timed beside its
+     bound and, for the GEMMs, torch._int_mm; w4a4_matmul_i8 itself
+     timed at M = 4 and 2048
   4. build one random llama-2-7b (32 layers, random seeded weights, rn128
      Kronecker transforms baked into the weights; shared by phases 4 to
      6) and drive the decode-serving path at full width and depth:
@@ -77,7 +84,9 @@ line):
      versions (a tripwire: random W4A4 logits are chaotic).
   6. long prompts with tools/fulldepth_bench.py's protocol (1 x 2048,
      max_len 2304): (a) serving_prefill over the int4 cache (prologue and
-     flash kt) and 32 decode steps, a profile of one prefill and every
+     flash kt) and 32 decode steps, the prefill with w4a4_matmul_i8
+     forced to its stream body against the route (tile) in 3 interleaved
+     rounds with bit-identical logits, a profile of one prefill and every
      launch of one prefill checked; (b) serving_all_logits through the
      bf16-cache engine (flash on the [B, S, nkv, hd] layout), every flash
      launch checked, its last logits against (a)'s; (c) the bf16
@@ -99,7 +108,9 @@ line):
      bias), W4A4KV4 in JAX's default configuration (no tpu_decompose: the
      balanced Kronecker split, flatquant_torch/core/kron.py), over the
      int4 cache: serving_prefill 1 x 2048 (rows 12 and 13 in every layer)
-     and 32 greedy decode steps at B=1; a profile of one prefill; every
+     and 32 greedy decode steps at B=1; the prefill's stream and tile
+     routes of w4a4_matmul_i8 in 3 interleaved rounds, as in 6a; a
+     profile of one prefill; every
      launch of one prefill and every decode attention launch of two steps
      checked against its plain version.
   9. llama-2-7b weight-only W4A16 (bf16 cache) at full width and depth,
@@ -228,53 +239,121 @@ def copies_for(nbytes):
 # ---------------------------------------------------------------------------
 
 
+# phase 3a's sweep of row 1's two bodies; the edge shapes (M, N, K) both
+# bodies are held to the plain version at, in both output types: ragged
+# M and N (an odd N, DeepSeek-V2-Lite's wkv_a N = 576), K = 96 (one
+# stage), K % 64 == 32 (2816 + 32), DeepSeek's K = 10944 and 2816, and
+# each side of the crossover
+SWEEP_M = (1, 4, 8, 16, 32, 64, 128, 192, 256, 512, 2048)
+BODIES = ("stream", "tile")
+
+
+def gemm_edges(tile_min_m):
+    return ((1, 576, 2048), (4, 999, 160), (tile_min_m - 1, 12288, 2816),
+            (tile_min_m, 4096, 11008), (130, 576, 96), (300, 2048, 10944),
+            (300, 999, 2848), (2047, 4096, 2816))
+
+
+def forced_body(body):
+    """Route every w4a4_matmul_i8 / w4a4_matmul_i8_grouped launch to
+    `body` ("stream" or "tile") while the context is open."""
+    from flatquant_torch.kernels import int4_matmul as im
+
+    return patched([(im, "w4a4_body", lambda m, n, k: body)])
+
+
+def _codes_scales(torch, dev, gen, m, k):
+    xq = torch.randint(-8, 8, (m, k), generator=gen, device=dev,
+                       dtype=torch.int8)
+    return xq, torch.rand((m, 1), generator=gen, device=dev) * 0.1 + 1e-3
+
+
 def check_gemm(torch, dev, gen, results):
-    from flatquant_torch.kernels.int4_matmul import (
-        unpack_weight_planar, w4a4_matmul_i8, w4a8_matmul_ref)
+    """Row 1's two bodies at every M of SWEEP_M on llama-2-7b's four
+    shapes: each held bit for bit to w4a8_matmul_ref and timed beside its
+    bound, the plain version and torch._int_mm on pre-unpacked int8
+    weights (a yardstick the port never calls). The sweep gives the
+    crossover, the smallest M from which the tile body is faster at all
+    four shapes, and the phase fails if the route (TILE_MIN_M) picks the
+    tile where it was slower. Then gemm_edges' shapes, both bodies, both
+    output types, checked and not timed."""
+    from flatquant_torch.kernels import int4_matmul as im
 
     shapes = {"qkv": (12288, 4096), "o": (4096, 4096),
               "upgate": (22016, 4096), "down": (4096, 11008)}
-    rows, worst = [], 0.0
-    for m in (1, 4, 8, 192):
+    rows = []
+    for m in SWEEP_M:
         for name, (n, k) in shapes.items():
-            xq = torch.randint(-8, 8, (m, k), generator=gen, device=dev,
-                               dtype=torch.int8)
-            xs = torch.rand((m, 1), generator=gen, device=dev) * 0.1 + 1e-3
-            wbytes = n * k // 2
-            ws = [(torch.randint(0, 256, (n, k // 2), generator=gen,
-                                 device=dev, dtype=torch.uint8),
-                   torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-4)
-                  for _ in range(copies_for(wbytes))]
-            got = w4a4_matmul_i8(xq, xs, *ws[0])
-            want = w4a8_matmul_ref(xq, xs, *ws[0])
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            worst = max(worst, err)
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"w4a4_matmul_i8 M={m} {name} {n}x{k}: not bit-exact "
-                    f"against w4a8_matmul_ref (max abs err {err})")
+            xq, xs = _codes_scales(torch, dev, gen, m, k)
+            ws = _rand_weights(torch, dev, gen, n, k)
+            want = im.w4a8_matmul_ref(xq, xs, *ws[0])
             args = [(xq, xs, wp, sw) for wp, sw in ws]
-            ms = cuda_ms(torch, w4a4_matmul_i8, args, 60)
-            plain = cuda_ms(torch, w4a8_matmul_ref, args, 6)
+            iters = 60 if m <= 256 else 20
+            ms = {}
+            for body in BODIES:
+                with forced_body(body):
+                    got = im.w4a4_matmul_i8(xq, xs, *ws[0])
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        err = (got.float() - want.float()).abs().max().item()
+                        raise AssertionError(
+                            f"w4a4_matmul_i8 {body} M={m} {name} {n}x{k}: "
+                            f"not bit-exact against w4a8_matmul_ref (max abs "
+                            f"err {err})")
+                    ms[body] = cuda_ms(torch, im.w4a4_matmul_i8, args, iters)
+            routed = im.w4a4_body(m, n, k)
+            plain = cuda_ms(torch, im.w4a8_matmul_ref, args,
+                            6 if m <= 256 else 3)
             # yardstick: cuBLAS int8 GEMM on pre-unpacked weights (2x the
             # bytes); it needs more than 16 rows, so small M pads to 32
             mp = m if m > 16 else 32
             xp = torch.randint(-8, 8, (mp, k), generator=gen, device=dev,
                                dtype=torch.int8)
-            w8 = [(xp, unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
+            w8 = [(xp, im.unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
             lib = cuda_ms(torch, torch._int_mm, w8, 20)
-            nbytes = m * k + wbytes + 4 * m + 4 * n + 2 * m * n
+            nbytes = m * k + n * k // 2 + 4 * m + 4 * n + 2 * m * n
             b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
-            rows.append(dict(m=m, proj=name, n=n, k=k, ms=ms, plain_ms=plain,
-                             library_ms=lib, library_rows=mp, bound_ms=b_ms,
-                             bound_by=b_by, max_abs_err=err))
-            log(f"  w4a4_matmul_i8 M={m:3d} {name:6s} {n}x{k}: bit-exact; "
-                f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound "
+            rows.append(dict(m=m, proj=name, n=n, k=k, body=routed,
+                             ms=ms[routed], plain_ms=plain, library_ms=lib,
+                             library_rows=mp, bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=0.0,
+                             **{f"{b}_ms": ms[b] for b in BODIES}))
+            log(f"  w4a4_matmul_i8 M={m:4d} {name:6s} {n}x{k}: both bodies "
+                f"bit-exact; " + " ".join(f"{b}_ms {ms[b]:.4f}"
+                                          for b in BODIES)
+                + f" (route: {routed}) plain_ms {plain:.4f} bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}) library_ms(_int_mm, M={mp}, "
                 f"yardstick) {lib:.4f}")
             del ws, args, w8
-    results["w4a4_matmul_i8"] = dict(rows=rows, max_abs_err=worst)
+    faster = {m: all(r["tile_ms"] < r["stream_ms"] for r in rows
+                     if r["m"] == m) for m in SWEEP_M}
+    cross = next((m for i, m in enumerate(SWEEP_M)
+                  if all(faster[x] for x in SWEEP_M[i:])), None)
+    wrong = [(r["m"], r["proj"]) for r in rows
+             if r["body"] == "tile" and r["tile_ms"] >= r["stream_ms"]]
+    log(f"  crossover: the tile body is faster at all four shapes from M="
+        f"{cross} on (sweep {SWEEP_M}); the route's TILE_MIN_M = "
+        f"{im.TILE_MIN_M}")
+    if wrong:
+        raise AssertionError(f"the route picks the tile body where the "
+                             f"stream body was faster: {wrong}")
+    for m, n, k in gemm_edges(im.TILE_MIN_M):
+        xq, xs = _codes_scales(torch, dev, gen, m, k)
+        wp, sw = _rand_weights(torch, dev, gen, n, k, 1)[0]
+        for out in (torch.bfloat16, torch.float32):
+            want = im.w4a8_matmul_ref(xq, xs, wp, sw, out)
+            for body in BODIES:
+                with forced_body(body):
+                    got = im.w4a4_matmul_i8(xq, xs, wp, sw, out)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"w4a4_matmul_i8 {body} M={m} N={n} K={k} {out}: "
+                        "not bit-exact against w4a8_matmul_ref")
+        log(f"  w4a4_matmul_i8 M={m} N={n} K={k}: both bodies bit-exact in "
+            f"bf16 and f32")
+    results["w4a4_matmul_i8"] = dict(rows=rows, max_abs_err=0.0,
+                                     crossover_m=cross,
+                                     tile_min_m=im.TILE_MIN_M)
 
 
 def _rand_cache(torch, dev, gen, B, nkv, S):
@@ -924,9 +1003,10 @@ def check_fp8_kernels(torch, dev, gen, results):
     token prefill), and DeepSeek-V3's wkv_a (N = 576, K = 7168, 128-block
     scales) through fp8_linear's ragged-N pad; each timed beside its bound
     and torch.matmul on pre-dequantized bf16 weights (a yardstick the port
-    never calls). Then row 1 (w4a4_matmul_i8) at the two K of the packed
-    W4A4 form it had not met, bit for bit: the dense w2 (K = 10944) and
-    the shared s_w2 (K = 2816)."""
+    never calls). Then row 1 (w4a4_matmul_i8), both bodies bit for bit,
+    at the packed W4A4 form's shapes llama-2-7b lacks: the dense w2 (K =
+    10944, K/2 not a multiple of 64), the shared s_w2 (K = 2816) and
+    wkv_a (N = 576, 64 mod 128), at M = 1, 300 and 2048."""
     from flatquant_torch.kernels import common
     from flatquant_torch.kernels import fp8_matmul as f8
     from flatquant_torch.kernels import int4_matmul as im
@@ -1020,21 +1100,29 @@ def check_fp8_kernels(torch, dev, gen, results):
                      "torch.matmul, bf16 weights"), m=4, proj="v3 wkv_a")
     del ws
 
-    # row 1 at the packed W4A4 form's new K
-    for m in (1, 2048):
+    # row 1 at the packed W4A4 form's shapes: both bodies bit for bit at
+    # M = 1, 300 and 2048; the routed body timed at M = 1 and 2048
+    for m in (1, 300, 2048):
         for proj, (n, k) in (("ds dense w2", (D, cfg.inter_dim)),
-                             ("ds s_w2", (D, si))):
-            xq = torch.randint(-8, 8, (m, k), generator=gen, device=dev,
-                               dtype=torch.int8)
-            xs = torch.rand((m, 1), generator=gen, device=dev) * 0.1 + 1e-3
-            ws = [(torch.randint(0, 256, (n, k // 2), generator=gen,
-                                 device=dev, dtype=torch.uint8),
-                   torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-4)
-                  for _ in range(copies_for(n * k // 2))]
-            got = im.w4a4_matmul_i8(xq, xs, *ws[0])
-            if not torch.equal(got, im.w4a8_matmul_ref(xq, xs, *ws[0])):
-                raise AssertionError(f"w4a4_matmul_i8 M={m} K={k}: not "
-                                     "bit-exact")
+                             ("ds s_w2", (D, si)),
+                             ("ds wkv_a", (cfg.kv_lora_rank
+                                           + cfg.qk_rope_head_dim, D))):
+            xq, xs = _codes_scales(torch, dev, gen, m, k)
+            ws = _rand_weights(torch, dev, gen, n, k,
+                               None if m != 300 else 1)
+            want = im.w4a8_matmul_ref(xq, xs, *ws[0])
+            for body in BODIES:
+                with forced_body(body):
+                    if not torch.equal(im.w4a4_matmul_i8(xq, xs, *ws[0]),
+                                       want):
+                        raise AssertionError(
+                            f"w4a4_matmul_i8 {body} M={m} {proj} N={n} "
+                            f"K={k}: not bit-exact")
+            routed = im.w4a4_body(m, n, k)
+            log(f"  w4a4_matmul_i8 M={m} {proj} {n}x{k}: both bodies "
+                f"bit-exact (route: {routed})")
+            if m == 300:
+                continue
             args = [(xq, xs, wp, sw) for wp, sw in ws]
             ms = cuda_ms(torch, im.w4a4_matmul_i8, args, 40)
             plain = cuda_ms(torch, im.w4a8_matmul_ref, args, 4)
@@ -1042,12 +1130,11 @@ def check_fp8_kernels(torch, dev, gen, results):
             b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
             results.setdefault("w4a4_matmul_i8", dict(
                 rows=[], max_abs_err=0.0))["rows"].append(dict(
-                m=m, proj=proj, n=n, k=k, ms=ms, plain_ms=plain,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=0.0))
-            log(f"  w4a4_matmul_i8 M={m} {proj} {n}x{k}: bit-exact; "
-                f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound "
-                f"{b_ms * 1e3:.2f} us ({b_by})")
+                m=m, proj=proj, n=n, k=k, body=routed, ms=ms,
+                plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0))
+            log(f"    {routed} body: kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+                f"bound {b_ms * 1e3:.2f} us ({b_by})")
             del ws, args
 
 
@@ -1299,10 +1386,11 @@ def check_grouped_kernels(torch, dev, gen, results):
     yardstick the port never calls). Row 26 at [2048, 4096] -> [32, 2048,
     128]; row 23 at G = 32 and 86; row 27 [32, 2048, 128] -> [86, 2048,
     128], N = 2 x 11008; row 22 [2048, 4096] -> [86, 2048, 128]; row 25 at
-    qkv (K 4096, N 12288) and down (K 11008, N 4096); row 24 at [86, 2048,
-    128] with LAC clips. Edge shapes are checked, not timed: M = 300,
-    float32 inputs, no clips, q_max 127 and a zero row. Row 1 itself is
-    timed at M = 2048, qkv and down, beside torch._int_mm."""
+    qkv (K 4096, N 12288) and down (K 11008, N 4096), each of row 1's two
+    bodies, at M = 4 and 2048; row 24 at [86, 2048, 128] with LAC clips.
+    Edge shapes are checked, not timed: M = 300 (row 25 in both bodies and
+    output types), float32 inputs, no clips, q_max 127 and a zero row.
+    Row 1 itself is timed at row 25's shapes beside torch._int_mm."""
     from flatquant_torch.kernels import flat_pipeline as fp
     from flatquant_torch.kernels import grouped_mlp as gm
     from flatquant_torch.kernels import int4_matmul as im
@@ -1426,28 +1514,36 @@ def check_grouped_kernels(torch, dev, gen, results):
             del w8
         del ws
 
-    # row 25, and row 1 at the same shapes
-    for m, proj, n, k in ((300, "down", H, I), (T, "qkv", 3 * H, H),
+    # row 25, and row 1 at the same shapes: each body of row 25 bit for
+    # bit against the plain version and the same body of row 1, in both
+    # output types at M = 300; timed (the routed body) at M = 4 and 2048
+    for m, proj, n, k in ((300, "down", H, I), (4, "qkv", 3 * H, H),
+                          (4, "down", H, I), (T, "qkv", 3 * H, H),
                           (T, "down", H, I)):
-        xq = torch.randint(-8, 8, (m, k), generator=gen, device=dev,
-                           dtype=torch.int8)
+        xq, sx = _codes_scales(torch, dev, gen, m, k)
         xqg = gm.group_layout(xq, k // 128)
-        sx = torch.rand((m, 1), generator=gen, device=dev) * 0.1 + 1e-3
-        ws = _rand_weights(torch, dev, gen, n, k, None if m == T else 1)
-        out = torch.float32 if m < T else torch.bfloat16
-        y = gm.w4a4_matmul_i8_grouped(xqg, sx, *ws[0], out)
-        if not torch.equal(y, gm.w4a4_matmul_i8_grouped_ref(xqg, sx, *ws[0],
-                                                            out)):
-            raise AssertionError(f"w4a4_matmul_i8_grouped M={m} {proj}: not "
-                                 "bit-exact against its plain version")
-        _twin_equal(torch, "w4a4_matmul_i8_grouped", [y],
-                    [im.w4a4_matmul_i8(xq, sx, *ws[0], out)])
-        log(f"  w4a4_matmul_i8_grouped M={m} {proj} {n}x{k} ({out}): "
-            "bit-exact against its plain version and w4a4_matmul_i8")
-        if m < T:
+        ws = _rand_weights(torch, dev, gen, n, k, None if m != 300 else 1)
+        for out in ((torch.float32, torch.bfloat16) if m == 300
+                    else (torch.bfloat16,)):
+            want = gm.w4a4_matmul_i8_grouped_ref(xqg, sx, *ws[0], out)
+            for body in BODIES:
+                with forced_body(body):
+                    y = gm.w4a4_matmul_i8_grouped(xqg, sx, *ws[0], out)
+                    if not torch.equal(y, want):
+                        raise AssertionError(
+                            f"w4a4_matmul_i8_grouped {body} M={m} {proj} "
+                            f"{out}: not bit-exact against its plain version")
+                    _twin_equal(torch, "w4a4_matmul_i8_grouped", [y],
+                                [im.w4a4_matmul_i8(xq, sx, *ws[0], out)])
+        log(f"  w4a4_matmul_i8_grouped M={m} {proj} {n}x{k}: both bodies "
+            f"bit-exact against its plain version and w4a4_matmul_i8's same "
+            f"body (route: {im.w4a4_body(m, n, k)})")
+        if m == 300:
             continue
-        w8 = [(xq, im.unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
-        lib = (torch._int_mm, w8, "torch._int_mm, int8 weights")
+        w8 = [(xq if m > 16 else xq.new_zeros((32, k)),
+               im.unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
+        lib = (torch._int_mm, w8, "torch._int_mm, int8 weights"
+               + ("" if m > 16 else ", M padded to 32"))
         nbytes = m * k + n * k // 2 + 4 * m + 4 * n + 2 * m * n
         for name, x_in, fn, plain in (
                 ("w4a4_matmul_i8_grouped", xqg, gm.w4a4_matmul_i8_grouped,
@@ -1455,11 +1551,11 @@ def check_grouped_kernels(torch, dev, gen, results):
                 ("w4a4_matmul_i8", xq, im.w4a4_matmul_i8,
                  im.w4a8_matmul_ref)):
             _kernel_row(torch, results, name,
-                        f"M={m} {proj} {n}x{k} (1 x 2048 prefill)",
-                        lambda wp, sw: fn(x_in, sx, wp, sw),
+                        f"M={m} {proj} {n}x{k} ({im.w4a4_body(m, n, k)} "
+                        f"body)", lambda wp, sw: fn(x_in, sx, wp, sw),
                         lambda wp, sw: plain(x_in, sx, wp, sw), ws, nbytes,
-                        2 * m * n * k, INT8_OPS_PER_S, 0.0, iters=20,
-                        lib=lib, m=m, proj=proj)
+                        2 * m * n * k, INT8_OPS_PER_S, 0.0,
+                        iters=20 if m == T else 60, lib=lib, m=m, proj=proj)
         del ws, w8
 
     # row 24
@@ -2293,6 +2389,83 @@ def _checked_flash(torch, n, worst):
     return flash
 
 
+# phases 6a and 8: rounds of the 1 x 2048 prefill with row 1 forced to
+# its stream body and on the route (the tile body at M = 2048)
+ROUTE_ROUNDS = 3
+
+
+def _prefill_timer(torch, model, prompt, kw):
+    """() -> (last-position logits, wall ms) of one serving_prefill of
+    `prompt` over a fresh int4 cache, up to torch.cuda.synchronize()."""
+    from flatquant_torch.serving.engine import init_cache, serving_prefill
+
+    cfg, fq, sp = model
+
+    def prefill():
+        c = init_cache(cfg, prompt.shape[0], kw["max_len"], mode="int4",
+                       device=kw["device"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = serving_prefill(cfg, fq, sp, prompt, c, **kw)
+        torch.cuda.synchronize()
+        return lg, (time.perf_counter() - t0) * 1e3
+
+    return prefill
+
+
+def compare_routes(torch, prefill, label, smi):
+    """prefill() -> (last-position logits, wall ms) of one prefill. Runs it
+    with every row-1 launch forced to the stream body and on the normal
+    route in ROUTE_ROUNDS interleaved rounds of (stream, tile, tile,
+    stream), after one warm-up of each; every run's logits must equal the
+    first stream run's bit for bit (both bodies are exact), each route
+    must have taken only its body, and the tile route must be faster in
+    every round (sum of its two runs against the stream route's)."""
+    from flatquant_torch.kernels import common
+
+    def run(body):
+        before = dict(common.BODY_LAUNCHES["w4a4_matmul_i8"])
+        with (forced_body("stream") if body == "stream"
+              else contextlib.nullcontext()):
+            lg, ms = prefill()
+        took = {b: common.BODY_LAUNCHES["w4a4_matmul_i8"][b] - before[b]
+                for b in BODIES}
+        if took[body] == 0 or sum(took.values()) != took[body]:
+            raise AssertionError(f"{label}: the {body} route launched row 1's "
+                                 f"bodies {took}")
+        return lg, ms, took
+
+    ref, _, took_s = run("stream")
+    lg, _, took_t = run("tile")
+    if not torch.equal(lg, ref):
+        raise AssertionError(f"{label}: the tile route's logits differ from "
+                             "the stream route's")
+    rounds = []
+    for _ in range(ROUTE_ROUNDS):
+        walls = {"stream": [], "tile": []}
+        for body in ("stream", "tile", "tile", "stream"):
+            lg, ms, _ = run(body)
+            if not torch.equal(lg, ref):
+                raise AssertionError(f"{label}: a {body}-route prefill's "
+                                     "logits differ from the first run's")
+            walls[body].append(ms)
+        rounds.append(dict(walls, ratio=sum(walls["tile"])
+                           / sum(walls["stream"])))
+    log(f"  [{smi}] {label}, row 1 on the stream body vs the route (tile "
+        f"body; {took_t['tile']} row-1 launches, the stream route "
+        f"{took_s['stream']}), {ROUTE_ROUNDS} interleaved rounds: stream "
+        f"{[[round(w, 1) for w in r['stream']] for r in rounds]} ms, tile "
+        f"{[[round(w, 1) for w in r['tile']] for r in rounds]} ms, tile / "
+        f"stream by round {[round(r['ratio'], 4) for r in rounds]}; logits "
+        "bit-identical")
+    slower = [i for i, r in enumerate(rounds) if r["ratio"] >= 1]
+    if slower:
+        raise AssertionError(f"{label}: the tile route was not faster in "
+                             f"rounds {slower}")
+    return dict(rounds=rounds, row1_launches=took_t["tile"],
+                logits_equal=True)
+
+
 def run_long_prefill_path(torch, dev, model, results, smi):
     """fulldepth_bench.py's protocol on the int4-cache engine: (a) a 1 x
     2048 prompt (max_len 2304) through serving_prefill (fused routes,
@@ -2359,7 +2532,11 @@ def run_long_prefill_path(torch, dev, model, results, smi):
     log(f"  [{smi}] (a) decode after it, median {decode_ms:.2f} ms/step, "
         f"B={B}, {NEW} steps")
     log(f"  launches, (a) 1 x {S} prefill: {prefill_launches}")
-    log(f"  launches, (a) prefill + {NEW} decode steps: {launches_a}")
+    log(f"  launches, (a) prefill + {NEW} decode steps: {launches_a}; row 1 "
+        f"by body: {common.BODY_LAUNCHES['w4a4_matmul_i8']}")
+
+    routes = compare_routes(torch, _prefill_timer(torch, model, prompt, kw),
+                            f"(a) 1 x {S} prefill", smi)
     busy = profile_steps(torch, lambda i: serving_prefill(
         cfg, fq, sp, prompt,
         init_cache(cfg, B, MAX_LEN, mode="int4", device=dev), **kw),
@@ -2442,7 +2619,7 @@ def run_long_prefill_path(torch, dev, model, results, smi):
         max_len=MAX_LEN, prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
         step_ms=step_ms, prefill_launches=prefill_launches,
         launches=launches_a, prefill_profile=busy, per_launch_checks=checks,
-        all_logits_ms_checked=all_ms, all_logits_launches=launches_b,
+        row1_routes=routes, all_logits_ms_checked=all_ms, all_logits_launches=launches_b,
         all_logits_flash_max_abs_err=worst[0], all_logits_layers=layers,
         all_logits_layer_worst=layer_worst, cosine_b_vs_a=cos_ab,
         cosine_plain_vs_a=cos_noise, cosine_control_vs_a=cos_control)
@@ -2908,6 +3085,10 @@ def run_qwen_path(torch, dev, results, smi):
     log(f"  launches, prefill: {prefill_launches}")
     log(f"  launches, prefill + {NEW} decode steps: {launches}")
     log(f"  greedy tokens: {run['tokens']}")
+
+    routes = compare_routes(torch, _prefill_timer(torch, (cfg, fq, sp),
+                                                  prompt, kw),
+                            f"Qwen-2.5-7B 1 x {S} prefill", smi)
     busy = profile_steps(torch, lambda i: serving_prefill(
         cfg, fq, sp, prompt,
         init_cache(cfg, B, MAX_LEN, mode="int4", device=dev), **kw),
@@ -2922,7 +3103,7 @@ def run_qwen_path(torch, dev, results, smi):
     results["qwen_path"] = dict(
         model="qwen-2.5-7b", layers=L, batch=B, prompt=S, new_tokens=NEW,
         max_len=MAX_LEN, prefill_profile=busy, per_launch_checks=checks,
-        decode_attention_checks=dchecks, **run)
+        decode_attention_checks=dchecks, row1_routes=routes, **run)
     del sp
     gc.collect()
     torch.cuda.empty_cache()
@@ -4089,7 +4270,9 @@ def kernel_line(results, paths):
         r = results[name]
         weights = None
         if name in ("w4a4_matmul_i8", "w4a4_matmul_i8_fusedq"):
-            rows = [x for x in r["rows"] if x["m"] == 4]
+            # row 1: phase 3a's sweep rows (3j's carry a "case")
+            rows = [x for x in r["rows"] if x["m"] == 4 and (
+                name != "w4a4_matmul_i8" or "case" not in x)]
             at = "M=4 (B=4 decode), sum of qkv+o+upgate+down of one layer"
         elif name.startswith("decode_attention_int4"):
             rows = [x for x in r["rows"] if x["case"].endswith("main path")]
@@ -4119,8 +4302,9 @@ def kernel_line(results, paths):
             at = ("T=2048, one layer: 2 x G=32 (ln1, ln2) + 1 x G=86 "
                   "(down)")
         elif name == "w4a4_matmul_i8_grouped":
-            rows = r["rows"]
-            at = "M=2048 (1 x 2048 prefill), sum of qkv + down of one layer"
+            rows = [x for x in r["rows"] if x["m"] == 2048]
+            at = ("M=2048 (1 x 2048 prefill, tile body), sum of qkv + down "
+                  "of one layer")
         elif name.startswith("flash_prefill"):
             rows = r["rows"][:1]
             at = rows[0]["case"]

@@ -62,6 +62,13 @@ LAUNCHES: Dict[str, int] = {
     "w4a4_swiglu_grouped_gx": 0,
 }
 
+# launches of row 1 and row 25 by device body ("stream" or "tile"), so a
+# run shows which body its path took; reset with LAUNCHES
+BODY_LAUNCHES: Dict[str, Dict[str, int]] = {
+    "w4a4_matmul_i8": {"stream": 0, "tile": 0},
+    "w4a4_matmul_i8_grouped": {"stream": 0, "tile": 0},
+}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
@@ -71,8 +78,10 @@ _L = ctypes.c_longlong
 # C signature of each exported launch function (all return cudaError_t)
 _SIGNATURES = {
     "int4_matmul": {
-        # xq, wp, sx, sw, y, M, N, K, out_is_f32, stream
-        "fq_w4a4_matmul_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # xq, wp, sx, sw, y, M, N, K, out_is_f32, stream: row 1's two
+        # bodies (int4_matmul.py w4a4_body picks one)
+        "fq_w4a4_matmul_i8_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "fq_w4a4_matmul_i8_tile": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         # x, clip, xq, xs, M, K, q_max, x_is_f32, stream
         "fq_quant_acts_i8": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
         # x, wp, sx, sw, y, M, N, K, out_is_f32, stream
@@ -80,9 +89,11 @@ _SIGNATURES = {
         # x, clip, wp, sw, y, M, N, K, x_is_f32, out_is_f32, stream
         "fq_w4a4_matmul_i8_fusedq": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _P],
-        # fq_w4a4_matmul_i8's, xq grouped [K/128, M, 128]
-        "fq_w4a4_matmul_i8_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _P],
+        # the same two, xq grouped [K/128, M, 128]
+        "fq_w4a4_matmul_i8_grouped_stream": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                             _I, _P],
+        "fq_w4a4_matmul_i8_grouped_tile": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                           _I, _P],
         # fq_quant_acts_i8's, x and xq grouped [K/128, M, 128]
         "fq_quant_acts_i8_grouped": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     },
@@ -156,6 +167,9 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counts in BODY_LAUNCHES.values():
+        for body in counts:
+            counts[body] = 0
 
 
 def resolve_device(device) -> torch.device:

@@ -1,6 +1,7 @@
 // The int4-weight GEMMs of the serving linears and the one-pass
 // per-token activation quant (port of flatquant_tpu/kernels/int4_matmul.py):
-//   w4a4_matmul_i8  -> fq_w4a4_matmul_i8   (int8 codes x int4 weights)
+//   w4a4_matmul_i8  -> fq_w4a4_matmul_i8_stream, fq_w4a4_matmul_i8_tile
+//                      (int8 codes x int4 weights; two bodies)
 //   quant_acts_i8   -> fq_quant_acts_i8    (per-token symmetric quant)
 //   w4a8_matmul     -> fq_w4a8_matmul      (bf16 activations x int4 weights)
 //   w4a4_matmul_i8_fusedq -> fq_w4a4_matmul_i8_fusedq (quant_acts_i8 in
@@ -8,7 +9,7 @@
 // and, from flatquant_tpu/kernels/grouped_mlp.py (Pallas), the first two
 // on the grouped activation layout [K / 128, M, 128] (flat column c of row
 // m at (c / 128) * M * 128 + m * 128 + c % 128):
-//   w4a4_matmul_i8_grouped -> fq_w4a4_matmul_i8_grouped
+//   w4a4_matmul_i8_grouped -> fq_w4a4_matmul_i8_grouped_stream, _tile
 //   quant_acts_i8_grouped  -> fq_quant_acts_i8_grouped
 // Each is its flat twin's body with a layout flag that changes only the
 // addresses of 16-byte chunks (each inside one group): the same
@@ -16,35 +17,76 @@
 // group_layout of the same codes or values.
 // Weights are planar-packed biased nibbles everywhere:
 //   packed byte c of row n = nib[n, c] | nib[n, c + K/2] << 4, nib = q + 8
-// and the -8 zero point folds into each epilogue as -8 * rowsum(x).
+// and the -8 zero point folds into each epilogue as -8 * rowsum(x), except
+// in w4a4_matmul_i8's tile body, which unpacks to signed codes.
 //
 // ---------------------------------------------------------------------
 // w4a4_matmul_i8: int8 activation codes x planar int4 weights, int32
-// accumulation, fused dequant epilogue.
+// accumulation, fused dequant epilogue. Two device bodies behind one
+// wrapper; kernels/int4_matmul.py `w4a4_body` picks one from (M, N, K).
 //
 // Replaces: flatquant_tpu/kernels/int4_matmul.py:w4a4_matmul_i8 (Pallas,
 // int8 MXU).
 //
-//   y[m, n] = (float)(acc[m, n] - 8 * rowsum[m]) * sx[m] * sw[n]
-//   acc     = sum_k x_q[m, k] * nib[n, k],   nib = q + 8 in [0, 15]
+//   y[m, n] = (float)acc[m, n] * sx[m] * sw[n]
+//   acc     = sum_k x_q[m, k] * (nib[n, k] - 8)   (exact int32)
 //
-// What bounds it on the H100: at decode (M <= 8) the weight stream. Every
-// packed byte is read once (N * K/2 bytes: 25 MB for the merged qkv of
-// llama-2-7b) against 2*M*N*K integer operations, far below the 1979
-// TOP/s int8 rate, so the floor is bytes / 3.35 TB/s.
+// What bounds it on the H100, by regime:
+// - decode (M <= 8): bytes. Every packed weight byte is read once, N * K/2
+//   bytes (25 MB for llama-2-7b's merged qkv: 7.5 us at 3.35 TB/s) against
+//   2 * M * N * K operations, far below the 1,979 TOP/s int8 rate.
+// - prefill (M in the hundreds and thousands): int8 operations. At M =
+//   2048 the qkv is 206 G operations, 0.104 ms at 1,979 TOP/s, against
+//   84 MB (0.025 ms). Only the tensor cores get near that rate.
 //
-// Design: one warp owns ROWS output rows; each lane streams 16-byte
-// chunks of those rows (coalesced, read-only path), unpacks the two
-// nibble planes with one mask and one shift per 32-bit word, and feeds
-// __dp4a against the matching 16 bytes of activation codes from the low
-// and the high half of the row. The activation rows are small and shared
-// by every warp, so they come through L1/L2; holding ROWS weight rows per
-// warp reuses each activation load ROWS times. A block covers MT
-// activation rows; grid.y tiles longer M (prefill here has M < 256, where
-// the weights are re-read once per tile from L2 -- a tensor-core rewrite
-// is later work). The int32 sums are exact and the epilogue multiplies in
-// the plain version's order, so the result is bit-identical to
-// w4a8_matmul_ref (float32 products of integers below 2^24, TF32 off).
+// Stream body (fq_w4a4_matmul_i8_stream, M below the crossover): one warp
+// owns ROWS weight rows; each lane streams 16-byte chunks of those rows
+// (coalesced, read-only path), unpacks the two nibble planes with one
+// mask and one shift per 32-bit word, and feeds __dp4a against the
+// matching 16 bytes of activation codes from the low and the high half of
+// the row; the -8 zero point folds in as -8 * rowsum(x). A block covers MT
+// activation rows; grid.y tiles longer M, and every tile re-reads the
+// whole weight from L2 (256 times at M = 2048), on the CUDA cores: that
+// is why it lost 21x to torch._int_mm there and now serves decode only.
+//
+// Tile body (fq_w4a4_matmul_i8_tile): a 128 x 128 output tile per block
+// on the tensor cores with wgmma.mma_async m64n128k32 s8 x s8 -> s32, two
+// warpgroups of 64 weight rows each. The weights are wgmma's A, from
+// registers; the activations are its B, from shared memory (both
+// operands K-major, as 8-bit wgmma wants them: x_q [M, K] and the weight
+// rows [N, K] already lie so). A stage holds 64 packed bytes of each of
+// the block's 128 weight rows (128 k: 64 of the low nibble plane, 64 of
+// the high) and the matching two 64-byte slices of its 128 activation
+// rows, at columns c and K/2 + c, as one 128-byte row with the 128-byte
+// swizzle (16-byte chunk j of row r at j ^ (r % 8)), so that one matrix
+// descriptor per 32-byte k-step addresses it. A ring of TL_STAGES stages
+// is filled by cp.async 16-byte copies, so the loads of stage k + 3 are
+// in flight while stage k's products run; each stage ends with its
+// wgmmas done (keeping one group in flight, or 256 weight rows a block,
+// measured slower). Each warp reads its 16 packed weight rows with
+// ldmatrix, in the A fragments' layout, and unpacks them in registers
+// into 16 * (nib - 8) as a signed byte: hi = (w & 0xF0) ^ 0x80, lo = ((w
+// << 4) & 0xF0) ^ 0x80 on each byte (3 operations per word, both
+// planes). So the int32 sum is 16 * acc exactly (|x| <= 128: exact for K
+// < 2^17), needs no row sum, and >> 4 gives acc. Weight reuse through
+// L2: blockIdx.x walks the M tiles, so all M tiles of one weight N tile
+// run together and the packed weight comes from HBM about once per call.
+// Edges: rows past M and N are zero-filled and not stored; a K/2 that is
+// not a multiple of 64 (K = 10944, or K % 64 == 32 with a last stage of
+// 16 bytes) zero-fills the activation chunks past K/2, so the weights'
+// filler meets zeros. What is left on the table (PERF.md): the epilogue
+// stores 2-byte outputs scattered along N, and no TMA, no warp
+// specialisation and no persistent grid yet.
+//
+// The crossover (int4_matmul.py TILE_MIN_M = 32) is the smallest M from
+// which the tile body beats the stream body at all four llama-2-7b shapes
+// in chip_smoke.py phase 3a's sweep on an H100 (at M = 16 the o
+// projection still streams faster: a 128-row tile is mostly padding and
+// 32 blocks cannot pull its 8 MB of weights as fast as 256 streaming
+// blocks). Both bodies give the same int32 sums,
+// and both epilogues multiply in the plain version's order, so either is
+// bit-identical to w4a8_matmul_ref (float32 products of integers below
+// 2^24, TF32 off).
 //
 // ---------------------------------------------------------------------
 // quant_acts_i8: x [M, K] (bf16 or f32) -> int8 codes [M, K], f32 scales
@@ -128,6 +170,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -286,6 +329,239 @@ w4a4_matmul_i8_grouped_kernel(const int8_t* __restrict__ xq,
   w4a4_warp_rows<OutT, false, true>(
       xq + static_cast<size_t>(m0) * 128, sx + m0, wp, sw, y, m0,
       min(MT, M - m0), n0, N, K, lane, static_cast<size_t>(M) * 128);
+}
+
+// ---------------------------------------------------------------------------
+// w4a4_matmul_i8, tile body: wgmma with the weights as A from registers
+// and the activations as B from 128-byte-swizzled shared tiles
+// ---------------------------------------------------------------------------
+
+constexpr int TL_BM = 128;       // activation rows per block: wgmma's N
+constexpr int TL_BN = 128;       // weight rows per block: 2 x m64
+constexpr int TL_BK = 64;        // packed bytes per weight row per stage
+constexpr int TL_STAGES = 4;     // cp.async ring depth
+constexpr int TL_THREADS = 256;  // 2 warpgroups
+constexpr int TL_X_STAGE = TL_BM * 128;  // rows of lo 64 | hi 64 bytes
+constexpr int TL_W_LD = TL_BK + 16;      // padded packed weight row
+constexpr int TL_W_STAGE = TL_BN * TL_W_LD;
+// + 1024: the swizzled tiles start at a multiple of 1024 bytes
+constexpr int TL_SMEM = TL_STAGES * (TL_X_STAGE + TL_W_STAGE) + 1024;
+
+// 16 * (nib - 8) as signed bytes from four packed bytes: the high nibbles
+// in place, the low ones shifted up; xor 0x80 maps the biased nibble v at
+// bits 4-7 to v - 8 in two's complement (tested on all 256 bytes in
+// tests/test_torch_w4a4_tile.py)
+__device__ __forceinline__ unsigned hi_codes16(unsigned w) {
+  return (w & 0xF0F0F0F0u) ^ 0x80808080u;
+}
+__device__ __forceinline__ unsigned lo_codes16(unsigned w) {
+  return ((w << 4) & 0xF0F0F0F0u) ^ 0x80808080u;
+}
+
+// K-major operand of 128-byte rows, 128-byte swizzle: start address,
+// leading offset unused (1), stride 1024 bytes between 8-row groups
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keep the accumulators' reads and writes on their side of the wgmmas
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64 x 128] += a[64 x 32] (registers, s8) * b[32 x 128] (shared, s8)
+__device__ __forceinline__ void wgmma_s8_n128(int* d, const unsigned* a,
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The tile body; each __global__ below carries its wrapper's name (the
+// profiles group kernels by it). GROUPED (w4a4_matmul_i8_grouped): the
+// codes are [K / 128, M, 128]; a 16-byte chunk starts at a multiple of 16
+// and lies inside one group, so only its address changes.
+template <typename OutT, bool GROUPED>
+__device__ __forceinline__ void w4a4_tile(const int8_t* __restrict__ xq,
+                                          const uint8_t* __restrict__ wp,
+                                          const float* __restrict__ sx,
+                                          const float* __restrict__ sw,
+                                          OutT* __restrict__ y, int M, int N,
+                                          int K) {
+  extern __shared__ __align__(16) uint8_t tl_raw[];
+  uint8_t* x_s = tl_raw + ((1024 - (smem_u32(tl_raw) & 1023)) & 1023);
+  uint8_t* w_s = x_s + TL_STAGES * TL_X_STAGE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wi = warp & 3;
+  const int m0 = blockIdx.x * TL_BM;  // activation rows, fastest: one
+  const int n0 = blockIdx.y * TL_BN;  // weight tile's blocks run together
+  const int half = K / 2;
+  const int nk = (half + TL_BK - 1) / TL_BK;
+
+  // stage kb: 16-byte chunks of the activation rows (4 of the low plane at
+  // packed column c, 4 of the high at K/2 + c; chunk ch of row r at
+  // ch ^ (r % 8), the 128-byte swizzle) and of the packed weight rows;
+  // chunks past M, N or K/2 are zero-filled
+  auto load_stage = [&](int kb, int slot) {
+    const int c0 = kb * TL_BK;
+    uint8_t* xs = x_s + slot * TL_X_STAGE;
+    uint8_t* ws = w_s + slot * TL_W_STAGE;
+#pragma unroll
+    for (int i = 0; i < TL_BM * 8 / TL_THREADS; ++i) {
+      const int idx = tid + i * TL_THREADS;
+      const int r = idx >> 3, ch = idx & 7;
+      const int cc = c0 + (ch & 3) * 16;
+      const int col = (ch >> 2) * half + cc;
+      const int m = m0 + r;
+      const bool ok = m < M && cc < half;
+      size_t at;
+      if constexpr (GROUPED)
+        at = ((static_cast<size_t>(col >> 7) * M) + m) * 128 + (col & 127);
+      else
+        at = static_cast<size_t>(m) * K + col;
+      cp_async16_zfill(xs + r * 128 + ((ch ^ (r & 7)) << 4),
+                       ok ? xq + at : xq, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < TL_BN * 4 / TL_THREADS; ++i) {
+      const int idx = tid + i * TL_THREADS;
+      const int r = idx >> 2, j = idx & 3;
+      const int cc = c0 + j * 16;
+      const int n = n0 + r;
+      const bool ok = n < N && cc < half;
+      cp_async16_zfill(ws + r * TL_W_LD + j * 16,
+                       ok ? wp + static_cast<size_t>(n) * half + cc : wp, ok);
+    }
+  };
+
+  int acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+
+  // stage kb: wait for its copies, refill the slot stage kb - 1 used,
+  // unpack the warp's 16 weight rows (packed bytes 0-31 and 32-63, in the
+  // A fragments' layout) into a, and run the 4 k-steps of 32 (low plane
+  // c + [0, 64), then high plane K/2 + c + [0, 64)) to completion
+  auto step = [&](int kb, unsigned (&a)[4][4]) {
+    cp_async_wait<TL_STAGES - 2>();  // stage kb has landed
+    fence_proxy_async();             // ... visible to the wgmmas
+    __syncthreads();                 // ... for every thread
+    if (kb + TL_STAGES - 1 < nk)
+      load_stage(kb + TL_STAGES - 1, (kb + TL_STAGES - 1) % TL_STAGES);
+    cp_async_commit();  // an empty group at the tail keeps the count
+    const int slot = kb % TL_STAGES;
+    unsigned p[2][4];
+    const uint8_t* wr = w_s + slot * TL_W_STAGE +
+                        (wg * 64 + wi * 16 + (lane & 15)) * TL_W_LD +
+                        (lane >> 4) * 16;
+    ldmatrix_x4(p[0], wr);
+    ldmatrix_x4(p[1], wr + 32);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[0][r] = lo_codes16(p[0][r]);  // k = c + [0, 32)
+      a[1][r] = lo_codes16(p[1][r]);  // k = c + [32, 64)
+      a[2][r] = hi_codes16(p[0][r]);  // k = K/2 + c + [0, 32)
+      a[3][r] = hi_codes16(p[1][r]);  // k = K/2 + c + [32, 64)
+    }
+    const uint8_t* xs = x_s + slot * TL_X_STAGE;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_s8_n128(acc, a[j], sw128_desc(xs + j * 32));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+  };
+
+#pragma unroll
+  for (int st = 0; st < TL_STAGES - 1; ++st) {
+    if (st < nk) load_stage(st, st);
+    cp_async_commit();
+  }
+  // two stages a turn on two A register sets: measured faster than one
+  // set and no unroll (phase 3a, PERF.md)
+  unsigned a0[4][4], a1[4][4];
+  for (int kb = 0; kb < nk; kb += 2) {
+    step(kb, a0);
+    if (kb + 1 < nk) step(kb + 1, a1);
+  }
+  cp_async_wait<0>();
+
+  // acc[4i + e]: weight row 16 wi + g8 (+ 8 for e >= 2) of the
+  // warpgroup's 64, activation row 8i + 2 tq + (e & 1); acc / 16 exactly,
+  // then x the row scale, then x the column scale (the plain version's
+  // order)
+  const int g8 = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n0 + wg * 64 + wi * 16 + g8 + (e >> 1) * 8;
+      const int m = m0 + i * 8 + tq * 2 + (e & 1);
+      if (m < M && n < N) {
+        const float v = static_cast<float>(acc[4 * i + e] >> 4) * sx[m];
+        y[static_cast<size_t>(m) * N + n] = to_out<OutT>(v * sw[n]);
+      }
+    }
+  }
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(TL_THREADS)
+w4a4_matmul_i8_tile_kernel(const int8_t* __restrict__ xq,
+                           const uint8_t* __restrict__ wp,
+                           const float* __restrict__ sx,
+                           const float* __restrict__ sw, OutT* __restrict__ y,
+                           int M, int N, int K) {
+  w4a4_tile<OutT, false>(xq, wp, sx, sw, y, M, N, K);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(TL_THREADS)
+w4a4_matmul_i8_grouped_tile_kernel(const int8_t* __restrict__ xq,
+                                   const uint8_t* __restrict__ wp,
+                                   const float* __restrict__ sx,
+                                   const float* __restrict__ sw,
+                                   OutT* __restrict__ y, int M, int N,
+                                   int K) {
+  w4a4_tile<OutT, true>(xq, wp, sx, sw, y, M, N, K);
 }
 
 // ---------------------------------------------------------------------------
@@ -616,16 +892,6 @@ constexpr int WM_THREADS = 256;
 constexpr int WM_KP = 32;  // packed bytes per weight row per step (64 k)
 constexpr int WM_LD = 72;  // padded shared row, bf16: 64 k + 8
 
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // two nibbles (0..15) as a bf16 pair, low half first (exact)
 __device__ __forceinline__ unsigned nib_pair(unsigned a, unsigned b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(a),
@@ -815,9 +1081,9 @@ int launch_fusedq(const void* x, const void* clip, const void* wp,
 }
 
 template <bool GROUPED>
-int launch_w4a4(const void* xq, const void* wp, const void* sx,
-                const void* sw, void* y, int M, int N, int K, int out_is_f32,
-                cudaStream_t s) {
+int launch_w4a4_stream(const void* xq, const void* wp, const void* sx,
+                       const void* sw, void* y, int M, int N, int K,
+                       int out_is_f32, cudaStream_t s) {
   const int rows_per_block = WARPS * ROWS;
   dim3 grid((N + rows_per_block - 1) / rows_per_block, (M + MT - 1) / MT);
   dim3 block(WARPS * 32);
@@ -835,6 +1101,34 @@ int launch_w4a4(const void* xq, const void* wp, const void* sx,
     kern<<<grid, block, 0, s>>>(x, w, a, b, static_cast<bf16*>(y), M, N, K);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OutT, bool GROUPED>
+int launch_w4a4_tile_t(const void* xq, const void* wp, const void* sx,
+                       const void* sw, void* y, int M, int N, int K,
+                       cudaStream_t s) {
+  auto kern = GROUPED ? &w4a4_matmul_i8_grouped_tile_kernel<OutT>
+                      : &w4a4_matmul_i8_tile_kernel<OutT>;
+  static int done = 0;
+  const cudaError_t err = allow_smem(kern, TL_SMEM, &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((M + TL_BM - 1) / TL_BM, (N + TL_BN - 1) / TL_BN);
+  kern<<<grid, TL_THREADS, TL_SMEM, s>>>(
+      static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(wp),
+      static_cast<const float*>(sx), static_cast<const float*>(sw),
+      static_cast<OutT*>(y), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool GROUPED>
+int launch_w4a4_tile(const void* xq, const void* wp, const void* sx,
+                     const void* sw, void* y, int M, int N, int K,
+                     int out_is_f32, cudaStream_t s) {
+  return out_is_f32
+             ? launch_w4a4_tile_t<float, GROUPED>(xq, wp, sx, sw, y, M, N, K,
+                                                  s)
+             : launch_w4a4_tile_t<bf16, GROUPED>(xq, wp, sx, sw, y, M, N, K,
+                                                 s);
 }
 
 template <bool GROUPED, typename T>
@@ -856,22 +1150,42 @@ int launch_quant_acts(const void* x, const void* clip, void* xq, void* xs,
 
 // x_q int8 [M, K]; w_packed uint8 [N, K/2]; sx f32 [M]; sw f32 [N];
 // y [M, N] bf16 (out_is_f32 = 0) or f32. K % 32 == 0 and 16-byte aligned
-// rows are the caller's contract (checked in Python).
-extern "C" int fq_w4a4_matmul_i8(const void* xq, const void* wp,
-                                 const void* sx, const void* sw, void* y,
-                                 int M, int N, int K, int out_is_f32,
-                                 void* stream) {
-  return launch_w4a4<false>(xq, wp, sx, sw, y, M, N, K, out_is_f32,
-                            static_cast<cudaStream_t>(stream));
+// rows are the caller's contract (checked in Python). _stream: the dp4a
+// weight stream; _tile: the tensor-core tiles (K < 2^17).
+extern "C" int fq_w4a4_matmul_i8_stream(const void* xq, const void* wp,
+                                        const void* sx, const void* sw,
+                                        void* y, int M, int N, int K,
+                                        int out_is_f32, void* stream) {
+  return launch_w4a4_stream<false>(xq, wp, sx, sw, y, M, N, K, out_is_f32,
+                                   static_cast<cudaStream_t>(stream));
 }
 
-// fq_w4a4_matmul_i8 with x_q int8 [K / 128, M, 128]; K % 128 == 0.
-extern "C" int fq_w4a4_matmul_i8_grouped(const void* xq, const void* wp,
-                                         const void* sx, const void* sw,
-                                         void* y, int M, int N, int K,
-                                         int out_is_f32, void* stream) {
-  return launch_w4a4<true>(xq, wp, sx, sw, y, M, N, K, out_is_f32,
-                           static_cast<cudaStream_t>(stream));
+extern "C" int fq_w4a4_matmul_i8_tile(const void* xq, const void* wp,
+                                      const void* sx, const void* sw,
+                                      void* y, int M, int N, int K,
+                                      int out_is_f32, void* stream) {
+  return launch_w4a4_tile<false>(xq, wp, sx, sw, y, M, N, K, out_is_f32,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// the same two with x_q int8 [K / 128, M, 128]; K % 128 == 0.
+extern "C" int fq_w4a4_matmul_i8_grouped_stream(const void* xq,
+                                                const void* wp,
+                                                const void* sx,
+                                                const void* sw, void* y,
+                                                int M, int N, int K,
+                                                int out_is_f32,
+                                                void* stream) {
+  return launch_w4a4_stream<true>(xq, wp, sx, sw, y, M, N, K, out_is_f32,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fq_w4a4_matmul_i8_grouped_tile(const void* xq, const void* wp,
+                                              const void* sx, const void* sw,
+                                              void* y, int M, int N, int K,
+                                              int out_is_f32, void* stream) {
+  return launch_w4a4_tile<true>(xq, wp, sx, sw, y, M, N, K, out_is_f32,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // x [M, K] bf16 (x_is_f32 = 0) or f32, K % 128 == 0, 16-byte aligned;

@@ -1,10 +1,12 @@
 // Warp-level tensor-core and copy helpers shared by the flash attention
-// kernels (flash_prefill.cu, flash_prefill_i8.cu): cp.async staging,
-// ldmatrix, mma.sync in bf16 and in s8, and the quad reductions over the
-// four lanes that hold one accumulator row.
+// kernels (flash_prefill.cu, flash_prefill_i8.cu) and the W4A4 GEMMs
+// (int4_matmul.cu): cp.async staging, ldmatrix, mma.sync in bf16 and in
+// s8, and the quad reductions over the four lanes that hold one
+// accumulator row.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
@@ -18,6 +20,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
+// cp_async16 that copies `valid ? 16 : 0` bytes and zero-fills the rest
+// (gmem must still be a valid address; nothing is read when !valid)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -26,8 +37,23 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ void ldmatrix_x4(unsigned* r,
                                             const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// four 8 x 16-byte matrices of int8 data: lane l receives 4 bytes of row
+// l / 4 at byte (l % 4) * 4 of each, the s8 mma fragments' layout
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const uint8_t* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])

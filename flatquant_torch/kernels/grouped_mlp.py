@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from flatquant_torch.kernels import common
+from flatquant_torch.kernels import common, int4_matmul
 from flatquant_torch.kernels.flat_pipeline import (
     left_quant_i8_flat_ref,
     rmsnorm_right_flat_ref,
@@ -256,7 +256,8 @@ def w4a4_matmul_i8_grouped(x_q, x_scale, w_packed, w_scale,
     on grouped codes x_q int8 [G, M, 128], bit-identical to
     w4a4_matmul_i8 on the flat codes. x_scale f32 [M, 1]; w_packed uint8
     [N, G*64] planar; w_scale f32 [N]. Output bf16 or f32. CUDA tensors
-    launch the kernel or raise; CPU tensors run the plain version."""
+    launch the body int4_matmul.w4a4_body picks, row 1's with the grouped
+    address map (or raise); CPU tensors run the plain version."""
     if x_q.device.type == "cpu":
         return w4a4_matmul_i8_grouped_ref(x_q, x_scale, w_packed, w_scale,
                                           out_dtype)
@@ -278,14 +279,8 @@ def w4a4_matmul_i8_grouped(x_q, x_scale, w_packed, w_scale,
     x_scale, w_scale = x_scale.contiguous(), w_scale.contiguous()
     req(x_q.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0, _GEMM,
         "x_q and w_packed must be 16-byte aligned")
-    y = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
-    rc = common.lib("int4_matmul").fq_w4a4_matmul_i8_grouped(
-        x_q.data_ptr(), w_packed.data_ptr(), x_scale.data_ptr(),
-        w_scale.data_ptr(), y.data_ptr(), m, n, k,
-        int(out_dtype == torch.float32), common.stream_ptr(x_q))
-    common.check("int4_matmul", _GEMM, rc)
-    common.LAUNCHES[_GEMM] += 1
-    return y
+    return int4_matmul.launch_w4a4(_GEMM, x_q, x_scale, w_packed, w_scale,
+                                   out_dtype, m, n, k, grouped=True)
 
 
 # ---------------------------------------------------------------------------

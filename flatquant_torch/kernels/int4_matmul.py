@@ -10,7 +10,10 @@ point folds into the epilogue as -8 * rowsum(x).
 Kernels (each wrapper launches its CUDA kernel for CUDA tensors, or
 raises, and runs its plain version for CPU tensors):
 
-    w4a4_matmul_i8         int8 codes x int4 weights   (csrc/int4_matmul.cu)
+    w4a4_matmul_i8         int8 codes x int4 weights   (csrc/int4_matmul.cu;
+                           two bodies, w4a4_body picks: a dp4a weight
+                           stream below TILE_MIN_M rows, tensor-core
+                           tiles from there on)
                            plain: w4a8_matmul_ref
     quant_acts_i8          per-token symmetric quant   (csrc/int4_matmul.cu)
                            plain: quant_acts_i8_ref
@@ -39,6 +42,13 @@ from flatquant_torch.core.quant import true_div
 from flatquant_torch.kernels import common
 
 _NAME = "w4a4_matmul_i8"
+# The smallest M at which row 1's tensor-core tile body is faster than its
+# dp4a weight stream at all four llama-2-7b shapes (chip_smoke.py phase
+# 3a's sweep on an H100; PERF.md gives the times).
+TILE_MIN_M = 32
+# The tile body sums 16 * (nibble - 8) products in int32: exact for any
+# int8 codes below this K (128 * 128 * K < 2^31).
+TILE_MAX_K = 1 << 17
 _QA = "quant_acts_i8"
 _W4A8 = "w4a8_matmul"
 _SWI = "w4a4_matmul_i8_swiglu"
@@ -86,14 +96,43 @@ def _out_dtype(name, out_dtype):
                    f"out_dtype {out_dtype} must be bfloat16 or float32")
 
 
+def w4a4_body(m: int, n: int, k: int) -> str:
+    """The device body of w4a4_matmul_i8 and w4a4_matmul_i8_grouped for an
+    [M, K] x [N, K]^T product: "tile" (tensor cores) from TILE_MIN_M rows
+    on, else "stream" (the dp4a weight stream, the decode body). N does not
+    move it: the tile masks a ragged N. Nor does K below TILE_MAX_K: the
+    tile zero-fills the activations past K/2, so a K % 64 == 32 (a last
+    stage of 16 packed bytes) takes the same rule as any K % 32 == 0."""
+    return "tile" if m >= TILE_MIN_M and k < TILE_MAX_K else "stream"
+
+
+def launch_w4a4(name, x_q, x_scale, w_packed, w_scale, out_dtype, m, n, k,
+                grouped):
+    """Launch the body that w4a4_body picks for row 1 (x_q [M, K]) or, with
+    grouped, row 25 (x_q [K/128, M, 128]) on checked, contiguous CUDA
+    tensors; raise if the launch fails (no other body is tried). Counted
+    under `name` and, by body, in common.BODY_LAUNCHES."""
+    body = w4a4_body(m, n, k)
+    y = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
+    fn = getattr(common.lib("int4_matmul"),
+                 f"fq_w4a4_matmul_i8{'_grouped' if grouped else ''}_{body}")
+    rc = fn(x_q.data_ptr(), w_packed.data_ptr(), x_scale.data_ptr(),
+            w_scale.data_ptr(), y.data_ptr(), m, n, k,
+            int(out_dtype == torch.float32), common.stream_ptr(x_q))
+    common.check("int4_matmul", name, rc)
+    common.LAUNCHES[name] += 1
+    common.BODY_LAUNCHES[name][body] += 1
+    return y
+
+
 def w4a4_matmul_i8(x_q, x_scale, w_packed, w_scale,
                    out_dtype=torch.bfloat16):
     """y[M, N] = dequant(x_q[M, K] @ unpack(w_packed)[N, K]^T).
 
     x_q int8 codes [M, K] on the int4 grid; x_scale f32 [M, 1]; w_packed
     uint8 [N, K/2] planar; w_scale f32 [N]. Output bf16 or f32.
-    CUDA tensors launch the kernel (or raise); CPU tensors run
-    w4a8_matmul_ref."""
+    CUDA tensors launch the body w4a4_body picks (or raise); CPU tensors
+    run w4a8_matmul_ref."""
     if x_q.device.type == "cpu":
         return w4a8_matmul_ref(x_q, x_scale, w_packed, w_scale, out_dtype)
     m, k = x_q.shape
@@ -113,14 +152,8 @@ def w4a4_matmul_i8(x_q, x_scale, w_packed, w_scale,
     x_scale, w_scale = x_scale.contiguous(), w_scale.contiguous()
     req(x_q.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0, _NAME,
         "x_q and w_packed must be 16-byte aligned")
-    y = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
-    rc = common.lib("int4_matmul").fq_w4a4_matmul_i8(
-        x_q.data_ptr(), w_packed.data_ptr(), x_scale.data_ptr(),
-        w_scale.data_ptr(), y.data_ptr(), m, n, k,
-        int(out_dtype == torch.float32), common.stream_ptr(x_q))
-    common.check("int4_matmul", _NAME, rc)
-    common.LAUNCHES[_NAME] += 1
-    return y
+    return launch_w4a4(_NAME, x_q, x_scale, w_packed, w_scale, out_dtype, m,
+                       n, k, grouped=False)
 
 
 # ---------------------------------------------------------------------------

@@ -37,22 +37,58 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m,n,k", [(1, 4096, 4096), (8, 1024, 11008),
-                                   (40, 384, 512)])
-@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
-def test_w4a4_matmul_i8_bit_exact(cuda, m, n, k, out):
-    g = torch.Generator(device=cuda).manual_seed(m)
+# row 1's M on both sides of the route's crossover and ragged, N (576 is
+# DeepSeek-V2-Lite's wkv_a, 64 mod 128) and K (96: one stage; 2816 and
+# 10944: DeepSeek's, K/2 % 64 != 0; 11008: llama-2-7b's down)
+ROW1_M = (1, 4, tmm.TILE_MIN_M - 1, tmm.TILE_MIN_M, 300, 2048)
+ROW1_NK = [(n, k) for n in (576, 4096, 12288)
+           for k in (96, 2816, 4096, 10944, 11008)]
+
+
+def _row1_inputs(cuda, m, n, k, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     xq = torch.randint(-8, 8, (m, k), generator=g, device=cuda,
                        dtype=torch.int8)
     xs = torch.rand((m, 1), generator=g, device=cuda) + 0.01
     wp = torch.randint(0, 256, (n, k // 2), generator=g, device=cuda,
                        dtype=torch.uint8)
     sw = torch.rand((n,), generator=g, device=cuda) * 0.05
+    return xq, xs, wp, sw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(1, 4096, 4096), (8, 1024, 11008),
+                                   (40, 384, 512)]
+                         + [(m, n, k) for m in ROW1_M for n, k in ROW1_NK])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_w4a4_matmul_i8_bit_exact(cuda, m, n, k, out):
+    xq, xs, wp, sw = _row1_inputs(cuda, m, n, k, m)
+    body = tmm.w4a4_body(m, n, k)
     before = common.LAUNCHES["w4a4_matmul_i8"]
+    by_body = common.BODY_LAUNCHES["w4a4_matmul_i8"][body]
     got = tmm.w4a4_matmul_i8(xq, xs, wp, sw, out)
     assert common.LAUNCHES["w4a4_matmul_i8"] == before + 1
+    assert common.BODY_LAUNCHES["w4a4_matmul_i8"][body] == by_body + 1
     assert torch.equal(got, tmm.w4a8_matmul_ref(xq, xs, wp, sw, out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("m", [1, 4, tmm.TILE_MIN_M, 300, 2048])
+def test_w4a4_matmul_i8_bodies_agree(cuda, monkeypatch, m, grouped):
+    """Both entry points at the same M: equal to each other and to the
+    plain version, bit for bit."""
+    n, k = 576, 2816
+    xq, xs, wp, sw = _row1_inputs(cuda, m, n, k, m + 7)
+    x_in = tgm.group_layout(xq, k // 128) if grouped else xq
+    fn = tgm.w4a4_matmul_i8_grouped if grouped else tmm.w4a4_matmul_i8
+    ys = {}
+    for body in ("stream", "tile"):
+        monkeypatch.setattr(tmm, "w4a4_body", lambda m_, n_, k_: body)
+        ys[body] = fn(x_in, xs, wp, sw, torch.float32)
+    assert torch.equal(ys["stream"], ys["tile"])
+    assert torch.equal(ys["tile"],
+                       tmm.w4a8_matmul_ref(xq, xs, wp, sw, torch.float32))
 
 
 def _cache(g, cuda, B, nkv, S):
@@ -837,8 +873,10 @@ def test_quant_acts_i8_grouped_matches_plain_and_twin(cuda, t, grp, q_max,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n,grp", [(300, 384, 86), (4, 1024, 32),
-                                     (40, 256, 5)])
+@pytest.mark.parametrize("m,n,grp", [
+    (300, 384, 86), (4, 1024, 32), (40, 256, 5), (1, 576, 22),
+    (tmm.TILE_MIN_M - 1, 4096, 86), (tmm.TILE_MIN_M, 576, 22),
+    (2048, 12288, 32), (2047, 4096, 86)])
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
 def test_w4a4_matmul_i8_grouped_bit_exact(cuda, m, n, grp, out):
     g = torch.Generator(device=cuda).manual_seed(m + grp)
