@@ -20,7 +20,12 @@ line):
      each bit for bit and timed at M = 1 to 2048 on the four linears,
      the crossover they give against the route's TILE_MIN_M (the phase
      fails if the route picks the tile where the stream was faster), and
-     edge shapes (ragged M and N, K % 64 == 32, DeepSeek's K) on both
+     edge shapes (ragged M and N, K % 64 == 32, DeepSeek's K) on both;
+     then w4a4_matmul_i8_fusedq's two bodies (the dp4a body, the tile on
+     its quantized workspace) at M = 1 to 2048 on the same linears, bit
+     for bit against quant_acts_i8 + w4a4_matmul_i8 and timed beside that
+     composed route, failing where another body beat the routed one by
+     more than ROUTE_MARGIN
      3d: the four prefill kernels (rmsnorm_right_flat, left_quant_i8_flat,
      w4a4_matmul_i8_swiglu_right, attn_prologue) at the 4 x 512 prefill's
      shapes, each with identity and with random orthogonal transform
@@ -42,11 +47,14 @@ line):
      NH=18944); w4a8_matmul at llama-2-7b's four linears at M = 1, 4 and
      2048; timed beside their bounds and library yardsticks
      (torch._int_mm, torch.matmul on bf16 weights)
-     3h: fp8_matmul (row 16) on all 254 non-NaN e4m3 codes in both
-     decodes, bit for bit, and at DeepSeek-V2-Lite's fp8 linears (wq,
-     wo, the shared experts, the 64 routed experts batched in one launch
-     at decode and at the gather capacity) and DeepSeek-V3's padded
-     wkv_a, timed beside torch.matmul on pre-dequantized bf16 weights;
+     3h: fp8_matmul (row 16), each of its three wgmma bodies, on all 254
+     non-NaN e4m3 codes in both decodes, bit for bit, and at
+     DeepSeek-V2-Lite's fp8 linears (wq and wo at M = 1, 4, 64, 2048,
+     the shared experts, the 64 routed experts batched in one launch at
+     decode and at the gather capacity) and DeepSeek-V3's wkv_a (N = 576
+     unpadded), timed beside torch.matmul on pre-dequantized bf16
+     weights, failing where another body beat the routed one by more
+     than ROUTE_MARGIN;
      w4a4_matmul_i8 at K = 10944 and 2816 and N = 576, both bodies bit
      for bit
      3i: rows 17-21, the JAX package's measured kernel baselines:
@@ -120,8 +128,9 @@ line):
   10. DeepSeek-V2-Lite at full width and depth (27 layers, 64 routed
      experts), random seeded weights, serve mode, bf16: (a) native FP8,
      deepseek_generate of a 1 x 2048 prompt (gather MoE) and 32 decode
-     steps (dense-masked MoE), a profile of one prefill and one step,
-     every fp8_matmul launch of a prefill and two steps checked, the
+     steps (dense-masked MoE), a profile of one prefill and one step
+     (row 16's share of it), fp8_matmul's launches by body, every
+     fp8_matmul launch of a prefill and two steps checked, the
      plain-route calls of fp8_linear (wkv_a and the dense FFN in
      64-blocks) counted; (b) the continuous batcher with the DeepSeek
      hooks on six requests (chunks of 256), a tripwire against
@@ -131,7 +140,9 @@ line):
   11. rows 17-21 each in place of its twin on phase 7's llama-2-7b (the
      phase-4 model rebuilt from its seed): (a) phase 4's generate protocol
      with every A4 linear below 256 rows through w4a4_matmul_i8_fusedq,
-     tokens and logits bit-identical to the composed run; (b) the same
+     tokens and logits bit-identical to the composed run, its launches
+     by body as the route gives them, and the 4 x 48 prefill timed
+     against the composed route's in interleaved rounds; (b) the same
      decode with rows 19, 20, 21 in turn at decode_attention_int4's call
      site, every launch of two steps checked; the decode step of (a) and
      (b) timed against the composed run's in interleaved rounds; (c) the
@@ -234,6 +245,27 @@ def copies_for(nbytes):
     return max(2, math.ceil(3 * L2_BYTES / max(nbytes, 1)))
 
 
+def sweep_ms(torch, fn, arg_sets, budget_ms=15.0):
+    """cuda_ms with the launch count fitted to the call: 3 calls time it
+    roughly, then as many as fill about budget_ms (3 to 60), so a sweep
+    over bodies that differ 100-fold spends about the same on each."""
+    probe = cuda_ms(torch, fn, arg_sets, 3)
+    return cuda_ms(torch, fn, arg_sets,
+                   max(3, min(60, int(budget_ms / max(probe, 1e-3)))))
+
+
+def route_faults(rows, bodies):
+    """(M, shape, routed body, faster body) wherever another body beat the
+    routed one by more than ROUTE_MARGIN of the routed body's time (two
+    bodies within it are a tie: repeated calls of one body spread ~1%)."""
+    out = []
+    for r in rows:
+        best = min(bodies, key=lambda b: r[f"{b}_ms"])
+        if r[f"{best}_ms"] * (1 + ROUTE_MARGIN) < r[f"{r['body']}_ms"]:
+            out.append((r["m"], r["proj"], r["body"], best))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -246,6 +278,10 @@ def copies_for(nbytes):
 # each side of the crossover
 SWEEP_M = (1, 4, 8, 16, 32, 64, 128, 192, 256, 512, 2048)
 BODIES = ("stream", "tile")
+# phase 3a's sweep of row 17's two bodies, and the margin by which another
+# body must beat the routed one for rows 17 and 16's route checks to fail
+FUSEDQ_SWEEP_M = (1, 4, 16, 32, 64, 192, 2048)
+ROUTE_MARGIN = 0.03
 
 
 def gemm_edges(tile_min_m):
@@ -254,12 +290,20 @@ def gemm_edges(tile_min_m):
             (300, 999, 2848), (2047, 4096, 2816))
 
 
-def forced_body(body):
-    """Route every w4a4_matmul_i8 / w4a4_matmul_i8_grouped launch to
-    `body` ("stream" or "tile") while the context is open."""
+def forced_body(body, route="w4a4_body"):
+    """Route every w4a4_matmul_i8 / w4a4_matmul_i8_grouped launch (route
+    "fusedq_body": every w4a4_matmul_i8_fusedq launch) to `body` ("stream"
+    or "tile") while the context is open."""
     from flatquant_torch.kernels import int4_matmul as im
 
-    return patched([(im, "w4a4_body", lambda m, n, k: body)])
+    return patched([(im, route, lambda m, n, k: body)])
+
+
+def forced_fp8(body):
+    """Route every fp8_matmul launch to `body` ("n8", "n64", "n128")."""
+    from flatquant_torch.kernels import fp8_matmul as f8
+
+    return patched([(f8, "fp8_body", lambda m: body)])
 
 
 def _codes_scales(torch, dev, gen, m, k):
@@ -354,6 +398,92 @@ def check_gemm(torch, dev, gen, results):
     results["w4a4_matmul_i8"] = dict(rows=rows, max_abs_err=0.0,
                                      crossover_m=cross,
                                      tile_min_m=im.TILE_MIN_M)
+
+
+def check_fusedq(torch, dev, gen, results):
+    """Row 17's two bodies (w4a4_matmul_i8_fusedq: the dp4a body, the
+    tile body on its quantized workspace) at every M of FUSEDQ_SWEEP_M on
+    llama-2-7b's four linears, bf16 activations with LAC clips and a zero
+    row: each bit for bit against the composed route (quant_acts_i8, then
+    w4a4_matmul_i8 on its route), and timed beside that route (rows 12 +
+    1), the bound and, at M = 4 and 2048, the plain version and
+    torch._int_mm on pre-unpacked int8 weights (a yardstick the port never
+    calls). The crossover is the smallest M from which the tile body is
+    faster at all four shapes; the phase fails where another body beat
+    the routed one by more than ROUTE_MARGIN."""
+    from flatquant_torch.kernels import int4_matmul as im
+
+    shapes = {"qkv": (12288, 4096), "o": (4096, 4096),
+              "upgate": (22016, 4096), "down": (4096, 11008)}
+    clip = _lac_clip(torch, dev)
+    rows = []
+    for m in FUSEDQ_SWEEP_M:
+        for name, (n, k) in shapes.items():
+            ws = _rand_weights(torch, dev, gen, n, k)
+            x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
+                torch.bfloat16)
+            x[m // 2] = 0  # a zero row: scale 1, codes 0
+            want = im.w4a4_matmul_i8(*im.quant_acts_i8(x, clip, 7), *ws[0])
+            ms = {}
+            for body in BODIES:
+                with forced_body(body, "fusedq_body"):
+                    got = im.w4a4_matmul_i8_fusedq(x, *ws[0], clip)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        err = (got.float() - want.float()).abs().max().item()
+                        raise AssertionError(
+                            f"w4a4_matmul_i8_fusedq {body} M={m} {name} "
+                            f"{n}x{k}: not bit-exact against quant_acts_i8 "
+                            f"+ w4a4_matmul_i8 (max abs err {err})")
+                    ms[body] = sweep_ms(
+                        torch, lambda wp, sw: im.w4a4_matmul_i8_fusedq(
+                            x, wp, sw, clip), ws)
+            composed = sweep_ms(torch, lambda wp, sw: im.w4a4_matmul_i8(
+                *im.quant_acts_i8(x, clip, 7), wp, sw), ws)
+            routed = im.fusedq_body(m, n, k)
+            plain = lib = None
+            if m in (4, 2048):
+                plain = cuda_ms(torch, lambda wp, sw: (
+                    im.w4a4_matmul_i8_fusedq_ref(x, wp, sw, clip)), ws, 3)
+                mp = m if m > 16 else 32
+                xp = torch.randint(-8, 8, (mp, k), generator=gen, device=dev,
+                                   dtype=torch.int8)
+                w8 = [(xp, im.unpack_weight_planar(wp).t())
+                      for wp, _ in ws[:2]]
+                lib = cuda_ms(torch, torch._int_mm, w8, 20)
+                del w8
+            nbytes = 2 * m * k + n * k // 2 + 4 * n + 2 * m * n + 8
+            b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
+            rows.append(dict(m=m, proj=name, n=n, k=k, body=routed,
+                             ms=ms[routed], plain_ms=plain, library_ms=lib,
+                             composed_ms=composed, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=0.0,
+                             **{f"{b}_ms": ms[b] for b in BODIES}))
+            lib_s = "" if lib is None else (f" plain_ms {plain:.4f} "
+                                            f"library_ms(_int_mm) {lib:.4f}")
+            log(f"  w4a4_matmul_i8_fusedq M={m:4d} {name:6s} {n}x{k}: both "
+                f"bodies bit-exact; " + " ".join(f"{b}_ms {ms[b]:.4f}"
+                                                 for b in BODIES)
+                + f" (route: {routed}) composed_ms {composed:.4f} "
+                f"(x{ms[routed] / composed:.3f}) bound {b_ms * 1e3:.2f} us "
+                f"({b_by})" + lib_s)
+            del ws, x
+    faster = {m: all(r["tile_ms"] < r["stream_ms"] for r in rows
+                     if r["m"] == m) for m in FUSEDQ_SWEEP_M}
+    cross = next((m for i, m in enumerate(FUSEDQ_SWEEP_M)
+                  if all(faster[x] for x in FUSEDQ_SWEEP_M[i:])), None)
+    log(f"  crossover: row 17's tile body is faster at all four shapes "
+        f"from M={cross} on (sweep {FUSEDQ_SWEEP_M}); its route takes the "
+        f"tile from M={im.TILE_MIN_M}, and from M={im.FUSEDQ_WIDE_MIN_M} "
+        f"for N >= {im.FUSEDQ_WIDE_N}")
+    wrong = route_faults(rows, BODIES)
+    if wrong:
+        raise AssertionError(f"row 17's route picks a body that another beat "
+                             f"by more than {ROUTE_MARGIN:.0%}: {wrong}")
+    r = results.setdefault("w4a4_matmul_i8_fusedq",
+                           dict(rows=[], max_abs_err=0.0))
+    r["rows"] += rows
+    r["crossover_m"] = cross
 
 
 def _rand_cache(torch, dev, gen, B, nkv, S):
@@ -991,23 +1121,25 @@ def _dequant_bf16(torch, w8, se):
 
 
 def check_fp8_kernels(torch, dev, gen, results):
-    """Row 16 (fp8_matmul) against fp8_matmul_ref on the card: all 254
-    non-NaN e4m3 codes through an identity x in both decodes (bit for
-    bit: exact decodes every code to its IEEE value, FTZ zeroes only the
-    subnormal codes); DeepSeek-V2-Lite's fp8 linears, bf16 in and out,
-    within the "identity" tolerance (one bf16 ulp: the float32 sums run in
-    another order; kernels/tolerance.py): wq and wo at M = 1, 4 and 2048,
-    the shared experts at M = 1 and 2048, the expert-batched e_w1/e_w3/
-    e_w2 over all 64 experts at M = 1 and 4 (dense-masked decode, one x
-    shared by every expert) and M = 384 (the gather capacity of a 2048-
-    token prefill), and DeepSeek-V3's wkv_a (N = 576, K = 7168, 128-block
-    scales) through fp8_linear's ragged-N pad; each timed beside its bound
-    and torch.matmul on pre-dequantized bf16 weights (a yardstick the port
-    never calls). Then row 1 (w4a4_matmul_i8), both bodies bit for bit,
+    """Row 16 (fp8_matmul) against fp8_matmul_ref on the card, each of its
+    three bodies (n8, n64, n128) at every case: all 254 non-NaN e4m3 codes
+    through an identity x in both decodes (bit for bit: exact decodes
+    every code to its IEEE value, FTZ zeroes only the subnormal codes);
+    DeepSeek-V2-Lite's fp8 linears, bf16 in and out, within the
+    "identity" tolerance (one bf16 ulp: the float32 sums run in another
+    order; kernels/tolerance.py): wq and wo at M = 1, 4, 64 and 2048, the
+    shared experts at M = 1 and 2048, the expert-batched e_w1/e_w3/e_w2
+    over all 64 experts at M = 1 and 4 (dense-masked decode, one x shared
+    by every expert) and M = 384 (the gather capacity of a 2048-token
+    prefill), and DeepSeek-V3's wkv_a (N = 576, K = 7168, 128-block
+    scales) through fp8_linear, which hands the kernel N = 576 unpadded;
+    each body timed beside the bound and torch.matmul on pre-dequantized
+    bf16 weights (a yardstick the port never calls); the phase fails where
+    another body beat the routed one by more than ROUTE_MARGIN. Then row
+    1 (w4a4_matmul_i8), both bodies bit for bit,
     at the packed W4A4 form's shapes llama-2-7b lacks: the dense w2 (K =
     10944, K/2 not a multiple of 64), the shared s_w2 (K = 2816) and
     wkv_a (N = 576, 64 mod 128), at M = 1, 300 and 2048."""
-    from flatquant_torch.kernels import common
     from flatquant_torch.kernels import fp8_matmul as f8
     from flatquant_torch.kernels import int4_matmul as im
     from flatquant_torch.kernels.tolerance import compare_bf16
@@ -1022,16 +1154,18 @@ def check_fp8_kernels(torch, dev, gen, results):
     ones = torch.ones((1, 128), device=dev)
     ieee = w8.float().t()
     sub = ((codes & 0x7F) > 0) & ((codes & 0x7F) < 8)
-    for exact in (True, False):
-        got = f8.fp8_matmul(eye, w8, ones, torch.float32, exact)
+    for body, exact in ((b, e) for b in f8.BODY_NAMES for e in (True, False)):
+        with forced_fp8(body):
+            got = f8.fp8_matmul(eye, w8, ones, torch.float32, exact)
         want = f8.fp8_matmul_ref(eye, w8, ones, torch.float32, exact)
         flush = torch.where(sub.t(), torch.zeros_like(ieee), ieee)
         if not (torch.equal(got, want)
                 and torch.equal(got, ieee if exact else flush)):
-            raise AssertionError(f"fp8_matmul exact={exact}: the decode of "
-                                 "the 254 codes is not bit-exact")
-    log("  fp8_matmul: all 254 non-NaN codes decode bit-exact, exact and "
-        "FTZ (FTZ zeroes exactly the 14 subnormal codes)")
+            raise AssertionError(f"fp8_matmul {body} exact={exact}: the "
+                                 "decode of the 254 codes is not bit-exact")
+    log(f"  fp8_matmul: all 254 non-NaN codes decode bit-exact in every "
+        f"body {f8.BODY_NAMES}, exact and FTZ (FTZ zeroes exactly the 14 "
+        "subnormal codes)")
 
     cfg = DeepSeekConfig()
     D, nh = cfg.dim, cfg.n_heads
@@ -1039,9 +1173,38 @@ def check_fp8_kernels(torch, dev, gen, results):
     si = cfg.n_shared_experts * mi
     flat = {"wq": (nh * cfg.qk_head_dim, D), "wo": (D, nh * cfg.v_head_dim),
             "s_w1": (si, D), "s_w2": (D, si)}
-    cases = [(m, p) for m in (1, 4, 2048) for p in ("wq", "wo")]
+    cases = [(m, p) for m in (1, 4, 64, 2048) for p in ("wq", "wo")]
     cases += [(m, p) for m in (1, 2048) for p in ("s_w1", "s_w2")]
     cases += [(m, p) for m in (1, 4, 384) for p in ("e_w1", "e_w2")]
+    rows = []
+
+    def sweep(label, m, proj, call, plain, ws, nbytes, ops, lib):
+        """Every body of row 16 on `call` (w8, se) within "identity" of
+        `plain`, timed; the routed body's time is the row's."""
+        ms, err = {}, 0.0
+        for body in f8.BODY_NAMES:
+            with forced_fp8(body):
+                err = max(err, compare_bf16(call(*ws[0]), plain(*ws[0]),
+                                            "identity", f"fp8_matmul {body} "
+                                            f"{label}"))
+                ms[body] = sweep_ms(torch, call, ws)
+        routed = f8.fp8_body(m)
+        plain_ms = cuda_ms(torch, plain, ws, 4)
+        lib_ms = cuda_ms(torch, torch.matmul, lib, 20)
+        b_ms, b_by = bound_ms(nbytes, ops, BF16_FLOPS_PER_S)
+        rows.append(dict(case=label, m=m, proj=proj, body=routed,
+                         ms=ms[routed], plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, bytes=nbytes,
+                         ops=ops, max_abs_err=err,
+                         **{f"{b}_ms": ms[b] for b in f8.BODY_NAMES}))
+        log(f"  fp8_matmul {label}: every body within 'identity', max abs "
+            f"err {err:.3e}; " + " ".join(f"{b}_ms {ms[b]:.4f}"
+                                          for b in f8.BODY_NAMES)
+            + f" (route: {routed}) plain_ms {plain_ms:.4f} bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.1f} G ops) library_ms {lib_ms:.4f} (torch.matmul, "
+            "bf16 weights)")
+
     for m, proj in cases:
         experts = proj.startswith("e_")
         n, k = ((mi, D) if proj == "e_w1" else (D, mi)) if experts \
@@ -1054,25 +1217,18 @@ def check_fp8_kernels(torch, dev, gen, results):
                         device=dev).to(torch.bfloat16)
         if experts and m < 384:
             x = x.expand(E, m, k)  # one x read by every expert
-        err = compare_bf16(f8.fp8_matmul(x, *ws[0]),
-                           f8.fp8_matmul_ref(x, *ws[0]), "identity",
-                           f"fp8_matmul M={m} {proj}")
-        wd = [(x, _dequant_bf16(torch, *w)) for w in ws[:2]]
         ne = E if experts else 1
         label = (f"M={m} {proj} {ne} x {n}x{k}" if experts else
                  f"M={m} {proj} {n}x{k}") + " (DeepSeek-V2-Lite)"
-        _kernel_row(torch, results, "fp8_matmul", label,
-                    lambda w, s: f8.fp8_matmul(x, w, s),
-                    lambda w, s: f8.fp8_matmul_ref(x, w, s), ws,
-                    2 * xe * m * k + wbytes + 4 * ne * (k // 128) * n
-                    + 2 * ne * m * n, 2 * ne * m * n * k, BF16_FLOPS_PER_S,
-                    err, iters=60 if m < 384 else 20,
-                    lib=(torch.matmul, wd, "torch.matmul, bf16 weights"),
-                    m=m, proj=proj)
-        del ws, wd, x
+        sweep(label, m, proj, lambda w, s: f8.fp8_matmul(x, w, s),
+              lambda w, s: f8.fp8_matmul_ref(x, w, s), ws,
+              2 * xe * m * k + wbytes + 4 * ne * (k // 128) * n
+              + 2 * ne * m * n, 2 * ne * m * n * k,
+              [(x, _dequant_bf16(torch, *w)) for w in ws[:2]])
+        del ws, x
 
-    # V3's wkv_a: K-aligned 128-block scales, N = 576 padded to 640 on
-    # every call (fp8_linear's pad copy is timed with the kernel)
+    # V3's wkv_a: K-aligned 128-block scales at N = 576, which fp8_linear
+    # hands the kernel as it is (the kernel masks the ragged N)
     n, k = DEEPSEEK_V3.kv_lora_rank + DEEPSEEK_V3.qk_rope_head_dim, \
         DEEPSEEK_V3.dim
     ws = []
@@ -1081,24 +1237,36 @@ def check_fp8_kernels(torch, dev, gen, results):
             torch.randn((n, k), generator=gen, device=dev) * 0.05, 128)
         ws.append((q, f8.expand_fp8_scales(sc, n, k)))
     x = torch.randn((4, k), generator=gen, device=dev).to(torch.bfloat16)
-    before = common.LAUNCHES["fp8_matmul"]
-    got = f8.fp8_linear(x, {"w8": ws[0][0], "se": ws[0][1]})
-    if common.LAUNCHES["fp8_matmul"] != before + 1:
-        raise AssertionError("fp8_linear did not take the kernel for V3's "
-                             "128-block wkv_a")
-    err = compare_bf16(got, f8.fp8_matmul_ref(x, *ws[0]), "identity",
-                       "fp8_linear V3 wkv_a (N padded)")
-    _kernel_row(torch, results, "fp8_matmul",
-                f"M=4 wkv_a {n}x{k} (DeepSeek-V3, fp8_linear: N padded to "
-                f"640 per call)",
-                lambda w, s: f8.fp8_linear(x, {"w8": w, "se": s}),
-                lambda w, s: f8.fp8_matmul_ref(x, w, s), ws,
-                2 * 4 * k + n * k + 4 * (k // 128) * n + 2 * 4 * n,
-                2 * 4 * n * k, BF16_FLOPS_PER_S, err,
-                lib=(torch.matmul, [(x, _dequant_bf16(torch, *w))
-                                    for w in ws[:2]],
-                     "torch.matmul, bf16 weights"), m=4, proj="v3 wkv_a")
+    seen, kernel = [], f8.fp8_matmul
+
+    def spy(x_, w_, s_, *a):
+        seen.append(tuple(w_.shape))
+        return kernel(x_, w_, s_, *a)
+
+    with patched([(f8, "fp8_matmul", spy)]):
+        f8.fp8_linear(x, {"w8": ws[0][0], "se": ws[0][1]})
+    if seen != [(n, k)]:
+        raise AssertionError(f"fp8_linear handed the kernel {seen} for V3's "
+                             f"128-block wkv_a, expected [({n}, {k})]")
+    sweep(f"M=4 wkv_a {n}x{k} (DeepSeek-V3, fp8_linear, N unpadded)", 4,
+          "v3 wkv_a", lambda w, s: f8.fp8_linear(x, {"w8": w, "se": s}),
+          lambda w, s: f8.fp8_matmul_ref(x, w, s), ws,
+          2 * 4 * k + n * k + 4 * (k // 128) * n + 2 * 4 * n, 2 * 4 * n * k,
+          [(x, _dequant_bf16(torch, *w)) for w in ws[:2]])
     del ws
+    r = results.setdefault("fp8_matmul", dict(rows=[], max_abs_err=0.0))
+    r["rows"] += rows
+    r["max_abs_err"] = max([r["max_abs_err"]] + [x["max_abs_err"]
+                                                 for x in rows])
+    for m in sorted({x["m"] for x in rows}):
+        wins = [min(f8.BODY_NAMES, key=lambda b: x[f"{b}_ms"])
+                for x in rows if x["m"] == m]
+        log(f"  fp8_matmul M={m}: fastest body by shape {wins}; the route "
+            f"takes {f8.fp8_body(m)}")
+    wrong = route_faults(rows, f8.BODY_NAMES)
+    if wrong:
+        raise AssertionError(f"row 16's route picks a body that another beat "
+                             f"by more than {ROUTE_MARGIN:.0%}: {wrong}")
 
     # row 1 at the packed W4A4 form's shapes: both bodies bit for bit at
     # M = 1, 300 and 2048; the routed body timed at M = 1 and 2048
@@ -1145,8 +1313,10 @@ def check_fp8_kernels(torch, dev, gen, results):
 # row 18's rel-RMS against the float32 oracle on unit-normal inputs: the
 # JAX package's own bounds (tests/test_prefill_attention.py)
 I8_ORACLE_REL_RMS = {True: 0.035, False: 0.02}
-# phase 11's interleaved decode timing: rounds of every variant, steps each
+# phase 11's interleaved timing: rounds of every variant, decode steps
+# each; rounds of the 4 x 48 prefill with row 17 and the composed route
 DECODE_ROUNDS, DECODE_STEPS = 3, 16
+PREFILL_ROUNDS = 5
 
 
 def _flash_i8_bound(S, nh, B, nkv, pv_i8):
@@ -3381,7 +3551,8 @@ def _timed_generate(torch, cfg, fq, fq_cfg, sp, prompt, new, max_len, dev):
                 == (prompt.shape[0], cfg.vocab_size)):
             raise AssertionError(f"step {len(times) - 1}: logits not finite "
                                  "or of the wrong shape")
-        snaps.append((dict(common.LAUNCHES), ref_calls[0]))
+        snaps.append((dict(common.LAUNCHES), ref_calls[0],
+                      dict(common.BODY_LAUNCHES["fp8_matmul"])))
         return logits, cache
 
     torch.cuda.synchronize()
@@ -3396,7 +3567,8 @@ def _timed_generate(torch, cfg, fq, fq_cfg, sp, prompt, new, max_len, dev):
                 prefill_launches={k: v for k, v in snaps[0][0].items() if v},
                 prefill_ref_route_calls=snaps[0][1],
                 launches={k: v for k, v in snaps[-1][0].items() if v},
-                ref_route_calls=snaps[-1][1])
+                ref_route_calls=snaps[-1][1], fp8_bodies_prefill=snaps[0][2],
+                fp8_bodies=snaps[-1][2])
 
 
 def _checked_fp8(torch, n, worst):
@@ -3496,6 +3668,8 @@ def run_deepseek_path(torch, dev, results, smi, cfg=None):
     log(f"  launches, prefill + {NEW} decode steps: {run['launches']}; "
         f"fp8_matmul_ref route calls {run['ref_route_calls']} "
         f"({ref_fwd} per forward: wkv_a and the dense FFN, 64-blocks)")
+    log(f"  fp8_matmul launches by body: prefill {run['fp8_bodies_prefill']}, "
+        f"prefill + {NEW} steps {run['fp8_bodies']}")
     log(f"  greedy tokens: {run['tokens']}")
     step_kw = dict(max_len=MAX_LEN, compute_dtype=torch.bfloat16)
 
@@ -3515,8 +3689,11 @@ def run_deepseek_path(torch, dev, results, smi, cfg=None):
                            ("decode step", busy_d, run["decode_ms"])):
         if busy:
             busy["idle_share_unprofiled"] = 1 - busy["busy_ms"] / ms
+            row16 = busy["groups"]["fp8_matmul"]
             log(f"  device idle share against the unprofiled {what}: "
-                f"{busy['idle_share_unprofiled']:.3f}")
+                f"{busy['idle_share_unprofiled']:.3f}; row 16 (fp8_matmul) "
+                f"{row16:.2f} of {busy['busy_ms']:.2f} busy ms "
+                f"({row16 / busy['busy_ms']:.3f})")
     n, worst = [0], [0.0]
     with patched([(f8, "fp8_matmul", _checked_fp8(torch, n, worst))]):
         lg, cache = prefill(0)
@@ -3721,6 +3898,7 @@ def run_baseline_paths(torch, dev, model, results, smi):
     logits against row 8's as a tripwire (LONG_COSINE_FLOOR). Returns the
     launches of each path."""
     from flatquant_torch.kernels import common
+    from flatquant_torch.kernels import int4_matmul
     from flatquant_torch.kernels import kv_cache
     from flatquant_torch.kernels import prefill_attention as pa
     from flatquant_torch.serving import engine, quantized
@@ -3746,21 +3924,64 @@ def run_baseline_paths(torch, dev, model, results, smi):
         toks_f, logits_f, _ = _decode_run(torch, cfg, fq, sp, prompt, NEW,
                                              kw)
     paths["baseline_fusedq"] = dict(common.LAUNCHES)
+    bodies = dict(common.BODY_LAUNCHES["w4a4_matmul_i8_fusedq"])
     n_f = paths["baseline_fusedq"]["w4a4_matmul_i8_fusedq"]
     if n_f != 4 * L * (1 + NEW) or paths["baseline_fusedq"][
             "w4a4_matmul_i8"] != 0:
         raise AssertionError(f"(a) {n_f} fused-quant launches, expected "
                              f"{4 * L * (1 + NEW)}, and no w4a4_matmul_i8")
+    # the prefill's M = B * P rows and the steps' B rows, each body by route
+    want = {"stream": 0, "tile": 0}
+    for rows, count in ((B * P, 4 * L), (B, 4 * L * NEW)):
+        want[int4_matmul.fusedq_body(rows, cfg.hidden_size,
+                                     cfg.hidden_size)] += count
+    if bodies != want:
+        raise AssertionError(f"(a) row 17 launches by body {bodies}, the "
+                             f"route gives {want}")
     same = torch.equal(toks_c, toks_f) and all(
         torch.equal(a, b) for a, b in zip(logits_c, logits_f))
     if not same:
         raise AssertionError("(a) the fused-quant path's tokens or logits "
                              "differ from the composed run's")
-    rec["fusedq"] = dict(launches=n_f)
+    rec["fusedq"] = dict(launches=n_f, bodies=bodies)
     log(f"  (a) B={B} prompt={P} new={NEW}: {n_f} w4a4_matmul_i8_fusedq "
-        f"launches in place of the eager quant chain + w4a4_matmul_i8; "
-        f"tokens and all {len(logits_f)} steps' logits bit-identical to the "
-        "composed run")
+        f"launches (by body {bodies}) in place of the eager quant chain + "
+        f"w4a4_matmul_i8; tokens and all {len(logits_f)} steps' logits "
+        "bit-identical to the composed run")
+
+    # the 4 x 48 prefill (M = 192 rows a linear: row 17's tile body) with
+    # row 17 against the composed route (rows 12 + 1), interleaved rounds
+    def prefill(pairs):
+        c = init_cache(cfg, B, MAX_LEN, mode="int4", device=dev)
+        torch.cuda.synchronize()
+        with patched(pairs):
+            t0 = time.perf_counter()
+            lg, _ = serving_prefill(cfg, fq, sp, prompt, c, **kw)
+            torch.cuda.synchronize()
+        return lg, (time.perf_counter() - t0) * 1e3
+
+    fq_pairs = [(quantized, "_quant_linear", fused),
+                (engine, "_quant_linear", fused)]
+    walls = {"composed": [], "fusedq": []}
+    first = {key: prefill(pairs)[0] for key, pairs in (("composed", []),
+                                                       ("fusedq", fq_pairs))}
+    if not torch.equal(first["composed"], first["fusedq"]):
+        raise AssertionError("(a) the fused-quant prefill's logits differ "
+                             "from the composed prefill's")
+    for _ in range(PREFILL_ROUNDS):
+        for key, pairs in (("composed", []), ("fusedq", fq_pairs)):
+            walls[key].append(prefill(pairs)[1])
+    ratio = [f / c for f, c in zip(walls["fusedq"], walls["composed"])]
+    for key in walls:
+        rec.setdefault(key, {}).update(prefill_ms=walls[key],
+                                       prefill_ms_median=med(walls[key]))
+    rec["fusedq"]["prefill_ratio_to_composed"] = ratio
+    log(f"  [{smi}] (a) {B} x {P} prefill, {PREFILL_ROUNDS} interleaved "
+        f"rounds: row 17 median {med(walls['fusedq']):.2f} ms "
+        f"{[round(x, 2) for x in walls['fusedq']]}, composed (rows 12 + 1) "
+        f"median {med(walls['composed']):.2f} ms "
+        f"{[round(x, 2) for x in walls['composed']]}; row 17 / composed by "
+        f"round {[round(x, 3) for x in ratio]}; logits bit-identical")
 
     # (b) rows 19-21 at the engine's decode attention call site
     for name in ("decode_attention_int4_v1", "decode_attention_int4_wide",
@@ -4270,9 +4491,9 @@ def kernel_line(results, paths):
         r = results[name]
         weights = None
         if name in ("w4a4_matmul_i8", "w4a4_matmul_i8_fusedq"):
-            # row 1: phase 3a's sweep rows (3j's carry a "case")
-            rows = [x for x in r["rows"] if x["m"] == 4 and (
-                name != "w4a4_matmul_i8" or "case" not in x)]
+            # rows 1 and 17: phase 3a's sweep rows (3i's and 3j's carry a
+            # "case")
+            rows = [x for x in r["rows"] if x["m"] == 4 and "case" not in x]
             at = "M=4 (B=4 decode), sum of qkv+o+upgate+down of one layer"
         elif name.startswith("decode_attention_int4"):
             rows = [x for x in r["rows"] if x["case"].endswith("main path")]
@@ -4396,7 +4617,9 @@ def main(argv=None) -> int:
     # valid lengths of the main path's last generate step (prompt 48 + 64)
     main_valid = [48 + 64] * 4
     kernel_phases = [
-        ("3a", "w4a4_matmul_i8 vs w4a8_matmul_ref", check_gemm),
+        ("3a", "w4a4_matmul_i8 vs w4a8_matmul_ref, w4a4_matmul_i8_fusedq "
+         "vs quant_acts_i8 + w4a4_matmul_i8, both bodies each",
+         lambda *a: (check_gemm(*a), check_fusedq(*a))),
         ("3b", "decode_attention_int4 vs decode_attention_ref",
          lambda *a: check_attention(*a, main_valid)),
         ("3c", "write_token vs the masked select", check_write),

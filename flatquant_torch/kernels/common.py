@@ -62,11 +62,15 @@ LAUNCHES: Dict[str, int] = {
     "w4a4_swiglu_grouped_gx": 0,
 }
 
-# launches of row 1 and row 25 by device body ("stream" or "tile"), so a
-# run shows which body its path took; reset with LAUNCHES
+# launches of the kernels with several device bodies, by body (rows 1, 25
+# and 17: "stream" or "tile"; row 16: "n8", "n64" or "n128", its wgmma
+# token width), so a run shows which body its path took; reset with
+# LAUNCHES
 BODY_LAUNCHES: Dict[str, Dict[str, int]] = {
     "w4a4_matmul_i8": {"stream": 0, "tile": 0},
     "w4a4_matmul_i8_grouped": {"stream": 0, "tile": 0},
+    "w4a4_matmul_i8_fusedq": {"stream": 0, "tile": 0},
+    "fp8_matmul": {"n8": 0, "n64": 0, "n128": 0},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -86,9 +90,14 @@ _SIGNATURES = {
         "fq_quant_acts_i8": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
         # x, wp, sx, sw, y, M, N, K, out_is_f32, stream
         "fq_w4a8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        # x, clip, wp, sw, y, M, N, K, x_is_f32, out_is_f32, stream
-        "fq_w4a4_matmul_i8_fusedq": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _P],
+        # x, clip, wp, sw, y, M, N, K, x_is_f32, out_is_f32, stream: row
+        # 17's dp4a body
+        "fq_w4a4_matmul_i8_fusedq_stream": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                            _I, _I, _P],
+        # x, clip, wp, sw, y, xq, xs, flags, M, N, K, x_is_f32, out_is_f32,
+        # stream: row 17's tile body on its workspace (fusedq_body picks)
+        "fq_w4a4_matmul_i8_fusedq_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                          _I, _I, _I, _I, _P],
         # the same two, xq grouped [K/128, M, 128]
         "fq_w4a4_matmul_i8_grouped_stream": [_P, _P, _P, _P, _P, _I, _I, _I,
                                              _I, _P],
@@ -158,8 +167,12 @@ _SIGNATURES = {
     },
     "fp8_matmul": {
         # x, x expert stride, w8, se, y, E, M, N, K, exact, out_is_f32,
-        # stream
-        "fq_fp8_matmul": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # stream: the three bodies (fp8_matmul.py fp8_body picks one)
+        "fq_fp8_matmul_n8": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "fq_fp8_matmul_n64": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P],
+        "fq_fp8_matmul_n128": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P],
     },
 }
 

@@ -1,5 +1,7 @@
 // FP8 block-scaled serving GEMM (port of flatquant_tpu/kernels/fp8_matmul.py):
-//   fp8_matmul -> fq_fp8_matmul
+//   fp8_matmul -> fq_fp8_matmul_n8, fq_fp8_matmul_n64, fq_fp8_matmul_n128
+//                 (three device bodies; kernels/fp8_matmul.py `fp8_body`
+//                 picks one from M)
 //
 // Replaces: flatquant_tpu/kernels/fp8_matmul.py:fp8_matmul (Pallas: e4m3
 // weights decoded in-kernel with integer bit arithmetic, bf16 MXU, one
@@ -9,103 +11,178 @@
 //
 // over the k-chunks c of 128. x is bf16 [M, K] (the wrapper casts float32
 // to bf16, as JAX does), w8 float8_e4m3fn [N, K] (row = output channel),
-// se float32 [K/128, N], y bf16 or float32 [M, N]; K % 128 == 0 and
-// N % 128 == 0. An optional leading expert axis (the MoE's routed
-// experts) is grid z; x may be shared by every expert (expert stride 0).
+// se float32 [K/128, N], y bf16 or float32 [M, N]; K % 128 == 0, any N
+// (rows past N are zero-filled and not stored). An optional leading
+// expert axis (the MoE's routed experts) is grid z; x may be shared by
+// every expert (expert stride 0).
 //
 // The activations are never quantized: each e4m3 code is decoded to bf16,
 // where it embeds exactly (4 exponent and 3 mantissa bits fit bf16's 8 and
-// 7), and the products run on the bf16 tensor cores (mma.sync m16n8k16,
-// float32 accumulators). Two decodes, as JAX's:
-//   EXACT  every code to its IEEE value: a normal code shifts into bf16's
-//          fields (bits = sign << 15 | ((em << 4) + 0x3C00)); a subnormal
-//          code (em < 8) is m * 2^-9, formed in float32 and narrowed
-//          exactly;
-//   FTZ    subnormal codes to +0 (JAX's _decode_ftz); exact on weights
-//          packed with fp8_block_quantize(ftz=True).
-// The two NaN codes decode to +-480 in both, as in JAX's kernel.
+// 7), and the products run on the bf16 tensor cores. The decode of two
+// codes (decode2): one byte permute spreads them into two halfwords, each
+// with its sign byte replicated above it; a shift by 4 and a mask leave
+// sign << 15 | exponent-and-mantissa << 4, a bf16 whose exponent field is
+// the code's; one bf16x2 FMA by 2^120 (plus -0) moves the bias from 7 to
+// 127. That is exact for every code: normals, subnormals (a bf16 subnormal
+// times 2^120 is m * 2^-9) and +-0; the two NaN codes come out +-480, as
+// in JAX's kernel. Two decodes, as JAX's:
+//   EXACT  every code to its IEEE value;
+//   FTZ    subnormal codes (exponent field 0) to +0 (JAX's _decode_ftz);
+//          exact on weights packed with fp8_block_quantize(ftz=True).
 //
 // Accumulation: each chunk's 128-k partial sum starts from zero on the
-// tensor cores, is scaled by se[c, n] (__fmul_rn) and added to the running
-// float32 sums with an IEEE add (__fadd_rn), in JAX's order (acc = acc +
-// part * se). The tensor cores' own float32 accumulation truncates, and
-// chained over all of K it would drift from the plain version.
+// tensor cores (the chunk's first wgmma runs with scale-d 0), is scaled by
+// se[c, n] (__fmul_rn) and added to the running float32 sums with an IEEE
+// add (__fadd_rn), in JAX's order (acc = acc + part * se). The tensor
+// cores' own float32 accumulation truncates, and chained over all of K it
+// would drift from the plain version.
 //
-// What bounds it on the H100: at decode (M <= 64) the weight stream, one
-// byte per weight (N * K bytes) against 2*M*N*K operations; at prefill
-// (the gathered experts, M = 384; a 2048-token prompt) the bf16 tensor
-// cores. Two tile shapes behind one entry point:
-//   M <= 64  16 x 64 tiles, 4 warps (each 16 x 16): more blocks for a
-//            weight-bound stream, little wasted tensor-core work;
-//   M > 64   128 x 128 tiles, 8 warps (each 32 x 64).
-// Tiles of 128 k (one chunk) are double-buffered in shared memory by
-// cp.async. A warp reads its fragments in a k order permuted within each
-// 16-k step (thread tq takes k = 4tq .. 4tq+3 for both operands): one
-// 32-bit load of four codes per B fragment pair and one 64-bit load per
-// A row pair; the products pair up as before, only the order of the
-// tensor cores' internal sum changes. wgmma and TMA are later work.
+// What bounds it on the H100: at decode the weight stream, one byte per
+// weight (N * K bytes; one DeepSeek-V2-Lite MoE layer's 8 linears at M = 1:
+// 600 MB, 0.18 ms) against 2*M*N*K operations; at prefill (the gathered
+// experts, M = 384; a 2048-token prompt) the bf16 tensor cores (64
+// experts' e_w1 at M = 384: 142 GFLOP, 0.14 ms).
+//
+// Design: wgmma.mma_async m64nNk16 bf16 -> f32 with the weights as A from
+// registers and the tokens as B (wgmma's N) from shared memory. The
+// accumulator rows are output channels, so a thread needs only its own
+// two rows' se[c, n] per chunk, and M = 1 costs an n8 product instead of
+// a 16-row tile. A stage holds one 128-k chunk: the block's raw codes
+// ([R rows][128 bytes]) and its tokens' bf16 rows as two 64-k halves,
+// K-major 128-byte rows; both come in by TMA (one thread starts three
+// tensor copies a chunk, zero-filled past M and N) with the 128-byte
+// swizzle, which is the layout wgmma's B descriptor reads and spreads
+// the codes' 2-byte fragment loads over distinct banks. A ring of STAGES
+// stages has a "full" mbarrier (the copies' bytes) and an "empty" one
+// (every warp done with the chunk) each, and no block-wide barrier in the
+// loop: the warpgroups drift apart, so one folds while the other's
+// wgmmas run. Each warp loads its 16 weight rows' codes two at a time in
+// the A fragment's k order and decodes them in registers: every code of
+// a stage is loaded and decoded once per block. A chunk runs as two
+// groups of four k-steps on two A register sets: the first half's wgmmas
+// run while the second half is decoded, and the second half's while the
+// next chunk's first half is decoded; the partial sums are folded once
+// the chunk's last group is done. Three bodies by M (the tokens of one
+// block), each ring as deep as measured best (chip_smoke.py phase 3h;
+// PERF.md):
+//   n8    M <= 8 (decode): 64 channels (one warpgroup) x 8 tokens, 5
+//         stages, so 4 blocks share an SM: the weight stream, 1,408
+//         blocks for the 64-expert batch, 22 per expert;
+//   n64   M <= 64: 64 channels x 64 tokens, 4 stages;
+//   n128  M > 64 (prefill): 128 channels (two warpgroups) x 128 tokens, 3
+//         stages.
 
+#include <cuda.h>  // CUtensorMap and its encoder's types
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int CHUNK = 128;        // k per scale chunk and per smem stage
-constexpr int LDA = CHUNK + 8;    // padded shared row of x, bf16
-constexpr int LDB = CHUNK + 16;   // padded shared row of w8, bytes
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+constexpr int CHUNK = 128;  // k per scale chunk and per smem stage
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  // d[64 x 8] (+)= a[64 x 16] (registers) * b[16 x 8] (shared)
+  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d[64 x 64] (+)= a[64 x 16] (registers) * b[16 x 64] (shared)
+  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d[64 x 128] (+)= a[64 x 16] (registers) * b[16 x 128] (shared)
+  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+// PTX prmt in its default mode: result byte i is byte (sel_i & 7) of (a,
+// 0), or, where sel_i & 8, that byte's sign bit replicated over 8 bits
+// (CUDA's __byte_perm reads only the low 3 bits of each selector)
+__device__ __forceinline__ unsigned prmt_sign(unsigned a, unsigned sel) {
+  unsigned r;
+  asm("prmt.b32 %0, %1, 0, %2;\n" : "=r"(r) : "r"(a), "r"(sel));
+  return r;
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// one e4m3 code (low 8 bits of b) -> bf16 bits
+// two e4m3 codes (bytes 0 and 1 of v, the lower k first) -> bf16x2
 template <bool EXACT>
-__device__ __forceinline__ unsigned decode1(unsigned b) {
-  const unsigned em = b & 0x7Fu;
-  const unsigned sign = (b & 0x80u) << 8;
-  if (em >= 8u) return sign | ((em << 4) + 0x3C00u);
-  if (!EXACT) return 0u;
-  // subnormal (and zero): m * 2^-9, exact in float32 and in bf16
-  const float v = static_cast<float>(em) * 0.001953125f;
-  return sign | static_cast<unsigned>(__bfloat16_as_ushort(
-                    __float2bfloat16_rn(v)));
-}
-
-// four codes (bytes of w, lowest k first) -> two bf16 pairs
-template <bool EXACT>
-__device__ __forceinline__ void decode4(unsigned w, unsigned& lo,
-                                        unsigned& hi) {
-  lo = decode1<EXACT>(w) | (decode1<EXACT>(w >> 8) << 16);
-  hi = decode1<EXACT>(w >> 16) | (decode1<EXACT>(w >> 24) << 16);
+__device__ __forceinline__ unsigned decode2(unsigned v) {
+  // code, its sign byte, code, its sign byte: sign at bit 15 after << 4
+  unsigned t = (prmt_sign(v, 0x9180u) << 4) & 0x87F087F0u;
+  if (!EXACT) {  // exponent field 0 (subnormal or zero) -> +0
+    const unsigned f = ((t & 0x07800780u) + 0x7F807F80u) & 0x80008000u;
+    t &= prmt_sign(f, 0xBB99u);
+  }
+  unsigned r;  // t * 2^120 + (-0): exact, keeps the sign of a zero
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(r)
+      : "r"(t), "r"(0x7B807B80u), "r"(0x80008000u));
+  return r;
 }
 
 template <typename OutT>
@@ -117,142 +194,206 @@ __device__ __forceinline__ bf16 to_out<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <int BM, int BN>
-constexpr int smem_bytes() {
-  return 2 * (BM * LDA * 2 + BN * LDB);
+// keep a register's reads and writes on their side of the wgmmas
+template <int N>
+__device__ __forceinline__ void fence_f32(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_u32(unsigned* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// Block tile BM x BN; WM x WN warps, each a (BM/WM) x (BN/WN) warp tile of
-// MT x NT mma tiles (16 x 8 each).
-template <int BM, int BN, int WM, int WN, bool EXACT, typename OutT>
-__global__ void __launch_bounds__(WM * WN * 32)
-fp8_matmul_kernel(const bf16* __restrict__ x, long long x_estride,
-                  const uint8_t* __restrict__ w8,
+// ---- mbarriers and TMA ------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// wait for the phase of the given parity to complete; a transfer that
+// never lands traps (a launch failure) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done, spins = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (!done && ++spins == (1u << 26)) __trap();
+  } while (!done);
+}
+// one box of a 3-d tensor map into shared memory, counted on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int R, int BT, int STAGES>
+struct Shape {
+  static constexpr int THREADS = R * 2;         // R / 64 warpgroups
+  static constexpr int X_STAGE = BT * 2 * 128;  // two 64-k halves [BT][128 B]
+  static constexpr int W_STAGE = R * CHUNK;     // [R][128 B] codes
+  // + 1024: the swizzled tiles start at a multiple of 1024 bytes; then
+  // a full and an empty mbarrier per stage
+  static constexpr int SMEM = STAGES * (X_STAGE + W_STAGE) + 1024 +
+                              STAGES * 16;
+  static constexpr int ACC = BT / 2;            // f32 per thread
+};
+
+// The body: R output channels x BT tokens per block (blockIdx.x channel
+// tiles, fastest, then blockIdx.y token tiles, blockIdx.z experts). xmap:
+// x as [XE, M, K] bf16 (XE = 1 when one x serves every expert), boxes of
+// 64 k x BT rows; wmap: w8 as [E, N, K] bytes, boxes of 128 k x R rows;
+// both with the 128-byte swizzle.
+template <int R, int BT, int STAGES, bool EXACT, typename OutT>
+__global__ void __launch_bounds__(R * 2)
+fp8_matmul_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap, int x_experts,
                   const float* __restrict__ se, OutT* __restrict__ y, int M,
                   int N, int K) {
-  constexpr int THREADS = WM * WN * 32;
-  constexpr int MT = BM / WM / 16;
-  constexpr int NT = BN / WN / 8;
-  static_assert(MT >= 1 && NT >= 1, "warp tile");
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);                 // [2][BM][LDA]
-  uint8_t* b_s = smem + 2 * BM * LDA * 2;                    // [2][BN][LDB]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  using S = Shape<R, BT, STAGES>;
+  extern __shared__ __align__(16) uint8_t raw[];
+  uint8_t* x_s = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  uint8_t* w_s = x_s + STAGES * S::X_STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(w_s + STAGES * S::W_STAGE);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, tq = lane & 3;
-  const int wm = warp / WN, wn = warp % WN;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * R;
+  const int m0 = blockIdx.y * BT;
   const int e = blockIdx.z;
-  x += static_cast<size_t>(e) * x_estride;
-  w8 += static_cast<size_t>(e) * N * K;
+  const int xe = x_experts > 1 ? e : 0;
   se += static_cast<size_t>(e) * (K / CHUNK) * N;
   y += static_cast<size_t>(e) * M * N;
   const int nc = K / CHUNK;
+  // this thread's two accumulator rows (output channels) in the block
+  const int row = warp * 16 + g8;
+  const int na = n0 + row, nb = na + 8;
 
-  auto load_stage = [&](int c, int buf) {
-    bf16* as = a_s + buf * BM * LDA;
-    uint8_t* bs = b_s + buf * BN * LDB;
-    // x: BM rows x 16 segments of 8 bf16; rows past M re-read row M - 1
-    // (their outputs are not stored)
-    for (int i = tid; i < BM * 16; i += THREADS) {
-      const int r = i >> 4, s = i & 15;
-      const int m = min(m0 + r, M - 1);
-      cp_async16(as + r * LDA + s * 8,
-                 x + static_cast<size_t>(m) * K + c * CHUNK + s * 8);
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, S::THREADS / 32);
     }
-    // w8: BN rows x 8 segments of 16 codes
-    for (int i = tid; i < BN * 8; i += THREADS) {
-      const int r = i >> 3, s = i & 7;
-      cp_async16(bs + r * LDB + s * 16,
-                 w8 + static_cast<size_t>(n0 + r) * K + c * CHUNK + s * 16);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // chunk c into its slot (thread 0): the two x halves and the codes
+  auto load_chunk = [&](int c) {
+    const int slot = c % STAGES;
+    uint8_t* xs = x_s + slot * S::X_STAGE;
+    mbar_expect_tx(full + slot, S::X_STAGE + S::W_STAGE);
+    tma_load(xs, &xmap, c * CHUNK, m0, xe, full + slot);
+    tma_load(xs + BT * 128, &xmap, c * CHUNK + 64, m0, xe, full + slot);
+    tma_load(w_s + slot * S::W_STAGE, &wmap, c * CHUNK, n0, e, full + slot);
+  };
+
+  // k-steps 4h .. 4h + 3 of the chunk in `slot`, decoded into a: for
+  // step s, rows row and row + 8 at k = 16s + 2tq (+1) and 16s + 8 + 2tq
+  // (+1), the A fragment's layout; 16-byte chunk s of a row lies at
+  // s ^ (row % 8) (the swizzle; row % 8 == (row + 8) % 8 == g8)
+  auto decode_half = [&](int slot, int h, unsigned (&a)[4][4]) {
+    const uint8_t* wr = w_s + slot * S::W_STAGE + row * CHUNK + 2 * tq;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint8_t* p = wr + (((4 * h + s) ^ g8) << 4);
+      a[s][0] = decode2<EXACT>(*reinterpret_cast<const unsigned short*>(p));
+      a[s][1] = decode2<EXACT>(
+          *reinterpret_cast<const unsigned short*>(p + 8 * CHUNK));
+      a[s][2] = decode2<EXACT>(*reinterpret_cast<const unsigned short*>(p + 8));
+      a[s][3] = decode2<EXACT>(
+          *reinterpret_cast<const unsigned short*>(p + 8 * CHUNK + 8));
     }
   };
 
-  float acc[MT][NT][4];
+  float acc[S::ACC], part[S::ACC];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  for (int i = 0; i < S::ACC; ++i) acc[i] = 0.f;
+  unsigned a0[4][4], a1[4][4];
 
-  load_stage(0, 0);
-  cp_async_commit();
+  // the wgmmas of k-steps 4h .. 4h + 3 of the chunk in `slot` (A set a)
+  auto mma_half = [&](int slot, int h, unsigned (&a)[4][4]) {
+    const uint8_t* xs = x_s + slot * S::X_STAGE + h * BT * 128;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      Wgmma<BT>::mma(part, a[s], sw128_desc(xs + s * 32), h + s > 0);
+    wgmma_commit();
+  };
+
+  if (tid == 0)
+    for (int c = 0; c < STAGES - 1 && c < nc; ++c) load_chunk(c);
+  mbar_wait(full, 0);
+  decode_half(0, 0, a0);
+
   for (int c = 0; c < nc; ++c) {
-    const int buf = c & 1;
+    const int slot = c % STAGES;
+    const float sa = na < N ? __ldg(se + static_cast<size_t>(c) * N + na) : 0.f;
+    const float sb = nb < N ? __ldg(se + static_cast<size_t>(c) * N + nb) : 0.f;
+    // chunk c + STAGES - 1 into the slot chunk c - 1 held, once every warp
+    // is done with it
+    if (tid == 0 && c + STAGES - 1 < nc) {
+      if (c > 0) mbar_wait(empty + (c - 1) % STAGES, ((c - 1) / STAGES) & 1);
+      load_chunk(c + STAGES - 1);
+    }
+    fence_f32<S::ACC>(part);
+    mma_half(slot, 0, a0);
+    decode_half(slot, 1, a1);
+    mma_half(slot, 1, a1);
     if (c + 1 < nc) {
-      load_stage(c + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+      mbar_wait(full + (c + 1) % STAGES, ((c + 1) / STAGES) & 1);
+      wgmma_wait<1>();  // the first half is done: a0 is free
+      fence_u32<16>(&a0[0][0]);
+      decode_half((c + 1) % STAGES, 0, a0);
     }
-    __syncthreads();
-
-    const bf16* as = a_s + buf * BM * LDA + (wm * MT * 16) * LDA;
-    const uint8_t* bs = b_s + buf * BN * LDB + (wn * NT * 8) * LDB;
-    float part[MT][NT][4];
+    wgmma_wait<0>();
+    // the A sets stay live (unmoved) until the wgmmas that read them are
+    // done; part is read only after them
+    fence_f32<S::ACC>(part);
+    fence_u32<16>(&a0[0][0]);
+    fence_u32<16>(&a1[0][0]);
+    // the warp is done with chunk c: its reads before the slot's refill
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + slot);
+    // part[4i + q]: row na (q < 2) or nb, token 8i + 2tq + (q & 1)
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < CHUNK; kk += 16) {
-      // k order within the step: thread tq holds k = kk + 4tq .. 4tq + 3
-      // in both operands (fragment slots 2tq, 2tq+1 and 2tq+8, 2tq+9)
-      unsigned af[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const bf16* ar = as + (i * 16 + g8) * LDA + kk + tq * 4;
-        const uint2 r0 = *reinterpret_cast<const uint2*>(ar);
-        const uint2 r1 = *reinterpret_cast<const uint2*>(ar + 8 * LDA);
-        af[i][0] = r0.x;
-        af[i][1] = r1.x;
-        af[i][2] = r0.y;
-        af[i][3] = r1.y;
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const unsigned wv = *reinterpret_cast<const unsigned*>(
-            bs + (j * 8 + g8) * LDB + kk + tq * 4);
-        unsigned b0, b1;
-        decode4<EXACT>(wv, b0, b1);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) mma_bf16(part[i][j], af[i], b0, b1);
-      }
-    }
-    // scale the chunk's partial sums by se[c, n] and add them in
-    const float* sc = se + static_cast<size_t>(c) * N + n0 + wn * NT * 8;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float2 s = __ldg(reinterpret_cast<const float2*>(
-          sc + j * 8 + tq * 2));
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        acc[i][j][0] = __fadd_rn(acc[i][j][0], __fmul_rn(part[i][j][0], s.x));
-        acc[i][j][1] = __fadd_rn(acc[i][j][1], __fmul_rn(part[i][j][1], s.y));
-        acc[i][j][2] = __fadd_rn(acc[i][j][2], __fmul_rn(part[i][j][2], s.x));
-        acc[i][j][3] = __fadd_rn(acc[i][j][3], __fmul_rn(part[i][j][3], s.y));
-      }
-    }
-    __syncthreads();  // the stage is reloaded two chunks on
+    for (int i = 0; i < S::ACC; ++i)
+      acc[i] = __fadd_rn(acc[i], __fmul_rn(part[i], (i & 2) ? sb : sa));
   }
 
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int m = m0 + wm * MT * 16 + i * 16 + g8 + (q >= 2 ? 8 : 0);
-        const int n = n0 + wn * NT * 8 + j * 8 + tq * 2 + (q & 1);
-        if (m < M) y[static_cast<size_t>(m) * N + n] = to_out<OutT>(acc[i][j][q]);
-      }
-    }
+  for (int i = 0; i < S::ACC; ++i) {
+    const int n = (i & 2) ? nb : na;
+    const int m = m0 + (i >> 2) * 8 + 2 * tq + (i & 1);
+    if (m < M && n < N) y[static_cast<size_t>(m) * N + n] = to_out<OutT>(acc[i]);
   }
 }
 
@@ -264,58 +405,123 @@ cudaError_t allow_smem(Kern kernel, int bytes, int* done) {
   if (bytes <= *done) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) *done = bytes;
+  if (err == cudaSuccess)
+    *done = bytes;
+  else
+    cudaGetLastError();  // returned to the caller; no later launch sees it
   return err;
 }
 
-template <int BM, int BN, int WM, int WN, bool EXACT, typename OutT>
-cudaError_t launch(const void* x, long long x_estride, const void* w8,
-                   const void* se, void* y, int E, int M, int N, int K,
-                   cudaStream_t s) {
-  auto kern = fp8_matmul_kernel<BM, BN, WM, WN, EXACT, OutT>;
-  constexpr int bytes = smem_bytes<BM, BN>();
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once in libcuda.so.1 (which the CUDA
+// runtime has already loaded), so this library links against nothing new
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// a 3-d [d2, d1, d0] tensor map (d0 innermost, contiguous) with boxes of
+// [1, b1, b0] and the 128-byte swizzle; false if the encoder refuses it
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                const void* base, long long d0, long long d1, long long d2,
+                long long stride2, int b0, int b1) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
+                              static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0 * esize),
+                                 static_cast<cuuint64_t>(stride2 * esize)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0),
+                             static_cast<cuuint32_t>(b1), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int R, int BT, int STAGES, bool EXACT, typename OutT>
+cudaError_t launch_t(const void* x, long long x_estride, const void* w8,
+                     const void* se, void* y, int E, int M, int N, int K,
+                     cudaStream_t s) {
+  using Sh = Shape<R, BT, STAGES>;
+  auto kern = fp8_matmul_kernel<R, BT, STAGES, EXACT, OutT>;
   static int done = 0;
-  const cudaError_t err = allow_smem(kern, bytes, &done);
+  const cudaError_t err = allow_smem(kern, Sh::SMEM, &done);
   if (err != cudaSuccess) return err;
-  dim3 grid(N / BN, (M + BM - 1) / BM, E);
-  kern<<<grid, WM * WN * 32, bytes, s>>>(
-      static_cast<const bf16*>(x), x_estride,
-      static_cast<const uint8_t*>(w8), static_cast<const float*>(se),
-      static_cast<OutT*>(y), M, N, K);
+  // x: [XE, M, K] bf16, XE = E when each expert has its rows, else 1
+  const int xe = x_estride ? E : 1;
+  CUtensorMap xmap, wmap;
+  if (!tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M, xe,
+                  static_cast<long long>(M) * K, 64, BT) ||
+      !tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w8, K, N, E,
+                  static_cast<long long>(N) * K, CHUNK, R))
+    return cudaErrorInvalidValue;
+  dim3 grid((N + R - 1) / R, (M + BT - 1) / BT, E);
+  kern<<<grid, Sh::THREADS, Sh::SMEM, s>>>(
+      xmap, wmap, xe, static_cast<const float*>(se), static_cast<OutT*>(y), M,
+      N, K);
   return cudaGetLastError();
 }
 
-template <bool EXACT, typename OutT>
-cudaError_t dispatch(const void* x, long long x_estride, const void* w8,
-                     const void* se, void* y, int E, int M, int N, int K,
-                     cudaStream_t s) {
-  if (M <= 64)
-    return launch<16, 64, 1, 4, EXACT, OutT>(x, x_estride, w8, se, y, E, M,
-                                             N, K, s);
-  return launch<128, 128, 4, 2, EXACT, OutT>(x, x_estride, w8, se, y, E, M,
-                                             N, K, s);
+template <int R, int BT, int STAGES>
+int launch(const void* x, long long x_estride, const void* w8, const void* se,
+           void* y, int E, int M, int N, int K, int exact, int out_is_f32,
+           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (exact)
+    err = out_is_f32 ? launch_t<R, BT, STAGES, true, float>(
+                           x, x_estride, w8, se, y, E, M, N, K, s)
+                     : launch_t<R, BT, STAGES, true, bf16>(
+                           x, x_estride, w8, se, y, E, M, N, K, s);
+  else
+    err = out_is_f32 ? launch_t<R, BT, STAGES, false, float>(
+                           x, x_estride, w8, se, y, E, M, N, K, s)
+                     : launch_t<R, BT, STAGES, false, bf16>(
+                           x, x_estride, w8, se, y, E, M, N, K, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 // x bf16 [E?, M, K] (expert stride x_estride elements, 0 = shared);
 // w8 e4m3 [E, N, K]; se f32 [E, K/128, N]; y [E, M, N] bf16 (out_is_f32 =
-// 0) or f32. K % 128 == 0, N % 128 == 0 and 16-byte aligned rows are the
-// caller's contract (checked in Python).
-extern "C" int fq_fp8_matmul(const void* x, long long x_estride,
-                             const void* w8, const void* se, void* y, int E,
-                             int M, int N, int K, int exact, int out_is_f32,
-                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (exact) {
-    err = out_is_f32
-              ? dispatch<true, float>(x, x_estride, w8, se, y, E, M, N, K, s)
-              : dispatch<true, bf16>(x, x_estride, w8, se, y, E, M, N, K, s);
-  } else {
-    err = out_is_f32
-              ? dispatch<false, float>(x, x_estride, w8, se, y, E, M, N, K, s)
-              : dispatch<false, bf16>(x, x_estride, w8, se, y, E, M, N, K, s);
-  }
-  return static_cast<int>(err);
+// 0) or f32. K % 128 == 0 and 16-byte aligned rows are the caller's
+// contract (checked in Python); any N and M. One entry point per body.
+extern "C" int fq_fp8_matmul_n8(const void* x, long long x_estride,
+                                const void* w8, const void* se, void* y,
+                                int E, int M, int N, int K, int exact,
+                                int out_is_f32, void* stream) {
+  return launch<64, 8, 5>(x, x_estride, w8, se, y, E, M, N, K, exact,
+                          out_is_f32, stream);
+}
+
+extern "C" int fq_fp8_matmul_n64(const void* x, long long x_estride,
+                                 const void* w8, const void* se, void* y,
+                                 int E, int M, int N, int K, int exact,
+                                 int out_is_f32, void* stream) {
+  return launch<64, 64, 4>(x, x_estride, w8, se, y, E, M, N, K, exact,
+                           out_is_f32, stream);
+}
+
+extern "C" int fq_fp8_matmul_n128(const void* x, long long x_estride,
+                                  const void* w8, const void* se, void* y,
+                                  int E, int M, int N, int K, int exact,
+                                  int out_is_f32, void* stream) {
+  return launch<128, 128, 3>(x, x_estride, w8, se, y, E, M, N, K, exact,
+                             out_is_f32, stream);
 }

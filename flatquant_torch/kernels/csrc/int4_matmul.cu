@@ -4,8 +4,8 @@
 //                      (int8 codes x int4 weights; two bodies)
 //   quant_acts_i8   -> fq_quant_acts_i8    (per-token symmetric quant)
 //   w4a8_matmul     -> fq_w4a8_matmul      (bf16 activations x int4 weights)
-//   w4a4_matmul_i8_fusedq -> fq_w4a4_matmul_i8_fusedq (quant_acts_i8 in
-//                      the prologue of w4a4_matmul_i8)
+//   w4a4_matmul_i8_fusedq -> fq_w4a4_matmul_i8_fusedq_stream, _tile
+//                      (quant_acts_i8 fused into w4a4_matmul_i8's bodies)
 // and, from flatquant_tpu/kernels/grouped_mlp.py (Pallas), the first two
 // on the grouped activation layout [K / 128, M, 128] (flat column c of row
 // m at (c / 128) * M * 128 + m * 128 + c % 128):
@@ -108,34 +108,51 @@
 //
 // ---------------------------------------------------------------------
 // w4a4_matmul_i8_fusedq: per-token symmetric int4 quant of bf16 or f32
-// activations (LAC clips, q_max 7) in the prologue of w4a4_matmul_i8.
+// activations (LAC clips, q_max 7) fused into w4a4_matmul_i8. Two device
+// bodies behind one wrapper; int4_matmul.py `fusedq_body` picks one from
+// (M, N, K), from chip_smoke.py phase 3a's sweep.
 //
 // Replaces: flatquant_tpu/kernels/int4_matmul.py:w4a4_matmul_i8_fusedq
 // (Pallas; a measured baseline there, not on JAX's serving path).
 //
 //   y = w4a4_matmul_i8(quant_acts_i8(x, clip, 7), wp, sw), bit for bit:
 // the quant arithmetic is quant_acts_i8_kernel's (IEEE division, rintf,
-// __fmul_rn clips) and the GEMM is w4a4_matmul_i8's warp body and
-// epilogue (w4a4_warp_rows), so codes, int32 sums and the epilogue's
-// roundings are the composed route's.
+// __fmul_rn clips) and the GEMM is one of w4a4_matmul_i8's bodies with its
+// epilogue, so codes, int32 sums and the epilogue's roundings are the
+// composed route's.
 //
 // What bounds it on the H100: as w4a4_matmul_i8 -- at decode the weight
 // stream (N * K/2 bytes; one llama-2-7b layer's four linears: 101 MB,
 // 30 us), at prefill the int8 operations (2 M N K).
 //
-// Design: the Pallas kernel quantizes each m-block once, at the first
-// n step, into scratch that the later (sequential) grid steps read. CUDA
-// blocks run in parallel and share nothing, so every block quantizes its
-// own MT rows into shared memory (MT * K bytes of codes: 88 KB at K =
-// 11008): one pass over its rows for their extrema, a second that writes
-// the codes. It then walks groups of FQ_WARPS * ROWS weight rows with
-// stride gridDim.x. What that re-reads: each block reads its rows of x
-// twice (from L2 after the first block), and an m-tile's rows are
-// quantized gridDim.x times. The launch sizes gridDim.x so that about
-// FQ_TARGET_BLOCKS blocks run: at M = 4 (one m-tile) every group is a
-// block (384 for llama-2-7b's merged qkv), each reading the 32 KB of bf16
-// rows twice (25 MB from L2, beside the 25 MB weight stream from HBM); at
-// M = 2048 (256 m-tiles) two blocks per m-tile, so x is read four times.
+// The Pallas kernel quantizes each m-block once, at the first n step, into
+// scratch that the later (sequential) grid steps read. CUDA blocks run in
+// parallel, so the two bodies keep the codes elsewhere:
+// - stream body (fq_w4a4_matmul_i8_fusedq_stream, decode):
+//   every block quantizes its own MT rows into shared memory (MT * K bytes
+//   of codes: 88 KB at K = 11008): one pass over its rows for their
+//   extrema, a second that writes the codes. It then walks groups of
+//   FQ_WARPS * ROWS weight rows with stride gridDim.x through row 1's dp4a
+//   warp body. An m-tile's rows are quantized gridDim.x times; the launch
+//   sizes gridDim.x so that about FQ_TARGET_BLOCKS blocks run (at M = 4
+//   every group is a block, 384 for llama-2-7b's merged qkv).
+// - tile body (fq_w4a4_matmul_i8_fusedq_tile): a 128-row tile of codes
+//   does not fit shared memory at K = 4096 (512 KB), so L2 takes the place
+//   of JAX's VMEM scratch. The wrapper allocates an int8 [M, K] and
+//   float32 [M] workspace and 2 zeroed flags per 128-row M tile. The
+//   first blocks of an M tile claim its rows from the tile's ticket (an
+//   atomic counter) until none is left and quantize each into the
+//   workspace (up to M = 512 a block on a row with row 12's row body, the
+//   least latency a row; above, a warp on a row with 8 loads in flight a
+//   lane, the most rows at once), counting them done after a device-scope
+//   fence; then every block of the tile waits (ld.acquire)
+//   for the count, stages the tile's 128 scales in shared memory and runs
+//   row 1's tile body on the workspace. The grid walks the M tiles of one
+//   weight tile together (row 1's order), so the first blocks of each M
+//   tile share its rows and the rest find them done: each row is
+//   quantized once per launch. Against the composed route (rows 12 + 1) it
+//   saves a launch, but the quantization overlaps no GEMM work of its
+//   tile (PERF.md gives the times).
 //
 // ---------------------------------------------------------------------
 // w4a8_matmul: bf16 activations x planar int4 weights, float32 sums.
@@ -358,26 +375,6 @@ __device__ __forceinline__ unsigned lo_codes16(unsigned w) {
   return ((w << 4) & 0xF0F0F0F0u) ^ 0x80808080u;
 }
 
-// K-major operand of 128-byte rows, 128-byte swizzle: start address,
-// leading offset unused (1), stride 1024 bytes between 8-row groups
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 // keep the accumulators' reads and writes on their side of the wgmmas
 __device__ __forceinline__ void fence_regs(int* d) {
 #pragma unroll
@@ -416,8 +413,10 @@ __device__ __forceinline__ void wgmma_s8_n128(int* d, const unsigned* a,
 // The tile body; each __global__ below carries its wrapper's name (the
 // profiles group kernels by it). GROUPED (w4a4_matmul_i8_grouped): the
 // codes are [K / 128, M, 128]; a 16-byte chunk starts at a multiple of 16
-// and lies inside one group, so only its address changes.
-template <typename OutT, bool GROUPED>
+// and lies inside one group, so only its address changes. SX_TILE
+// (w4a4_matmul_i8_fusedq): sx holds the block's own 128 row scales (sx[m -
+// m0], staged in shared memory), not all M.
+template <typename OutT, bool GROUPED, bool SX_TILE = false>
 __device__ __forceinline__ void w4a4_tile(const int8_t* __restrict__ xq,
                                           const uint8_t* __restrict__ wp,
                                           const float* __restrict__ sx,
@@ -506,7 +505,7 @@ __device__ __forceinline__ void w4a4_tile(const int8_t* __restrict__ xq,
     for (int j = 0; j < 4; ++j)
       wgmma_s8_n128(acc, a[j], sw128_desc(xs + j * 32));
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs(acc);
   };
 
@@ -536,7 +535,8 @@ __device__ __forceinline__ void w4a4_tile(const int8_t* __restrict__ xq,
       const int n = n0 + wg * 64 + wi * 16 + g8 + (e >> 1) * 8;
       const int m = m0 + i * 8 + tq * 2 + (e & 1);
       if (m < M && n < N) {
-        const float v = static_cast<float>(acc[4 * i + e] >> 4) * sx[m];
+        const float v = static_cast<float>(acc[4 * i + e] >> 4) *
+                        sx[SX_TILE ? m - m0 : m];
         y[static_cast<size_t>(m) * N + n] = to_out<OutT>(v * sw[n]);
       }
     }
@@ -592,17 +592,17 @@ __device__ __forceinline__ void widen16<float>(uint4 v, float* f) {
 
 // GROUPED (quant_acts_i8_grouped): x and xq are [K / 128, M, 128] instead
 // of [M, K]; a 16-byte vector lies inside one group (K % 128 == 0), so
-// only the addresses of the row's vectors change.
+// only the addresses of the row's vectors change. The block quantizes row
+// `row` (its own blockIdx.x in rows 12 and 24; a claimed row in row 17).
 template <typename T, bool GROUPED>
 __device__ __forceinline__ void quant_acts_i8_row(
     const T* __restrict__ x, const float* __restrict__ clip,
     int8_t* __restrict__ xq, float* __restrict__ xs, int M, int K,
-    float q_max) {
+    float q_max, size_t row) {
   constexpr int E = 16 / sizeof(T);  // values per 16-byte vector
   extern __shared__ uint4 qa_row[];  // the row, as read
   __shared__ float red[2][QA_THREADS / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t row = blockIdx.x;
   const int nvec = K / E;
   // offset of the row's element at column col (a multiple of E)
   auto at = [&](int col) -> size_t {
@@ -668,7 +668,7 @@ __global__ void __launch_bounds__(QA_THREADS)
 quant_acts_i8_kernel(const T* __restrict__ x, const float* __restrict__ clip,
                      int8_t* __restrict__ xq, float* __restrict__ xs, int M,
                      int K, float q_max) {
-  quant_acts_i8_row<T, false>(x, clip, xq, xs, M, K, q_max);
+  quant_acts_i8_row<T, false>(x, clip, xq, xs, M, K, q_max, blockIdx.x);
 }
 
 template <typename T>
@@ -677,7 +677,7 @@ quant_acts_i8_grouped_kernel(const T* __restrict__ x,
                              const float* __restrict__ clip,
                              int8_t* __restrict__ xq, float* __restrict__ xs,
                              int M, int K, float q_max) {
-  quant_acts_i8_row<T, true>(x, clip, xq, xs, M, K, q_max);
+  quant_acts_i8_row<T, true>(x, clip, xq, xs, M, K, q_max, blockIdx.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -767,6 +767,159 @@ w4a4_matmul_i8_fusedq_kernel(const T* __restrict__ x,
       w4a4_warp_rows<OutT, true>(codes, fq_scale, wp, sw, y, m0, mt, n0, N,
                                  K, lane);
   }
+}
+
+// ---------------------------------------------------------------------------
+// w4a4_matmul_i8_fusedq, tile body: each 128-row M tile quantized once per
+// launch into a workspace, then w4a4_tile on the workspace
+// ---------------------------------------------------------------------------
+
+// the fused tile body quantizes a row per block up to this M (the rows
+// are few: the least latency a row), a row per warp above it (the most
+// rows in flight); phase 3a measured both modes at M = 32 to 2048
+constexpr int FQT_BLOCK_ROWS_MAX_M = 512;
+
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// One warp quantizes one row of x [., K] into codes qr and scale *sr with
+// quant_acts_i8_kernel's arithmetic at q_max 7: the extrema with max(., 0)
+// and min(., 0) folded in, __fmul_rn clips, an IEEE division for the scale
+// and for each code, rintf, clamp to [-8, 7]. Each lane keeps U 16-byte
+// loads in flight; the second pass reads the row again (from L2).
+template <typename T>
+__device__ __forceinline__ void quant_row_warp(const T* __restrict__ xr,
+                                               const float* __restrict__ clip,
+                                               int8_t* __restrict__ qr,
+                                               float* __restrict__ sr, int K,
+                                               int lane) {
+  constexpr int E = 16 / sizeof(T);  // values per 16-byte vector
+  constexpr int U = 8;
+  const int nvec = K / E;
+  float mx = 0.f, mn = 0.f;  // max(., 0) and min(., 0): zero filler is moot
+  for (int i0 = lane; i0 < nvec; i0 += 32 * U) {
+    uint4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + 32 * u;
+      v[u] = i < nvec ? ldg16(xr + i * E) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float f[E];
+      widen16<T>(v[u], f);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        mx = fmaxf(mx, f[e]);
+        mn = fminf(mn, f[e]);
+      }
+    }
+  }
+  mx = warp_max(mx);
+  mn = -warp_max(-mn);
+  const float xmax = __fmul_rn(mx, clip[0]);
+  const float xmin = __fmul_rn(mn, clip[1]);
+  const float absmax = fmaxf(fabsf(xmin), xmax);
+  const float s = absmax == 0.f ? 1.f : absmax / 7.f;
+  if (lane == 0) *sr = s;
+  for (int i0 = lane; i0 < nvec; i0 += 32 * U) {
+    uint4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + 32 * u;
+      v[u] = i < nvec ? ldg16(xr + i * E) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + 32 * u;
+      if (i >= nvec) break;
+      float f[E];
+      widen16<T>(v[u], f);
+      unsigned q4[E / 4];
+#pragma unroll
+      for (int j = 0; j < E / 4; ++j) q4[j] = 0u;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float q = fminf(fmaxf(rintf(f[e] / s), -8.f), 7.f);
+        q4[e / 4] |= (static_cast<unsigned>(static_cast<int>(q)) & 0xFFu)
+                     << (8 * (e % 4));
+      }
+      if constexpr (E == 8) {
+        *reinterpret_cast<uint2*>(qr + i * 8) = make_uint2(q4[0], q4[1]);
+      } else {
+        *reinterpret_cast<unsigned*>(qr + i * 4) = q4[0];
+      }
+    }
+  }
+}
+
+// Block (M tile blockIdx.x, weight tile blockIdx.y): claim rows of the M
+// tile from its ticket (flags[2 mt]) until none is left, quantize each
+// claimed row into xq / xs and count it done (flags[2 mt + 1], after a
+// device-scope fence); then wait (acquire) until every row of the tile is
+// done, stage the tile's 128 row scales in shared memory and run
+// w4a4_tile on the codes. warp_rows: each warp claims and quantizes its
+// own rows (the most rows in flight, for large M); else the whole block
+// takes one row at a time with quant_acts_i8's row body (the least
+// latency a row, for small M, where rows are few). A claimant waits only
+// once every row is claimed, and each claimed row belongs to a warp or
+// block that is already running and does not wait before finishing it: no
+// launch order can deadlock. The flags are zeroed by the wrapper for
+// every launch.
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(TL_THREADS)
+w4a4_matmul_i8_fusedq_tile_kernel(const T* __restrict__ x,
+                                  const float* __restrict__ clip,
+                                  const uint8_t* __restrict__ wp,
+                                  const float* __restrict__ sw,
+                                  OutT* __restrict__ y, int8_t* xq, float* xs,
+                                  unsigned* flags, int M, int N, int K,
+                                  int warp_rows) {
+  static_assert(TL_THREADS == QA_THREADS, "quant_acts_i8_row's block");
+  __shared__ unsigned claimed;
+  __shared__ float sx_tile[TL_BM];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int m0 = blockIdx.x * TL_BM;
+  const unsigned rows = min(TL_BM, M - m0);
+  unsigned* ticket = flags + 2 * blockIdx.x;
+  unsigned* done = ticket + 1;
+  if (warp_rows) {
+    for (;;) {
+      unsigned r = 0;
+      if (lane == 0) r = atomicAdd(ticket, 1u);
+      r = __shfl_sync(0xffffffffu, r, 0);
+      if (r >= rows) break;
+      const size_t m = m0 + r;
+      quant_row_warp<T>(x + m * K, clip, xq + m * K, xs + m, K, lane);
+      __threadfence();  // this lane's codes (and scale), device-wide
+      __syncwarp();
+      if (lane == 0) atomicAdd(done, 1u);
+    }
+  } else {
+    for (;;) {
+      if (tid == 0) claimed = atomicAdd(ticket, 1u);
+      __syncthreads();
+      const unsigned r = claimed;
+      __syncthreads();  // claimed is rewritten on the next turn
+      if (r >= rows) break;
+      quant_acts_i8_row<T, false>(x, clip, xq, xs, M, K, 7.f, m0 + r);
+      __threadfence();  // this thread's codes (and scale), device-wide
+      __syncthreads();  // ... for every thread; the shared row is free
+      if (tid == 0) atomicAdd(done, 1u);
+    }
+  }
+  if (tid == 0)
+    while (ld_acquire_gpu(done) < rows) __nanosleep(64);
+  __syncthreads();
+  if (tid < static_cast<int>(rows)) sx_tile[tid] = __ldcg(xs + m0 + tid);
+  __syncthreads();
+  w4a4_tile<OutT, false, true>(xq, wp, sx_tile, sw, y, M, N, K);
 }
 
 // ---------------------------------------------------------------------------
@@ -1061,9 +1214,9 @@ cudaError_t allow_smem(Kern kernel, int bytes, int* done) {
 }
 
 template <typename T, typename OutT>
-int launch_fusedq(const void* x, const void* clip, const void* wp,
-                  const void* sw, void* y, int M, int N, int K,
-                  cudaStream_t s) {
+int launch_fusedq_stream(const void* x, const void* clip, const void* wp,
+                         const void* sw, void* y, int M, int N, int K,
+                         cudaStream_t s) {
   static int done = 0;
   const int bytes = MT * K;
   const cudaError_t err =
@@ -1077,6 +1230,26 @@ int launch_fusedq(const void* x, const void* clip, const void* wp,
           static_cast<const T*>(x), static_cast<const float*>(clip),
           static_cast<const uint8_t*>(wp), static_cast<const float*>(sw),
           static_cast<OutT*>(y), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename OutT>
+int launch_fusedq_tile(const void* x, const void* clip, const void* wp,
+                       const void* sw, void* y, void* xq, void* xs,
+                       void* flags, int M, int N, int K, cudaStream_t s) {
+  auto kern = &w4a4_matmul_i8_fusedq_tile_kernel<T, OutT>;
+  static int done = 0;
+  // the ring, or one row of x while a block quantizes it
+  const int bytes = std::max(TL_SMEM, K * static_cast<int>(sizeof(T)));
+  const cudaError_t err = allow_smem(kern, bytes, &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((M + TL_BM - 1) / TL_BM, (N + TL_BN - 1) / TL_BN);
+  kern<<<grid, TL_THREADS, bytes, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(clip),
+      static_cast<const uint8_t*>(wp), static_cast<const float*>(sw),
+      static_cast<OutT*>(y), static_cast<int8_t*>(xq),
+      static_cast<float*>(xs), static_cast<unsigned*>(flags), M, N, K,
+      M > FQT_BLOCK_ROWS_MAX_M);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1213,21 +1386,45 @@ extern "C" int fq_quant_acts_i8_grouped(const void* x, const void* clip,
 // x [M, K] bf16 (x_is_f32 = 0) or f32; clip f32 [2] (cmax, cmin);
 // w_packed uint8 [N, K/2]; sw f32 [N]; y [M, N] bf16 (out_is_f32 = 0) or
 // f32. K % 32 == 0 and 16-byte aligned rows are the caller's contract
-// (checked in Python); a K whose MT * K bytes of codes exceed the opt-in
-// shared memory returns cudaFuncSetAttribute's error.
-extern "C" int fq_w4a4_matmul_i8_fusedq(const void* x, const void* clip,
-                                        const void* wp, const void* sw,
-                                        void* y, int M, int N, int K,
-                                        int x_is_f32, int out_is_f32,
-                                        void* stream) {
+// (checked in Python). _stream: the dp4a body (a K whose MT * K bytes of
+// codes exceed the opt-in shared memory returns cudaFuncSetAttribute's
+// error); _tile: the tensor-core tile (K < 2^17) on a workspace of xq int8
+// [M, K] and xs f32 [M] and 2 * ceil(M / 128) zeroed flags (uint32).
+extern "C" int fq_w4a4_matmul_i8_fusedq_stream(const void* x,
+                                               const void* clip,
+                                               const void* wp, const void* sw,
+                                               void* y, int M, int N, int K,
+                                               int x_is_f32, int out_is_f32,
+                                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_is_f32)
+    return out_is_f32 ? launch_fusedq_stream<float, float>(x, clip, wp, sw,
+                                                           y, M, N, K, s)
+                      : launch_fusedq_stream<float, bf16>(x, clip, wp, sw, y,
+                                                          M, N, K, s);
+  return out_is_f32
+             ? launch_fusedq_stream<bf16, float>(x, clip, wp, sw, y, M, N, K,
+                                                 s)
+             : launch_fusedq_stream<bf16, bf16>(x, clip, wp, sw, y, M, N, K,
+                                                s);
+}
+
+extern "C" int fq_w4a4_matmul_i8_fusedq_tile(
+    const void* x, const void* clip, const void* wp, const void* sw, void* y,
+    void* xq, void* xs, void* flags, int M, int N, int K, int x_is_f32,
+    int out_is_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_f32)
     return out_is_f32
-               ? launch_fusedq<float, float>(x, clip, wp, sw, y, M, N, K, s)
-               : launch_fusedq<float, bf16>(x, clip, wp, sw, y, M, N, K, s);
+               ? launch_fusedq_tile<float, float>(x, clip, wp, sw, y, xq, xs,
+                                                  flags, M, N, K, s)
+               : launch_fusedq_tile<float, bf16>(x, clip, wp, sw, y, xq, xs,
+                                                 flags, M, N, K, s);
   return out_is_f32
-             ? launch_fusedq<bf16, float>(x, clip, wp, sw, y, M, N, K, s)
-             : launch_fusedq<bf16, bf16>(x, clip, wp, sw, y, M, N, K, s);
+             ? launch_fusedq_tile<bf16, float>(x, clip, wp, sw, y, xq, xs,
+                                               flags, M, N, K, s)
+             : launch_fusedq_tile<bf16, bf16>(x, clip, wp, sw, y, xq, xs,
+                                              flags, M, N, K, s);
 }
 
 // x bf16 [M, K]; w_packed uint8 [N, K/2]; sx f32 [M]; sw f32 [N]; y [M, N]

@@ -1,8 +1,9 @@
-// Warp-level tensor-core and copy helpers shared by the flash attention
-// kernels (flash_prefill.cu, flash_prefill_i8.cu) and the W4A4 GEMMs
-// (int4_matmul.cu): cp.async staging, ldmatrix, mma.sync in bf16 and in
-// s8, and the quad reductions over the four lanes that hold one
-// accumulator row.
+// Tensor-core and copy helpers shared by the flash attention kernels
+// (flash_prefill.cu, flash_prefill_i8.cu) and the GEMMs (int4_matmul.cu,
+// fp8_matmul.cu): cp.async staging, ldmatrix, mma.sync in bf16 and in s8,
+// the quad reductions over the four lanes that hold one accumulator row,
+// and the wgmma plumbing (fences, groups, the 128-byte-swizzle
+// descriptor).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -103,6 +104,34 @@ __device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- wgmma (sm_90a) --------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// cp.async's shared-memory writes, visible to the wgmmas (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// K-major operand of 128-byte rows, 128-byte swizzle (16-byte chunk j of
+// row r at j ^ (r % 8), the tile 1024-byte aligned): start address,
+// leading offset unused (1), stride 1024 bytes between 8-row groups. A
+// k-step of 32 bytes (k32 in s8, k16 in bf16) advances the start by 32.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
 }
 
 }  // namespace

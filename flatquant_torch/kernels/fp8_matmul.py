@@ -6,21 +6,23 @@ activations, float32 sums.
 
 over the 128-wide k-chunks c. The activations are never quantized: the
 kernel decodes each e4m3 code into bf16, where it embeds exactly, and
-multiplies on the bf16 tensor cores. Each chunk's partial sum starts from
-zero, is scaled by its column's se[c, n] and added to the running float32
-sums with an IEEE add (csrc/fp8_matmul.cu).
+multiplies on the bf16 tensor cores (wgmma, the weights as A from
+registers, the tokens as N). Each chunk's partial sum starts from zero, is
+scaled by its row's se[c, n] and added to the running float32 sums with an
+IEEE add (csrc/fp8_matmul.cu).
 
 Kernels (the wrapper launches its CUDA kernel for CUDA tensors, or
 raises, and runs its plain version for CPU tensors):
 
     fp8_matmul   bf16 x [(E,) M, K] times e4m3 w8 [(E,) N, K] with
                  expanded scales se [(E,) K/128, N]; an optional leading
-                 expert axis is one launch   (csrc/fp8_matmul.cu)
+                 expert axis is one launch   (csrc/fp8_matmul.cu; three
+                 bodies by the tokens a block takes, fp8_body picks)
                  plain: fp8_matmul_ref
 
 `fp8_linear` dispatches as JAX's does: the kernel serves a 128-aligned K
-packed in 128-blocks (a ragged N is zero-padded to 128 for the call); every
-other weight takes `fp8_matmul_ref`, JAX's own XLA route for it (not a
+packed in 128-blocks (any N: the kernel masks a ragged one); every other
+weight takes `fp8_matmul_ref`, JAX's own XLA route for it (not a
 fallback: JAX sends those shapes there on the TPU too).
 
 Weights are torch.float8_e4m3fn; `fp8_block_quantize` gives the codes
@@ -144,16 +146,30 @@ def fp8_matmul_ref(x, w8, se, out_dtype=torch.bfloat16, exact: bool = True):
     return acc.to(out_dtype)
 
 
+# the device bodies of fp8_matmul, named by the tokens (wgmma's N) one
+# block takes, and the largest M each body is routed (n128 takes the rest)
+BODY_NAMES = ("n8", "n64", "n128")
+BODY_MAX_M = {"n8": 8, "n64": 64}
+
+
+def fp8_body(m: int) -> str:
+    """The device body of fp8_matmul for M tokens: "n8" (64 channels x 8
+    tokens a block, the decode weight stream) up to 8 rows, "n64" (64 x
+    64) up to 64, "n128" (128 x 128, the prefill tile) above. N and K do
+    not move it: the bodies mask a ragged N, and K is whole chunks."""
+    return next((b for b in BODY_NAMES[:-1] if m <= BODY_MAX_M[b]), "n128")
+
+
 def fp8_matmul(x, w8, se, out_dtype=torch.bfloat16, exact: bool = True):
     """y[(E,) M, N] = x[(E,) M, K] @ (w8 * blockscale)[(E,) N, K]^T.
 
     x bf16 (float32 is cast to bf16, as JAX casts); w8 float8_e4m3fn;
-    se float32 [(E,) K/128, N] (expand_fp8_scales); K % 128 == 0 and
-    N % 128 == 0. A leading expert axis on w8 and se (x may be broadcast
-    over it: stride 0) runs in the same launch. exact=True decodes every
-    code; exact=False flushes subnormal codes to zero. Output bf16 or f32.
-    CUDA tensors launch the kernel (or raise); CPU tensors run
-    fp8_matmul_ref."""
+    se float32 [(E,) K/128, N] (expand_fp8_scales); K % 128 == 0, any N.
+    A leading expert axis on w8 and se (x may be broadcast over it:
+    stride 0) runs in the same launch. exact=True decodes every code;
+    exact=False flushes subnormal codes to zero. Output bf16 or f32.
+    CUDA tensors launch the body fp8_body picks (or raise: no other body
+    is tried); CPU tensors run fp8_matmul_ref."""
     if x.device.type == "cpu":
         return fp8_matmul_ref(x, w8, se, out_dtype, exact)
     req = common.require
@@ -172,9 +188,9 @@ def fp8_matmul(x, w8, se, out_dtype=torch.bfloat16, exact: bool = True):
         and (not batched or (x.shape[0] == e and se.shape[0] == e)), _NAME,
         f"shapes x {tuple(x.shape)}, w8 {tuple(w8.shape)}, se "
         f"{tuple(se.shape)}: one leading expert axis on all three or none")
-    req(w8.shape[-1] == k and k % BLOCK == 0 and n % BLOCK == 0
+    req(w8.shape[-1] == k and k % BLOCK == 0
         and tuple(se.shape[-2:]) == (k // BLOCK, n), _NAME,
-        f"K={k}, N={n} must be multiples of {BLOCK} with se [K/128, N], "
+        f"K={k} must be a multiple of {BLOCK} with se [K/128, N], "
         f"got w8 {tuple(w8.shape)}, se {tuple(se.shape)}")
     x = x.to(torch.bfloat16)
     x_estride = 0
@@ -190,14 +206,25 @@ def fp8_matmul(x, w8, se, out_dtype=torch.bfloat16, exact: bool = True):
     w8, se = w8.contiguous(), se.contiguous()
     req(x.data_ptr() % 16 == 0 and w8.data_ptr() % 16 == 0, _NAME,
         "x and w8 must be 16-byte aligned")
-    y = torch.empty(((e,) if batched else ()) + (m, n), dtype=out_dtype,
-                    device=x.device)
-    rc = common.lib("fp8_matmul").fq_fp8_matmul(
+    return launch_fp8(x, x_estride, w8, se, out_dtype, exact,
+                      e if batched else None, m, n, k)
+
+
+def launch_fp8(x, x_estride, w8, se, out_dtype, exact, e, m, n, k):
+    """Launch the body that fp8_body picks on checked, contiguous CUDA
+    tensors (e: the expert count, None without the axis); raise if the
+    launch fails (no other body is tried). Counted under LAUNCHES and, by
+    body, BODY_LAUNCHES."""
+    body = fp8_body(m)
+    y = torch.empty(((e,) if e is not None else ()) + (m, n),
+                    dtype=out_dtype, device=x.device)
+    rc = getattr(common.lib("fp8_matmul"), f"fq_fp8_matmul_{body}")(
         x.data_ptr(), x_estride, w8.data_ptr(), se.data_ptr(), y.data_ptr(),
-        e, m, n, k, int(exact), int(out_dtype == torch.float32),
+        e or 1, m, n, k, int(exact), int(out_dtype == torch.float32),
         common.stream_ptr(x))
     common.check("fp8_matmul", _NAME, rc)
     common.LAUNCHES[_NAME] += 1
+    common.BODY_LAUNCHES[_NAME][body] += 1
     return y
 
 
@@ -207,9 +234,9 @@ def fp8_linear(x, lin: dict, out_dtype=None, use_kernel: bool = True,
     (with an expert axis: x [E, T, K], or broadcast over E).
 
     JAX's dispatch: the kernel (fp8_matmul) takes a K that is a multiple of
-    128 packed in 128-blocks, a ragged N zero-padded up to 128 for the call
-    and cut after; every other weight runs fp8_matmul_ref, as in JAX.
-    use_kernel=False runs fp8_matmul_ref always."""
+    128 packed in 128-blocks, at any N (JAX pads a ragged N to 128 for its
+    kernel; this one masks it); every other weight runs fp8_matmul_ref, as
+    in JAX. use_kernel=False runs fp8_matmul_ref always."""
     if out_dtype is None:
         out_dtype = x.dtype if x.dtype != torch.float32 else torch.bfloat16
     w8, se = lin["w8"], lin["se"]
@@ -221,13 +248,7 @@ def fp8_linear(x, lin: dict, out_dtype=None, use_kernel: bool = True,
     else:
         x2 = x.reshape(-1, k)
     if use_kernel and k_aligned:
-        if n % BLOCK:
-            pad = BLOCK - n % BLOCK
-            u = w8.view(torch.uint8)
-            w8 = torch.cat([u, u.new_zeros(u.shape[:-2] + (pad, k))],
-                           dim=-2).view(torch.float8_e4m3fn)
-            se = torch.nn.functional.pad(se, (0, pad))
-        y = fp8_matmul(x2, w8, se, out_dtype, exact)[..., :n]
+        y = fp8_matmul(x2, w8, se, out_dtype, exact)
     else:
         y = fp8_matmul_ref(x2, w8, se, out_dtype)
     return y if w8.dim() == 3 else y.reshape(x.shape[:-1] + (n,))

@@ -24,9 +24,9 @@ raises, and runs its plain version for CPU tensors):
                            with u * silu(g) in its      row 6's main loop)
                            float32 epilogue
                            plain: w4a4_matmul_i8_swiglu_ref
-    w4a4_matmul_i8_fusedq  quant_acts_i8 (q_max 7) in   (csrc/int4_matmul.cu)
-                           the prologue of
-                           w4a4_matmul_i8, bit for bit
+    w4a4_matmul_i8_fusedq  quant_acts_i8 (q_max 7)      (csrc/int4_matmul.cu;
+                           fused into w4a4_matmul_i8,   two bodies,
+                           bit for bit                  fusedq_body picks)
                            plain: w4a4_matmul_i8_fusedq_ref
 
 `w4a8_matmul_ref` is also JAX's pure-XLA reference of w4a8_matmul
@@ -49,6 +49,13 @@ TILE_MIN_M = 32
 # The tile body sums 16 * (nibble - 8) products in int32: exact for any
 # int8 codes below this K (128 * 128 * K < 2^31).
 TILE_MAX_K = 1 << 17
+# Row 17 takes the tile from FUSEDQ_WIDE_MIN_M rows already when the weight
+# has at least FUSEDQ_WIDE_N rows: at M = 16 phase 3a measured the tile
+# 1.8-1.9x faster than the dp4a body at N = 12288 and 22016 (llama-2-7b's
+# qkv and up||gate), and slower at N = 4096 (o, down), whose 32 weight
+# tiles are too few blocks to pull the weight; 8192 lies between.
+FUSEDQ_WIDE_MIN_M = 16
+FUSEDQ_WIDE_N = 8192
 _QA = "quant_acts_i8"
 _W4A8 = "w4a8_matmul"
 _SWI = "w4a4_matmul_i8_swiglu"
@@ -334,6 +341,53 @@ def w4a4_matmul_i8_fusedq_ref(x, w_packed, w_scale, clip=None,
     return w4a8_matmul_ref(xq, xs, w_packed, w_scale, out_dtype)
 
 
+def fusedq_body(m: int, n: int, k: int) -> str:
+    """The device body of w4a4_matmul_i8_fusedq: "tile" (each 128-row M
+    tile quantized once into a workspace, then row 1's tensor-core tile)
+    from TILE_MIN_M rows on, or from FUSEDQ_WIDE_MIN_M rows for a weight
+    of at least FUSEDQ_WIDE_N rows, while K < TILE_MAX_K; else "stream"
+    (quantized rows in shared memory, row 1's dp4a warp body)."""
+    wide = m >= FUSEDQ_WIDE_MIN_M and n >= FUSEDQ_WIDE_N
+    return "tile" if (m >= TILE_MIN_M or wide) and k < TILE_MAX_K \
+        else "stream"
+
+
+def fusedq_workspace(m: int, k: int, device):
+    """The tile body's workspace: int8 codes [M, K], float32 scales [M]
+    and two zeroed int32 flags (ticket, groups done) per 128-row M tile,
+    made for every launch, so no state outlives one (CUDA-graph replays
+    included: the zeroing is captured with the launch)."""
+    return (torch.empty((m, k), dtype=torch.int8, device=device),
+            torch.empty((m,), dtype=torch.float32, device=device),
+            torch.zeros((2 * -(-m // 128),), dtype=torch.int32,
+                        device=device))
+
+
+def launch_fusedq(x, cl, w_packed, w_scale, out_dtype, m, n, k):
+    """Launch the body that fusedq_body picks on checked, contiguous CUDA
+    tensors; raise if the launch fails (no other body is tried). Counted
+    under LAUNCHES and, by body, BODY_LAUNCHES."""
+    body = fusedq_body(m, n, k)
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    flags = (int(x.dtype == torch.float32), int(out_dtype == torch.float32),
+             common.stream_ptr(x))
+    lib = common.lib("int4_matmul")
+    if body == "tile":
+        xq, xs, tickets = fusedq_workspace(m, k, x.device)
+        rc = lib.fq_w4a4_matmul_i8_fusedq_tile(
+            x.data_ptr(), cl.data_ptr(), w_packed.data_ptr(),
+            w_scale.data_ptr(), y.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+            tickets.data_ptr(), m, n, k, *flags)
+    else:
+        rc = lib.fq_w4a4_matmul_i8_fusedq_stream(
+            x.data_ptr(), cl.data_ptr(), w_packed.data_ptr(),
+            w_scale.data_ptr(), y.data_ptr(), m, n, k, *flags)
+    common.check("int4_matmul", _FUSEDQ, rc)
+    common.LAUNCHES[_FUSEDQ] += 1
+    common.BODY_LAUNCHES[_FUSEDQ][body] += 1
+    return y
+
+
 def w4a4_matmul_i8_fusedq(x, w_packed, w_scale, clip=None,
                           out_dtype=torch.bfloat16):
     """y[M, N] = w4a4_matmul_i8(quant_acts_i8(x, clip, 7), w_packed,
@@ -342,9 +396,10 @@ def w4a4_matmul_i8_fusedq(x, w_packed, w_scale, clip=None,
 
     x bf16 or f32 activations [M, K] (not codes); w_packed uint8 [N, K/2]
     planar; w_scale f32 [N]; clip the (rmax, rmin) LAC ratios or None.
-    Output bf16 or f32. CUDA tensors launch the kernel (K % 32 == 0; a K
-    whose rows of codes overflow the block's shared memory fails the
-    launch) or raise; CPU tensors run w4a4_matmul_i8_fusedq_ref."""
+    Output bf16 or f32. CUDA tensors launch the body fusedq_body picks
+    (K % 32 == 0; on the stream body a K whose rows of codes overflow the
+    block's shared memory fails the launch) or raise; CPU tensors run
+    w4a4_matmul_i8_fusedq_ref."""
     if x.device.type == "cpu":
         return w4a4_matmul_i8_fusedq_ref(x, w_packed, w_scale, clip,
                                          out_dtype)
@@ -365,12 +420,5 @@ def w4a4_matmul_i8_fusedq(x, w_packed, w_scale, clip=None,
                             w_scale.contiguous())
     req(x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0, _FUSEDQ,
         "x and w_packed must be 16-byte aligned")
-    cl = common.clip_vector([clip], x.device)
-    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    rc = common.lib("int4_matmul").fq_w4a4_matmul_i8_fusedq(
-        x.data_ptr(), cl.data_ptr(), w_packed.data_ptr(), w_scale.data_ptr(),
-        y.data_ptr(), m, n, k, int(x.dtype == torch.float32),
-        int(out_dtype == torch.float32), common.stream_ptr(x))
-    common.check("int4_matmul", _FUSEDQ, rc)
-    common.LAUNCHES[_FUSEDQ] += 1
-    return y
+    return launch_fusedq(x, common.clip_vector([clip], x.device), w_packed,
+                         w_scale, out_dtype, m, n, k)

@@ -600,30 +600,42 @@ def test_fp8_matmul_decodes_every_code(cuda, exact):
                                               exact))
 
 
+def _fp8_inputs(cuda, e, m, n, k, seed):
+    """x [(E,) M, K] bf16 and a weight [(E,) N, K] packed in 128-blocks
+    (a ragged N's last block partial, as DeepSeek-V3's wkv_a)."""
+    from flatquant_torch.kernels import fp8_matmul as f8
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lead = (e,) if e else ()
+    w8, s = f8.fp8_block_quantize(torch.randn(lead + (n, k), generator=g,
+                                              device=cuda) * 0.05, 128)
+    x = torch.randn(lead + (m, k), generator=g, device=cuda).to(
+        torch.bfloat16)
+    if e and m == 1:
+        x = x[:1].expand(e, m, k)
+    return x, w8, f8.expand_fp8_scales(s, n, k)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("e,m,n,k", [(0, 1, 384, 256), (0, 4, 3072, 2048),
                                      (0, 300, 256, 1408), (3, 1, 256, 512),
                                      (3, 70, 384, 256)])
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
 def test_fp8_matmul_matches_plain(cuda, e, m, n, k, out):
-    """Both tile shapes (M <= 64 and above), with and without an expert
-    axis (x shared by the experts at M = 1: stride 0), within the fp8
-    tolerance of kernels/tolerance.py."""
+    """The routed body, with and without an expert axis (x shared by the
+    experts at M = 1: stride 0), within the fp8 tolerance of
+    kernels/tolerance.py."""
     from flatquant_torch.kernels import fp8_matmul as f8
     from flatquant_torch.kernels.tolerance import compare_f32
 
-    g = torch.Generator(device=cuda).manual_seed(m + n)
-    lead = (e,) if e else ()
-    lin = f8.prep_fp8_weight(torch.randn(lead + (n, k), generator=g,
-                                         device=cuda) * 0.05)
-    x = torch.randn(lead + (m, k), generator=g, device=cuda).to(
-        torch.bfloat16)
-    if e and m == 1:
-        x = x[:1].expand(e, m, k)
+    x, w8, se = _fp8_inputs(cuda, e, m, n, k, m + n)
+    body = f8.fp8_body(m)
     before = common.LAUNCHES["fp8_matmul"]
-    got = f8.fp8_matmul(x, lin["w8"], lin["se"], out)
+    by_body = common.BODY_LAUNCHES["fp8_matmul"][body]
+    got = f8.fp8_matmul(x, w8, se, out)
     assert common.LAUNCHES["fp8_matmul"] == before + 1
-    want = f8.fp8_matmul_ref(x, lin["w8"], lin["se"], out)
+    assert common.BODY_LAUNCHES["fp8_matmul"][body] == by_body + 1
+    want = f8.fp8_matmul_ref(x, w8, se, out)
     if out == torch.float32:
         compare_f32(got, want, "fp8_matmul")
     else:
@@ -631,10 +643,31 @@ def test_fp8_matmul_matches_plain(cuda, e, m, n, k, out):
 
 
 @pytest.mark.gpu
-def test_fp8_linear_pads_a_ragged_n_on_the_kernel(cuda):
+@pytest.mark.parametrize("body", ["n8", "n64", "n128"])
+@pytest.mark.parametrize("m", [1, 4, 64, 65, 384, 2048])
+@pytest.mark.parametrize("e", [0, 3])
+def test_fp8_matmul_bodies_match_plain(cuda, monkeypatch, body, m, e):
+    """Every body at M on both sides of each route edge, with and without
+    the expert axis, at a ragged N (576 = 4.5 x 128, DeepSeek's wkv_a),
+    within the "identity" tolerance; both decodes on FTZ-packed weights
+    (where they agree)."""
+    from flatquant_torch.kernels import fp8_matmul as f8
+
+    x, w8, se = _fp8_inputs(cuda, e, m, 576, 384, m + 11 * e)
+    monkeypatch.setattr(f8, "fp8_body", lambda m_: body)
+    for exact in (True, False):
+        got = f8.fp8_matmul(x, w8, se, torch.bfloat16, exact)
+        compare_bf16(got, f8.fp8_matmul_ref(x, w8, se, torch.bfloat16,
+                                            exact), "identity",
+                     f"fp8_matmul {body} M={m} E={e}")
+
+
+@pytest.mark.gpu
+def test_fp8_linear_masks_a_ragged_n_on_the_kernel(cuda, monkeypatch):
     """DeepSeek-V3's wkv_a (N = 576, K = 7168) in 128-blocks takes the
-    kernel on N padded to 640; in 64-blocks (prep_fp8_weight's choice for
-    N = 576) fp8_matmul_ref, JAX's route."""
+    kernel at N = 576 itself (no pad copy: the kernel masks the ragged N);
+    in 64-blocks (prep_fp8_weight's choice for N = 576) fp8_matmul_ref,
+    JAX's route."""
     from flatquant_torch.kernels import fp8_matmul as f8
 
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -642,12 +675,17 @@ def test_fp8_linear_pads_a_ragged_n_on_the_kernel(cuda):
     q, s = f8.fp8_block_quantize(w, 128)
     lin = {"w8": q, "se": f8.expand_fp8_scales(s, 576, 7168)}
     x = torch.randn((3, 7168), generator=g, device=cuda).to(torch.bfloat16)
+    seen, kernel = [], f8.fp8_matmul
+    monkeypatch.setattr(f8, "fp8_matmul", lambda x_, w_, s_, *a: (
+        seen.append((w_.data_ptr(), tuple(w_.shape), tuple(s_.shape)))
+        or kernel(x_, w_, s_, *a)))
     before = common.LAUNCHES["fp8_matmul"]
     got = f8.fp8_linear(x, lin)
     assert common.LAUNCHES["fp8_matmul"] == before + 1
+    assert seen == [(q.data_ptr(), (576, 7168), (56, 576))]
     assert got.shape == (3, 576)
     compare_bf16(got, f8.fp8_matmul_ref(x, q, lin["se"]), "identity",
-                 "fp8_linear padded")
+                 "fp8_linear at N = 576")
     lin64 = f8.prep_fp8_weight(w)
     assert lin64["se"].shape == (112, 576)
     f8.fp8_linear(x, lin64)
@@ -655,18 +693,19 @@ def test_fp8_linear_pads_a_ragged_n_on_the_kernel(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("what", ["K % 128", "N % 128", "fp16 x", "se shape"])
+@pytest.mark.parametrize("what", ["K % 128", "w8 K", "fp16 x", "se shape"])
 def test_fp8_matmul_raises_on_what_it_does_not_take(cuda, what):
     from flatquant_torch.kernels import fp8_matmul as f8
 
-    n, k = {"K % 128": (128, 192), "N % 128": (192, 128)}.get(what,
-                                                              (128, 256))
+    n, k = {"K % 128": (128, 192)}.get(what, (192, 256))
     w8 = torch.zeros((n, k), device=cuda).to(torch.float8_e4m3fn)
     se = torch.ones((max(k // 128, 1), n), device=cuda)
     x = torch.zeros((2, k), device=cuda,
                     dtype=torch.float16 if what == "fp16 x" else torch.bfloat16)
     if what == "se shape":
         se = torch.ones((k // 64, n), device=cuda)
+    if what == "w8 K":
+        w8 = torch.zeros((n, k + 128), device=cuda).to(torch.float8_e4m3fn)
     with pytest.raises(ValueError, match="fp8_matmul"):
         f8.fp8_matmul(x, w8, se)
 
@@ -704,13 +743,8 @@ def test_deepseek_fp8_on_the_card_matches_the_plain_path(cuda):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m,n,k", [(1, 4096, 4096), (4, 1024, 11008),
-                                   (40, 384, 512), (300, 256, 1024)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("use_clip", [False, True])
-def test_w4a4_matmul_i8_fusedq_bit_exact(cuda, m, n, k, dtype, use_clip):
-    g = torch.Generator(device=cuda).manual_seed(m)
+def _fusedq_inputs(cuda, m, n, k, dtype, use_clip, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = (torch.randn((m, k), generator=g, device=cuda) * 3).to(dtype)
     x[m // 2] = 0
     wp = torch.randint(0, 256, (n, k // 2), generator=g, device=cuda,
@@ -718,13 +752,52 @@ def test_w4a4_matmul_i8_fusedq_bit_exact(cuda, m, n, k, dtype, use_clip):
     sw = torch.rand((n,), generator=g, device=cuda) * 0.05
     clip = ((torch.tensor(0.93, device=cuda), torch.tensor(0.9, device=cuda))
             if use_clip else None)
+    return x, wp, sw, clip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(1, 4096, 4096), (4, 1024, 11008),
+                                   (40, 384, 512), (300, 256, 1024)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("use_clip", [False, True])
+def test_w4a4_matmul_i8_fusedq_bit_exact(cuda, m, n, k, dtype, use_clip):
+    """The routed body, bit for bit against the composed route (rows 12
+    and 1) and the plain version; counted under its body."""
+    x, wp, sw, clip = _fusedq_inputs(cuda, m, n, k, dtype, use_clip, m)
     out = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    body = tmm.fusedq_body(m, n, k)
+    by_body = common.BODY_LAUNCHES["w4a4_matmul_i8_fusedq"][body]
     got = _launched("w4a4_matmul_i8_fusedq", tmm.w4a4_matmul_i8_fusedq, x,
                     wp, sw, clip, out)
+    assert common.BODY_LAUNCHES["w4a4_matmul_i8_fusedq"][body] == by_body + 1
     xq, xs = tmm.quant_acts_i8(x, clip, 7)
     assert torch.equal(got, tmm.w4a4_matmul_i8(xq, xs, wp, sw, out))
     assert torch.equal(got, tmm.w4a4_matmul_i8_fusedq_ref(x, wp, sw, clip,
                                                           out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("body", ["stream", "tile"])
+@pytest.mark.parametrize("m", [1, 4, tmm.TILE_MIN_M - 1, tmm.TILE_MIN_M, 300,
+                               2048])
+@pytest.mark.parametrize("n,k", [(4096, 4096), (1024, 11008), (384, 2848)])
+@pytest.mark.parametrize("dtype,use_clip", [(torch.bfloat16, True),
+                                            (torch.float32, False)])
+def test_w4a4_matmul_i8_fusedq_bodies_bit_exact(cuda, monkeypatch, body, m, n,
+                                                k, dtype, use_clip):
+    """Both bodies across the crossover, at a ragged M (300), K = 11008 and
+    K % 64 == 32 (2848), bf16 input with clips and f32 input without, bit
+    for bit against the composed route (quant_acts_i8 where K % 128 == 0,
+    else its plain version, then w4a4_matmul_i8)."""
+    x, wp, sw, clip = _fusedq_inputs(cuda, m, n, k, dtype, use_clip, m + k)
+    out = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    monkeypatch.setattr(tmm, "fusedq_body", lambda m_, n_, k_: body)
+    got = tmm.w4a4_matmul_i8_fusedq(x, wp, sw, clip, out)
+    quant = tmm.quant_acts_i8 if k % 128 == 0 else tmm.quant_acts_i8_ref
+    xq, xs = quant(x, clip, 7)
+    assert torch.equal(got, tmm.w4a4_matmul_i8(xq, xs, wp, sw, out))
+    # twice: nothing carries over from one launch to the next
+    assert torch.equal(tmm.w4a4_matmul_i8_fusedq(x, wp, sw, clip, out), got)
 
 
 @pytest.mark.gpu
