@@ -254,16 +254,26 @@ def sweep_ms(torch, fn, arg_sets, budget_ms=15.0):
                    max(3, min(60, int(budget_ms / max(probe, 1e-3)))))
 
 
-def route_faults(rows, bodies):
+def route_faults(rows, bodies, key="body"):
     """(M, shape, routed body, faster body) wherever another body beat the
-    routed one by more than ROUTE_MARGIN of the routed body's time (two
-    bodies within it are a tie: repeated calls of one body spread ~1%)."""
+    routed one (r[key]) by more than ROUTE_MARGIN of the routed body's
+    time (two bodies within it are a tie: repeated calls of one body
+    spread ~1%)."""
     out = []
     for r in rows:
         best = min(bodies, key=lambda b: r[f"{b}_ms"])
-        if r[f"{best}_ms"] * (1 + ROUTE_MARGIN) < r[f"{r['body']}_ms"]:
-            out.append((r["m"], r["proj"], r["body"], best))
+        if r[f"{best}_ms"] * (1 + ROUTE_MARGIN) < r[f"{r[key]}_ms"]:
+            out.append((r["m"], r["proj"], r[key], best))
     return out
+
+
+def crossover(rows, xs, key, fast, slow):
+    """The smallest x of xs from which `fast` beat `slow` in every row at
+    every larger x (rows keyed by r[key]), or None."""
+    won = {x: all(r[f"{fast}_ms"] < r[f"{slow}_ms"] for r in rows
+                  if r[key] == x) for x in xs}
+    return next((x for i, x in enumerate(xs)
+                 if all(won[y] for y in xs[i:])), None)
 
 
 # ---------------------------------------------------------------------------
@@ -278,9 +288,16 @@ def route_faults(rows, bodies):
 # each side of the crossover
 SWEEP_M = (1, 4, 8, 16, 32, 64, 128, 192, 256, 512, 2048)
 BODIES = ("stream", "tile")
-# phase 3a's sweep of row 17's two bodies, and the margin by which another
-# body must beat the routed one for rows 17 and 16's route checks to fail
+# phase 3a's sweep of row 17's two bodies; the weight widths (K = 4096)
+# at which both are also timed at M = FUSEDQ_WIDE_MIN_M, around
+# FUSEDQ_WIDE_N; the M at which its tile body is timed in both quantize
+# modes, around FUSEDQ_BLOCK_ROWS_MAX_M; and the margin by which another
+# body (or mode) must beat the routed one for the route checks of rows 17
+# and 16 to fail
 FUSEDQ_SWEEP_M = (1, 4, 16, 32, 64, 192, 2048)
+FUSEDQ_WIDE_SWEEP_N = (5120, 6144, 7168, 8192, 10240)
+FUSEDQ_QUANT_SWEEP_M = (192, 256, 512, 1024, 2048)
+QUANT_MODES = ("block", "warp")
 ROUTE_MARGIN = 0.03
 
 
@@ -369,10 +386,7 @@ def check_gemm(torch, dev, gen, results):
                 f"{b_ms * 1e3:.2f} us ({b_by}) library_ms(_int_mm, M={mp}, "
                 f"yardstick) {lib:.4f}")
             del ws, args, w8
-    faster = {m: all(r["tile_ms"] < r["stream_ms"] for r in rows
-                     if r["m"] == m) for m in SWEEP_M}
-    cross = next((m for i, m in enumerate(SWEEP_M)
-                  if all(faster[x] for x in SWEEP_M[i:])), None)
+    cross = crossover(rows, SWEEP_M, "m", "tile", "stream")
     wrong = [(r["m"], r["proj"]) for r in rows
              if r["body"] == "tile" and r["tile_ms"] >= r["stream_ms"]]
     log(f"  crossover: the tile body is faster at all four shapes from M="
@@ -400,90 +414,144 @@ def check_gemm(torch, dev, gen, results):
                                      tile_min_m=im.TILE_MIN_M)
 
 
+def _fusedq_case(torch, dev, gen, im, clip, m, n, k):
+    """Random weights (enough copies to pass L2), bf16 activations [m, k]
+    with a zero row (scale 1, codes 0) and row 17's plain output on them,
+    which the composed route (rows 12 + 1) must equal bit for bit."""
+    ws = _rand_weights(torch, dev, gen, n, k)
+    x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
+        torch.bfloat16)
+    x[m // 2] = 0
+    plain = im.w4a4_matmul_i8_fusedq_ref(x, *ws[0], clip)
+    composed = im.w4a4_matmul_i8(*im.quant_acts_i8(x, clip, 7), *ws[0])
+    if not torch.equal(composed, plain):
+        raise AssertionError(f"quant_acts_i8 + w4a4_matmul_i8 M={m} {n}x{k}: "
+                             "not bit-exact against "
+                             "w4a4_matmul_i8_fusedq_ref")
+    return ws, x, plain
+
+
+def _fusedq_timed(torch, im, x, ws, clip, plain, label, routes):
+    """Row 17 with its route functions patched to `routes` [(name, fn)]:
+    held bit for bit to its plain output, then timed."""
+    def fn(wp, sw):
+        return im.w4a4_matmul_i8_fusedq(x, wp, sw, clip)
+
+    with patched([(im, name, f) for name, f in routes]):
+        got = fn(*ws[0])
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            err = (got.float() - plain.float()).abs().max().item()
+            raise AssertionError(
+                f"w4a4_matmul_i8_fusedq {label}: not bit-exact against "
+                f"w4a4_matmul_i8_fusedq_ref (max abs err {err})")
+        return sweep_ms(torch, fn, ws)
+
+
 def check_fusedq(torch, dev, gen, results):
     """Row 17's two bodies (w4a4_matmul_i8_fusedq: the dp4a body, the
     tile body on its quantized workspace) at every M of FUSEDQ_SWEEP_M on
-    llama-2-7b's four linears, bf16 activations with LAC clips and a zero
-    row: each bit for bit against the composed route (quant_acts_i8, then
-    w4a4_matmul_i8 on its route), and timed beside that route (rows 12 +
-    1), the bound and, at M = 4 and 2048, the plain version and
-    torch._int_mm on pre-unpacked int8 weights (a yardstick the port never
-    calls). The crossover is the smallest M from which the tile body is
-    faster at all four shapes; the phase fails where another body beat
-    the routed one by more than ROUTE_MARGIN."""
+    llama-2-7b's four linears and at M = FUSEDQ_WIDE_MIN_M on the widths
+    of FUSEDQ_WIDE_SWEEP_N, bf16 activations with LAC clips and a zero
+    row: each bit for bit against the plain version, as is the composed
+    route (quant_acts_i8, then w4a4_matmul_i8 on its route), and timed
+    beside that route (rows 12 + 1), the bound and, at M = 4 and 2048, the
+    plain version and torch._int_mm on pre-unpacked int8 weights (a
+    yardstick the port never calls). Then the tile body in both quantize
+    modes at every M of FUSEDQ_QUANT_SWEEP_M on the four linears, each
+    bit for bit. The crossovers are the smallest M (or N at M =
+    FUSEDQ_WIDE_MIN_M) from which the tile body, or the warp mode, is
+    faster at every measured shape; the phase fails where another body or
+    mode beat the routed one by more than ROUTE_MARGIN."""
     from flatquant_torch.kernels import int4_matmul as im
 
     shapes = {"qkv": (12288, 4096), "o": (4096, 4096),
               "upgate": (22016, 4096), "down": (4096, 11008)}
     clip = _lac_clip(torch, dev)
+    cases = [(m, name, n, k) for m in FUSEDQ_SWEEP_M
+             for name, (n, k) in shapes.items()]
+    cases += [(im.FUSEDQ_WIDE_MIN_M, f"n{n}", n, 4096)
+              for n in FUSEDQ_WIDE_SWEEP_N]
     rows = []
-    for m in FUSEDQ_SWEEP_M:
-        for name, (n, k) in shapes.items():
-            ws = _rand_weights(torch, dev, gen, n, k)
-            x = (torch.randn((m, k), generator=gen, device=dev) * 2).to(
-                torch.bfloat16)
-            x[m // 2] = 0  # a zero row: scale 1, codes 0
-            want = im.w4a4_matmul_i8(*im.quant_acts_i8(x, clip, 7), *ws[0])
-            ms = {}
-            for body in BODIES:
-                with forced_body(body, "fusedq_body"):
-                    got = im.w4a4_matmul_i8_fusedq(x, *ws[0], clip)
-                    torch.cuda.synchronize()
-                    if not torch.equal(got, want):
-                        err = (got.float() - want.float()).abs().max().item()
-                        raise AssertionError(
-                            f"w4a4_matmul_i8_fusedq {body} M={m} {name} "
-                            f"{n}x{k}: not bit-exact against quant_acts_i8 "
-                            f"+ w4a4_matmul_i8 (max abs err {err})")
-                    ms[body] = sweep_ms(
-                        torch, lambda wp, sw: im.w4a4_matmul_i8_fusedq(
-                            x, wp, sw, clip), ws)
-            composed = sweep_ms(torch, lambda wp, sw: im.w4a4_matmul_i8(
-                *im.quant_acts_i8(x, clip, 7), wp, sw), ws)
-            routed = im.fusedq_body(m, n, k)
-            plain = lib = None
-            if m in (4, 2048):
-                plain = cuda_ms(torch, lambda wp, sw: (
-                    im.w4a4_matmul_i8_fusedq_ref(x, wp, sw, clip)), ws, 3)
-                mp = m if m > 16 else 32
-                xp = torch.randint(-8, 8, (mp, k), generator=gen, device=dev,
-                                   dtype=torch.int8)
-                w8 = [(xp, im.unpack_weight_planar(wp).t())
-                      for wp, _ in ws[:2]]
-                lib = cuda_ms(torch, torch._int_mm, w8, 20)
-                del w8
-            nbytes = 2 * m * k + n * k // 2 + 4 * n + 2 * m * n + 8
-            b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
-            rows.append(dict(m=m, proj=name, n=n, k=k, body=routed,
-                             ms=ms[routed], plain_ms=plain, library_ms=lib,
-                             composed_ms=composed, bound_ms=b_ms,
-                             bound_by=b_by, max_abs_err=0.0,
-                             **{f"{b}_ms": ms[b] for b in BODIES}))
-            lib_s = "" if lib is None else (f" plain_ms {plain:.4f} "
-                                            f"library_ms(_int_mm) {lib:.4f}")
-            log(f"  w4a4_matmul_i8_fusedq M={m:4d} {name:6s} {n}x{k}: both "
-                f"bodies bit-exact; " + " ".join(f"{b}_ms {ms[b]:.4f}"
-                                                 for b in BODIES)
-                + f" (route: {routed}) composed_ms {composed:.4f} "
-                f"(x{ms[routed] / composed:.3f}) bound {b_ms * 1e3:.2f} us "
-                f"({b_by})" + lib_s)
-            del ws, x
-    faster = {m: all(r["tile_ms"] < r["stream_ms"] for r in rows
-                     if r["m"] == m) for m in FUSEDQ_SWEEP_M}
-    cross = next((m for i, m in enumerate(FUSEDQ_SWEEP_M)
-                  if all(faster[x] for x in FUSEDQ_SWEEP_M[i:])), None)
+    for m, name, n, k in cases:
+        ws, x, plain_out = _fusedq_case(torch, dev, gen, im, clip, m, n, k)
+        label = f"M={m} {name} {n}x{k}"
+        ms = {b: _fusedq_timed(torch, im, x, ws, clip, plain_out,
+                               f"{b} {label}",
+                               [("fusedq_body", lambda m_, n_, k_, b=b: b)])
+              for b in BODIES}
+        composed = sweep_ms(torch, lambda wp, sw: im.w4a4_matmul_i8(
+            *im.quant_acts_i8(x, clip, 7), wp, sw), ws)
+        routed = im.fusedq_body(m, n, k)
+        plain = lib = None
+        if m in (4, 2048):
+            plain = cuda_ms(torch, lambda wp, sw: (
+                im.w4a4_matmul_i8_fusedq_ref(x, wp, sw, clip)), ws, 3)
+            mp = m if m > 16 else 32
+            xp = torch.randint(-8, 8, (mp, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            w8 = [(xp, im.unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
+            lib = cuda_ms(torch, torch._int_mm, w8, 20)
+            del w8
+        nbytes = 2 * m * k + n * k // 2 + 4 * n + 2 * m * n + 8
+        b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, INT8_OPS_PER_S)
+        rows.append(dict(m=m, proj=name, n=n, k=k, body=routed,
+                         ms=ms[routed], plain_ms=plain, library_ms=lib,
+                         composed_ms=composed, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=0.0,
+                         **{f"{b}_ms": ms[b] for b in BODIES}))
+        lib_s = "" if lib is None else (f" plain_ms {plain:.4f} "
+                                        f"library_ms(_int_mm) {lib:.4f}")
+        log(f"  w4a4_matmul_i8_fusedq M={m:4d} {name:6s} {n}x{k}: both "
+            f"bodies and the composed route bit-exact against the plain "
+            f"version; " + " ".join(f"{b}_ms {ms[b]:.4f}" for b in BODIES)
+            + f" (route: {routed}) composed_ms {composed:.4f} "
+            f"(x{ms[routed] / composed:.3f}) bound {b_ms * 1e3:.2f} us "
+            f"({b_by})" + lib_s)
+        del ws, x
+    llama = [r for r in rows if r["proj"] in shapes]
+    cross = crossover(llama, FUSEDQ_SWEEP_M, "m", "tile", "stream")
+    at_wide = [r for r in rows if r["m"] == im.FUSEDQ_WIDE_MIN_M]
+    cross_n = crossover(at_wide, sorted({r["n"] for r in at_wide}), "n",
+                        "tile", "stream")
     log(f"  crossover: row 17's tile body is faster at all four shapes "
-        f"from M={cross} on (sweep {FUSEDQ_SWEEP_M}); its route takes the "
-        f"tile from M={im.TILE_MIN_M}, and from M={im.FUSEDQ_WIDE_MIN_M} "
-        f"for N >= {im.FUSEDQ_WIDE_N}")
-    wrong = route_faults(rows, BODIES)
+        f"from M={cross} on (sweep {FUSEDQ_SWEEP_M}), and at M="
+        f"{im.FUSEDQ_WIDE_MIN_M} at every measured N from N={cross_n} on; "
+        f"its route takes the tile from M={im.TILE_MIN_M}, and from M="
+        f"{im.FUSEDQ_WIDE_MIN_M} for N >= {im.FUSEDQ_WIDE_N}")
+    qrows = []
+    for m in FUSEDQ_QUANT_SWEEP_M:
+        for name, (n, k) in shapes.items():
+            ws, x, plain_out = _fusedq_case(torch, dev, gen, im, clip, m, n,
+                                            k)
+            ms = {q: _fusedq_timed(
+                torch, im, x, ws, clip, plain_out,
+                f"tile ({q} mode) M={m} {name} {n}x{k}",
+                [("fusedq_body", lambda m_, n_, k_: "tile"),
+                 ("fusedq_quant", lambda m_, q=q: q)]) for q in QUANT_MODES}
+            routed = im.fusedq_quant(m)
+            qrows.append(dict(m=m, proj=name, n=n, k=k, quant=routed,
+                              **{f"{q}_ms": ms[q] for q in QUANT_MODES}))
+            log(f"  w4a4_matmul_i8_fusedq tile M={m:4d} {name:6s} {n}x{k}: "
+                f"both quantize modes bit-exact; "
+                + " ".join(f"{q}_ms {ms[q]:.4f}" for q in QUANT_MODES)
+                + f" (route: {routed})")
+            del ws, x
+    cross_q = crossover(qrows, FUSEDQ_QUANT_SWEEP_M, "m", "warp", "block")
+    log(f"  crossover: the warp mode is faster at all four shapes from M="
+        f"{cross_q} on (sweep {FUSEDQ_QUANT_SWEEP_M}); the route takes it "
+        f"above FUSEDQ_BLOCK_ROWS_MAX_M = {im.FUSEDQ_BLOCK_ROWS_MAX_M}")
+    wrong = route_faults(rows, BODIES) + route_faults(qrows, QUANT_MODES,
+                                                      "quant")
     if wrong:
-        raise AssertionError(f"row 17's route picks a body that another beat "
-                             f"by more than {ROUTE_MARGIN:.0%}: {wrong}")
+        raise AssertionError(f"row 17's route picks a body or quantize mode "
+                             f"that another beat by more than "
+                             f"{ROUTE_MARGIN:.0%}: {wrong}")
     r = results.setdefault("w4a4_matmul_i8_fusedq",
                            dict(rows=[], max_abs_err=0.0))
     r["rows"] += rows
-    r["crossover_m"] = cross
+    r.update(crossover_m=cross, wide_crossover_n=cross_n, quant_rows=qrows,
+             quant_crossover_m=cross_q)
 
 
 def _rand_cache(torch, dev, gen, B, nkv, S):

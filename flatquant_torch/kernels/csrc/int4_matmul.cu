@@ -142,15 +142,15 @@
 //   float32 [M] workspace and 2 zeroed flags per 128-row M tile. The
 //   first blocks of an M tile claim its rows from the tile's ticket (an
 //   atomic counter) until none is left and quantize each into the
-//   workspace (up to M = 512 a block on a row with row 12's row body, the
-//   least latency a row; above, a warp on a row with 8 loads in flight a
-//   lane, the most rows at once), counting them done after a device-scope
-//   fence; then every block of the tile waits (ld.acquire)
-//   for the count, stages the tile's 128 scales in shared memory and runs
-//   row 1's tile body on the workspace. The grid walks the M tiles of one
-//   weight tile together (row 1's order), so the first blocks of each M
-//   tile share its rows and the rest find them done: each row is
-//   quantized once per launch. Against the composed route (rows 12 + 1) it
+//   workspace (a block on a row with row 12's row body, the least latency
+//   a row, or a warp on a row with 8 loads in flight a lane, the most rows
+//   at once: the caller picks, int4_matmul.py `fusedq_quant`), counting
+//   them done after a device-scope fence; then every block of the tile
+//   waits (ld.acquire) for the count, stages the tile's 128 scales in
+//   shared memory and runs row 1's tile body on the workspace. The grid
+//   walks the M tiles of one weight tile together (row 1's order), so the
+//   first blocks of each M tile share its rows and the rest find them
+//   done: each row is quantized once per launch. Against the composed route (rows 12 + 1) it
 //   saves a launch, but the quantization overlaps no GEMM work of its
 //   tile (PERF.md gives the times).
 //
@@ -774,11 +774,6 @@ w4a4_matmul_i8_fusedq_kernel(const T* __restrict__ x,
 // launch into a workspace, then w4a4_tile on the workspace
 // ---------------------------------------------------------------------------
 
-// the fused tile body quantizes a row per block up to this M (the rows
-// are few: the least latency a row), a row per warp above it (the most
-// rows in flight); phase 3a measured both modes at M = 32 to 2048
-constexpr int FQT_BLOCK_ROWS_MAX_M = 512;
-
 __device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
   unsigned v;
   asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
@@ -1236,7 +1231,8 @@ int launch_fusedq_stream(const void* x, const void* clip, const void* wp,
 template <typename T, typename OutT>
 int launch_fusedq_tile(const void* x, const void* clip, const void* wp,
                        const void* sw, void* y, void* xq, void* xs,
-                       void* flags, int M, int N, int K, cudaStream_t s) {
+                       void* flags, int M, int N, int K, int warp_rows,
+                       cudaStream_t s) {
   auto kern = &w4a4_matmul_i8_fusedq_tile_kernel<T, OutT>;
   static int done = 0;
   // the ring, or one row of x while a block quantizes it
@@ -1249,7 +1245,7 @@ int launch_fusedq_tile(const void* x, const void* clip, const void* wp,
       static_cast<const uint8_t*>(wp), static_cast<const float*>(sw),
       static_cast<OutT*>(y), static_cast<int8_t*>(xq),
       static_cast<float*>(xs), static_cast<unsigned*>(flags), M, N, K,
-      M > FQT_BLOCK_ROWS_MAX_M);
+      warp_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1412,19 +1408,21 @@ extern "C" int fq_w4a4_matmul_i8_fusedq_stream(const void* x,
 extern "C" int fq_w4a4_matmul_i8_fusedq_tile(
     const void* x, const void* clip, const void* wp, const void* sw, void* y,
     void* xq, void* xs, void* flags, int M, int N, int K, int x_is_f32,
-    int out_is_f32, void* stream) {
+    int out_is_f32, int warp_rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_f32)
     return out_is_f32
                ? launch_fusedq_tile<float, float>(x, clip, wp, sw, y, xq, xs,
-                                                  flags, M, N, K, s)
+                                                  flags, M, N, K, warp_rows,
+                                                  s)
                : launch_fusedq_tile<float, bf16>(x, clip, wp, sw, y, xq, xs,
-                                                 flags, M, N, K, s);
+                                                 flags, M, N, K, warp_rows,
+                                                 s);
   return out_is_f32
              ? launch_fusedq_tile<bf16, float>(x, clip, wp, sw, y, xq, xs,
-                                               flags, M, N, K, s)
+                                               flags, M, N, K, warp_rows, s)
              : launch_fusedq_tile<bf16, bf16>(x, clip, wp, sw, y, xq, xs,
-                                              flags, M, N, K, s);
+                                              flags, M, N, K, warp_rows, s);
 }
 
 // x bf16 [M, K]; w_packed uint8 [N, K/2]; sx f32 [M]; sw f32 [N]; y [M, N]

@@ -51,11 +51,16 @@ TILE_MIN_M = 32
 TILE_MAX_K = 1 << 17
 # Row 17 takes the tile from FUSEDQ_WIDE_MIN_M rows already when the weight
 # has at least FUSEDQ_WIDE_N rows: at M = 16 phase 3a measured the tile
-# 1.8-1.9x faster than the dp4a body at N = 12288 and 22016 (llama-2-7b's
-# qkv and up||gate), and slower at N = 4096 (o, down), whose 32 weight
-# tiles are too few blocks to pull the weight; 8192 lies between.
+# faster than the dp4a body at every N it sweeps from 5120 to 22016 (K =
+# 4096), and slower at N = 4096 (o, down), whose 32 weight tiles are too
+# few blocks to pull the weight.
 FUSEDQ_WIDE_MIN_M = 16
-FUSEDQ_WIDE_N = 8192
+FUSEDQ_WIDE_N = 5120
+# Row 17's tile body quantizes its rows a block per row up to this M (the
+# least latency a row), a warp per row above (the most rows in flight):
+# phase 3a measured the block mode faster at M = 192 to 1024, the warp
+# mode at 2048.
+FUSEDQ_BLOCK_ROWS_MAX_M = 1024
 _QA = "quant_acts_i8"
 _W4A8 = "w4a8_matmul"
 _SWI = "w4a4_matmul_i8_swiglu"
@@ -352,6 +357,13 @@ def fusedq_body(m: int, n: int, k: int) -> str:
         else "stream"
 
 
+def fusedq_quant(m: int) -> str:
+    """How the tile body of w4a4_matmul_i8_fusedq quantizes its rows:
+    "block" (a block per row) up to FUSEDQ_BLOCK_ROWS_MAX_M rows, else
+    "warp" (a warp per row)."""
+    return "block" if m <= FUSEDQ_BLOCK_ROWS_MAX_M else "warp"
+
+
 def fusedq_workspace(m: int, k: int, device):
     """The tile body's workspace: int8 codes [M, K], float32 scales [M]
     and two zeroed int32 flags (ticket, groups done) per 128-row M tile,
@@ -364,24 +376,26 @@ def fusedq_workspace(m: int, k: int, device):
 
 
 def launch_fusedq(x, cl, w_packed, w_scale, out_dtype, m, n, k):
-    """Launch the body that fusedq_body picks on checked, contiguous CUDA
+    """Launch the body that fusedq_body picks (the tile body in the
+    quantize mode fusedq_quant picks) on checked, contiguous CUDA
     tensors; raise if the launch fails (no other body is tried). Counted
     under LAUNCHES and, by body, BODY_LAUNCHES."""
     body = fusedq_body(m, n, k)
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    flags = (int(x.dtype == torch.float32), int(out_dtype == torch.float32),
-             common.stream_ptr(x))
+    types = (int(x.dtype == torch.float32), int(out_dtype == torch.float32))
+    stream = common.stream_ptr(x)
     lib = common.lib("int4_matmul")
     if body == "tile":
         xq, xs, tickets = fusedq_workspace(m, k, x.device)
         rc = lib.fq_w4a4_matmul_i8_fusedq_tile(
             x.data_ptr(), cl.data_ptr(), w_packed.data_ptr(),
             w_scale.data_ptr(), y.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-            tickets.data_ptr(), m, n, k, *flags)
+            tickets.data_ptr(), m, n, k, *types,
+            int(fusedq_quant(m) == "warp"), stream)
     else:
         rc = lib.fq_w4a4_matmul_i8_fusedq_stream(
             x.data_ptr(), cl.data_ptr(), w_packed.data_ptr(),
-            w_scale.data_ptr(), y.data_ptr(), m, n, k, *flags)
+            w_scale.data_ptr(), y.data_ptr(), m, n, k, *types, stream)
     common.check("int4_matmul", _FUSEDQ, rc)
     common.LAUNCHES[_FUSEDQ] += 1
     common.BODY_LAUNCHES[_FUSEDQ][body] += 1
