@@ -254,16 +254,15 @@ def sweep_ms(torch, fn, arg_sets, budget_ms=15.0):
                    max(3, min(60, int(budget_ms / max(probe, 1e-3)))))
 
 
-def route_faults(rows, bodies, key="body"):
+def route_faults(rows, bodies):
     """(M, shape, routed body, faster body) wherever another body beat the
-    routed one (r[key]) by more than ROUTE_MARGIN of the routed body's
-    time (two bodies within it are a tie: repeated calls of one body
-    spread ~1%)."""
+    routed one by more than ROUTE_MARGIN of the routed body's time (two
+    bodies within it are a tie: repeated calls of one body spread ~1%)."""
     out = []
     for r in rows:
         best = min(bodies, key=lambda b: r[f"{b}_ms"])
-        if r[f"{best}_ms"] * (1 + ROUTE_MARGIN) < r[f"{r[key]}_ms"]:
-            out.append((r["m"], r["proj"], r[key], best))
+        if r[f"{best}_ms"] * (1 + ROUTE_MARGIN) < r[f"{r['body']}_ms"]:
+            out.append((r["m"], r["proj"], r["body"], best))
     return out
 
 
@@ -290,14 +289,10 @@ SWEEP_M = (1, 4, 8, 16, 32, 64, 128, 192, 256, 512, 2048)
 BODIES = ("stream", "tile")
 # phase 3a's sweep of row 17's two bodies; the weight widths (K = 4096)
 # at which both are also timed at M = FUSEDQ_WIDE_MIN_M, around
-# FUSEDQ_WIDE_N; the M at which its tile body is timed in both quantize
-# modes, around FUSEDQ_BLOCK_ROWS_MAX_M; and the margin by which another
-# body (or mode) must beat the routed one for the route checks of rows 17
-# and 16 to fail
+# FUSEDQ_WIDE_N; and the margin by which another body must beat the
+# routed one for the route checks of rows 17 and 16 to fail
 FUSEDQ_SWEEP_M = (1, 4, 16, 32, 64, 192, 2048)
 FUSEDQ_WIDE_SWEEP_N = (5120, 6144, 7168, 8192, 10240)
-FUSEDQ_QUANT_SWEEP_M = (192, 256, 512, 1024, 2048)
-QUANT_MODES = ("block", "warp")
 ROUTE_MARGIN = 0.03
 
 
@@ -431,19 +426,20 @@ def _fusedq_case(torch, dev, gen, im, clip, m, n, k):
     return ws, x, plain
 
 
-def _fusedq_timed(torch, im, x, ws, clip, plain, label, routes):
-    """Row 17 with its route functions patched to `routes` [(name, fn)]:
-    held bit for bit to its plain output, then timed."""
+def _fusedq_timed(torch, im, x, ws, clip, plain, body):
+    """Row 17 forced to `body`: held bit for bit to its plain output, then
+    timed."""
     def fn(wp, sw):
         return im.w4a4_matmul_i8_fusedq(x, wp, sw, clip)
 
-    with patched([(im, name, f) for name, f in routes]):
+    with forced_body(body, "fusedq_body"):
         got = fn(*ws[0])
         torch.cuda.synchronize()
         if not torch.equal(got, plain):
             err = (got.float() - plain.float()).abs().max().item()
             raise AssertionError(
-                f"w4a4_matmul_i8_fusedq {label}: not bit-exact against "
+                f"w4a4_matmul_i8_fusedq {body} M={x.shape[0]} "
+                f"{plain.shape[1]}x{x.shape[1]}: not bit-exact against "
                 f"w4a4_matmul_i8_fusedq_ref (max abs err {err})")
         return sweep_ms(torch, fn, ws)
 
@@ -457,12 +453,10 @@ def check_fusedq(torch, dev, gen, results):
     route (quant_acts_i8, then w4a4_matmul_i8 on its route), and timed
     beside that route (rows 12 + 1), the bound and, at M = 4 and 2048, the
     plain version and torch._int_mm on pre-unpacked int8 weights (a
-    yardstick the port never calls). Then the tile body in both quantize
-    modes at every M of FUSEDQ_QUANT_SWEEP_M on the four linears, each
-    bit for bit. The crossovers are the smallest M (or N at M =
-    FUSEDQ_WIDE_MIN_M) from which the tile body, or the warp mode, is
-    faster at every measured shape; the phase fails where another body or
-    mode beat the routed one by more than ROUTE_MARGIN."""
+    yardstick the port never calls). The crossovers are the smallest M
+    (or N at M = FUSEDQ_WIDE_MIN_M) from which the tile body is faster at
+    every measured shape; the phase fails where another body beat the
+    routed one by more than ROUTE_MARGIN."""
     from flatquant_torch.kernels import int4_matmul as im
 
     shapes = {"qkv": (12288, 4096), "o": (4096, 4096),
@@ -475,10 +469,7 @@ def check_fusedq(torch, dev, gen, results):
     rows = []
     for m, name, n, k in cases:
         ws, x, plain_out = _fusedq_case(torch, dev, gen, im, clip, m, n, k)
-        label = f"M={m} {name} {n}x{k}"
-        ms = {b: _fusedq_timed(torch, im, x, ws, clip, plain_out,
-                               f"{b} {label}",
-                               [("fusedq_body", lambda m_, n_, k_, b=b: b)])
+        ms = {b: _fusedq_timed(torch, im, x, ws, clip, plain_out, b)
               for b in BODIES}
         composed = sweep_ms(torch, lambda wp, sw: im.w4a4_matmul_i8(
             *im.quant_acts_i8(x, clip, 7), wp, sw), ws)
@@ -519,39 +510,14 @@ def check_fusedq(torch, dev, gen, results):
         f"{im.FUSEDQ_WIDE_MIN_M} at every measured N from N={cross_n} on; "
         f"its route takes the tile from M={im.TILE_MIN_M}, and from M="
         f"{im.FUSEDQ_WIDE_MIN_M} for N >= {im.FUSEDQ_WIDE_N}")
-    qrows = []
-    for m in FUSEDQ_QUANT_SWEEP_M:
-        for name, (n, k) in shapes.items():
-            ws, x, plain_out = _fusedq_case(torch, dev, gen, im, clip, m, n,
-                                            k)
-            ms = {q: _fusedq_timed(
-                torch, im, x, ws, clip, plain_out,
-                f"tile ({q} mode) M={m} {name} {n}x{k}",
-                [("fusedq_body", lambda m_, n_, k_: "tile"),
-                 ("fusedq_quant", lambda m_, q=q: q)]) for q in QUANT_MODES}
-            routed = im.fusedq_quant(m)
-            qrows.append(dict(m=m, proj=name, n=n, k=k, quant=routed,
-                              **{f"{q}_ms": ms[q] for q in QUANT_MODES}))
-            log(f"  w4a4_matmul_i8_fusedq tile M={m:4d} {name:6s} {n}x{k}: "
-                f"both quantize modes bit-exact; "
-                + " ".join(f"{q}_ms {ms[q]:.4f}" for q in QUANT_MODES)
-                + f" (route: {routed})")
-            del ws, x
-    cross_q = crossover(qrows, FUSEDQ_QUANT_SWEEP_M, "m", "warp", "block")
-    log(f"  crossover: the warp mode is faster at all four shapes from M="
-        f"{cross_q} on (sweep {FUSEDQ_QUANT_SWEEP_M}); the route takes it "
-        f"above FUSEDQ_BLOCK_ROWS_MAX_M = {im.FUSEDQ_BLOCK_ROWS_MAX_M}")
-    wrong = route_faults(rows, BODIES) + route_faults(qrows, QUANT_MODES,
-                                                      "quant")
+    wrong = route_faults(rows, BODIES)
     if wrong:
-        raise AssertionError(f"row 17's route picks a body or quantize mode "
-                             f"that another beat by more than "
-                             f"{ROUTE_MARGIN:.0%}: {wrong}")
+        raise AssertionError(f"row 17's route picks a body that another beat "
+                             f"by more than {ROUTE_MARGIN:.0%}: {wrong}")
     r = results.setdefault("w4a4_matmul_i8_fusedq",
                            dict(rows=[], max_abs_err=0.0))
     r["rows"] += rows
-    r.update(crossover_m=cross, wide_crossover_n=cross_n, quant_rows=qrows,
-             quant_crossover_m=cross_q)
+    r.update(crossover_m=cross, wide_crossover_n=cross_n)
 
 
 def _rand_cache(torch, dev, gen, B, nkv, S):

@@ -95,10 +95,9 @@ _SIGNATURES = {
         "fq_w4a4_matmul_i8_fusedq_stream": [_P, _P, _P, _P, _P, _I, _I, _I,
                                             _I, _I, _P],
         # x, clip, wp, sw, y, xq, xs, flags, M, N, K, x_is_f32, out_is_f32,
-        # warp_rows, stream: row 17's tile body on its workspace
-        # (fusedq_body picks the body, fusedq_quant the quantize mode)
+        # stream: row 17's tile body on its workspace (fusedq_body picks)
         "fq_w4a4_matmul_i8_fusedq_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                          _I, _I, _I, _I, _I, _P],
+                                          _I, _I, _I, _I, _P],
         # the same two, xq grouped [K/128, M, 128]
         "fq_w4a4_matmul_i8_grouped_stream": [_P, _P, _P, _P, _P, _I, _I, _I,
                                              _I, _P],

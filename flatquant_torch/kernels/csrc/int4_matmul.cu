@@ -143,16 +143,15 @@
 //   first blocks of an M tile claim its rows from the tile's ticket (an
 //   atomic counter) until none is left and quantize each into the
 //   workspace (a block on a row with row 12's row body, the least latency
-//   a row, or a warp on a row with 8 loads in flight a lane, the most rows
-//   at once: the caller picks, int4_matmul.py `fusedq_quant`), counting
-//   them done after a device-scope fence; then every block of the tile
-//   waits (ld.acquire) for the count, stages the tile's 128 scales in
-//   shared memory and runs row 1's tile body on the workspace. The grid
-//   walks the M tiles of one weight tile together (row 1's order), so the
-//   first blocks of each M tile share its rows and the rest find them
-//   done: each row is quantized once per launch. Against the composed route (rows 12 + 1) it
-//   saves a launch, but the quantization overlaps no GEMM work of its
-//   tile (PERF.md gives the times).
+//   a row), counting them done after a device-scope fence; then every
+//   block of the tile waits (ld.acquire) for the count, stages the tile's
+//   128 scales in shared memory and runs row 1's tile body on the
+//   workspace. The grid walks the M tiles of one weight tile together
+//   (row 1's order), so the first blocks of each M tile share its rows
+//   and the rest find them done: each row is quantized once per launch.
+//   Against the composed route (rows 12 + 1) it saves a launch, but the
+//   quantization overlaps no GEMM work of its tile (PERF.md gives the
+//   times).
 //
 // ---------------------------------------------------------------------
 // w4a8_matmul: bf16 activations x planar int4 weights, float32 sums.
@@ -783,90 +782,16 @@ __device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
   return v;
 }
 
-// One warp quantizes one row of x [., K] into codes qr and scale *sr with
-// quant_acts_i8_kernel's arithmetic at q_max 7: the extrema with max(., 0)
-// and min(., 0) folded in, __fmul_rn clips, an IEEE division for the scale
-// and for each code, rintf, clamp to [-8, 7]. Each lane keeps U 16-byte
-// loads in flight; the second pass reads the row again (from L2).
-template <typename T>
-__device__ __forceinline__ void quant_row_warp(const T* __restrict__ xr,
-                                               const float* __restrict__ clip,
-                                               int8_t* __restrict__ qr,
-                                               float* __restrict__ sr, int K,
-                                               int lane) {
-  constexpr int E = 16 / sizeof(T);  // values per 16-byte vector
-  constexpr int U = 8;
-  const int nvec = K / E;
-  float mx = 0.f, mn = 0.f;  // max(., 0) and min(., 0): zero filler is moot
-  for (int i0 = lane; i0 < nvec; i0 += 32 * U) {
-    uint4 v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + 32 * u;
-      v[u] = i < nvec ? ldg16(xr + i * E) : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float f[E];
-      widen16<T>(v[u], f);
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        mx = fmaxf(mx, f[e]);
-        mn = fminf(mn, f[e]);
-      }
-    }
-  }
-  mx = warp_max(mx);
-  mn = -warp_max(-mn);
-  const float xmax = __fmul_rn(mx, clip[0]);
-  const float xmin = __fmul_rn(mn, clip[1]);
-  const float absmax = fmaxf(fabsf(xmin), xmax);
-  const float s = absmax == 0.f ? 1.f : absmax / 7.f;
-  if (lane == 0) *sr = s;
-  for (int i0 = lane; i0 < nvec; i0 += 32 * U) {
-    uint4 v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + 32 * u;
-      v[u] = i < nvec ? ldg16(xr + i * E) : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + 32 * u;
-      if (i >= nvec) break;
-      float f[E];
-      widen16<T>(v[u], f);
-      unsigned q4[E / 4];
-#pragma unroll
-      for (int j = 0; j < E / 4; ++j) q4[j] = 0u;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const float q = fminf(fmaxf(rintf(f[e] / s), -8.f), 7.f);
-        q4[e / 4] |= (static_cast<unsigned>(static_cast<int>(q)) & 0xFFu)
-                     << (8 * (e % 4));
-      }
-      if constexpr (E == 8) {
-        *reinterpret_cast<uint2*>(qr + i * 8) = make_uint2(q4[0], q4[1]);
-      } else {
-        *reinterpret_cast<unsigned*>(qr + i * 4) = q4[0];
-      }
-    }
-  }
-}
-
 // Block (M tile blockIdx.x, weight tile blockIdx.y): claim rows of the M
 // tile from its ticket (flags[2 mt]) until none is left, quantize each
-// claimed row into xq / xs and count it done (flags[2 mt + 1], after a
-// device-scope fence); then wait (acquire) until every row of the tile is
-// done, stage the tile's 128 row scales in shared memory and run
-// w4a4_tile on the codes. warp_rows: each warp claims and quantizes its
-// own rows (the most rows in flight, for large M); else the whole block
-// takes one row at a time with quant_acts_i8's row body (the least
-// latency a row, for small M, where rows are few). A claimant waits only
-// once every row is claimed, and each claimed row belongs to a warp or
-// block that is already running and does not wait before finishing it: no
-// launch order can deadlock. The flags are zeroed by the wrapper for
-// every launch.
+// claimed row into xq / xs with quant_acts_i8's row body (the whole block
+// on one row: the least latency a row) and count it done (flags[2 mt +
+// 1], after a device-scope fence); then wait (acquire) until every row of
+// the tile is done, stage the tile's 128 row scales in shared memory and
+// run w4a4_tile on the codes. A claimant waits only once every row is
+// claimed, and each claimed row belongs to a block that is already
+// running and does not wait before finishing it: no launch order can
+// deadlock. The flags are zeroed by the wrapper for every launch.
 template <typename T, typename OutT>
 __global__ void __launch_bounds__(TL_THREADS)
 w4a4_matmul_i8_fusedq_tile_kernel(const T* __restrict__ x,
@@ -874,40 +799,25 @@ w4a4_matmul_i8_fusedq_tile_kernel(const T* __restrict__ x,
                                   const uint8_t* __restrict__ wp,
                                   const float* __restrict__ sw,
                                   OutT* __restrict__ y, int8_t* xq, float* xs,
-                                  unsigned* flags, int M, int N, int K,
-                                  int warp_rows) {
+                                  unsigned* flags, int M, int N, int K) {
   static_assert(TL_THREADS == QA_THREADS, "quant_acts_i8_row's block");
   __shared__ unsigned claimed;
   __shared__ float sx_tile[TL_BM];
-  const int tid = threadIdx.x, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int m0 = blockIdx.x * TL_BM;
   const unsigned rows = min(TL_BM, M - m0);
   unsigned* ticket = flags + 2 * blockIdx.x;
   unsigned* done = ticket + 1;
-  if (warp_rows) {
-    for (;;) {
-      unsigned r = 0;
-      if (lane == 0) r = atomicAdd(ticket, 1u);
-      r = __shfl_sync(0xffffffffu, r, 0);
-      if (r >= rows) break;
-      const size_t m = m0 + r;
-      quant_row_warp<T>(x + m * K, clip, xq + m * K, xs + m, K, lane);
-      __threadfence();  // this lane's codes (and scale), device-wide
-      __syncwarp();
-      if (lane == 0) atomicAdd(done, 1u);
-    }
-  } else {
-    for (;;) {
-      if (tid == 0) claimed = atomicAdd(ticket, 1u);
-      __syncthreads();
-      const unsigned r = claimed;
-      __syncthreads();  // claimed is rewritten on the next turn
-      if (r >= rows) break;
-      quant_acts_i8_row<T, false>(x, clip, xq, xs, M, K, 7.f, m0 + r);
-      __threadfence();  // this thread's codes (and scale), device-wide
-      __syncthreads();  // ... for every thread; the shared row is free
-      if (tid == 0) atomicAdd(done, 1u);
-    }
+  for (;;) {
+    if (tid == 0) claimed = atomicAdd(ticket, 1u);
+    __syncthreads();
+    const unsigned r = claimed;
+    __syncthreads();  // claimed is rewritten on the next turn
+    if (r >= rows) break;
+    quant_acts_i8_row<T, false>(x, clip, xq, xs, M, K, 7.f, m0 + r);
+    __threadfence();  // this thread's codes (and scale), device-wide
+    __syncthreads();  // ... for every thread; the shared row is free
+    if (tid == 0) atomicAdd(done, 1u);
   }
   if (tid == 0)
     while (ld_acquire_gpu(done) < rows) __nanosleep(64);
@@ -1231,8 +1141,7 @@ int launch_fusedq_stream(const void* x, const void* clip, const void* wp,
 template <typename T, typename OutT>
 int launch_fusedq_tile(const void* x, const void* clip, const void* wp,
                        const void* sw, void* y, void* xq, void* xs,
-                       void* flags, int M, int N, int K, int warp_rows,
-                       cudaStream_t s) {
+                       void* flags, int M, int N, int K, cudaStream_t s) {
   auto kern = &w4a4_matmul_i8_fusedq_tile_kernel<T, OutT>;
   static int done = 0;
   // the ring, or one row of x while a block quantizes it
@@ -1244,8 +1153,7 @@ int launch_fusedq_tile(const void* x, const void* clip, const void* wp,
       static_cast<const T*>(x), static_cast<const float*>(clip),
       static_cast<const uint8_t*>(wp), static_cast<const float*>(sw),
       static_cast<OutT*>(y), static_cast<int8_t*>(xq),
-      static_cast<float*>(xs), static_cast<unsigned*>(flags), M, N, K,
-      warp_rows);
+      static_cast<float*>(xs), static_cast<unsigned*>(flags), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1408,21 +1316,19 @@ extern "C" int fq_w4a4_matmul_i8_fusedq_stream(const void* x,
 extern "C" int fq_w4a4_matmul_i8_fusedq_tile(
     const void* x, const void* clip, const void* wp, const void* sw, void* y,
     void* xq, void* xs, void* flags, int M, int N, int K, int x_is_f32,
-    int out_is_f32, int warp_rows, void* stream) {
+    int out_is_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_f32)
     return out_is_f32
                ? launch_fusedq_tile<float, float>(x, clip, wp, sw, y, xq, xs,
-                                                  flags, M, N, K, warp_rows,
-                                                  s)
+                                                  flags, M, N, K, s)
                : launch_fusedq_tile<float, bf16>(x, clip, wp, sw, y, xq, xs,
-                                                 flags, M, N, K, warp_rows,
-                                                 s);
+                                                 flags, M, N, K, s);
   return out_is_f32
              ? launch_fusedq_tile<bf16, float>(x, clip, wp, sw, y, xq, xs,
-                                               flags, M, N, K, warp_rows, s)
+                                               flags, M, N, K, s)
              : launch_fusedq_tile<bf16, bf16>(x, clip, wp, sw, y, xq, xs,
-                                              flags, M, N, K, warp_rows, s);
+                                              flags, M, N, K, s);
 }
 
 // x bf16 [M, K]; w_packed uint8 [N, K/2]; sx f32 [M]; sw f32 [N]; y [M, N]

@@ -56,11 +56,6 @@ TILE_MAX_K = 1 << 17
 # few blocks to pull the weight.
 FUSEDQ_WIDE_MIN_M = 16
 FUSEDQ_WIDE_N = 5120
-# Row 17's tile body quantizes its rows a block per row up to this M (the
-# least latency a row), a warp per row above (the most rows in flight):
-# phase 3a measured the block mode faster at M = 192 to 1024, the warp
-# mode at 2048.
-FUSEDQ_BLOCK_ROWS_MAX_M = 1024
 _QA = "quant_acts_i8"
 _W4A8 = "w4a8_matmul"
 _SWI = "w4a4_matmul_i8_swiglu"
@@ -357,13 +352,6 @@ def fusedq_body(m: int, n: int, k: int) -> str:
         else "stream"
 
 
-def fusedq_quant(m: int) -> str:
-    """How the tile body of w4a4_matmul_i8_fusedq quantizes its rows:
-    "block" (a block per row) up to FUSEDQ_BLOCK_ROWS_MAX_M rows, else
-    "warp" (a warp per row)."""
-    return "block" if m <= FUSEDQ_BLOCK_ROWS_MAX_M else "warp"
-
-
 def fusedq_workspace(m: int, k: int, device):
     """The tile body's workspace: int8 codes [M, K], float32 scales [M]
     and two zeroed int32 flags (ticket, groups done) per 128-row M tile,
@@ -376,8 +364,7 @@ def fusedq_workspace(m: int, k: int, device):
 
 
 def launch_fusedq(x, cl, w_packed, w_scale, out_dtype, m, n, k):
-    """Launch the body that fusedq_body picks (the tile body in the
-    quantize mode fusedq_quant picks) on checked, contiguous CUDA
+    """Launch the body that fusedq_body picks on checked, contiguous CUDA
     tensors; raise if the launch fails (no other body is tried). Counted
     under LAUNCHES and, by body, BODY_LAUNCHES."""
     body = fusedq_body(m, n, k)
@@ -390,8 +377,7 @@ def launch_fusedq(x, cl, w_packed, w_scale, out_dtype, m, n, k):
         rc = lib.fq_w4a4_matmul_i8_fusedq_tile(
             x.data_ptr(), cl.data_ptr(), w_packed.data_ptr(),
             w_scale.data_ptr(), y.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-            tickets.data_ptr(), m, n, k, *types,
-            int(fusedq_quant(m) == "warp"), stream)
+            tickets.data_ptr(), m, n, k, *types, stream)
     else:
         rc = lib.fq_w4a4_matmul_i8_fusedq_stream(
             x.data_ptr(), cl.data_ptr(), w_packed.data_ptr(),

@@ -95,17 +95,6 @@ def test_fusedq_route_past_tile_max_k(k):
         ["stream"] * 3
 
 
-@pytest.mark.parametrize("m,mode", [
-    (tmm.TILE_MIN_M, "block"), (192, "block"),
-    (tmm.FUSEDQ_BLOCK_ROWS_MAX_M, "block"),
-    (tmm.FUSEDQ_BLOCK_ROWS_MAX_M + 1, "warp"), (2048, "warp")])
-def test_fusedq_quant_mode_by_rows(m, mode):
-    """Row 17's tile body quantizes a block per row up to
-    FUSEDQ_BLOCK_ROWS_MAX_M rows (phase 11's 4 x 48 prompt: M = 192) and
-    a warp per row above (the 1 x 2048 prefill)."""
-    assert tmm.fusedq_quant(m) == mode
-
-
 @pytest.mark.parametrize("m,body", [(1, "n8"), (4, "n8"), (8, "n8"),
                                     (9, "n64"), (64, "n64"), (65, "n128"),
                                     (384, "n128"), (2048, "n128")])
@@ -125,7 +114,7 @@ def _fusedq_launch(m, n=64, k=256, x_dtype=torch.bfloat16,
         (n, k // 2), dtype=torch.uint8), torch.ones(n), out, m, n, k)
 
 
-@pytest.mark.parametrize("m", [4, 300, 2048])
+@pytest.mark.parametrize("m", [4, 300])
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 def test_fusedq_launch_takes_the_picked_entry_point(fake, m, x_dtype):
     lib = fake()
@@ -133,14 +122,9 @@ def test_fusedq_launch_takes_the_picked_entry_point(fake, m, x_dtype):
     body = tmm.fusedq_body(m, 64, 256)
     (name, args), = lib.calls
     assert name == f"fq_w4a4_matmul_i8_fusedq_{body}"
-    # ..., M, N, K, x_is_f32, out_is_f32, [warp_rows,] stream
-    sizes = (m, 64, 256, int(x_dtype == torch.float32), 1)
-    if body == "tile":
-        assert len(args) == 15
-        assert args[-7:] == sizes + (int(tmm.fusedq_quant(m) == "warp"),
-                                     1234)
-    else:
-        assert len(args) == 11 and args[-6:] == sizes + (1234,)
+    # ..., M, N, K, x_is_f32, out_is_f32, stream
+    assert args[-6:] == (m, 64, 256, int(x_dtype == torch.float32), 1, 1234)
+    assert len(args) == (14 if body == "tile" else 11)
     assert y.shape == (m, 64) and y.dtype == torch.float32
     assert common.LAUNCHES["w4a4_matmul_i8_fusedq"] == 1
     assert common.BODY_LAUNCHES["w4a4_matmul_i8_fusedq"] == {
@@ -159,7 +143,7 @@ def test_fusedq_workspace(m, tiles):
     assert not flags.any()
 
 
-@pytest.mark.parametrize("m", [4, 300, 2048])
+@pytest.mark.parametrize("m", [4, 300])
 def test_fusedq_failed_launch_raises_without_fallback(fake, m):
     lib = fake(rc=1)
     with pytest.raises(RuntimeError, match="w4a4_matmul_i8_fusedq: kernel "

@@ -801,24 +801,6 @@ def test_w4a4_matmul_i8_fusedq_bodies_bit_exact(cuda, monkeypatch, body, m, n,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("quant", ["block", "warp"])
-@pytest.mark.parametrize("m", [tmm.TILE_MIN_M, 300, 2048])
-@pytest.mark.parametrize("n,k", [(4096, 4096), (384, 2848)])
-def test_w4a4_matmul_i8_fusedq_quant_modes_bit_exact(cuda, monkeypatch,
-                                                     quant, m, n, k):
-    """The tile body in both quantize modes (a block or a warp per row),
-    whichever fusedq_quant would pick, bit for bit against the plain
-    version, twice per launch state."""
-    x, wp, sw, clip = _fusedq_inputs(cuda, m, n, k, torch.bfloat16, True,
-                                     m + k)
-    monkeypatch.setattr(tmm, "fusedq_body", lambda m_, n_, k_: "tile")
-    monkeypatch.setattr(tmm, "fusedq_quant", lambda m_: quant)
-    got = tmm.w4a4_matmul_i8_fusedq(x, wp, sw, clip)
-    assert torch.equal(got, tmm.w4a4_matmul_i8_fusedq_ref(x, wp, sw, clip))
-    assert torch.equal(tmm.w4a4_matmul_i8_fusedq(x, wp, sw, clip), got)
-
-
-@pytest.mark.gpu
 def test_w4a4_matmul_i8_fusedq_shared_memory_limit(cuda):
     # 8 rows of int8 codes must fit the block's shared memory: the launch
     # reports a K past it, launches nothing, and leaves no error behind
