@@ -1254,7 +1254,8 @@ def check_fp8_kernels(torch, dev, gen, results):
         ne = E if experts else 1
         label = (f"M={m} {proj} {ne} x {n}x{k}" if experts else
                  f"M={m} {proj} {n}x{k}") + " (DeepSeek-V2-Lite)"
-        sweep(label, m, proj, lambda w, s: f8.fp8_matmul(x, w, s),
+        sweep(label, m, proj,
+              lambda w, s: f8.fp8_matmul(x, w, s, exact=True),
               lambda w, s: f8.fp8_matmul_ref(x, w, s), ws,
               2 * xe * m * k + wbytes + 4 * ne * (k // 128) * n
               + 2 * ne * m * n, 2 * ne * m * n * k,
@@ -1278,12 +1279,13 @@ def check_fp8_kernels(torch, dev, gen, results):
         return kernel(x_, w_, s_, *a)
 
     with patched([(f8, "fp8_matmul", spy)]):
-        f8.fp8_linear(x, {"w8": ws[0][0], "se": ws[0][1]})
+        f8.fp8_linear(x, {"w8": ws[0][0], "se": ws[0][1]}, exact=True)
     if seen != [(n, k)]:
         raise AssertionError(f"fp8_linear handed the kernel {seen} for V3's "
                              f"128-block wkv_a, expected [({n}, {k})]")
     sweep(f"M=4 wkv_a {n}x{k} (DeepSeek-V3, fp8_linear, N unpadded)", 4,
-          "v3 wkv_a", lambda w, s: f8.fp8_linear(x, {"w8": w, "se": s}),
+          "v3 wkv_a",
+          lambda w, s: f8.fp8_linear(x, {"w8": w, "se": s}, exact=True),
           lambda w, s: f8.fp8_matmul_ref(x, w, s), ws,
           2 * 4 * k + n * k + 4 * (k // 128) * n + 2 * 4 * n, 2 * 4 * n * k,
           [(x, _dequant_bf16(torch, *w)) for w in ws[:2]])
@@ -1866,7 +1868,8 @@ def build_model(torch, dev, seed, name="llama-2-7b", fq=None):
             lp[key] = kron_transform(lp[key], lt[tr])
         lp["wo"] = kron_transform(lp["wo"], (lt["o_t"], eye))
         layers.append(build_serving_layer(cfg, fq, lp, lt,
-                                          dtype=torch.bfloat16))
+                                          dtype=torch.bfloat16,
+                                          merge_projections=True))
         del lp
     emb = (torch.randn((cfg.vocab_size, H), generator=gen, device=dev)
            * 0.02).to(torch.bfloat16)

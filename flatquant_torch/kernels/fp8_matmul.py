@@ -160,14 +160,15 @@ def fp8_body(m: int) -> str:
     return next((b for b in BODY_NAMES[:-1] if m <= BODY_MAX_M[b]), "n128")
 
 
-def fp8_matmul(x, w8, se, out_dtype=torch.bfloat16, exact: bool = True):
+def fp8_matmul(x, w8, se, out_dtype=torch.bfloat16, exact: bool = False):
     """y[(E,) M, N] = x[(E,) M, K] @ (w8 * blockscale)[(E,) N, K]^T.
 
     x bf16 (float32 is cast to bf16, as JAX casts); w8 float8_e4m3fn;
     se float32 [(E,) K/128, N] (expand_fp8_scales); K % 128 == 0, any N.
     A leading expert axis on w8 and se (x may be broadcast over it:
     stride 0) runs in the same launch. exact=True decodes every code;
-    exact=False flushes subnormal codes to zero. Output bf16 or f32.
+    exact=False (JAX's default) flushes subnormal codes to zero, exact on
+    weights packed with fp8_block_quantize(ftz=True). Output bf16 or f32.
     CUDA tensors launch the body fp8_body picks (or raise: no other body
     is tried); CPU tensors run fp8_matmul_ref."""
     if x.device.type == "cpu":
@@ -229,14 +230,15 @@ def launch_fp8(x, x_estride, w8, se, out_dtype, exact, e, m, n, k):
 
 
 def fp8_linear(x, lin: dict, out_dtype=None, use_kernel: bool = True,
-               exact: bool = True):
+               exact: bool = False):
     """Apply an fp8 serving linear {"w8" [(E,) N, K], "se"} to x [..., K]
     (with an expert axis: x [E, T, K], or broadcast over E).
 
     JAX's dispatch: the kernel (fp8_matmul) takes a K that is a multiple of
     128 packed in 128-blocks, at any N (JAX pads a ragged N to 128 for its
     kernel; this one masks it); every other weight runs fp8_matmul_ref, as
-    in JAX. use_kernel=False runs fp8_matmul_ref always."""
+    in JAX. use_kernel=False runs fp8_matmul_ref always. exact: the
+    kernel's decode (fp8_matmul), False by default as in JAX."""
     if out_dtype is None:
         out_dtype = x.dtype if x.dtype != torch.float32 else torch.bfloat16
     w8, se = lin["w8"], lin["se"]

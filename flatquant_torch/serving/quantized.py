@@ -29,7 +29,8 @@ transform matrices and sigmoid-applied clip ratios directly (the values
 JAX reads out of its FQ state through decompose_matrices / single_matrix /
 _clip_sigmoid); the FQ-state objects arrive with the build chain (ROADMAP
 queue 1 item 4). Only merge_projections=True, tp=1, perm_transforms=False
-is ported.
+is ported: the default merge_projections=False is JAX's and raises until
+item 4, so callers pass merge_projections=True.
 """
 
 from __future__ import annotations
@@ -107,7 +108,7 @@ def _ratio_pair(pair, device):
 
 def build_serving_layer(cfg: LlamaConfig, fq_cfg: FQConfig, lp: dict,
                         lt: dict, dtype=torch.bfloat16,
-                        merge_projections: bool = True, tp: int = 1,
+                        merge_projections: bool = False, tp: int = 1,
                         perm_transforms: bool = False) -> dict:
     """Pack one baked layer (the per-layer body of JAX's
     build_serving_params, quantized.py:161-261).
@@ -169,7 +170,7 @@ def build_serving_layer(cfg: LlamaConfig, fq_cfg: FQConfig, lp: dict,
 
 def build_serving_params(cfg: LlamaConfig, fq_cfg: FQConfig,
                          baked_params: dict, transforms: list,
-                         dtype=torch.bfloat16, merge_projections: bool = True,
+                         dtype=torch.bfloat16, merge_projections: bool = False,
                          tp: int = 1, perm_transforms: bool = False) -> dict:
     """Convert a baked (bake_model, NOT rtn-quantized) model into the
     packed serving format: {"embed", "final_norm_w", "lm_head",

@@ -9,9 +9,12 @@ The CUDA bodies themselves are held to their plain versions on the card
 by tests/test_torch_gpu.py and chip_smoke.py (phases 3a, 3h, 3i, 10, 11).
 """
 
+import inspect
+
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -190,6 +193,42 @@ def test_fp8_failed_launch_raises_without_fallback(fake, m):
     assert [c[0] for c in lib.calls] == [
         f"fq_fp8_matmul_{tf8.fp8_body(m)}", "fq_error_string"]
     assert common.LAUNCHES["fp8_matmul"] == 0
+
+
+@pytest.mark.parametrize("fn", ["fp8_matmul", "fp8_linear"])
+def test_fp8_exact_default_matches_jax(fn):
+    """fp8_matmul and fp8_linear decode as JAX's do by default: the
+    flush-to-zero decode (exact=False); the port defaulted to the exact
+    decode until the fault was fixed."""
+    want = inspect.signature(getattr(jf8, fn)).parameters["exact"].default
+    assert want is False
+    assert inspect.signature(getattr(tf8, fn)).parameters["exact"].default \
+        is want
+
+
+def test_fp8_default_call_flushes_subnormal_codes_as_jax():
+    """A call with the defaults on weights that hold subnormal codes: the
+    port (its plain version, the kernel's decode) equals JAX's kernel
+    called with its defaults (interpret mode), and both zero exactly the
+    subnormal codes."""
+    codes = np.tile(np.arange(256, dtype=np.uint8), 64).reshape(128, 128)
+    codes[(codes & 0x7F) == 0x7F] = 0
+    x = np.eye(128, dtype=np.float32)
+    w8 = torch.from_numpy(codes).view(torch.float8_e4m3fn)
+    want = np.asarray(jf8.fp8_matmul(
+        jnp.asarray(x, jnp.bfloat16),
+        jax.lax.bitcast_convert_type(jnp.asarray(codes), jnp.float8_e4m3fn),
+        jnp.ones((1, 128), jnp.float32), out_dtype=jnp.float32,
+        interpret=True))
+    got = tf8.fp8_matmul(torch.from_numpy(x).to(torch.bfloat16), w8,
+                         torch.ones(1, 128), torch.float32).numpy()
+    np.testing.assert_array_equal(got, want)
+    sub = ((codes.T & 0x7F) > 0) & ((codes.T & 0x7F) < 8)
+    assert sub.any() and (got[sub] == 0).all()
+    lin = {"w8": w8, "se": torch.ones(1, 128)}
+    got_lin = tf8.fp8_linear(torch.from_numpy(x).to(torch.bfloat16), lin,
+                             out_dtype=torch.float32).numpy()
+    np.testing.assert_array_equal(got_lin, want)
 
 
 def test_fp8_linear_hands_the_kernel_a_ragged_n_unpadded(monkeypatch):

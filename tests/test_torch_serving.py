@@ -21,6 +21,7 @@ Tolerances:
 
 import ast
 import dataclasses
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -44,7 +45,10 @@ from flatquant_tpu.serving.quantized import (
 from flatquant_torch.models.config import LlamaConfig
 from flatquant_torch.quantize.spec import W4A4KV4
 from flatquant_torch.serving import engine as te
-from flatquant_torch.serving.quantized import build_serving_params
+from flatquant_torch.serving.quantized import (
+    build_serving_layer,
+    build_serving_params,
+)
 from flatquant_torch.utils.convert import from_jax_serving_params
 
 torch.set_num_threads(2)
@@ -112,7 +116,8 @@ def test_build_serving_params_byte_equal(model, dtype):
     }
     got = build_serving_params(model["cfg"], model["fq"], baked,
                                [_layer_transforms(model["bfq"], i)
-                                for i in range(L)], dtype=tdt)
+                                for i in range(L)], dtype=tdt,
+                               merge_projections=True)
     want = from_jax_serving_params(
         jax.tree.map(np.asarray, model["sp"][dtype]), device="cpu")
     for i in range(L):
@@ -285,6 +290,33 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, (path, name)
+
+
+@pytest.mark.parametrize("fn", [build_serving_params,
+                                build_serving_layer])
+@pytest.mark.parametrize("arg", ["merge_projections", "tp",
+                                 "perm_transforms"])
+def test_build_serving_defaults_match_jax(fn, arg):
+    """The port's packers take JAX's build_serving_params defaults (the
+    merged layout was the port's default until the fault was fixed)."""
+    want = inspect.signature(j_build_serving_params).parameters[arg].default
+    assert inspect.signature(fn).parameters[arg].default == want
+
+
+def test_build_serving_params_defaults_raise_naming_item_4(model):
+    """With JAX's default (unmerged projections) the port raises, naming
+    the ROADMAP item that brings that layout, instead of packing another
+    layout than JAX's."""
+    bp = model["bp"]
+    baked = {
+        "embed": torch.from_numpy(np.array(bp["embed"])),
+        "final_norm_w": torch.from_numpy(np.array(bp["final_norm_w"])),
+        "layers": [{k: torch.from_numpy(np.array(v[0]))
+                    for k, v in bp["layers"].items()}],
+    }
+    with pytest.raises(NotImplementedError, match="item 4"):
+        build_serving_params(model["cfg"], model["fq"], baked,
+                             [_layer_transforms(model["bfq"], 0)])
 
 
 def test_default_device_raises_without_a_card(model):
