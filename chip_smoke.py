@@ -28,9 +28,9 @@ line):
      more than ROUTE_MARGIN
      3d: the four prefill kernels (rmsnorm_right_flat, left_quant_i8_flat,
      w4a4_matmul_i8_swiglu_right, attn_prologue) at the 4 x 512 prefill's
-     shapes, each with identity and with random orthogonal transform
-     factors (tolerances in flatquant_torch/kernels/tolerance.py), timed
-     like the others
+     shapes (the swiglu GEMM also at M = 32 to 1024), each with identity
+     and with random orthogonal transform factors (tolerances in
+     flatquant_torch/kernels/tolerance.py), timed like the others
      3e: both flash prefill entry points (flash_prefill_attention,
      flash_prefill_attention_kt) at llama-2-7b's 1 x 2048, llama-3-8b's
      GQA heads and S=1152, within the "flash" tolerance, timed beside the
@@ -43,10 +43,14 @@ line):
      the gathered cache
      3g: quant_acts_i8 at [2048, 18944] (clips, q_max 7) and [256, 8192]
      (q_max 127, a zero row), codes and scales bit for bit;
-     w4a4_matmul_i8_swiglu at Qwen-2.5-7B's MLP (M=2048, K=3584,
-     NH=18944); w4a8_matmul at llama-2-7b's four linears at M = 1, 4 and
-     2048; timed beside their bounds and library yardsticks
-     (torch._int_mm, torch.matmul on bf16 weights)
+     w4a4_matmul_i8_swiglu at Qwen-2.5-7B's MLP (M = 32 to 2048, K=3584,
+     NH=18944); w4a8_matmul's bodies (the weight stream, the wgmma tile)
+     each at M = 1 to 2048 on llama-2-7b's
+     four linears (the stream up to M = 64), the phase failing where
+     another body beat the routed one by more than ROUTE_MARGIN, and at
+     edge shapes (ragged M and N, K % 128 == 64); timed beside their
+     bounds and library yardsticks (torch._int_mm, torch.matmul on bf16
+     weights)
      3h: fp8_matmul (row 16), each of its three wgmma bodies, on all 254
      non-NaN e4m3 codes in both decodes, bit for bit, and at
      DeepSeek-V2-Lite's fp8 linears (wq and wo at M = 1, 4, 64, 2048,
@@ -67,7 +71,7 @@ line):
      beside its bound and yardstick
      3j: rows 22-27, the grouped layout [G, T, 128], at llama-2-7b's
      1 x 2048 shapes (rmsnorm_right_grouped, left_quant_i8_grouped at G=32
-     and 86, w4a4_swiglu_grouped and _gx at N=2x11008,
+     and 86, w4a4_swiglu_grouped and _gx at N=2x11008 and M = 32 to 2048,
      w4a4_matmul_i8_grouped at qkv and down, quant_acts_i8_grouped at
      [86, 2048, 128]) and edge shapes (M=300, no clips, f32 input): each
      held to its plain version and bit for bit to its flat twin (rows 4,
@@ -291,6 +295,17 @@ BODIES = ("stream", "tile")
 # at which both are also timed at M = FUSEDQ_WIDE_MIN_M, around
 # FUSEDQ_WIDE_N; and the margin by which another body must beat the
 # routed one for the route checks of rows 17 and 16 to fail
+# phase 3g's sweep of row 14's bodies (the stream only up to
+# W4A8_STREAM_SWEEP_MAX_M rows: it re-reads the weight per 4 rows) and
+# its edge shapes: ragged M and N, K % 128 == 64 (a last tile stage of 32
+# packed bytes), each side of the route's edge
+W4A8_SWEEP_M = (1, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+W4A8_STREAM_SWEEP_MAX_M = 64
+W4A8_EDGES = ((8, 999, 2880), (9, 4096, 4096), (33, 576, 11008),
+              (300, 1000, 2880))
+# the M at which phases 3d, 3g and 3j time the swiglu GEMMs (rows 6, 13,
+# 22, 27); the paths' prefills give them 2048 rows
+SWIGLU_SWEEP_M = (32, 64, 128, 256, 512, 1024, 2048)
 FUSEDQ_SWEEP_M = (1, 4, 16, 32, 64, 192, 2048)
 FUSEDQ_WIDE_SWEEP_N = (5120, 6144, 7168, 8192, 10240)
 ROUTE_MARGIN = 0.03
@@ -640,7 +655,8 @@ def _lac_clip(torch, dev):
 
 def check_prefill_kernels(torch, dev, gen, results):
     """The four kernels of the fused prefill at the slice's shapes (B=4,
-    S=512: T=2048 rows, llama-2-7b widths), each held to its plain version
+    S=512: T=2048 rows, llama-2-7b widths; the swiglu GEMM at every M of
+    SWIGLU_SWEEP_M, T last), each held to its plain version
     with identity and with random orthogonal factors (tolerances in
     flatquant_torch/kernels/tolerance.py), then timed (orthogonal factors)
     beside its plain version, its bound and, where one PyTorch call
@@ -702,34 +718,38 @@ def check_prefill_kernels(torch, dev, gen, results):
               2 * T * k * g, BF16_FLOPS_PER_S, err)
         del xs
 
-    # w4a4_matmul_i8_swiglu_right: x int8 [T, H], w [2I, H/2]
-    xq = torch.randint(-8, 8, (T, H), generator=gen, device=dev,
-                       dtype=torch.int8)
-    sx = torch.rand((T, 1), generator=gen, device=dev) * 0.1 + 1e-3
+    # w4a4_matmul_i8_swiglu_right: x int8 [M, H], w [2I, H/2], at every M
+    # of SWIGLU_SWEEP_M (the 4 x 512 prefill's T = 2048 last)
     ws = [(torch.randint(0, 256, (2 * I, H // 2), generator=gen, device=dev,
                          dtype=torch.uint8),
            torch.rand((2 * I,), generator=gen, device=dev) * 0.01 + 1e-4)
           for _ in range(copies_for(I * H))]
-    for mode in ("identity", "orthogonal"):
-        right = _factor(torch, dev, gen, 128, mode)
-        err = compare_bf16(
-            fp.w4a4_matmul_i8_swiglu_right(xq, sx, *ws[0], right),
-            fp.w4a4_matmul_i8_swiglu_right_ref(xq, sx, *ws[0], right), mode,
-            f"w4a4_matmul_i8_swiglu_right ({mode})")
-        log(f"  w4a4_matmul_i8_swiglu_right M={T} K={H} N=2x{I}, {mode} "
-            f"factors: within tolerance, max abs err {err:.3e}")
-    # yardstick: cuBLAS int8 GEMM of the merged up||gate on pre-unpacked
-    # int8 weights (twice the weight bytes, no epilogue)
-    w8 = [(xq, unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
-    timed("w4a4_matmul_i8_swiglu_right", f"M={T} K={H} N=2x{I}",
-          lambda wp, sw: fp.w4a4_matmul_i8_swiglu_right(xq, sx, wp, sw,
-                                                        right),
-          lambda wp, sw: fp.w4a4_matmul_i8_swiglu_right_ref(xq, sx, wp, sw,
+    for m in SWIGLU_SWEEP_M:
+        xq = torch.randint(-8, 8, (m, H), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sx = torch.rand((m, 1), generator=gen, device=dev) * 0.1 + 1e-3
+        for mode in ("identity", "orthogonal"):
+            right = _factor(torch, dev, gen, 128, mode)
+            err = compare_bf16(
+                fp.w4a4_matmul_i8_swiglu_right(xq, sx, *ws[0], right),
+                fp.w4a4_matmul_i8_swiglu_right_ref(xq, sx, *ws[0], right),
+                mode, f"w4a4_matmul_i8_swiglu_right M={m} ({mode})")
+        log(f"  w4a4_matmul_i8_swiglu_right M={m} K={H} N=2x{I}: identity "
+            f"and orthogonal factors within tolerance")
+        # yardstick: cuBLAS int8 GEMM of the merged up||gate on
+        # pre-unpacked int8 weights (twice the weight bytes, no epilogue)
+        w8 = [(xq, unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
+        timed("w4a4_matmul_i8_swiglu_right", f"M={m} K={H} N=2x{I}",
+              lambda wp, sw: fp.w4a4_matmul_i8_swiglu_right(xq, sx, wp, sw,
                                                             right),
-          ws, T * H + I * H + 4 * T + 8 * I + 2 * 128 * 128 + 2 * T * I,
-          2 * T * 2 * I * H + 2 * T * I * 128, INT8_OPS_PER_S, err,
-          lib=(torch._int_mm, w8, "torch._int_mm, int8 weights, GEMM only"))
-    del ws, w8
+              lambda wp, sw: fp.w4a4_matmul_i8_swiglu_right_ref(
+                  xq, sx, wp, sw, right),
+              ws, m * H + I * H + 4 * m + 8 * I + 2 * 128 * 128 + 2 * m * I,
+              2 * m * 2 * I * H + 2 * m * I * 128, INT8_OPS_PER_S, err,
+              lib=(torch._int_mm, w8, "torch._int_mm, int8 weights, GEMM "
+                   "only"), m=m)
+        del w8
+    del ws
 
     # attn_prologue: qkv [B, S, (nh + 2 nkv) * 128] bf16, cache length L
     D = (nh + 2 * nkv) * 128
@@ -1039,10 +1059,7 @@ def check_quant_mode_kernels(torch, dev, gen, results):
     within the "identity" tolerance of flatquant_torch/kernels/tolerance.py
     (exact integer sums, the float32 epilogue's exp against torch.exp;
     library: torch._int_mm of the GEMM part on pre-unpacked int8 weights);
-    w4a8_matmul at llama-2-7b's four W4A16 linears at M = 1, 4 and 2048,
-    bf16 activations, within the "identity" tolerance (float32 sums in
-    another order: bf16 outputs one ulp apart at most; library:
-    torch.matmul of x by pre-dequantized bf16 weights)."""
+    w4a8_matmul's bodies swept over M (check_w4a8)."""
     from flatquant_torch.kernels import int4_matmul as im
     from flatquant_torch.kernels.tolerance import compare_bf16
     from flatquant_torch.models.config import get_config
@@ -1069,62 +1086,142 @@ def check_quant_mode_kernels(torch, dev, gen, results):
         log(f"    quant_acts_i8 [{M}, {K}]: codes and scales bit-exact")
         del xs
 
-    # row 13
+    # row 13, at every M of SWIGLU_SWEEP_M (Qwen's 1 x 2048 prefill last)
     qcfg = get_config("qwen-2.5-7b")
-    M, K, NH = 2048, qcfg.hidden_size, qcfg.intermediate_size
-    xq = torch.randint(-8, 8, (M, K), generator=gen, device=dev,
-                       dtype=torch.int8)
-    sx = torch.rand((M, 1), generator=gen, device=dev) * 0.1 + 1e-3
+    K, NH = qcfg.hidden_size, qcfg.intermediate_size
     ws = [(torch.randint(0, 256, (2 * NH, K // 2), generator=gen, device=dev,
                          dtype=torch.uint8),
            torch.rand((2 * NH,), generator=gen, device=dev) * 0.01 + 1e-4)
           for _ in range(copies_for(NH * K))]
-    err = compare_bf16(im.w4a4_matmul_i8_swiglu(xq, sx, *ws[0]),
-                       im.w4a4_matmul_i8_swiglu_ref(xq, sx, *ws[0]),
-                       "identity", "w4a4_matmul_i8_swiglu")
-    w8 = [(xq, im.unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
-    _kernel_row(torch, results, "w4a4_matmul_i8_swiglu",
-                f"M={M} K={K} N=2x{NH} (Qwen-2.5-7B MLP)",
-                lambda wp, sw: im.w4a4_matmul_i8_swiglu(xq, sx, wp, sw),
-                lambda wp, sw: im.w4a4_matmul_i8_swiglu_ref(xq, sx, wp, sw),
-                ws, M * K + NH * K + 4 * M + 8 * NH + 2 * M * NH,
-                2 * M * 2 * NH * K, INT8_OPS_PER_S, err, iters=20,
-                lib=(torch._int_mm, w8, "torch._int_mm, int8 weights, GEMM "
-                     "only"))
-    del ws, w8, xq
+    for M in SWIGLU_SWEEP_M:
+        xq = torch.randint(-8, 8, (M, K), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sx = torch.rand((M, 1), generator=gen, device=dev) * 0.1 + 1e-3
+        err = compare_bf16(im.w4a4_matmul_i8_swiglu(xq, sx, *ws[0]),
+                           im.w4a4_matmul_i8_swiglu_ref(xq, sx, *ws[0]),
+                           "identity", f"w4a4_matmul_i8_swiglu M={M}")
+        w8 = [(xq, im.unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
+        _kernel_row(torch, results, "w4a4_matmul_i8_swiglu",
+                    f"M={M} K={K} N=2x{NH} (Qwen-2.5-7B MLP)",
+                    lambda wp, sw: im.w4a4_matmul_i8_swiglu(xq, sx, wp, sw),
+                    lambda wp, sw: im.w4a4_matmul_i8_swiglu_ref(xq, sx, wp,
+                                                                sw),
+                    ws, M * K + NH * K + 4 * M + 8 * NH + 2 * M * NH,
+                    2 * M * 2 * NH * K, INT8_OPS_PER_S, err, iters=20,
+                    lib=(torch._int_mm, w8, "torch._int_mm, int8 weights, "
+                         "GEMM only"), m=M)
+        del w8
+    del ws, xq
 
-    # row 14
+    # row 14: its bodies swept over W4A8_SWEEP_M
+    check_w4a8(torch, dev, gen, results)
+
+
+def _w4a8_bodies_at(im, m):
+    """The bodies of row 14 that phase 3g times at M rows: the weight
+    stream up to W4A8_STREAM_SWEEP_MAX_M, the tiles everywhere."""
+    return [b for b in im.W4A8_BODIES
+            if b != "stream" or m <= W4A8_STREAM_SWEEP_MAX_M]
+
+
+def check_w4a8(torch, dev, gen, results):
+    """Row 14's bodies (w4a8_matmul: the weight stream, the wgmma tile) at
+    every M of W4A8_SWEEP_M
+    on llama-2-7b's four W4A16 linears, bf16 activations: each forced body
+    held to w4a8_matmul_rowsum_ref within the "identity" tolerance and
+    timed beside the bound, the plain version and torch.matmul on
+    pre-dequantized bf16 weights (a yardstick the port never calls); the
+    phase fails where another body beat the routed one by more than
+    ROUTE_MARGIN. Then W4A8_EDGES, every body, both output types, checked
+    and not timed."""
+    from flatquant_torch.kernels import int4_matmul as im
+    from flatquant_torch.kernels.tolerance import compare_bf16
+    from flatquant_torch.models.config import get_config
+
     lcfg = get_config("llama-2-7b")
     H, I = lcfg.hidden_size, lcfg.intermediate_size
     shapes = {"qkv": (3 * H, H), "o": (H, H), "upgate": (2 * I, H),
               "down": (H, I)}
-    for m in (1, 4, 2048):
+    rows, worst = [], 0.0
+    for m in W4A8_SWEEP_M:
         for proj, (n, k) in shapes.items():
             wbytes = n * k // 2
-            ws = [(torch.randint(0, 256, (n, k // 2), generator=gen,
-                                 device=dev, dtype=torch.uint8),
-                   torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-4)
-                  for _ in range(copies_for(wbytes))]
+            ws = _rand_weights(torch, dev, gen, n, k)
             x = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
             ones = torch.ones((m, 1), device=dev)
-            err = compare_bf16(im.w4a8_matmul(x, ones, *ws[0]),
-                               im.w4a8_matmul_rowsum_ref(x, ones, *ws[0]),
-                               "identity", f"w4a8_matmul M={m} {proj}")
-            wd = [(x, ((im.unpack_weight_planar(wp).float() * sw[:, None])
-                       .to(torch.bfloat16).t()))
-                  for wp, sw in ws[:2]]
-            _kernel_row(torch, results, "w4a8_matmul",
-                        f"M={m} {proj} {n}x{k} (llama-2-7b W4A16)",
-                        lambda wp, sw: im.w4a8_matmul(x, ones, wp, sw),
-                        lambda wp, sw: im.w4a8_matmul_rowsum_ref(x, ones, wp,
-                                                                 sw),
-                        ws, 2 * m * k + wbytes + 4 * m + 4 * n + 2 * m * n,
-                        2 * m * n * k, BF16_FLOPS_PER_S, err,
-                        iters=60 if m < 2048 else 20,
-                        lib=(torch.matmul, wd, "torch.matmul, bf16 weights"),
-                        m=m, proj=proj)
+            want = im.w4a8_matmul_rowsum_ref(x, ones, *ws[0])
+            ms, err = {}, 0.0
+
+            def fn(wp, sw):
+                return im.w4a8_matmul(x, ones, wp, sw)
+
+            for body in _w4a8_bodies_at(im, m):
+                with patched([(im, "w4a8_body", lambda m_, n_: body)]):
+                    err = max(err, compare_bf16(
+                        fn(*ws[0]), want, "identity",
+                        f"w4a8_matmul {body} M={m} {proj}"))
+                    ms[body] = sweep_ms(torch, fn, ws)
+            routed = im.w4a8_body(m, n)
+            plain = cuda_ms(torch, lambda wp, sw: im.w4a8_matmul_rowsum_ref(
+                x, ones, wp, sw), ws, 6 if m <= 256 else 3)
+            wd = [(x, (im.unpack_weight_planar(wp).float() * sw[:, None])
+                   .to(torch.bfloat16).t()) for wp, sw in ws[:2]]
+            lib = sweep_ms(torch, torch.matmul, wd)
+            nbytes = 2 * m * k + wbytes + 4 * m + 4 * n + 2 * m * n
+            b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, BF16_FLOPS_PER_S)
+            worst = max(worst, err)
+            rows.append(dict(
+                case=f"M={m} {proj} {n}x{k} (llama-2-7b W4A16)", m=m,
+                proj=proj, n=n, k=k, body=routed, ms=ms[routed],
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, bytes=nbytes, ops=2 * m * n * k,
+                max_abs_err=err, **{f"{b}_ms": ms[b] for b in ms}))
+            log(f"  w4a8_matmul M={m:4d} {proj:6s} {n}x{k}: bodies within "
+                f"'identity' (max abs err {err:.3e}); "
+                + " ".join(f"{b}_ms {t:.4f}" for b, t in ms.items())
+                + f" (route: {routed}) plain_ms {plain:.4f} bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}) library_ms(torch.matmul, "
+                f"bf16 weights) {lib:.4f}")
             del ws, wd
+    for m in W4A8_SWEEP_M:
+        at = [r for r in rows if r["m"] == m]
+        log(f"  w4a8_matmul M={m}, one layer's four linears: " + " ".join(
+            f"{b}_ms {sum(r[f'{b}_ms'] for r in at):.4f}"
+            for b in _w4a8_bodies_at(im, m))
+            + f" bound {sum(r['bound_ms'] for r in at):.4f} library_ms "
+            f"{sum(r['library_ms'] for r in at):.4f}")
+    wrong = []
+    for r in rows:
+        timed = [b for b in im.W4A8_BODIES if f"{b}_ms" in r]
+        best = min(timed, key=lambda b: r[f"{b}_ms"])
+        if r[f"{best}_ms"] * (1 + ROUTE_MARGIN) < r["ms"]:
+            wrong.append((r["m"], r["proj"], r["body"], best))
+    for m, n, k in W4A8_EDGES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        xs = torch.rand((m, 1), generator=gen, device=dev) + 0.5
+        wp, sw = _rand_weights(torch, dev, gen, n, k, 1)[0]
+        for out in (torch.bfloat16, torch.float32):
+            want = im.w4a8_matmul_rowsum_ref(x, xs, wp, sw, out)
+            for body in im.W4A8_BODIES:
+                with patched([(im, "w4a8_body", lambda m_, n_: body)]):
+                    got = im.w4a8_matmul(x, xs, wp, sw, out)
+                if out == torch.bfloat16:
+                    compare_bf16(got, want, "identity",
+                                 f"w4a8_matmul {body} M={m} N={n} K={k}")
+                else:
+                    scale = want.abs().amax(dim=-1, keepdim=True)
+                    if not ((got - want).abs() <= 1e-5 * scale).all():
+                        raise AssertionError(
+                            f"w4a8_matmul {body} M={m} N={n} K={k} f32: "
+                            "beyond 1e-5 of its row's largest value")
+        log(f"  w4a8_matmul M={m} N={n} K={k}: every body within tolerance "
+            f"in bf16 and f32")
+    results["w4a8_matmul"] = dict(rows=rows, max_abs_err=worst)
+    if wrong:
+        raise AssertionError(f"w4a8_matmul: another body beat the routed "
+                             f"one by more than {ROUTE_MARGIN:.0%} at (M, "
+                             f"shape, routed, faster) {wrong}")
 
 
 # ---------------------------------------------------------------------------
@@ -1591,7 +1688,8 @@ def check_grouped_kernels(torch, dev, gen, results):
     GEMMs, torch._int_mm of the GEMM part on pre-unpacked int8 weights (a
     yardstick the port never calls). Row 26 at [2048, 4096] -> [32, 2048,
     128]; row 23 at G = 32 and 86; row 27 [32, 2048, 128] -> [86, 2048,
-    128], N = 2 x 11008; row 22 [2048, 4096] -> [86, 2048, 128]; row 25 at
+    128], N = 2 x 11008; row 22 [2048, 4096] -> [86, 2048, 128] (rows 27
+    and 22 also at the other M of SWIGLU_SWEEP_M); row 25 at
     qkv (K 4096, N 12288) and down (K 11008, N 4096), each of row 1's two
     bodies, at M = 4 and 2048; row 24 at [86, 2048, 128] with LAC clips.
     Edge shapes are checked, not timed: M = 300 (row 25 in both bodies and
@@ -1688,12 +1786,12 @@ def check_grouped_kernels(torch, dev, gen, results):
                  gm.w4a4_swiglu_grouped_ref, False),
                 ("w4a4_swiglu_grouped_gx", gm.w4a4_swiglu_grouped_gx,
                  gm.w4a4_swiglu_grouped_gx_ref, True))
-    for m in (300, T):
+    ws = _rand_weights(torch, dev, gen, 2 * I, H)
+    for m in (300,) + SWIGLU_SWEEP_M:
         xq = torch.randint(-8, 8, (m, H), generator=gen, device=dev,
                            dtype=torch.int8)
         xqg = gm.group_layout(xq, H // 128)
         sx = torch.rand((m, 1), generator=gen, device=dev) * 0.1 + 1e-3
-        ws = _rand_weights(torch, dev, gen, 2 * I, H, None if m == T else 1)
         modes = ("identity", "orthogonal") if m == T else ("orthogonal",)
         for name, fn, plain, gx in rows2227:
             xin = xqg if gx else xq
@@ -1701,24 +1799,24 @@ def check_grouped_kernels(torch, dev, gen, results):
                 right = _factor(torch, dev, gen, 128, mode)
                 err = swi(name, fn, plain, xq, xin, sx, *ws[0], right, mode,
                           f"M={m} {mode}")
-            if m < T:
+            log(f"  {name} M={m} K={H} N=2x{I}: within tolerance, "
+                "bit-identical to w4a4_matmul_i8_swiglu_right")
+            if m == 300:
                 continue
-            log(f"  {name} M={T} K={H} N=2x{I} (also M=300): within "
-                "tolerance, bit-identical to w4a4_matmul_i8_swiglu_right")
             w8 = [(xq, im.unpack_weight_planar(wp).t()) for wp, _ in ws[:2]]
             _kernel_row(
                 torch, results, name,
-                f"M={T} {f'[{H // 128}, {T}, 128]' if gx else f'[{T}, {H}]'}"
+                f"M={m} {f'[{H // 128}, {m}, 128]' if gx else f'[{m}, {H}]'}"
                 f" -> "
-                f"[{I // 128}, {T}, 128], N=2x{I}",
+                f"[{I // 128}, {m}, 128], N=2x{I}",
                 lambda wp, sw: fn(xin, sx, wp, sw, right),
                 lambda wp, sw: plain(xin, sx, wp, sw, right),
-                ws, T * H + I * H + 4 * T + 8 * I + 2 * 128 * 128 + 2 * T * I,
-                2 * T * 2 * I * H + 2 * T * I * 128, INT8_OPS_PER_S, err,
+                ws, m * H + I * H + 4 * m + 8 * I + 2 * 128 * 128 + 2 * m * I,
+                2 * m * 2 * I * H + 2 * m * I * 128, INT8_OPS_PER_S, err,
                 lib=(torch._int_mm, w8, "torch._int_mm, int8 weights, GEMM "
-                     "only"))
+                     "only"), m=m)
             del w8
-        del ws
+    del ws
 
     # row 25, and row 1 at the same shapes: each body of row 25 bit for
     # bit against the plain version and the same body of row 1, in both
@@ -3236,6 +3334,7 @@ def _timed_serving(torch, cfg, fq, sp, prompt, new, kw, mode):
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = dict(common.LAUNCHES)
+    prefill_bodies = {k: dict(v) for k, v in common.BODY_LAUNCHES.items()}
     tok = checked(logits, "prefill")
     step_ms, toks = [], []
     for i in range(new):
@@ -3247,6 +3346,9 @@ def _timed_serving(torch, cfg, fq, sp, prompt, new, kw, mode):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         tok = checked(logits, f"decode step {i}")
     return dict(prefill_ms=prefill_ms, prefill_launches=prefill_launches,
+                prefill_bodies=prefill_bodies,
+                bodies={k: dict(v) for k, v in
+                        common.BODY_LAUNCHES.items()},
                 launches=dict(common.LAUNCHES), step_ms=step_ms,
                 decode_ms=sorted(step_ms[1:])[len(step_ms[1:]) // 2],
                 tokens=toks, cache=cache, tok=tok)
@@ -3376,11 +3478,19 @@ def run_w4a16_path(torch, dev, results, smi):
     if launches["w4a8_matmul"] != 4 * L * (1 + NEW):
         raise AssertionError("the W4A16 decode steps did not run every "
                              "linear through w4a8_matmul")
+    # the 2048-row prefill on the tile body, the B=1 steps on the stream
+    bodies = run["bodies"]["w4a8_matmul"]
+    want_bodies = dict.fromkeys(bodies, 0)
+    want_bodies.update(tile=4 * L, stream=4 * L * NEW)
+    if run["prefill_bodies"]["w4a8_matmul"].get("tile") != 4 * L \
+            or bodies != want_bodies:
+        raise AssertionError(f"w4a8_matmul launches by body {bodies}, "
+                             f"expected {want_bodies}")
     log(f"  [{smi}] llama-2-7b W4A16 prefill B={B} S={S} (w4a8_matmul "
-        f"tensor-core tiles, flash): {run['prefill_ms']:.1f} ms")
+        f"wgmma tiles, flash): {run['prefill_ms']:.1f} ms")
     log(f"  [{smi}] llama-2-7b W4A16 decode after it, median "
         f"{run['decode_ms']:.2f} ms/step, B={B}, {NEW} steps (w4a8_matmul "
-        f"weight stream)")
+        f"weight stream); w4a8_matmul launches by body {bodies}")
     log(f"  launches, prefill + {NEW} decode steps: {launches}")
 
     # every w4a8_matmul launch of one prefill and two decode steps
@@ -4403,7 +4513,9 @@ KERNELS = {
         replaces="flatquant_tpu/kernels/flat_pipeline.py:154"),
     "w4a4_matmul_i8_swiglu_right": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
-        replaces="flatquant_tpu/kernels/flat_pipeline.py:235"),
+        replaces="flatquant_tpu/kernels/flat_pipeline.py:235",
+        body="wgmma s8 tile (csrc/w4a4_tile.cuh, up and gate), right "
+        "factor on wgmma bf16"),
     "attn_prologue": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/attn_prologue.cu",
         replaces="flatquant_tpu/kernels/attn_prologue.py:161"),
@@ -4427,10 +4539,13 @@ KERNELS = {
         replaces="flatquant_tpu/kernels/int4_matmul.py:139"),
     "w4a4_matmul_i8_swiglu": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
-        replaces="flatquant_tpu/kernels/int4_matmul.py:417"),
+        replaces="flatquant_tpu/kernels/int4_matmul.py:417",
+        body="wgmma s8 tile (csrc/w4a4_tile.cuh, up and gate)"),
     "w4a8_matmul": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/int4_matmul.cu",
-        replaces="flatquant_tpu/kernels/int4_matmul.py:213"),
+        replaces="flatquant_tpu/kernels/int4_matmul.py:213",
+        body="weight stream up to 8 rows, wgmma bf16 tile above "
+        "(w4a8_body)"),
     "fp8_matmul": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/fp8_matmul.cu",
         replaces="flatquant_tpu/kernels/fp8_matmul.py:188"),
@@ -4452,7 +4567,8 @@ KERNELS = {
         replaces="flatquant_tpu/kernels/kv_cache.py:386"),
     "w4a4_swiglu_grouped": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
-        replaces="flatquant_tpu/kernels/grouped_mlp.py:71"),
+        replaces="flatquant_tpu/kernels/grouped_mlp.py:71",
+        body="row 6's body, GROUPED_OUT"),
     "left_quant_i8_grouped": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
         replaces="flatquant_tpu/kernels/grouped_mlp.py:170"),
@@ -4467,7 +4583,8 @@ KERNELS = {
         replaces="flatquant_tpu/kernels/grouped_mlp.py:424"),
     "w4a4_swiglu_grouped_gx": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
-        replaces="flatquant_tpu/kernels/grouped_mlp.py:505"),
+        replaces="flatquant_tpu/kernels/grouped_mlp.py:505",
+        body="row 6's body, GROUPED_IN and GROUPED_OUT"),
 }
 # the path each kernel's `launches` is read from (each path's counts set to
 # 0 just before it and read just after): the decode-serving run of phase 4
@@ -4506,6 +4623,11 @@ KERNEL_PATH = dict(
     w4a4_swiglu_grouped="grouped_round2",
     quant_acts_i8_grouped="grouped_round2")
 DECODE_KERNELS = [k for k, p in KERNEL_PATH.items() if p == "decode"]
+SWIGLU_ROWS = ("w4a4_matmul_i8_swiglu_right", "w4a4_matmul_i8_swiglu",
+               "w4a4_swiglu_grouped", "w4a4_swiglu_grouped_gx")
+# the results entry whose "bodies" hold a kernel's launches by device body
+# on its path (read with its launches)
+BODY_RESULTS = {"w4a8_matmul": "w4a16_path"}
 
 
 def kernel_line(results, paths):
@@ -4540,6 +4662,9 @@ def kernel_line(results, paths):
             at = "B=4 nkv=32 S=2048"
         elif name == "quant_acts_i8":
             rows = [x for x in r["rows"] if x["case"].startswith("[2048,")]
+            at = rows[0]["case"]
+        elif name in SWIGLU_ROWS:
+            rows = [x for x in r["rows"] if x["m"] == 2048]
             at = rows[0]["case"]
         elif name == "w4a8_matmul":
             rows = [x for x in r["rows"] if x["m"] == 1]
@@ -4584,9 +4709,11 @@ def kernel_line(results, paths):
         lib = (total("library_ms") if all(x.get("library_ms") is not None
                                           for x in rows) else None)
         by = {x["bound_by"] for x in rows}
+        bodies = results.get(BODY_RESULTS.get(name), {}).get("bodies", {})
         out.append(dict(
             name=name, **meta,
             launches=paths.get(KERNEL_PATH[name], {}).get(name, 0),
+            **({"launches_by_body": bodies[name]} if name in bodies else {}),
             launches_by_path={p: c.get(name, 0) for p, c in paths.items()},
             max_abs_err=r["max_abs_err"], ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),

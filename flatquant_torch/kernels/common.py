@@ -62,12 +62,13 @@ LAUNCHES: Dict[str, int] = {
     "w4a4_swiglu_grouped_gx": 0,
 }
 
-# launches of the kernels with several device bodies, by body (rows 1, 25
-# and 17: "stream" or "tile"; row 16: "n8", "n64" or "n128", its wgmma
+# launches of the kernels with several device bodies, by body (rows 1, 25,
+# 17 and 14: "stream" or "tile"; row 16: "n8", "n64" or "n128", its wgmma
 # token width), so a run shows which body its path took; reset with
 # LAUNCHES
 BODY_LAUNCHES: Dict[str, Dict[str, int]] = {
     "w4a4_matmul_i8": {"stream": 0, "tile": 0},
+    "w4a8_matmul": {"stream": 0, "tile": 0},
     "w4a4_matmul_i8_grouped": {"stream": 0, "tile": 0},
     "w4a4_matmul_i8_fusedq": {"stream": 0, "tile": 0},
     "fp8_matmul": {"n8": 0, "n64": 0, "n128": 0},
@@ -88,8 +89,10 @@ _SIGNATURES = {
         "fq_w4a4_matmul_i8_tile": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         # x, clip, xq, xs, M, K, q_max, x_is_f32, stream
         "fq_quant_acts_i8": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-        # x, wp, sx, sw, y, M, N, K, out_is_f32, stream
-        "fq_w4a8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x, wp, sx, sw, y, M, N, K, out_is_f32, stream: row 14's bodies
+        # (int4_matmul.py w4a8_body picks one)
+        "fq_w4a8_matmul_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "fq_w4a8_matmul_tile": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         # x, clip, wp, sw, y, M, N, K, x_is_f32, out_is_f32, stream: row
         # 17's dp4a body
         "fq_w4a4_matmul_i8_fusedq_stream": [_P, _P, _P, _P, _P, _I, _I, _I,

@@ -35,17 +35,19 @@
 //     128x128 (resp. GxG) products, 0.5-4 GFLOP, run on the CUDA cores
 //     here, so these simple versions sit above the bytes bound.
 //   - the swiglu GEMM: int8 operations (2 * 2048 * 22016 * 4096 = 369 G,
-//     187 us at 1979 TOP/s). It runs on the tensor cores through
-//     mma.sync.m16n8k32 s8 (not wgmma), one 128x(128 up + 128 gate) tile
-//     per block, with a register-prefetched single shared-memory stage.
-//     Without the right factor (w4a4_matmul_i8_swiglu, the balanced
-//     Kronecker split's MLP, e.g. Qwen-2.5-7B: 2 * 2048 * 37888 * 3584 =
-//     556 G, 281 us) the same main loop ends in an epilogue that writes
-//     u * silu(g) straight from the accumulators.
+//     187 us at 1979 TOP/s). It runs row 1's wgmma s8 tile
+//     (w4a4_tile.cuh) with the up and the gate rows of 128 channels per
+//     block, and the right factor's 128 x 128 product on the tensor cores
+//     too (wgmma bf16). Without the right factor (w4a4_matmul_i8_swiglu,
+//     the balanced Kronecker split's MLP, e.g. Qwen-2.5-7B: 2 * 2048 *
+//     37888 * 3584 = 556 G, 281 us) the same main loop ends in an
+//     epilogue that writes u * silu(g) straight from the accumulators.
 
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "mma.cuh"
+#include "w4a4_tile.cuh"
 
 namespace {
 
@@ -321,60 +323,30 @@ left_quant_i8_grouped_kernel(const float* __restrict__ ltT,
 // w4a4_matmul_i8_swiglu_right (and w4a4_matmul_i8_swiglu, w4a4_swiglu_grouped,
 // w4a4_swiglu_grouped_gx)
 //
-// acc_u[m, n] = sum_k x[m, k] * nib_u[n, k] (nib = biased nibble 0..15),
-// u = (float)(acc_u - 8 * rowsum(x)) * sx[m] * sw[n], g likewise from the
-// gate rows (sw[nh + n]); act = bf16(u * (g * (1 / (1 + exp(-g)))));
-// y[m, n] = bf16(sum_d act[m, n0 + d] * R[d, n - n0]) per 128 group.
+// acc_u[m, n] = sum_k x[m, k] * (nib_u[n, k] - 8) (exact int32), u =
+// (float)acc_u * sx[m] * sw[n], g likewise from the gate rows (sw[nh +
+// n]); act = bf16(u * (g * (1 / (1 + exp(-g))))); y[m, n] = bf16(sum_d
+// act[m, n0 + d] * R[d, n - n0]) per 128-column group.
 //
-// Block tile: SW_BM = 128 rows x 128 output columns, i.e. 128 up rows and
-// the 128 gate rows of the same columns of w, so the epilogue owns whole
-// 128-column groups. 8 warps; warp w computes rows [16w, 16w + 16) against
-// all 256 weight rows with mma.sync.m16n8k32 (int8 in, int32 out): 32
-// accumulator fragments. Each step takes 32 packed bytes per weight row,
-// i.e. k in [c, c + 32) (low nibbles) and [K/2 + c, K/2 + c + 32) (high
-// nibbles), and the matching two 32-byte slices of the activation rows.
-// The next step's global loads are issued into registers before the
-// current step's products (one shared stage, prefetched through
-// registers). Rows are padded to 48 bytes in shared memory, so the
-// fragment loads (8 rows x 4 words) hit 32 distinct banks.
-// Epilogue (RIGHT): the activation tile goes to shared memory transposed
-// ([col][row], bf16), and each thread computes an 8x8 block of the
-// right product with R in float32 shared memory. Without RIGHT
-// (w4a4_matmul_i8_swiglu): out_dtype(u * (g * (1 / (1 + exp(-g))))) is
-// written from the accumulators, in bf16 or float32.
+// Main loop: row 1's wgmma s8 tile (w4a4_tile.cuh) with two weight
+// matrices, the 128 up rows and the 128 gate rows of the block's 128
+// output channels, against its 128 activation rows: each warpgroup
+// carries the up and the gate sums of its 64 channels, so the epilogue
+// owns whole 128-column groups. The int32 sums equal the old acc - 8 *
+// rowsum(x) exactly; the dequant and SwiGLU keep their rounding points
+// (__fmul_rn, IEEE 1 / (1 + expf(-g)), bf16 act).
+// Epilogue (RIGHT): the act tile goes to shared memory as wgmma's B (two
+// [128 rows][64 channels] bf16 halves, 128-byte swizzle), the right
+// factor's transpose into registers as A (bf16), and 8 wgmma m64n128k16
+// give each warpgroup 64 output channels of the group with float32 sums,
+// as JAX's bf16 x bf16 dot; the bf16 outputs are staged in shared memory
+// and stored as 16-byte rows. Without RIGHT (w4a4_matmul_i8_swiglu):
+// out_dtype(u * (g * (1 / (1 + exp(-g))))) straight from the
+// accumulators, in bf16 or float32.
 // ---------------------------------------------------------------------------
 
-constexpr int SW_BM = 128;
-constexpr int SW_BN = 128;
-constexpr int SW_THREADS = 256;
-constexpr int SW_KP = 32;       // packed bytes per weight row per step
-constexpr int SW_LD = 48;       // padded shared row, bytes
-constexpr int SW_ACT_LD = 136;  // padded transposed activation row, bf16
-constexpr int SW_TILE = SW_BM * SW_LD;  // one [128][48] s8 tile
-constexpr int SW_MAIN = 6 * SW_TILE;    // A lo/hi, up lo/hi, gate lo/hi
-constexpr int SW_ACT = SW_BN * SW_ACT_LD * 2;
-constexpr int SW_UNION = SW_MAIN > SW_ACT ? SW_MAIN : SW_ACT;
-constexpr int SW_SMEM = SW_UNION + 128 * 128 * 4 + SW_BM * 4;
-constexpr int SW_SMEM_PLAIN = SW_MAIN + SW_BM * 4;  // no right factor
-
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
-                                       unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ int sum16(uint4 v, int acc) {
-  const int ones = 0x01010101;
-  acc = __dp4a(static_cast<int>(v.x), ones, acc);
-  acc = __dp4a(static_cast<int>(v.y), ones, acc);
-  acc = __dp4a(static_cast<int>(v.z), ones, acc);
-  acc = __dp4a(static_cast<int>(v.w), ones, acc);
-  return acc;
-}
+constexpr int SW_SMEM = tl_smem<2>();  // the ring; the epilogue reuses it
+constexpr int SW_OUT_LD = 136;         // padded output tile row, bf16
 
 template <typename OutT>
 __device__ __forceinline__ OutT to_out(float v);
@@ -388,9 +360,8 @@ __device__ __forceinline__ bf16 to_out<bf16>(float v) {
 // The body of the four swiglu GEMMs; each __global__ below carries its
 // wrapper's name (the profiles group kernels by it). GROUPED_IN: xq is
 // [K / 128, M, 128] (w4a4_swiglu_grouped_gx); GROUPED_OUT (with RIGHT): y
-// is [NH / 128, M, 128]. A load step's 16-byte slices start at multiples
-// of 16 and an output tile is one 128-column group, so only addresses
-// change.
+// is [NH / 128, M, 128]. A load's 16-byte chunks start at multiples of 16
+// and an output tile is one 128-column group, so only addresses change.
 template <bool RIGHT, typename OutT, bool GROUPED_IN = false,
           bool GROUPED_OUT = false>
 __device__ __forceinline__ void swiglu_gemm(const int8_t* __restrict__ xq,
@@ -400,211 +371,109 @@ __device__ __forceinline__ void swiglu_gemm(const int8_t* __restrict__ xq,
                                             const float* __restrict__ right,
                                             OutT* __restrict__ y, int M,
                                             int NH, int K) {
-  extern __shared__ float4 smem4[];
-  uint8_t* sm = reinterpret_cast<uint8_t*>(smem4);
-  uint8_t* a_lo = sm;
-  uint8_t* a_hi = sm + SW_TILE;  // tiles 2-5: up lo/hi, gate lo/hi
-  float* rs_f = reinterpret_cast<float*>(sm + SW_UNION);  // [128][128]
-  int* rowsum = RIGHT ? reinterpret_cast<int*>(rs_f + 128 * 128)
-                      : reinterpret_cast<int*>(sm + SW_MAIN);  // [SW_BM]
-  bf16* actT = reinterpret_cast<bf16*>(sm);  // epilogue: [128][136]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  extern __shared__ __align__(16) uint8_t sw_raw[];
+  uint8_t* sm = sw_raw + ((1024 - (smem_u32(sw_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wi = warp & 3;
   const int g8 = lane >> 2, tq = lane & 3;
-  const int m0 = blockIdx.y * SW_BM;
-  const int n0 = blockIdx.x * SW_BN;
-  const int half = K / 2;
+  const int m0 = blockIdx.x * TL_BM;  // activation rows, fastest (row 1's
+  const int n0 = blockIdx.y * TL_BN;  // order)
+  int acc[2][64];
+  w4a4_mainloop<2, GROUPED_IN>(sm, xq, wp, M, NH, K, m0, n0, acc);
 
-  // global -> register loads of one step: 2 x 16 B of activations and
-  // 2 x 16 B of packed weights per thread
-  const int a_row[2] = {tid >> 2, 64 + (tid >> 2)};
-  const int a_seg = tid & 3;  // 0,1: low slice; 2,3: high slice
-  const int w_row[2] = {tid >> 1, 128 + (tid >> 1)};  // 0..255
-  const int w_seg = tid & 1;
-  uint4 ra[2], rw[2];
-  int rsum[2] = {0, 0};
-
-  auto load_step = [&](int c) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + a_row[i];
-      const int col = (a_seg < 2 ? c : half + c) + (a_seg & 1) * 16;
-      const size_t at =
-          GROUPED_IN ? ((col >> 7) * static_cast<size_t>(M) + m) * 128 +
-                           (col & 127)
-                     : static_cast<size_t>(m) * K + col;
-      ra[i] = m < M ? ldg16(xq + at) : make_uint4(0u, 0u, 0u, 0u);
-      const int r = w_row[i];
-      const size_t n = (r < 128 ? 0 : NH) + n0 + (r & 127);
-      rw[i] = ldg16(wp + n * half + c + w_seg * 16);
-    }
+  // acc[mat][4i + e]: channel c = 64 wg + 16 wi + g8 (+ 8 for e >= 2) of
+  // the block's 128, activation row t = 8i + 2 tq + (e & 1); / 16 exactly
+  auto act = [&](int i, int e, int m) {
+    const int n = n0 + wg * 64 + wi * 16 + g8 + (e >> 1) * 8;
+    const float xsc = sx[m];
+    const float u = __fmul_rn(
+        __fmul_rn(static_cast<float>(acc[0][4 * i + e] >> 4), xsc), sw[n]);
+    const float g = __fmul_rn(
+        __fmul_rn(static_cast<float>(acc[1][4 * i + e] >> 4), xsc),
+        sw[NH + n]);
+    const float sig = 1.0f / __fadd_rn(1.0f, expf(-g));
+    return __fmul_rn(u, __fmul_rn(g, sig));
   };
-  auto store_step = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      uint8_t* a = (a_seg < 2 ? a_lo : a_hi) + a_row[i] * SW_LD +
-                   (a_seg & 1) * 16;
-      *reinterpret_cast<uint4*>(a) = ra[i];
-      rsum[i] = sum16(ra[i], rsum[i]);
-      const unsigned msk = 0x0F0F0F0Fu;
-      const uint4 v = rw[i];
-      const uint4 lo = make_uint4(v.x & msk, v.y & msk, v.z & msk,
-                                  v.w & msk);
-      const uint4 hi = make_uint4((v.x >> 4) & msk, (v.y >> 4) & msk,
-                                  (v.z >> 4) & msk, (v.w >> 4) & msk);
-      const int r = w_row[i];
-      // tiles: 2 up lo, 3 up hi, 4 gate lo, 5 gate hi
-      uint8_t* wlo = sm + (r < 128 ? 2 : 4) * SW_TILE +
-                     (r & 127) * SW_LD + w_seg * 16;
-      *reinterpret_cast<uint4*>(wlo) = lo;
-      *reinterpret_cast<uint4*>(wlo + SW_TILE) = hi;
-    }
-  };
-
-  int acc[2][16][4];
-#pragma unroll
-  for (int mat = 0; mat < 2; ++mat)
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mat][nt][e] = 0;
-
-  load_step(0);
-  for (int c = 0; c < half; c += SW_KP) {
-    store_step();
-    __syncthreads();
-    if (c + SW_KP < half) load_step(c + SW_KP);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // low nibble plane, then high
-      const uint8_t* at = (h == 0 ? a_lo : a_hi) + (warp * 16) * SW_LD;
-      unsigned af[4];
-      af[0] = *reinterpret_cast<const unsigned*>(at + g8 * SW_LD + tq * 4);
-      af[1] = *reinterpret_cast<const unsigned*>(at + (g8 + 8) * SW_LD +
-                                                 tq * 4);
-      af[2] = *reinterpret_cast<const unsigned*>(at + g8 * SW_LD + 16 +
-                                                 tq * 4);
-      af[3] = *reinterpret_cast<const unsigned*>(at + (g8 + 8) * SW_LD +
-                                                 16 + tq * 4);
-#pragma unroll
-      for (int mat = 0; mat < 2; ++mat) {
-        const uint8_t* wt = sm + (2 + 2 * mat + h) * SW_TILE;
-#pragma unroll
-        for (int nt = 0; nt < 16; ++nt) {
-          const uint8_t* wr = wt + (nt * 8 + g8) * SW_LD + tq * 4;
-          const unsigned b0 = *reinterpret_cast<const unsigned*>(wr);
-          const unsigned b1 = *reinterpret_cast<const unsigned*>(wr + 16);
-          mma_s8(acc[mat][nt], af, b0, b1);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // row sums of the activation codes: the 4 threads of a row are
-  // neighbouring lanes
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int s = rsum[i];
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (a_seg == 0) rowsum[a_row[i]] = s;
-  }
-  if constexpr (RIGHT) {
-    for (int i = tid; i < 128 * 128 / 4; i += SW_THREADS)
-      reinterpret_cast<float4*>(rs_f)[i] =
-          reinterpret_cast<const float4*>(right)[i];
-  }
-  __syncthreads();
 
   if constexpr (!RIGHT) {
-    // dequant + SwiGLU, straight to y
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
+    for (int i = 0; i < 16; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = warp * 16 + g8 + (e >= 2 ? 8 : 0);
-        const int m = m0 + r;
-        if (m < M) {
-          const int n = n0 + nt * 8 + tq * 2 + (e & 1);
-          const int bias = 8 * rowsum[r];
-          const float xsc = sx[m];
-          const float u = __fmul_rn(
-              __fmul_rn(static_cast<float>(acc[0][nt][e] - bias), xsc), sw[n]);
-          const float g = __fmul_rn(
-              __fmul_rn(static_cast<float>(acc[1][nt][e] - bias), xsc),
-              sw[NH + n]);
-          const float sig = 1.0f / __fadd_rn(1.0f, expf(-g));
-          y[static_cast<size_t>(m) * NH + n] =
-              to_out<OutT>(__fmul_rn(u, __fmul_rn(g, sig)));
-        }
+        const int m = m0 + i * 8 + tq * 2 + (e & 1);
+        const int n = n0 + wg * 64 + wi * 16 + g8 + (e >> 1) * 8;
+        if (m < M)
+          y[static_cast<size_t>(m) * NH + n] = to_out<OutT>(act(i, e, m));
       }
     }
   } else {
-    // dequant + SwiGLU, into the transposed activation tile
+    __syncthreads();  // every warp is done with the ring
+    // act[t][d] at half d / 64, row t, 16-byte chunk (d % 64) / 8 swizzled
+    // with t % 8; rows past M hold the clamped row's values, not stored
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
+    for (int i = 0; i < 16; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = warp * 16 + g8 + (e >= 2 ? 8 : 0);
-        const int col = nt * 8 + tq * 2 + (e & 1);
-        const int m = min(m0 + r, M - 1);
-        const int n = n0 + col;
-        const int bias = 8 * rowsum[r];
-        const float xsc = sx[m];
-        const float u = __fmul_rn(
-            __fmul_rn(static_cast<float>(acc[0][nt][e] - bias), xsc), sw[n]);
-        const float g = __fmul_rn(
-            __fmul_rn(static_cast<float>(acc[1][nt][e] - bias), xsc),
-            sw[NH + n]);
-        const float sig = 1.0f / __fadd_rn(1.0f, expf(-g));
-        actT[col * SW_ACT_LD + r] =
-            __float2bfloat16_rn(__fmul_rn(u, __fmul_rn(g, sig)));
+        const int t = i * 8 + tq * 2 + (e & 1);
+        const int d = wi * 16 + g8 + (e >> 1) * 8;  // in half wg
+        *reinterpret_cast<bf16*>(sm + wg * (TL_BM * 128) + t * 128 +
+                                 (((d >> 3) ^ (t & 7)) << 4) + (d & 7) * 2) =
+            __float2bfloat16_rn(act(i, e, min(m0 + t, M - 1)));
       }
+    }
+    // A: R^T's rows c = 64 wg + 16 wi + g8 (+ 8), k-step s over d = 16s +
+    // 2tq (+1) and 16s + 8 + 2tq (+1), as bf16 pairs (exact: bf16 values)
+    const int c = wg * 64 + wi * 16 + g8;
+    unsigned ra[8][4];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const float* r0 = right + (16 * s + 2 * tq) * 128 + c;
+      ra[s][0] = pack_bf16(__ldg(r0), __ldg(r0 + 128));
+      ra[s][1] = pack_bf16(__ldg(r0 + 8), __ldg(r0 + 128 + 8));
+      ra[s][2] = pack_bf16(__ldg(r0 + 8 * 128), __ldg(r0 + 9 * 128));
+      ra[s][3] = pack_bf16(__ldg(r0 + 8 * 128 + 8), __ldg(r0 + 9 * 128 + 8));
+    }
+    fence_proxy_async();  // the act stores, visible to the wgmmas
+    __syncthreads();
+    float out[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) out[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+      Wgmma<128>::mma(out, ra[s],
+                      sw128_desc(sm + (s >> 2) * (TL_BM * 128) + (s & 3) * 32),
+                      s > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_f32<64>(out);
+    __syncthreads();  // every warpgroup is done reading act
+    // out[4i + e]: output channel c (+ 8 for e >= 2), activation row 8i +
+    // 2tq + (e & 1) -> the tile [128 rows][SW_OUT_LD] bf16
+    bf16* o = reinterpret_cast<bf16*>(sm);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int t = (i >> 2) * 8 + tq * 2 + (i & 1);
+      o[t * SW_OUT_LD + c + ((i >> 1) & 1) * 8] =
+          __float2bfloat16_rn(out[i]);
     }
     __syncthreads();
-
-    // right product: thread -> rows [8 * (tid >> 4), +8) x cols
-    // [8 * (tid & 15), +8)
-    const int rb = (tid >> 4) * 8, cb = (tid & 15) * 8;
-    float out[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) out[i][j] = 0.f;
-    for (int d = 0; d < 128; ++d) {
-      const uint4 av = *reinterpret_cast<const uint4*>(actT + d * SW_ACT_LD +
-                                                       rb);
-      const bf16* ab = reinterpret_cast<const bf16*>(&av);
-      const float4 r0 = *reinterpret_cast<const float4*>(rs_f + d * 128 + cb);
-      const float4 r1 =
-          *reinterpret_cast<const float4*>(rs_f + d * 128 + cb + 4);
-      const float rv[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float a = __bfloat162float(ab[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) out[i][j] = fmaf(a, rv[j], out[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + rb + i;
+    for (int idx = tid; idx < TL_BM * 16; idx += TL_THREADS) {
+      const int t = idx >> 4, ch = idx & 15;
+      const int m = m0 + t;
       if (m < M) {
-        __align__(16) bf16 o[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16_rn(out[i][j]);
         const size_t at =
-            GROUPED_OUT ? ((n0 >> 7) * static_cast<size_t>(M) + m) * 128 + cb
-                        : static_cast<size_t>(m) * NH + n0 + cb;
+            GROUPED_OUT ? ((n0 >> 7) * static_cast<size_t>(M) + m) * 128 +
+                              ch * 8
+                        : static_cast<size_t>(m) * NH + n0 + ch * 8;
         *reinterpret_cast<uint4*>(y + at) =
-            *reinterpret_cast<const uint4*>(o);
+            *reinterpret_cast<const uint4*>(o + t * SW_OUT_LD + ch * 8);
       }
     }
   }  // RIGHT
 }
 
-__global__ void __launch_bounds__(SW_THREADS, 1)
+__global__ void __launch_bounds__(TL_THREADS, 1)
 w4a4_matmul_i8_swiglu_right_kernel(const int8_t* __restrict__ xq,
                                    const uint8_t* __restrict__ wp,
                                    const float* __restrict__ sx,
@@ -615,7 +484,7 @@ w4a4_matmul_i8_swiglu_right_kernel(const int8_t* __restrict__ xq,
   swiglu_gemm<true, bf16>(xq, wp, sx, sw, right, y, M, NH, K);
 }
 
-__global__ void __launch_bounds__(SW_THREADS, 1)
+__global__ void __launch_bounds__(TL_THREADS, 1)
 w4a4_swiglu_grouped_kernel(const int8_t* __restrict__ xq,
                            const uint8_t* __restrict__ wp,
                            const float* __restrict__ sx,
@@ -625,7 +494,7 @@ w4a4_swiglu_grouped_kernel(const int8_t* __restrict__ xq,
   swiglu_gemm<true, bf16, false, true>(xq, wp, sx, sw, right, y, M, NH, K);
 }
 
-__global__ void __launch_bounds__(SW_THREADS, 1)
+__global__ void __launch_bounds__(TL_THREADS, 1)
 w4a4_swiglu_grouped_gx_kernel(const int8_t* __restrict__ xq,
                               const uint8_t* __restrict__ wp,
                               const float* __restrict__ sx,
@@ -636,7 +505,7 @@ w4a4_swiglu_grouped_gx_kernel(const int8_t* __restrict__ xq,
 }
 
 template <typename OutT>
-__global__ void __launch_bounds__(SW_THREADS, 1)
+__global__ void __launch_bounds__(TL_THREADS, 1)
 w4a4_matmul_i8_swiglu_kernel(const int8_t* __restrict__ xq,
                              const uint8_t* __restrict__ wp,
                              const float* __restrict__ sx,
@@ -702,8 +571,8 @@ int launch_swiglu_right(const void* xq, const void* wp, const void* sx,
   static int done[2] = {0, 0};
   cudaError_t err = allow_smem(kern, SW_SMEM, &done[x_grouped]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(NH / SW_BN, (M + SW_BM - 1) / SW_BM);
-  kern<<<grid, SW_THREADS, SW_SMEM, s>>>(
+  dim3 grid((M + TL_BM - 1) / TL_BM, NH / TL_BN);
+  kern<<<grid, TL_THREADS, SW_SMEM, s>>>(
       static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(wp),
       static_cast<const float*>(sx), static_cast<const float*>(sw),
       static_cast<const float*>(right), static_cast<bf16*>(y), M, NH, K);
@@ -782,7 +651,7 @@ extern "C" int fq_w4a4_matmul_i8_swiglu(const void* xq, const void* wp,
                                         void* y, int M, int NH, int K,
                                         int out_is_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(NH / SW_BN, (M + SW_BM - 1) / SW_BM);
+  dim3 grid((M + TL_BM - 1) / TL_BM, NH / TL_BN);
   auto x_ = static_cast<const int8_t*>(xq);
   auto w_ = static_cast<const uint8_t*>(wp);
   auto a_ = static_cast<const float*>(sx);
@@ -791,17 +660,17 @@ extern "C" int fq_w4a4_matmul_i8_swiglu(const void* xq, const void* wp,
   if (out_is_f32) {
     auto kern = w4a4_matmul_i8_swiglu_kernel<float>;
     static int done = 0;
-    err = allow_smem(kern, SW_SMEM_PLAIN, &done);
+    err = allow_smem(kern, SW_SMEM, &done);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, SW_THREADS, SW_SMEM_PLAIN, s>>>(
-        x_, w_, a_, b_, static_cast<float*>(y), M, NH, K);
+    kern<<<grid, TL_THREADS, SW_SMEM, s>>>(x_, w_, a_, b_,
+                                           static_cast<float*>(y), M, NH, K);
   } else {
     auto kern = w4a4_matmul_i8_swiglu_kernel<bf16>;
     static int done = 0;
-    err = allow_smem(kern, SW_SMEM_PLAIN, &done);
+    err = allow_smem(kern, SW_SMEM, &done);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, SW_THREADS, SW_SMEM_PLAIN, s>>>(
-        x_, w_, a_, b_, static_cast<bf16*>(y), M, NH, K);
+    kern<<<grid, TL_THREADS, SW_SMEM, s>>>(x_, w_, a_, b_,
+                                           static_cast<bf16*>(y), M, NH, K);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -72,93 +72,18 @@
 //   n128  M > 64 (prefill): 128 channels (two warpgroups) x 128 tokens, 3
 //         stages.
 
-#include <cuda.h>  // CUtensorMap and its encoder's types
 #include <cuda_bf16.h>
-#include <dlfcn.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int CHUNK = 128;  // k per scale chunk and per smem stage
-
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<8> {
-  // d[64 x 8] (+)= a[64 x 16] (registers) * b[16 x 8] (shared)
-  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
-                                             uint64_t desc, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  // d[64 x 64] (+)= a[64 x 16] (registers) * b[16 x 64] (shared)
-  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
-                                             uint64_t desc, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  // d[64 x 128] (+)= a[64 x 16] (registers) * b[16 x 128] (shared)
-  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
-                                             uint64_t desc, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-  }
-};
 
 // PTX prmt in its default mode: result byte i is byte (sel_i & 7) of (a,
 // 0), or, where sel_i & 8, that byte's sign bit replicated over 8 bits
@@ -192,66 +117,6 @@ __device__ __forceinline__ float to_out<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 to_out<bf16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// keep a register's reads and writes on their side of the wgmmas
-template <int N>
-__device__ __forceinline__ void fence_f32(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_u32(unsigned* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// ---- mbarriers and TMA ------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// wait for the phase of the given parity to complete; a transfer that
-// never lands traps (a launch failure) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned a = smem_u32(bar);
-  unsigned done, spins = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (!done && ++spins == (1u << 26)) __trap();
-  } while (!done);
-}
-// one box of a 3-d tensor map into shared memory, counted on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(smem_u32(bar))
-      : "memory");
 }
 
 template <int R, int BT, int STAGES>
@@ -410,47 +275,6 @@ cudaError_t allow_smem(Kern kernel, int bytes, int* done) {
   else
     cudaGetLastError();  // returned to the caller; no later launch sees it
   return err;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once in libcuda.so.1 (which the CUDA
-// runtime has already loaded), so this library links against nothing new
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// a 3-d [d2, d1, d0] tensor map (d0 innermost, contiguous) with boxes of
-// [1, b1, b0] and the 128-byte swizzle; false if the encoder refuses it
-bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
-                const void* base, long long d0, long long d1, long long d2,
-                long long stride2, int b0, int b1) {
-  EncodeTiled fn = encoder();
-  if (!fn) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
-                              static_cast<cuuint64_t>(d1),
-                              static_cast<cuuint64_t>(d2)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0 * esize),
-                                 static_cast<cuuint64_t>(stride2 * esize)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0),
-                             static_cast<cuuint32_t>(b1), 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int R, int BT, int STAGES, bool EXACT, typename OutT>

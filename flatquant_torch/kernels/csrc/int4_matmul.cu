@@ -50,32 +50,16 @@
 // is why it lost 21x to torch._int_mm there and now serves decode only.
 //
 // Tile body (fq_w4a4_matmul_i8_tile): a 128 x 128 output tile per block
-// on the tensor cores with wgmma.mma_async m64n128k32 s8 x s8 -> s32, two
-// warpgroups of 64 weight rows each. The weights are wgmma's A, from
-// registers; the activations are its B, from shared memory (both
-// operands K-major, as 8-bit wgmma wants them: x_q [M, K] and the weight
-// rows [N, K] already lie so). A stage holds 64 packed bytes of each of
-// the block's 128 weight rows (128 k: 64 of the low nibble plane, 64 of
-// the high) and the matching two 64-byte slices of its 128 activation
-// rows, at columns c and K/2 + c, as one 128-byte row with the 128-byte
-// swizzle (16-byte chunk j of row r at j ^ (r % 8)), so that one matrix
-// descriptor per 32-byte k-step addresses it. A ring of TL_STAGES stages
-// is filled by cp.async 16-byte copies, so the loads of stage k + 3 are
-// in flight while stage k's products run; each stage ends with its
-// wgmmas done (keeping one group in flight, or 256 weight rows a block,
-// measured slower). Each warp reads its 16 packed weight rows with
-// ldmatrix, in the A fragments' layout, and unpacks them in registers
-// into 16 * (nib - 8) as a signed byte: hi = (w & 0xF0) ^ 0x80, lo = ((w
-// << 4) & 0xF0) ^ 0x80 on each byte (3 operations per word, both
-// planes). So the int32 sum is 16 * acc exactly (|x| <= 128: exact for K
-// < 2^17), needs no row sum, and >> 4 gives acc. Weight reuse through
-// L2: blockIdx.x walks the M tiles, so all M tiles of one weight N tile
-// run together and the packed weight comes from HBM about once per call.
-// Edges: rows past M and N are zero-filled and not stored; a K/2 that is
-// not a multiple of 64 (K = 10944, or K % 64 == 32 with a last stage of
-// 16 bytes) zero-fills the activation chunks past K/2, so the weights'
-// filler meets zeros. What is left on the table (PERF.md): the epilogue
-// stores 2-byte outputs scattered along N, and no TMA, no warp
+// on the tensor cores, wgmma.mma_async m64n128k32 s8 x s8 -> s32 with the
+// unpacked weights as A from registers and the activation codes as B
+// from a 4-stage cp.async ring of 128-byte-swizzled tiles: the main loop
+// of csrc/w4a4_tile.cuh (shared with the swiglu GEMMs), whose note gives
+// the layout and the signed-code arithmetic (the int32 sum is 16 * acc
+// exactly: no row sum). Weight reuse through L2: blockIdx.x walks the M
+// tiles, so all M tiles of one weight N tile run together and the packed
+// weight comes from HBM about once per call. Rows past M and N are
+// zero-filled and not stored. What is left on the table (PERF.md): the
+// epilogue stores 2-byte outputs scattered along N, and no TMA, no warp
 // specialisation and no persistent grid yet.
 //
 // The crossover (int4_matmul.py TILE_MIN_M = 32) is the smallest M from
@@ -167,19 +151,29 @@
 // 2048) the bf16 operations, 2*M*N*K (829 GFLOP per llama-2-7b layer,
 // 0.84 ms at 989 TFLOP/s).
 //
-// Design: two kernels behind one entry point. M <= 8: a weight stream
-// like w4a4_matmul_i8's (four weight rows per warp, a lane per 16-byte
-// chunk), with the nibbles and the bf16 activations widened to float32
-// and summed with FMAs. M > 8: a 128 x 128 tile per block on the tensor
-// cores, mma.sync.m16n8k16 bf16 with float32 accumulators; each step
-// takes 32 packed bytes per weight row (64 k: 32 of the low nibble plane,
-// 32 of the high), converts the nibbles to bf16 once in shared memory
-// (exact: 0..15), and prefetches the next step's global loads into
-// registers (one shared stage). Each step's partial sums are promoted to
-// the running sums with an IEEE add (the tensor cores truncate). The row
-// sums of x are taken from the same loads, in float32. The sums run in
-// another order than the plain version's, so outputs agree to float32
-// rounding (bf16 outputs to one ulp), not bit for bit.
+// Design: bodies behind one wrapper; int4_matmul.py w4a8_body picks one
+// from M. Stream (fq_w4a8_matmul_stream, M <= 8): a weight stream like
+// w4a4_matmul_i8's (four weight rows per warp, a lane per 16-byte chunk),
+// with the nibbles and the bf16 activations widened to float32 and summed
+// with FMAs. Tile (fq_w4a8_matmul_tile, M > 8): row 16's shape (csrc/
+// fp8_matmul.cu) with nibbles for codes: 128 weight rows (two warpgroups,
+// wgmma's A, m64n128k16 bf16 with float32 sums) x 128 activation rows
+// (wgmma's N, B from shared memory) per block, on a TMA + mbarrier ring
+// of W8T_STAGES stages of 64 packed bytes a weight row (128 k); each
+// thread decodes its fragments' nibbles to bf16 in registers (two packed
+// bytes -> two bf16 pairs, one per plane: a byte permute, a mask, an OR
+// into the mantissa of 128.0 and a bf16x2 FMA that subtracts 128, exact),
+// so every weight byte of a stage is decoded once per block. The algebra
+// stays JAX's (0..15 nibbles, -8 * rowsum(x) in the epilogue): the float32
+// row sums of x are taken from the same tiles on the tensor cores (an
+// mma.sync against a column of ones, per stage, added with IEEE adds).
+// The tensor cores' own float32 sums truncate, so the partial sums start
+// from zero every W8T_PROMOTE stages and are added to the running sums
+// with an IEEE add. The sums run in another order than the plain
+// version's, so outputs agree to float32 rounding (bf16 outputs to one
+// ulp), bit for bit on integer-valued x. It replaced an mma.sync tile
+// (128 x 128 tiles, the nibbles widened to bf16 in one register-prefetched
+// shared stage), 2.4x slower at every M of phase 3g's sweep (PERF.md).
 
 #include <cuda_bf16.h>
 
@@ -187,6 +181,8 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tma.cuh"
+#include "w4a4_tile.cuh"
 
 namespace {
 
@@ -352,63 +348,6 @@ w4a4_matmul_i8_grouped_kernel(const int8_t* __restrict__ xq,
 // and the activations as B from 128-byte-swizzled shared tiles
 // ---------------------------------------------------------------------------
 
-constexpr int TL_BM = 128;       // activation rows per block: wgmma's N
-constexpr int TL_BN = 128;       // weight rows per block: 2 x m64
-constexpr int TL_BK = 64;        // packed bytes per weight row per stage
-constexpr int TL_STAGES = 4;     // cp.async ring depth
-constexpr int TL_THREADS = 256;  // 2 warpgroups
-constexpr int TL_X_STAGE = TL_BM * 128;  // rows of lo 64 | hi 64 bytes
-constexpr int TL_W_LD = TL_BK + 16;      // padded packed weight row
-constexpr int TL_W_STAGE = TL_BN * TL_W_LD;
-// + 1024: the swizzled tiles start at a multiple of 1024 bytes
-constexpr int TL_SMEM = TL_STAGES * (TL_X_STAGE + TL_W_STAGE) + 1024;
-
-// 16 * (nib - 8) as signed bytes from four packed bytes: the high nibbles
-// in place, the low ones shifted up; xor 0x80 maps the biased nibble v at
-// bits 4-7 to v - 8 in two's complement (tested on all 256 bytes in
-// tests/test_torch_w4a4_tile.py)
-__device__ __forceinline__ unsigned hi_codes16(unsigned w) {
-  return (w & 0xF0F0F0F0u) ^ 0x80808080u;
-}
-__device__ __forceinline__ unsigned lo_codes16(unsigned w) {
-  return ((w << 4) & 0xF0F0F0F0u) ^ 0x80808080u;
-}
-
-// keep the accumulators' reads and writes on their side of the wgmmas
-__device__ __forceinline__ void fence_regs(int* d) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// d[64 x 128] += a[64 x 32] (registers, s8) * b[32 x 128] (shared, s8)
-__device__ __forceinline__ void wgmma_s8_n128(int* d, const unsigned* a,
-                                              uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
 // The tile body; each __global__ below carries its wrapper's name (the
 // profiles group kernels by it). GROUPED (w4a4_matmul_i8_grouped): the
 // codes are [K / 128, M, 128]; a 16-byte chunk starts at a multiple of 16
@@ -424,103 +363,12 @@ __device__ __forceinline__ void w4a4_tile(const int8_t* __restrict__ xq,
                                           int K) {
   extern __shared__ __align__(16) uint8_t tl_raw[];
   uint8_t* x_s = tl_raw + ((1024 - (smem_u32(tl_raw) & 1023)) & 1023);
-  uint8_t* w_s = x_s + TL_STAGES * TL_X_STAGE;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wg = warp >> 2, wi = warp & 3;
   const int m0 = blockIdx.x * TL_BM;  // activation rows, fastest: one
   const int n0 = blockIdx.y * TL_BN;  // weight tile's blocks run together
-  const int half = K / 2;
-  const int nk = (half + TL_BK - 1) / TL_BK;
-
-  // stage kb: 16-byte chunks of the activation rows (4 of the low plane at
-  // packed column c, 4 of the high at K/2 + c; chunk ch of row r at
-  // ch ^ (r % 8), the 128-byte swizzle) and of the packed weight rows;
-  // chunks past M, N or K/2 are zero-filled
-  auto load_stage = [&](int kb, int slot) {
-    const int c0 = kb * TL_BK;
-    uint8_t* xs = x_s + slot * TL_X_STAGE;
-    uint8_t* ws = w_s + slot * TL_W_STAGE;
-#pragma unroll
-    for (int i = 0; i < TL_BM * 8 / TL_THREADS; ++i) {
-      const int idx = tid + i * TL_THREADS;
-      const int r = idx >> 3, ch = idx & 7;
-      const int cc = c0 + (ch & 3) * 16;
-      const int col = (ch >> 2) * half + cc;
-      const int m = m0 + r;
-      const bool ok = m < M && cc < half;
-      size_t at;
-      if constexpr (GROUPED)
-        at = ((static_cast<size_t>(col >> 7) * M) + m) * 128 + (col & 127);
-      else
-        at = static_cast<size_t>(m) * K + col;
-      cp_async16_zfill(xs + r * 128 + ((ch ^ (r & 7)) << 4),
-                       ok ? xq + at : xq, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < TL_BN * 4 / TL_THREADS; ++i) {
-      const int idx = tid + i * TL_THREADS;
-      const int r = idx >> 2, j = idx & 3;
-      const int cc = c0 + j * 16;
-      const int n = n0 + r;
-      const bool ok = n < N && cc < half;
-      cp_async16_zfill(ws + r * TL_W_LD + j * 16,
-                       ok ? wp + static_cast<size_t>(n) * half + cc : wp, ok);
-    }
-  };
-
-  int acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0;
-
-  // stage kb: wait for its copies, refill the slot stage kb - 1 used,
-  // unpack the warp's 16 weight rows (packed bytes 0-31 and 32-63, in the
-  // A fragments' layout) into a, and run the 4 k-steps of 32 (low plane
-  // c + [0, 64), then high plane K/2 + c + [0, 64)) to completion
-  auto step = [&](int kb, unsigned (&a)[4][4]) {
-    cp_async_wait<TL_STAGES - 2>();  // stage kb has landed
-    fence_proxy_async();             // ... visible to the wgmmas
-    __syncthreads();                 // ... for every thread
-    if (kb + TL_STAGES - 1 < nk)
-      load_stage(kb + TL_STAGES - 1, (kb + TL_STAGES - 1) % TL_STAGES);
-    cp_async_commit();  // an empty group at the tail keeps the count
-    const int slot = kb % TL_STAGES;
-    unsigned p[2][4];
-    const uint8_t* wr = w_s + slot * TL_W_STAGE +
-                        (wg * 64 + wi * 16 + (lane & 15)) * TL_W_LD +
-                        (lane >> 4) * 16;
-    ldmatrix_x4(p[0], wr);
-    ldmatrix_x4(p[1], wr + 32);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      a[0][r] = lo_codes16(p[0][r]);  // k = c + [0, 32)
-      a[1][r] = lo_codes16(p[1][r]);  // k = c + [32, 64)
-      a[2][r] = hi_codes16(p[0][r]);  // k = K/2 + c + [0, 32)
-      a[3][r] = hi_codes16(p[1][r]);  // k = K/2 + c + [32, 64)
-    }
-    const uint8_t* xs = x_s + slot * TL_X_STAGE;
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wgmma_s8_n128(acc, a[j], sw128_desc(xs + j * 32));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-  };
-
-#pragma unroll
-  for (int st = 0; st < TL_STAGES - 1; ++st) {
-    if (st < nk) load_stage(st, st);
-    cp_async_commit();
-  }
-  // two stages a turn on two A register sets: measured faster than one
-  // set and no unroll (phase 3a, PERF.md)
-  unsigned a0[4][4], a1[4][4];
-  for (int kb = 0; kb < nk; kb += 2) {
-    step(kb, a0);
-    if (kb + 1 < nk) step(kb + 1, a1);
-  }
-  cp_async_wait<0>();
+  int acc[1][64];
+  w4a4_mainloop<1, GROUPED>(x_s, xq, wp, M, N, K, m0, n0, acc);
 
   // acc[4i + e]: weight row 16 wi + g8 (+ 8 for e >= 2) of the
   // warpgroup's 64, activation row 8i + 2 tq + (e & 1); acc / 16 exactly,
@@ -534,7 +382,7 @@ __device__ __forceinline__ void w4a4_tile(const int8_t* __restrict__ xq,
       const int n = n0 + wg * 64 + wi * 16 + g8 + (e >> 1) * 8;
       const int m = m0 + i * 8 + tq * 2 + (e & 1);
       if (m < M && n < N) {
-        const float v = static_cast<float>(acc[4 * i + e] >> 4) *
+        const float v = static_cast<float>(acc[0][4 * i + e] >> 4) *
                         sx[SX_TILE ? m - m0 : m];
         y[static_cast<size_t>(m) * N + n] = to_out<OutT>(v * sw[n]);
       }
@@ -941,164 +789,251 @@ w4a8_matmul_stream_kernel(const bf16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// w4a8_matmul, prefill: 128 x 128 tiles on the tensor cores
+// w4a8_matmul, prefill: a wgmma bf16 tile on a TMA + mbarrier ring
 // ---------------------------------------------------------------------------
 
-constexpr int WM_BM = 128;
-constexpr int WM_BN = 128;
-constexpr int WM_THREADS = 256;
-constexpr int WM_KP = 32;  // packed bytes per weight row per step (64 k)
-constexpr int WM_LD = 72;  // padded shared row, bf16: 64 k + 8
+constexpr int W8T_R = 128;       // weight rows per block: 2 warpgroups x 64
+constexpr int W8T_BT = 128;      // activation rows per block: wgmma's N
+constexpr int W8T_KP = 64;       // packed bytes per weight row per stage
+constexpr int W8T_STAGES = 4;    // ring depth
+constexpr int W8T_PROMOTE = 4;   // stages summed on the tensor cores
+constexpr int W8T_THREADS = 256;
+constexpr int W8T_X_STAGE = 2 * W8T_BT * 128;  // low | high slice [BT][128 B]
+constexpr int W8T_W_STAGE = W8T_R * W8T_KP;    // [R][64 B], 64-byte swizzle
+// + 1024: the swizzled tiles start at a multiple of 1024 bytes; then a
+// full and an empty mbarrier per stage and the row sums
+constexpr int W8T_SMEM = W8T_STAGES * (W8T_X_STAGE + W8T_W_STAGE) + 1024 +
+                         W8T_STAGES * 16 + W8T_BT * 4;
 
-// two nibbles (0..15) as a bf16 pair, low half first (exact)
-__device__ __forceinline__ unsigned nib_pair(unsigned a, unsigned b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(a),
-                                                 static_cast<float>(b));
-  return *reinterpret_cast<const unsigned*>(&v);
+// Two packed bytes (bytes 0 and 1 of v: k and k + 1) -> the bf16 pair of
+// their nibbles of one plane (HI: the high nibbles), the lower k in the
+// low half: each nibble ORed into the mantissa of bf16 128.0 (0x4300, a
+// unit step there) and 128 subtracted with one bf16x2 FMA: exact for all
+// 16 values (tested on all 256 bytes in tests/test_torch_w4a8_tile.py)
+template <bool HI>
+__device__ __forceinline__ unsigned nib2_bf16(unsigned v) {
+  unsigned t = __byte_perm(v, 0u, 0x4140);  // byte 0 | byte 1 << 16
+  if (HI) t >>= 4;
+  t = (t & 0x000F000Fu) | 0x43004300u;
+  unsigned r;  // t * 1 + (-128)
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(r)
+      : "r"(t), "r"(0x3F803F80u), "r"(0xC300C300u));
+  return r;
 }
 
-// Block tile: 128 activation rows x 128 weight rows. Warp w computes rows
-// [16w, 16w + 16) against all 128 weight rows (16 n-tiles of 8). Shared
-// k slot s of a step maps to k = c + s (s < 32, low plane) and k = K/2 + c
-// + s - 32 (high plane), the same for x and for the weights. Rows are
-// padded to 72 bf16 (36 words), so the fragment loads (8 rows x 4 words)
-// hit 32 distinct banks.
-template <typename OutT>
-__global__ void __launch_bounds__(WM_THREADS)
-w4a8_matmul_mma_kernel(const bf16* __restrict__ x,
-                       const uint8_t* __restrict__ wp,
-                       const float* __restrict__ sx,
-                       const float* __restrict__ sw, OutT* __restrict__ y,
-                       int M, int N, int K) {
-  __shared__ __align__(16) bf16 a_s[WM_BM * WM_LD];
-  __shared__ __align__(16) bf16 b_s[WM_BN * WM_LD];
-  __shared__ float rowsum_s[WM_BM];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g8 = lane >> 2, tq = lane & 3;
-  const int m0 = blockIdx.y * WM_BM;
-  const int n0 = blockIdx.x * WM_BN;
-  const int half = K / 2;
-
-  // per step: x is 128 rows x 8 16-byte segments (4 low plane, 4 high),
-  // four per thread (rows tid/8 + 32j, segment tid % 8); the weights are
-  // 128 rows x 2 segments, one per thread
-  const int xseg = tid & 7, xrow = tid >> 3;
-  const int wrow = tid >> 1, wseg = tid & 1;
-  uint4 rx[4], rw;
-  float rsum[4] = {0.f, 0.f, 0.f, 0.f};
-
-  auto load_step = [&](int c) {
+// the A fragments of the 4 k-steps of one plane of a stage: rows row and
+// row + 8 at packed bytes 16s + 2tq (+1) and 16s + 8 + 2tq (+1); wr points
+// at byte 2tq of row `row`; 16-byte chunk s of a 64-byte row r lies at
+// s ^ ((r >> 1) & 3) (the 64-byte swizzle; rows row and row + 8 share it)
+template <bool HI>
+__device__ __forceinline__ void w8t_decode(const uint8_t* wr, int wsw,
+                                           unsigned (&a)[4][4]) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + xrow + 32 * j;
-      const int col = (xseg < 4 ? c : half + c) + (xseg & 3) * 8;
-      rx[j] = m < M ? ldg16(x + static_cast<size_t>(m) * K + col)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-    const int n = n0 + wrow;
-    rw = n < N ? ldg16(wp + static_cast<size_t>(n) * half + c + wseg * 16)
-               : make_uint4(0u, 0u, 0u, 0u);
-  };
-  auto store_step = [&]() {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int slot = (xseg < 4 ? 0 : 32) + (xseg & 3) * 8;
-      *reinterpret_cast<uint4*>(a_s + (xrow + 32 * j) * WM_LD + slot) = rx[j];
-      float f[8];
-      widen16<bf16>(rx[j], f);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) rsum[j] += f[e];
-    }
-    const unsigned v[4] = {rw.x, rw.y, rw.z, rw.w};
-    unsigned lo[8], hi[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const unsigned u = v[i];
-      lo[2 * i] = nib_pair(u & 0xFu, (u >> 8) & 0xFu);
-      lo[2 * i + 1] = nib_pair((u >> 16) & 0xFu, (u >> 24) & 0xFu);
-      hi[2 * i] = nib_pair((u >> 4) & 0xFu, (u >> 12) & 0xFu);
-      hi[2 * i + 1] = nib_pair((u >> 20) & 0xFu, (u >> 28) & 0xFu);
-    }
-    bf16* br = b_s + wrow * WM_LD + wseg * 16;
-    *reinterpret_cast<uint4*>(br) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    *reinterpret_cast<uint4*>(br + 8) = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-    *reinterpret_cast<uint4*>(br + 32) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(br + 40) = make_uint4(hi[4], hi[5], hi[6], hi[7]);
-  };
-
-  float acc[16][4];
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  load_step(0);
-  for (int c = 0; c < half; c += WM_KP) {
-    store_step();
-    __syncthreads();
-    if (c + WM_KP < half) load_step(c + WM_KP);
-    // the step's 64-k partial sums start from zero on the tensor cores and
-    // are added to acc on the CUDA cores (IEEE round to nearest): the
-    // tensor cores' float32 accumulation truncates, and chained over all
-    // of K that bias reaches ~2e-5 of a row's largest output at K = 11008
-    // (acc carries 7.5 * rowsum(x) besides the output)
-    float part[16][4];
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
-    const bf16* at = a_s + (warp * 16) * WM_LD;
-#pragma unroll
-    for (int kk = 0; kk < 2 * WM_KP; kk += 16) {
-      unsigned af[4];
-      af[0] = *reinterpret_cast<const unsigned*>(at + g8 * WM_LD + kk + tq * 2);
-      af[1] = *reinterpret_cast<const unsigned*>(at + (g8 + 8) * WM_LD + kk +
-                                                 tq * 2);
-      af[2] = *reinterpret_cast<const unsigned*>(at + g8 * WM_LD + kk + 8 +
-                                                 tq * 2);
-      af[3] = *reinterpret_cast<const unsigned*>(at + (g8 + 8) * WM_LD + kk +
-                                                 8 + tq * 2);
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        const bf16* bt = b_s + (nt * 8 + g8) * WM_LD + kk + tq * 2;
-        const unsigned b0 = *reinterpret_cast<const unsigned*>(bt);
-        const unsigned b1 = *reinterpret_cast<const unsigned*>(bt + 8);
-        mma_bf16(part[nt], af, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[nt][e] = __fadd_rn(acc[nt][e], part[nt][e]);
-    __syncthreads();
+  for (int s = 0; s < 4; ++s) {
+    const uint8_t* p = wr + ((s ^ wsw) << 4);
+    a[s][0] = nib2_bf16<HI>(*reinterpret_cast<const unsigned short*>(p));
+    a[s][1] = nib2_bf16<HI>(
+        *reinterpret_cast<const unsigned short*>(p + 8 * W8T_KP));
+    a[s][2] = nib2_bf16<HI>(*reinterpret_cast<const unsigned short*>(p + 8));
+    a[s][3] = nib2_bf16<HI>(
+        *reinterpret_cast<const unsigned short*>(p + 8 * W8T_KP + 8));
   }
+}
 
-  // row sums: the 8 threads of a row are neighbouring lanes
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float s = rsum[j];
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    s += __shfl_xor_sync(0xffffffffu, s, 4);
-    if (xseg == 0) rowsum_s[xrow + 32 * j] = s;
+// The body: W8T_R weight rows x W8T_BT activation rows per block
+// (blockIdx.x the activation tiles, fastest: one weight tile's blocks run
+// together and the packed weight comes from HBM about once). xmap: x as
+// [1, M, K] bf16, boxes of 64 k x BT rows, 128-byte swizzle; wmap: the
+// packed weight [1, N, K/2], boxes of 64 bytes x R rows, 64-byte swizzle.
+// Stage c holds packed bytes [64c, 64c + 64) of the block's weight rows
+// and the x columns they meet: [64c, +64) (low plane) and K/2 + [64c, +64)
+// (high plane). The weights are wgmma's A (m64n128k16 bf16, float32 sums),
+// decoded in registers from the nibbles; the activations its B. Each
+// slice's 4 k-steps are one wgmma group, and a group stays in flight
+// across the stage boundary: a warp gives a slot back (its empty barrier)
+// one group later, once the group that read it is done.
+template <typename OutT>
+__global__ void __launch_bounds__(W8T_THREADS)
+w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap wmap,
+                        const float* __restrict__ sx,
+                        const float* __restrict__ sw, OutT* __restrict__ y,
+                        int M, int N, int K) {
+  extern __shared__ __align__(16) uint8_t w8t_raw[];
+  uint8_t* x_s = w8t_raw + ((1024 - (smem_u32(w8t_raw) & 1023)) & 1023);
+  uint8_t* w_s = x_s + W8T_STAGES * W8T_X_STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(w_s + W8T_STAGES * W8T_W_STAGE);
+  uint64_t* empty = full + W8T_STAGES;
+  float* rs = reinterpret_cast<float*>(empty + W8T_STAGES);  // [BT]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.x * W8T_BT;
+  const int n0 = blockIdx.y * W8T_R;
+  const int half = K / 2;
+  const int nc = (half + W8T_KP - 1) / W8T_KP;
+  // this thread's two accumulator rows (weight rows) in the block
+  const int row = warp * 16 + g8;
+  const int na = n0 + row, nb = na + 8;
+  const int wsw = (row >> 1) & 3;
+  const uint8_t* w_row = w_s + row * W8T_KP + 2 * tq;
+
+  if (tid == 0) {
+    for (int st = 0; st < W8T_STAGES; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, W8T_THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
+  // stage c into its slot (thread 0): x's low and high slice, the codes;
+  // past M, N, K/2 (the weight) or K (x) TMA writes zeros
+  auto load_stage = [&](int c) {
+    const int slot = c % W8T_STAGES;
+    uint8_t* xs = x_s + slot * W8T_X_STAGE;
+    mbar_expect_tx(full + slot, W8T_X_STAGE + W8T_W_STAGE);
+    tma_load(xs, &xmap, c * W8T_KP, m0, 0, full + slot);
+    tma_load(xs + W8T_BT * 128, &xmap, half + c * W8T_KP, m0, 0, full + slot);
+    tma_load(w_s + slot * W8T_W_STAGE, &wmap, c * W8T_KP, n0, 0, full + slot);
+  };
+
+  float acc[64], part[64];
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  unsigned a0[4][4], a1[4][4];
+
+  // the 4 k-steps of slice h of the stage in `slot` (A set a) as one
+  // group; the first k-step of a promotion group starts the partial sums
+  // from zero
+  auto mma_slice = [&](int slot, int h, unsigned (&a)[4][4], bool first) {
+    const uint8_t* xs = x_s + slot * W8T_X_STAGE + h * W8T_BT * 128;
+    wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = warp * 16 + g8 + (e >= 2 ? 8 : 0);
-      const int m = m0 + r;
-      const int n = n0 + nt * 8 + tq * 2 + (e & 1);
-      if (m < M && n < N) {
-        float v = __fsub_rn(acc[nt][e], __fmul_rn(8.f, rowsum_s[r]));
-        v = __fmul_rn(v, sx[m]);
-        v = __fmul_rn(v, sw[n]);
-        y[static_cast<size_t>(m) * N + n] = to_out<OutT>(v);
+    for (int s = 0; s < 4; ++s)
+      Wgmma<128>::mma(part, a[s], sw128_desc(xs + s * 32),
+                      !(first && s == 0));
+    wgmma_commit();
+  };
+
+  // the float32 row sums of x, on the tensor cores: warp w takes
+  // activation rows [16w, 16w + 16) of the stage's two slices as
+  // mma.m16n8k16's A (ldmatrix from the swizzled tiles: lane l gives row
+  // l % 16, 8-column chunk l / 16 of the k-step) against a column of ones;
+  // each stage's sums start from zero and are added to the running ones
+  // (rows 16w + g8 and + 8) with an IEEE add. In a last stage of 32
+  // packed bytes the low slice's upper half holds high-plane columns,
+  // which the sums skip.
+  float rsa = 0.f, rsb = 0.f;
+  const int rrow = warp * 16 + (lane & 15);
+  auto row_sums = [&](int slot, int c) {
+    const uint8_t* xr = x_s + slot * W8T_X_STAGE + rrow * 128;
+    const int lim = min(W8T_KP, half - c * W8T_KP);
+    float cs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (h == 1 || 16 * s < lim) {
+          unsigned fr[4];
+          ldmatrix_x4(fr, reinterpret_cast<const bf16*>(
+                              xr + h * W8T_BT * 128 +
+                              (((2 * s + (lane >> 4)) ^ (rrow & 7)) << 4)));
+          mma_bf16(cs, fr, 0x3F803F80u, 0x3F803F80u);
+        }
       }
+    }
+    rsa = __fadd_rn(rsa, cs[0]);
+    rsb = __fadd_rn(rsb, cs[2]);
+  };
+
+  // a warp is done with the slot of stage c: its reads before the refill
+  auto give_back = [&](int c) {
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + c % W8T_STAGES);
+  };
+
+  // stage c: its low slice's group (A set a0, decoded beforehand), then,
+  // once stage c - 1's high group is done, give that slot back, refill it
+  // with stage c + STAGES - 1 (thread 0) and decode and issue the high
+  // slice (a1); the row sums while both run; then, once the low group is
+  // done, decode stage c + 1's low slice into a0. first: stage c starts a
+  // promotion group (its first k-step starts the partial sums from zero)
+  auto stage = [&](int c, bool first) {
+    const int slot = c % W8T_STAGES;
+    mma_slice(slot, 0, a0, first);
+    if (c > 0) {
+      wgmma_wait<1>();  // stage c - 1's high slice is done: a1 is free
+      fence_u32<16>(&a1[0][0]);
+      give_back(c - 1);
+    }
+    if (tid == 0 && c + W8T_STAGES - 1 < nc) {
+      if (c > 0)
+        mbar_wait(empty + (c - 1) % W8T_STAGES, ((c - 1) / W8T_STAGES) & 1);
+      load_stage(c + W8T_STAGES - 1);
+    }
+    w8t_decode<true>(w_row + slot * W8T_W_STAGE, wsw, a1);
+    mma_slice(slot, 1, a1, false);
+    row_sums(slot, c);
+    if (c + 1 < nc) {
+      const int next = (c + 1) % W8T_STAGES;
+      mbar_wait(full + next, ((c + 1) / W8T_STAGES) & 1);
+      wgmma_wait<1>();  // the low slice is done: a0 is free
+      fence_u32<16>(&a0[0][0]);
+      w8t_decode<false>(w_row + next * W8T_W_STAGE, wsw, a0);
+    }
+  };
+  // the tensor cores' float32 sums truncate: every W8T_PROMOTE stages
+  // (W8T_PROMOTE * 128 k) the partial sums are added to acc with an IEEE
+  // add, as row 16's chunks are (chained over all of K the truncation
+  // biases acc by ~2e-5 of a row's largest output at K = 11008, beyond the
+  // "identity" tolerance)
+  auto fold = [&]() {
+    wgmma_wait<0>();
+    fence_f32<64>(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+  };
+
+  if (tid == 0)
+    for (int c = 0; c < W8T_STAGES - 1 && c < nc; ++c) load_stage(c);
+  mbar_wait(full, 0);
+  w8t_decode<false>(w_row, wsw, a0);
+  // a promotion group's stages unrolled, so no group is in flight across
+  // the loop's back edge (the compiler would wait there); a last group of
+  // fewer stages folds each
+  int c = 0;
+  for (; c + W8T_PROMOTE <= nc; c += W8T_PROMOTE) {
+#pragma unroll
+    for (int j = 0; j < W8T_PROMOTE; ++j) stage(c + j, j == 0);
+    fold();
+  }
+  for (; c < nc; ++c) {
+    stage(c, true);
+    fold();
+  }
+  // the A sets stay unmoved until the last wgmmas are done
+  fence_u32<16>(&a0[0][0]);
+  fence_u32<16>(&a1[0][0]);
+
+  if (tq == 0) {
+    rs[warp * 16 + g8] = rsa;
+    rs[warp * 16 + g8 + 8] = rsb;
+  }
+  __syncthreads();
+  // acc[4i + q]: weight row na (q < 2) or nb, activation row 8i + 2tq +
+  // (q & 1); the plain version's order: (acc - 8 * rowsum) * sx * sw
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int n = (i & 2) ? nb : na;
+    const int t = (i >> 2) * 8 + 2 * tq + (i & 1);
+    const int m = m0 + t;
+    if (m < M && n < N) {
+      float v = __fsub_rn(acc[i], __fmul_rn(8.f, rs[t]));
+      v = __fmul_rn(v, sx[m]);
+      v = __fmul_rn(v, sw[n]);
+      y[static_cast<size_t>(m) * N + n] = to_out<OutT>(v);
     }
   }
 }
@@ -1206,6 +1141,29 @@ int launch_w4a4_tile(const void* xq, const void* wp, const void* sx,
                                                   s)
              : launch_w4a4_tile_t<bf16, GROUPED>(xq, wp, sx, sw, y, M, N, K,
                                                  s);
+}
+
+template <typename OutT>
+int launch_w4a8_tile(const void* x, const void* wp, const void* sx,
+                     const void* sw, void* y, int M, int N, int K,
+                     cudaStream_t s) {
+  auto kern = &w4a8_matmul_tile_kernel<OutT>;
+  static int done = 0;
+  const cudaError_t err = allow_smem(kern, W8T_SMEM, &done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int half = K / 2;
+  CUtensorMap xmap, wmap;
+  if (!tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M, 1,
+                  static_cast<long long>(M) * K, W8T_KP, W8T_BT) ||
+      !tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wp, half, N, 1,
+                  static_cast<long long>(N) * half, W8T_KP, W8T_R,
+                  CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((M + W8T_BT - 1) / W8T_BT, (N + W8T_R - 1) / W8T_R);
+  kern<<<grid, W8T_THREADS, W8T_SMEM, s>>>(
+      xmap, wmap, static_cast<const float*>(sx),
+      static_cast<const float*>(sw), static_cast<OutT*>(y), M, N, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool GROUPED, typename T>
@@ -1332,36 +1290,38 @@ extern "C" int fq_w4a4_matmul_i8_fusedq_tile(
 }
 
 // x bf16 [M, K]; w_packed uint8 [N, K/2]; sx f32 [M]; sw f32 [N]; y [M, N]
-// bf16 (out_is_f32 = 0) or f32. K % 64 == 0 and 16-byte aligned rows are
-// the caller's contract (checked in Python).
-extern "C" int fq_w4a8_matmul(const void* x, const void* wp, const void* sx,
-                              const void* sw, void* y, int M, int N, int K,
-                              int out_is_f32, void* stream) {
+// bf16 (out_is_f32 = 0) or f32. K % 64 == 0, K > 0 and 16-byte aligned
+// rows are the caller's contract (checked in Python). One entry point per
+// body (int4_matmul.py w4a8_body picks one): _stream, the weight stream
+// (decode); _tile, the wgmma tile (prefill).
+extern "C" int fq_w4a8_matmul_stream(const void* x, const void* wp,
+                                     const void* sx, const void* sw, void* y,
+                                     int M, int N, int K, int out_is_f32,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto x_ = static_cast<const bf16*>(x);
   auto w = static_cast<const uint8_t*>(wp);
   auto a = static_cast<const float*>(sx);
   auto b = static_cast<const float*>(sw);
-  if (M <= W8_MAX_M) {
-    const int rows_per_block = W8_WARPS * W8_ROWS;
-    dim3 grid((N + rows_per_block - 1) / rows_per_block,
-              (M + W8_MT - 1) / W8_MT);
-    if (out_is_f32) {
-      w4a8_matmul_stream_kernel<float><<<grid, W8_WARPS * 32, 0, s>>>(
-          x_, w, a, b, static_cast<float*>(y), M, N, K);
-    } else {
-      w4a8_matmul_stream_kernel<bf16><<<grid, W8_WARPS * 32, 0, s>>>(
-          x_, w, a, b, static_cast<bf16*>(y), M, N, K);
-    }
-  } else {
-    dim3 grid((N + WM_BN - 1) / WM_BN, (M + WM_BM - 1) / WM_BM);
-    if (out_is_f32) {
-      w4a8_matmul_mma_kernel<float><<<grid, WM_THREADS, 0, s>>>(
-          x_, w, a, b, static_cast<float*>(y), M, N, K);
-    } else {
-      w4a8_matmul_mma_kernel<bf16><<<grid, WM_THREADS, 0, s>>>(
-          x_, w, a, b, static_cast<bf16*>(y), M, N, K);
-    }
-  }
+  const int rows_per_block = W8_WARPS * W8_ROWS;
+  dim3 grid((N + rows_per_block - 1) / rows_per_block,
+            (M + W8_MT - 1) / W8_MT);
+  if (out_is_f32)
+    w4a8_matmul_stream_kernel<float><<<grid, W8_WARPS * 32, 0, s>>>(
+        x_, w, a, b, static_cast<float*>(y), M, N, K);
+  else
+    w4a8_matmul_stream_kernel<bf16><<<grid, W8_WARPS * 32, 0, s>>>(
+        x_, w, a, b, static_cast<bf16*>(y), M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fq_w4a8_matmul_tile(const void* x, const void* wp,
+                                   const void* sx, const void* sw, void* y,
+                                   int M, int N, int K, int out_is_f32,
+                                   void* stream) {
+  return out_is_f32
+             ? launch_w4a8_tile<float>(x, wp, sx, sw, y, M, N, K,
+                                       static_cast<cudaStream_t>(stream))
+             : launch_w4a8_tile<bf16>(x, wp, sx, sw, y, M, N, K,
+                                      static_cast<cudaStream_t>(stream));
 }

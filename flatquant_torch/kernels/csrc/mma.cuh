@@ -1,9 +1,9 @@
 // Tensor-core and copy helpers shared by the flash attention kernels
 // (flash_prefill.cu, flash_prefill_i8.cu) and the GEMMs (int4_matmul.cu,
-// fp8_matmul.cu): cp.async staging, ldmatrix, mma.sync in bf16 and in s8,
-// the quad reductions over the four lanes that hold one accumulator row,
-// and the wgmma plumbing (fences, groups, the 128-byte-swizzle
-// descriptor).
+// fp8_matmul.cu, flat_pipeline.cu): cp.async staging, ldmatrix, mma.sync
+// in bf16 and in s8, the quad reductions over the four lanes that hold one
+// accumulator row, and the wgmma plumbing (fences, groups, the
+// 128-byte-swizzle descriptor, the bf16 products with A from registers).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -132,6 +132,94 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) |
          (1ull << 62);
+}
+
+// d[64 x N] (+)= a[64 x 16] (registers, bf16) * b[16 x N] (shared, bf16,
+// K-major), float32 sums; acc = 0 ignores d's old values (scale-d 0)
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  // d[64 x 8] (+)= a[64 x 16] (registers) * b[16 x 8] (shared)
+  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d[64 x 64] (+)= a[64 x 16] (registers) * b[16 x 64] (shared)
+  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d[64 x 128] (+)= a[64 x 16] (registers) * b[16 x 128] (shared)
+  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+// keep a register's reads and writes on their side of the wgmmas
+template <int N>
+__device__ __forceinline__ void fence_f32(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_u32(unsigned* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 }  // namespace

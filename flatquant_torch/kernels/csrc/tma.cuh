@@ -1,0 +1,108 @@
+// mbarriers and the Tensor Memory Accelerator, shared by the GEMMs that
+// take their operands by TMA (fp8_matmul.cu, int4_matmul.cu's w4a8 tile):
+// barrier init / arrive / bounded wait, a 3-d tensor copy counted on a
+// barrier, and the tensor maps, encoded on the host through
+// cuTensorMapEncodeTiled, looked up in libcuda.so.1 at run time so the
+// libraries link against nothing new.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its encoder's types
+#include <dlfcn.h>
+#include <stdint.h>
+
+#include "mma.cuh"
+
+namespace {
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// wait for the phase of the given parity to complete; a transfer that
+// never lands traps (a launch failure) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done, spins = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (!done && ++spins == (1u << 26)) __trap();
+  } while (!done);
+}
+// one box of a 3-d tensor map into shared memory, counted on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once in libcuda.so.1 (which the CUDA
+// runtime has already loaded)
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// a 3-d [d2, d1, d0] tensor map (d0 innermost, contiguous) with boxes of
+// [1, b1, b0] and the given swizzle; elements past the tensor's edges
+// land as zeros (and count as transferred bytes); false if the encoder
+// refuses it
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                       const void* base, long long d0, long long d1,
+                       long long d2, long long stride2, int b0, int b1,
+                       CUtensorMapSwizzle swizzle =
+                           CU_TENSOR_MAP_SWIZZLE_128B) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
+                              static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0 * esize),
+                                 static_cast<cuuint64_t>(stride2 * esize)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0),
+                             static_cast<cuuint32_t>(b1), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace

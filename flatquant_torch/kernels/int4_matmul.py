@@ -17,8 +17,11 @@ raises, and runs its plain version for CPU tensors):
                            plain: w4a8_matmul_ref
     quant_acts_i8          per-token symmetric quant   (csrc/int4_matmul.cu)
                            plain: quant_acts_i8_ref
-    w4a8_matmul            bf16 activations x int4     (csrc/int4_matmul.cu)
-                           weights, float32 sums
+    w4a8_matmul            bf16 activations x int4     (csrc/int4_matmul.cu;
+                           weights, float32 sums        two bodies, w4a8_body
+                                                        picks: a weight stream
+                                                        at decode, a wgmma
+                                                        tile at prefill)
                            plain: w4a8_matmul_rowsum_ref
     w4a4_matmul_i8_swiglu  merged up||gate W4A4 GEMM   (csrc/flat_pipeline.cu,
                            with u * silu(g) in its      row 6's main loop)
@@ -56,6 +59,18 @@ TILE_MAX_K = 1 << 17
 # few blocks to pull the weight.
 FUSEDQ_WIDE_MIN_M = 16
 FUSEDQ_WIDE_N = 5120
+# Row 14 (w4a8_matmul) streams the weight on the CUDA cores up to
+# W4A8_STREAM_MAX_M rows (decode) and takes its wgmma tile above
+# (prefill), or from W4A8_WIDE_MIN_M rows already for a weight of at least
+# W4A8_WIDE_N rows: chip_smoke.py phase 3g's sweep on an H100 measured
+# the tile faster at M = 8 and 16 for llama-2-7b's qkv and up||gate
+# (12288, 22016 rows; the stream at M = 4) and slower at M = 16 for its o
+# and down (4096 rows: 32 weight tiles are too few blocks).
+W4A8_STREAM_MAX_M = 16
+W4A8_WIDE_MIN_M = 8
+W4A8_WIDE_N = 12288
+# row 14's device bodies, each an entry point fq_w4a8_matmul_<body>
+W4A8_BODIES = ("stream", "tile")
 _QA = "quant_acts_i8"
 _W4A8 = "w4a8_matmul"
 _SWI = "w4a4_matmul_i8_swiglu"
@@ -232,14 +247,39 @@ def w4a8_matmul_rowsum_ref(x, x_scale, w_packed, w_scale,
     return out.to(out_dtype)
 
 
+def w4a8_body(m: int, n: int) -> str:
+    """The device body of w4a8_matmul for an [M, K] x [N, K]^T product:
+    "tile" (the wgmma bf16 tile) above W4A8_STREAM_MAX_M rows, or from
+    W4A8_WIDE_MIN_M rows for N >= W4A8_WIDE_N; else "stream" (the weight
+    stream, float32 FMAs on the CUDA cores, the decode body)."""
+    wide = m >= W4A8_WIDE_MIN_M and n >= W4A8_WIDE_N
+    return "tile" if m > W4A8_STREAM_MAX_M or wide else "stream"
+
+
+def launch_w4a8(x, x_scale, w_packed, w_scale, out_dtype, m, n, k):
+    """Launch the body that w4a8_body picks on checked, contiguous CUDA
+    tensors; raise if the launch fails (no other body is tried). Counted
+    under LAUNCHES and, by body, BODY_LAUNCHES."""
+    body = w4a8_body(m, n)
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    rc = getattr(common.lib("int4_matmul"), f"fq_w4a8_matmul_{body}")(
+        x.data_ptr(), w_packed.data_ptr(), x_scale.data_ptr(),
+        w_scale.data_ptr(), y.data_ptr(), m, n, k,
+        int(out_dtype == torch.float32), common.stream_ptr(x))
+    common.check("int4_matmul", _W4A8, rc)
+    common.LAUNCHES[_W4A8] += 1
+    common.BODY_LAUNCHES[_W4A8][body] += 1
+    return y
+
+
 def w4a8_matmul(x, x_scale, w_packed, w_scale, out_dtype=torch.bfloat16):
     """y[M, N] = (x @ nib^T - 8 * rowsum(x)) * x_scale * w_scale.
 
     x bf16 activations [M, K] (any values, not codes); x_scale f32 [M, 1]
     (ones for weight-only serving); w_packed uint8 [N, K/2] planar;
-    w_scale f32 [N]. Output bf16 or f32. CUDA tensors launch the kernel
-    (a weight stream for M <= 8, tensor-core tiles above; K % 64 == 0) or
-    raise; CPU tensors run w4a8_matmul_rowsum_ref."""
+    w_scale f32 [N]. Output bf16 or f32. CUDA tensors launch the body
+    w4a8_body picks (K % 64 == 0) or raise; CPU tensors run
+    w4a8_matmul_rowsum_ref."""
     if x.device.type == "cpu":
         return w4a8_matmul_rowsum_ref(x, x_scale, w_packed, w_scale,
                                       out_dtype)
@@ -254,20 +294,14 @@ def w4a8_matmul(x, x_scale, w_packed, w_scale, out_dtype=torch.bfloat16):
         and w_scale.numel() == n, _W4A8,
         f"shapes x {tuple(x.shape)}, w_packed {tuple(w_packed.shape)}, "
         f"x_scale {tuple(x_scale.shape)}, w_scale {tuple(w_scale.shape)}")
-    req(k % 64 == 0, _W4A8, f"K={k} must be a multiple of 64")
+    req(k % 64 == 0 and k > 0, _W4A8, f"K={k} must be a positive multiple "
+        "of 64")
     _out_dtype(_W4A8, out_dtype)
     x, w_packed = x.contiguous(), w_packed.contiguous()
     x_scale, w_scale = x_scale.contiguous(), w_scale.contiguous()
     req(x.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0, _W4A8,
         "x and w_packed must be 16-byte aligned")
-    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    rc = common.lib("int4_matmul").fq_w4a8_matmul(
-        x.data_ptr(), w_packed.data_ptr(), x_scale.data_ptr(),
-        w_scale.data_ptr(), y.data_ptr(), m, n, k,
-        int(out_dtype == torch.float32), common.stream_ptr(x))
-    common.check("int4_matmul", _W4A8, rc)
-    common.LAUNCHES[_W4A8] += 1
-    return y
+    return launch_w4a8(x, x_scale, w_packed, w_scale, out_dtype, m, n, k)
 
 
 # ---------------------------------------------------------------------------

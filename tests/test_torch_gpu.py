@@ -193,7 +193,8 @@ def test_left_quant_i8_flat_matches_plain(cuda, mode, t, grp, clip):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("m,k,nh", [(200, 512, 384), (64, 4096, 256)])
+@pytest.mark.parametrize("m,k,nh", [(200, 512, 384), (64, 4096, 256),
+                                    (33, 2816, 128), (2048, 4096, 256)])
 def test_w4a4_matmul_i8_swiglu_right_matches_plain(cuda, mode, m, k, nh):
     g = torch.Generator(device=cuda).manual_seed(m)
     xq = torch.randint(-8, 8, (m, k), generator=g, device=cuda,
@@ -432,7 +433,7 @@ def test_quant_acts_i8_bit_exact(cuda, m, k, dtype, q_max, clip):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,nh", [(200, 512, 384), (300, 3584, 256),
-                                    (64, 896, 8448)])
+                                    (64, 896, 8448), (33, 2880, 384)])
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
 def test_w4a4_matmul_i8_swiglu_matches_plain(cuda, m, k, nh, out):
     g = torch.Generator(device=cuda).manual_seed(m + k)
@@ -453,12 +454,8 @@ def test_w4a4_matmul_i8_swiglu_matches_plain(cuda, m, k, nh, out):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 4, 8, 9, 300])
-@pytest.mark.parametrize("n,k", [(384, 512), (4096, 11008)])
-@pytest.mark.parametrize("acts", ["codes", "bf16 activations"])
-def test_w4a8_matmul_matches_plain(cuda, m, n, k, acts):
-    g = torch.Generator(device=cuda).manual_seed(m * n)
+def _w4a8_inputs(cuda, m, n, k, acts, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     if acts == "codes":
         x = torch.randint(-8, 8, (m, k), generator=g, device=cuda).to(
             torch.bfloat16)
@@ -469,16 +466,48 @@ def test_w4a8_matmul_matches_plain(cuda, m, n, k, acts):
     wp = torch.randint(0, 256, (n, k // 2), generator=g, device=cuda,
                        dtype=torch.uint8)
     sw = torch.rand((n,), generator=g, device=cuda) * 0.01 + 1e-4
+    return x, xs, wp, sw
+
+
+def _w4a8_held(got, want, acts, out):
+    if acts == "codes":  # integer sums: exact in any order
+        assert torch.equal(got, want), out
+    elif out == torch.float32:  # float32 sums in another order
+        scale = want.abs().amax(dim=-1, keepdim=True)
+        assert ((got - want).abs() <= 1e-5 * scale).all()
+    else:
+        compare_bf16(got, want, "identity", "w4a8_matmul")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("body", ["stream", "tile"])
+@pytest.mark.parametrize("m,n,k", [(9, 999, 2880), (33, 4096, 4096),
+                                   (200, 1000, 11008), (2048, 576, 2880)])
+@pytest.mark.parametrize("acts", ["codes", "bf16 activations"])
+def test_w4a8_matmul_bodies_match_plain(cuda, monkeypatch, body, m, n, k,
+                                        acts):
+    """Each body forced at ragged M and N, at K % 128 == 64 (a last stage
+    of 32 packed bytes in the tile), both output types; counted by body."""
+    x, xs, wp, sw = _w4a8_inputs(cuda, m, n, k, acts, m + n)
+    monkeypatch.setattr(tmm, "w4a8_body", lambda m_, n_: body)
+    for out in (torch.float32, torch.bfloat16):
+        before = common.BODY_LAUNCHES["w4a8_matmul"][body]
+        got = tmm.w4a8_matmul(x, xs, wp, sw, out)
+        assert common.BODY_LAUNCHES["w4a8_matmul"][body] == before + 1
+        _w4a8_held(got, tmm.w4a8_matmul_rowsum_ref(x, xs, wp, sw, out), acts,
+                   out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 33, 300])
+@pytest.mark.parametrize("n,k", [(384, 512), (4096, 11008)])
+@pytest.mark.parametrize("acts", ["codes", "bf16 activations"])
+def test_w4a8_matmul_matches_plain(cuda, m, n, k, acts):
+    x, xs, wp, sw = _w4a8_inputs(cuda, m, n, k, acts, m * n)
     for out in (torch.float32, torch.bfloat16):
         got = _launched("w4a8_matmul", tmm.w4a8_matmul, x, xs, wp, sw, out)
-        want = tmm.w4a8_matmul_rowsum_ref(x, xs, wp, sw, out)
-        if acts == "codes":  # integer sums: exact in any order
-            assert torch.equal(got, want), out
-        elif out == torch.float32:  # float32 sums in another order
-            scale = want.abs().amax(dim=-1, keepdim=True)
-            assert ((got - want).abs() <= 1e-5 * scale).all()
-        else:
-            compare_bf16(got, want, "identity", "w4a8_matmul")
+        _w4a8_held(got, tmm.w4a8_matmul_rowsum_ref(x, xs, wp, sw, out), acts,
+                   out)
 
 
 def _small_model(fq, seed=0):

@@ -99,6 +99,13 @@ def test_signed_code_formula_on_all_bytes(plane):
 def tile_emulation(xq, xs, wp, ws):
     """The tile body's int32 sums in its k-step order and its epilogue, in
     numpy: float32 [M, N] before the cast to the output type."""
+    acc = tile_sums(xq, wp)
+    return (acc.astype(np.float32) * xs) * ws.reshape(1, -1)
+
+
+def tile_sums(xq, wp):
+    """The tile body's int32 sums in its k-step order, / 16: sum_k x *
+    (nib - 8) as int32 [M, N]."""
     m, k = xq.shape
     n, half = wp.shape
     stages = -(-half // 64)
@@ -120,8 +127,7 @@ def tile_emulation(xq, xs, wp, ws):
             acc += hi_x[:, sl] @ hi_w[:, sl].T
             assert np.abs(acc).max() < 2 ** 31  # the int32 never wraps
     assert (acc % 16 == 0).all()
-    acc = (acc >> 4).astype(np.int32)
-    return (acc.astype(np.float32) * xs) * ws.reshape(1, -1)
+    return (acc >> 4).astype(np.int32)
 
 
 def _inputs(rng, m, n, k, case):
@@ -159,6 +165,48 @@ def test_tile_order_equals_plain_and_jax(rng, k, case, out):
                               jnp.dtype(out), interpret=True)
     np.testing.assert_array_equal(emu.float().numpy(),
                                   np.asarray(want, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the swiglu GEMMs (rows 6, 13, 22, 27) on the same tile
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,nh", [(24, 2880, 128), (40, 896, 256),
+                                    (16, 4096, 128)])
+def test_swiglu_tile_sums_equal_jax(rng, m, k, nh):
+    """The swiglu body runs the tile's main loop on the up rows [0, nh) and
+    the gate rows [nh, 2nh) of the merged weight: its signed-code int32
+    sums equal JAX's acc - 8 * rowsum (its kernels' integer algebra) for
+    both, and its float32 epilogue on them meets JAX's
+    w4a4_matmul_i8_swiglu (interpret mode) within
+    tests/test_torch_quant_modes.py's bound and the port's plain version
+    bit for bit."""
+    xq = rng.integers(-8, 8, (m, k)).astype(np.int8)
+    xq[0] = -8  # an extreme row
+    xs = rng.uniform(0.1, 1.0, (m, 1)).astype(np.float32)
+    wp = rng.integers(0, 256, (2 * nh, k // 2)).astype(np.uint8)
+    sw = rng.uniform(0.01, 0.1, (2 * nh,)).astype(np.float32)
+    nib = np.concatenate([wp & 0xF, wp >> 4], axis=1).astype(np.int64)
+    rowsum = xq.astype(np.int64).sum(axis=1, keepdims=True)
+    sums = {}
+    for mat, rows in (("up", slice(0, nh)), ("gate", slice(nh, 2 * nh))):
+        sums[mat] = tile_sums(xq, wp[rows])
+        jax_acc = np.asarray(jnp.matmul(
+            jnp.asarray(xq, jnp.int32), jnp.asarray(nib[rows].T, jnp.int32)))
+        np.testing.assert_array_equal(sums[mat], jax_acc - 8 * rowsum)
+    u = (sums["up"].astype(np.float32) * xs) * sw[:nh]
+    g = (sums["gate"].astype(np.float32) * xs) * sw[nh:]
+    t = torch.from_numpy
+    gt = t(g)
+    emu = (t(u) * (gt * (1.0 / (1.0 + torch.exp(-gt))))).numpy()
+    want = np.asarray(jmm.w4a4_matmul_i8_swiglu(
+        jnp.asarray(xq), jnp.asarray(xs), jnp.asarray(wp), jnp.asarray(sw),
+        out_dtype=jnp.float32, interpret=True))
+    np.testing.assert_allclose(emu, want, rtol=2e-6, atol=2e-6)
+    plain = tmm.w4a4_matmul_i8_swiglu_ref(t(xq), t(xs), t(wp), t(sw),
+                                          torch.float32)
+    np.testing.assert_array_equal(emu, plain.numpy())
 
 
 # ---------------------------------------------------------------------------
