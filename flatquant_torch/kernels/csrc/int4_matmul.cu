@@ -822,22 +822,27 @@ __device__ __forceinline__ unsigned nib2_bf16(unsigned v) {
   return r;
 }
 
-// the A fragments of the 4 k-steps of one plane of a stage: rows row and
-// row + 8 at packed bytes 16s + 2tq (+1) and 16s + 8 + 2tq (+1); wr points
-// at byte 2tq of row `row`; 16-byte chunk s of a 64-byte row r lies at
-// s ^ ((r >> 1) & 3) (the 64-byte swizzle; rows row and row + 8 share it)
-template <bool HI>
+// the A fragments of a stage's 8 k-steps, a[s] for the low plane's
+// k-step s and a[4 + s] for the high plane's: rows row and row + 8 at
+// packed bytes 16s + 2tq (+1) and 16s + 8 + 2tq (+1), one load for both
+// planes; wr points at byte 2tq of row `row`; 16-byte chunk s of a
+// 64-byte row r lies at s ^ ((r >> 1) & 3) (the 64-byte swizzle; rows row
+// and row + 8 share it)
 __device__ __forceinline__ void w8t_decode(const uint8_t* wr, int wsw,
-                                           unsigned (&a)[4][4]) {
+                                           unsigned (&a)[8][4]) {
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const uint8_t* p = wr + ((s ^ wsw) << 4);
-    a[s][0] = nib2_bf16<HI>(*reinterpret_cast<const unsigned short*>(p));
-    a[s][1] = nib2_bf16<HI>(
-        *reinterpret_cast<const unsigned short*>(p + 8 * W8T_KP));
-    a[s][2] = nib2_bf16<HI>(*reinterpret_cast<const unsigned short*>(p + 8));
-    a[s][3] = nib2_bf16<HI>(
-        *reinterpret_cast<const unsigned short*>(p + 8 * W8T_KP + 8));
+    const unsigned v[4] = {
+        *reinterpret_cast<const unsigned short*>(p),
+        *reinterpret_cast<const unsigned short*>(p + 8 * W8T_KP),
+        *reinterpret_cast<const unsigned short*>(p + 8),
+        *reinterpret_cast<const unsigned short*>(p + 8 * W8T_KP + 8)};
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      a[s][f] = nib2_bf16<false>(v[f]);
+      a[4 + s][f] = nib2_bf16<true>(v[f]);
+    }
   }
 }
 
@@ -849,10 +854,10 @@ __device__ __forceinline__ void w8t_decode(const uint8_t* wr, int wsw,
 // Stage c holds packed bytes [64c, 64c + 64) of the block's weight rows
 // and the x columns they meet: [64c, +64) (low plane) and K/2 + [64c, +64)
 // (high plane). The weights are wgmma's A (m64n128k16 bf16, float32 sums),
-// decoded in registers from the nibbles; the activations its B. Each
-// slice's 4 k-steps are one wgmma group, and a group stays in flight
-// across the stage boundary: a warp gives a slot back (its empty barrier)
-// one group later, once the group that read it is done.
+// decoded in registers from the nibbles; the activations its B. A
+// stage's 8 k-steps are one wgmma group, which runs while the next stage
+// is decoded into a second A register set; a warp gives a slot back (its
+// empty barrier) one group later, once the group that read it is done.
 template <typename OutT>
 __global__ void __launch_bounds__(W8T_THREADS)
 w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -901,17 +906,20 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
   float acc[64], part[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
-  unsigned a0[4][4], a1[4][4];
+  // two A register sets, a stage's 8 k-steps each: stage c's group reads
+  // set c % 2 while stage c + 1 is decoded into the other
+  unsigned a[2][8][4];
 
-  // the 4 k-steps of slice h of the stage in `slot` (A set a) as one
-  // group; the first k-step of a promotion group starts the partial sums
-  // from zero
-  auto mma_slice = [&](int slot, int h, unsigned (&a)[4][4], bool first) {
-    const uint8_t* xs = x_s + slot * W8T_X_STAGE + h * W8T_BT * 128;
+  // the 8 k-steps of the stage in `slot` (A set a_) as one group: the low
+  // slice's 4, then the high slice's; the first k-step of a promotion
+  // group starts the partial sums from zero
+  auto mma_stage = [&](int slot, unsigned (&a_)[8][4], bool first) {
+    const uint8_t* xs = x_s + slot * W8T_X_STAGE;
     wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
-      Wgmma<128>::mma(part, a[s], sw128_desc(xs + s * 32),
+    for (int s = 0; s < 8; ++s)
+      Wgmma<128>::mma(part, a_[s],
+                      sw128_desc(xs + (s >> 2) * W8T_BT * 128 + (s & 3) * 32),
                       !(first && s == 0));
     wgmma_commit();
   };
@@ -919,32 +927,32 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
   // the float32 row sums of x, on the tensor cores: warp w takes
   // activation rows [16w, 16w + 16) of the stage's two slices as
   // mma.m16n8k16's A (ldmatrix from the swizzled tiles: lane l gives row
-  // l % 16, 8-column chunk l / 16 of the k-step) against a column of ones;
-  // each stage's sums start from zero and are added to the running ones
-  // (rows 16w + g8 and + 8) with an IEEE add. In a last stage of 32
-  // packed bytes the low slice's upper half holds high-plane columns,
-  // which the sums skip.
+  // l % 16, 8-column chunk l / 16 of the k-step) against a column of ones,
+  // a slice a chain; each stage's sums start from zero and are added to
+  // the running ones (rows 16w + g8 and + 8) with IEEE adds. In a last
+  // stage of 32 packed bytes the low slice's upper half holds high-plane
+  // columns, which the sums skip.
   float rsa = 0.f, rsb = 0.f;
   const int rrow = warp * 16 + (lane & 15);
   auto row_sums = [&](int slot, int c) {
     const uint8_t* xr = x_s + slot * W8T_X_STAGE + rrow * 128;
     const int lim = min(W8T_KP, half - c * W8T_KP);
-    float cs[4] = {0.f, 0.f, 0.f, 0.f};
+    float cs[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int s = 0; s < 4; ++s) {
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
+      for (int h = 0; h < 2; ++h) {
         if (h == 1 || 16 * s < lim) {
           unsigned fr[4];
           ldmatrix_x4(fr, reinterpret_cast<const bf16*>(
                               xr + h * W8T_BT * 128 +
                               (((2 * s + (lane >> 4)) ^ (rrow & 7)) << 4)));
-          mma_bf16(cs, fr, 0x3F803F80u, 0x3F803F80u);
+          mma_bf16(cs[h], fr, 0x3F803F80u, 0x3F803F80u);
         }
       }
     }
-    rsa = __fadd_rn(rsa, cs[0]);
-    rsb = __fadd_rn(rsb, cs[2]);
+    rsa = __fadd_rn(rsa, __fadd_rn(cs[0][0], cs[1][0]));
+    rsb = __fadd_rn(rsb, __fadd_rn(cs[0][2], cs[1][2]));
   };
 
   // a warp is done with the slot of stage c: its reads before the refill
@@ -954,18 +962,17 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
     if (lane == 0) mbar_arrive(empty + c % W8T_STAGES);
   };
 
-  // stage c: its low slice's group (A set a0, decoded beforehand), then,
-  // once stage c - 1's high group is done, give that slot back, refill it
-  // with stage c + STAGES - 1 (thread 0) and decode and issue the high
-  // slice (a1); the row sums while both run; then, once the low group is
-  // done, decode stage c + 1's low slice into a0. first: stage c starts a
-  // promotion group (its first k-step starts the partial sums from zero)
-  auto stage = [&](int c, bool first) {
+  // stage c (its A in set `set`, decoded beforehand): issue its group;
+  // once stage c - 1's group is done, give that slot back and refill it
+  // with stage c + STAGES - 1 (thread 0); the row sums while the group
+  // runs; then decode stage c + 1 into the other set. first: stage c
+  // starts a promotion group
+  auto stage = [&](int c, int set, bool first) {
     const int slot = c % W8T_STAGES;
-    mma_slice(slot, 0, a0, first);
+    mma_stage(slot, a[set], first);
     if (c > 0) {
-      wgmma_wait<1>();  // stage c - 1's high slice is done: a1 is free
-      fence_u32<16>(&a1[0][0]);
+      wgmma_wait<1>();  // stage c - 1's group is done: its set is free
+      fence_u32<32>(&a[set ^ 1][0][0]);
       give_back(c - 1);
     }
     if (tid == 0 && c + W8T_STAGES - 1 < nc) {
@@ -973,15 +980,11 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
         mbar_wait(empty + (c - 1) % W8T_STAGES, ((c - 1) / W8T_STAGES) & 1);
       load_stage(c + W8T_STAGES - 1);
     }
-    w8t_decode<true>(w_row + slot * W8T_W_STAGE, wsw, a1);
-    mma_slice(slot, 1, a1, false);
     row_sums(slot, c);
     if (c + 1 < nc) {
       const int next = (c + 1) % W8T_STAGES;
       mbar_wait(full + next, ((c + 1) / W8T_STAGES) & 1);
-      wgmma_wait<1>();  // the low slice is done: a0 is free
-      fence_u32<16>(&a0[0][0]);
-      w8t_decode<false>(w_row + next * W8T_W_STAGE, wsw, a0);
+      w8t_decode(w_row + next * W8T_W_STAGE, wsw, a[set ^ 1]);
     }
   };
   // the tensor cores' float32 sums truncate: every W8T_PROMOTE stages
@@ -999,23 +1002,27 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
   if (tid == 0)
     for (int c = 0; c < W8T_STAGES - 1 && c < nc; ++c) load_stage(c);
   mbar_wait(full, 0);
-  w8t_decode<false>(w_row, wsw, a0);
-  // a promotion group's stages unrolled, so no group is in flight across
-  // the loop's back edge (the compiler would wait there); a last group of
+  w8t_decode(w_row, wsw, a[0]);
+  // a promotion group's stages unrolled (W8T_PROMOTE is even: stage c
+  // takes set c % 2 statically), so no group is in flight across the
+  // loop's back edge (the compiler would wait there); a last group of
   // fewer stages folds each
+  static_assert(W8T_PROMOTE % 2 == 0, "the A sets alternate by stage");
   int c = 0;
   for (; c + W8T_PROMOTE <= nc; c += W8T_PROMOTE) {
 #pragma unroll
-    for (int j = 0; j < W8T_PROMOTE; ++j) stage(c + j, j == 0);
+    for (int j = 0; j < W8T_PROMOTE; ++j) stage(c + j, j & 1, j == 0);
     fold();
   }
-  for (; c < nc; ++c) {
-    stage(c, true);
-    fold();
+#pragma unroll
+  for (int j = 0; j < W8T_PROMOTE - 1; ++j) {
+    if (c + j < nc) {
+      stage(c + j, j & 1, true);
+      fold();
+    }
   }
   // the A sets stay unmoved until the last wgmmas are done
-  fence_u32<16>(&a0[0][0]);
-  fence_u32<16>(&a1[0][0]);
+  fence_u32<64>(&a[0][0][0]);
 
   if (tq == 0) {
     rs[warp * 16 + g8] = rsa;

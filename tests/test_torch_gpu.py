@@ -480,7 +480,7 @@ def _w4a8_held(got, want, acts, out):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("body", ["stream", "tile"])
+@pytest.mark.parametrize("body", tmm.W4A8_BODIES)
 @pytest.mark.parametrize("m,n,k", [(9, 999, 2880), (33, 4096, 4096),
                                    (200, 1000, 11008), (2048, 576, 2880)])
 @pytest.mark.parametrize("acts", ["codes", "bf16 activations"])
