@@ -4827,7 +4827,7 @@ def main(argv=None) -> int:
                 "phase 6a/b: llama-2-7b 1 x 2048 prefill, int4 and bf16 "
                 "caches", run_long_prefill_path, torch, dev, model, results,
                 smi) or ({}, {})
-        del model
+        model = None  # freed; a later phase may test it
         gc.collect()
         torch.cuda.empty_cache()
         if want("6"):
@@ -4852,7 +4852,7 @@ def main(argv=None) -> int:
                 "phase 12: rows 22-27 at their flat twins' call sites on "
                 "llama-2-7b (1 x 2048 prefill)", run_grouped_paths, torch,
                 dev, model, results, smi) or {})
-        del model
+        model = None  # freed; a later phase may test it
         gc.collect()
         torch.cuda.empty_cache()
     serving = [("8", "qwen", "phase 8: Qwen-2.5-7B, balanced split, 1 x 2048 "

@@ -165,8 +165,8 @@
 // into the mantissa of 128.0 and a bf16x2 FMA that subtracts 128, exact),
 // so every weight byte of a stage is decoded once per block. The algebra
 // stays JAX's (0..15 nibbles, -8 * rowsum(x) in the epilogue): the float32
-// row sums of x are taken from the same tiles on the tensor cores (an
-// mma.sync against a column of ones, per stage, added with IEEE adds).
+// row sums of x come from the same wgmmas, whose last A row of a block is
+// all ones (so a block computes 127 weight rows).
 // The tensor cores' own float32 sums truncate, so the partial sums start
 // from zero every W8T_PROMOTE stages and are added to the running sums
 // with an IEEE add. The sums run in another order than the plain
@@ -792,7 +792,8 @@ w4a8_matmul_stream_kernel(const bf16* __restrict__ x,
 // w4a8_matmul, prefill: a wgmma bf16 tile on a TMA + mbarrier ring
 // ---------------------------------------------------------------------------
 
-constexpr int W8T_R = 128;       // weight rows per block: 2 warpgroups x 64
+constexpr int W8T_R = 128;       // A rows per block: 2 warpgroups x 64
+constexpr int W8T_ROWS_OUT = W8T_R - 1;  // weight rows; the last is ones
 constexpr int W8T_BT = 128;      // activation rows per block: wgmma's N
 constexpr int W8T_KP = 64;       // packed bytes per weight row per stage
 constexpr int W8T_STAGES = 4;    // ring depth
@@ -801,7 +802,7 @@ constexpr int W8T_THREADS = 256;
 constexpr int W8T_X_STAGE = 2 * W8T_BT * 128;  // low | high slice [BT][128 B]
 constexpr int W8T_W_STAGE = W8T_R * W8T_KP;    // [R][64 B], 64-byte swizzle
 // + 1024: the swizzled tiles start at a multiple of 1024 bytes; then a
-// full and an empty mbarrier per stage and the row sums
+// full and an empty mbarrier per stage and the row sums of x
 constexpr int W8T_SMEM = W8T_STAGES * (W8T_X_STAGE + W8T_W_STAGE) + 1024 +
                          W8T_STAGES * 16 + W8T_BT * 4;
 
@@ -846,11 +847,12 @@ __device__ __forceinline__ void w8t_decode(const uint8_t* wr, int wsw,
   }
 }
 
-// The body: W8T_R weight rows x W8T_BT activation rows per block
-// (blockIdx.x the activation tiles, fastest: one weight tile's blocks run
-// together and the packed weight comes from HBM about once). xmap: x as
-// [1, M, K] bf16, boxes of 64 k x BT rows, 128-byte swizzle; wmap: the
-// packed weight [1, N, K/2], boxes of 64 bytes x R rows, 64-byte swizzle.
+// The body: W8T_R A rows (W8T_ROWS_OUT weight rows and a row of ones) x
+// W8T_BT activation rows per block (blockIdx.x the activation tiles,
+// fastest: one weight tile's blocks run together and the packed weight
+// comes from HBM about once). xmap: x as [1, M, K] bf16, boxes of 64 k x
+// BT rows, 128-byte swizzle; wmap: the packed weight [1, N, K/2], boxes of
+// 64 bytes x R rows (the last one's bytes unused), 64-byte swizzle.
 // Stage c holds packed bytes [64c, 64c + 64) of the block's weight rows
 // and the x columns they meet: [64c, +64) (low plane) and K/2 + [64c, +64)
 // (high plane). The weights are wgmma's A (m64n128k16 bf16, float32 sums),
@@ -873,8 +875,11 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
   float* rs = reinterpret_cast<float*>(empty + W8T_STAGES);  // [BT]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, tq = lane & 3;
+  // the block's last A row is all ones, so its accumulator row is the row
+  // sums of x, summed and promoted as the products are: the block computes
+  // W8T_ROWS_OUT = W8T_R - 1 weight rows
   const int m0 = blockIdx.x * W8T_BT;
-  const int n0 = blockIdx.y * W8T_R;
+  const int n0 = blockIdx.y * W8T_ROWS_OUT;
   const int half = K / 2;
   const int nc = (half + W8T_KP - 1) / W8T_KP;
   // this thread's two accumulator rows (weight rows) in the block
@@ -882,6 +887,7 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
   const int na = n0 + row, nb = na + 8;
   const int wsw = (row >> 1) & 3;
   const uint8_t* w_row = w_s + row * W8T_KP + 2 * tq;
+  const bool ones = row + 8 == W8T_R - 1;
 
   if (tid == 0) {
     for (int st = 0; st < W8T_STAGES; ++st) {
@@ -924,42 +930,27 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
     wgmma_commit();
   };
 
-  // the float32 row sums of x, on the tensor cores: warp w takes
-  // activation rows [16w, 16w + 16) of the stage's two slices as
-  // mma.m16n8k16's A (ldmatrix from the swizzled tiles: lane l gives row
-  // l % 16, 8-column chunk l / 16 of the k-step) against a column of ones,
-  // a slice a chain; each stage's sums start from zero and are added to
-  // the running ones (rows 16w + g8 and + 8) with IEEE adds. In a last
-  // stage of 32 packed bytes the low slice's upper half holds high-plane
-  // columns, which the sums skip.
-  float rsa = 0.f, rsb = 0.f;
-  const int rrow = warp * 16 + (lane & 15);
-  auto row_sums = [&](int slot, int c) {
-    const uint8_t* xr = x_s + slot * W8T_X_STAGE + rrow * 128;
-    const int lim = min(W8T_KP, half - c * W8T_KP);
-    float cs[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (h == 1 || 16 * s < lim) {
-          unsigned fr[4];
-          ldmatrix_x4(fr, reinterpret_cast<const bf16*>(
-                              xr + h * W8T_BT * 128 +
-                              (((2 * s + (lane >> 4)) ^ (rrow & 7)) << 4)));
-          mma_bf16(cs[h], fr, 0x3F803F80u, 0x3F803F80u);
-        }
-      }
-    }
-    rsa = __fadd_rn(rsa, __fadd_rn(cs[0][0], cs[1][0]));
-    rsb = __fadd_rn(rsb, __fadd_rn(cs[0][2], cs[1][2]));
-  };
-
   // a warp is done with the slot of stage c: its reads before the refill
   auto give_back = [&](int c) {
     fence_proxy_async();
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + c % W8T_STAGES);
+  };
+
+  // stage c's A fragments into a_; the ones row skips the low slice's
+  // columns past K/2 in a last stage of 32 packed bytes (they hold
+  // high-plane columns there)
+  auto decode = [&](int c, unsigned (&a_)[8][4]) {
+    w8t_decode(w_row + (c % W8T_STAGES) * W8T_W_STAGE, wsw, a_);
+    if (ones) {
+      const int lim = min(W8T_KP, half - c * W8T_KP);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const unsigned lo = 16 * s < lim ? 0x3F803F80u : 0u;
+        a_[s][1] = a_[s][3] = lo;
+        a_[4 + s][1] = a_[4 + s][3] = 0x3F803F80u;
+      }
+    }
   };
 
   // stage c (its A in set `set`, decoded beforehand): issue its group;
@@ -980,11 +971,10 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
         mbar_wait(empty + (c - 1) % W8T_STAGES, ((c - 1) / W8T_STAGES) & 1);
       load_stage(c + W8T_STAGES - 1);
     }
-    row_sums(slot, c);
     if (c + 1 < nc) {
       const int next = (c + 1) % W8T_STAGES;
       mbar_wait(full + next, ((c + 1) / W8T_STAGES) & 1);
-      w8t_decode(w_row + next * W8T_W_STAGE, wsw, a[set ^ 1]);
+      decode(c + 1, a[set ^ 1]);
     }
   };
   // the tensor cores' float32 sums truncate: every W8T_PROMOTE stages
@@ -1002,7 +992,7 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
   if (tid == 0)
     for (int c = 0; c < W8T_STAGES - 1 && c < nc; ++c) load_stage(c);
   mbar_wait(full, 0);
-  w8t_decode(w_row, wsw, a[0]);
+  decode(0, a[0]);
   // a promotion group's stages unrolled (W8T_PROMOTE is even: stage c
   // takes set c % 2 statically), so no group is in flight across the
   // loop's back edge (the compiler would wait there); a last group of
@@ -1024,9 +1014,12 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
   // the A sets stay unmoved until the last wgmmas are done
   fence_u32<64>(&a[0][0][0]);
 
-  if (tq == 0) {
-    rs[warp * 16 + g8] = rsa;
-    rs[warp * 16 + g8 + 8] = rsb;
+  if (ones) {  // acc[4i + 2 + e]: the row sum of activation row 8i + 2tq + e
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      rs[i * 8 + 2 * tq] = acc[4 * i + 2];
+      rs[i * 8 + 2 * tq + 1] = acc[4 * i + 3];
+    }
   }
   __syncthreads();
   // acc[4i + q]: weight row na (q < 2) or nb, activation row 8i + 2tq +
@@ -1036,7 +1029,7 @@ w4a8_matmul_tile_kernel(const __grid_constant__ CUtensorMap xmap,
     const int n = (i & 2) ? nb : na;
     const int t = (i >> 2) * 8 + 2 * tq + (i & 1);
     const int m = m0 + t;
-    if (m < M && n < N) {
+    if (m < M && n < N && n - n0 < W8T_ROWS_OUT) {
       float v = __fsub_rn(acc[i], __fmul_rn(8.f, rs[t]));
       v = __fmul_rn(v, sx[m]);
       v = __fmul_rn(v, sw[n]);
@@ -1166,7 +1159,8 @@ int launch_w4a8_tile(const void* x, const void* wp, const void* sx,
                   static_cast<long long>(N) * half, W8T_KP, W8T_R,
                   CU_TENSOR_MAP_SWIZZLE_64B))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((M + W8T_BT - 1) / W8T_BT, (N + W8T_R - 1) / W8T_R);
+  dim3 grid((M + W8T_BT - 1) / W8T_BT,
+            (N + W8T_ROWS_OUT - 1) / W8T_ROWS_OUT);
   kern<<<grid, W8T_THREADS, W8T_SMEM, s>>>(
       xmap, wmap, static_cast<const float*>(sx),
       static_cast<const float*>(sw), static_cast<OutT*>(y), M, N, K);
@@ -1326,9 +1320,8 @@ extern "C" int fq_w4a8_matmul_tile(const void* x, const void* wp,
                                    const void* sx, const void* sw, void* y,
                                    int M, int N, int K, int out_is_f32,
                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return out_is_f32
-             ? launch_w4a8_tile<float>(x, wp, sx, sw, y, M, N, K,
-                                       static_cast<cudaStream_t>(stream))
-             : launch_w4a8_tile<bf16>(x, wp, sx, sw, y, M, N, K,
-                                      static_cast<cudaStream_t>(stream));
+             ? launch_w4a8_tile<float>(x, wp, sx, sw, y, M, N, K, s)
+             : launch_w4a8_tile<bf16>(x, wp, sx, sw, y, M, N, K, s);
 }

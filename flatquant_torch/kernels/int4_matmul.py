@@ -63,10 +63,10 @@ FUSEDQ_WIDE_N = 5120
 # W4A8_STREAM_MAX_M rows (decode) and takes its wgmma tile above
 # (prefill), or from W4A8_WIDE_MIN_M rows already for a weight of at least
 # W4A8_WIDE_N rows: chip_smoke.py phase 3g's sweep on an H100 measured
-# the tile faster at M = 8 and 16 for llama-2-7b's qkv and up||gate
-# (12288, 22016 rows; the stream at M = 4) and slower at M = 16 for its o
-# and down (4096 rows: 32 weight tiles are too few blocks).
-W4A8_STREAM_MAX_M = 16
+# the tile faster at M = 16 for all four llama-2-7b linears and at M = 8
+# for its qkv and up||gate (12288, 22016 rows; the stream at M = 4), and
+# slower at M = 8 for its o and down (4096 rows).
+W4A8_STREAM_MAX_M = 8
 W4A8_WIDE_MIN_M = 8
 W4A8_WIDE_N = 12288
 # row 14's device bodies, each an entry point fq_w4a8_matmul_<body>
