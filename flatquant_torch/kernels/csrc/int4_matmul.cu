@@ -796,8 +796,11 @@ constexpr int W8T_R = 128;       // A rows per block: 2 warpgroups x 64
 constexpr int W8T_ROWS_OUT = W8T_R - 1;  // weight rows; the last is ones
 constexpr int W8T_BT = 128;      // activation rows per block: wgmma's N
 constexpr int W8T_KP = 64;       // packed bytes per weight row per stage
-constexpr int W8T_STAGES = 4;    // ring depth
-constexpr int W8T_PROMOTE = 4;   // stages summed on the tensor cores
+// ring depth, and stages summed on the tensor cores before a promotion:
+// the fastest of 3-5 stages and of 2-8 (chip_smoke.py's phase 3g shapes,
+// PERF.md)
+constexpr int W8T_STAGES = 4;
+constexpr int W8T_PROMOTE = 8;
 constexpr int W8T_THREADS = 256;
 constexpr int W8T_X_STAGE = 2 * W8T_BT * 128;  // low | high slice [BT][128 B]
 constexpr int W8T_W_STAGE = W8T_R * W8T_KP;    // [R][64 B], 64-byte swizzle
@@ -1325,3 +1328,4 @@ extern "C" int fq_w4a8_matmul_tile(const void* x, const void* wp,
              ? launch_w4a8_tile<float>(x, wp, sx, sw, y, M, N, K, s)
              : launch_w4a8_tile<bf16>(x, wp, sx, sw, y, M, N, K, s);
 }
+

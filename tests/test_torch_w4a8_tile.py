@@ -10,7 +10,7 @@ nibbles, an OR puts each into the mantissa of bf16 128.0 (0x4300) and one
 bf16x2 FMA (x 1 - 128) leaves the nibble itself. Stage c of the tile holds
 packed bytes [64c, 64c + 64) of its weight rows and the activation columns
 they meet, [64c, +64) (low plane) and K/2 + [64c, +64) (high plane); the
-k-steps of 4 stages sum on the tensor cores from zero, and those partial
+k-steps of 8 stages sum on the tensor cores from zero, and those partial
 sums are added to the running float32 sums with an IEEE add. The float32
 row sums of x come from the same products: the block's last A row is all
 ones (the low slice's columns past K/2 skipped), so they are summed and
@@ -127,7 +127,7 @@ def test_nibble_decode_on_all_bytes(plane):
 
 # W8T_PROMOTE in csrc/int4_matmul.cu: stages summed on the tensor cores
 # before the partial sums are added to the running ones
-KERNEL_PROMOTE = 4
+KERNEL_PROMOTE = 8
 
 
 def tile_emulation(x, sx, wp, sw, promote=KERNEL_PROMOTE):
@@ -202,10 +202,10 @@ def test_tile_order_meets_plain_and_jax(rng, k, acts):
                      "identity", f"tile order K={k}")
 
 
-@pytest.mark.parametrize("promote", [1, 2, KERNEL_PROMOTE, 8])
+@pytest.mark.parametrize("promote", [1, 2, 4, KERNEL_PROMOTE])
 def test_promotion_lengths_meet_identity_at_k_11008(rng, promote):
     """The partial sums promoted every 1 to 8 stages (128 to 1024 k; the
-    kernel's 4 and a last group of 2): the emulated order stays within
+    kernel's 8 and a last group of 6): the emulated order stays within
     "identity" of the plain version at llama-2-7b's down projection K."""
     m, n, k = 8, 48, 11008
     x, xs, wp, ws = _inputs(rng, m, n, k, "bf16 activations")
