@@ -4625,9 +4625,6 @@ KERNEL_PATH = dict(
 DECODE_KERNELS = [k for k, p in KERNEL_PATH.items() if p == "decode"]
 SWIGLU_ROWS = ("w4a4_matmul_i8_swiglu_right", "w4a4_matmul_i8_swiglu",
                "w4a4_swiglu_grouped", "w4a4_swiglu_grouped_gx")
-# the results entry whose "bodies" hold a kernel's launches by device body
-# on its path (read with its launches)
-BODY_RESULTS = {"w4a8_matmul": "w4a16_path"}
 
 
 def kernel_line(results, paths):
@@ -4709,11 +4706,13 @@ def kernel_line(results, paths):
         lib = (total("library_ms") if all(x.get("library_ms") is not None
                                           for x in rows) else None)
         by = {x["bound_by"] for x in rows}
-        bodies = results.get(BODY_RESULTS.get(name), {}).get("bodies", {})
+        # row 14's launches by body on its path (phase 9's timed run)
+        bodies = results.get("w4a16_path", {}).get("bodies", {})
         out.append(dict(
             name=name, **meta,
             launches=paths.get(KERNEL_PATH[name], {}).get(name, 0),
-            **({"launches_by_body": bodies[name]} if name in bodies else {}),
+            **({"launches_by_body": bodies[name]}
+               if name == "w4a8_matmul" and name in bodies else {}),
             launches_by_path={p: c.get(name, 0) for p, c in paths.items()},
             max_abs_err=r["max_abs_err"], ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),

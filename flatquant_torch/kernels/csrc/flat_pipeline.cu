@@ -332,9 +332,9 @@ left_quant_i8_grouped_kernel(const float* __restrict__ ltT,
 // matrices, the 128 up rows and the 128 gate rows of the block's 128
 // output channels, against its 128 activation rows: each warpgroup
 // carries the up and the gate sums of its 64 channels, so the epilogue
-// owns whole 128-column groups. The int32 sums equal the old acc - 8 *
-// rowsum(x) exactly; the dequant and SwiGLU keep their rounding points
-// (__fmul_rn, IEEE 1 / (1 + expf(-g)), bf16 act).
+// owns whole 128-column groups. The int32 sums equal JAX's acc - 8 *
+// rowsum(x) exactly; the dequant and SwiGLU round where the plain version
+// does (__fmul_rn, IEEE 1 / (1 + expf(-g)), bf16 act).
 // Epilogue (RIGHT): the act tile goes to shared memory as wgmma's B (two
 // [128 rows][64 channels] bf16 halves, 128-byte swizzle), the right
 // factor's transpose into registers as A (bf16), and 8 wgmma m64n128k16
@@ -383,8 +383,11 @@ __device__ __forceinline__ void swiglu_gemm(const int8_t* __restrict__ xq,
 
   // acc[mat][4i + e]: channel c = 64 wg + 16 wi + g8 (+ 8 for e >= 2) of
   // the block's 128, activation row t = 8i + 2 tq + (e & 1); / 16 exactly
+  auto chan = [&](int e) {
+    return n0 + wg * 64 + wi * 16 + g8 + (e >> 1) * 8;
+  };
   auto act = [&](int i, int e, int m) {
-    const int n = n0 + wg * 64 + wi * 16 + g8 + (e >> 1) * 8;
+    const int n = chan(e);
     const float xsc = sx[m];
     const float u = __fmul_rn(
         __fmul_rn(static_cast<float>(acc[0][4 * i + e] >> 4), xsc), sw[n]);
@@ -401,9 +404,9 @@ __device__ __forceinline__ void swiglu_gemm(const int8_t* __restrict__ xq,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int m = m0 + i * 8 + tq * 2 + (e & 1);
-        const int n = n0 + wg * 64 + wi * 16 + g8 + (e >> 1) * 8;
         if (m < M)
-          y[static_cast<size_t>(m) * NH + n] = to_out<OutT>(act(i, e, m));
+          y[static_cast<size_t>(m) * NH + chan(e)] =
+              to_out<OutT>(act(i, e, m));
       }
     }
   } else {

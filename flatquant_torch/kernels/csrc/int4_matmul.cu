@@ -171,9 +171,7 @@
 // from zero every W8T_PROMOTE stages and are added to the running sums
 // with an IEEE add. The sums run in another order than the plain
 // version's, so outputs agree to float32 rounding (bf16 outputs to one
-// ulp), bit for bit on integer-valued x. It replaced an mma.sync tile
-// (128 x 128 tiles, the nibbles widened to bf16 in one register-prefetched
-// shared stage), 2.4x slower at every M of phase 3g's sweep (PERF.md).
+// ulp), bit for bit on integer-valued x.
 
 #include <cuda_bf16.h>
 
