@@ -309,6 +309,15 @@ SWIGLU_SWEEP_M = (32, 64, 128, 256, 512, 1024, 2048)
 FUSEDQ_SWEEP_M = (1, 4, 16, 32, 64, 192, 2048)
 FUSEDQ_WIDE_SWEEP_N = (5120, 6144, 7168, 8192, 10240)
 ROUTE_MARGIN = 0.03
+# phase 3e's flash sweep (S, nh, nkv), B=1, the main path's shape first
+# (llama-2-7b's 1 x 2048); phase 3d's prologue bodies
+FLASH_SWEEP = ((2048, 32, 32), (2048, 32, 8), (2048, 28, 4), (1024, 32, 32),
+               (1024, 32, 8), (1024, 28, 4), (4096, 32, 32), (4096, 32, 8),
+               (4096, 28, 4))
+PROLOGUE_BODIES = ("mma", "simt")
+# phase 3d's prologue shapes (B, S): phase 5's 4 x 512 (the kernel line's)
+# and the 1 x 2048 of phases 6, 8 and 12
+PROLOGUE_SHAPES = ((4, 512), (1, 2048))
 
 
 def gemm_edges(tile_min_m):
@@ -468,7 +477,9 @@ def check_fusedq(torch, dev, gen, results):
     route (quant_acts_i8, then w4a4_matmul_i8 on its route), and timed
     beside that route (rows 12 + 1), the bound and, at M = 4 and 2048, the
     plain version and torch._int_mm on pre-unpacked int8 weights (a
-    yardstick the port never calls). The crossovers are the smallest M
+    yardstick the port never calls); the bodies in ROUTE_ROUNDS
+    interleaved rounds, each body's best kept. The crossovers are the
+    smallest M
     (or N at M = FUSEDQ_WIDE_MIN_M) from which the tile body is faster at
     every measured shape; the phase fails where another body beat the
     routed one by more than ROUTE_MARGIN."""
@@ -484,8 +495,16 @@ def check_fusedq(torch, dev, gen, results):
     rows = []
     for m, name, n, k in cases:
         ws, x, plain_out = _fusedq_case(torch, dev, gen, im, clip, m, n, k)
-        ms = {b: _fusedq_timed(torch, im, x, ws, clip, plain_out, b)
-              for b in BODIES}
+        # the bodies in interleaved rounds, each body's best kept: two
+        # bodies that tie (at M = 4 on the qkv weight one round reads
+        # 0.0330-0.0353 ms for the tile and 0.0338-0.0343 for the stream
+        # on an H100 at 700 W) flip past ROUTE_MARGIN on one round's noise
+        times = {b: [] for b in BODIES}
+        for _ in range(ROUTE_ROUNDS):
+            for b in BODIES:
+                times[b].append(_fusedq_timed(torch, im, x, ws, clip,
+                                              plain_out, b))
+        ms = {b: min(t) for b, t in times.items()}
         composed = sweep_ms(torch, lambda wp, sw: im.w4a4_matmul_i8(
             *im.quant_acts_i8(x, clip, 7), wp, sw), ws)
         routed = im.fusedq_body(m, n, k)
@@ -751,50 +770,106 @@ def check_prefill_kernels(torch, dev, gen, results):
         del w8
     del ws
 
-    # attn_prologue: qkv [B, S, (nh + 2 nkv) * 128] bf16, cache length L
+    # attn_prologue at PROLOGUE_SHAPES: qkv [B, S, (nh + 2 nkv) * 128]
+    # bf16, each body of PROLOGUE_BODIES (the routed one for bf16, the
+    # CUDA-core one for float32 qkv); both modes; then timed
+    for B, S in PROLOGUE_SHAPES:
+        check_prologue(torch, dev, gen, results, cfg, B, S, nh, nkv, clip)
+
+
+def check_prologue(torch, dev, gen, results, cfg, B, S, nh, nkv, clip):
+    """attn_prologue in each body against its plain version at one shape,
+    identity and orthogonal factors; float32 qkv on the CUDA-core body;
+    timed in each body with orthogonal factors (the row's ms is the routed
+    body's)."""
+    from flatquant_torch.kernels import attn_prologue as ap
+    from flatquant_torch.kernels.tolerance import compare_bf16, compare_kv
+    from flatquant_torch.models.llama import rope_tables
+
     D = (nh + 2 * nkv) * 128
+    label = f"B={B} S={S} {nh}/{nkv} heads"
     qkvs = [(torch.randn((B, S, D), generator=gen, device=dev) * 2).to(
         torch.bfloat16) for _ in range(copies_for(2 * B * S * D))]
     cos, sin = rope_tables(cfg, torch.arange(S, device=dev))
 
     def new_cache():
-        return [torch.zeros((B, nkv, L, 64), dtype=torch.uint8, device=dev),
-                torch.zeros((B, nkv, L, 2), device=dev),
-                torch.zeros((B, nkv, L, 64), dtype=torch.uint8, device=dev),
-                torch.zeros((B, nkv, L, 2), device=dev)]
+        return [torch.zeros((B, nkv, S, 64), dtype=torch.uint8, device=dev),
+                torch.zeros((B, nkv, S, 2), device=dev),
+                torch.zeros((B, nkv, S, 64), dtype=torch.uint8, device=dev),
+                torch.zeros((B, nkv, S, 2), device=dev)]
 
-    for mode in ("identity", "orthogonal"):
-        kt = _factor(torch, dev, gen, 128, mode)
-        kti = _factor(torch, dev, gen, 128, mode)
-        c, c_ref = new_cache(), new_cache()
-        got = ap.attn_prologue(qkvs[0], cos, sin, kt, kti, clip, clip, nh=nh,
-                               nkv=nkv, cache=c)
-        want = ap.attn_prologue_ref(qkvs[0], cos, sin, kt, kti, clip, clip,
-                                    nh=nh, nkv=nkv, cache=c_ref)
-        err = max(compare_bf16(got[0], want[0], mode, "attn_prologue q_rot"),
-                  compare_bf16(got[1], want[1], mode, "attn_prologue k_rot"))
-        if not torch.equal(got[2], want[2]):
-            raise AssertionError("attn_prologue: v must pass through")
-        compare_kv(c[0], c[1], c_ref[0], c_ref[1], mode, "attn_prologue K")
-        compare_kv(c[2], c[3], c_ref[2], c_ref[3], "identity",
-                   "attn_prologue V")  # quantized from the raw qkv: exact
-        log(f"  attn_prologue B={B} S={S} {nh}/{nkv} heads, {mode} factors: "
-            f"K codes/params within tolerance"
-            f"{' (bit-exact)' if mode == 'identity' else ''}, V bit-exact, "
-            f"q/k max abs err {err:.3e}")
+    err = 0.0
+    for body in PROLOGUE_BODIES:
+        for mode in ("identity", "orthogonal"):
+            kt = _factor(torch, dev, gen, 128, mode)
+            kti = _factor(torch, dev, gen, 128, mode)
+            c, c_ref = new_cache(), new_cache()
+            with patched([(ap, "prologue_body", lambda dt, b=body: b)]):
+                got = ap.attn_prologue(qkvs[0], cos, sin, kt, kti, clip,
+                                       clip, nh=nh, nkv=nkv, cache=c)
+            want = ap.attn_prologue_ref(qkvs[0], cos, sin, kt, kti, clip,
+                                        clip, nh=nh, nkv=nkv, cache=c_ref)
+            what = f"attn_prologue {label} ({body}, {mode})"
+            e = max(compare_bf16(got[0], want[0], mode, f"{what} q_rot"),
+                    compare_bf16(got[1], want[1], mode, f"{what} k_rot"))
+            if mode == "identity" and not (torch.equal(got[0], want[0])
+                                           and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{what}: q_rot / k_rot not bit-exact")
+            if not torch.equal(got[2], want[2]):
+                raise AssertionError(f"{what}: v must pass through")
+            compare_kv(c[0], c[1], c_ref[0], c_ref[1], mode, f"{what} K")
+            compare_kv(c[2], c[3], c_ref[2], c_ref[3], "identity",
+                       f"{what} V")  # quantized from the raw qkv: exact
+            err = max(err, e)
+            log(f"  {what}: K codes/params within tolerance"
+                f"{' (bit-exact)' if mode == 'identity' else ''}, V "
+                f"bit-exact, q/k max abs err {e:.3e}")
+    # float32 qkv takes the CUDA-core body
+    q32 = qkvs[0].float()
+    c, c_ref = new_cache(), new_cache()
+    got = ap.attn_prologue(q32, cos, sin, kt, kti, clip, clip, nh=nh,
+                           nkv=nkv, cache=c)
+    want = ap.attn_prologue_ref(q32, cos, sin, kt, kti, clip, clip, nh=nh,
+                                nkv=nkv, cache=c_ref)
+    for i in (0, 1):  # float32 sums of 128 products in another order
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=1e-5)
+    compare_kv(c[2], c[3], c_ref[2], c_ref[3], "identity",
+               "attn_prologue float32 V")
     caches = [new_cache() for _ in qkvs]
     # qkv read; q_rot, k_rot written (v is a view); K/V codes and params;
     # cos/sin and k_t/k_t_inv in bf16; the clips
     nbytes = (2 * B * S * D + 2 * B * S * (nh + nkv) * 128
               + 2 * B * nkv * S * (64 + 8) + 4 * S * 128 + 4 * 128 * 128 + 16)
-    timed("attn_prologue", f"B={B} S={S} {nh}/{nkv} heads",
-          lambda qkv, cc: ap.attn_prologue(qkv, cos, sin, kt, kti, clip,
-                                           clip, nh=nh, nkv=nkv, cache=cc),
-          lambda qkv, cc: ap.attn_prologue_ref(qkv, cos, sin, kt, kti, clip,
-                                               clip, nh=nh, nkv=nkv,
-                                               cache=cc),
-          list(zip(qkvs, caches)), nbytes, 2 * B * S * (nh + nkv) * 128 * 128,
-          BF16_FLOPS_PER_S, err)
+    flops = 2 * B * S * (nh + nkv) * 128 * 128
+    row = dict(case=label, B=B, S=S, nh=nh, nkv=nkv,
+               body=ap.prologue_body(torch.bfloat16), max_abs_err=err,
+               bytes=nbytes, ops=flops, library_ms=None)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                BF16_FLOPS_PER_S)
+
+    def call(fn):
+        return lambda qkv, cc: fn(qkv, cos, sin, kt, kti, clip, clip, nh=nh,
+                                  nkv=nkv, cache=cc)
+
+    for body in PROLOGUE_BODIES:
+        with patched([(ap, "prologue_body", lambda dt, b=body: b)]):
+            row[f"{body}_ms"] = cuda_ms(torch, call(ap.attn_prologue),
+                                        list(zip(qkvs, caches)), 40)
+    row["ms"] = row[f"{row['body']}_ms"]
+    row["plain_ms"] = cuda_ms(torch, call(ap.attn_prologue_ref),
+                              list(zip(qkvs, caches)), 4)
+    r = results.setdefault("attn_prologue", dict(rows=[], max_abs_err=0.0))
+    r["rows"].append(row)
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    log(f"  attn_prologue {label}: kernel_ms "
+        + " ".join(f"{b} {row[f'{b}_ms']:.4f}" for b in PROLOGUE_BODIES)
+        + f" (routed: {row['body']}) plain_ms {row['plain_ms']:.4f} bound "
+        f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP) library_ms none")
+    if min(row[f"{b}_ms"] for b in PROLOGUE_BODIES) * (1 + ROUTE_MARGIN) \
+            < row["ms"]:
+        raise AssertionError(f"attn_prologue {label}: prologue_body routes "
+                             f"bf16 qkv to a slower body")
     del qkvs, caches
 
 
@@ -820,64 +895,60 @@ def _sdpa(torch):
 
 
 def check_flash(torch, dev, gen, results):
-    """flash_prefill_attention and flash_prefill_attention_kt against their
-    plain versions at the long prefill's shapes (bf16, head_dim 128):
-    llama-2-7b's 1 x 2048 (32/32 heads), llama-3-8b's GQA (32/8 heads) and
-    S = 1152 (blocks shrink to divisors of S), within the "flash"
-    tolerance of flatquant_torch/kernels/tolerance.py (the kernel's
-    64-key tiles round p at other running maxima than the plain version's
-    512-key blocks). The kt entry point reads K through the strided
-    [B, nkv, hd, S] view of a token-major tensor, as the fused route
-    passes it; JAX's contiguous kt layout (copied by the wrapper) is
-    checked at the first shape. Each is timed beside its plain version,
-    its bound and the causal SDPA call on the same tensors."""
+    """flash_prefill_attention_kt and flash_prefill_attention against their
+    plain versions over FLASH_SWEEP (B=1; S = 1024, 2048, 4096; llama-2-7b's
+    32/32 heads, llama-3-8b's 32/8, Qwen-2.5-7B's 28/4), within the "flash"
+    tolerance of flatquant_torch/kernels/tolerance.py (the kernel's key
+    tiles round p at other running maxima than the plain version's 512-key
+    blocks). The kt entry point reads K through the strided [B, nkv, hd, S]
+    view of a token-major tensor, as the fused route passes it; JAX's
+    contiguous kt layout (copied by the wrapper) is checked at the first
+    shape. The kt entry point is timed at every shape, the other at the
+    first, beside the plain version, the bound and the causal SDPA call on
+    the same tensors."""
     from flatquant_torch.kernels import prefill_attention as pa
     from flatquant_torch.kernels.tolerance import compare_bf16
-    from flatquant_torch.models.config import get_config
 
-    l2, l3 = get_config("llama-2-7b"), get_config("llama-3-8b")
-    cases = [(f"llama-2-7b B=1 S=2048 {l2.num_heads}/{l2.num_kv_heads} heads",
-              1, 2048, l2.num_heads, l2.num_kv_heads),
-             (f"llama-3-8b B=1 S=2048 {l3.num_heads}/{l3.num_kv_heads} heads",
-              1, 2048, l3.num_heads, l3.num_kv_heads),
-             (f"llama-2-7b B=1 S=1152 {l2.num_heads}/{l2.num_kv_heads} heads",
-              1, 1152, l2.num_heads, l2.num_kv_heads)]
     entries = {
-        "flash_prefill_attention": (
-            pa.flash_prefill_attention, pa.flash_prefill_attention_ref,
-            lambda q, k, v: (q, k, v)),
         "flash_prefill_attention_kt": (
             pa.flash_prefill_attention_kt, pa.flash_prefill_attention_kt_ref,
             lambda q, k, v: (q, k.permute(0, 2, 3, 1), v)),
+        "flash_prefill_attention": (
+            pa.flash_prefill_attention, pa.flash_prefill_attention_ref,
+            lambda q, k, v: (q, k, v)),
     }
     sm = 1.0 / math.sqrt(128)
     sdpa = _sdpa(torch)
-    for label, B, S, nh, nkv in cases:
+    B = 1
+    for n, (S, nh, nkv) in enumerate(FLASH_SWEEP):
+        label = f"B={B} S={S} {nh}/{nkv} heads"
         # q, k, v read once and o written once, bf16
         nbytes = 2 * B * S * 128 * (2 * nh + 2 * nkv)
         flops = 2 * S * (S + 1) * 128 * nh * B
-        sets = [[(torch.randn((B, S, n, 128), generator=gen, device=dev)
-                  ).to(torch.bfloat16) for n in (nh, nkv, nkv)]
+        sets = [[(torch.randn((B, S, h, 128), generator=gen, device=dev)
+                  ).to(torch.bfloat16) for h in (nh, nkv, nkv)]
                 for _ in range(copies_for(nbytes))]
         b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
         lib_ms = cuda_ms(torch, sdpa, [(*t, sm) for t in sets], 20)
         for name, (kernel, plain, layout) in entries.items():
             args = [(*layout(*t), sm) for t in sets]
-            err = compare_bf16(kernel(*args[0]), plain(*args[0]), "flash",
+            want = plain(*args[0])
+            err = compare_bf16(kernel(*args[0]), want, "flash",
                                f"{name} {label}")
-            if name.endswith("_kt") and label == cases[0][0]:
+            if name.endswith("_kt") and n == 0:
                 q, kt, v, _ = args[0]
-                compare_bf16(kernel(q, kt.contiguous(), v, sm),
-                             plain(q, kt, v, sm), "flash",
-                             f"{name} {label}, contiguous kt")
+                compare_bf16(kernel(q, kt.contiguous(), v, sm), want,
+                             "flash", f"{name} {label}, contiguous kt")
+            r = results.setdefault(name, dict(rows=[], max_abs_err=0.0))
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if not name.endswith("_kt") and n > 0:
+                continue  # checked, not timed
             ms = cuda_ms(torch, kernel, args, 20)
             plain_ms = cuda_ms(torch, plain, args, 2)
-            r = results.setdefault(name, dict(rows=[], max_abs_err=0.0))
             r["rows"].append(dict(case=label, B=B, S=S, nh=nh, nkv=nkv,
                                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, library_ms=lib_ms,
                                   bytes=nbytes, ops=flops, max_abs_err=err))
-            r["max_abs_err"] = max(r["max_abs_err"], err)
             log(f"  {name} {label}: within the 'flash' tolerance, max abs "
                 f"err {err:.3e}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
                 f"bound {b_ms * 1e3:.2f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
@@ -2021,15 +2092,15 @@ def profile_steps(torch, step, n, label="decode"):
         log(f"  {label} profile: not measured (no device time recorded)")
         return None
     other = "other kernels (torch glue)"
-    # both flash entry points launch one CUDA kernel, flash_prefill_kernel
-    flash = "flash_prefill_kernel (both flash entry points)"
+    # both flash entry points launch one CUDA kernel, flash_wgmma_kernel
+    flash = "flash_wgmma_kernel (both flash entry points)"
     groups = dict.fromkeys([k for k in KERNELS if "flash" not in k]
                            + [flash, other], 0.0)
     for name, ms in kern.items():
         # the longest kernel name in the symbol: w4a4_matmul_i8_swiglu_right
         # before w4a4_matmul_i8
         hits = [k for k in groups if k in name]
-        if "flash_prefill_kernel" in name:
+        if "flash_wgmma_kernel" in name:
             groups[flash] += ms
         elif hits and "true>" in name and "paged_" + max(hits, key=len) \
                 in groups:
@@ -2063,6 +2134,17 @@ def patched(pairs):
     finally:
         for m, n, v in saved:
             setattr(m, n, v)
+
+
+def path_bodies(common, want):
+    """BODY_LAUNCHES as read after a path's run, checked against want:
+    {kernel: (body, launches)}, every launch of the kernel in that body."""
+    got = {k: dict(v) for k, v in common.BODY_LAUNCHES.items()}
+    for name, (body, n) in want.items():
+        if got[name].get(body, 0) != n or sum(got[name].values()) != n:
+            raise AssertionError(f"{name}: launches by body {got[name]}, "
+                                 f"expected {n} in {body}")
+    return got
 
 
 def _attention_f64(q, kp, ks, kz, vp, vs, vz, valid_len, sm_scale):
@@ -2493,6 +2575,7 @@ def run_prefill_path(torch, dev, model, results, smi):
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = dict(common.LAUNCHES)
+    prefill_bodies = path_bodies(common, {"attn_prologue": ("mma", L)})
     feed, kernel_logits, step_ms = [], [logits.float().cpu()], []
     tok = logits.argmax(-1, keepdim=True)
     for i in range(NEW):
@@ -2591,7 +2674,8 @@ def run_prefill_path(torch, dev, model, results, smi):
         step_ms=step_ms, short_prompt=SHORT, short_prefill_ms=short_ms,
         prefill_launches=prefill_launches, launches=launches,
         short_launches=short_launches, prefill_profile=busy,
-        logits_cosine=cos, noise_floor_cosine=cos0,
+        prefill_bodies=prefill_bodies, logits_cosine=cos,
+        noise_floor_cosine=cos0,
         per_launch_checks=checks)
     return prefill_launches
 
@@ -2810,6 +2894,7 @@ def run_long_prefill_path(torch, dev, model, results, smi):
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = dict(common.LAUNCHES)
+    prefill_bodies = path_bodies(common, {"attn_prologue": ("mma", L)})
     step_ms = []
     tok = logits_a.argmax(-1, keepdim=True)
     for i in range(NEW):
@@ -2923,7 +3008,8 @@ def run_long_prefill_path(torch, dev, model, results, smi):
         model="llama-2-7b", layers=L, batch=B, prompt=S, new_tokens=NEW,
         max_len=MAX_LEN, prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
         step_ms=step_ms, prefill_launches=prefill_launches,
-        launches=launches_a, prefill_profile=busy, per_launch_checks=checks,
+        launches=launches_a, prefill_bodies=prefill_bodies,
+        prefill_profile=busy, per_launch_checks=checks,
         row1_routes=routes, all_logits_ms_checked=all_ms, all_logits_launches=launches_b,
         all_logits_flash_max_abs_err=worst[0], all_logits_layers=layers,
         all_logits_layer_worst=layer_worst, cosine_b_vs_a=cos_ab,
@@ -4518,13 +4604,19 @@ KERNELS = {
         "factor on wgmma bf16"),
     "attn_prologue": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/attn_prologue.cu",
-        replaces="flatquant_tpu/kernels/attn_prologue.py:161"),
+        replaces="flatquant_tpu/kernels/attn_prologue.py:161",
+        body="bf16 qkv: wgmma bf16 products, qkv by TMA, RoPE in registers "
+        "(mma); float32 qkv: CUDA-core float32 products (simt) "
+        "(prologue_body)"),
     "flash_prefill_attention_kt": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flash_prefill.cu",
-        replaces="flatquant_tpu/kernels/prefill_attention.py:233"),
+        replaces="flatquant_tpu/kernels/prefill_attention.py:233",
+        body="wgmma q k^T and p v, K / V by TMA from a producer warp, two "
+        "consumer warpgroups"),
     "flash_prefill_attention": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flash_prefill.cu",
-        replaces="flatquant_tpu/kernels/prefill_attention.py:117"),
+        replaces="flatquant_tpu/kernels/prefill_attention.py:117",
+        body="row 8's body"),
     "chunk_attention_int4": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/kv_cache.cu",
         replaces="flatquant_tpu/kernels/kv_cache.py:624"),
@@ -4600,6 +4692,12 @@ KERNELS = {
 # JAX's default) at row 8's; and phase 12's 1 x 2048 prefills, (a) fully
 # grouped for rows 23, 25, 26 and 27, (b) the round-2 tail for rows 22 and
 # 24
+# where the kernel line reads a kernel's launches by body: (results key,
+# entry, BODY_LAUNCHES key)
+KERNEL_BODIES = {
+    "w4a8_matmul": ("w4a16_path", "bodies", "w4a8_matmul"),
+    "attn_prologue": ("prefill_path", "prefill_bodies", "attn_prologue"),
+}
 KERNEL_PATH = dict(
     dict.fromkeys(("w4a4_matmul_i8", "decode_attention_int4", "write_token"),
                   "decode"),
@@ -4685,7 +4783,7 @@ def kernel_line(results, paths):
             rows = [x for x in r["rows"] if x["m"] == 2048]
             at = ("M=2048 (1 x 2048 prefill, tile body), sum of qkv + down "
                   "of one layer")
-        elif name.startswith("flash_prefill"):
+        elif name.startswith("flash_prefill") or name == "attn_prologue":
             rows = r["rows"][:1]
             at = rows[0]["case"]
         elif name in ("chunk_attention_int4", "paged_chunk_attention_int4",
@@ -4706,13 +4804,15 @@ def kernel_line(results, paths):
         lib = (total("library_ms") if all(x.get("library_ms") is not None
                                           for x in rows) else None)
         by = {x["bound_by"] for x in rows}
-        # row 14's launches by body on its path (phase 9's timed run)
-        bodies = results.get("w4a16_path", {}).get("bodies", {})
+        # launches by body on the path (row 14: phase 9's timed run; row 7:
+        # phase 5's prefill)
+        body_of = KERNEL_BODIES.get(name)
+        by_body = (results.get(body_of[0], {}).get(body_of[1], {})
+                   .get(body_of[2]) if body_of else None)
         out.append(dict(
             name=name, **meta,
             launches=paths.get(KERNEL_PATH[name], {}).get(name, 0),
-            **({"launches_by_body": bodies[name]}
-               if name == "w4a8_matmul" and name in bodies else {}),
+            **({"launches_by_body": by_body} if by_body else {}),
             launches_by_path={p: c.get(name, 0) for p, c in paths.items()},
             max_abs_err=r["max_abs_err"], ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),

@@ -22,8 +22,16 @@ used in bf16; RoPE runs in qkv's dtype with a rounding after each op;
 the head products sum in float32 and round to qkv's dtype; K is quantized
 from that rounded K, V from the raw V.
 
-`attn_prologue` launches the CUDA kernel (csrc/attn_prologue.cu) for
-CUDA tensors, or raises, and runs `attn_prologue_ref` for CPU tensors.
+`attn_prologue` launches a CUDA kernel (csrc/attn_prologue.cu) for CUDA
+tensors, or raises, and runs `attn_prologue_ref` for CPU tensors. The
+kernel has two device bodies, and `prologue_body(dtype)` picks one:
+
+  "mma"   bf16 qkv: the head products on the tensor cores (wgmma bf16,
+          float32 sums), qkv by TMA, RoPE in registers
+  "simt"  float32 qkv: the products on the CUDA cores in float32 (its
+          rope outputs are not bf16 values, so they are no bf16 operands)
+
+`common.BODY_LAUNCHES["attn_prologue"]` counts the launches of each.
 """
 
 from __future__ import annotations
@@ -36,7 +44,35 @@ from flatquant_torch.models.llama import rotate_half
 
 _NAME = "attn_prologue"
 _LIB = "attn_prologue"
+_BODY_FN = {"simt": "fq_attn_prologue", "mma": "fq_attn_prologue_mma"}
 HD = 128
+
+
+# the bf16 body's token tile (csrc/attn_prologue.cu PM_BT), and the
+# fewest blocks its grid should hold: four an SM of 132 (two are
+# resident), below which a block walks fewer heads
+# (tools/prologue_tile_sweep.py, at 1 x 2048: llama-2-7b's 32/32 heads
+# ran fastest at 4 q heads or 2 k + 2 v heads a block, 768 blocks;
+# Qwen-2.5-7B's 28/4 ~16% slower there, 288 blocks, than at 2 and 1 + 1)
+PRO_TOKENS = 64
+PRO_MIN_BLOCKS = 4 * 132
+
+
+def prologue_heads(B: int, S: int, nh: int, nkv: int):
+    """(q heads, k heads) a block of the bf16 body walks (a k block then
+    walks as many v heads): 4 and 2, halved while the grid holds fewer
+    than PRO_MIN_BLOCKS blocks."""
+    tiles = B * -(-S // PRO_TOKENS)
+    qh, kvh = 4, 2
+    while qh > 1 and tiles * (-(-nh // qh) + -(-nkv // kvh)) < PRO_MIN_BLOCKS:
+        qh, kvh = qh // 2, max(1, kvh // 2)
+    return qh, kvh
+
+
+def prologue_body(dtype) -> str:
+    """The device body a qkv of `dtype` takes: "mma" (bf16) or "simt"
+    (float32)."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
 
 
 def _bf16_as(t, dtype):
@@ -123,21 +159,40 @@ def attn_prologue(qkv, cos, sin, k_t, k_t_inv, kc_clip=None, vc_clip=None,
         req(0 <= pos and pos + S <= L, _NAME,
             f"positions [{pos}, {pos + S}) outside the cache length {L}")
     qkv = qkv.contiguous()
-    cos_b = cos.to(torch.bfloat16).contiguous()
-    sin_b = sin.to(torch.bfloat16).contiguous()
-    kt = _bf16_as(k_t, torch.float32).contiguous()
-    kti = _bf16_as(k_t_inv, torch.float32).contiguous()
-    clips = common.clip_vector([kc_clip, vc_clip], dev)
-    q_rot = torch.empty((B, S, nh * HD), dtype=qkv.dtype, device=dev)
-    k_rot = torch.empty((B, S, nkv * HD), dtype=qkv.dtype, device=dev)
-    kp, kparam, vp, vparam = cache
-    rc = common.lib(_LIB).fq_attn_prologue(
-        qkv.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), kt.data_ptr(),
-        kti.data_ptr(), clips.data_ptr(), q_rot.data_ptr(), k_rot.data_ptr(),
-        kp.data_ptr(), kparam.data_ptr(), vp.data_ptr(), vparam.data_ptr(),
-        B, S, nh, nkv, L, int(pos), int(qkv.dtype == torch.float32),
-        common.stream_ptr(qkv))
+    q_rot, k_rot = launch_prologue(
+        qkv, cos.to(torch.bfloat16).contiguous(),
+        sin.to(torch.bfloat16).contiguous(), k_t, k_t_inv,
+        common.clip_vector([kc_clip, vc_clip], dev), cache, nh, nkv, pos)
+    v = qkv[..., (nh + nkv) * HD:]
+    return (q_rot, k_rot, v, *cache)
+
+
+def launch_prologue(qkv, cos_b, sin_b, k_t, k_t_inv, clips, cache, nh, nkv,
+                    pos):
+    """Launch the body prologue_body picks on checked tensors (qkv
+    contiguous, cos_b / sin_b bf16 [S, 128], clips the kernel's float32
+    vector, cache the four token-major tensors); raise if the launch fails
+    (no other body is tried). Counted under LAUNCHES and, by body,
+    BODY_LAUNCHES. Returns (q_rot, k_rot)."""
+    B, S, _ = qkv.shape
+    L = cache[0].shape[2]
+    q_rot = torch.empty((B, S, nh * HD), dtype=qkv.dtype, device=qkv.device)
+    k_rot = torch.empty((B, S, nkv * HD), dtype=qkv.dtype, device=qkv.device)
+    body = prologue_body(qkv.dtype)
+    if body == "mma":  # the products' B operands: k_t^T, k_t_inv^T in bf16
+        common.require(qkv.data_ptr() % 16 == 0, _NAME,
+                       "qkv must start 16-byte aligned (it comes by TMA)")
+        mats = [m.to(torch.bfloat16).t().contiguous() for m in (k_t, k_t_inv)]
+        extra = prologue_heads(B, S, nh, nkv)
+    else:
+        mats = [_bf16_as(m, torch.float32).contiguous() for m in (k_t, k_t_inv)]
+        extra = (int(qkv.dtype == torch.float32),)
+    fn = getattr(common.lib(_LIB), _BODY_FN[body])
+    rc = fn(qkv.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
+            *(m.data_ptr() for m in mats), clips.data_ptr(),
+            q_rot.data_ptr(), k_rot.data_ptr(), *(t.data_ptr() for t in cache),
+            B, S, nh, nkv, L, int(pos), *extra, common.stream_ptr(qkv))
     common.check(_LIB, _NAME, rc)
     common.LAUNCHES[_NAME] += 1
-    v = qkv[..., (nh + nkv) * HD:]
-    return (q_rot, k_rot, v, kp, kparam, vp, vparam)
+    common.BODY_LAUNCHES[_NAME][body] += 1
+    return q_rot, k_rot

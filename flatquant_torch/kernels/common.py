@@ -64,14 +64,15 @@ LAUNCHES: Dict[str, int] = {
 
 # launches of the kernels with several device bodies, by body (rows 1, 25,
 # 17 and 14: "stream" or "tile"; row 16: "n8", "n64" or "n128", its wgmma
-# token width), so a run shows which body its path took; reset with
-# LAUNCHES
+# token width; row 7: "simt" or "mma"), so a run shows which body its
+# path took; reset with LAUNCHES
 BODY_LAUNCHES: Dict[str, Dict[str, int]] = {
     "w4a4_matmul_i8": {"stream": 0, "tile": 0},
     "w4a8_matmul": {"stream": 0, "tile": 0},
     "w4a4_matmul_i8_grouped": {"stream": 0, "tile": 0},
     "w4a4_matmul_i8_fusedq": {"stream": 0, "tile": 0},
     "fp8_matmul": {"n8": 0, "n64": 0, "n128": 0},
+    "attn_prologue": {"simt": 0, "mma": 0},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -150,9 +151,14 @@ _SIGNATURES = {
     },
     "attn_prologue": {
         # qkv, cos, sin, kt, kti, clip, q_out, k_out, kc, kpar, vc, vpar,
-        # B, S, nh, nkv, L, pos, is_f32, stream
+        # B, S, nh, nkv, L, pos, is_f32, stream: the CUDA-core body
         "fq_attn_prologue": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _P],
+        # the same with k_t^T, k_t_inv^T in bf16 and, in place of is_f32,
+        # the q heads and the k (and v) heads a block walks: the bf16
+        # tensor-core body (attn_prologue.py prologue_body picks one)
+        "fq_attn_prologue_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_prefill": {
         # q, k, v, out, q strides (b, s, h), k strides (b, h, s), v strides

@@ -1,7 +1,8 @@
-// mbarriers and the Tensor Memory Accelerator, shared by the GEMMs that
-// take their operands by TMA (fp8_matmul.cu, int4_matmul.cu's w4a8 tile):
-// barrier init / arrive / bounded wait, a 3-d tensor copy counted on a
-// barrier, and the tensor maps, encoded on the host through
+// mbarriers and the Tensor Memory Accelerator, shared by the kernels that
+// take their operands by TMA (fp8_matmul.cu, int4_matmul.cu's w4a8 tile,
+// flash_prefill.cu, attn_prologue.cu's bf16 body): barrier init / arrive /
+// bounded wait, 3-d and 4-d tensor copies counted on a barrier, and the
+// tensor maps, encoded on the host through
 // cuTensorMapEncodeTiled, looked up in libcuda.so.1 at run time so the
 // libraries link against nothing new.
 #pragma once
@@ -60,6 +61,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 4-d tensor map into shared memory, counted on bar
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2, int c3,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -102,6 +115,28 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
   return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 4-d bf16 tensor map: dims d[0] (innermost, contiguous) .. d[3], the
+// byte strides of dims 1-3 (multiples of 16, in any order), boxes of
+// [1, 1, b1, b0], 128-byte swizzle; false if the encoder refuses it
+inline bool tensor_map4_bf16(CUtensorMap* map, const void* base,
+                             const long long (&d)[4],
+                             const long long (&stride_bytes)[3], int b0,
+                             int b1) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  cuuint64_t dims[4], strides[3];
+  for (int i = 0; i < 4; ++i) dims[i] = static_cast<cuuint64_t>(d[i]);
+  for (int i = 0; i < 3; ++i)
+    strides[i] = static_cast<cuuint64_t>(stride_bytes[i]);
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(b0),
+                             static_cast<cuuint32_t>(b1), 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

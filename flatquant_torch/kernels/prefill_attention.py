@@ -26,9 +26,9 @@ blocks (Q_BLK 256, K_BLK 512, shrunk to divisors of S; full blocks
 unmasked, diagonal blocks masked with -inf, upper blocks skipped); p is
 cast to the input dtype before the PV product; the float32 accumulator is
 divided by max(l, 1e-30) and cast to q's dtype. The kernel keeps those
-rounding points but walks the keys in tiles of 64, so its running max,
-and with it the rounding of p, differs from the plain version's
-(kernels/tolerance.py, mode "flash").
+rounding points but walks the keys in tiles of FLASH_KEY_TILE (128), so
+its running max, and with it the rounding of p, differs from the plain
+version's (kernels/tolerance.py, mode "flash").
 
 `flash_prefill_attention_kt_i8` (csrc/flash_prefill_i8.cu) is the JAX
 package's int8 variant of the kt entry point, a measured baseline there:
@@ -73,6 +73,7 @@ FLASH_THRESHOLD = 1024
 Q_BLK = 256  # JAX's q block, shrunk to a divisor of S
 K_BLK = 512  # JAX's k block, shrunk to a divisor of S
 HD = 128
+FLASH_KEY_TILE = 128  # the kernel's key tile (csrc/flash_prefill.cu FW_BK)
 
 
 def is_flash(S: int) -> bool:
@@ -158,11 +159,20 @@ def _flash_args(name, q, k_bhs, v):
     """The flash kernels' argument checks. k_bhs: K as [B, nkv, S, hd]
     (any batch/head/token strides). Returns q, k_bhs, v with head-dim
     stride 1 (copied where it is not) and their nine strides."""
+    _same_cuda(name, q, k_bhs, v)
+    return _flash_layout(name, q, k_bhs, v)
+
+
+def _same_cuda(name, q, k, v):
+    common.require(all(t.is_cuda and t.device == q.device for t in (k, v)),
+                   name, "q, k and v must be on the same CUDA device")
+
+
+def _flash_layout(name, q, k_bhs, v):
+    """_flash_args' checks of dtype, shape and strides (any device)."""
     B, S, nh, hd = q.shape
     nkv = v.shape[2]
     req = common.require
-    req(all(t.is_cuda and t.device == q.device for t in (k_bhs, v)), name,
-        "q, k and v must be on the same CUDA device")
     req(q.dtype == k_bhs.dtype == v.dtype == torch.bfloat16, name,
         f"dtypes {q.dtype}, {k_bhs.dtype}, {v.dtype}: the kernel takes "
         "bfloat16")
@@ -189,8 +199,18 @@ def _flash_args(name, q, k_bhs, v):
 
 def _launch(name, q, k_bhs, v, sm_scale):
     """Launch csrc/flash_prefill.cu. k_bhs: K as [B, nkv, S, hd]."""
+    _same_cuda(name, q, k_bhs, v)
+    return launch_flash(name, q, k_bhs, v, sm_scale)
+
+
+def launch_flash(name, q, k_bhs, v, sm_scale):
+    """Launch csrc/flash_prefill.cu on tensors of one device (layout
+    checked and copied as _flash_args does): K and V reach the kernel as
+    [B, nkv, S, 128] through their strides, from which it encodes their
+    tensor maps; raise if the launch fails. Counted under
+    LAUNCHES[name]."""
     B, S, nh, hd = q.shape
-    q, k_bhs, v, strides = _flash_args(name, q, k_bhs, v)
+    q, k_bhs, v, strides = _flash_layout(name, q, k_bhs, v)
     out = torch.empty((B, S, nh, hd), dtype=q.dtype, device=q.device)
     rc = common.lib(_LIB).fq_flash_prefill(
         q.data_ptr(), k_bhs.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -32,7 +32,7 @@ and 6, tests/test_torch_gpu.py):
   "flash"      the flash attention kernel (kernels/prefill_attention.py):
                p = exp2(s - m) is rounded to bf16 before the PV product at
                the running row max m, which the kernel takes over tiles of
-               64 keys and the plain version (JAX's blocking) over blocks
+               128 keys and the plain version (JAX's blocking) over blocks
                of 512, so nearly every p rounds apart by up to 2^-9 of
                itself. An output moves by a signed sum of those roundings
                over its row's keys, of the order of 2^-9 of the values of

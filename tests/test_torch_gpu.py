@@ -213,9 +213,17 @@ def test_w4a4_matmul_i8_swiglu_right_matches_plain(cuda, mode, m, k, nh):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_attn_prologue_matches_plain(cuda, mode, dtype):
+@pytest.mark.parametrize("B,S,L,pos,nh,nkv", [
+    (2, 256, 384, 64, 8, 2),       # GQA, cache written at [64, 320)
+    (1, 2048, 2048, 0, 32, 32),    # llama-2-7b's 1 x 2048
+    (1, 2048, 2304, 0, 28, 4),     # Qwen-2.5-7B's, n_rep 7
+    (2, 200, 512, 37, 8, 2)])      # a ragged token tile at an odd pos
+def test_attn_prologue_matches_plain(cuda, mode, dtype, B, S, L, pos, nh,
+                                     nkv):
+    """Each dtype's body (bf16: the tensor-core body, float32: the
+    CUDA-core one) against the plain version; with identity factors the
+    bf16 body's q_rot / k_rot and K codes are bit-exact."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    B, S, L, pos, nh, nkv = 2, 256, 384, 64, 8, 2
     qkv = (torch.randn((B, S, (nh + 2 * nkv) * 128), generator=g,
                        device=cuda) * 2).to(dtype)
     ang = torch.rand((S, 128), generator=g, device=cuda) * 6.3
@@ -228,14 +236,19 @@ def test_attn_prologue_matches_plain(cuda, mode, dtype):
              torch.zeros((B, nkv, L, 64), dtype=torch.uint8, device=cuda),
              torch.zeros((B, nkv, L, 2), device=cuda)]
     ref_cache = [c.clone() for c in cache]
+    body = tap.prologue_body(dtype)
+    by_body = common.BODY_LAUNCHES["attn_prologue"][body]
     got = _launched("attn_prologue", tap.attn_prologue, qkv, cos, sin, k_t,
                     k_t_inv, kc, None, nh=nh, nkv=nkv, cache=cache, pos=pos)
+    assert common.BODY_LAUNCHES["attn_prologue"][body] == by_body + 1
     want = tap.attn_prologue_ref(qkv, cos, sin, k_t, k_t_inv, kc, None,
                                  nh=nh, nkv=nkv, cache=ref_cache, pos=pos)
     assert all(a is b for a, b in zip(got[3:], cache))
     for i, name in ((0, "q_rot"), (1, "k_rot")):
         if dtype == torch.bfloat16:
             compare_bf16(got[i], want[i], mode, name)
+            if mode == "identity":
+                assert torch.equal(got[i], want[i]), name
         else:  # float32 sums of 128 products in another order
             torch.testing.assert_close(got[i], want[i], rtol=1e-5,
                                        atol=1e-5)
@@ -274,7 +287,8 @@ def _flash_inputs(g, cuda, B, S, nh, nkv, hd=128, dtype=torch.bfloat16):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,nh,nkv", [(1, 1024, 4, 4), (2, 1152, 8, 2),
-                                        (1, 2048, 32, 8)])
+                                        (1, 2048, 32, 8), (1, 2048, 28, 4),
+                                        (1, 4096, 32, 32)])
 def test_flash_prefill_attention_matches_plain(cuda, B, S, nh, nkv):
     g = torch.Generator(device=cuda).manual_seed(S + nkv)
     q, k, v = _flash_inputs(g, cuda, B, S, nh, nkv)
