@@ -310,10 +310,12 @@ FUSEDQ_SWEEP_M = (1, 4, 16, 32, 64, 192, 2048)
 FUSEDQ_WIDE_SWEEP_N = (5120, 6144, 7168, 8192, 10240)
 ROUTE_MARGIN = 0.03
 # phase 3e's flash sweep (S, nh, nkv), B=1, the main path's shape first
-# (llama-2-7b's 1 x 2048); phase 3d's prologue bodies
+# (llama-2-7b's 1 x 2048); S = 1152 gives 9 query tiles, an odd count the
+# grid's two warpgroups and longest-first order meet nowhere else.
+# Phase 3d's prologue bodies
 FLASH_SWEEP = ((2048, 32, 32), (2048, 32, 8), (2048, 28, 4), (1024, 32, 32),
                (1024, 32, 8), (1024, 28, 4), (4096, 32, 32), (4096, 32, 8),
-               (4096, 28, 4))
+               (4096, 28, 4), (1152, 32, 32))
 PROLOGUE_BODIES = ("mma", "simt")
 # phase 3d's prologue shapes (B, S): phase 5's 4 x 512 (the kernel line's)
 # and the 1 x 2048 of phases 6, 8 and 12
@@ -542,8 +544,9 @@ def check_fusedq(torch, dev, gen, results):
     log(f"  crossover: row 17's tile body is faster at all four shapes "
         f"from M={cross} on (sweep {FUSEDQ_SWEEP_M}), and at M="
         f"{im.FUSEDQ_WIDE_MIN_M} at every measured N from N={cross_n} on; "
-        f"its route takes the tile from M={im.TILE_MIN_M}, and from M="
-        f"{im.FUSEDQ_WIDE_MIN_M} for N >= {im.FUSEDQ_WIDE_N}")
+        f"its route takes the tile from M={im.TILE_MIN_M}, from M="
+        f"{im.FUSEDQ_WIDE_MIN_M} for N >= {im.FUSEDQ_WIDE_N}, and from M="
+        f"{im.FUSEDQ_WAVE_MIN_M} for N in {im.FUSEDQ_WAVE_N}")
     wrong = route_faults(rows, BODIES)
     if wrong:
         raise AssertionError(f"row 17's route picks a body that another beat "
@@ -897,15 +900,15 @@ def _sdpa(torch):
 def check_flash(torch, dev, gen, results):
     """flash_prefill_attention_kt and flash_prefill_attention against their
     plain versions over FLASH_SWEEP (B=1; S = 1024, 2048, 4096; llama-2-7b's
-    32/32 heads, llama-3-8b's 32/8, Qwen-2.5-7B's 28/4), within the "flash"
+    32/32 heads, llama-3-8b's 32/8, Qwen-2.5-7B's 28/4; and S = 1152, an
+    odd number of query tiles, at 32/32), within the "flash"
     tolerance of flatquant_torch/kernels/tolerance.py (the kernel's key
     tiles round p at other running maxima than the plain version's 512-key
     blocks). The kt entry point reads K through the strided [B, nkv, hd, S]
     view of a token-major tensor, as the fused route passes it; JAX's
     contiguous kt layout (copied by the wrapper) is checked at the first
-    shape. The kt entry point is timed at every shape, the other at the
-    first, beside the plain version, the bound and the causal SDPA call on
-    the same tensors."""
+    shape. Each is timed at every shape beside its plain version, the
+    bound and the causal SDPA call on the same tensors."""
     from flatquant_torch.kernels import prefill_attention as pa
     from flatquant_torch.kernels.tolerance import compare_bf16
 
@@ -941,8 +944,6 @@ def check_flash(torch, dev, gen, results):
                              "flash", f"{name} {label}, contiguous kt")
             r = results.setdefault(name, dict(rows=[], max_abs_err=0.0))
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            if not name.endswith("_kt") and n > 0:
-                continue  # checked, not timed
             ms = cuda_ms(torch, kernel, args, 20)
             plain_ms = cuda_ms(torch, plain, args, 2)
             r["rows"].append(dict(case=label, B=B, S=S, nh=nh, nkv=nkv,
@@ -4163,11 +4164,15 @@ def run_baseline_paths(torch, dev, model, results, smi):
             "w4a4_matmul_i8"] != 0:
         raise AssertionError(f"(a) {n_f} fused-quant launches, expected "
                              f"{4 * L * (1 + NEW)}, and no w4a4_matmul_i8")
-    # the prefill's M = B * P rows and the steps' B rows, each body by route
+    # the prefill's M = B * P rows and the steps' B rows, each of the
+    # layer's four linears (N, K) by route
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    linears = (((cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim, H),
+               (H, cfg.num_heads * cfg.head_dim), (2 * I, H), (H, I))
     want = {"stream": 0, "tile": 0}
-    for rows, count in ((B * P, 4 * L), (B, 4 * L * NEW)):
-        want[int4_matmul.fusedq_body(rows, cfg.hidden_size,
-                                     cfg.hidden_size)] += count
+    for rows, count in ((B * P, L), (B, L * NEW)):
+        for n, k in linears:
+            want[int4_matmul.fusedq_body(rows, n, k)] += count
     if bodies != want:
         raise AssertionError(f"(a) row 17 launches by body {bodies}, the "
                              f"route gives {want}")

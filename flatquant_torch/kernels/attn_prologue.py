@@ -51,7 +51,7 @@ HD = 128
 # the bf16 body's token tile (csrc/attn_prologue.cu PM_BT), and the
 # fewest blocks its grid should hold: four an SM of 132 (two are
 # resident), below which a block walks fewer heads
-# (tools/prologue_tile_sweep.py, at 1 x 2048: llama-2-7b's 32/32 heads
+# (timed on an H100, PERF.md: at 1 x 2048, llama-2-7b's 32/32 heads
 # ran fastest at 4 q heads or 2 k + 2 v heads a block, 768 blocks;
 # Qwen-2.5-7B's 28/4 ~16% slower there, 288 blocks, than at 2 and 1 + 1)
 PRO_TOKENS = 64

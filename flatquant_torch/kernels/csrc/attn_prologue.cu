@@ -217,11 +217,9 @@ attn_prologue_kernel(const T* __restrict__ qkv, const bf16* __restrict__ cs,
 // the bf16 body: head products on wgmma, qkv by TMA
 // ---------------------------------------------------------------------------
 
-// head slices in flight (tools/prologue_tile_sweep.py builds other values)
-#ifndef PM_STAGES
-#define PM_STAGES 2
-#endif
-
+// head slices in flight: 3 was timed on the card and cost a block an SM
+// (PERF.md)
+constexpr int PM_STAGES = 2;
 constexpr int PM_BT = 64;        // tokens per block: 4 warps x 16
 constexpr int PM_THREADS = 128;  // one warpgroup
 constexpr int PM_SLOT = PM_BT * 256;  // one head [2 halves][64 tok][128 B]

@@ -41,8 +41,7 @@
 // are never visited; the diagonal tile is masked elementwise; the longest
 // rows are scheduled first. The outputs leave through the q tile's shared
 // memory as 16-byte stores.
-// Details, and the build-time choices tools/flash_tile_sweep.py times,
-// above the kernel.
+// Details above the kernel.
 
 #include <cuda_bf16.h>
 #include <math.h>
@@ -55,21 +54,15 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-// key tile and ring depth (tools/flash_tile_sweep.py builds and times
-// other values). Also timed on the card and dropped (PERF.md): issuing
-// tile j's q k^T before tile j - 1's p v (under the 168 registers a
-// thread ptxas allots to three warpgroups, tile j's scores and tile j -
-// 1's p and o do not fit together: the wgmmas spilled and were
-// serialized, and it ran slower); a producer warpgroup that hands its
-// registers to the consumers through setmaxnreg (ptxas still allotted
-// 168; no faster).
-#ifndef FW_BK
-#define FW_BK 128
-#endif
-#ifndef FW_STAGES
-#define FW_STAGES 2
-#endif
-
+// Timed on the card and dropped (PERF.md): 64-key tiles and a 3-stage
+// ring (both slower than 128 keys and 2 stages); issuing tile j's q k^T
+// before tile j - 1's p v (under the 168 registers a thread ptxas allots
+// to three warpgroups, tile j's scores and tile j - 1's p and o do not
+// fit together: the wgmmas spilled and were serialized, and it ran
+// slower); a producer warpgroup that hands its registers to the
+// consumers through setmaxnreg (ptxas still allotted 168; no faster).
+constexpr int FW_BK = 128;       // keys a tile
+constexpr int FW_STAGES = 2;     // K and V tiles in the ring
 constexpr int FW_BQ = 128;       // query rows per block: 2 warpgroups x 64
 constexpr int FW_THREADS = 288;  // 2 consumer warpgroups + the producer
 constexpr int FW_Q = FW_BQ * 256;     // q [2 halves][128 rows][128 B]
@@ -78,7 +71,6 @@ constexpr int FW_NS = FW_BK / 2;      // score accumulators a thread
 // + 1024: the swizzled tiles start at a multiple of 1024 bytes
 constexpr int FW_SMEM = 1024 + FW_Q + 2 * FW_STAGES * FW_TILE +
                         4 * FW_STAGES * 8;
-static_assert(FW_BK == 64 || FW_BK == 128, "key tiles of 64 or 128");
 static_assert(FW_SMEM <= 232448, "shared memory of one block");
 
 // Block (blockIdx.x: query head; y: batch; z: query tiles, the longest
@@ -192,7 +184,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
-        WgmmaSS<FW_BK>::mma(
+        WgmmaSS<128>::mma(
             s, sw128_desc(qw + (kk >> 2) * (FW_BQ * 128) + (kk & 3) * 32),
             sw128_desc(kt + (kk >> 2) * (FW_BK * 128) + (kk & 3) * 32),
             kk > 0);

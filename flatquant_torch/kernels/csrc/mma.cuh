@@ -271,29 +271,6 @@ template <int N>
 struct WgmmaSS;
 
 template <>
-struct WgmmaSS<64> {
-  // d[64 x 64] (+)= a[64 x 16] (shared) * b[16 x 64] (shared)
-  static __device__ __forceinline__ void mma(float* d, uint64_t da,
-                                             uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-};
-
-template <>
 struct WgmmaSS<128> {
   // d[64 x 128] (+)= a[64 x 16] (shared) * b[16 x 128] (shared)
   static __device__ __forceinline__ void mma(float* d, uint64_t da,

@@ -59,6 +59,14 @@ TILE_MAX_K = 1 << 17
 # few blocks to pull the weight.
 FUSEDQ_WIDE_MIN_M = 16
 FUSEDQ_WIDE_N = 5120
+# From FUSEDQ_WAVE_MIN_M rows it takes the tile for a weight of
+# FUSEDQ_WAVE_N[0] to FUSEDQ_WAVE_N[1] rows: one wave of the tile's 128-row
+# weight blocks on the H100's 132 SMs, so the tile costs what it costs at
+# one row while the dp4a body grows with M. At M = 4 phase 3a measured the
+# tile 1.5-3.9% faster on qkv's 12288 rows (96 blocks) in five runs, and
+# slower on up||gate's 22016 (172 blocks, two waves) and on 4096 rows.
+FUSEDQ_WAVE_MIN_M = 4
+FUSEDQ_WAVE_N = (12288, 132 * 128)
 # Row 14 (w4a8_matmul) streams the weight on the CUDA cores up to
 # W4A8_STREAM_MAX_M rows (decode) and takes its wgmma tile above
 # (prefill), or from W4A8_WIDE_MIN_M rows already for a weight of at least
@@ -378,11 +386,14 @@ def w4a4_matmul_i8_fusedq_ref(x, w_packed, w_scale, clip=None,
 def fusedq_body(m: int, n: int, k: int) -> str:
     """The device body of w4a4_matmul_i8_fusedq: "tile" (each 128-row M
     tile quantized once into a workspace, then row 1's tensor-core tile)
-    from TILE_MIN_M rows on, or from FUSEDQ_WIDE_MIN_M rows for a weight
-    of at least FUSEDQ_WIDE_N rows, while K < TILE_MAX_K; else "stream"
-    (quantized rows in shared memory, row 1's dp4a warp body)."""
+    from TILE_MIN_M rows on, from FUSEDQ_WIDE_MIN_M rows for a weight of
+    at least FUSEDQ_WIDE_N rows, or from FUSEDQ_WAVE_MIN_M rows for one of
+    FUSEDQ_WAVE_N rows, while K < TILE_MAX_K; else "stream" (quantized
+    rows in shared memory, row 1's dp4a warp body)."""
     wide = m >= FUSEDQ_WIDE_MIN_M and n >= FUSEDQ_WIDE_N
-    return "tile" if (m >= TILE_MIN_M or wide) and k < TILE_MAX_K \
+    wave = (m >= FUSEDQ_WAVE_MIN_M
+            and FUSEDQ_WAVE_N[0] <= n <= FUSEDQ_WAVE_N[1])
+    return "tile" if (m >= TILE_MIN_M or wide or wave) and k < TILE_MAX_K \
         else "stream"
 
 

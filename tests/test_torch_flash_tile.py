@@ -11,7 +11,7 @@ blocks of 512. A torch emulation of that order must stay within
 kernels/tolerance.py's "flash" bound of the plain version and of JAX's
 `flash_prefill_attention_kt` (its Pallas kernel in interpret mode, as the
 JAX package's own tests run it): the bound's reasoning holds at the
-body's tile width (and at 64, the other width the body builds with).
+body's tile width.
 
 The CUDA body itself is held to the plain version on the card by
 tests/test_torch_gpu.py and chip_smoke.py (phases 3e, 6, 8, 9 and 12).
@@ -85,19 +85,14 @@ def _case(S, nh, nkv):
     return _t(q), _t(k), _t(v), _t(want)
 
 
-def test_key_tile_is_a_body_width():
-    assert tpa.FLASH_KEY_TILE in (64, 128)
-
-
-@pytest.mark.parametrize("tile", [128, 64])
 @pytest.mark.parametrize("S", [1024, 1152])
 @pytest.mark.parametrize("nh,nkv", [(4, 4), (4, 2), (7, 1)])
-def test_body_order_meets_plain_and_jax(S, nh, nkv, tile):
+def test_body_order_meets_plain_and_jax(S, nh, nkv):
     q, k, v, jax_out = _case(S, nh, nkv)
-    got = _emulate_body(q, k, v, SM, tile)
+    got = _emulate_body(q, k, v, SM, tpa.FLASH_KEY_TILE)
     compare_bf16(got, tpa.flash_prefill_attention_ref(q, k, v, SM), "flash",
-                 f"tile {tile} vs plain")
-    compare_bf16(got, jax_out, "flash", f"tile {tile} vs JAX")
+                 "body order vs plain")
+    compare_bf16(got, jax_out, "flash", "body order vs JAX")
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +165,21 @@ def test_flash_launch_passes_kt_strides(fake, layout):
     assert common.LAUNCHES["flash_prefill_attention_kt"] == 1
 
 
+def test_flash_launch_reads_token_major_k_in_place(fake):
+    """flash_prefill_attention's K, [B, S, nkv, hd], reaches the kernel as
+    its [B, nkv, S, hd] view: no copy, token stride nkv * 128."""
+    lib = fake()
+    B, S, nh, nkv = 2, 256, 8, 2
+    q, k, v = _qkv(B, S, nh, nkv)
+    tpa.launch_flash("flash_prefill_attention", q, k.permute(0, 2, 1, 3), v,
+                     SM)
+    (name, args), = lib.calls
+    assert name == "fq_flash_prefill"
+    assert args[1] == k.data_ptr()
+    assert args[7:10] == (S * nkv * 128, 128, nkv * 128)
+    assert common.LAUNCHES["flash_prefill_attention"] == 1
+
+
 def test_flash_failed_launch_raises_without_fallback(fake):
     lib = fake(rc=1)
     q, k, v = _qkv()
@@ -182,7 +192,8 @@ def test_flash_failed_launch_raises_without_fallback(fake):
     assert common.LAUNCHES["flash_prefill_attention"] == 0
 
 
-@pytest.mark.parametrize("what", ["float32", "S 1000", "heads 6/4"])
+@pytest.mark.parametrize("what", ["float32", "S 1000", "heads 6/4",
+                                  "head_dim 64", "v of another length"])
 def test_flash_launch_refuses_what_the_body_does_not_take(fake, what):
     lib = fake()
     S = 1000 if what == "S 1000" else 256
@@ -190,6 +201,10 @@ def test_flash_launch_refuses_what_the_body_does_not_take(fake, what):
     q, k, v = _qkv(1, S, nh, nkv)
     if what == "float32":
         q, k, v = q.float(), k.float(), v.float()
+    elif what == "head_dim 64":
+        q, k, v = (t[..., :64].contiguous() for t in (q, k, v))
+    elif what == "v of another length":
+        v = v[:, :128]
     with pytest.raises(ValueError):
         tpa.launch_flash("flash_prefill_attention", q, k.permute(0, 2, 1, 3),
                          v, SM)

@@ -65,16 +65,38 @@ def fake(monkeypatch):
 
 @pytest.mark.parametrize("proj", list(LLAMA_LINEARS))
 def test_fusedq_route_at_decode_and_prefill(proj):
-    """Row 17: the dp4a body at decode (M = 1 to 15), the tile from
+    """Row 17: the dp4a body at decode (M = 1 to 15) but on qkv from 4
+    rows (its 12288 weight rows are one wave of the tile's blocks, where
+    phase 3a measured the tile faster at M = 4), the tile from
     TILE_MIN_M rows (phase 11's 4 x 48 prompt: M = 192) as row 1, and
     from 16 rows already for the wide weights (qkv, up||gate: N >= 5120,
     where phase 3a measured the tile faster at M = 16)."""
     n, k = LLAMA_LINEARS[proj]
-    assert (tmm.TILE_MIN_M, tmm.FUSEDQ_WIDE_MIN_M) == (32, 16)
+    assert (tmm.TILE_MIN_M, tmm.FUSEDQ_WIDE_MIN_M,
+            tmm.FUSEDQ_WAVE_MIN_M) == (32, 16, 4)
     wide = "tile" if n >= tmm.FUSEDQ_WIDE_N else "stream"
-    got = [tmm.fusedq_body(m, n, k) for m in (1, 15, 16, 31, 32, 192, 2048)]
-    assert got == ["stream", "stream", wide, wide, "tile", "tile", "tile"]
+    wave = "tile" if proj == "qkv" else "stream"
+    got = [tmm.fusedq_body(m, n, k)
+           for m in (1, 3, 4, 15, 16, 31, 32, 192, 2048)]
+    assert got == ["stream", "stream", wave, wave, wide, wide, "tile",
+                   "tile", "tile"]
     assert wide == ("tile" if proj in ("qkv", "upgate") else "stream")
+
+
+@pytest.mark.parametrize("n,body", [(4096, "stream"),
+                                    (tmm.FUSEDQ_WAVE_N[0] - 1, "stream"),
+                                    (tmm.FUSEDQ_WAVE_N[0], "tile"),
+                                    (tmm.FUSEDQ_WAVE_N[1], "tile"),
+                                    (tmm.FUSEDQ_WAVE_N[1] + 1, "stream"),
+                                    (22016, "stream")])
+def test_fusedq_route_at_m4_by_width(n, body):
+    """From FUSEDQ_WAVE_MIN_M = 4 rows the tile for a weight of 12288 rows
+    up to one wave of 128-row blocks on 132 SMs (phase 3a times both
+    bodies at M = 4 on 4096, 12288 and 22016 rows); three rows take the
+    dp4a body everywhere."""
+    assert tmm.FUSEDQ_WAVE_N == (12288, 16896)
+    assert tmm.fusedq_body(4, n, 4096) == body
+    assert tmm.fusedq_body(3, n, 4096) == "stream"
 
 
 @pytest.mark.parametrize("n,body", [(4096, "stream"),
