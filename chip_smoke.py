@@ -65,8 +65,9 @@ line):
      w4a4_matmul_i8_fusedq (one layer's four linears at M=4, the merged
      qkv at M=2048) bit for bit against quant_acts_i8 + w4a4_matmul_i8;
      flash_prefill_attention_kt_i8 in both pv_i8 modes (3e's shapes)
-     within the "flash" tolerance, its prepass bit for bit, its rel-RMS
-     against the float32 oracle; decode_attention_int4_v1, _wide and _v3
+     within the "flash" tolerance, its prepass bit for bit (V8^T in the
+     kernel's key order) and timed on its own, its rel-RMS against the
+     float32 oracle; decode_attention_int4_v1, _wide and _v3
      at row 2's and Qwen-2.5-7B's shapes within ATTN_TOL; each timed
      beside its bound and yardstick
      3j: rows 22-27, the grouped layout [G, T, 128], at llama-2-7b's
@@ -1547,7 +1548,8 @@ def check_baseline_kernels(torch, dev, gen, results):
     against the plain version; yardstick torch._int_mm on pre-unpacked
     int8 weights, as row 1's. Row 18 (flash_prefill_attention_kt_i8), both
     pv_i8 modes, at 1 x 2048 with 32/32 and 32/8 heads and at S=1152 (key
-    blocks shrunk to 128): the prepass's codes and scales bit for bit, the
+    blocks shrunk to 128): the prepass's codes and scales bit for bit
+    (V8^T in prefill_attention.v8t_key_order) and its time alone, the
     output within tolerance.py's "flash" mode of the plain version at
     JAX's blk_k 512, and its rel-RMS against the float32 oracle under the
     JAX package's bounds at 1 x 2048; yardstick causal SDPA. Rows 19-21
@@ -1638,7 +1640,7 @@ def check_baseline_kernels(torch, dev, gen, results):
             torch.cuda.synchronize()
             same = (torch.equal(k8, k8r) and torch.equal(sc[..., 0],
                                                           scr[..., 0])
-                    and (not pv_i8 or (torch.equal(v8t, v8r)
+                    and (not pv_i8 or (torch.equal(v8t, pa.v8t_key_order(v8r))
                                        and torch.equal(sc[..., 1],
                                                        scr[..., 1]))))
             if not same:
@@ -1659,13 +1661,17 @@ def check_baseline_kernels(torch, dev, gen, results):
             b_ms, b_by, nbytes, ops = _flash_i8_bound(S, nh, B, nkv, pv_i8)
             ms = cuda_ms(torch, lambda *a: pa.flash_prefill_attention_kt_i8(
                 *a, sm, pv_i8), args, 20)
+            # the prepass alone (its share of ms)
+            pre_ms = cuda_ms(torch, lambda q_, kt_, v_: pa.kv_quant_i8_prepass(
+                kt_, v_, pv_i8), args, 20)
             plain_ms = cuda_ms(torch, lambda *a: (
                 pa.flash_prefill_attention_kt_i8_ref(*a, sm, pv_i8)), args, 2)
             r = results.setdefault("flash_prefill_attention_kt_i8",
                                    dict(rows=[], max_abs_err=0.0))
             r["rows"].append(dict(case=f"{label}, pv_i8={pv_i8}", B=B, S=S,
                                   nh=nh, nkv=nkv, pv_i8=pv_i8, ms=ms,
-                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                  prepass_ms=pre_ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms,
                                   bound_by=b_by, library_ms=lib_ms,
                                   bytes=nbytes, ops=ops, max_abs_err=err,
                                   max_row_ulps=ulps, oracle_rel_rms=rel))
@@ -1673,7 +1679,8 @@ def check_baseline_kernels(torch, dev, gen, results):
             log(f"  {what}: prepass bit-exact, within 'flash', max abs err "
                 f"{err:.3e} ({ulps:.2f} bf16 ulps of its row's largest "
                 f"value), rel-RMS vs the float32 oracle {rel:.4f}; "
-                f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound "
+                f"kernel_ms {ms:.4f} (prepass {pre_ms:.4f}) plain_ms "
+                f"{plain_ms:.4f} bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
                 f"{ops / 1e9:.1f} G ops) library_ms {lib_ms:.4f} (causal "
                 "SDPA)")

@@ -135,7 +135,7 @@ _SIGNATURES = {
     "flat_pipeline": {
         # x, w, right, y, T, H, eps, x_is_f32, stream
         "fq_rmsnorm_right_flat": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-        # ltT, x, clip, xq, xs, T, G, q_max, stream
+        # lt, x, clip, xq, xs, T, G, q_max, stream
         "fq_left_quant_i8_flat": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
         # xq, wp, sx, sw, right, y, M, NH, K, stream
         "fq_w4a4_matmul_i8_swiglu_right": [_P, _P, _P, _P, _P, _P, _I, _I,
@@ -167,12 +167,16 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _F, _P],
     },
     "flash_prefill_i8": {
-        # q, k, v, k8, v8t, sc, out, q strides (b, s, h), k strides
+        # q, k, v, k8, v8t, sc, part, out, q strides (b, s, h), k strides
         # (b, h, s), v strides (b, s, h), B, S, nh, nkv, blk_k, pv_i8,
-        # scale, stream
-        "fq_flash_prefill_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        # scale, stream: the prepass, then the flash kernel
+        "fq_flash_prefill_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _F, _P],
+                                _I, _F, _P],
+        # k, v, k8, v8t, sc, part, k strides (b, h, s), v strides (b, s,
+        # h), B, S, nkv, quant_v, stream: the prepass alone
+        "fq_kv_quant_i8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _P],
     },
     "fp8_matmul": {
         # x, x expert stride, w8, se, y, E, M, N, K, exact, out_is_f32,

@@ -47,6 +47,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tma.cuh"
 #include "w4a4_tile.cuh"
 
 namespace {
@@ -56,6 +57,8 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
+
+
 
 template <typename T>
 __device__ __forceinline__ float load_f(const T* p);
@@ -200,123 +203,285 @@ rmsnorm_right_grouped_kernel(const InT* __restrict__ x,
 // xmax = max(max_i,d z, 0) * cmax; xmin = min(min z, 0) * cmin
 // s = max(|xmin|, xmax) / q_max (1 when 0); q = clamp(rint(z / s))
 //
-// One block (128 threads) per row: thread d owns column d of every group,
-// so it reads only its own column of x and z (shared memory, no
-// conflicts); left_t is shared, stored transposed and zero-padded to a
-// multiple of LQ_IC so a thread reads four coefficients per float4. Each
-// output group's sum runs over j in order. The row's extrema are taken
-// over the bf16-rounded z (as the JAX kernel does), then a block
-// reduction gives the scale, and the same thread writes its codes.
+// What bounds it on the H100: bytes. At the llama-2-7b 1 x 2048 prefill
+// the down projection's input (K = 11008, G = 86) is 45 MB of bf16 read
+// and 22.5 MB of codes written, 20 us at 3.35 TB/s; its products (2 * T *
+// K * G = 3.9 GFLOP, padded to wgmma's tile 6.4) take 6.5 us at the bf16
+// rate. The body it replaces (one 128-thread block per token, the G x G
+// factor copied to shared memory per token, G^2 * 128 float32 FMAs on the
+// CUDA cores) was latency-bound at 11x the bound (PERF.md).
+//
+// Design: a persistent grid (one block per SM, tokens t = block, block +
+// grid, ...). Each block stages the left factor once, as wgmma's A: bf16
+// (exact: JAX casts left_t to bf16), K-major with the 128-byte swizzle,
+// zero-padded to M = 64 * MT rows and K = KP (G rounded up to 16)
+// columns. A producer warp streams each token's slab X_t [G, 128] by TMA
+// into a ring of slots, as KP rows of two 64-column halves (rows past G
+// land as zeros), which is X_t as wgmma's MN-major B. The consumer
+// warpgroups (4 at MT = 1, 2 at MT = 2, where the accumulators take 128
+// registers) take the tokens in turn: Z_t = L^T X_t as MT x KP / 16 wgmma
+// m64n128k16 (float32 sums, both operands in shared memory); phase 1
+// rounds z to bf16 pairs in registers into a z tile in shared memory and
+// takes the extrema over the real rows (row < G) with warp shuffles and a
+// 4-warp shared-memory reduction; phase 2 spreads the G x 128 values
+// evenly over the warpgroup, 8 a thread, and writes the codes into a
+// staging tile [G][128] (128-byte swizzle) that one TMA store sends out.
+// No z and no float32 value reach device memory. The flat and the grouped
+// layouts differ only in the strides of the two tensor maps (token-major
+// [T, G, 128] or group-major [G, T, 128]), so both kernels run the same
+// instructions on the same values: the grouped twin is bit-identical.
+// The tensor cores' float32 sums within a k-step are not IEEE sums in
+// order: with identity factors every z is one exact product, so codes and
+// scales stay bit-exact; with random orthogonal factors z may round to
+// another bf16 now and then (kernels/tolerance.py "orthogonal").
+// Tried and dropped (PERF.md, tools/row5_row18_ablate.py): the codes
+// straight from the accumulators, 2 bytes a thread per row, with the
+// division in the loop (0.0845 ms at K = 11008, the warps of padded rows
+// idle); IEEE division or a per-value branch to it in phase 2 (0.065).
 // ---------------------------------------------------------------------------
 
-constexpr int LQ_THREADS = 128;
-constexpr int LQ_IC = 16;  // output groups per register chunk
+// consumer warpgroups of a block: 4 when the factor is one M tile (G <=
+// 64), 2 when it is two (the float32 accumulators of 128 rows take 128
+// registers a thread)
+template <int MT>
+__host__ __device__ constexpr int lq_nwg() {
+  return MT == 1 ? 4 : 2;
+}
+template <int MT>
+__host__ __device__ constexpr int lq_threads() {
+  return lq_nwg<MT>() * 128 + 32;  // + the producer warp
+}
+constexpr int LQ_MAX_STAGES = 16;  // slab ring depth, at most
 
-__host__ __device__ inline int lq_pad(int g) {
-  return (g + LQ_IC - 1) / LQ_IC * LQ_IC;
+__host__ __device__ inline int lq_kpad(int g) { return (g + 15) / 16 * 16; }
+__host__ __device__ inline int lq_round1k(int b) {
+  return (b + 1023) / 1024 * 1024;
+}
+// bytes of the staged left factor: KP / 64 (rounded up) swizzle atoms of
+// [64 * mt][128 B]
+__host__ __device__ inline int lq_a_bytes(int g, int mt) {
+  return (lq_kpad(g) + 63) / 64 * mt * 64 * 128;
+}
+// bytes of one warpgroup's z tile [G][128] bf16 and codes tile [G][128]
+__host__ __device__ inline int lq_wg_bytes(int g) {
+  return lq_round1k(g * 256) + lq_round1k(g * 128);
+}
+// bytes of one slab slot: two halves of [KP][128 B]
+__host__ __device__ inline int lq_slab_bytes(int g) { return lq_kpad(g) * 256; }
+// barriers and the extrema of 4 warps of each warpgroup
+constexpr int LQ_TAIL = 2 * LQ_MAX_STAGES * 8 + 4 * 4 * 2 * 4;
+__host__ inline int lq_fixed_smem(int g, int mt) {
+  return 1024 + lq_a_bytes(g, mt) + (mt == 1 ? 4 : 2) * lq_wg_bytes(g) +
+         LQ_TAIL;
 }
 
-__host__ inline int lq_smem(int g) {
-  return g * lq_pad(g) * 4 + 2 * lq_pad(g) * 128 * 2 + 2 * 4 * 4;
-}
-
-// GROUPED: x and xq are [G, T, 128] (left_quant_i8_grouped) instead of
-// [T, G * 128]; only the row's addresses change.
-template <bool GROUPED>
-__device__ __forceinline__ void left_quant_i8(const float* __restrict__ ltT,
-                                              const bf16* __restrict__ x,
+// xmap: x bf16 as [T][G][128] through the layout's strides, boxes of [1,
+// KP, 64]; qmap: the codes int8 as [T][G][128] likewise, boxes of [1, G,
+// 128]; lt: left_t [G][G] bf16.
+template <int MT>
+__device__ __forceinline__ void left_quant_i8(const CUtensorMap* xmap,
+                                              const CUtensorMap* qmap,
+                                              const bf16* __restrict__ lt,
                                               const float* __restrict__ clip,
-                                              int8_t* __restrict__ xq,
                                               float* __restrict__ xs, int G,
-                                              int T, float q_max) {
-  extern __shared__ float4 smem4[];
-  const int GP = lq_pad(G);
-  float* lt = reinterpret_cast<float*>(smem4);            // [G][GP]: ltT
-  bf16* xc = reinterpret_cast<bf16*>(lt + G * GP);        // [GP][128]
-  bf16* zc = xc + GP * 128;                               // [GP][128]
-  float* red = reinterpret_cast<float*>(zc + GP * 128);   // [2][4]
-  const int d = threadIdx.x;
-  const int lane = d & 31, warp = d >> 5;
-  const size_t row = blockIdx.x;
-  const int K = G * 128;
+                                              int T, int stages, float q_max) {
+  constexpr int NWG = lq_nwg<MT>();
+  constexpr int MP = MT * 64;
+  extern __shared__ __align__(16) uint8_t lq_raw[];
+  uint8_t* a_s = lq_raw + ((1024 - (smem_u32(lq_raw) & 1023)) & 1023);
+  const int KP = lq_kpad(G);
+  const int wgb = lq_wg_bytes(G), slab = lq_slab_bytes(G);
+  uint8_t* w_s = a_s + lq_a_bytes(G, MT);  // [NWG][z tile, codes tile]
+  uint8_t* x_s = w_s + NWG * wgb;          // [stages][2 halves][KP][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(x_s + stages * slab);
+  uint64_t* empty = full + LQ_MAX_STAGES;
+  float* red = reinterpret_cast<float*>(empty + LQ_MAX_STAGES);  // [NWG][4][2]
+  const int tid = threadIdx.x;
+  // this block's tokens: t = blockIdx.x + j * gridDim.x, j < ntok
+  const int ntok = (T - 1 - blockIdx.x) / gridDim.x + 1;
 
-  for (int i = d; i < G * GP; i += LQ_THREADS) {
-    const int j = i / GP, c = i % GP;
-    lt[i] = c < G ? ltT[j * G + c] : 0.f;
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, 4);  // the consuming warpgroup's 4 warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // offset of (this row, column group j, column 0) in x and xq
-  auto at = [&](int j) -> size_t {
-    if constexpr (GROUPED) return (j * static_cast<size_t>(T) + row) * 128;
-    else return row * K + j * 128;
-  };
-  for (int j = 0; j < G; ++j) xc[j * 128 + d] = x[at(j) + d];
   __syncthreads();
 
-  float mx = 0.f, mn = 0.f;  // max(., 0) and min(., 0) folded in
-  for (int i0 = 0; i0 < G; i0 += LQ_IC) {
-    float acc[LQ_IC];
-#pragma unroll
-    for (int ii = 0; ii < LQ_IC; ++ii) acc[ii] = 0.f;
-    for (int j = 0; j < G; ++j) {
-      const float xv = __bfloat162float(xc[j * 128 + d]);
-      const float4* l4 = reinterpret_cast<const float4*>(lt + j * GP + i0);
-#pragma unroll
-      for (int q = 0; q < LQ_IC / 4; ++q) {
-        const float4 l = l4[q];
-        acc[4 * q + 0] = fmaf(l.x, xv, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(l.y, xv, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(l.z, xv, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(l.w, xv, acc[4 * q + 3]);
+  if (tid >= NWG * 128) {  // the producer: one thread issues the loads
+    if (tid == NWG * 128) {
+      for (int j = 0; j < ntok; ++j) {
+        const int slot = j % stages;
+        const unsigned ph = ((j / stages) & 1) ^ 1;
+        const int t = blockIdx.x + j * gridDim.x;
+        uint8_t* dst = x_s + slot * slab;
+        mbar_wait(empty + slot, ph);
+        mbar_expect_tx(full + slot, slab);
+        tma_load(dst, xmap, 0, 0, t, full + slot);
+        tma_load(dst + KP * 128, xmap, 64, 0, t, full + slot);
       }
     }
+    return;
+  }
+
+  // A = left_t in bf16, while the first slabs land: chunk c (8 columns
+  // from 64a + 8c) of row i of atom a at chunk c ^ (i % 8); zeros past G
+  const int na = (KP + 63) / 64;
+  for (int idx = tid; idx < na * MP * 8; idx += NWG * 128) {
+    const int a = idx / (MP * 8), i = (idx >> 3) % MP, c = idx & 7;
+    __align__(16) bf16 v[8];
 #pragma unroll
-    for (int ii = 0; ii < LQ_IC; ++ii) {
-      if (i0 + ii < G) {
-        const bf16 z = __float2bfloat16_rn(acc[ii]);
-        zc[(i0 + ii) * 128 + d] = z;
-        const float zf = __bfloat162float(z);
-        mx = fmaxf(mx, zf);
-        mn = fminf(mn, zf);
+    for (int e = 0; e < 8; ++e) {
+      const int j = 64 * a + 8 * c + e;
+      v[e] = i < G && j < G ? lt[i * G + j] : __float2bfloat16_rn(0.f);
+    }
+    *reinterpret_cast<uint4*>(a_s + a * (MP * 128) + i * 128 +
+                              ((c ^ (i & 7)) << 4)) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+  fence_proxy_async();  // the generic-proxy writes, seen by the wgmmas
+  bar_sync<NWG * 128>(NWG + 1);  // the consumers
+
+  const int wg = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, tq = lane & 3;
+  uint8_t* z_s = w_s + wg * wgb;                // z [G][256 B] bf16
+  uint8_t* c_s = z_s + lq_round1k(G * 256);     // codes [G][128 B]
+  const float cmax = clip[0], cmin = clip[1];
+  const float lo_q = -q_max - 1.f;
+  const int nk = KP / 16;
+  for (int j = wg; j < ntok; j += NWG) {
+    const int slot = j % stages;
+    const int t = blockIdx.x + j * gridDim.x;
+    const uint8_t* xt = x_s + slot * slab;
+    float acc[MT][64];
+    mbar_wait(full + slot, (j / stages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        if (kk < nk)
+          WgmmaSS<128>::mma_tb(
+              acc[mt],
+              sw128_desc(a_s + (kk >> 2) * (MP * 128) + mt * (64 * 128) +
+                         (kk & 3) * 32),
+              sw128_mn_desc(xt + kk * 2048, KP * 128), kk > 0);
       }
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_f32<64>(acc[mt]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + slot);  // the slab is read
+
+    // phase 1: z in bf16 pairs into the z tile (16-byte chunk n of row i
+    // at n ^ (i % 8)), the extrema over rows i < G (acc[mt][4n + e]: row
+    // 64 mt + 16 warp + g8 + 8 (e >> 1), column 8n + 2tq + (e & 1)); max(.,
+    // 0) and min(., 0) folded in
+    __nv_bfloat162 mx2 = __floats2bfloat162_rn(0.f, 0.f), mn2 = mx2;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 64 * mt + 16 * warp + g8 + 8 * h;
+        if (i < G) {
+          uint8_t* row = z_s + i * 256 + 4 * tq;
+#pragma unroll
+          for (int n = 0; n < 16; ++n) {
+            const __nv_bfloat162 z = __floats2bfloat162_rn(
+                acc[mt][4 * n + 2 * h], acc[mt][4 * n + 2 * h + 1]);
+            mx2 = __hmax2(mx2, z);
+            mn2 = __hmin2(mn2, z);
+            *reinterpret_cast<__nv_bfloat162*>(row + ((n ^ (i & 7)) << 4)) = z;
+          }
+        }
+      }
+    }
+    float mx = fmaxf(__low2float(mx2), __high2float(mx2));
+    float mn = fminf(__low2float(mn2), __high2float(mn2));
+    mx = warp_max(mx);
+    mn = -warp_max(-mn);
+    if (lane == 0) {
+      red[(wg * 4 + warp) * 2] = mx;
+      red[(wg * 4 + warp) * 2 + 1] = mn;
+    }
+    if (wt == 0) bulk_wait_read<0>();  // the codes tile's last store read it
+    bar_sync<128>(1 + wg);
+    const float* r = red + wg * 8;
+    mx = fmaxf(fmaxf(r[0], r[2]), fmaxf(r[4], r[6]));
+    mn = fminf(fminf(r[1], r[3]), fminf(r[5], r[7]));
+    const float absmax = fmaxf(fabsf(__fmul_rn(mn, cmin)), __fmul_rn(mx, cmax));
+    const float sc = absmax == 0.f ? 1.f : absmax / q_max;
+    const float inv = __frcp_rn(sc);
+    if (wt == 0) xs[t] = sc;
+
+    // phase 2: 8 values a chunk -> 8 codes, clamp(rint(z / s)) (the clamp
+    // bounds are integers, so it may come first). z * (1 / s) is within
+    // 2^-22 of z / s relative (|z / s| <= 128 after the clamp: 3e-5), so
+    // it rounds to the same integer unless it lies within 1e-4 of a half,
+    // where z / s decides: one branch a chunk, rarely taken (a branch per
+    // value cost 0.024 ms at K = 11008: tools/row5_row18_ablate.py). The
+    // rounding adds and takes off 1.5 * 2^23.
+    for (int c = wt; c < G * 16; c += 128) {
+      const int i = c >> 4, n = c & 15;
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          z_s + i * 256 + ((n ^ (i & 7)) << 4));
+      float f[8];
+      widen_bf16x8(raw, f);
+      int q[8];
+      bool near_half = false;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float qf = fminf(fmaxf(__fmul_rn(f[e], inv), lo_q), q_max);
+        const float y = __fadd_rn(qf, RINT_MAGIC);
+        q[e] = __float_as_int(y) - RINT_MAGIC_BITS;
+        near_half |= fabsf(__fsub_rn(qf, __fsub_rn(y, RINT_MAGIC))) > 0.4999f;
+      }
+      if (near_half) {  // the chunk again by the definition
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          q[e] = static_cast<int>(fminf(fmaxf(rintf(f[e] / sc), lo_q), q_max));
+      }
+      const unsigned w0 = __byte_perm(__byte_perm(q[0], q[1], 0x0040),
+                                      __byte_perm(q[2], q[3], 0x0040), 0x5410);
+      const unsigned w1 = __byte_perm(__byte_perm(q[4], q[5], 0x0040),
+                                      __byte_perm(q[6], q[7], 0x0040), 0x5410);
+      *reinterpret_cast<uint2*>(c_s + i * 128 + (((n >> 1) ^ (i & 7)) << 4) +
+                                8 * (n & 1)) = make_uint2(w0, w1);
+    }
+    fence_proxy_async();  // the codes, seen by the TMA store
+    bar_sync<128>(1 + wg);
+    if (wt == 0) {
+      tma_store(qmap, c_s, 0, 0, t);
+      bulk_commit();
+    }
   }
-  mx = warp_max(mx);
-  mn = -warp_max(-mn);
-  if (lane == 0) {
-    red[warp] = mx;
-    red[4 + warp] = mn;
-  }
-  __syncthreads();
-  mx = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-  mn = fminf(fminf(red[4], red[5]), fminf(red[6], red[7]));
-  const float xmax = __fmul_rn(mx, clip[0]);
-  const float xmin = __fmul_rn(mn, clip[1]);
-  const float absmax = fmaxf(fabsf(xmin), xmax);
-  const float s = absmax == 0.f ? 1.f : absmax / q_max;
-  if (d == 0) xs[row] = s;
-  for (int i = 0; i < G; ++i) {
-    const float q = rintf(__bfloat162float(zc[i * 128 + d]) / s);
-    xq[at(i) + d] =
-        static_cast<int8_t>(fminf(fmaxf(q, -q_max - 1.f), q_max));
-  }
+  if (wt == 0) bulk_wait<0>();
 }
 
-__global__ void __launch_bounds__(LQ_THREADS)
-left_quant_i8_flat_kernel(const float* __restrict__ ltT,
-                          const bf16* __restrict__ x,
+template <int MT>
+__global__ void __launch_bounds__(lq_threads<MT>(), 1)
+left_quant_i8_flat_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap qmap,
+                          const bf16* __restrict__ lt,
                           const float* __restrict__ clip,
-                          int8_t* __restrict__ xq, float* __restrict__ xs,
-                          int G, int T, float q_max) {
-  left_quant_i8<false>(ltT, x, clip, xq, xs, G, T, q_max);
+                          float* __restrict__ xs, int G, int T, int stages,
+                          float q_max) {
+  left_quant_i8<MT>(&xmap, &qmap, lt, clip, xs, G, T, stages, q_max);
 }
 
-__global__ void __launch_bounds__(LQ_THREADS)
-left_quant_i8_grouped_kernel(const float* __restrict__ ltT,
-                             const bf16* __restrict__ x,
+template <int MT>
+__global__ void __launch_bounds__(lq_threads<MT>(), 1)
+left_quant_i8_grouped_kernel(const __grid_constant__ CUtensorMap xmap,
+                             const __grid_constant__ CUtensorMap qmap,
+                             const bf16* __restrict__ lt,
                              const float* __restrict__ clip,
-                             int8_t* __restrict__ xq, float* __restrict__ xs,
-                             int G, int T, float q_max) {
-  left_quant_i8<true>(ltT, x, clip, xq, xs, G, T, q_max);
+                             float* __restrict__ xs, int G, int T,
+                             int stages, float q_max) {
+  left_quant_i8<MT>(&xmap, &qmap, lt, clip, xs, G, T, stages, q_max);
 }
 
 // ---------------------------------------------------------------------------
@@ -547,20 +712,58 @@ int launch_rmsnorm_right(const void* x, const void* w, const void* right,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the SMs of the current device, read once
+inline int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
 template <bool GROUPED>
-int launch_left_quant(const void* ltT, const void* x, const void* clip,
+int launch_left_quant(const void* lt, const void* x, const void* clip,
                       void* xq, void* xs, int T, int G, float q_max,
                       cudaStream_t s) {
-  auto kern = GROUPED ? &left_quant_i8_grouped_kernel
-                      : &left_quant_i8_flat_kernel;
-  const int bytes = lq_smem(G);
-  static int done = 0;
-  cudaError_t err = allow_smem(kern, bytes, &done);
+  if (T == 0) return 0;
+  const int nsm = sm_count();
+  if (nsm == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // x and the codes as [T][G][128] (dims innermost first) through the
+  // layout's strides: token-major [T, G * 128] or group-major [G, T, 128]
+  const long long gs = GROUPED ? 128LL * T : 128;
+  const long long ts = GROUPED ? 128 : 128LL * G;
+  const long long dims[3] = {128, G, T};
+  const long long xst[2] = {2 * gs, 2 * ts}, qst[2] = {gs, ts};
+  CUtensorMap xmap, qmap;
+  if (!tensor_map_nd(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 3, dims,
+                     xst, 64, lq_kpad(G)) ||
+      !tensor_map_nd(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, 3, dims, qst,
+                     128, G))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int mt = G > 64 ? 2 : 1;
+  const int fixed = lq_fixed_smem(G, mt);
+  // a multiple of the warpgroups, so that a slot's previous token was
+  // the same warpgroup's (its barrier phase then cannot be a lap behind)
+  const int nwg = mt == 2 ? lq_nwg<2>() : lq_nwg<1>();
+  int stages = (232448 - fixed) / lq_slab_bytes(G);
+  stages = (stages < LQ_MAX_STAGES ? stages : LQ_MAX_STAGES) / nwg * nwg;
+  const int bytes = fixed + stages * lq_slab_bytes(G);
+  auto kern = mt == 2 ? (GROUPED ? &left_quant_i8_grouped_kernel<2>
+                                 : &left_quant_i8_flat_kernel<2>)
+                      : (GROUPED ? &left_quant_i8_grouped_kernel<1>
+                                 : &left_quant_i8_flat_kernel<1>);
+  static int done[2] = {0, 0};
+  cudaError_t err = allow_smem(kern, bytes, &done[mt - 1]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<T, LQ_THREADS, bytes, s>>>(
-      static_cast<const float*>(ltT), static_cast<const bf16*>(x),
-      static_cast<const float*>(clip), static_cast<int8_t*>(xq),
-      static_cast<float*>(xs), G, T, q_max);
+  kern<<<T < nsm ? T : nsm, mt == 2 ? lq_threads<2>() : lq_threads<1>(),
+         bytes, s>>>(
+      xmap, qmap, static_cast<const bf16*>(lt),
+      static_cast<const float*>(clip), static_cast<float*>(xs), G, T, stages,
+      q_max);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -603,22 +806,23 @@ extern "C" int fq_rmsnorm_right_grouped(const void* x, const void* w,
                                     static_cast<cudaStream_t>(stream));
 }
 
-// ltT f32 [G, G] (left_t transposed, bf16 values); x bf16 [T, G*128];
-// clip f32 [2] (cmax, cmin); xq int8 [T, G*128]; xs f32 [T].
-extern "C" int fq_left_quant_i8_flat(const void* ltT, const void* x,
+// lt bf16 [G, G] (left_t); x bf16 [T, G*128]; clip f32 [2] (cmax, cmin);
+// xq int8 [T, G*128]; xs f32 [T]. 0 < G <= 128 (checked in Python); x and
+// xq 16-byte aligned.
+extern "C" int fq_left_quant_i8_flat(const void* lt, const void* x,
                                      const void* clip, void* xq, void* xs,
                                      int T, int G, float q_max,
                                      void* stream) {
-  return launch_left_quant<false>(ltT, x, clip, xq, xs, T, G, q_max,
+  return launch_left_quant<false>(lt, x, clip, xq, xs, T, G, q_max,
                                   static_cast<cudaStream_t>(stream));
 }
 
 // fq_left_quant_i8_flat with x bf16 and xq int8 [G, T, 128].
-extern "C" int fq_left_quant_i8_grouped(const void* ltT, const void* x,
+extern "C" int fq_left_quant_i8_grouped(const void* lt, const void* x,
                                         const void* clip, void* xq, void* xs,
                                         int T, int G, float q_max,
                                         void* stream) {
-  return launch_left_quant<true>(ltT, x, clip, xq, xs, T, G, q_max,
+  return launch_left_quant<true>(lt, x, clip, xq, xs, T, G, q_max,
                                  static_cast<cudaStream_t>(stream));
 }
 

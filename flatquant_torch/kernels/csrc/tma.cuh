@@ -1,8 +1,9 @@
 // mbarriers and the Tensor Memory Accelerator, shared by the kernels that
 // take their operands by TMA (fp8_matmul.cu, int4_matmul.cu's w4a8 tile,
-// flash_prefill.cu, attn_prologue.cu's bf16 body): barrier init / arrive /
-// bounded wait, 3-d and 4-d tensor copies counted on a barrier, and the
-// tensor maps, encoded on the host through
+// flash_prefill.cu, flash_prefill_i8.cu, attn_prologue.cu's bf16 body,
+// flat_pipeline.cu's left quant): barrier init / arrive / bounded wait,
+// 3-d and 4-d tensor copies counted on a barrier, 3-d tensor stores with
+// their bulk groups, and the tensor maps, encoded on the host through
 // cuTensorMapEncodeTiled, looked up in libcuda.so.1 at run time so the
 // libraries link against nothing new.
 #pragma once
@@ -73,6 +74,33 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box from shared memory into a 3-d tensor map, in this thread's bulk
+// group; the threads that wrote the box ran fence_proxy_async and a
+// barrier before
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's bulk groups still read shared
+// memory (the source may be rewritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// wait until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -114,6 +142,31 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
   const cuuint32_t estr[3] = {1, 1, 1};
   return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a tensor map of `rank` (3 or 4) dims: d[0] (innermost, contiguous) ..
+// d[rank - 1], the byte strides of dims 1 .. rank - 1 (multiples of 16, in
+// any order), boxes of [1, .., b1, b0], 128-byte swizzle (b0 * esize <=
+// 128); elements past the tensor's edges land as zeros (and count as
+// transferred bytes); false if the encoder refuses it
+inline bool tensor_map_nd(CUtensorMap* map, CUtensorMapDataType type,
+                          const void* base, int rank, const long long* d,
+                          const long long* stride_bytes, int b0, int b1) {
+  EncodeTiled fn = encoder();
+  if (!fn || rank < 2 || rank > 5) return false;
+  cuuint64_t dims[5], strides[4];
+  cuuint32_t box[5], estr[5];
+  for (int i = 0; i < rank; ++i) {
+    dims[i] = static_cast<cuuint64_t>(d[i]);
+    box[i] = i == 0 ? b0 : i == 1 ? b1 : 1;
+    estr[i] = 1;
+  }
+  for (int i = 0; i < rank - 1; ++i)
+    strides[i] = static_cast<cuuint64_t>(stride_bytes[i]);
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -68,35 +68,6 @@ __device__ __forceinline__ void fence_regs(int* d) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// d[64 x 128] += a[64 x 32] (registers, s8) * b[32 x 128] (shared, s8)
-__device__ __forceinline__ void wgmma_s8_n128(int* d, const unsigned* a,
-                                              uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
 // The main loop: acc[mat][4i + e] = 16 * sum_k x[m, k] * (nib - 8) of
 // weight row n0 + 64 wg + 16 (warp % 4) + lane / 4 (+ 8 for e >= 2) of
 // matrix mat (rows mat * N + n, mat < NMAT) and activation row m0 + 8i +
@@ -194,7 +165,7 @@ __device__ __forceinline__ void w4a4_mainloop(
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        wgmma_s8_n128(acc[mat], a[mat][j], sw128_desc(xs + j * 32));
+        wgmma_s8_rs_n128(acc[mat], a[mat][j], sw128_desc(xs + j * 32), 1);
       wgmma_commit();
     }
     wgmma_wait<0>();

@@ -186,13 +186,13 @@ def left_quant_i8_grouped(left_t, x, clip=None, q_max: int = 7):
     req(lw == 128 and 0 < g <= 128 and tuple(left_t.shape) == (g, g), _LQ,
         f"shapes left_t {tuple(left_t.shape)}, x {tuple(x.shape)}")
     x = x.contiguous()
-    # transposed, so a thread reads four outputs' coefficients at once
-    ltT = left_t.to(torch.bfloat16).to(torch.float32).t().contiguous()
+    req(x.data_ptr() % 16 == 0, _LQ, "x must be 16-byte aligned (TMA)")
+    lt = left_t.to(torch.bfloat16).contiguous()  # wgmma's A, as JAX casts it
     cl = common.clip_vector([clip], x.device)
     xq = torch.empty((g, t, 128), dtype=torch.int8, device=x.device)
     xs = torch.empty((t, 1), dtype=torch.float32, device=x.device)
     rc = common.lib("flat_pipeline").fq_left_quant_i8_grouped(
-        ltT.data_ptr(), x.data_ptr(), cl.data_ptr(), xq.data_ptr(),
+        lt.data_ptr(), x.data_ptr(), cl.data_ptr(), xq.data_ptr(),
         xs.data_ptr(), t, g, float(q_max), common.stream_ptr(x))
     common.check("flat_pipeline", _LQ, rc)
     common.LAUNCHES[_LQ] += 1

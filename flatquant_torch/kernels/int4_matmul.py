@@ -327,7 +327,11 @@ def w4a4_matmul_i8_swiglu_ref(x_q, x_scale, w_packed, w_scale,
     output, rounds after every op instead.)"""
     y = w4a8_matmul_ref(x_q, x_scale, w_packed, w_scale, torch.float32)
     u, g = y.chunk(2, dim=-1)
-    return (u * (g * (1.0 / (1.0 + torch.exp(-g))))).to(out_dtype)
+    # 1 / (1 + exp(-g)) as a tensor-by-tensor IEEE division, as the kernel
+    # and JAX divide: `1.0 / t` runs torch's reciprocal kernel, which once
+    # returned values up to 2^-14 off on the CPU (ROADMAP.md section 3)
+    den = 1.0 + torch.exp(-g)
+    return (u * (g * (torch.ones_like(den) / den))).to(out_dtype)
 
 
 def w4a4_matmul_i8_swiglu(x_q, x_scale, w_packed, w_scale,

@@ -334,28 +334,73 @@ def flash_prefill_attention_kt_i8_ref(q, kt, v, sm_scale: float,
     return out.to(q.dtype).permute(0, 2, 1, 3)
 
 
+def v8t_key_order(v8t):
+    """quantize_kv_i8_ref's v8t [..., S] in the order the kernel stores it:
+    within each 32-key group, position kA holds key 16 (kA // 16) + 8
+    ((kA % 4) // 2) + 2 ((kA // 4) % 4) + kA % 2, the key the PV product's
+    s8 register A fragment holds at k = kA (csrc/flash_prefill_i8.cu)."""
+    S = v8t.shape[-1]
+    ka = torch.arange(S, device=v8t.device)
+    r = ka % 32
+    key = (ka - r) + 16 * (r // 16) + 8 * ((r % 4) // 2) + 2 * ((r // 4) % 4) \
+        + r % 2
+    return v8t[..., key]
+
+
+def _i8_scratch(B, S, nkv, dev):
+    """The prepass's outputs and scratch: k8, v8t, sc, the chunk extrema."""
+    return (torch.empty((B, nkv, S, HD), dtype=torch.int8, device=dev),
+            torch.empty((B, nkv, HD, S), dtype=torch.int8, device=dev),
+            torch.empty((B, nkv, 2), dtype=torch.float32, device=dev),
+            torch.empty((B, nkv, S // 128, 2), dtype=torch.float32,
+                        device=dev))
+
+
+def kv_quant_i8_prepass(kt, v, pv_i8=True):
+    """The int8 flash kernel's prepass alone (chip_smoke.py phase 3i times
+    it on its own): CUDA kt [B, nkv, hd, S], v [B, S, nkv, hd] bf16 ->
+    (k8, v8t, sc), quantize_kv_i8_ref's with v8t in v8t_key_order (written
+    only with pv_i8). Not counted: the entry point is
+    flash_prefill_attention_kt_i8."""
+    B, nkv, hd, S = kt.shape
+    k_bhs = kt.permute(0, 1, 3, 2)
+    common.require(kt.is_cuda and v.device == kt.device
+                   and kt.dtype == v.dtype == torch.bfloat16 and hd == HD
+                   and S % 128 == 0 and tuple(v.shape) == (B, S, nkv, hd)
+                   and k_bhs.stride(3) == v.stride(3) == 1, _NAME_I8,
+                   f"prepass inputs kt {tuple(kt.shape)}, v {tuple(v.shape)}")
+    strides = [k_bhs.stride(0), k_bhs.stride(1), k_bhs.stride(2),
+               v.stride(0), v.stride(1), v.stride(2)]
+    k8, v8t, sc, part = _i8_scratch(B, S, nkv, v.device)
+    rc = common.lib(_LIB_I8).fq_kv_quant_i8(
+        k_bhs.data_ptr(), v.data_ptr(), k8.data_ptr(), v8t.data_ptr(),
+        sc.data_ptr(), part.data_ptr(), *strides, B, S, nkv, int(pv_i8),
+        common.stream_ptr(v))
+    common.check(_LIB_I8, _NAME_I8, rc)
+    return k8, v8t, sc
+
+
 def _launch_i8(q, kt, v, sm_scale, pv_i8, blk_k):
     """Launch csrc/flash_prefill_i8.cu (the prepass, then the flash
     kernel). Returns the output and the prepass's scratch: k8 [B, nkv, S,
-    hd], v8t [B, nkv, hd, S] (written with pv_i8) and sc [B, nkv, 2], which
-    equal quantize_kv_i8_ref's."""
+    hd], v8t [B, nkv, hd, S] (written with pv_i8, in v8t_key_order) and sc
+    [B, nkv, 2], which equal quantize_kv_i8_ref's."""
     B, S, nh, hd = q.shape
     nkv = kt.shape[1]
     q, k_bhs, v, strides = _flash_args(_NAME_I8, q, kt.permute(0, 1, 3, 2),
                                        v)
     bk = _shrink_to_divisor(min(blk_k, S), S)
-    common.require(1 <= nh // nkv <= 8 and bk % 64 == 0, _NAME_I8,
-                   f"n_rep {nh}/{nkv} must be from 1 to 8 and the key block "
-                   f"{bk} a multiple of 64")
+    common.require(1 <= nh // nkv <= 8 and bk % 128 == 0 and bk <= 512,
+                   _NAME_I8, f"n_rep {nh}/{nkv} must be from 1 to 8 and the "
+                   f"key block {bk} a multiple of 128 up to 512")
     dev = q.device
-    k8 = torch.empty((B, nkv, S, HD), dtype=torch.int8, device=dev)
-    v8t = torch.empty((B, nkv, HD, S), dtype=torch.int8, device=dev)
-    sc = torch.empty((B, nkv, 2), dtype=torch.float32, device=dev)
+    k8, v8t, sc, part = _i8_scratch(B, S, nkv, dev)
     out = torch.empty((B, S, nh, hd), dtype=q.dtype, device=dev)
     rc = common.lib(_LIB_I8).fq_flash_prefill_i8(
         q.data_ptr(), k_bhs.data_ptr(), v.data_ptr(), k8.data_ptr(),
-        v8t.data_ptr(), sc.data_ptr(), out.data_ptr(), *strides, B, S, nh,
-        nkv, bk, int(pv_i8), sm_scale * _LOG2E, common.stream_ptr(q))
+        v8t.data_ptr(), sc.data_ptr(), part.data_ptr(), out.data_ptr(),
+        *strides, B, S, nh, nkv, bk, int(pv_i8), sm_scale * _LOG2E,
+        common.stream_ptr(q))
     common.check(_LIB_I8, _NAME_I8, rc)
     common.LAUNCHES[_NAME_I8] += 1
     return out, k8, v8t, sc
@@ -369,8 +414,8 @@ def flash_prefill_attention_kt_i8(q, kt, v, sm_scale: float,
     read in place); v [B, S, nkv, hd] -> [B, S, nh, hd]. pv_i8: PV in int8
     on p's codes (default), else in bf16. CUDA tensors launch the prepass
     and the flash kernel (bf16, hd 128, S % 128 == 0, n_rep 1-8, the key
-    block a multiple of 64) and count one launch, or raise; CPU tensors
-    run flash_prefill_attention_kt_i8_ref."""
+    block a multiple of 128 up to 512) and count one launch, or raise; CPU
+    tensors run flash_prefill_attention_kt_i8_ref."""
     if q.device.type == "cpu":
         return flash_prefill_attention_kt_i8_ref(q, kt, v, sm_scale, pv_i8,
                                                  blk_k)

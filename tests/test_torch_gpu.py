@@ -174,8 +174,13 @@ def test_rmsnorm_right_flat_matches_plain(cuda, mode, t, h, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("t,grp,clip", [(100, 32, None), (37, 86, (0.9, 0.95)),
-                                        (8, 2, (0.97, 0.9))])
+                                        (8, 2, (0.97, 0.9)),
+                                        (1000, 86, (0.9, 0.95)),
+                                        (2047, 128, None)])
 def test_left_quant_i8_flat_matches_plain(cuda, mode, t, grp, clip):
+    """T = 1000 and 2047: tokens not a multiple of the persistent grid
+    (one block an SM, tokens t, t + grid, ...); G = 86 and 128 take two M
+    tiles of wgmma, G = 2 a slab padded from 2 to 16 rows."""
     g = torch.Generator(device=cuda).manual_seed(grp)
     x = (torch.randn((t, grp * 128), generator=g, device=cuda) * 3).to(
         torch.bfloat16)
@@ -888,8 +893,12 @@ def test_decode_baselines_match_plain(cuda, name, nh, nkv):
 @pytest.mark.parametrize("pv_i8", [True, False])
 @pytest.mark.parametrize("S,nh,nkv,blk_k", [(256, 4, 2, 512),
                                             (384, 4, 4, 512),
-                                            (1024, 8, 1, 256)])
+                                            (1024, 8, 1, 256),
+                                            (1152, 32, 32, 512),
+                                            (2048, 28, 4, 512)])
 def test_flash_prefill_kt_i8_matches_plain(cuda, pv_i8, S, nh, nkv, blk_k):
+    """S = 1152: key blocks shrunk to one 128-key tile, 9 query tiles (an
+    odd count for the block's two warpgroups); Qwen-2.5-7B's 28/4 heads."""
     g = torch.Generator(device=cuda).manual_seed(S + nh)
     q, k, v = (torch.randn((1, S, n, 128), generator=g, device=cuda).to(
         torch.bfloat16) for n in (nh, nkv, nkv))
@@ -900,8 +909,9 @@ def test_flash_prefill_kt_i8_matches_plain(cuda, pv_i8, S, nh, nkv, blk_k):
     assert common.LAUNCHES["flash_prefill_attention_kt_i8"] == before + 1
     k8r, v8r, scr = tpa.quantize_kv_i8_ref(kt, v)
     assert torch.equal(k8, k8r) and torch.equal(sc[..., 0], scr[..., 0])
-    if pv_i8:
-        assert torch.equal(v8t, v8r) and torch.equal(sc[..., 1], scr[..., 1])
+    if pv_i8:  # V8^T in the key order of the PV product's register A
+        assert torch.equal(v8t, tpa.v8t_key_order(v8r))
+        assert torch.equal(sc[..., 1], scr[..., 1])
     want = tpa.flash_prefill_attention_kt_i8_ref(q, kt, v, sm, pv_i8, blk_k)
     # the same exp2f on both sides: p, codes and int32 sums are the plain
     # version's, only float32 sums run in another order
@@ -945,7 +955,9 @@ def test_rmsnorm_right_grouped_matches_plain_and_twin(cuda, mode, t, h,
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("t,grp,clip", [(300, 32, None),
                                         (37, 86, (0.9, 0.95)),
-                                        (8, 2, (0.97, 0.9))])
+                                        (8, 2, (0.97, 0.9)),
+                                        (1000, 86, (0.9, 0.95)),
+                                        (2047, 128, None)])
 def test_left_quant_i8_grouped_matches_plain_and_twin(cuda, mode, t, grp,
                                                       clip):
     g = torch.Generator(device=cuda).manual_seed(grp)
