@@ -35,12 +35,15 @@ line):
      flash_prefill_attention_kt) at llama-2-7b's 1 x 2048, llama-3-8b's
      GQA heads and S=1152, within the "flash" tolerance, timed beside the
      causal scaled_dot_product_attention call (a yardstick only)
+     3b: decode_attention_int4 at B=1 and B=4, MHA, GQA 32/8 and 28/4,
+     and at the decode body's span edges beside valid_len 0
      3f: chunk_attention_int4 (Sq=256 at pos 0, 768, 1792 over S=2048),
-     paged_decode_attention_int4 (B=4, valid 1..2048, block 256, shuffled
-     tables) and paged_chunk_attention_int4 (chunks straddling a block
-     edge), MHA 32/32, GQA 32/8 and Qwen-2.5-7B's 28/4 (n_rep 7; 3b has
-     it too), each paged kernel also bit for bit against its slot twin on
-     the gathered cache
+     paged_decode_attention_int4 (B=4, valid 1..2048, and the span edges
+     beside 0; block 256, shuffled tables) and paged_chunk_attention_int4
+     (chunks straddling a block edge), MHA 32/32, GQA 32/8 and
+     Qwen-2.5-7B's 28/4 (n_rep 7; 3b has it too), each paged kernel also
+     bit for bit against its slot twin on the gathered cache; the chunk
+     kernels' bound at the tensor cores' bf16 rate
      3g: quant_acts_i8 at [2048, 18944] (clips, q_max 7) and [256, 8192]
      (q_max 127, a zero row), codes and scales bit for bit;
      w4a4_matmul_i8_swiglu at Qwen-2.5-7B's MLP (M = 32 to 2048, K=3584,
@@ -68,8 +71,8 @@ line):
      within the "flash" tolerance, its prepass bit for bit (V8^T in the
      kernel's key order) and timed on its own, its rel-RMS against the
      float32 oracle; decode_attention_int4_v1, _wide and _v3
-     at row 2's and Qwen-2.5-7B's shapes within ATTN_TOL; each timed
-     beside its bound and yardstick
+     at row 2's and Qwen-2.5-7B's shapes and the span edges within
+     ATTN_TOL; each timed beside its bound and yardstick
      3j: rows 22-27, the grouped layout [G, T, 128], at llama-2-7b's
      1 x 2048 shapes (rmsnorm_right_grouped, left_quant_i8_grouped at G=32
      and 86, w4a4_swiglu_grouped and _gx at N=2x11008 and M = 32 to 2048,
@@ -574,6 +577,14 @@ def _rand_cache(torch, dev, gen, B, nkv, S):
     return kp, kpar, vp, vpar
 
 
+def span_edges():
+    """Valid lengths at the decode body's span edges (one span, two, and
+    the tile edge inside the first)."""
+    from flatquant_torch.kernels.kv_cache import DECODE_SPAN as span
+
+    return sorted({127, 128, 129, span - 1, span, span + 1, 2 * span + 1})
+
+
 def check_attention(torch, dev, gen, results, main_valid):
     from flatquant_torch.kernels.kv_cache import (
         decode_attention_int4, decode_attention_ref)
@@ -583,13 +594,19 @@ def check_attention(torch, dev, gen, results, main_valid):
                                     vpar[..., :1], vpar[..., 1:], valid, sm)
 
     S, sm = 2048, 1.0 / math.sqrt(128)
+    edges = span_edges()
     cases = [("B=1 MHA 32/32", 1, 32, 32, [S]),
              ("B=4 MHA 32/32 ragged", 4, 32, 32, [0, 700, 1500, S]),
              ("B=4 GQA 32/8 ragged", 4, 32, 8, [S, 0, 1023, 77]),
              ("B=4 MHA 32/32 main path", 4, 32, 32, main_valid),
              # Qwen-2.5-7B: 7 query heads per kv head
              ("B=1 GQA 28/4 (n_rep 7)", 1, 28, 4, [S]),
-             ("B=4 GQA 28/4 (n_rep 7) ragged", 4, 28, 4, [S, 0, 1023, 77])]
+             ("B=4 GQA 28/4 (n_rep 7) ragged", 4, 28, 4, [S, 0, 1023, 77]),
+             # the split's edges, and a slot of valid_len 0 beside them
+             (f"B={len(edges) + 1} MHA 32/32 span edges", len(edges) + 1,
+              32, 32, [0] + edges),
+             (f"B={len(edges) + 1} GQA 28/4 (n_rep 7) span edges",
+              len(edges) + 1, 28, 4, edges + [0])]
     rows, worst = [], 0.0
     for label, B, nh, nkv, valid_l in cases:
         valid = torch.tensor(valid_l, device=dev, dtype=torch.int32)
@@ -990,10 +1007,12 @@ def check_chunk_paged(torch, dev, gen, results):
     cache (one body: the property that makes paged serving equal the slot
     cache's): chunk_attention_int4 at Sq=256, pos 0, 768 and 1792 over
     S=2048; paged_decode_attention_int4 at B=4 over valid lengths 1, 255,
-    256, 1000 and 2048, block 256, shuffled tables;
+    256, 1000 and 2048, and at B=8 over the decode body's span edges and
+    0, block 256, shuffled tables;
     paged_chunk_attention_int4 with the chunk straddling a block edge.
-    Each timed like phase 3b beside its plain version and its bound (float
-    operations at the CUDA cores' float32 rate, or cache bytes)."""
+    Each timed like phase 3b beside its plain version and its bound
+    (cache bytes, or operations: the chunk kernels' at the tensor cores'
+    bf16 rate, the decode kernel's at the CUDA cores' float32 rate)."""
     log(f"  (tolerance rtol/atol {ATTN_TOL['rtol']}; each paged launch also "
         f"bit-equal to its slot twin)")
     from flatquant_torch.kernels import kv_cache as kv
@@ -1005,8 +1024,10 @@ def check_chunk_paged(torch, dev, gen, results):
              ("GQA 28/4", 28, 4)]
 
     def record(name, label, kernel, plain, args, nbytes, flops, err, **kw):
+        rate = (F32_FLOPS_PER_S if name == "paged_decode_attention_int4"
+                else BF16_FLOPS_PER_S)
         _kernel_row(torch, results, name, label, kernel, plain, args, nbytes,
-                    flops, F32_FLOPS_PER_S, err, **kw)
+                    flops, rate, err, **kw)
 
     def held(got, want):
         torch.cuda.synchronize()
@@ -1041,10 +1062,14 @@ def check_chunk_paged(torch, dev, gen, results):
 
     # paged_decode_attention_int4: B=4, block 256, shuffled tables
     mb = S // BS
+    edges = span_edges()
     cases = [("MHA 32/32", 32, 32, [1, 255, 256, 1000]),
              ("MHA 32/32", 32, 32, [2048, 1000, 256, 1]),
              ("GQA 32/8", 32, 8, [2048, 255, 1000, 1]),
-             ("GQA 28/4", 28, 4, [2048, 255, 1000, 1])]
+             ("GQA 28/4", 28, 4, [2048, 255, 1000, 1]),
+             # the decode body's span edges (and a slot of valid_len 0)
+             ("MHA 32/32", 32, 32, [0] + edges),
+             ("GQA 28/4", 28, 4, edges + [0])]
     for hlabel, nh, nkv, valid_l in cases:
         B = len(valid_l)
         full = (1 + B * mb) * nkv * BS * 144
@@ -1060,6 +1085,8 @@ def check_chunk_paged(torch, dev, gen, results):
         if not torch.equal(got, kv.decode_attention_int4(q, *slot, valid,
                                                          sm)):
             raise AssertionError("paged decode differs from the slot kernel")
+        if not bool((got[valid == 0] == 0).all()):
+            raise AssertionError("paged decode: valid_len 0 must give 0")
         tokens = sum(valid_l)
         nbytes = tokens * nkv * 144 + 2 * 2 * B * nh * 128 + 4 * B * (mb + 1)
         record("paged_decode_attention_int4",
@@ -1691,7 +1718,9 @@ def check_baseline_kernels(torch, dev, gen, results):
     cases = [("B=4 MHA 32/32 main path", 4, 32, 32, [48 + 64] * 4),
              ("B=4 MHA 32/32 ragged", 4, 32, 32, [0, 1, 1500, S]),
              ("B=1 GQA 28/4 (n_rep 7)", 1, 28, 4, [S]),
-             ("B=4 GQA 28/4 (n_rep 7) ragged", 4, 28, 4, [1, 0, 1023, 77])]
+             ("B=4 GQA 28/4 (n_rep 7) ragged", 4, 28, 4, [1, 0, 1023, 77]),
+             (f"B={len(span_edges()) + 1} GQA 28/4 (n_rep 7) span edges",
+              len(span_edges()) + 1, 28, 4, span_edges() + [0])]
 
     def plain(q, kp, kpar, vp, vpar, valid, sm):
         return kv.decode_attention_ref(q, kp, kpar[..., :1], kpar[..., 1:], vp,

@@ -111,22 +111,24 @@ _SIGNATURES = {
         "fq_quant_acts_i8_grouped": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     },
     "kv_cache": {
-        # q, kp, kpar, vp, vpar, valid, out, B, nkv, n_rep, S, sm_scale, stream
-        "fq_decode_attention_int4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _F, _P],
+        # q, kp, kpar, vp, vpar, valid, ws, tickets, out, B, nkv, n_rep, S,
+        # span, sm_scale, stream
+        "fq_decode_attention_int4": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                     _I, _I, _I, _I, _F, _P],
         # the same, each K/V element dequantized before both products
-        "fq_decode_attention_int4_dequant": [_P, _P, _P, _P, _P, _P, _P, _I,
-                                             _I, _I, _I, _F, _P],
+        "fq_decode_attention_int4_dequant": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                             _P, _I, _I, _I, _I, _I, _F, _P],
         # kp, kpar, vp, vpar, kq, kpn, vq, vpn, pos, B, nkv, S, hdh, stream
         "fq_write_token": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _P],
         # q, kp, kpar, vp, vpar, pos, out, B, nkv, R, Sq, S, sm_scale, stream
         "fq_chunk_attention_int4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _F, _P],
-        # q, kp, kpar, vp, vpar, tbl, valid, out, B, nkv, n_rep, mb, bs,
-        # sm_scale, stream
+        # q, kp, kpar, vp, vpar, tbl, valid, ws, tickets, out, B, nkv,
+        # n_rep, mb, bs, span, sm_scale, stream
         "fq_paged_decode_attention_int4": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                           _I, _I, _I, _I, _I, _F, _P],
+                                           _P, _P, _I, _I, _I, _I, _I, _I,
+                                           _F, _P],
         # q, kp, kpar, vp, vpar, tbl, pos, out, B, nkv, R, Sq, mb, bs,
         # sm_scale, stream
         "fq_paged_chunk_attention_int4": [_P, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -19,6 +19,12 @@ body's DEQUANT instance, `decode_attention_int4_v3` (scale and zero folded)
 through the body as `decode_attention_int4` runs it. Each wrapper launches
 its kernel for CUDA tensors (or raises) and runs its plain version for CPU
 tensors; the three baselines share decode_attention_ref.
+
+The decode body splits each slot's sequence into spans of DECODE_SPAN
+positions, one CTA each, and merges the spans' partials in the launch
+(`decode_workspace`: a float32 workspace per call and an int32 ticket per
+(slot, kv head), kept per device). The chunk body runs both products on
+the tensor cores (csrc/kv_cache.cu).
 """
 
 from __future__ import annotations
@@ -34,6 +40,18 @@ _WIDE = "decode_attention_int4_wide"
 _V3 = "decode_attention_int4_v3"
 _CHUNK = "chunk_attention_int4"
 _WRITE = "write_token"
+
+# positions a CTA of the decode body walks (a multiple of its 128-token
+# tile): the split depends on absolute positions only, so the slot and
+# paged instances sum in one order. 128 was the fastest of 128, 256 and
+# 512 on the card (tools/attn_int4_sweep.py, PERF.md)
+DECODE_SPAN = 128
+# floats of one span's partial per query head: acc [128], then m, l, z
+_PART = 128 + 3
+
+# per device: the decode body's ticket arrays, int32, 0 between launches
+# (the last is the one in use)
+_TICKETS: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +162,41 @@ def check_attention_args(name, q, nkv, codes, params):
         "cache tensors must be contiguous and 16-byte aligned")
 
 
+def decode_tickets(n: int, device) -> torch.Tensor:
+    """The per-device int32 tickets of the decode body, at least n of them.
+    They start at 0 and each launch leaves them at 0 (the span that merges
+    a (slot, kv head) resets its ticket), so they are allocated, zeroed,
+    only when more are needed, never inside a CUDA graph capture (warm the
+    call up first). Launches that share them run in stream order."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    arrays = _TICKETS.setdefault(dev, [])
+    if not arrays or arrays[-1].numel() < n:
+        common.require(
+            not (dev.type == "cuda"
+                 and torch.cuda.is_current_stream_capturing()),
+            "decode_attention_int4",
+            f"{n} decode tickets needed during a CUDA graph capture: run the "
+            "call once before capturing it")
+        # the smaller arrays stay alive: a captured graph may hold them
+        arrays.append(torch.zeros(
+            max(n, 2 * arrays[-1].numel() if arrays else 0),
+            dtype=torch.int32, device=dev))
+    return arrays[-1]
+
+
+def decode_workspace(B, nkv, n_rep, s_eff, device):
+    """(workspace, tickets, span) of one decode launch over s_eff positions
+    a slot: the spans' partials, float32 [B * nkv * n_span * n_rep * 131]
+    (no initial value: a span writes its partial before the last one
+    reads it), decode_tickets(B * nkv) and DECODE_SPAN."""
+    n_span = -(-s_eff // DECODE_SPAN)
+    ws = torch.empty(B * nkv * n_span * n_rep * _PART, dtype=torch.float32,
+                     device=device)
+    return ws, decode_tickets(B * nkv, device), DECODE_SPAN
+
+
 def _decode_ref(q, kp, kparam, vp, vparam, valid_len, sm_scale):
     return decode_attention_ref(q, kp, kparam[..., 0:1], kparam[..., 1:2],
                                 vp, vparam[..., 0:1], vparam[..., 1:2],
@@ -165,10 +218,12 @@ def _launch_decode(name, symbol, q, kp, kparam, vp, vparam, valid_len,
     qf = q.to(torch.float32).contiguous()
     valid = valid_len.to(torch.int32).contiguous()
     out = torch.empty((B, nh, hd), dtype=torch.float32, device=q.device)
+    ws, tickets, span = decode_workspace(B, nkv, nh // nkv, S, q.device)
     rc = getattr(common.lib("kv_cache"), symbol)(
         qf.data_ptr(), kp.data_ptr(), kparam.data_ptr(), vp.data_ptr(),
-        vparam.data_ptr(), valid.data_ptr(), out.data_ptr(), B, nkv,
-        nh // nkv, S, float(sm_scale), common.stream_ptr(q))
+        vparam.data_ptr(), valid.data_ptr(), ws.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(), B, nkv, nh // nkv, S, span,
+        float(sm_scale), common.stream_ptr(q))
     common.check("kv_cache", name, rc)
     common.LAUNCHES[name] += 1
     return out.to(q.dtype)
@@ -297,6 +352,11 @@ def chunk_attention_int4(q, kp, kparam, vp, vparam, pos, sm_scale: float):
     or raise; CPU tensors run chunk_attention_ref."""
     if q.device.type == "cpu":
         return chunk_attention_ref(q, kp, kparam, vp, vparam, pos, sm_scale)
+    return _launch_chunk(q, kp, kparam, vp, vparam, pos, sm_scale)
+
+
+def _launch_chunk(q, kp, kparam, vp, vparam, pos, sm_scale):
+    """Check chunk_attention_int4's arguments and launch its kernel."""
     B, sq, nh, _ = q.shape
     _, nkv, S, _ = kp.shape
     check_attention_args(_CHUNK, q, nkv, (kp, vp), (kparam, vparam))

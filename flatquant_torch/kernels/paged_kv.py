@@ -15,7 +15,8 @@ The writes are XLA scatters in JAX; here they are plain indexing, IN
 PLACE. Attention: `paged_decode_attention_int4` and
 `paged_chunk_attention_int4` launch the slot kernels' bodies with the
 tile address looked up through the table (csrc/kv_cache.cu), so they
-sum in the slot kernels' order; each runs its plain version (gather, then
+sum in the slot kernels' order (the decode body's spans are absolute
+positions); each runs its plain version (gather, then
 the slot cache's plain math) for CPU tensors.
 """
 
@@ -30,6 +31,7 @@ from flatquant_torch.kernels.kv_cache import (
     check_attention_args,
     chunk_scores_ref,
     decode_attention_ref,
+    decode_workspace,
 )
 
 _DECODE = "paged_decode_attention_int4"
@@ -183,6 +185,14 @@ def paged_decode_attention_int4(q, kp, kparam, vp, vparam, tbl, valid_len,
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, kp, kparam, vp, vparam, tbl,
                                           valid_len, sm_scale)
+    return _launch_decode_paged(q, kp, kparam, vp, vparam, tbl, valid_len,
+                                sm_scale)
+
+
+def _launch_decode_paged(q, kp, kparam, vp, vparam, tbl, valid_len,
+                         sm_scale):
+    """Check paged_decode_attention_int4's arguments and launch its
+    kernel."""
     B, nh, hd = q.shape
     nkv, mb, bs = _check_pool(_DECODE, q, kp, kparam, vp, vparam, tbl,
                               valid_len)
@@ -190,11 +200,13 @@ def paged_decode_attention_int4(q, kp, kparam, vp, vparam, tbl, valid_len,
     tbl32 = tbl.to(torch.int32).contiguous()
     valid = valid_len.to(torch.int32).contiguous()
     out = torch.empty((B, nh, hd), dtype=torch.float32, device=q.device)
+    ws, tickets, span = decode_workspace(B, nkv, nh // nkv, mb * bs,
+                                         q.device)
     rc = common.lib("kv_cache").fq_paged_decode_attention_int4(
         qf.data_ptr(), kp.data_ptr(), kparam.data_ptr(), vp.data_ptr(),
-        vparam.data_ptr(), tbl32.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), B, nkv, nh // nkv, mb, bs, float(sm_scale),
-        common.stream_ptr(q))
+        vparam.data_ptr(), tbl32.data_ptr(), valid.data_ptr(), ws.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(), B, nkv, nh // nkv, mb, bs, span,
+        float(sm_scale), common.stream_ptr(q))
     common.check("kv_cache", _DECODE, rc)
     common.LAUNCHES[_DECODE] += 1
     return out.to(q.dtype)
@@ -213,6 +225,12 @@ def paged_chunk_attention_int4(q, kp, kparam, vp, vparam, tbl, pos,
     if q.device.type == "cpu":
         return paged_chunk_attention_ref(q, kp, kparam, vp, vparam, tbl, pos,
                                          sm_scale)
+    return _launch_chunk_paged(q, kp, kparam, vp, vparam, tbl, pos, sm_scale)
+
+
+def _launch_chunk_paged(q, kp, kparam, vp, vparam, tbl, pos, sm_scale):
+    """Check paged_chunk_attention_int4's arguments and launch its
+    kernel."""
     B, sq = q.shape[:2]
     nkv, mb, bs = _check_pool(_CHUNK, q, kp, kparam, vp, vparam, tbl, pos)
     qr = _chunk_rows(q, nkv)

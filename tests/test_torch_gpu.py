@@ -100,14 +100,22 @@ def _cache(g, cuda, B, nkv, S):
     return kp, kpar, vp, vpar
 
 
+# valid lengths of the decode tests: the split's span edges (a tile edge
+# inside the first span, one span, two), 0 beside them, and a full cache
+SPAN = tkv.DECODE_SPAN
+DECODE_VALID = [(0, 200, 512), (1, 127, 128), (129, SPAN - 1, SPAN),
+                (SPAN + 1, 2 * SPAN + 1, 2048)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("valid_l", DECODE_VALID)
 @pytest.mark.parametrize("nh,nkv", [(8, 8), (8, 2), (28, 4), (10, 2)])
-def test_decode_attention_int4_matches_plain(cuda, nh, nkv):
+def test_decode_attention_int4_matches_plain(cuda, nh, nkv, valid_l):
     g = torch.Generator(device=cuda).manual_seed(nkv)
-    B, S = 3, 512
+    B, S = 3, 2048
     kp, kpar, vp, vpar = _cache(g, cuda, B, nkv, S)
     q = torch.randn((B, nh, 128), generator=g, device=cuda)
-    valid = torch.tensor([0, 200, 512], device=cuda, dtype=torch.int32)
+    valid = torch.tensor(valid_l, device=cuda, dtype=torch.int32)
     got = tkv.decode_attention_int4(q, kp, kpar, vp, vpar, valid, 0.088)
     want = tkv.decode_attention_ref(q, kp, kpar[..., :1], kpar[..., 1:], vp,
                                     vpar[..., :1], vpar[..., 1:], valid,
@@ -115,7 +123,28 @@ def test_decode_attention_int4_matches_plain(cuda, nh, nkv):
     # float32 outputs: scale/zero folded into the epilogues and another
     # summation order than the plain version
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    assert bool((got[0] == 0).all())
+    assert bool((got[valid == 0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["decode_attention_int4",
+                                  "decode_attention_int4_v1"])
+def test_decode_attention_int4_qwen_b1(cuda, name):
+    """Qwen-2.5-7B's decode at B=1 (28/4 heads) over 2048 valid positions:
+    every span of the split merged by the last one, twice in a row (the
+    tickets are back at 0 after each launch)."""
+    g = torch.Generator(device=cuda).manual_seed(28)
+    kp, kpar, vp, vpar = _cache(g, cuda, 1, 4, 2048)
+    q = torch.randn((1, 28, 128), generator=g, device=cuda)
+    valid = torch.tensor([2048], device=cuda, dtype=torch.int32)
+    fn = getattr(tkv, name)
+    got = _launched(name, fn, q, kp, kpar, vp, vpar, valid, 0.088)
+    want = tkv.decode_attention_ref(q, kp, kpar[..., :1], kpar[..., 1:], vp,
+                                    vpar[..., :1], vpar[..., 1:], valid,
+                                    0.088)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, fn(q, kp, kpar, vp, vpar, valid, 0.088))
+    assert int(tkv.decode_tickets(4, q.device).abs().sum()) == 0
 
 
 @pytest.mark.gpu
@@ -373,6 +402,24 @@ def test_chunk_attention_int4_matches_plain(cuda, nh, nkv, sq, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nh,nkv", [(32, 32), (28, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_attention_int4_long_history(cuda, nh, nkv, dtype):
+    """The batcher's last chunk of a 2048-token cache: Sq = 256 at pos
+    1792, every 128-key tile of the history on the tensor cores."""
+    g = torch.Generator(device=cuda).manual_seed(1792 + nkv)
+    S, sq = 2048, 256
+    cache = _cache(g, cuda, 1, nkv, S)
+    q = torch.randn((1, sq, nh, 128), generator=g, device=cuda).to(dtype)
+    pos = torch.tensor([S - sq], device=cuda, dtype=torch.int32)
+    got = _launched("chunk_attention_int4", tkv.chunk_attention_int4, q,
+                    *cache, pos, 0.088)
+    want = tkv.chunk_attention_ref(q, *cache, pos, 0.088)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("nh,nkv", [(8, 8), (8, 2), (28, 4)])
 def test_paged_decode_attention_int4_equals_the_slot_kernel(cuda, nh, nkv):
     g = torch.Generator(device=cuda).manual_seed(nkv)
@@ -380,14 +427,17 @@ def test_paged_decode_attention_int4_equals_the_slot_kernel(cuda, nh, nkv):
     pool, tbl, slot = _paged_state(g, cuda, B, nkv, mb, bs)
     q = torch.randn((B, nh, 128), generator=g, device=cuda)
     valid = torch.tensor([0, 255, 256, 700], device=cuda, dtype=torch.int32)
+    if nkv == 2:  # the split's span edges
+        valid = torch.tensor([SPAN - 1, SPAN, SPAN + 1, 2 * SPAN + 1],
+                             device=cuda, dtype=torch.int32)
     got = _launched("paged_decode_attention_int4",
                     tpk.paged_decode_attention_int4, q, *pool, tbl, valid,
                     0.088)
     want = tpk.paged_decode_attention_ref(q, *pool, tbl, valid, 0.088)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    # the same body as the slot kernel, tile by tile: bit for bit
+    # the same body as the slot kernel, span by span: bit for bit
     assert torch.equal(got, tkv.decode_attention_int4(q, *slot, valid, 0.088))
-    assert bool((got[0] == 0).all())
+    assert bool((got[valid == 0] == 0).all())
 
 
 @pytest.mark.gpu
