@@ -26,9 +26,14 @@ line):
      for bit against quant_acts_i8 + w4a4_matmul_i8 and timed beside that
      composed route, failing where another body beat the routed one by
      more than ROUTE_MARGIN
+     3c: write_token bit for bit at B = 4 and 8 (positions S and -1),
+     B = 1 with 4 kv heads and 36-byte code rows, timed beside a
+     one-element in-place add under the same graph harness (the floor of
+     a graph-launched kernel)
      3d: the four prefill kernels (rmsnorm_right_flat, left_quant_i8_flat,
      w4a4_matmul_i8_swiglu_right, attn_prologue) at the 4 x 512 prefill's
-     shapes (the swiglu GEMM also at M = 32 to 1024), each with identity
+     shapes (the swiglu GEMM also at M = 32 to 1024; rmsnorm_right_flat
+     also at T = 1 and with float32 x at H = 4096 and 8192), each with identity
      and with random orthogonal transform factors (tolerances in
      flatquant_torch/kernels/tolerance.py), timed like the others
      3e: both flash prefill entry points (flash_prefill_attention,
@@ -643,35 +648,57 @@ def check_attention(torch, dev, gen, results, main_valid):
 
 
 def check_write(torch, dev, gen, results):
+    """write_token bit for bit against its plain version (the masked
+    select) at the decode's B = 4 and at B = 8 with positions S and -1,
+    Qwen's B = 1 with 4 kv heads, and code rows of 36 bytes (the byte-wise
+    path); the first three timed beside the plain version, the bound and
+    the launch floor: a one-element in-place add under the same graph
+    harness, which no kernel launched from a graph can beat."""
     from flatquant_torch.kernels.kv_cache import write_token, write_token_ref
 
-    S, nkv, rows = 2048, 32, []
-    for B, pos_l in ((8, [0, 5, 127, 128, 900, 2047, 2048, 64]),
-                     (4, [112, 100, 53, 111])):
+    S, rows = 2048, []
+    one = torch.zeros(1, device=dev)
+    floor_ms = cuda_ms(torch, lambda t: t.add_(1), [(one,)], 200)
+    log(f"  launch floor: one-element in-place torch add {floor_ms:.4f} ms "
+        f"a launch (CUDA graph of 200)")
+    for B, nkv, hdh, pos_l in (
+            (8, 32, 64, [0, 5, 127, 128, 900, 2047, 2048, -1]),
+            (4, 32, 64, [112, 100, 53, 111]), (1, 4, 64, [1500]),
+            (3, 2, 36, [0, S - 1, S])):
         pos = torch.tensor(pos_l, device=dev, dtype=torch.int32)
-        cache = _rand_cache(torch, dev, gen, B, nkv, S)
+        cache = [c[..., :hdh].contiguous() if c.dtype == torch.uint8 else c
+                 for c in _rand_cache(torch, dev, gen, B, nkv, S)]
         copy = [c.clone() for c in cache]
-        new = [c[:, :, :1].clone() + 1 for c in _rand_cache(
-            torch, dev, gen, B, nkv, 1)]
+        new = [(c[:, :, :1, :hdh] if c.dtype == torch.uint8
+                else c[:, :, :1]).clone() + 1
+               for c in _rand_cache(torch, dev, gen, B, nkv, 1)]
         write_token(*cache, new[0], new[1], new[2], new[3], pos)
         write_token_ref(*copy, new[0], new[1], new[2], new[3], pos)
         torch.cuda.synchronize()
         for a, b in zip(cache, copy):
             if not torch.equal(a, b):
-                raise AssertionError(f"write_token B={B}: not bit-exact")
+                raise AssertionError(f"write_token B={B} nkv={nkv} "
+                                     f"hdh={hdh}: not bit-exact")
+        if hdh % 16:
+            log(f"  write_token B={B} nkv={nkv} {hdh}-byte code rows (the "
+                f"byte-wise path) pos={pos_l}: bit-exact")
+            continue
         args = [(*cache, *new, pos)]
         ms = cuda_ms(torch, write_token, args, 200)
         plain_ms = cuda_ms(torch, write_token_ref, args, 10)
         hit = sum(0 <= p < S for p in pos_l)
-        nbytes = 2 * hit * nkv * (64 * 2 + 16) + 4 * B
+        nbytes = 2 * hit * nkv * (hdh * 2 + 16) + 4 * B
         b_ms, b_by = bound_ms(nbytes, 0, INT8_OPS_PER_S)
-        rows.append(dict(B=B, pos=pos_l, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0))
-        log(f"  write_token B={B} pos={pos_l}: bit-exact; kernel_ms {ms:.4f} "
+        rows.append(dict(B=B, nkv=nkv, pos=pos_l, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, floor_ms=floor_ms,
+                         max_abs_err=0.0))
+        log(f"  write_token B={B} nkv={nkv} pos={pos_l}: bit-exact; "
+            f"kernel_ms {ms:.4f} ({ms / floor_ms:.2f}x the launch floor) "
             f"plain_ms {plain_ms:.4f} (masked select streams the cache) "
             f"bound {b_ms * 1e3:.3f} us ({b_by}); library_ms none")
         del cache, copy
-    results["write_token"] = dict(rows=rows, max_abs_err=0.0)
+    results["write_token"] = dict(rows=rows, max_abs_err=0.0,
+                                  floor_ms=floor_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -718,7 +745,21 @@ def check_prefill_kernels(torch, dev, gen, results):
     def timed(*a, **kw):
         _kernel_row(torch, results, *a, **kw)
 
-    # rmsnorm_right_flat: x [T, H] bf16
+    # rmsnorm_right_flat: x [T, H] bf16 (the slab in shared memory, two
+    # blocks an SM); checked, not timed: T = 1, float32 x at T = 300 (the
+    # slab, one block an SM) and at H = 8192 (x and w from device memory)
+    for t, h, dt in ((1, H, torch.bfloat16), (300, H, torch.float32),
+                     (40, 2 * H, torch.float32)):
+        xe = (torch.randn((t, h), generator=gen, device=dev) * 2).to(dt)
+        we = torch.rand((h,), generator=gen, device=dev) + 0.5
+        for mode in ("identity", "orthogonal"):
+            right = _factor(torch, dev, gen, 128, mode)
+            compare_bf16(fp.rmsnorm_right_flat(xe, we, right, 1e-5),
+                         fp.rmsnorm_right_flat_ref(xe, we, right, 1e-5),
+                         mode, f"rmsnorm_right_flat T={t} H={h} {dt} "
+                         f"({mode})")
+        log(f"  rmsnorm_right_flat T={t} H={h} {dt}: identity and "
+            f"orthogonal factors within tolerance")
     xs = [(torch.randn((T, H), generator=gen, device=dev) * 2).to(
         torch.bfloat16) for _ in range(copies_for(4 * T * H))]
     w = torch.rand((H,), generator=gen, device=dev) + 0.5
@@ -729,9 +770,10 @@ def check_prefill_kernels(torch, dev, gen, results):
                            mode, f"rmsnorm_right_flat ({mode})")
         log(f"  rmsnorm_right_flat T={T} H={H}, {mode} factors: within "
             f"tolerance, max abs err {err:.3e}")
+    rb = right.to(torch.bfloat16)  # the factor as the bf16 model holds it
     timed("rmsnorm_right_flat", f"T={T} H={H}",
-          lambda x: fp.rmsnorm_right_flat(x, w, right, 1e-5),
-          lambda x: fp.rmsnorm_right_flat_ref(x, w, right, 1e-5),
+          lambda x: fp.rmsnorm_right_flat(x, w, rb, 1e-5),
+          lambda x: fp.rmsnorm_right_flat_ref(x, w, rb, 1e-5),
           [(x,) for x in xs], 4 * T * H + 4 * H + 2 * 128 * 128,
           2 * T * H * 128, BF16_FLOPS_PER_S, err)
     del xs
@@ -1828,21 +1870,26 @@ def check_grouped_kernels(torch, dev, gen, results):
     x300 = torch.randn((300, H), generator=gen, device=dev) * 2
     rms(x300, w, _factor(torch, dev, gen, 128, "orthogonal"), "orthogonal",
         "T=300 f32")
+    x1 = (torch.randn((1, H), generator=gen, device=dev) * 2).to(
+        torch.bfloat16)
+    rms(x1, w, _factor(torch, dev, gen, 128, "orthogonal"), "orthogonal",
+        "T=1")
     xs = [(torch.randn((T, H), generator=gen, device=dev) * 2).to(
         torch.bfloat16) for _ in range(copies_for(4 * T * H))]
     for mode in ("identity", "orthogonal"):
         right = _factor(torch, dev, gen, 128, mode)
         err = rms(xs[0], w, right, mode, mode)
-    log(f"  rmsnorm_right_grouped T={T} H={H} (also T=300 f32): within "
+    log(f"  rmsnorm_right_grouped T={T} H={H} (also T=300 f32, T=1): within "
         f"tolerance of the plain version, bit-identical to "
         f"rmsnorm_right_flat")
+    rb = right.to(torch.bfloat16)  # the factor as the bf16 model holds it
     _kernel_row(torch, results, "rmsnorm_right_grouped",
                 f"T={T} H={H} -> [{H // 128}, {T}, 128]",
-                lambda x: gm.rmsnorm_right_grouped(x, w, right, 1e-5),
-                lambda x: gm.rmsnorm_right_grouped_ref(x, w, right, 1e-5),
+                lambda x: gm.rmsnorm_right_grouped(x, w, rb, 1e-5),
+                lambda x: gm.rmsnorm_right_grouped_ref(x, w, rb, 1e-5),
                 [(x,) for x in xs], 4 * T * H + 4 * H + 2 * 128 * 128,
                 2 * T * H * 128, BF16_FLOPS_PER_S, err)
-    del xs, x300
+    del xs, x300, x1
 
     # row 23
     def lq(lt, xg, c, mode, label):
@@ -4631,10 +4678,15 @@ KERNELS = {
         replaces="flatquant_tpu/kernels/kv_cache.py:486"),
     "write_token": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/kv_cache.cu",
-        replaces="flatquant_tpu/kernels/kv_cache.py:735"),
+        replaces="flatquant_tpu/kernels/kv_cache.py:735",
+        body="a warp per (slot, kv head), 16-byte code chunks and float2 "
+        "params loaded beside pos"),
     "rmsnorm_right_flat": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
-        replaces="flatquant_tpu/kernels/flat_pipeline.py:84"),
+        replaces="flatquant_tpu/kernels/flat_pipeline.py:84",
+        body="wgmma m64n16k16 bf16 (R^T as register A, 16 tokens as N), "
+        "clusters of 2 CTAs splitting the columns, each CTA's half of x "
+        "in shared memory"),
     "left_quant_i8_flat": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
         replaces="flatquant_tpu/kernels/flat_pipeline.py:154"),
@@ -4713,7 +4765,8 @@ KERNELS = {
         replaces="flatquant_tpu/kernels/grouped_mlp.py:323"),
     "rmsnorm_right_grouped": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
-        replaces="flatquant_tpu/kernels/grouped_mlp.py:424"),
+        replaces="flatquant_tpu/kernels/grouped_mlp.py:424",
+        body="row 4's body, GROUPED"),
     "w4a4_swiglu_grouped_gx": dict(
         route="cuda", source="flatquant_torch/kernels/csrc/flat_pipeline.cu",
         replaces="flatquant_tpu/kernels/grouped_mlp.py:505",

@@ -135,7 +135,7 @@ _SIGNATURES = {
                                           _I, _I, _I, _I, _I, _F, _P],
     },
     "flat_pipeline": {
-        # x, w, right, y, T, H, eps, x_is_f32, stream
+        # x, w (f32), right (bf16), y, T, H, eps, x_is_f32, stream
         "fq_rmsnorm_right_flat": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
         # lt, x, clip, xq, xs, T, G, q_max, stream
         "fq_left_quant_i8_flat": [_P, _P, _P, _P, _P, _I, _I, _F, _P],

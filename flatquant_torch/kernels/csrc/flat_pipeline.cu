@@ -32,8 +32,8 @@
 // What bounds each on the H100 at the prefill shapes (T = 2048 rows):
 //   - rmsnorm_right_flat, left_quant_i8_flat: bytes (a read of x and a
 //     write of the output, 25-68 MB, ~10-20 us at 3.35 TB/s); their
-//     128x128 (resp. GxG) products, 0.5-4 GFLOP, run on the CUDA cores
-//     here, so these simple versions sit above the bytes bound.
+//     128x128 (resp. GxG) products, 0.5-4 GFLOP, run on wgmma bf16 (each
+//     body's note says how it keeps the loads moving).
 //   - the swiglu GEMM: int8 operations (2 * 2048 * 22016 * 4096 = 369 G,
 //     187 us at 1979 TOP/s). It runs row 1's wgmma s8 tile
 //     (w4a4_tile.cuh) with the up and the gate rows of 128 channels per
@@ -54,22 +54,8 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 
-
-template <typename T>
-__device__ __forceinline__ float load_f(const T* p);
-template <>
-__device__ __forceinline__ float load_f<float>(const float* p) {
-  return *p;
-}
-template <>
-__device__ __forceinline__ float load_f<bf16>(const bf16* p) {
-  return __bfloat162float(*p);
-}
 
 // Opt a kernel into `bytes` of dynamic shared memory (above 48 KB), once:
 // *done remembers the largest size set so far, so a launch inside a CUDA
@@ -86,114 +72,350 @@ cudaError_t allow_smem(K kernel, int bytes, int* done) {
 // ---------------------------------------------------------------------------
 // rmsnorm_right_flat, rmsnorm_right_grouped
 //
-// y[t, g*128 + c] = bf16(sum_d xn[t, g*128 + d] * R[d, c])
+// Replace: flatquant_tpu/kernels/flat_pipeline.py:84 (rmsnorm_right_flat)
+// and flatquant_tpu/kernels/grouped_mlp.py:424 (rmsnorm_right_grouped).
+//
+// y[t, g*128 + c] = bf16(sum_d xn[t, g*128 + d] * R[d, c])   (R in bf16)
 // xn = bf16((x * rsqrt(sum(x^2) * (1/H) + eps)) * w)
 //
-// A block owns RMS_ROWS rows and every gridDim.y-th column group. Pass 1:
-// one warp per row computes the inverse RMS. Pass 2, per group: the
-// normalized [RMS_ROWS, 128] tile goes to shared memory and each thread
-// computes an 8-row x 1-column strip against R (float32, in shared
-// memory), summing over d in order.
+// What bounds it on the H100: bytes. At the llama-2-7b prefill (T = 2048,
+// H = 4096) x is 16.8 MB of bf16 read and y 16.8 MB written, 10 us at
+// 3.35 TB/s; the 128 x 128 products (2.1 GFLOP) take 2 us at the bf16
+// tensor rate. The body it replaces (float32 FMAs on the CUDA cores, the
+// factor copied as float32 by each of 256 blocks, x read three times,
+// nothing overlapped) took 0.152 ms there, 15x the bound (PERF.md).
+//
+// Design: the transposed product y^T = R^T xn^T on wgmma m64n16k16 bf16,
+// the 16 tokens of a tile as N. A cluster of RN_CL = 2 CTAs owns a tile,
+// each CTA half of the column groups, so a CTA's share of the tile is 8
+// rows' worth of x (64 KB at H = 4096, bf16) and two CTAs fit an SM. Each
+// CTA walks its cluster's tiles and holds R^T as wgmma's register A, staged
+// once a CTA from the bf16 factor (beside the first tile's loads) and read
+// with ldmatrix: warpgroup wg the output channels 64 wg .. 64 wg + 63, 32
+// registers a thread. Per tile:
+//   1. the CTA's columns of the tile's rows go to shared memory by
+//      cp.async (the slab; its columns of w come with the first tile);
+//      each warp sums the squares of 2 rows there, and the CTA stores its
+//      partial sums in both CTAs of the cluster (distributed shared
+//      memory); after a cluster barrier each CTA adds the partials in rank
+//      order, so both hold the same 1/rms;
+//   2. by steps of RN_GPS column groups: each warpgroup runs 8 wgmma a
+//      group on the step's xn tiles [16][128] bf16 (wgmma's K-major B,
+//      128-byte swizzle) while every thread normalizes 16-byte chunks of
+//      the slab into the next step's (double-buffered); then the float32
+//      sums go to bf16 in a staging tile [16][128] (16-byte chunk n of row
+//      r at n ^ (r % 8), double-buffered too), which the CTA stores as
+//      16-byte pieces of y's rows after the step's one barrier.
+// Measured on the card (PERF.md, tools/rmsnorm_ablate.py): tiles of 8
+// tokens without clusters spent 10 of 33 us on the products (their time
+// follows the count of wgmma more than their N), 16-token tiles 4 of 28;
+// clusters of 4 with 32-token tiles fit 62 at once on the card, fewer
+// than T = 2048's 64 tiles, and ran in two waves.
+// x crosses to the SM once, and no CTA repeats another's pass 1. Where
+// the slab and w do not fit a CTA's shared memory (float32 x from H =
+// 5760, bf16 from H = 11136), both are read from device memory instead
+// (the second read of a row then hits L2). One body serves bf16 and
+// float32 x: only the loads differ. Rows past T are zeros in xn and are
+// not stored. GROUPED changes only the output addresses, so the grouped
+// kernel runs the flat one's instructions on the same values and is
+// bit-identical to it. The tensor cores' float32 sums within a k-step are
+// not IEEE sums in order: with identity factors every y is one exact
+// product (xn itself); with orthogonal ones y may round to another bf16
+// now and then (kernels/tolerance.py).
 // ---------------------------------------------------------------------------
 
-constexpr int RMS_ROWS = 16;
-constexpr int RMS_THREADS = 256;
-constexpr int RMS_SMEM = (128 * 128 + RMS_ROWS * 128 + RMS_ROWS) * 4;
+constexpr int RN_CL = 2;            // CTAs of a cluster, column halves
+constexpr int RN_ROWS = 8 * RN_CL;  // tokens a tile: wgmma's N
+constexpr int RN_THREADS = 256;     // warp w sums rows RN_CL w ...
+constexpr int RN_GPS = 2;           // column groups a step
+constexpr int RN_TILE = RN_ROWS * 256;     // bytes of one [16][128] bf16 tile
+constexpr int RN_STEP = RN_GPS * RN_TILE;  // bytes of a step's tiles
+constexpr int RN_R_BYTES = 128 * 128 * 2;  // the factor, bf16
+// the factor, then two steps' xn and staging tiles
+constexpr int RN_TILES =
+    4 * RN_STEP > RN_R_BYTES ? 4 * RN_STEP : RN_R_BYTES;
+static_assert(RN_ROWS % (RN_THREADS / 32) == 0, "whole rows a warp");
+
+// the column groups [lo, hi) of cluster rank k
+__host__ __device__ inline int rn_glo(int G, int k) { return k * G / RN_CL; }
+// a CTA's most column groups
+__host__ __device__ inline int rn_gmax(int G) {
+  return (G + RN_CL - 1) / RN_CL;
+}
+
+// bytes of shared memory past the 1024-byte alignment: the factor and
+// then the steps' xn and staging tiles, 1/rms of the tile's rows and the
+// partial sums [2 tiles][RN_CL][RN_ROWS], and (staged) the CTA's columns
+// of w and the slab [RN_ROWS][its columns]
+__host__ inline int rn_smem(int H, int esize, bool staged) {
+  const int cols = rn_gmax(H / 128) * 128;
+  return RN_TILES + RN_ROWS * 4 + 2 * RN_CL * RN_ROWS * 4 +
+         (staged ? cols * 4 + RN_ROWS * cols * esize : 0);
+}
+
+// 16 bytes of x (8 bf16 or 4 float32 values) as floats
+template <typename InT>
+struct Chunk;
+template <>
+struct Chunk<bf16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void load(const bf16* p, float* v) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Chunk<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  }
+};
 
 // GROUPED: y is [H / 128, T, 128] (rmsnorm_right_grouped) instead of
-// [T, H]; nothing else changes.
+// [T, H]; nothing else changes. right: R [128][128] bf16. staged: the
+// slab and w sit in shared memory (launch_rmsnorm_right sizes it).
 template <typename InT, bool GROUPED>
 __device__ __forceinline__ void rmsnorm_right(const InT* __restrict__ x,
                                               const float* __restrict__ w,
-                                              const float* __restrict__ right,
+                                              const bf16* __restrict__ right,
                                               bf16* __restrict__ y, int T,
-                                              int H, float eps) {
-  extern __shared__ float4 smem4[];
-  float* rs = reinterpret_cast<float*>(smem4);  // [128][128]
-  float* xn = rs + 128 * 128;                   // [RMS_ROWS][128]
-  float* inv = xn + RMS_ROWS * 128;             // [RMS_ROWS]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int t0 = blockIdx.x * RMS_ROWS;
-
-  for (int i = tid; i < 128 * 128 / 4; i += RMS_THREADS)
-    smem4[i] = reinterpret_cast<const float4*>(right)[i];
-
-  for (int r = warp; r < RMS_ROWS; r += RMS_THREADS / 32) {
-    float ss = 0.f;
-    if (t0 + r < T) {
-      const InT* xr = x + static_cast<size_t>(t0 + r) * H;
-      for (int c = lane; c < H; c += 32) {
-        const float v = load_f(xr + c);
-        ss += v * v;
-      }
-    }
-    ss = warp_sum(ss);
-    // torch.mean multiplies the sum by 1/H; rsqrtf is what torch.rsqrt
-    // runs on the card
-    if (lane == 0) inv[r] = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.0f / H), eps));
-  }
-  __syncthreads();
-
-  const int c = tid & 127;
-  const int rb = (tid >> 7) * (RMS_ROWS / 2);  // first of this thread's rows
+                                              int H, float eps, int staged) {
+  extern __shared__ __align__(16) uint8_t rn_raw[];
+  uint8_t* b_s = rn_raw + ((1024 - (smem_u32(rn_raw) & 1023)) & 1023);
+  // xn tiles [2][GPS][16][256 B] at b_s, staging tiles likewise at o_s
+  uint8_t* o_s = b_s + 2 * RN_STEP;
+  float* inv = reinterpret_cast<float*>(b_s + RN_TILES);  // [RN_ROWS]
+  float* part = inv + RN_ROWS;  // [2][RN_CL][RN_ROWS], by cluster rank
+  float* w_s = part + 2 * RN_CL * RN_ROWS;  // the CTA's columns (staged)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = tid >> 7, wi = warp & 3, g8 = lane >> 2, tq = lane & 3;
   const int G = H / 128;
-  for (int g = blockIdx.y; g < G; g += gridDim.y) {
-    for (int i = tid; i < RMS_ROWS * 128; i += RMS_THREADS) {
-      const int r = i >> 7, col = g * 128 + (i & 127);
-      float v = 0.f;
-      if (t0 + r < T) {
-        v = load_f(x + static_cast<size_t>(t0 + r) * H + col);
-        v = bf16_round(__fmul_rn(__fmul_rn(v, inv[r]), w[col]));
+  const int rank = static_cast<int>(cluster_rank());
+  const int glo = rn_glo(G, rank), ghi = rn_glo(G, rank + 1);
+  const int ncol = (ghi - glo) * 128;  // the CTA's columns
+  // [RN_ROWS][ncol] (staged)
+  InT* slab = reinterpret_cast<InT*>(w_s + rn_gmax(G) * 128);
+  const int cpr = ncol * static_cast<int>(sizeof(InT)) / 16;  // chunks a row
+  const int ntiles = (T + RN_ROWS - 1) / RN_ROWS;
+
+  // R where the tiles go, 16-byte chunk j of row d at j ^ (d % 8) of the
+  // row (conflict-free ldmatrix below), and the CTA's columns of w; they
+  // land beside the first tile's slab
+  for (int i = tid; i < RN_R_BYTES / 16; i += RN_THREADS) {
+    const int d = i >> 4, j = i & 15;
+    cp_async16(b_s + d * 256 + ((j ^ (d & 7)) << 4),
+               reinterpret_cast<const uint8_t*>(right) + 16 * i);
+  }
+  if (staged)
+    for (int i = tid; i < ncol / 4; i += RN_THREADS)
+      cp_async16(w_s + 4 * i, w + glo * 128 + 4 * i);
+  cp_async_commit();
+  const float* wv = staged ? w_s : w + glo * 128;
+
+  const int c = wg * 64 + wi * 16 + g8;  // output channel, + 8 (A's rows)
+  unsigned ra[8][4];
+  int it = 0;  // the cluster's tiles walked so far: the partials' buffer
+  for (int tile = blockIdx.x / RN_CL; tile < ntiles;
+       tile += gridDim.x / RN_CL, ++it) {
+    const int t0 = tile * RN_ROWS;
+    const int nr = min(RN_ROWS, T - t0);
+    // the CTA's columns of row r of the tile: the slab's, or x's own
+    auto row = [&](int r) -> const InT* {
+      return staged ? slab + r * ncol
+                    : x + static_cast<size_t>(t0 + r) * H + glo * 128;
+    };
+    if (staged) {  // the previous tile's last reads of the slab were
+                   // behind its last step's barriers
+      for (int idx = tid; idx < nr * cpr; idx += RN_THREADS) {
+        const int r = idx / cpr, i = idx - r * cpr;
+        cp_async16(reinterpret_cast<uint8_t*>(slab + r * ncol) + 16 * i,
+                   reinterpret_cast<const uint8_t*>(
+                       x + static_cast<size_t>(t0 + r) * H + glo * 128) +
+                       16 * i);
       }
-      xn[i] = v;
+      cp_async_commit();
+    }
+    cp_async_wait<0>();  // the slab; on the first tile R and w too
+    __syncthreads();
+    if (it == 0) {
+      // A: R^T's rows c (+ 8), k-step s over d = 16 s + 2 tq (+ 1) and
+      // 16 s + 8 + 2 tq (+ 1), as bf16 pairs (lower d low): R stored
+      // [d][c] is A stored [k][m], so ldmatrix .trans gives the fragments;
+      // lane l addresses row l % 8 of matrix l / 8: d = 16 s + 8 (matrix
+      // / 2) + l % 8, columns 64 wg + 16 wi + 8 (matrix % 2) ...
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int d = 16 * s + ((lane >> 4) << 3) + (lane & 7);
+        const int j = ((wg * 64 + wi * 16) >> 3) + ((lane >> 3) & 1);
+        ldmatrix_x4_trans(ra[s], reinterpret_cast<const bf16*>(
+                                     b_s + d * 256 + ((j ^ (d & 7)) << 4)));
+      }
+      // R is read (the tiles take its place), and every CTA of the
+      // cluster runs before any stores in another's shared memory
+      cluster_sync();
+    }
+
+    // pass 1: warp w sums the squares of its rows' columns here, lane l
+    // over the 16-byte chunks l, l + 32, ... in order, then the warp's
+    // butterfly; lane k stores the sum in CTA k's partials
+    float* pt = part + (it & 1) * RN_CL * RN_ROWS;
+#pragma unroll 1
+    for (int q = 0; q < RN_ROWS / 8; ++q) {
+      const int r = warp * (RN_ROWS / 8) + q;
+      float ss = 0.f;
+      if (r < nr) {
+        const InT* xr = row(r);
+#pragma unroll 4
+        for (int i = lane; i < cpr; i += 32) {
+          float v[Chunk<InT>::N];
+          Chunk<InT>::load(xr + i * Chunk<InT>::N, v);
+#pragma unroll
+          for (int e = 0; e < Chunk<InT>::N; ++e)
+            ss = __fadd_rn(ss, __fmul_rn(v[e], v[e]));
+        }
+      }
+      ss = warp_sum(ss);
+      if (lane < RN_CL) st_cluster(pt + rank * RN_ROWS + r, lane, ss);
+    }
+    cluster_sync();  // every CTA's partials are in
+    if (tid < RN_ROWS) {
+      float ss = pt[tid];
+#pragma unroll
+      for (int k = 1; k < RN_CL; ++k) ss = __fadd_rn(ss, pt[k * RN_ROWS + tid]);
+      // torch.mean multiplies the sum by 1/H; rsqrtf is what torch.rsqrt
+      // runs on the card
+      inv[tid] = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.0f / H), eps));
     }
     __syncthreads();
-    float acc[RMS_ROWS / 2];
+
+    // xn of the step at column group g0 into the tiles at bt: 16-byte
+    // chunk j (columns 8 j .. 8 j + 7 of group g0 + gi) of row r at half
+    // j / 8 of the group's tile, chunk (j % 8) ^ (r % 8) of the row's 128
+    // bytes; zeros for rows past T
+    auto build = [&](int g0, uint8_t* bt) {
+      const int ng = min(RN_GPS, ghi - g0);
+      for (int idx = tid; idx < ng * RN_ROWS * 16; idx += RN_THREADS) {
+        const int gi = idx / (RN_ROWS * 16), r = idx / 16 % RN_ROWS;
+        const int j = idx % 16;
+        const int col = (g0 - glo + gi) * 128 + 8 * j;  // the CTA's
+        uint4 out = make_uint4(0u, 0u, 0u, 0u);
+        if (r < nr) {
+          float v[8];
+          Chunk<InT>::load(row(r) + col, v);
+          if constexpr (Chunk<InT>::N == 4)
+            Chunk<InT>::load(row(r) + col + 4, v + 4);
+          const float4 w0 = *reinterpret_cast<const float4*>(wv + col);
+          const float4 w1 = *reinterpret_cast<const float4*>(wv + col + 4);
+          const float ww[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+          const float s = inv[r];
+          auto xn = [&](int e) {  // bf16 pair e: columns 2 e, 2 e + 1
+            return pack_bf16(__fmul_rn(__fmul_rn(v[2 * e], s), ww[2 * e]),
+                             __fmul_rn(__fmul_rn(v[2 * e + 1], s),
+                                       ww[2 * e + 1]));
+          };
+          out = make_uint4(xn(0), xn(1), xn(2), xn(3));
+        }
+        *reinterpret_cast<uint4*>(bt + gi * RN_TILE + (j >> 3) * (RN_TILE / 2) +
+                                  r * 128 + (((j & 7) ^ (r & 7)) << 4)) = out;
+      }
+      fence_proxy_async();  // the xn stores, seen by the wgmmas
+    };
+
+    // the steps: step st's products (xn tiles st % 2) run while every
+    // thread builds step st + 1's xn tiles; its staging tiles (st % 2) are
+    // stored after the step's one barrier
+    const int nsteps = (ghi - glo + RN_GPS - 1) / RN_GPS;
+    if (nsteps > 0) build(glo, b_s);
+    __syncthreads();
+    for (int st = 0; st < nsteps; ++st) {
+      const int g0 = glo + st * RN_GPS, ng = min(RN_GPS, ghi - g0);
+      const uint8_t* bt = b_s + (st & 1) * RN_STEP;
+      uint8_t* ot = o_s + (st & 1) * RN_STEP;
+      float acc[RN_GPS][RN_ROWS / 2];
+      wgmma_fence();
+      // k-step by k-step over the groups: the groups' products are
+      // independent, so consecutive wgmmas never wait on each other
 #pragma unroll
-    for (int r = 0; r < RMS_ROWS / 2; ++r) acc[r] = 0.f;
-    for (int d = 0; d < 128; d += 4) {
-      const float m0 = rs[(d + 0) * 128 + c], m1 = rs[(d + 1) * 128 + c];
-      const float m2 = rs[(d + 2) * 128 + c], m3 = rs[(d + 3) * 128 + c];
+      for (int s = 0; s < 8; ++s) {
 #pragma unroll
-      for (int r = 0; r < RMS_ROWS / 2; ++r) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            xn + (rb + r) * 128 + d);
-        acc[r] = fmaf(a.x, m0, acc[r]);
-        acc[r] = fmaf(a.y, m1, acc[r]);
-        acc[r] = fmaf(a.z, m2, acc[r]);
-        acc[r] = fmaf(a.w, m3, acc[r]);
+        for (int gi = 0; gi < RN_GPS; ++gi) {
+          if (gi < ng)
+            Wgmma<RN_ROWS>::mma(acc[gi], ra[s],
+                                sw128_desc(bt + gi * RN_TILE +
+                                           (s >> 2) * (RN_TILE / 2) +
+                                           (s & 3) * 32),
+                                s > 0);
+        }
+      }
+      wgmma_commit();
+      if (st + 1 < nsteps) build(g0 + RN_GPS, b_s + ((st + 1) & 1) * RN_STEP);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int gi = 0; gi < RN_GPS; ++gi) fence_f32<RN_ROWS / 2>(acc[gi]);
+
+      // acc[gi][4 i + e]: output channel c (+ 8 for e >= 2) of token row
+      // 8 i + 2 tq + (e & 1) -> staging tile gi
+#pragma unroll
+      for (int gi = 0; gi < RN_GPS; ++gi) {
+        if (gi < ng) {
+#pragma unroll
+          for (int e = 0; e < RN_ROWS / 2; ++e) {
+            const int r = 8 * (e >> 2) + 2 * tq + (e & 1);
+            const int cc = c + ((e >> 1) & 1) * 8;
+            *reinterpret_cast<bf16*>(ot + gi * RN_TILE + r * 256 +
+                                     (((cc >> 3) ^ (r & 7)) << 4) +
+                                     (cc & 7) * 2) =
+                __float2bfloat16_rn(acc[gi][e]);
+          }
+        }
+      }
+      // the staging tiles are whole, step st + 1's xn tiles too, and
+      // both warpgroups' products of step st are done with theirs
+      __syncthreads();
+      for (int idx = tid; idx < ng * RN_ROWS * 16; idx += RN_THREADS) {
+        const int gi = idx / (RN_ROWS * 16), r = idx / 16 % RN_ROWS;
+        const int n = idx % 16;
+        if (r < nr) {
+          const size_t t = t0 + r, g = g0 + gi;
+          const size_t at = GROUPED ? (g * T + t) * 128 + 8 * n
+                                    : t * H + g * 128 + 8 * n;
+          *reinterpret_cast<uint4*>(y + at) = *reinterpret_cast<const uint4*>(
+              ot + gi * RN_TILE + r * 256 + ((n ^ (r & 7)) << 4));
+        }
       }
     }
-#pragma unroll
-    for (int r = 0; r < RMS_ROWS / 2; ++r) {
-      if (t0 + rb + r < T) {
-        const size_t t = t0 + rb + r;
-        const size_t at = GROUPED ? (g * static_cast<size_t>(T) + t) * 128 + c
-                                  : t * H + g * 128 + c;
-        y[at] = __float2bfloat16_rn(acc[r]);
-      }
-    }
-    __syncthreads();  // xn is overwritten by the next group
   }
 }
 
 template <typename InT>
-__global__ void __launch_bounds__(RMS_THREADS)
+__global__ void __cluster_dims__(RN_CL, 1, 1) __launch_bounds__(RN_THREADS, 2)
 rmsnorm_right_flat_kernel(const InT* __restrict__ x,
                           const float* __restrict__ w,
-                          const float* __restrict__ right,
-                          bf16* __restrict__ y, int T, int H, float eps) {
-  rmsnorm_right<InT, false>(x, w, right, y, T, H, eps);
+                          const bf16* __restrict__ right,
+                          bf16* __restrict__ y, int T, int H, float eps,
+                          int staged) {
+  rmsnorm_right<InT, false>(x, w, right, y, T, H, eps, staged);
 }
 
 template <typename InT>
-__global__ void __launch_bounds__(RMS_THREADS)
+__global__ void __cluster_dims__(RN_CL, 1, 1) __launch_bounds__(RN_THREADS, 2)
 rmsnorm_right_grouped_kernel(const InT* __restrict__ x,
                              const float* __restrict__ w,
-                             const float* __restrict__ right,
-                             bf16* __restrict__ y, int T, int H, float eps) {
-  rmsnorm_right<InT, true>(x, w, right, y, T, H, eps);
+                             const bf16* __restrict__ right,
+                             bf16* __restrict__ y, int T, int H, float eps,
+                             int staged) {
+  rmsnorm_right<InT, true>(x, w, right, y, T, H, eps, staged);
 }
 
 // ---------------------------------------------------------------------------
@@ -682,36 +904,6 @@ w4a4_matmul_i8_swiglu_kernel(const int8_t* __restrict__ xq,
   swiglu_gemm<false, OutT>(xq, wp, sx, sw, nullptr, y, M, NH, K);
 }
 
-template <bool GROUPED>
-int launch_rmsnorm_right(const void* x, const void* w, const void* right,
-                         void* y, int T, int H, float eps, int x_is_f32,
-                         cudaStream_t s) {
-  const int G = H / 128;
-  dim3 grid((T + RMS_ROWS - 1) / RMS_ROWS, G < 2 ? G : 2);
-  auto w_ = static_cast<const float*>(w);
-  auto r_ = static_cast<const float*>(right);
-  auto y_ = static_cast<bf16*>(y);
-  cudaError_t err;
-  if (x_is_f32) {
-    auto kern = GROUPED ? &rmsnorm_right_grouped_kernel<float>
-                        : &rmsnorm_right_flat_kernel<float>;
-    static int done = 0;
-    err = allow_smem(kern, RMS_SMEM, &done);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, RMS_THREADS, RMS_SMEM, s>>>(static_cast<const float*>(x),
-                                             w_, r_, y_, T, H, eps);
-  } else {
-    auto kern = GROUPED ? &rmsnorm_right_grouped_kernel<bf16>
-                        : &rmsnorm_right_flat_kernel<bf16>;
-    static int done = 0;
-    err = allow_smem(kern, RMS_SMEM, &done);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, RMS_THREADS, RMS_SMEM, s>>>(static_cast<const bf16*>(x),
-                                             w_, r_, y_, T, H, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // the SMs of the current device, read once
 inline int sm_count() {
   static int n = 0;
@@ -723,6 +915,47 @@ inline int sm_count() {
       n = 0;
   }
   return n;
+}
+
+template <bool GROUPED>
+int launch_rmsnorm_right(const void* x, const void* w, const void* right,
+                         void* y, int T, int H, float eps, int x_is_f32,
+                         cudaStream_t s) {
+  if (T == 0) return 0;
+  const int nsm = sm_count();
+  if (nsm == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // the slab and w in shared memory where they fit a CTA; CTAs an SM as
+  // the shared memory allows (at most the launch bounds' 2); whole
+  // clusters, one tile each at least
+  const int esize = x_is_f32 ? 4 : 2;
+  const int staged = 1024 + rn_smem(H, esize, true) <= 232448;
+  const int bytes = 1024 + rn_smem(H, esize, staged);
+  const int per_sm = 2 * (bytes + 1024) <= 233472 ? 2 : 1;
+  const int ntiles = (T + RN_ROWS - 1) / RN_ROWS;
+  const int nclusters = per_sm * nsm / RN_CL;
+  const int grid = RN_CL * (ntiles < nclusters ? ntiles : nclusters);
+  auto w_ = static_cast<const float*>(w);
+  auto r_ = static_cast<const bf16*>(right);
+  auto y_ = static_cast<bf16*>(y);
+  cudaError_t err;
+  if (x_is_f32) {
+    auto kern = GROUPED ? &rmsnorm_right_grouped_kernel<float>
+                        : &rmsnorm_right_flat_kernel<float>;
+    static int done = 0;
+    err = allow_smem(kern, bytes, &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, RN_THREADS, bytes, s>>>(static_cast<const float*>(x), w_,
+                                         r_, y_, T, H, eps, staged);
+  } else {
+    auto kern = GROUPED ? &rmsnorm_right_grouped_kernel<bf16>
+                        : &rmsnorm_right_flat_kernel<bf16>;
+    static int done = 0;
+    err = allow_smem(kern, bytes, &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, RN_THREADS, bytes, s>>>(static_cast<const bf16*>(x), w_, r_,
+                                         y_, T, H, eps, staged);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool GROUPED>
@@ -787,8 +1020,9 @@ int launch_swiglu_right(const void* xq, const void* wp, const void* sx,
 
 }  // namespace
 
-// x [T, H] bf16 (x_is_f32 = 0) or f32; w f32 [H]; right f32 [128, 128]
-// (bf16 values); y bf16 [T, H]. H % 128 == 0 (checked in Python).
+// x [T, H] bf16 (x_is_f32 = 0) or f32; w f32 [H]; right bf16 [128, 128];
+// y bf16 [T, H]. H % 128 == 0; x and w 16-byte aligned (checked in
+// Python).
 extern "C" int fq_rmsnorm_right_flat(const void* x, const void* w,
                                      const void* right, void* y, int T,
                                      int H, float eps, int x_is_f32,

@@ -124,17 +124,8 @@
 // with p' from registers (the S accumulators pack into the A fragments in
 // place, as in flash_prefill.cu). The rows of a block may have different
 // limits: each thread masks its own two rows.
-// ---------------------------------------------------------------------
-// write_token
 //
-// Replaces: flatquant_tpu/kernels/kv_cache.py:write_token_v4 (Pallas
-// windowed DMA read-modify-write; the 128-lane window exists only for the
-// TPU's lane rules).
-//
-// In place, slot b's one new token (K and V codes and (scale, zero)) lands
-// at position pos[b]; a position outside [0, S) writes nothing, exactly
-// like the masked select it must equal bit for bit. Bound: bytes, B * nkv
-// * (2*hd/2 + 16) written; it is a plain scatter, one CTA per slot.
+// write_token: see its kernel below.
 
 #include <cuda_bf16.h>
 #include <math.h>
@@ -893,32 +884,75 @@ chunk_attention_int4_kernel(const float* __restrict__ q,
   }
 }
 
-__global__ void write_token_kernel(uint8_t* __restrict__ kp,
-                                   float* __restrict__ kpar,
-                                   uint8_t* __restrict__ vp,
-                                   float* __restrict__ vpar,
-                                   const uint8_t* __restrict__ kq,
-                                   const float* __restrict__ kpn,
-                                   const uint8_t* __restrict__ vq,
-                                   const float* __restrict__ vpn,
-                                   const int* __restrict__ pos, int nkv,
-                                   int S, int hdh) {
-  const int b = blockIdx.x;
-  const int p = pos[b];
-  if (p < 0 || p >= S) return;
-  for (int i = threadIdx.x; i < nkv * hdh; i += blockDim.x) {
-    const int h = i / hdh, j = i - h * hdh;
-    const size_t dst = ((static_cast<size_t>(b) * nkv + h) * S + p) * hdh + j;
-    const size_t src = static_cast<size_t>(b) * nkv * hdh + i;
-    kp[dst] = kq[src];
-    vp[dst] = vq[src];
-  }
-  for (int i = threadIdx.x; i < nkv * 2; i += blockDim.x) {
-    const int h = i >> 1, e = i & 1;
-    const size_t dst = ((static_cast<size_t>(b) * nkv + h) * S + p) * 2 + e;
-    const size_t src = static_cast<size_t>(b) * nkv * 2 + i;
-    kpar[dst] = kpn[src];
-    vpar[dst] = vpn[src];
+// ---------------------------------------------------------------------
+// write_token
+//
+// Replaces: flatquant_tpu/kernels/kv_cache.py:735 (write_token_v4; its
+// 128-lane windows and masked select are a TPU DMA choice, not carried
+// over). Slot b's one new token, K and V codes [nkv, hdh] u8 and their
+// (scale, zero) float32 pairs, lands in place at pos[b]; a position
+// outside [0, S) writes nothing.
+//
+// What bounds it on the H100: latency. At B = 4 and 32 kv heads it moves
+// 18 KB, ~11 ns of bytes, far below a launch. The body it replaced (a
+// block a slot, pos[b] read first, then the codes copied one byte at a
+// time in 16 rounds with an integer division each) took 5.1 us (PERF.md).
+//
+// Design: a warp per (slot, kv head), WT_WARPS a block. Its lanes take the
+// 16-byte chunks of the K and the V code rows and the two float2 params,
+// one each (hdh = 64: 10 lanes), load them beside pos[b] (they do not
+// depend on it) and store them at pos[b]: one round of loads, one of
+// stores. Code rows whose width or address is not a multiple of 16 bytes
+// (vec = 0) take a byte-wise path in the same kernel.
+// ---------------------------------------------------------------------
+
+constexpr int WT_WARPS = 4;
+
+__global__ void __launch_bounds__(WT_WARPS * 32)
+write_token_kernel(uint8_t* __restrict__ kp, float* __restrict__ kpar,
+                   uint8_t* __restrict__ vp, float* __restrict__ vpar,
+                   const uint8_t* __restrict__ kq,
+                   const float* __restrict__ kpn,
+                   const uint8_t* __restrict__ vq,
+                   const float* __restrict__ vpn,
+                   const int* __restrict__ pos, int B, int nkv, int S,
+                   int hdh, int vec) {
+  const int item = blockIdx.x * WT_WARPS + (threadIdx.x >> 5);  // b nkv + h
+  if (item >= B * nkv) return;
+  const int lane = threadIdx.x & 31;
+  const int p = pos[item / nkv];
+  const bool hit = p >= 0 && p < S;
+  const size_t src = static_cast<size_t>(item) * hdh;
+  const size_t at = static_cast<size_t>(item) * S + p;  // used when hit
+  if (vec) {
+    const int nc = hdh >> 4;  // 16-byte chunks of a code row
+    for (int i = lane; i < 2 * nc + 2; i += 32) {
+      if (i < 2 * nc) {
+        const bool v = i >= nc;
+        const int off = 16 * (v ? i - nc : i);
+        const uint4 d =
+            *reinterpret_cast<const uint4*>((v ? vq : kq) + src + off);
+        if (hit)
+          *reinterpret_cast<uint4*>((v ? vp : kp) + at * hdh + off) = d;
+      } else {
+        const bool v = i > 2 * nc;
+        const float2 d =
+            *reinterpret_cast<const float2*>((v ? vpn : kpn) + 2 * item);
+        if (hit) *reinterpret_cast<float2*>((v ? vpar : kpar) + 2 * at) = d;
+      }
+    }
+  } else {
+    for (int j = lane; j < hdh; j += 32) {
+      const uint8_t dk = kq[src + j], dv = vq[src + j];
+      if (hit) {
+        kp[at * hdh + j] = dk;
+        vp[at * hdh + j] = dv;
+      }
+    }
+    if (lane < 4) {
+      const float d = (lane < 2 ? kpn : vpn)[2 * item + (lane & 1)];
+      if (hit) (lane < 2 ? kpar : vpar)[2 * at + (lane & 1)] = d;
+    }
   }
 }
 
@@ -1055,11 +1089,21 @@ extern "C" int fq_write_token(void* kp, void* kpar, void* vp, void* vpar,
                               const void* kq, const void* kpn, const void* vq,
                               const void* vpn, const void* pos, int B,
                               int nkv, int S, int hdh, void* stream) {
-  write_token_kernel<<<B, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (B * nkv == 0) return 0;
+  auto aligned = [](const void* p, unsigned n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  // 16-byte code chunks and float2 params where every row allows them
+  const int vec = hdh % 16 == 0 && aligned(kp, 16) && aligned(vp, 16) &&
+                  aligned(kq, 16) && aligned(vq, 16) && aligned(kpar, 8) &&
+                  aligned(vpar, 8) && aligned(kpn, 8) && aligned(vpn, 8);
+  const int grid = (B * nkv + WT_WARPS - 1) / WT_WARPS;
+  write_token_kernel<<<grid, WT_WARPS * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint8_t*>(kp), static_cast<float*>(kpar),
       static_cast<uint8_t*>(vp), static_cast<float*>(vpar),
       static_cast<const uint8_t*>(kq), static_cast<const float*>(kpn),
       static_cast<const uint8_t*>(vq), static_cast<const float*>(vpn),
-      static_cast<const int*>(pos), nkv, S, hdh);
+      static_cast<const int*>(pos), B, nkv, S, hdh, vec);
   return static_cast<int>(cudaGetLastError());
 }

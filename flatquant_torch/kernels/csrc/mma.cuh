@@ -3,9 +3,10 @@
 // (attn_prologue.cu) and the GEMMs (int4_matmul.cu, fp8_matmul.cu,
 // flat_pipeline.cu): cp.async staging, ldmatrix, mma.sync in bf16 and in
 // s8, the quad reductions over the four lanes that hold one accumulator
-// row, and the wgmma plumbing (fences, groups, the 128-byte-swizzle
+// row, the wgmma plumbing (fences, groups, the 128-byte-swizzle
 // descriptors of K-major and MN-major operands, the bf16 and s8 products
-// with A from registers or from shared memory, named barriers).
+// with A from registers or from shared memory, named barriers), and the
+// cluster barrier and stores into a cluster peer's shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -176,6 +177,40 @@ struct Wgmma<8> {
         "%0, %1, %2, %3}, "
         "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  // d[64 x 16] (+)= a[64 x 16] (registers) * b[16 x 16] (shared)
+  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  // d[64 x 32] (+)= a[64 x 16] (registers) * b[16 x 32] (shared)
+  static __device__ __forceinline__ void mma(float* d, const unsigned* a,
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
   }
 };
@@ -391,6 +426,33 @@ __device__ __forceinline__ void wgmma_s8_rs_n128(int* d, const unsigned* a,
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// ---- thread block clusters (sm_90) -----------------------------------------
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster arrives and waits: this CTA's
+// earlier writes (shared memory of any CTA of the cluster included) are
+// released, the others' acquired
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// *p's place in the shared memory of the cluster's CTA `rank` = v
+__device__ __forceinline__ void st_cluster(const float* p, unsigned rank,
+                                           float v) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(v)
+               : "memory");
 }
 
 // keep a register's reads and writes on their side of the wgmmas

@@ -67,32 +67,45 @@ def rmsnorm_right_flat_ref(x, w, right, eps: float):
     return _group_right(xn, right)
 
 
-def rmsnorm_right_flat(x, w, right, eps: float):
-    """RMSNorm(x) * w, then the Kronecker right factor per 128-column
-    group. x [T, H] bf16 or f32, H % 128 == 0; w [H]; right [128, 128].
-    Returns bf16 [T, H]."""
-    if x.device.type == "cpu":
-        return rmsnorm_right_flat_ref(x, w, right, eps)
+def launch_rmsnorm_right(name, x, w, right, eps: float, grouped: bool):
+    """The launch of rows 4 and 26, one device body (csrc/flat_pipeline.cu
+    `rmsnorm_right`): y bf16 [T, H], or [H/128, T, 128] when grouped. The
+    factor goes in bf16, as JAX casts it (no copy when it is bf16
+    already)."""
     t, h = x.shape
     req = common.require
-    req(w.device == x.device and right.device == x.device, _RMS,
+    req(w.device == x.device and right.device == x.device, name,
         "all inputs must be on the same CUDA device")
-    req(x.dtype in (torch.bfloat16, torch.float32), _RMS,
+    req(x.dtype in (torch.bfloat16, torch.float32), name,
         f"x dtype {x.dtype} must be bfloat16 or float32")
     req(h % 128 == 0 and w.numel() == h
-        and tuple(right.shape) == (128, 128), _RMS,
+        and tuple(right.shape) == (128, 128), name,
         f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, right "
         f"{tuple(right.shape)}")
     x = x.contiguous()
     wf = w.to(torch.float32).contiguous()
-    rf = right.to(torch.bfloat16).to(torch.float32).contiguous()
-    y = torch.empty((t, h), dtype=torch.bfloat16, device=x.device)
-    rc = common.lib(_LIB).fq_rmsnorm_right_flat(
-        x.data_ptr(), wf.data_ptr(), rf.data_ptr(), y.data_ptr(), t, h,
+    rb = right.to(torch.bfloat16).contiguous()  # wgmma's A
+    req(x.data_ptr() % 16 == 0 and wf.data_ptr() % 16 == 0, name,
+        "x and w must be 16-byte aligned (16-byte loads)")
+    shape = (h // 128, t, 128) if grouped else (t, h)
+    y = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    entry = "fq_rmsnorm_right_grouped" if grouped else "fq_rmsnorm_right_flat"
+    rc = getattr(common.lib(_LIB), entry)(
+        x.data_ptr(), wf.data_ptr(), rb.data_ptr(), y.data_ptr(), t, h,
         float(eps), int(x.dtype == torch.float32), common.stream_ptr(x))
-    common.check(_LIB, _RMS, rc)
-    common.LAUNCHES[_RMS] += 1
+    common.check(_LIB, name, rc)
+    common.LAUNCHES[name] += 1
     return y
+
+
+def rmsnorm_right_flat(x, w, right, eps: float):
+    """RMSNorm(x) * w, then the Kronecker right factor per 128-column
+    group. x [T, H] bf16 or f32, H % 128 == 0; w [H]; right [128, 128].
+    Returns bf16 [T, H]. CUDA tensors launch the kernel or raise; CPU
+    tensors run the plain version."""
+    if x.device.type == "cpu":
+        return rmsnorm_right_flat_ref(x, w, right, eps)
+    return launch_rmsnorm_right(_RMS, x, w, right, eps, grouped=False)
 
 
 # ---------------------------------------------------------------------------

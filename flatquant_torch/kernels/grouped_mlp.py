@@ -36,6 +36,7 @@ import torch
 
 from flatquant_torch.kernels import common, int4_matmul
 from flatquant_torch.kernels.flat_pipeline import (
+    launch_rmsnorm_right,
     left_quant_i8_flat_ref,
     rmsnorm_right_flat_ref,
     w4a4_matmul_i8_swiglu_right_ref,
@@ -299,25 +300,8 @@ def rmsnorm_right_grouped(x, w, right, eps: float):
     """RMSNorm(x) * w, then the Kronecker right factor per 128-column
     group, in the grouped layout. x [T, H] bf16 or f32, H % 128 == 0; w
     [H]; right [128, 128]. Returns bf16 [H/128, T, 128]. CUDA tensors
-    launch the kernel or raise; CPU tensors run the plain version."""
+    launch the kernel (row 4's body) or raise; CPU tensors run the plain
+    version."""
     if x.device.type == "cpu":
         return rmsnorm_right_grouped_ref(x, w, right, eps)
-    t, h = x.shape
-    req = common.require
-    _same_device(_RMS, x, w, right)
-    req(x.dtype in (torch.bfloat16, torch.float32), _RMS,
-        f"x dtype {x.dtype} must be bfloat16 or float32")
-    req(h % 128 == 0 and w.numel() == h
-        and tuple(right.shape) == (128, 128), _RMS,
-        f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, right "
-        f"{tuple(right.shape)}")
-    x = x.contiguous()
-    wf = w.to(torch.float32).contiguous()
-    rf = right.to(torch.bfloat16).to(torch.float32).contiguous()
-    y = torch.empty((h // 128, t, 128), dtype=torch.bfloat16, device=x.device)
-    rc = common.lib("flat_pipeline").fq_rmsnorm_right_grouped(
-        x.data_ptr(), wf.data_ptr(), rf.data_ptr(), y.data_ptr(), t, h,
-        float(eps), int(x.dtype == torch.float32), common.stream_ptr(x))
-    common.check("flat_pipeline", _RMS, rc)
-    common.LAUNCHES[_RMS] += 1
-    return y
+    return launch_rmsnorm_right(_RMS, x, w, right, eps, grouped=True)

@@ -162,6 +162,40 @@ def test_write_token_bit_exact_in_place(cuda):
         assert torch.equal(a, b)
 
 
+def _misaligned(t):
+    """t's values in a contiguous tensor whose address is 1 byte past a
+    16-byte boundary (the kernel's byte-wise path)."""
+    buf = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8,
+                      device=t.device)
+    out = buf[1:1 + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nkv,hdh,pos,shift", [
+    (1, 4, 64, [300], False),  # Qwen's GQA 28/4 at B = 1
+    (4, 2, 64, [0, 511, 512, -1], False),  # positions 0, S - 1, S and -1
+    (3, 2, 36, [0, 77, 511], False),  # 36-byte code rows
+    (2, 3, 64, [7, 400], True),  # new codes 1 byte past a 16-byte boundary
+])
+def test_write_token_cases_bit_exact(cuda, B, nkv, hdh, pos, shift):
+    g = torch.Generator(device=cuda).manual_seed(B)
+    caches = [c[..., :hdh].contiguous() if c.dtype == torch.uint8 else c
+              for c in _cache(g, cuda, B, nkv, 512)]
+    copies = [c.clone() for c in caches]
+    new = [(c[:, :, :1, :hdh] if c.dtype == torch.uint8 else c[:, :, :1])
+           .clone() for c in _cache(g, cuda, B, nkv, 1)]
+    if shift:
+        new = [_misaligned(c) if c.dtype == torch.uint8 else c for c in new]
+        assert new[0].data_ptr() % 16 == 1
+    pos = torch.tensor(pos, device=cuda, dtype=torch.int32)
+    _launched("write_token", tkv.write_token, *caches, *new, pos)
+    tkv.write_token_ref(*copies, *new, pos)
+    for a, b in zip(caches, copies):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the prefill kernels, with identity and with random orthogonal factors
 # (flatquant_torch/kernels/tolerance.py states both modes' tolerances)
@@ -188,7 +222,10 @@ def _launched(name, fn, *a, **kw):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("t,h,dtype", [(300, 4096, torch.bfloat16),
-                                       (40, 256, torch.float32)])
+                                       (40, 256, torch.float32),
+                                       (1, 4096, torch.bfloat16),
+                                       (2048, 4096, torch.bfloat16),
+                                       (40, 8192, torch.float32)])
 def test_rmsnorm_right_flat_matches_plain(cuda, mode, t, h, dtype):
     g = torch.Generator(device=cuda).manual_seed(t)
     x = (torch.randn((t, h), generator=g, device=cuda) * 2).to(dtype)
@@ -984,7 +1021,10 @@ def _codes(g, cuda, *shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("t,h,dtype", [(300, 4096, torch.bfloat16),
-                                       (40, 640, torch.float32)])
+                                       (40, 640, torch.float32),
+                                       (1, 4096, torch.bfloat16),
+                                       (2048, 4096, torch.bfloat16),
+                                       (40, 12288, torch.bfloat16)])
 def test_rmsnorm_right_grouped_matches_plain_and_twin(cuda, mode, t, h,
                                                       dtype):
     g = torch.Generator(device=cuda).manual_seed(t)

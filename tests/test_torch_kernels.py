@@ -208,6 +208,38 @@ def test_write_token_matches_jax_v4(rng):
         np.testing.assert_array_equal(g.numpy(), tm(np.asarray(w)).numpy())
 
 
+@pytest.mark.parametrize("B,nkv,hd,pos", [
+    (1, 4, 128, [130]),  # Qwen's GQA 28/4 at B = 1
+    (4, 2, 128, [0, 255, 256, -1]),  # positions 0, S - 1, S and -1
+    (3, 2, 72, [0, 77, 255]),  # 36-byte code rows, not a multiple of 16
+])
+def test_write_token_cases_match_jax_v4(rng, B, nkv, hd, pos):
+    """Each in-range slot lands where JAX's write_token_v4 (interpret) puts
+    it, byte for byte; a slot whose position lies outside [0, S) keeps its
+    cache. JAX's kernel takes in-range positions only, so it writes the
+    in-range slots alone."""
+    L = 256
+    u8 = lambda *sh: rng.integers(0, 256, sh).astype(np.uint8)
+    f32 = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    kp, vp = u8(B, nkv, hd // 2, L), u8(B, nkv, hd // 2, L)
+    kparam, vparam = f32(B, nkv, 2, L), f32(B, nkv, 2, L)
+    new = (u8(B, nkv, hd // 2, 1), f32(B, nkv, 2, 1),
+           u8(B, nkv, hd // 2, 1), f32(B, nkv, 2, 1))
+    pos = np.array(pos, np.int32)
+    hit = (pos >= 0) & (pos < L)
+    want = jkv.write_token_v4(*(jnp.asarray(a[hit]) for a in (
+        kp, kparam, vp, vparam, *new, pos)), interpret=True)
+
+    tm = lambda a: _t(a).transpose(2, 3).contiguous()  # v4 -> token-major
+    cache = [tm(a) for a in (kp, kparam, vp, vparam)]
+    before = [c.clone() for c in cache]
+    tkv.write_token(*cache, *(tm(a) for a in new), _t(pos))
+    for w, g, b in zip(want, cache, before):
+        np.testing.assert_array_equal(g[hit].numpy(),
+                                      tm(np.asarray(w)).numpy())
+        assert torch.equal(g[~hit], b[~hit])
+
+
 def test_write_token_out_of_range_writes_nothing(rng):
     B, nkv, S, hdh = 2, 2, 16, 64
     kp = torch.from_numpy(rng.integers(0, 256, (B, nkv, S, hdh), np.uint8))
