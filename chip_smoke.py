@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 3h,10 # phases 1-2, 3h and 10
     python3 chip_smoke.py --phases 3i,11 # phases 1-2, 3i and 11
     python3 chip_smoke.py --phases 3j,12 # phases 1-2, 3j and 12
+    python3 chip_smoke.py --phases 13    # phases 1-2 and 13
 
 Phases (any failure makes the script exit non-zero without the final
 line):
@@ -171,6 +172,22 @@ line):
      torch.matmul of the left factor -> 24 -> 25), every launch checked,
      the logits a tripwire; the flat, (a) and (b) prefills timed in 3
      interleaved rounds.
+  13. llama-2-7b (32 layers, full width, W4A4KV4 + tpu_decompose) built by
+     the port's own chain on the card, bench.py's recipe: seeded fp
+     weights, init_model_fq(seed=0) -> bake_model ->
+     build_serving_params(merge_projections=True); the build's seconds,
+     peak memory and the packed model's size. (a) layer 0 packed again on
+     the CPU from the same fp weights and the transforms frozen on the
+     card, every nibble and scale compared (the tie rule: at most 1e-5 of
+     the nibbles differ, each by one code, scales within 2^-22), and from
+     the raw FQ state (the Cayley solves on the CPU; reported only);
+     (b) the merged model: 1 x 2048 prefill + 32 decode steps over the
+     int4 cache, timed, every launch of a prefill and of 8 decode steps
+     checked; (c) JAX's default unmerged layout and (d) the perm layout
+     at 2 layers: 1 x 2048 prefill + 8 decode steps each, every launch
+     checked, launches printed by row, prefill logits against (b)'s model
+     cut to 2 layers (bf16 on the kernels, a tripwire; float32 on the
+     plain versions, floor 0.99).
   Each model is freed before the next is built. Then the kernel table as
   one JSON line, then the result line.
 
@@ -2272,13 +2289,31 @@ def _checked_decode_attention(torch, n, worst):
     return attn
 
 
+def _checked_write(torch, n):
+    """write_token that holds every launch bit for bit to its plain version
+    on copies of the same cache tensors, counting in n["write_token"]."""
+    from flatquant_torch.kernels import kv_cache
+
+    def write(*a):
+        copies = [t.clone() for t in a[:4]]
+        kv_cache.write_token(*a)
+        kv_cache.write_token_ref(*copies, *a[4:])
+        for x, y in zip(a[:4], copies):
+            if not torch.equal(x, y):
+                raise AssertionError("write_token not bit-exact on the path")
+        n["write_token"] += 1
+        return a[:4]
+
+    return write
+
+
 def check_launches_on_path(torch, cfg, fq, sp, prompt, feed, slot_pos0, P,
                            NEW, kw):
     """Every kernel launch of a short kernel-path run (prefill, 4 scalar and
     4 per-slot decode steps) checked against its plain version on the same
     inputs -- the path's own activations at full depth: GEMM and write
     bit-exact, attention within ATTN_TOL."""
-    from flatquant_torch.kernels import int4_matmul, kv_cache
+    from flatquant_torch.kernels import int4_matmul
     from flatquant_torch.serving import engine, quantized
 
     n = {"w4a4_matmul_i8": 0, "decode_attention_int4": 0, "write_token": 0}
@@ -2292,20 +2327,10 @@ def check_launches_on_path(torch, cfg, fq, sp, prompt, feed, slot_pos0, P,
         n["w4a4_matmul_i8"] += 1
         return y
 
-    def write(*a):
-        copies = [t.clone() for t in a[:4]]
-        kv_cache.write_token(*a)
-        kv_cache.write_token_ref(*copies, *a[4:])
-        for x, y in zip(a[:4], copies):
-            if not torch.equal(x, y):
-                raise AssertionError("write_token not bit-exact on the path")
-        n["write_token"] += 1
-        return a[:4]
-
     with patched([(quantized, "w4a4_matmul_i8", gemm),
                   (engine, "decode_attention_int4",
                    _checked_decode_attention(torch, n, worst)),
-                  (engine, "write_token", write)]):
+                  (engine, "write_token", _checked_write(torch, n))]):
         c = engine.init_cache(cfg, prompt.shape[0], kw["max_len"],
                               mode="int4", device=kw["device"])
         engine.serving_prefill(cfg, fq, sp, prompt, c, **kw)
@@ -2497,14 +2522,22 @@ def _plain_pairs(torch):
             (pa, "flash_prefill_attention", pa.flash_prefill_attention_ref)]
 
 
-def check_prefill_launches(torch, cfg, fq, sp, prompt, kw,
-                           expected=PREFILL_LAUNCHES):
-    """Every kernel launch of one full-depth prefill over the int4 cache
-    checked against its plain version on the same inputs -- the path's own
-    activations, with the model's orthogonal factors: the GEMM bit-exact,
-    flash kt within the 'flash' tolerance, the rest within the
-    'orthogonal' tolerances (flatquant_torch/kernels/tolerance.py).
-    expected: launches per layer of each kernel."""
+# the prefill kernels the checked wrappers of _prefill_checks count: the
+# fused routes' (PREFILL_LAUNCHES), flash kt, rows 12 and 13, and flash on
+# the [B, S, nkv, hd] layout (row 15: prefill_attention's long prompts)
+PREFILL_CHECKED = list(PREFILL_LAUNCHES) + [
+    "flash_prefill_attention_kt", "quant_acts_i8", "w4a4_matmul_i8_swiglu",
+    "flash_prefill_attention"]
+
+
+def _prefill_checks(torch, n, worst):
+    """[(module, name, checked wrapper)] for every prefill kernel the
+    serving routes call: each launch held to its plain version on the same
+    inputs (the GEMM and quant_acts_i8 bit-exact, flash kt and flash
+    within the 'flash' tolerance, w4a4_matmul_i8_swiglu 'identity', the
+    rest within the 'orthogonal' tolerances of
+    flatquant_torch/kernels/tolerance.py), counted in n[name] with the
+    largest error in worst[name]."""
     from flatquant_torch.kernels import attn_prologue as ap
     from flatquant_torch.kernels import flat_pipeline as fp
     from flatquant_torch.kernels import int4_matmul
@@ -2513,10 +2546,6 @@ def check_prefill_launches(torch, cfg, fq, sp, prompt, kw,
         compare_bf16, compare_codes, compare_kv, compare_scales)
     from flatquant_torch.serving import engine, quantized
 
-    names = list(PREFILL_LAUNCHES) + ["flash_prefill_attention_kt",
-                                      "quant_acts_i8", "w4a4_matmul_i8_swiglu"]
-    n = dict.fromkeys(names, 0)
-    worst = dict.fromkeys(names, 0.0)
     mode = "orthogonal"
 
     def qa(x, clip=None, q_max=7):
@@ -2600,28 +2629,57 @@ def check_prefill_launches(torch, cfg, fq, sp, prompt, kw,
         n[key] += 1
         return o
 
-    with patched([(quantized, "rmsnorm_right_flat", rms),
-                  (quantized, "left_quant_i8_flat", lq),
-                  (quantized, "w4a4_matmul_i8_swiglu_right", swi),
-                  (quantized, "w4a4_matmul_i8", gemm),
-                  (quantized, "quant_acts_i8", qa),
-                  (quantized, "w4a4_matmul_i8_swiglu", swi13),
-                  (engine, "attn_prologue", pro),
-                  (engine, "left_quant_i8_flat", lq),
-                  (engine, "w4a4_matmul_i8", gemm),
-                  (engine, "flash_prefill_attention_kt", fkt)]):
+    flash_n, flash_worst = [0], [0.0]
+    flash = _checked_flash(torch, flash_n, flash_worst)
+
+    def fl(q, k, v, sm):
+        o = flash(q, k, v, sm)
+        n["flash_prefill_attention"] = flash_n[0]
+        worst["flash_prefill_attention"] = flash_worst[0]
+        return o
+
+    return [(quantized, "rmsnorm_right_flat", rms),
+            (quantized, "left_quant_i8_flat", lq),
+            (quantized, "w4a4_matmul_i8_swiglu_right", swi),
+            (quantized, "w4a4_matmul_i8", gemm),
+            (quantized, "quant_acts_i8", qa),
+            (quantized, "w4a4_matmul_i8_swiglu", swi13),
+            (engine, "attn_prologue", pro),
+            (engine, "left_quant_i8_flat", lq),
+            (engine, "w4a4_matmul_i8", gemm),
+            (engine, "flash_prefill_attention_kt", fkt),
+            (pa, "flash_prefill_attention", fl)]
+
+
+def _check_counts(n, expected, times, what):
+    """n[name] against expected[name] (launches per layer) x times for
+    every name of n."""
+    for name in n:
+        want = expected.get(name, 0) * times
+        if n[name] != want:
+            raise AssertionError(f"{what}: {name} {n[name]} launches "
+                                 f"checked, expected {want}")
+
+
+def check_prefill_launches(torch, cfg, fq, sp, prompt, kw,
+                           expected=PREFILL_LAUNCHES):
+    """Every kernel launch of one full-depth prefill over the int4 cache
+    checked against its plain version on the same inputs
+    (_prefill_checks) -- the path's own activations, with the model's
+    orthogonal factors. expected: launches per layer of each kernel."""
+    from flatquant_torch.serving import engine
+
+    n = dict.fromkeys(PREFILL_CHECKED, 0)
+    worst = dict.fromkeys(PREFILL_CHECKED, 0.0)
+    with patched(_prefill_checks(torch, n, worst)):
         c = engine.init_cache(cfg, prompt.shape[0], kw["max_len"],
                               mode="int4", device=kw["device"])
         engine.serving_prefill(cfg, fq, sp, prompt, c, **kw)
     torch.cuda.synchronize()
-    for name in names:
-        per_layer = expected.get(name, 0)
-        if n[name] != per_layer * cfg.num_layers:
-            raise AssertionError(f"{name}: {n[name]} launches checked, "
-                                 f"expected {per_layer * cfg.num_layers}")
+    _check_counts(n, expected, cfg.num_layers, "the prefill")
     log(f"  every launch of a full-depth prefill vs its plain version: {n} "
-        f"launches checked ('orthogonal' tolerances, flash kt 'flash', "
-        f"w4a4_matmul_i8_swiglu 'identity'; GEMM and quant_acts_i8 "
+        f"launches checked ('orthogonal' tolerances, flash kt and flash "
+        f"'flash', w4a4_matmul_i8_swiglu 'identity'; GEMM and quant_acts_i8 "
         f"bit-exact); max abs err {worst}")
     return dict(launches=n, max_abs_err=worst)
 
@@ -4667,6 +4725,347 @@ def run_grouped_paths(torch, dev, model, results, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: llama-2-7b through the port's own build chain
+# ---------------------------------------------------------------------------
+
+# the kernel table's row of each wrapper phase 13 counts
+ROW_OF = {"w4a4_matmul_i8": 1, "decode_attention_int4": 2, "write_token": 3,
+          "rmsnorm_right_flat": 4, "left_quant_i8_flat": 5,
+          "w4a4_matmul_i8_swiglu_right": 6, "attn_prologue": 7,
+          "flash_prefill_attention_kt": 8, "quant_acts_i8": 12,
+          "w4a4_matmul_i8_swiglu": 13, "flash_prefill_attention": 15}
+# launches per layer of the 1 x 2048 prefill and of one decode step, (c)
+# JAX's default unmerged layout: seven GEMMs (q, k, v, o, up, gate, down;
+# down's input, K = 11008, through quant_acts_i8), flash on the [B, S, nkv,
+# hd] layout; (d) the perm layout, merged: the composed routes (no fused
+# route takes ln_tp / ug_tp / down_tp / o_tp), the swiglu GEMM (row 13) at
+# 2048 rows, quant_acts_i8 before down, flash
+UNMERGED_PREFILL = {"w4a4_matmul_i8": 7, "quant_acts_i8": 1,
+                    "flash_prefill_attention": 1}
+UNMERGED_STEP = {"w4a4_matmul_i8": 7, "decode_attention_int4": 1}
+PERM_PREFILL = {"w4a4_matmul_i8": 3, "quant_acts_i8": 1,
+                "w4a4_matmul_i8_swiglu": 1, "flash_prefill_attention": 1}
+PERM_STEP = {"w4a4_matmul_i8": 4, "decode_attention_int4": 1}
+# (c)'s and (d)'s tripwires: their prefill logits against the merged
+# standard layout's, all cut to 2 layers: the same function in another
+# layout. In float32 (params packed with float32 transforms, float32
+# compute, the plain versions: only float32 sums in other orders) the
+# layouts agree but for W4A4 codes at float32 ties: floor
+# LAYOUT_COSINE_FLOOR. In bf16 on the kernel routes they are rounding
+# variants (the fused routes against the composed ones, bf16 products in
+# other shapes), which two random W4A4 layers amplify: on an NVIDIA H100
+# 80GB HBM3 (700 W) the cosines read 0.896 (perm) and 0.899 (unmerged)
+# beside 0.889 for the same merged model on its plain versions (the noise
+# floor, printed beside them); a permutation or layout fault leaves the
+# logits uncorrelated (~0), so the bf16 floor is BF16_LAYOUT_FLOOR
+LAYOUT_COSINE_FLOOR = 0.99
+BF16_LAYOUT_FLOOR = 0.5
+# (a): codes of the card's pack against a CPU pack of layer 0 from the
+# same frozen transforms; cuBLAS and the CPU sum the float32 transforms in
+# other orders, so a code at a float32 tie may flip, by one step
+TIE_NIBBLE_SHARE = 1e-5
+TIE_SCALE_REL = 2.0 ** -22
+
+
+def _tree_to(tree, device):
+    """A dataclass tree of tensors (the FQ state) on `device`."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _tree_to(getattr(tree, f.name), device)
+            for f in dataclasses.fields(tree)})
+    return tree.to(device) if hasattr(tree, "to") else tree
+
+
+def _nbytes(tree):
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") \
+        else 0
+
+
+def compare_packs(torch, got, want, label):
+    """Packed projections of one layer (card) against the same layer
+    packed elsewhere: differing int4 nibbles (count, share, largest code
+    step) and scales (count, largest relative difference) per
+    projection; the a_clip ratios must be equal."""
+    out = {}
+    for nm in ("qkv", "o", "upgate", "down"):
+        g, w = got[nm], want[nm]
+        gb, wb = g["wp"].cpu().to(torch.int16), w["wp"].to(torch.int16)
+        steps = torch.cat([((gb & 0xF) - (wb & 0xF)).abs().flatten(),
+                           ((gb >> 4) - (wb >> 4)).abs().flatten()])
+        gs, ws = g["scale"].cpu(), w["scale"]
+        rel = ((gs - ws).abs() / ws.abs()).max().item()
+        for a, b in zip(g["a_clip"], w["a_clip"]):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{label} {nm}: a_clip differs")
+        out[nm] = dict(nibbles=int((steps > 0).sum()),
+                       of=steps.numel(),
+                       largest_step=int(steps.max()),
+                       scales=int((gs != ws).sum()), scale_max_rel=rel)
+    tot = sum(r["nibbles"] for r in out.values())
+    of = sum(r["of"] for r in out.values())
+    log(f"  {label}: {tot} of {of} nibbles differ (share {tot / of:.2e}); "
+        f"by projection {out}")
+    return dict(by_projection=out, nibbles=tot, of=of, share=tot / of,
+                largest_step=max(r["largest_step"] for r in out.values()),
+                scale_max_rel=max(r["scale_max_rel"] for r in out.values()))
+
+
+def check_every_launch(torch, cfg, fq, sp, prompt, kw, steps, prefill,
+                       step, what):
+    """One prefill over the int4 cache and `steps` greedy decode steps
+    (the first half at a scalar position, the rest per slot, which writes
+    through write_token), every kernel launch held to its plain version
+    on the same inputs (_prefill_checks, _checked_decode_attention,
+    _checked_write). prefill / step: expected launches per layer of the
+    prefill and of one decode step (write_token: one per layer of each
+    per-slot step). Returns the counts and largest errors."""
+    from flatquant_torch.serving import engine
+
+    names = PREFILL_CHECKED + ["decode_attention_int4", "write_token"]
+    n = dict.fromkeys(names, 0)
+    worst = dict.fromkeys(names, 0.0)
+    B, S = prompt.shape
+    L = cfg.num_layers
+    checks = _prefill_checks(torch, n, worst) + [
+        (engine, "decode_attention_int4",
+         _checked_decode_attention(torch, n, worst)),
+        (engine, "write_token", _checked_write(torch, n))]
+    with patched(checks):
+        c = engine.init_cache(cfg, B, kw["max_len"], mode="int4",
+                              device=kw["device"])
+        logits, c = engine.serving_prefill(cfg, fq, sp, prompt, c, **kw)
+        torch.cuda.synchronize()
+        n_prefill = dict(n)
+        for i in range(steps):
+            pos = S + i if i < steps // 2 else torch.full(
+                (B,), S + i, dtype=torch.int32, device=kw["device"])
+            logits, c = engine.serving_decode_step(
+                cfg, fq, sp, logits.argmax(-1, keepdim=True), c, pos, **kw)
+    torch.cuda.synchronize()
+    _check_counts(n_prefill, prefill, L, f"{what} prefill")
+    n_steps = {k: n[k] - n_prefill[k] for k in n}
+    want = {k: v * steps for k, v in step.items()}
+    want["write_token"] = steps - steps // 2
+    _check_counts(n_steps, want, L, f"{what} decode steps")
+    log(f"  {what}: every launch of a prefill and {steps} decode steps vs "
+        f"its plain version, by row: prefill "
+        f"{ {ROW_OF[k]: v for k, v in n_prefill.items() if v} }, steps "
+        f"{ {ROW_OF[k]: v for k, v in n_steps.items() if v} }; max abs err "
+        f"{ {k: v for k, v in worst.items() if n[k]} }")
+    return dict(prefill=n_prefill, steps=n_steps, max_abs_err=worst)
+
+
+def run_build_chain_path(torch, dev, results, smi):
+    """Phase 13: llama-2-7b (32 layers, full width) through the port's own
+    build chain, bench.py's recipe: seeded fp weights (init_params, a
+    torch.Generator on the card), init_model_fq(seed=0) -> bake_model ->
+    build_serving_params(merge_projections=True) on the card, W4A4KV4 with
+    tpu_decompose. (a) layer 0 packed again on the CPU from the same fp
+    weights, twice: from the card's frozen transforms (bake_layer_fq on
+    the card; the tie rule gates it: at most TIE_NIBBLE_SHARE of nibbles
+    differ, each by one code, every scale within TIE_SCALE_REL) and from
+    the raw FQ state (the Cayley maps and inverses solved on the CPU;
+    reported). (b) the merged model: a 1 x 2048 serving_prefill and 32
+    decode steps over the int4 cache, timed; every launch of a prefill
+    (check_prefill_launches) and of 8 decode steps
+    (check_launches_on_path) checked. (c) JAX's default unmerged layout
+    and (d) the perm layout (merged) at 2 layers of full width: a 1 x 2048
+    prefill and 8 decode steps each, timed, then every launch of the same
+    checked (check_every_launch); the prefill logits of (c) and (d)
+    against (b)'s model cut to 2 layers, in bf16 on the kernels
+    (BF16_LAYOUT_FLOOR, beside the noise floor of (b)'s plain versions)
+    and in float32 on the plain versions (LAYOUT_COSINE_FLOOR). Returns
+    the launches of the timed runs of (b), (c), (d)."""
+    import dataclasses
+
+    from flatquant_torch.models.config import get_config
+    from flatquant_torch.models.llama import init_params
+    from flatquant_torch.quantize.bake import bake_layer, bake_model
+    from flatquant_torch.quantize.spec import W4A4KV4
+    from flatquant_torch.quantize.state import bake_layer_fq, init_model_fq
+    from flatquant_torch.serving.engine import init_cache, serving_prefill
+    from flatquant_torch.serving.quantized import (
+        build_serving_layer, build_serving_params, layer_transforms)
+
+    cfg = get_config("llama-2-7b")
+    fq = dataclasses.replace(W4A4KV4, tpu_decompose=True)
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    state = init_model_fq(cfg, fq, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # (a)'s inputs, copied before the bake: layer 0's fp weights, its raw
+    # FQ state and its transforms frozen on the card
+    lp0 = {k: v.cpu() for k, v in params["layers"][0].items()}
+    fq0 = _tree_to(state[0], "cpu")
+    frozen0 = _tree_to(bake_layer_fq(state[0]), "cpu")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    baked, bfq = bake_model(cfg, fq, params, state)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t1
+    del params, state
+    t1 = time.perf_counter()
+    sp = build_serving_params(cfg, fq, baked, bfq, dtype=torch.bfloat16,
+                              merge_projections=True)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    two = dict(baked, layers=baked["layers"][:2])
+    bfq2 = bfq[:2]
+    del baked, bfq
+    gc.collect()
+    torch.cuda.empty_cache()
+    packed_gib = _nbytes(sp) / 2**30
+    log(f"  [{smi}] build: init_params + init_model_fq {init_s:.1f} s, "
+        f"bake_model {bake_s:.1f} s, build_serving_params {pack_s:.1f} s "
+        f"(build {bake_s + pack_s:.1f} s; {init_s + bake_s + pack_s:.1f} s "
+        f"with the init); max_memory_allocated during it "
+        f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB before); packed "
+        f"model {packed_gib:.2f} GiB ({L} layers, embed and head bf16)")
+
+    # (a) layer 0 on the CPU
+    t1 = time.perf_counter()
+    lt0, bf0 = bake_layer(cfg, fq, lp0, frozen0)
+    cpu_frozen = build_serving_layer(cfg, fq, lt0, layer_transforms(bf0),
+                                     torch.bfloat16, merge_projections=True)
+    lr0, br0 = bake_layer(cfg, fq, lp0, fq0)
+    cpu_raw = build_serving_layer(cfg, fq, lr0, layer_transforms(br0),
+                                  torch.bfloat16, merge_projections=True)
+    cpu_s = time.perf_counter() - t1
+    del lp0, lt0, lr0
+    codes = compare_packs(torch, sp["layers"][0], cpu_frozen,
+                          "(a) layer 0, card vs CPU from the card's frozen "
+                          "transforms")
+    codes_raw = compare_packs(torch, sp["layers"][0], cpu_raw,
+                              "(a) layer 0, card vs CPU from the raw FQ "
+                              "state (Cayley solves on the CPU; not gated)")
+    log(f"  (a) two CPU packs of layer 0: {cpu_s:.1f} s")
+    if (codes["share"] > TIE_NIBBLE_SHARE or codes["largest_step"] > 1
+            or codes["scale_max_rel"] > TIE_SCALE_REL):
+        raise AssertionError(
+            f"(a) layer 0's codes break the tie rule: {codes['nibbles']} "
+            f"nibbles differ (share {codes['share']:.2e}, limit "
+            f"{TIE_NIBBLE_SHARE}), largest step {codes['largest_step']}, "
+            f"scales {codes['scale_max_rel']:.2e} relative (limit "
+            f"{TIE_SCALE_REL:.2e})")
+
+    # (b) the merged rn128 model, full depth
+    B, S, NEW, MAX_LEN = 1, 2048, 32, 2304
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    kw = dict(max_len=MAX_LEN, device=dev)
+    run = _timed_serving(torch, cfg, fq, sp, prompt, NEW, kw, "int4")
+    launches_b = run["launches"]
+    del run["cache"], run["tok"]
+    _check_counts({k: run["prefill_launches"][k]
+                   for k in LONG_PREFILL_LAUNCHES}, LONG_PREFILL_LAUNCHES,
+                  L, "(b) prefill")
+    if launches_b["decode_attention_int4"] != NEW * L:
+        raise AssertionError("(b): the decode steps did not read the cache "
+                             "through decode_attention_int4")
+    log(f"  [{smi}] (b) merged, {L} layers: prefill B={B} S={S} "
+        f"{run['prefill_ms']:.1f} ms, decode median {run['decode_ms']:.2f} "
+        f"ms/step ({NEW} steps)")
+    log(f"  launches, (b) prefill + {NEW} decode steps: {launches_b}")
+    checks_b = check_prefill_launches(torch, cfg, fq, sp, prompt, kw,
+                                      LONG_PREFILL_LAUNCHES)
+    feed = [torch.tensor([[t]], device=dev) for t in run["tokens"][:8]]
+    slot_pos0 = torch.tensor([S + 4], dtype=torch.int32, device=dev)
+    checks_b_decode = check_launches_on_path(torch, cfg, fq, sp, prompt,
+                                             feed, slot_pos0, S, 4, kw)
+
+    # (c), (d) at 2 layers of full width
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    sp_b2 = dict(sp, layers=sp["layers"][:2])
+
+    def prefill2(spx, **kwx):
+        lg, _ = serving_prefill(cfg2, fq, spx, prompt, init_cache(
+            cfg2, B, MAX_LEN, mode="int4", device=dev), **kw, **kwx)
+        return lg
+
+    logits_b2 = prefill2(sp_b2)
+    cos_noise = _cosine(torch, prefill2(sp_b2, use_kernel=False), logits_b2)
+    f32 = dict(use_kernel=False, compute_dtype=torch.float32)
+    logits_b2_f32 = prefill2(build_serving_params(
+        cfg2, fq, two, bfq2, dtype=torch.float32, merge_projections=True),
+        **f32)
+    log(f"  (b) cut to 2 layers: prefill logits cosine of its plain "
+        f"versions against its kernels {cos_noise:.5f} (the bf16 noise "
+        "floor)")
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, launches = {}, {}
+    for key, label, kwargs, prefill, step in (
+            ("unmerged", "(c) unmerged (JAX's default layout)", {},
+             UNMERGED_PREFILL, UNMERGED_STEP),
+            ("perm", "(d) perm layout, merged",
+             dict(merge_projections=True, perm_transforms=True),
+             PERM_PREFILL, PERM_STEP)):
+        t1 = time.perf_counter()
+        spx = build_serving_params(cfg2, fq, two, bfq2, dtype=torch.bfloat16,
+                                   **kwargs)
+        torch.cuda.synchronize()
+        build_x = time.perf_counter() - t1
+        runx = _timed_serving(torch, cfg2, fq, spx, prompt, 8, kw, "int4")
+        launches[key] = runx["launches"]
+        del runx["cache"], runx["tok"]
+        cos = _cosine(torch, prefill2(spx), logits_b2)
+        cos32 = _cosine(torch, prefill2(build_serving_params(
+            cfg2, fq, two, bfq2, dtype=torch.float32, **kwargs), **f32),
+            logits_b2_f32)
+        log(f"  [{smi}] {label}, 2 layers: built in {build_x:.1f} s; "
+            f"prefill B={B} S={S} {runx['prefill_ms']:.1f} ms, decode median "
+            f"{runx['decode_ms']:.2f} ms/step (8 steps); launches of the "
+            f"timed run by row "
+            f"{ {ROW_OF.get(k, k): v for k, v in runx['launches'].items() if v} }"
+            f"; prefill logits cosine against (b)'s model cut to 2 layers: "
+            f"bf16 on the kernels {cos:.5f} (floor {BF16_LAYOUT_FLOOR}), "
+            f"float32 on the plain versions {cos32:.6f} (floor "
+            f"{LAYOUT_COSINE_FLOOR})")
+        checks = check_every_launch(torch, cfg2, fq, spx, prompt, kw, 8,
+                                    prefill, step, label)
+        out[key] = dict(build_s=build_x, cosine_vs_b2=cos,
+                        cosine_vs_b2_f32=cos32, per_launch_checks=checks,
+                        **runx)
+        if cos < BF16_LAYOUT_FLOOR or cos32 < LAYOUT_COSINE_FLOOR:
+            raise AssertionError(
+                f"{label}: prefill logits cosine against the merged "
+                f"standard layout {cos:.5f} (bf16, floor "
+                f"{BF16_LAYOUT_FLOOR}), {cos32:.6f} (float32, floor "
+                f"{LAYOUT_COSINE_FLOOR})")
+        del spx
+    results["build_chain_path"] = dict(
+        model="llama-2-7b", layers=L, init_s=init_s, bake_s=bake_s,
+        pack_s=pack_s, build_s=bake_s + pack_s, peak_gib=peak / 2**30,
+        cosine_b2_plain_vs_kernels=cos_noise,
+        packed_gib=packed_gib, codes_vs_cpu=codes,
+        codes_vs_cpu_raw_state=codes_raw, cpu_pack_s=cpu_s, merged=run,
+        merged_checks=checks_b, merged_decode_checks=checks_b_decode,
+        **out)
+    del two, bfq2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"build_chain": launches_b,
+            "build_chain_unmerged": launches["unmerged"],
+            "build_chain_perm": launches["perm"]}
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -4919,7 +5318,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
                     help="comma-separated phases to run after 1-2 (3a-3j, "
-                    "3 for all of them, 4-12; 6 runs 6a-6c); the default "
+                    "3 for all of them, 4-13; 6 runs 6a-6c); the default "
                     "is all. A partial run prints no kernel table")
     args = ap.parse_args(argv)
     only = set(filter(None, args.phases.split(",")))
@@ -5060,6 +5459,12 @@ def main(argv=None) -> int:
             "phase 10: DeepSeek-V2-Lite, native FP8 (1 x 2048 + 32 decode "
             "steps, the batcher) and packed W4A4", run_deepseek_path, torch,
             dev, results, smi) or {})
+    if serve and want("13"):
+        paths.update(phase(
+            "phase 13: llama-2-7b through the port's own build chain "
+            "(init_model_fq -> bake_model -> build_serving_params), merged, "
+            "unmerged and perm layouts", run_build_chain_path, torch, dev,
+            results, smi) or {})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,

@@ -229,7 +229,7 @@ def launch_fp8(x, x_estride, w8, se, out_dtype, exact, e, m, n, k):
     return y
 
 
-def fp8_linear(x, lin: dict, out_dtype=None, use_kernel: bool = True,
+def fp8_linear(x, lin: dict, out_dtype=None, use_kernel: bool = None,
                exact: bool = False):
     """Apply an fp8 serving linear {"w8" [(E,) N, K], "se"} to x [..., K]
     (with an expert axis: x [E, T, K], or broadcast over E).
@@ -237,8 +237,13 @@ def fp8_linear(x, lin: dict, out_dtype=None, use_kernel: bool = True,
     JAX's dispatch: the kernel (fp8_matmul) takes a K that is a multiple of
     128 packed in 128-blocks, at any N (JAX pads a ragged N to 128 for its
     kernel; this one masks it); every other weight runs fp8_matmul_ref, as
-    in JAX. use_kernel=False runs fp8_matmul_ref always. exact: the
-    kernel's decode (fp8_matmul), False by default as in JAX."""
+    in JAX. use_kernel=None (JAX's default) takes the kernel route for a
+    CUDA x and, for a CPU x, fp8_matmul_ref with its exact decode, as JAX
+    does off its accelerator; use_kernel=False runs fp8_matmul_ref always.
+    exact: the kernel route's decode (fp8_matmul), False by default as in
+    JAX."""
+    if use_kernel is None:
+        use_kernel = x.is_cuda
     if out_dtype is None:
         out_dtype = x.dtype if x.dtype != torch.float32 else torch.bfloat16
     w8, se = lin["w8"], lin["se"]

@@ -76,10 +76,10 @@ HD = 128
 FLASH_KEY_TILE = 128  # the kernel's key tile (csrc/flash_prefill.cu FW_BK)
 
 
-def is_flash(S: int) -> bool:
+def is_flash(S: int, flash_threshold: int = FLASH_THRESHOLD) -> bool:
     """JAX's long-prompt test: a prompt of S tokens takes flash attention
     (kernel or blockwise oracle) instead of dense."""
-    return S >= FLASH_THRESHOLD and S % 128 == 0
+    return S >= flash_threshold and S % 128 == 0
 
 
 def _shrink_to_divisor(b: int, S: int) -> int:
@@ -463,10 +463,12 @@ def dense_causal_attention(q, k, v, sm_scale: float,
 
 
 def prefill_attention(q, k, v, sm_scale: float, use_kernel: bool,
-                      compute_dtype=torch.bfloat16):
-    """JAX's dispatch: dense for short prompts (not is_flash(S)), else the
-    flash kernel with use_kernel, else the blockwise oracle."""
-    if not is_flash(q.shape[1]):
+                      compute_dtype=torch.bfloat16,
+                      flash_threshold: int = FLASH_THRESHOLD):
+    """JAX's dispatch: dense for short prompts (not is_flash(S,
+    flash_threshold)), else the flash kernel with use_kernel, else the
+    blockwise oracle."""
+    if not is_flash(q.shape[1], flash_threshold):
         return dense_causal_attention(q, k, v, sm_scale, compute_dtype)
     if use_kernel:
         return flash_prefill_attention(q, k, v, sm_scale)

@@ -112,6 +112,24 @@ class FQConfig:
             sym=not self.v_asym, lac=self.lac, group_size=self.v_groupsize)
 
 
+def set_quantizer_state(cfg: FQConfig, enable: bool = True) -> FQConfig:
+    """All quantizers on / off (quant_utils.py:232-238 analog); returns a
+    new config."""
+    return dataclasses.replace(cfg, quant_enabled=enable)
+
+
+def set_weight_quantizer_state(cfg: FQConfig,
+                               enable: bool = True) -> FQConfig:
+    """Weight quantizers only (quant_utils.py:239-245 analog)."""
+    return dataclasses.replace(cfg, weight_quant_enabled=enable)
+
+
+def set_act_quantizer_state(cfg: FQConfig, enable: bool = True) -> FQConfig:
+    """Activation quantizers, the q / k / v cache ones included
+    (quant_utils.py:246-250 analog)."""
+    return dataclasses.replace(cfg, act_quant_enabled=enable)
+
+
 # the headline W4A4KV4 recipe (scripts/llama-3/llama-3-8b/w4a4kv4.sh)
 W4A4KV4 = FQConfig(
     w_bits=4,
@@ -126,3 +144,4 @@ W4A4KV4 = FQConfig(
 
 # weights and activations only (the DeepSeek packed-serving recipe)
 W4A4 = FQConfig(w_bits=4, a_bits=4)
+FP16 = FQConfig(w_bits=16, a_bits=16)

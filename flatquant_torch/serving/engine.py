@@ -41,10 +41,15 @@ What differs from JAX: the cache is a dict of per-layer lists of tensors
 (the int4 codes in the token-major layout of kernels/kv_cache.py, the
 pool's blocks token-major too), UPDATED IN PLACE by every phase (JAX
 returns new, donated buffers); the layer loop is a Python loop over the
-per-layer parameter list. Branches not ported yet raise
-NotImplementedError naming the ROADMAP item that ports them, before any
-cache write (`_check_ported`): tp and ring attention, the perm layouts,
-unmerged projections.
+per-layer parameter list. Both of JAX's packed layouts serve: the
+merged projections (qkv, upgate) and the unmerged ones (q, k, v, up,
+gate), each with the standard or the perm transforms (ln_tp, ug_tp,
+down_tp through kron_transform_perm, o_tp as a minor-dim head mix); the
+fused routes qualify under JAX's conditions, which key on ln_t, down_t
+and the merged qkv, so a perm or unmerged model takes the composed
+routes, as in JAX. Branches not ported yet raise NotImplementedError
+naming the ROADMAP item that ports them, before any cache write
+(`_check_ported`): tp and ring attention.
 """
 
 from __future__ import annotations
@@ -83,7 +88,13 @@ from flatquant_torch.kernels.prefill_attention import (
     prefill_attention,
 )
 from flatquant_torch.models.config import LlamaConfig
-from flatquant_torch.models.llama import apply_rope, rms_norm, rope_tables, rotate_half
+from flatquant_torch.models.llama import (
+    apply_rope,
+    rms_norm,
+    rope_tables,
+    rotate_half,
+    silu,
+)
 from flatquant_torch.quantize.spec import FQConfig
 from flatquant_torch.serving.quantized import (
     _grouped_attn_in,
@@ -93,6 +104,7 @@ from flatquant_torch.serving.quantized import (
     _quant_swiglu,
     dequantize_kv,
     kron_transform,
+    kron_transform_perm,
     quantize_kv_asym,
 )
 
@@ -145,10 +157,11 @@ def _apply_head_matrix(t, mat):
 
 def _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
     """JAX's condition for the fused prefill attention
-    (flatquant_tpu/serving/engine.py:409-414; the merged qkv is always
-    there in the port, and tp is not ported)."""
+    (flatquant_tpu/serving/engine.py:409-414: the merged qkv, o_t (not
+    the perm layout's o_tp); tp is not ported)."""
     a_cfg = fq_cfg.a_cfg
-    return (use_kernel and phase == "prefill" and cfg.head_dim == 128
+    return (use_kernel and phase == "prefill" and "qkv" in sl
+            and cfg.head_dim == 128
             and S % 128 == 0 and S >= 256 and not per_slot and "k_t" in sl
             and sl.get("o_t") is not None
             and sl["o_t"].shape[-1] == cfg.num_heads and "wp" in sl["o"]
@@ -173,13 +186,6 @@ def _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis=None,
         raise NotImplementedError(
             "attn_fn (ring attention, sequence-parallel serving) waits for "
             "ROADMAP queue 1 item 9")
-    if any(key.endswith("_tp") for key in sl):
-        raise NotImplementedError(
-            "the perm layouts (ln_tp, ug_tp, down_tp, o_tp) wait for "
-            "ROADMAP queue 1 item 4")
-    if "qkv" not in sl or "upgate" not in sl:
-        raise NotImplementedError(
-            "unmerged projections wait for ROADMAP queue 1 item 4")
 
 
 def _qlin(fq_cfg, h, lin, use_kernel, compute_dtype, bias=None):
@@ -194,10 +200,11 @@ def _qlin(fq_cfg, h, lin, use_kernel, compute_dtype, bias=None):
 
 
 def _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
-    """The merged qkv projection [B, S, q_dim + 2*kv_dim]: with use_kernel
-    and quantized activations the fused flat-pipeline input route where it
-    qualifies, else RMSNorm, the Kronecker transform and the quantized
-    linear."""
+    """The attention input projections: the merged qkv [B, S, q_dim +
+    2*kv_dim] (with use_kernel and quantized activations through the
+    fused flat-pipeline input route where it qualifies, else RMSNorm, the
+    Kronecker transform and the quantized linear), or, for an unmerged
+    layer, the tuple (q, k, v) of three quantized linears."""
     B, S, H = x.shape
     if use_kernel and fq_cfg.a_cfg.enabled:
         qkv_g = _grouped_attn_in(x.reshape(-1, H), sl, cfg.rms_eps,
@@ -208,19 +215,29 @@ def _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
                 qkv = qkv + sl["bqkv"].to(qkv.dtype)
             return qkv
     h = rms_norm(x, sl["ln1_w"], cfg.rms_eps)
-    if "ln_t" in sl:
+    if "ln_tp" in sl:
+        h = kron_transform_perm(h, sl["ln_tp"])
+    elif "ln_t" in sl:
         h = kron_transform(h, sl["ln_t"])
-    return _qlin(fq_cfg, h, sl["qkv"], use_kernel, compute_dtype,
-                 sl.get("bqkv"))
+    if "qkv" in sl:
+        return _qlin(fq_cfg, h, sl["qkv"], use_kernel, compute_dtype,
+                     sl.get("bqkv"))
+    return tuple(_qlin(fq_cfg, h, sl[n], use_kernel, compute_dtype,
+                       sl.get("b" + n)) for n in ("q", "k", "v"))
 
 
 def _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot):
-    """Split qkv into q [B, S, nh, hd], k, v [B, S, nkv, hd]; RoPE at
-    positions [pos, pos + S) (or each slot's own position); k by k_t and q
-    by k_t_inv into the cache's K space."""
-    B, S, _ = qkv.shape
+    """Split qkv (or take an unmerged layer's (q, k, v)) into q [B, S, nh,
+    hd], k, v [B, S, nkv, hd]; RoPE at positions [pos, pos + S) (or each
+    slot's own position); k by k_t and q by k_t_inv into the cache's K
+    space."""
+    if isinstance(qkv, tuple):
+        q, k, v = qkv
+    else:
+        q, k, v = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim],
+                              dim=-1)
+    B, S = q.shape[:2]
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
     q = q.reshape(B, S, nh, hd)
     k = k.reshape(B, S, nkv, hd)
     v = v.reshape(B, S, nkv, hd)
@@ -239,10 +256,17 @@ def _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot):
 
 def _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype):
     """x plus the o projection of attn [B, S, nh, hd]: the o_t head mixing
-    (einsum) or, without o_t, the v transform's inverse per head
-    (v_t_inv), then the quantized o linear."""
+    (einsum), the perm layout's o_tp head mixing ([.., g, hd]^T @ o_tp over
+    the minor dim: (group, d, i) channel order, which the packed o weight
+    was permuted to) or, without either, the v transform's inverse per
+    head (v_t_inv), then the quantized o linear."""
     B, S = attn.shape[:2]
-    if sl.get("o_t") is not None:
+    if sl.get("o_tp") is not None:
+        o_mat = sl["o_tp"].to(attn.dtype)
+        g = o_mat.shape[0]
+        attn = attn.reshape(B, S, cfg.num_heads // g, g,
+                            cfg.head_dim).transpose(-2, -1) @ o_mat
+    elif sl.get("o_t") is not None:
         o_mat = sl["o_t"].to(attn.dtype)
         g = o_mat.shape[0]
         attn = attn.reshape(B, S, cfg.num_heads // g, g, cfg.head_dim)
@@ -418,9 +442,10 @@ def _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
     and quantized activations the fully fused flat pipeline
     (_quant_mlp_grouped_full) or its tail after an eager ln2
     (_quant_mlp_grouped) where they qualify; else the composed branch
-    (eager ln2 + Kronecker glue, the merged up||gate projection with silu
-    (_quant_swiglu: the fused swiglu GEMM at 256+ rows), the down
-    transform and the down linear)."""
+    (eager ln2 + Kronecker glue (the perm form under ug_tp), the merged
+    up||gate projection with silu (_quant_swiglu: the fused swiglu GEMM at
+    256+ rows) or the unmerged up and gate linears, the down transform
+    (down_tp: the perm form) and the down linear)."""
     H = x.shape[-1]
     a_cfg = fq_cfg.a_cfg
     fused = use_kernel and a_cfg.enabled
@@ -430,17 +455,26 @@ def _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
         if y_full is not None:
             return x + y_full.reshape(x.shape)
     h2 = rms_norm(x, sl["ln2_w"], cfg.rms_eps)
-    if "ug_t" in sl:
+    if "ug_tp" in sl:
+        h2 = kron_transform_perm(h2, sl["ug_tp"])
+    elif "ug_t" in sl:
         h2 = kron_transform(h2, sl["ug_t"])
     if fused:
         y_mlp = _quant_mlp_grouped(h2.reshape(-1, H), sl, compute_dtype,
                                    a_cfg.q_max)
         if y_mlp is not None:
             return x + y_mlp.reshape(x.shape)
-    act = _quant_swiglu(h2.reshape(-1, H), sl["upgate"], use_kernel,
-                        compute_dtype, a_cfg.enabled, a_cfg.q_max)
-    act = act.reshape(h2.shape[:-1] + (act.shape[-1],))
-    if "down_t" in sl:
+    if "upgate" in sl:
+        act = _quant_swiglu(h2.reshape(-1, H), sl["upgate"], use_kernel,
+                            compute_dtype, a_cfg.enabled, a_cfg.q_max)
+        act = act.reshape(h2.shape[:-1] + (act.shape[-1],))
+    else:
+        up = _qlin(fq_cfg, h2, sl["up"], use_kernel, compute_dtype)
+        gate = _qlin(fq_cfg, h2, sl["gate"], use_kernel, compute_dtype)
+        act = silu(gate) * up
+    if "down_tp" in sl:
+        act = kron_transform_perm(act, sl["down_tp"])
+    elif "down_t" in sl:
         act = kron_transform(act, sl["down_t"])
     return x + _qlin(fq_cfg, act, sl["down"], use_kernel, compute_dtype)
 

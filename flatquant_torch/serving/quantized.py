@@ -24,13 +24,16 @@ superseded grouped layout (kernels/grouped_mlp.py); the engine never takes
 them, a caller patches them in at `_grouped_attn_in` /
 `_quant_mlp_grouped_full` to run those kernels on the serving path.
 
-What differs from JAX: `build_serving_params` takes each layer's baked
-transform matrices and sigmoid-applied clip ratios directly (the values
-JAX reads out of its FQ state through decompose_matrices / single_matrix /
-_clip_sigmoid); the FQ-state objects arrive with the build chain (ROADMAP
-queue 1 item 4). Only merge_projections=True, tp=1, perm_transforms=False
-is ported: the default merge_projections=False is JAX's and raises until
-item 4, so callers pass merge_projections=True.
+The build half takes JAX's inputs and layouts: `build_serving_params`
+packs a baked model (quantize/bake.py bake_model) from its baked
+LayerFQ list, in the merged (qkv, upgate) or the unmerged (q, k, v, up,
+gate: JAX's default) layout, with or without the perm layouts
+(perm_transforms: `kron_transform_perm` and the matching permutation of
+the packed weights' input channels). `layer_transforms` reads one
+layer's transform matrices and clip ratios out of its LayerFQ, and
+`build_serving_layer` packs one layer from those (chip_smoke.py packs a
+model from its own matrices through it). tp > 1 waits for ROADMAP queue
+1 item 9.
 """
 
 from __future__ import annotations
@@ -39,11 +42,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from flatquant_torch.core.kron import kronecker_matmul_perm
 from flatquant_torch.core.quant import (
     true_div,
     weight_find_params,
     weight_quantize_int,
 )
+from flatquant_torch.core.transforms import decompose_matrices, single_matrix
 from flatquant_torch.kernels.flat_pipeline import (
     left_quant_i8_flat,
     rmsnorm_right_flat,
@@ -80,16 +85,30 @@ PALLAS_QUANT_MIN_K = 8192
 # ---------------------------------------------------------------------------
 
 
-def _pack_linear(w: torch.Tensor, w_cfg) -> Dict[str, Any]:
-    """fp weight [out, in] -> packed codes + per-channel scale (RTN
-    against the per-channel absmax scale): w_bits 4 gives {"wp": planar
-    int4 [out, in/2] uint8, "scale": f32 [out]}, w_bits 8 {"w8": int8
-    codes [out, in], "scale"}."""
+def _pack_linear(w: torch.Tensor, w_cfg, w_q=None) -> Dict[str, Any]:
+    """fp weight [out, in] -> packed codes + per-channel scale: w_bits 4
+    gives {"wp": planar int4 [out, in/2] uint8, "scale": f32 [out]},
+    w_bits 8 {"w8": int8 codes [out, in], "scale"}. `w` gives the scale
+    (weight_find_params on the baked weight); `w_q`, when given, holds
+    values already on that grid (rtn_quantize_params' output) whose codes
+    are recovered exactly by rounding against the scale."""
     scale, zero = weight_find_params(w, w_cfg)
-    q = weight_quantize_int(w, scale, zero, w_cfg)
+    q = weight_quantize_int(w if w_q is None else w_q, scale, zero, w_cfg)
     if w_cfg.bits == 8:
         return {"w8": q, "scale": scale[:, 0].contiguous()}
     return {"wp": pack_weight_planar(q), "scale": scale[:, 0].contiguous()}
+
+
+def _pack_linear_rp(w, w_cfg, tp: int, w_q=None) -> Dict[str, Any]:
+    """_pack_linear for a row-parallel weight (o, down); at tp > 1 each
+    shard's input block packs on its own (ROADMAP queue 1 item 9)."""
+    if tp != 1:
+        raise NotImplementedError("tp > 1 waits for ROADMAP queue 1 item 9")
+    return _pack_linear(w, w_cfg, w_q)
+
+
+def _clip_sigmoid(c) -> Optional[torch.Tensor]:
+    return None if c is None else torch.sigmoid(c.to(torch.float32))
 
 
 def _interleave_rows(ws, tp: int):
@@ -101,29 +120,85 @@ def _interleave_rows(ws, tp: int):
     return torch.cat(ws, dim=0)
 
 
+def _perm_in_channels(w, ln: int, rn: int):
+    """A weight's [out, in] input channels from the standard (i*rn+j) to
+    the transposed (j*ln+i) order that kron_transform_perm emits, per
+    ln*rn block."""
+    out, ind = w.shape
+    if ind % (ln * rn):
+        raise ValueError(f"{ind} input channels do not tile {ln} x {rn}")
+    return w.reshape(out, -1, ln, rn).transpose(2, 3).reshape(out, ind)
+
+
 def _ratio_pair(pair, device):
     return tuple(torch.as_tensor(c, dtype=torch.float32, device=device)
                  .reshape(1) for c in pair)
 
 
+# the linear whose activation clips each packed projection takes, in
+# either layout (a merged projection takes its first branch's, as JAX's)
+_CLIP_OF = {"qkv": "q_lin", "q": "q_lin", "k": "k_lin", "v": "v_lin",
+            "o": "o_lin", "upgate": "up_lin", "up": "up_lin",
+            "gate": "gate_lin", "down": "down_lin"}
+
+
+def layer_transforms(layer_fq) -> dict:
+    """The inputs of build_serving_layer read out of one layer's baked
+    LayerFQ (quantize/state.py), as JAX's convert_layer reads them:
+    "ln_t", "ug_t", "down_t" (decompose_matrices), "o_t", "k_t",
+    "k_t_inv", "v_t_inv" (single_matrix), and the sigmoid-applied clip
+    ratios "a_clip" {projection: (rmax, rmin)} for both layouts' names,
+    "kc_clip", "vc_clip", "qc_clip". Absent entries are left out."""
+    a, m = layer_fq.attn, layer_fq.mlp
+    lt = {}
+    for key, t in (("ln_t", a.ln_trans), ("ug_t", m.up_gate_trans),
+                   ("down_t", m.down_trans)):
+        if t is not None:
+            lt[key] = decompose_matrices(t)
+    if a.o_trans is not None:
+        lt["o_t"] = single_matrix(a.o_trans)
+    if a.kcache_trans is not None:
+        lt["k_t"] = single_matrix(a.kcache_trans)
+        lt["k_t_inv"] = single_matrix(a.kcache_trans, inv_t=True)
+    if a.vcache_trans is not None:
+        lt["v_t_inv"] = single_matrix(a.vcache_trans, inv_t=True)
+    clips = {}
+    for nm, key in _CLIP_OF.items():
+        lin = getattr(a if hasattr(a, key) else m, key)
+        if lin.clip_a_max is not None:
+            clips[nm] = (_clip_sigmoid(lin.clip_a_max),
+                         _clip_sigmoid(lin.clip_a_min))
+    if clips:
+        lt["a_clip"] = clips
+    for nm, cq in (("kc", a.k_cache), ("vc", a.v_cache), ("qc", a.q_cache)):
+        cmax = _clip_sigmoid(cq.clip_a_max)
+        if cmax is not None:
+            lt[nm + "_clip"] = (cmax, _clip_sigmoid(cq.clip_a_min))
+    return lt
+
+
 def build_serving_layer(cfg: LlamaConfig, fq_cfg: FQConfig, lp: dict,
                         lt: dict, dtype=torch.bfloat16,
                         merge_projections: bool = False, tp: int = 1,
-                        perm_transforms: bool = False) -> dict:
+                        perm_transforms: bool = False,
+                        elp: Optional[dict] = None) -> dict:
     """Pack one baked layer (the per-layer body of JAX's
     build_serving_params, quantized.py:161-261).
 
     lp: baked fp weights {"ln1_w", "ln2_w", "wq", "wk", "wv", "wo",
-    "wup", "wgate", "wdown"[, "bq", "bk", "bv"]}, [out, in] layout.
-    lt: the layer's baked transforms and clip ratios:
+    "wup", "wgate", "wdown"[, "bq", "bk", "bv"]}, [out, in] layout; elp:
+    the same layer's on-grid weights (eval_params), whose codes are packed
+    against lp's scales. lt: the layer's transforms and clip ratios
+    (`layer_transforms`; any of them may be absent):
       "ln_t", "ug_t", "down_t": (left, right) Kronecker factors
-      "o_t": [g, g] head mixing; "k_t", "k_t_inv" [hd, hd] (absent
-      without k/q quant: no kcache transform); "v_t_inv" [hd, hd]
-      (optional)
-      "a_clip": {"qkv"|"o"|"upgate"|"down": (rmax, rmin)} (absent in a
-      weight-only model)
-      "kc_clip", "vc_clip": (cmax, cmin) (optional)
-    Clip values are the sigmoid-applied ratios, not the raw factors."""
+      "o_t": [g, g] head mixing; "k_t", "k_t_inv", "v_t_inv" [hd, hd]
+      "a_clip": {projection name: (rmax, rmin)}, the names of either
+      layout (those the layout packs are used)
+      "kc_clip", "vc_clip", "qc_clip": (cmax, cmin)
+    Clip values are the sigmoid-applied ratios, not the raw factors.
+    perm_transforms stores the Kronecker pairs as "ln_tp" / "ug_tp" /
+    "down_tp" and o_t as "o_tp", and permutes the packed weights' input
+    channels to the order those transforms emit."""
     w_cfg = fq_cfg.w_cfg
     if not (w_cfg.sym and w_cfg.group_size <= 0):
         raise NotImplementedError(
@@ -131,55 +206,109 @@ def build_serving_layer(cfg: LlamaConfig, fq_cfg: FQConfig, lp: dict,
     if w_cfg.bits not in (4, 8):
         raise ValueError(f"real-quant weights are int4 or int8, not "
                          f"{w_cfg.bits} bits")
-    if not merge_projections or perm_transforms:
-        raise NotImplementedError(
-            "merge_projections=False and perm_transforms=True wait for "
-            "ROADMAP queue 1 item 4")
+    same = elp is None or elp is lp
+    elp = lp if same else elp
     out = {
         "ln1_w": lp["ln1_w"].to(torch.float32),
         "ln2_w": lp["ln2_w"].to(torch.float32),
     }
+    pairs = {}
     for key in ("ln_t", "ug_t", "down_t"):
         if lt.get(key) is not None:
             left, right = lt[key]
-            out[key] = (left.to(dtype), right.to(dtype))
+            pairs[key] = (left.to(dtype), right.to(dtype))
+            out[key[:-1] + "tp" if perm_transforms else key] = pairs[key]
+    o_mat = None
     if lt.get("o_t") is not None:
-        out["o_t"] = lt["o_t"].to(dtype)
+        o_mat = lt["o_t"].to(dtype)
+        out["o_tp" if perm_transforms else "o_t"] = o_mat
 
-    out["qkv"] = _pack_linear(
-        _interleave_rows([lp["wq"], lp["wk"], lp["wv"]], tp), w_cfg)
-    out["upgate"] = _pack_linear(
-        _interleave_rows([lp["wup"], lp["wgate"]], tp), w_cfg)
-    out["o"] = _pack_linear(lp["wo"], w_cfg)
-    out["down"] = _pack_linear(lp["wdown"], w_cfg)
-    if lp.get("bq") is not None:
-        out["bqkv"] = _interleave_rows(
-            [lp["bq"], lp["bk"], lp["bv"]], tp).to(torch.float32)
+    def perm(w, key):
+        pair = pairs.get(key)
+        if not perm_transforms or pair is None:
+            return w
+        return _perm_in_channels(w, pair[0].shape[0], pair[1].shape[0])
+
+    def perm_o(w):
+        # the perm engine mixes heads into (group, d, i) channel order in
+        # place of (group, i, d): swap the o weight's input channels
+        if not perm_transforms or o_mat is None:
+            return w
+        g = o_mat.shape[0]
+        od, ind = w.shape
+        t = ind // (g * cfg.head_dim)
+        return w.reshape(od, t, g, cfg.head_dim).transpose(2, 3).reshape(
+            od, ind)
+
+    def pack(ws, wqs, tkey):
+        w = perm(_interleave_rows(ws, tp), tkey)
+        wq = None if same else perm(_interleave_rows(wqs, tp), tkey)
+        return _pack_linear(w, w_cfg, wq)
+
+    def pack_rp(w, wq, permute):
+        return _pack_linear_rp(permute(w), w_cfg, tp,
+                               None if same else permute(wq))
+
+    if merge_projections:
+        for name, keys, tkey in (("qkv", ("wq", "wk", "wv"), "ln_t"),
+                                 ("upgate", ("wup", "wgate"), "ug_t")):
+            out[name] = pack([lp[k] for k in keys], [elp[k] for k in keys],
+                             tkey)
+        if lp.get("bq") is not None:
+            out["bqkv"] = _interleave_rows(
+                [lp["bq"], lp["bk"], lp["bv"]], tp).to(torch.float32)
+    else:
+        for name, key, tkey in (("q", "wq", "ln_t"), ("k", "wk", "ln_t"),
+                                ("v", "wv", "ln_t"), ("up", "wup", "ug_t"),
+                                ("gate", "wgate", "ug_t")):
+            out[name] = pack([lp[key]], [elp[key]], tkey)
+        for bkey in ("bq", "bk", "bv"):
+            if lp.get(bkey) is not None:
+                out[bkey] = lp[bkey].to(torch.float32)
+    out["o"] = pack_rp(lp["wo"], elp["wo"], perm_o)
+    out["down"] = pack_rp(lp["wdown"], elp["wdown"],
+                          lambda w: perm(w, "down_t"))
 
     for key in ("k_t", "k_t_inv", "v_t_inv"):
         if lt.get(key) is not None:
             out[key] = lt[key].to(dtype)
     dev = lp["wq"].device
     for nm, pair in (lt.get("a_clip") or {}).items():
-        out[nm]["a_clip"] = _ratio_pair(pair, dev)
-    for key in ("kc_clip", "vc_clip"):
+        if nm in out:
+            out[nm]["a_clip"] = _ratio_pair(pair, dev)
+    for key in ("kc_clip", "vc_clip", "qc_clip"):
         if lt.get(key) is not None:
             out[key] = _ratio_pair(lt[key], dev)
     return out
 
 
 def build_serving_params(cfg: LlamaConfig, fq_cfg: FQConfig,
-                         baked_params: dict, transforms: list,
-                         dtype=torch.bfloat16, merge_projections: bool = False,
-                         tp: int = 1, perm_transforms: bool = False) -> dict:
-    """Convert a baked (bake_model, NOT rtn-quantized) model into the
-    packed serving format: {"embed", "final_norm_w", "lm_head",
-    "layers": [per-layer dict]}. baked_params["layers"] is a list of
-    per-layer weight dicts and `transforms` the matching list of lt dicts
-    (see build_serving_layer)."""
-    layers = [build_serving_layer(cfg, fq_cfg, lp, lt, dtype,
-                                  merge_projections, tp, perm_transforms)
-              for lp, lt in zip(baked_params["layers"], transforms)]
+                         baked_params: dict, baked_fq: list,
+                         dtype=torch.bfloat16,
+                         merge_projections: bool = False,
+                         eval_params: Optional[dict] = None,
+                         perm_transforms: bool = False,
+                         tp: int = 1) -> dict:
+    """Convert a baked model (quantize/bake.py bake_model: params and the
+    list of baked LayerFQ; NOT rtn-quantized) into the packed serving
+    format {"embed", "final_norm_w", "lm_head", "layers": [per-layer
+    dict]} (JAX's build_serving_params, quantized.py:109-271).
+
+    merge_projections=True packs q/k/v into one GEMM and up/gate into
+    another, each taking the q (resp. up) branch's activation clips; the
+    default packs each projection alone, as JAX's default does.
+    eval_params (rtn_quantize_params' output): the packed codes come from
+    these on-grid weights, the scales from baked_params.
+    perm_transforms=True stores the Kronecker transforms in the
+    transposed-output form (kron_transform_perm) with the packed weights'
+    input channels permuted to match. tp > 1 waits for ROADMAP queue 1
+    item 9."""
+    eval_layers = (eval_params or baked_params)["layers"]
+    layers = [build_serving_layer(cfg, fq_cfg, lp, layer_transforms(lfq),
+                                  dtype, merge_projections, tp,
+                                  perm_transforms, elp)
+              for lp, lfq, elp in zip(baked_params["layers"], baked_fq,
+                                      eval_layers)]
     head = baked_params.get("lm_head", baked_params["embed"])
     return {
         "embed": baked_params["embed"].to(dtype),
@@ -202,6 +331,15 @@ def kron_transform(x, left_right):
     xm = xm @ right
     xm = left.T @ xm
     return xm.reshape(shape)
+
+
+def kron_transform_perm(x, left_right):
+    """kron_transform with the output channels in the transposed (j*ln+i)
+    order (core/kron.py kronecker_matmul_perm). Per-token quantization
+    does not see the order, and the consuming packed weight's input
+    channels were permuted to it at build time (_perm_in_channels)."""
+    left, right = left_right
+    return kronecker_matmul_perm(x.to(left.dtype), left, right)
 
 
 # JAX's name of the eager per-token quant chain; the kernel module keeps

@@ -1,6 +1,6 @@
-"""Conversion of the JAX package's serving params (the Llama engine's,
-the bf16 comparator's and DeepSeek's) into the port's, and of serving
-caches in both directions.
+"""Conversion of the JAX package's fp params, FlatQuant state and
+serving params (the Llama engine's, the bf16 comparator's and
+DeepSeek's) into the port's, and of serving caches in both directions.
 
 The JAX package stacks every layer leaf on a leading [L] axis (for
 lax.scan); the port keeps a list of per-layer dicts (params) or tensors
@@ -10,11 +10,16 @@ lax.scan); the port keeps a list of per-layer dicts (params) or tensors
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from flatquant_torch.core import transforms as _tr
 from flatquant_torch.core.transforms import BakedDecompose
 from flatquant_torch.kernels.common import resolve_device
+from flatquant_torch.quantize import linear as _lin
+from flatquant_torch.quantize import state as _st
 
 
 def _to_torch(a, dev):
@@ -57,6 +62,53 @@ def from_jax_serving_params(sp_numpy: dict, device="cuda") -> dict:
     out = {k: _convert(v, dev) for k, v in sp_numpy.items() if k != "layers"}
     out["layers"] = per_layer
     return out
+
+
+def from_jax_params(params_numpy: dict, device="cuda") -> dict:
+    """JAX's fp (or baked) Llama params as numpy arrays, each layer leaf
+    stacked on [L] -> the port's {"embed", "final_norm_w"[, "lm_head"],
+    "layers": [per-layer dict]} on `device`, values unchanged."""
+    return from_jax_serving_params(params_numpy, device)
+
+
+# the FlatQuant state's classes, by the name both packages give them
+_FQ_CLASSES = {cls.__name__: cls for cls in (
+    _tr.SVDFactor, _tr.InvFactor, _tr.SingleTransform, _tr.BakedSingle,
+    _tr.DecomposeTransform, _tr.BakedDecompose, _lin.LinearQuantState,
+    _st.CacheQuantState, _st.AttnFQ, _st.MlpFQ, _st.LayerFQ)}
+
+
+def _first_array(tree):
+    if dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            a = _first_array(getattr(tree, f.name))
+            if a is not None:
+                return a
+        return None
+    if tree is None or isinstance(tree, (bool, int, float)):
+        return None
+    return np.asarray(tree)
+
+
+def _fq_layer(tree, i, dev):
+    if dataclasses.is_dataclass(tree):
+        cls = _FQ_CLASSES[type(tree).__name__]
+        return cls(**{f.name: _fq_layer(getattr(tree, f.name), i, dev)
+                      for f in dataclasses.fields(cls)})
+    if tree is None or isinstance(tree, (bool, int, float)):
+        return tree
+    return _to_torch(np.asarray(tree)[i], dev)
+
+
+def from_jax_fq(fq_numpy, device="cuda") -> list:
+    """JAX's LayerFQ state, raw (init_model_fq) or baked (bake_model),
+    stacked on [L] with numpy leaves (jax.tree.map(np.asarray, fq)) -> the
+    port's list of LayerFQ on `device`: the same classes by name and
+    field, values unchanged (None stays None, BakedDecompose.perm
+    carried)."""
+    dev = resolve_device(device)
+    n = _first_array(fq_numpy).shape[0]
+    return [_fq_layer(fq_numpy, i, dev) for i in range(n)]
 
 
 def from_jax_ds_serving_params(sp_numpy: dict, device="cuda") -> dict:

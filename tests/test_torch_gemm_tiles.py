@@ -249,8 +249,36 @@ def test_fp8_default_call_flushes_subnormal_codes_as_jax():
     assert sub.any() and (got[sub] == 0).all()
     lin = {"w8": w8, "se": torch.ones(1, 128)}
     got_lin = tf8.fp8_linear(torch.from_numpy(x).to(torch.bfloat16), lin,
-                             out_dtype=torch.float32).numpy()
+                             out_dtype=torch.float32,
+                             use_kernel=True).numpy()
     np.testing.assert_array_equal(got_lin, want)
+
+
+def test_fp8_linear_defaults_match_jax_on_every_code():
+    """fp8_linear with every default on a CPU tensor takes JAX's route
+    for its defaults off the accelerator: fp8_matmul_ref with the exact
+    decode, so subnormal codes keep their values (the port took its
+    kernel route there, and zeroed them, until the fault was fixed: 896
+    of 16,384 outputs, by up to 7 * 2**-9)."""
+    assert inspect.signature(tf8.fp8_linear).parameters[
+        "use_kernel"].default is inspect.signature(jf8.fp8_linear
+                                                   ).parameters[
+        "use_kernel"].default is None
+    codes = np.tile(np.arange(256, dtype=np.uint8), 64).reshape(128, 128)
+    codes[(codes & 0x7F) == 0x7F] = 0
+    x = np.eye(128, dtype=np.float32)
+    jlin = {"w8": jax.lax.bitcast_convert_type(jnp.asarray(codes),
+                                               jnp.float8_e4m3fn),
+            "se": jnp.ones((1, 128), jnp.float32)}
+    want = np.asarray(jf8.fp8_linear(jnp.asarray(x, jnp.bfloat16), jlin,
+                                     out_dtype=jnp.float32))
+    lin = {"w8": torch.from_numpy(codes).view(torch.float8_e4m3fn),
+           "se": torch.ones(1, 128)}
+    got = tf8.fp8_linear(torch.from_numpy(x).to(torch.bfloat16), lin,
+                         out_dtype=torch.float32).numpy()
+    np.testing.assert_array_equal(got, want)
+    sub = ((codes.T & 0x7F) > 0) & ((codes.T & 0x7F) < 8)
+    assert sub.sum() == 896 and (got[sub] != 0).all()
 
 
 def test_fp8_linear_hands_the_kernel_a_ragged_n_unpadded(monkeypatch):

@@ -623,7 +623,7 @@ def _small_model(fq, seed=0):
     from flatquant_torch.core.kron import get_decompose_dim
     from flatquant_torch.models.llama import init_params
     from flatquant_torch.serving.quantized import (
-        build_serving_params, kron_transform)
+        build_serving_layer, kron_transform)
 
     cfg = LlamaConfig(name="mini", vocab_size=256, hidden_size=512,
                       intermediate_size=1536, num_layers=2, num_heads=4,
@@ -652,8 +652,11 @@ def _small_model(fq, seed=0):
         for key in ("bq", "bk", "bv"):
             lp[key] = torch.randn(lp[key].shape, generator=g) * 0.02
         transforms.append(lt)
-    sp = build_serving_params(cfg, fq, p, transforms, dtype=torch.float32,
-                              merge_projections=True)
+    sp = {"embed": p["embed"], "final_norm_w": p["final_norm_w"],
+          "lm_head": p["lm_head"],
+          "layers": [build_serving_layer(cfg, fq, lp, lt, torch.float32,
+                                         merge_projections=True)
+                     for lp, lt in zip(p["layers"], transforms)]}
     return cfg, sp
 
 
@@ -1147,3 +1150,118 @@ def test_grouped_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="left_quant_i8_grouped"):
         tgm.left_quant_i8_grouped(torch.eye(4, device=cuda),
                                   x[..., :64].float())
+
+
+# the build chain on the card against the same chain on the CPU (phase
+# 13 (a)'s rule): from the same fp weights and the transforms frozen on
+# the card, at most 1e-5 of the nibbles differ, each by one code, and
+# every scale is within 2^-22 relative (cuBLAS and the CPU sum the float32
+# transforms in other orders, so a code at a float32 tie may flip)
+MINI_128 = dict(name="mini-128", vocab_size=128, hidden_size=256,
+                intermediate_size=512, num_layers=2, num_heads=2,
+                num_kv_heads=2, head_dim=128, seqlen=256)
+
+
+def _nibble_steps(a, b):
+    a, b = a.cpu().to(torch.int16), b.cpu().to(torch.int16)
+    return torch.cat([((a & 0xF) - (b & 0xF)).abs().flatten(),
+                      ((a >> 4) - (b >> 4)).abs().flatten()])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [
+    dict(merge_projections=True), {},
+    dict(merge_projections=True, perm_transforms=True)])
+def test_build_chain_on_the_card_matches_the_cpu(cuda, layout):
+    import dataclasses
+
+    from flatquant_torch.models.llama import init_params
+    from flatquant_torch.quantize.bake import bake_model
+    from flatquant_torch.quantize.spec import W4A4KV4
+    from flatquant_torch.quantize.state import bake_layer_fq, init_model_fq
+    from flatquant_torch.serving.quantized import build_serving_params
+
+    cfg = LlamaConfig(**MINI_128)
+    fq = dataclasses.replace(W4A4KV4, tpu_decompose=True)
+    params = init_params(cfg, seed=0, device=cuda)
+    frozen = [bake_layer_fq(lf) for lf in init_model_fq(cfg, fq, seed=0,
+                                                         device=cuda)]
+    sp = build_serving_params(cfg, fq, *bake_model(cfg, fq, params, frozen),
+                              **layout)
+    want = build_serving_params(
+        cfg, fq, *bake_model(cfg, fq, _to(params, "cpu"),
+                             [_tree_to(lf, "cpu") for lf in frozen]),
+        **layout)
+    flips = total = 0
+    for g, w in zip(sp["layers"], want["layers"]):
+        assert set(g) == set(w)
+        for key, val in w.items():
+            if not isinstance(val, dict):
+                continue
+            steps = _nibble_steps(g[key]["wp"], val["wp"])
+            assert steps.max() <= 1, key
+            flips += int((steps > 0).sum())
+            total += steps.numel()
+            rel = ((g[key]["scale"].cpu() - val["scale"]).abs()
+                   / val["scale"].abs()).max().item()
+            assert rel <= 2.0 ** -22, (key, rel)
+            for a, b in zip(g[key]["a_clip"], val["a_clip"]):
+                assert torch.equal(a.cpu(), b), key
+    assert flips <= 1e-5 * total, (flips, total)
+
+
+def _tree_to(tree, dev):
+    import dataclasses
+
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _tree_to(getattr(tree, f.name), dev)
+            for f in dataclasses.fields(tree)})
+    return tree.to(dev) if torch.is_tensor(tree) else tree
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [{}, dict(merge_projections=True,
+                                             perm_transforms=True)])
+def test_unmerged_and_perm_serve_on_the_card_as_on_the_cpu(cuda, layout):
+    """mini-128 packed by the port's chain in JAX's default unmerged and
+    in the perm layout, served on the card (use_kernel=True, float32
+    compute, a 1 x 256 prefill and 2 decode steps over the int4 cache)
+    against the same params on the CPU (plain versions): the two sides
+    sum in other orders, so logits by cosine, as
+    test_quant_modes_on_the_card_match_the_cpu holds them."""
+    import dataclasses
+
+    from flatquant_torch.models.llama import init_params
+    from flatquant_torch.quantize.bake import bake_model
+    from flatquant_torch.quantize.spec import W4A4KV4
+    from flatquant_torch.quantize.state import init_model_fq
+    from flatquant_torch.serving import engine as te
+    from flatquant_torch.serving.quantized import build_serving_params
+
+    cfg = LlamaConfig(**MINI_128)
+    fq = dataclasses.replace(W4A4KV4, tpu_decompose=True)
+    sp = build_serving_params(cfg, fq, *bake_model(
+        cfg, fq, init_params(cfg, seed=0, device="cpu"),
+        init_model_fq(cfg, fq, seed=0, device="cpu")), dtype=torch.float32,
+        **layout)
+    toks = torch.randint(0, cfg.vocab_size, (1, 256),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        spd = _to(sp, dev)
+        cache = te.init_cache(cfg, 1, 384, mode="int4", device=dev)
+        lg, cache = te.serving_prefill(cfg, fq, spd, toks, cache,
+                                       max_len=384,
+                                       compute_dtype=torch.float32,
+                                       device=dev)
+        logits = [lg]
+        for i in range(2):
+            lg, cache = te.serving_decode_step(
+                cfg, fq, spd, lg.argmax(-1, keepdim=True), cache, 256 + i,
+                max_len=384, compute_dtype=torch.float32, device=dev)
+            logits.append(lg)
+        out[str(dev)] = torch.cat([x.cpu() for x in logits])
+    cos = torch.nn.functional.cosine_similarity(
+        out["cpu"].double().flatten(), out["cuda"].double().flatten(), dim=0)
+    assert cos > 0.99, cos

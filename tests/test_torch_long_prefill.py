@@ -169,6 +169,39 @@ def test_prefill_attention_thresholds(rng, monkeypatch, S, use_kernel, route):
     _check(got, want, "float32", f"S={S}")
 
 
+def test_prefill_attention_signature_matches_jax():
+    """prefill_attention takes JAX's parameters with JAX's defaults,
+    flash_threshold=1024 among them (the port lacked it until the fault
+    was fixed: a call that passed it raised TypeError)."""
+    want = inspect.signature(jpa.prefill_attention).parameters
+    got = inspect.signature(tpa.prefill_attention).parameters
+    assert list(got) == list(want)
+    for name in ("use_kernel", "flash_threshold"):
+        assert got[name].default == want[name].default, name
+    assert got["flash_threshold"].default == 1024
+
+
+@pytest.mark.parametrize("S,threshold,route", [
+    (256, 256, "ref"), (512, 2048, "dense"), (384, 128, "ref")])
+def test_prefill_attention_flash_threshold_routes_as_jax(
+        rng, monkeypatch, S, threshold, route):
+    """A caller's flash_threshold moves the dense / flash edge in both
+    packages alike (dense when S < flash_threshold or S % 128)."""
+    q, k, v = _qkv(rng, 1, S, 2, 1, 64, "float32")
+    taken = []
+    for name in ("dense_causal_attention", "flash_prefill_ref"):
+        fn = getattr(tpa, name)
+        monkeypatch.setattr(tpa, name, lambda *a, _n=name, _f=fn, **kw: (
+            taken.append(_n), _f(*a, **kw))[1])
+    got = tpa.prefill_attention(_t(q), _t(k), _t(v), 0.125, False,
+                                torch.float32, flash_threshold=threshold)
+    want = jpa.prefill_attention(q, k, v, 0.125, False, jnp.float32,
+                                 flash_threshold=threshold)
+    assert taken == [{"dense": "dense_causal_attention",
+                      "ref": "flash_prefill_ref"}[route]]
+    _check(got, want, "float32", f"S={S} threshold={threshold}")
+
+
 # ---------------------------------------------------------------------------
 # engines at 1 x 1024 on mini-128
 # ---------------------------------------------------------------------------

@@ -3,10 +3,12 @@
 A 2-layer `mini-128` model (head_dim 128, rn128 Kronecker transforms) is
 built in JAX with W4A4KV4 + tpu_decompose, baked and packed with
 build_serving_params(merge_projections=True). The port packs the same
-baked weights (byte-equal check) and serves the same packed params
-(converted with from_jax_serving_params); prefill, scalar-position decode
-and per-slot decode must give the JAX engine's logits and greedy tokens,
-and the packed caches must agree.
+baked weights and baked FQ state (converted with from_jax_params /
+from_jax_fq; byte-equal check, in the merged layout and JAX's default
+unmerged one) and serves the same packed params (converted with
+from_jax_serving_params); prefill, scalar-position decode and per-slot
+decode must give the JAX engine's logits and greedy tokens, and the
+packed caches must agree.
 
 Tolerances:
   - float32 params and compute on both sides: the integer parts are
@@ -31,13 +33,12 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from flatquant_tpu.core.transforms import decompose_matrices, single_matrix
 from flatquant_tpu.kernels.kv_cache import untranspose_kv as j_untranspose
 from flatquant_tpu.models.config import LlamaConfig as JLlamaConfig
 from flatquant_tpu.models.llama import init_params as j_init_params
 from flatquant_tpu.quantize.bake import bake_model
 from flatquant_tpu.quantize.spec import W4A4KV4 as J_W4A4KV4
-from flatquant_tpu.quantize.state import init_model_fq, slice_layer
+from flatquant_tpu.quantize.state import init_model_fq
 from flatquant_tpu.serving import engine as je
 from flatquant_tpu.serving.quantized import (
     build_serving_params as j_build_serving_params,
@@ -49,7 +50,11 @@ from flatquant_torch.serving.quantized import (
     build_serving_layer,
     build_serving_params,
 )
-from flatquant_torch.utils.convert import from_jax_serving_params
+from flatquant_torch.utils.convert import (
+    from_jax_fq,
+    from_jax_params,
+    from_jax_serving_params,
+)
 
 torch.set_num_threads(2)
 
@@ -78,52 +83,11 @@ def model():
                      for dt in sp})
 
 
-def _layer_transforms(bfq, i):
-    """The per-layer inputs the port's build_serving_params takes: baked
-    transform matrices and sigmoid-applied clip ratios."""
-    lf = slice_layer(bfq, i)
-    a, m = lf.attn, lf.mlp
-    t = lambda x: torch.from_numpy(np.array(x))
-    sig = lambda c: t(jax.nn.sigmoid(c.astype(jnp.float32)))
-    return {
-        "ln_t": tuple(t(x) for x in decompose_matrices(a.ln_trans)),
-        "ug_t": tuple(t(x) for x in decompose_matrices(m.up_gate_trans)),
-        "down_t": tuple(t(x) for x in decompose_matrices(m.down_trans)),
-        "o_t": t(single_matrix(a.o_trans)),
-        "k_t": t(single_matrix(a.kcache_trans)),
-        "k_t_inv": t(single_matrix(a.kcache_trans, inv_t=True)),
-        "v_t_inv": t(single_matrix(a.vcache_trans, inv_t=True)),
-        "a_clip": {nm: (sig(lin.clip_a_max), sig(lin.clip_a_min))
-                   for nm, lin in (("qkv", a.q_lin), ("o", a.o_lin),
-                                   ("upgate", m.up_lin),
-                                   ("down", m.down_lin))},
-        "kc_clip": (sig(a.k_cache.clip_a_max), sig(a.k_cache.clip_a_min)),
-        "vc_clip": (sig(a.v_cache.clip_a_max), sig(a.v_cache.clip_a_min)),
-    }
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_build_serving_params_byte_equal(model, dtype):
-    tdt = getattr(torch, dtype)
-    bp = model["bp"]
-    L = model["cfg"].num_layers
-    baked = {
-        "embed": torch.from_numpy(np.array(bp["embed"])),
-        "final_norm_w": torch.from_numpy(np.array(bp["final_norm_w"])),
-        "lm_head": torch.from_numpy(np.array(bp["lm_head"])),
-        "layers": [{k: torch.from_numpy(np.array(v[i]))
-                    for k, v in bp["layers"].items()} for i in range(L)],
-    }
-    got = build_serving_params(model["cfg"], model["fq"], baked,
-                               [_layer_transforms(model["bfq"], i)
-                                for i in range(L)], dtype=tdt,
-                               merge_projections=True)
-    want = from_jax_serving_params(
-        jax.tree.map(np.asarray, model["sp"][dtype]), device="cpu")
-    for i in range(L):
+def _check_packed_equal(got, want, tdt, names):
+    for i in range(len(want["layers"])):
         g, w = got["layers"][i], want["layers"][i]
         assert set(g) == set(w), (set(g) ^ set(w))
-        for nm in ("qkv", "o", "upgate", "down"):
+        for nm in names:
             assert torch.equal(g[nm]["wp"], w[nm]["wp"]), (i, nm)
             assert torch.equal(g[nm]["scale"], w[nm]["scale"]), (i, nm)
             for a, b in zip(g[nm]["a_clip"], w[nm]["a_clip"]):
@@ -138,6 +102,24 @@ def test_build_serving_params_byte_equal(model, dtype):
                 assert torch.equal(a, b), (i, key)
     for key in ("embed", "final_norm_w", "lm_head"):
         assert torch.equal(got[key], want[key]), key
+
+
+def _port_build(model, **kw):
+    """The port's build_serving_params on JAX's baked params and baked FQ
+    state, both converted."""
+    return build_serving_params(
+        model["cfg"], model["fq"],
+        from_jax_params(jax.tree.map(np.asarray, model["bp"]), "cpu"),
+        from_jax_fq(jax.tree.map(np.asarray, model["bfq"]), "cpu"), **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_build_serving_params_byte_equal(model, dtype):
+    tdt = getattr(torch, dtype)
+    got = _port_build(model, dtype=tdt, merge_projections=True)
+    want = from_jax_serving_params(
+        jax.tree.map(np.asarray, model["sp"][dtype]), device="cpu")
+    _check_packed_equal(got, want, tdt, ("qkv", "o", "upgate", "down"))
 
 
 def _nibbles(a):
@@ -279,6 +261,13 @@ def _port_files():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10 and files[-1].exists()
+    names = {str(p.relative_to(REPO)) for p in files}
+    for module in ("core/ste.py", "core/packing.py", "core/orth.py",
+                   "core/quant.py", "core/kron.py", "core/transforms.py",
+                   "quantize/linear.py", "quantize/state.py",
+                   "quantize/bake.py", "models/llama.py",
+                   "utils/convert.py"):
+        assert "flatquant_torch/" + module in names, module
     banned = ("jax", "jaxlib", "flatquant_tpu")
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -303,20 +292,18 @@ def test_build_serving_defaults_match_jax(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == want
 
 
-def test_build_serving_params_defaults_raise_naming_item_4(model):
-    """With JAX's default (unmerged projections) the port raises, naming
-    the ROADMAP item that brings that layout, instead of packing another
-    layout than JAX's."""
-    bp = model["bp"]
-    baked = {
-        "embed": torch.from_numpy(np.array(bp["embed"])),
-        "final_norm_w": torch.from_numpy(np.array(bp["final_norm_w"])),
-        "layers": [{k: torch.from_numpy(np.array(v[0]))
-                    for k, v in bp["layers"].items()}],
-    }
-    with pytest.raises(NotImplementedError, match="item 4"):
-        build_serving_params(model["cfg"], model["fq"], baked,
-                             [_layer_transforms(model["bfq"], 0)])
+def test_build_serving_params_default_unmerged_matches_jax(model):
+    """With every default (JAX's unmerged layout: q, k, v, up, gate each
+    packed alone, with its own activation clips) the port packs what JAX
+    packs, byte for byte. (The port raised on this default, naming
+    ROADMAP item 4, until the build chain was ported.)"""
+    jsp = j_build_serving_params(model["jcfg"], model["jfq"], model["bp"],
+                                 model["bfq"])
+    want = from_jax_serving_params(jax.tree.map(np.asarray, jsp), "cpu")
+    got = _port_build(model)
+    assert "qkv" not in got["layers"][0] and "q" in got["layers"][0]
+    _check_packed_equal(got, want, torch.bfloat16,
+                        ("q", "k", "v", "o", "up", "gate", "down"))
 
 
 def test_default_device_raises_without_a_card(model):
@@ -336,8 +323,9 @@ def test_default_device_raises_without_a_card(model):
 
 def test_unported_routes_raise(model):
     """Branches the port does not have yet raise, naming their ROADMAP
-    item, instead of taking another route: tp and ring attention (item 9),
-    unmerged projections and the perm layouts (item 4). Weight-only
+    item, instead of taking another route: tp and ring attention (item
+    9). Unmerged projections and the perm layouts serve
+    (tests/test_torch_build_chain.py). Weight-only
     serving, serving without the o transform, the quant_acts_i8 route (T
     >= 256, K >= 8192) and the fused swiglu GEMM (T >= 256) run
     (tests/test_torch_quant_modes.py), as do the paged cache and the chunk
@@ -363,11 +351,6 @@ def test_unported_routes_raise(model):
         te.serving_layer(cfg, fq, sl, x, None, None, bf16["k"][0],
                          bf16["v"][0], 0, "chunk", False, torch.float32,
                          attn_fn=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        chunk_layer(sl={k: v for k, v in sl.items() if k != "qkv"})
-    perm = dict(sl, ln_tp=sl["ln_t"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        chunk_layer(sl=perm)
     assert not any(bool(t.any()) for t in layer_cache)  # nothing written
 
     # the routes that raised before this slice: rows 12 and 13 run (their
