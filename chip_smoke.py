@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 3i,11 # phases 1-2, 3i and 11
     python3 chip_smoke.py --phases 3j,12 # phases 1-2, 3j and 12
     python3 chip_smoke.py --phases 13    # phases 1-2 and 13
+    python3 chip_smoke.py --phases 14    # phases 1-2 and 14
 
 Phases (any failure makes the script exit non-zero without the final
 line):
@@ -148,8 +149,8 @@ line):
      plain-route calls of fp8_linear (wkv_a and the dense FFN in
      64-blocks) counted; (b) the continuous batcher with the DeepSeek
      hooks on six requests (chunks of 256), a tripwire against
-     single-request generation; (c) packed W4A4 (random orthogonal
-     Kronecker factors folded in), a 1 x 2048 prefill and 32 decode
+     single-request generation; (c) packed W4A4 (init_ds_fq's state,
+     baked and packed layer by layer), a 1 x 2048 prefill and 32 decode
      steps, every w4a4_matmul_i8 launch of a prefill checked.
   11. rows 17-21 each in place of its twin on phase 7's llama-2-7b (the
      phase-4 model rebuilt from its seed): (a) phase 4's generate protocol
@@ -188,6 +189,21 @@ line):
      checked, launches printed by row, prefill logits against (b)'s model
      cut to 2 layers (bf16 on the kernels, a tripwire; float32 on the
      plain versions, floor 0.99).
+  14. the calibrate -> eval pipeline (main.py's path): (a) the port's CLI
+     in process on qwen-2.5-0.5b (24 layers, full width): W4A4KV4 with
+     every learnable group, 1 epoch of 16 x 2048 synthetic tokens, GPTQ,
+     PPL, the three exports and a 16-token demo on the kernels, every
+     w4a4_matmul_i8 launch of the run checked bit for bit; each export
+     reloaded equal, the reloaded safetensors serving the same
+     tokens; (b) llama-2-7b width, 2 layers, rn128: calibrate, bake,
+     gptq_model, build_serving_params (merged), a 1 x 2048 prefill and 8
+     decode steps timed and every launch checked; the MSE of each step
+     finite and falling within its layer; (c) DeepSeek-V2-Lite width, 1
+     dense + 1 MoE layer with 64 experts: calibrate_deepseek on 2 x 512,
+     bake_ds_fq, build_ds_serving_params, a 1 x 512 prefill and 8 decode
+     steps timed and every w4a4_matmul_i8 launch checked bit for bit.
+     Seconds per calibration step, teacher pass and GPTQ layer, and peak
+     memory, printed.
   Each model is freed before the next is built. Then the kernel table as
   one JSON line, then the result line.
 
@@ -3809,88 +3825,37 @@ def build_ds_fp8_model(torch, dev, seed, cfg=None):
 
 
 def build_ds_w4a4_model(torch, dev, seed, cfg=None):
-    """A random DeepSeek in packed W4A4 (FQConfig W4A4), built layer by
-    layer as build_model builds Llama: seeded weights, random orthogonal
-    Kronecker factors in FlatQuant's balanced split for every transform
-    (qkv, wo, the dense FFN's up/gate and down, the MoE's shared w1 and
-    w2 and the routed w2), folded into the weights (W <- W T) and packed
-    by the port's _pack_linear, LAC clips at their init sigmoid(4); wkv_b
-    bf16. Returns (serving params, (dense_fq, moe_fq))."""
+    """A random DeepSeek in packed W4A4 (FQConfig W4A4), built by the
+    port's build chain layer by layer: init_ds_fq's state for every layer
+    (SVD Kronecker factors in FlatQuant's balanced split with diag scales,
+    LWC and LAC clips at their init), bake_ds_fq, then each layer's seeded
+    weights (init_ds_layer_params) packed by build_ds_serving_layer and
+    freed before the next is drawn. Returns (serving params, the baked
+    (dense_fq, moe_fq))."""
     from flatquant_torch.core.kron import get_decompose_dim
-    from flatquant_torch.core.transforms import BakedDecompose
-    from flatquant_torch.models.deepseek import init_ds_layer_params
+    from flatquant_torch.models.deepseek import (
+        bake_ds_fq, build_ds_serving_layer, init_ds_fq, init_ds_layer_params)
     from flatquant_torch.quantize.spec import W4A4
-    from flatquant_torch.serving.quantized import _pack_linear, kron_transform
 
     t0 = time.perf_counter()
     cfg = _ds_cfg(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    clip = torch.full((1,), 1.0 / (1.0 + math.exp(-4.0)), device=dev)
+    baked = bake_ds_fq(*init_ds_fq(cfg, W4A4, seed=seed, device=dev))
 
-    def orth(n):
-        qm, r = torch.linalg.qr(torch.randn((n, n), generator=gen,
-                                            device=dev, dtype=torch.float64))
-        return (qm * torch.sign(torch.diagonal(r))).float()
+    def layers(moe, states):
+        return [build_ds_serving_layer(
+            cfg, W4A4, init_ds_layer_params(cfg, moe, gen, torch.float32,
+                                            dev), b) for b in states]
 
-    def trans(n):
-        # orthogonal factors are their own inverse-transposes
-        left, right = (orth(d) for d in get_decompose_dim(n))
-        return BakedDecompose(left, right, left, right)
-
-    def pack(w, t):
-        shape = w.shape
-        w = kron_transform(w.reshape(-1, shape[-1]), (t.left, t.right))
-        d = _pack_linear(w, W4A4.w_cfg)
-        if len(shape) == 3:  # an expert stack: per-row scales, reshaped
-            d = {"wp": d["wp"].reshape(shape[0], shape[1], -1),
-                 "scale": d["scale"].reshape(shape[0], shape[1])}
-        d["a_clip"] = (clip, clip)
-        return d
-
-    def layer(moe):
-        lp = init_ds_layer_params(cfg, moe, gen, torch.float32, dev)
-        a = {"qkv_trans": trans(cfg.dim),
-             "wqb_trans": trans(cfg.q_lora_rank) if cfg.q_lora_rank else None,
-             "wo_trans": trans(cfg.n_heads * cfg.v_head_dim)}
-        if moe:
-            f = {"w1_trans": trans(cfg.dim),
-                 "w2_trans": trans(cfg.n_shared_experts * cfg.moe_inter_dim),
-                 "routed_w2_trans": trans(cfg.moe_inter_dim)}
-            by = {"s_w1": "w1_trans", "s_w3": "w1_trans", "e_w1": "w1_trans",
-                  "e_w3": "w1_trans", "s_w2": "w2_trans",
-                  "e_w2": "routed_w2_trans"}
-        else:
-            f = {"up_gate_trans": trans(cfg.dim),
-                 "down_trans": trans(cfg.inter_dim)}
-            by = {"w1": "up_gate_trans", "w3": "up_gate_trans",
-                  "w2": "down_trans"}
-        out = {}
-        for key, v in lp.items():
-            if key in ("wq", "wq_a", "wkv_a"):
-                out[key] = pack(v, a["qkv_trans"])
-            elif key == "wq_b":
-                out[key] = pack(v, a["wqb_trans"])
-            elif key == "wo":
-                out[key] = pack(v, a["wo_trans"])
-            elif key in by:
-                out[key] = pack(v, f[by[key]])
-            elif key == "wkv_b":
-                out[key] = v.to(torch.bfloat16)
-            else:  # norms, the gate
-                out[key] = v.to(torch.float32)
-        return out, {"attn": a, "ffn": f}
-
-    dense = [layer(False) for _ in range(cfg.n_dense_layers)]
-    moe = [layer(True) for _ in range(cfg.n_moe_layers)]
-    sp = {"dense_layers": [d[0] for d in dense],
-          "moe_layers": [m[0] for m in moe],
+    sp = {"dense_layers": layers(False, baked[0]),
+          "moe_layers": layers(True, baked[1]),
           **_ds_embed_head(torch, dev, gen, cfg)}
     torch.cuda.synchronize()
     log(f"  built {cfg.name} packed W4A4 (balanced split "
         f"{get_decompose_dim(cfg.dim)}), {cfg.n_layers} layers, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
         f"{time.perf_counter() - t0:.1f} s")
-    return sp, ([d[1] for d in dense], [m[1] for m in moe])
+    return sp, baked
 
 
 def _timed_generate(torch, cfg, fq, fq_cfg, sp, prompt, new, max_len, dev):
@@ -5066,6 +5031,320 @@ def run_build_chain_path(torch, dev, results, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the calibrate -> eval pipeline (main.py's path)
+# ---------------------------------------------------------------------------
+
+# (a): the CLI on qwen-2.5-0.5b at full width and depth, W4A4KV4 with
+# every learnable group, GPTQ, PPL, the three artifacts and the demo
+CLI_ARGV = ["--model", "qwen-2.5-0.5b", "--w_bits", "4", "--a_bits", "4",
+            "--k_bits", "4", "--v_bits", "4", "--k_asym", "--v_asym",
+            "--k_groupsize", "64", "--v_groupsize", "64", "--cali_trans",
+            "--add_diag", "--lwc", "--lac", "--epochs", "1", "--nsamples",
+            "16", "--cali_bsz", "4", "--seqlen", "2048", "--gptq",
+            "--eval_ppl", "--save_matrix", "--quantized_save",
+            "--generate_demo", "16"]
+# (b): launches per layer of one decode step of the merged rn128 layout
+CALIB_STEP = {"w4a4_matmul_i8": 4, "decode_attention_int4": 1}
+
+
+def _calib_summary(hist, what):
+    """Per layer: the MSE of every step and epoch (finite, and the last
+    step's below the first's: the loss falls within the layer) and the
+    seconds of its teacher pass and steps."""
+    for h in hist:
+        m = h["step_mse"]
+        if not (all(math.isfinite(v) for v in m + h["epoch_mse"])
+                and m[-1] < m[0]):
+            raise AssertionError(f"{what} layer {h['layer']}: step MSEs {m} "
+                                 "not finite or not falling")
+    def median(v):
+        return sorted(v)[len(v) // 2]
+
+    return dict(per_layer=hist,
+                step_s_median=[median(h["step_s"]) for h in hist],
+                teacher_s=[h["teacher_s"] for h in hist])
+
+
+def _leaves_equal(torch, a, b, what):
+    from flatquant_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb) or not all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb)):
+        raise AssertionError(f"{what}: the reload differs")
+    return len(la)
+
+
+def run_cli_path(torch, dev, smi):
+    """Phase 14 (a): flatquant_torch.main.main(CLI_ARGV), in process, on
+    qwen-2.5-0.5b (24 layers, hidden 896, vocab 151,936) over the
+    synthetic corpus: calibration, bake, GPTQ, PPL, the flat_parameters,
+    flat_matrices and packed safetensors exports and a 16-token demo
+    through the kernels. Launch counts set to 0 before the run and read
+    after it (only the demo launches kernels, all of them
+    w4a4_matmul_i8), every launch held bit for bit to its plain version
+    at the CLI's shapes (_checked_w4a4; one check per counted launch).
+    Then each export reloads equal to what the run held, and the reloaded
+    safetensors serve the same demo tokens. The exports go to a scratch
+    directory under the checkout, removed after."""
+    import shutil
+    import tempfile
+
+    from flatquant_torch import main as cli
+    from flatquant_torch.kernels import common
+    from flatquant_torch.quantize.state import init_model_fq
+    from flatquant_torch.serving import quantized
+    from flatquant_torch.serving.engine import generate
+    from flatquant_torch.utils import checkpoint as ckpt
+    from flatquant_torch.utils.reference_convert import (
+        matrices_fq_template, matrices_state)
+
+    scratch = os.path.abspath(".chipscratch")
+    os.makedirs(scratch, exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=scratch, prefix="phase14_")
+    argv = CLI_ARGV + ["--output_dir", out_dir] + (
+        ["--platform", "cpu"] if dev.type == "cpu" else [])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n = [0]
+        common.reset_launches()
+        t0 = time.perf_counter()
+        with patched([(quantized, "w4a4_matmul_i8",
+                       _checked_w4a4(torch, n))]):
+            out = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in common.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cfg, fq, exp = out["cfg"], out["fq_cfg"], out["exp_dir"]
+        ppl = out["ppl"]["wikitext2"]
+        if not math.isfinite(ppl) or set(launches) != {"w4a4_matmul_i8"}:
+            raise AssertionError(f"PPL {ppl}, launches {launches}")
+        if n[0] != launches["w4a4_matmul_i8"]:
+            raise AssertionError(f"{n[0]} w4a4_matmul_i8 launches checked "
+                                 f"of {launches['w4a4_matmul_i8']}")
+        n_params = _leaves_equal(torch, ckpt.load_flat_parameters(
+            exp, init_model_fq(cfg, fq, seed=0, device=dev)), out["fq"],
+            "flat_parameters")
+        _leaves_equal(torch, ckpt.load_flat_matrices(
+            exp, matrices_fq_template(cfg, fq, seed=0, device=dev)),
+            matrices_state(out["fq"]), "flat_matrices")
+        path = os.path.join(exp, "model_packed_int4.safetensors")
+        sp = ckpt.load_packed_safetensors(path, out["serving"])
+        n_tensors = _leaves_equal(torch, sp, out["serving"],
+                                  "the packed safetensors")
+        toks = generate(cfg, fq, sp, out["prompt"], max_new_tokens=16,
+                        max_len=64, use_kernel=True, device=dev).tolist()
+        if toks != out["tokens"]:
+            raise AssertionError(f"the reloaded export serves {toks}, the "
+                                 f"run served {out['tokens']}")
+        sizes = {f: os.path.getsize(os.path.join(exp, f)) / 2**20
+                 for f in sorted(os.listdir(exp)) if not f.startswith("log")}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    secs = out["seconds"]
+    log(f"  [{smi}] (a) CLI, {cfg.name} ({cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, vocab {cfg.vocab_size}): {wall:.1f} s in all; "
+        f"by stage {secs}; max_memory_allocated {peak:.2f} GiB")
+    log(f"  (a) wikitext2 (synthetic) PPL {ppl:.4f}; demo tokens "
+        f"{out['tokens']}; launches {launches}, every one bit-exact to "
+        f"its plain version ({n[0]} checked)")
+    log(f"  (a) reloads: flat_parameters ({n_params} tensors) and "
+        f"flat_matrices equal, the packed safetensors ({n_tensors} tensors) "
+        f"equal and serving the same 16 tokens; file MiB {sizes}")
+    return dict(model=cfg.name, wall_s=wall, seconds=secs, peak_gib=peak,
+                ppl=ppl, tokens=out["tokens"], launches=launches,
+                per_launch_checks=dict(launches=n[0], max_abs_err=0.0),
+                export_mib=sizes), launches
+
+
+def run_calib_llama_path(torch, dev, smi):
+    """Phase 14 (b): llama-2-7b at full width, 2 layers, W4A4KV4 with
+    tpu_decompose and every learnable group: calibrate (16 samples of
+    2048 tokens in batches of 4, 1 epoch), bake_model, gptq_model,
+    build_serving_params(merge_projections=True) from the GPTQ weights;
+    then a 1 x 2048 prefill and 8 decode steps over the int4 cache,
+    timed, and the same run with every launch held to its plain version
+    (check_every_launch)."""
+    import dataclasses
+
+    from flatquant_torch.calib.data import get_loaders
+    from flatquant_torch.calib.gptq import gptq_model
+    from flatquant_torch.calib.trainer import calibrate
+    from flatquant_torch.models.config import get_config
+    from flatquant_torch.models.llama import init_params
+    from flatquant_torch.quantize.bake import bake_model
+    from flatquant_torch.quantize.spec import W4A4KV4
+    from flatquant_torch.quantize.state import init_model_fq
+    from flatquant_torch.serving.quantized import build_serving_params
+
+    cfg = dataclasses.replace(get_config("llama-2-7b"), num_layers=2)
+    fq = dataclasses.replace(W4A4KV4, tpu_decompose=True, epochs=1,
+                             nsamples=16, cali_bsz=4)
+    toks = get_loaders("synthetic", cfg.vocab_size, nsamples=16, seqlen=2048,
+                       seed=0).train
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=dev)
+    state = init_model_fq(cfg, fq, seed=0, device=dev)
+    hist, ghist = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = calibrate(cfg, fq, params, state, toks,
+                      log=lambda m: log("  (b) " + m), history=hist)
+    calib_s = time.perf_counter() - t0
+    calib = _calib_summary(hist, "(b)")
+    baked, bfq = bake_model(cfg, fq, params, state)
+    del params, state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gp = gptq_model(cfg, fq, baked, bfq, toks, log=lambda m: None,
+                    history=ghist)
+    gptq_s = time.perf_counter() - t0
+    sp = build_serving_params(cfg, fq, baked, bfq, dtype=torch.bfloat16,
+                              merge_projections=True, eval_params=gp)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del baked, bfq, gp
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  [{smi}] (b) {cfg.name} width, {cfg.num_layers} layers: "
+        f"calibrate {calib_s:.1f} s (median step by layer "
+        f"{[round(t, 3) for t in calib['step_s_median']]} s, teacher passes "
+        f"{[round(t, 3) for t in calib['teacher_s']]} s), gptq_model "
+        f"{gptq_s:.1f} s ({[round(h['seconds'], 2) for h in ghist]} s per "
+        f"layer, {ghist[0]['columns']} columns each); max_memory_allocated "
+        f"{peak:.2f} GiB")
+    log(f"  (b) MSE by (layer, epoch): "
+        f"{[h['epoch_mse'] for h in hist]}; by step "
+        f"{[h['step_mse'] for h in hist]}")
+    B, S, NEW = 1, 2048, 8
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    kw = dict(max_len=S + 256, device=dev)
+    run = _timed_serving(torch, cfg, fq, sp, prompt, NEW, kw, "int4")
+    del run["cache"], run["tok"]
+    _check_counts({k: run["prefill_launches"][k]
+                   for k in LONG_PREFILL_LAUNCHES}, LONG_PREFILL_LAUNCHES,
+                  cfg.num_layers, "(b) prefill")
+    log(f"  [{smi}] (b) prefill B={B} S={S} {run['prefill_ms']:.1f} ms, "
+        f"decode median {run['decode_ms']:.2f} ms/step ({NEW} steps); "
+        f"launches {run['launches']}")
+    checks = check_every_launch(torch, cfg, fq, sp, prompt, kw, NEW,
+                                LONG_PREFILL_LAUNCHES, CALIB_STEP,
+                                "(b) calibrated llama-2-7b, 2 layers")
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(model="llama-2-7b", layers=cfg.num_layers, calibrate_s=calib_s,
+                gptq_s=gptq_s, gptq_layers=ghist, peak_gib=peak,
+                per_launch_checks=checks, serve=run, **calib), run["launches"]
+
+
+def run_calib_deepseek_path(torch, dev, smi):
+    """Phase 14 (c): DeepSeek-V2-Lite's width (DeepSeekConfig()) cut to 1
+    dense and 1 MoE layer with all 64 experts, W4A4 with every learnable
+    group: init_ds_fq, calibrate_deepseek (2 samples of 512 tokens, batch
+    1, 1 epoch), bake_ds_fq, build_ds_serving_params; then
+    deepseek_generate of a 1 x 512 prompt (the gather MoE) and 8 decode
+    steps, timed, and again with every w4a4_matmul_i8 launch held bit for
+    bit to its plain version (_checked_w4a4)."""
+    import dataclasses
+
+    from flatquant_torch.calib.data import get_loaders
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.quantize.spec import W4A4
+    from flatquant_torch.serving import quantized
+
+    cfg = dataclasses.replace(ds.DeepSeekConfig(), n_layers=2,
+                              n_dense_layers=1)
+    fq = dataclasses.replace(W4A4, epochs=1, nsamples=2, cali_bsz=1)
+    toks = get_loaders("synthetic", cfg.vocab_size, nsamples=2, seqlen=512,
+                       seed=0).train
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = ds.init_ds_params(cfg, seed=0, device=dev)
+    dense, moe = ds.init_ds_fq(cfg, fq, seed=0, device=dev)
+    hist = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense, moe = ds.calibrate_deepseek(cfg, fq, params, dense, moe, toks,
+                                       log=lambda m: log("  (c) " + m),
+                                       history=hist)
+    calib_s = time.perf_counter() - t0
+    calib = _calib_summary(hist, "(c)")
+    baked = ds.bake_ds_fq(dense, moe)
+    t0 = time.perf_counter()
+    sp, fq_serve = ds.build_ds_serving_params(cfg, fq, params, dense, moe)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(baked[1]) != 1 or baked[1][0]["ffn"]["w1_trans"] is None:
+        raise AssertionError("bake_ds_fq lost the MoE layer's transforms")
+    del params, dense, moe, baked
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  [{smi}] (c) {cfg.name} width (V2-Lite), 1 dense + 1 MoE layer, "
+        f"{cfg.n_routed_experts} experts: calibrate_deepseek {calib_s:.1f} s "
+        f"(median step by layer "
+        f"{[round(t, 3) for t in calib['step_s_median']]} s, teacher passes "
+        f"{[round(t, 3) for t in calib['teacher_s']]} s), "
+        f"build_ds_serving_params {pack_s:.1f} s; max_memory_allocated "
+        f"{peak:.2f} GiB; MSE by (layer, epoch) "
+        f"{[h['epoch_mse'] for h in hist]}")
+    B, S, NEW = 1, 512, 8
+    gen = torch.Generator(device=dev).manual_seed(9)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    run = _timed_generate(torch, cfg, fq_serve, fq, sp, prompt, NEW, S + 128,
+                          dev)
+    # wq, wkv_a, wo and the dense FFN's or shared experts' three linears
+    fwd = 6 * cfg.n_layers
+    if (run["prefill_launches"] != {"w4a4_matmul_i8": fwd}
+            or run["launches"] != {"w4a4_matmul_i8": fwd * (1 + NEW)}):
+        raise AssertionError(f"(c) launches {run['prefill_launches']}, "
+                             f"{run['launches']}; expected w4a4_matmul_i8 "
+                             f"{fwd} per forward")
+    n = [0]
+    with patched([(quantized, "w4a4_matmul_i8", _checked_w4a4(torch, n))]):
+        ds.deepseek_generate(cfg, sp, fq_serve, fq, prompt,
+                             max_new_tokens=NEW, max_len=S + 128,
+                             mode="serve", device=dev)
+        torch.cuda.synchronize()
+    if n[0] != fwd * (1 + NEW):
+        raise AssertionError(f"(c) {n[0]} launches checked, expected "
+                             f"{fwd * (1 + NEW)}")
+    log(f"  [{smi}] (c) prefill B={B} S={S} {run['prefill_ms']:.1f} ms, "
+        f"decode median {run['decode_ms']:.2f} ms/step ({NEW} steps); every "
+        f"w4a4_matmul_i8 launch of a prefill and {NEW} steps ({n[0]}) "
+        "bit-exact against its plain version")
+    del sp, fq_serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(model="deepseek-v2-lite", layers=cfg.n_layers,
+                calibrate_s=calib_s, pack_s=pack_s, peak_gib=peak,
+                per_launch_checks=dict(launches=n[0], max_abs_err=0.0),
+                serve=run, **calib), run["launches"]
+
+
+def run_calibrate_path(torch, dev, results, smi):
+    """Phase 14: (a) the CLI, (b) llama-2-7b-width calibration, (c)
+    DeepSeek-V2-Lite-width calibration; returns the serve runs' launches
+    by path."""
+    rec, paths = {}, {}
+    for key, fn in (("cli", run_cli_path), ("calib_llama",
+                                            run_calib_llama_path),
+                    ("calib_deepseek", run_calib_deepseek_path)):
+        rec[key], paths[key] = fn(torch, dev, smi)
+    results["calibrate_path"] = rec
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -5318,7 +5597,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
                     help="comma-separated phases to run after 1-2 (3a-3j, "
-                    "3 for all of them, 4-13; 6 runs 6a-6c); the default "
+                    "3 for all of them, 4-14; 6 runs 6a-6c); the default "
                     "is all. A partial run prints no kernel table")
     args = ap.parse_args(argv)
     only = set(filter(None, args.phases.split(",")))
@@ -5464,6 +5743,12 @@ def main(argv=None) -> int:
             "phase 13: llama-2-7b through the port's own build chain "
             "(init_model_fq -> bake_model -> build_serving_params), merged, "
             "unmerged and perm layouts", run_build_chain_path, torch, dev,
+            results, smi) or {})
+    if serve and want("14"):
+        paths.update(phase(
+            "phase 14: the calibrate -> eval pipeline (the CLI on "
+            "qwen-2.5-0.5b; calibration, GPTQ and serving at llama-2-7b and "
+            "DeepSeek-V2-Lite widths)", run_calibrate_path, torch, dev,
             results, smi) or {})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -1,14 +1,18 @@
-"""DeepSeek-V2/V3 serving: absorbed MLA over the latent caches, the
-group-limited gate, dense-masked and capacity-gather MoE (port of the
-serving part of flatquant_tpu/models/deepseek.py).
+"""DeepSeek-V2/V3: absorbed MLA over the latent caches, the
+group-limited gate, dense-masked and capacity-gather MoE, and FlatQuant's
+state, calibration and int4 packing for it (port of
+flatquant_tpu/models/deepseek.py).
 
 Parameters are dicts of tensors; "dense_layers" and "moe_layers" are
 Python lists with one dict per layer (JAX stacks them for lax.scan). The
 FlatQuant state `fq` is (dense_fq, moe_fq), lists of per-layer dicts
-{"attn": {"qkv_trans", "wqb_trans", "wo_trans"}, "ffn": {...}} of baked
-transforms (core/transforms.py BakedDecompose) or None: the dense FFN's
-"up_gate_trans", "down_trans"; the MoE's "w1_trans" (applied once before
-routing), "w2_trans" (shared experts' down) and "routed_w2_trans".
+{"attn": {...}, "ffn": {...}} keyed by the fields of JAX's dataclasses in
+their order (MLAFQ, DenseFFNFQ, MoEFQ below): transforms (raw
+DecomposeTransform, or BakedDecompose after bake_ds_fq) or None, and the
+linears' LinearQuantState. The dense FFN has "up_gate_trans" and
+"down_trans"; the MoE "w1_trans" (applied once before routing),
+"w2_trans" (the shared experts' down) and "routed_w2_trans"; the routed
+experts' weight clips are stacked [E, ...], their activation clips shared.
 
 Linear weights come in three forms, each taken where JAX takes it
 (`_linear`): a native-FP8 dict {"w8", "se"} through kernels/fp8_matmul.py
@@ -31,10 +35,11 @@ What differs from JAX:
     linear, batched over the expert axis, on the card too: JAX calls
     `_quant_linear(..., use_kernel=False)` for them even on the TPU.
 
-Not ported here: the fake-quant forward (mode="calib" on raw weights with
-an fq state) and `calibrate_deepseek` (ROADMAP queue 1 item 5);
-`build_ds_serving_params` and `bake_ds_fq` (item 4); the EP/TP meshes
-(item 9).
+Modes: "fp", "calib" (raw weights, transforms and STE fake-quant
+threaded through every linear; with baked transforms it is also JAX's
+DeepSeek eval), "eval" (act quant only) and "serve" (packed or FP8
+weights). Not ported here: the HF FP8 loader (ROADMAP queue 1 item 5) and
+the EP/TP meshes (item 9).
 """
 
 from __future__ import annotations
@@ -47,16 +52,28 @@ from typing import Optional
 import numpy as np
 import torch
 
-from flatquant_torch.core.transforms import apply_decompose
+from flatquant_torch.core.quant import weight_find_params, weight_quantize_int
+from flatquant_torch.core.transforms import (
+    apply_decompose,
+    bake_decompose,
+    init_decompose,
+)
 from flatquant_torch.kernels.common import resolve_device
 from flatquant_torch.kernels.fp8_matmul import fp8_linear, prep_fp8_weight
-from flatquant_torch.kernels.int4_matmul import quant_acts_i8_ref
+from flatquant_torch.kernels.int4_matmul import (
+    pack_weight_planar,
+    quant_acts_i8_ref,
+)
 from flatquant_torch.models.llama import rms_norm, silu
+from flatquant_torch.quantize.linear import (
+    LinearQuantState,
+    fq_linear_eval,
+    fq_linear_train,
+    init_linear_state,
+    transform_weight,
+)
 from flatquant_torch.serving.engine import _as_tokens
-from flatquant_torch.serving.quantized import _quant_linear
-
-_CALIB = "ROADMAP queue 1 item 5 (calibrate -> eval pipeline)"
-_BUILD = "ROADMAP queue 1 item 4 (build chain)"
+from flatquant_torch.serving.quantized import _clip_sigmoid, _quant_linear
 
 
 # ---------------------------------------------------------------------------
@@ -310,16 +327,121 @@ def init_ds_params(cfg: DeepSeekConfig, seed: int = 0, dtype=torch.float32,
 
 
 # ---------------------------------------------------------------------------
+# FlatQuant state: per-layer dicts keyed by JAX's dataclass fields
+# ---------------------------------------------------------------------------
+
+MLAFQ = ("qkv_trans",  # on dim (the input of wq / wq_a and wkv_a)
+         "wqb_trans",  # on q_lora_rank
+         "wo_trans",  # on n_heads * v_head_dim
+         "wq_a_lin",  # also wq's when q_lora_rank == 0
+         "wq_b_lin", "wkv_a_lin", "wo_lin")
+DenseFFNFQ = ("up_gate_trans", "down_trans", "w1_lin", "w2_lin", "w3_lin")
+MoEFQ = ("w1_trans",  # shared, applied once before routing
+         "w2_trans",  # the shared experts' down
+         "routed_w2_trans",  # one transform for every routed expert
+         "s_w1_lin", "s_w2_lin", "s_w3_lin",
+         "e_w1_lin", "e_w2_lin", "e_w3_lin")  # clip_w [E, ...], clip_a shared
+DSDenseLayerFQ = {"attn": MLAFQ, "ffn": DenseFFNFQ}
+DSMoELayerFQ = {"attn": MLAFQ, "ffn": MoEFQ}
+
+
+def is_moe_fq(layer_fq) -> bool:
+    return "w1_trans" in layer_fq["ffn"]
+
+
+def _makers(fq, rng, dev):
+    """(weights or activations quantized?, a decompose transform of width
+    n drawn from rng, a linear state of n outputs)."""
+    def mk(n):
+        return init_decompose(n, rng, add_diag=fq.add_diag,
+                              direct_inv=fq.direct_inv, device=dev)
+
+    def lin(out):
+        return init_linear_state(out, fq.lwc, fq.lac, dev)
+
+    return fq.w_bits < 16 or fq.a_bits < 16, mk, lin
+
+
+def _init_mla_fq(cfg: DeepSeekConfig, fq, rng, dev) -> dict:
+    wa, mk, lin = _makers(fq, rng, dev)
+    lora = cfg.q_lora_rank > 0
+    return {
+        "qkv_trans": mk(cfg.dim) if wa else None,
+        "wqb_trans": mk(cfg.q_lora_rank) if (wa and lora) else None,
+        "wo_trans": mk(cfg.n_heads * cfg.v_head_dim) if wa else None,
+        "wq_a_lin": lin(cfg.q_lora_rank if lora
+                        else cfg.n_heads * cfg.qk_head_dim),
+        "wq_b_lin": lin(cfg.n_heads * cfg.qk_head_dim) if lora else None,
+        "wkv_a_lin": lin(cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+        "wo_lin": lin(cfg.dim),
+    }
+
+
+def _stack_linear_state(st: LinearQuantState, n: int) -> LinearQuantState:
+    """The routed experts' state: weight clips repeated to [n, ...] (one
+    trainable copy per expert), activation clips shared."""
+    def rep(a):
+        return None if a is None else a.expand((n,) + a.shape).clone()
+
+    return LinearQuantState(clip_w_max=rep(st.clip_w_max),
+                            clip_w_min=rep(st.clip_w_min),
+                            clip_a_max=st.clip_a_max,
+                            clip_a_min=st.clip_a_min)
+
+
+def init_ds_fq(cfg: DeepSeekConfig, fq, seed: int = 0, device="cuda"):
+    """(dense_fq, moe_fq): per-layer state lists. The factors are drawn on
+    the host from one np.random.default_rng(seed) in JAX's order (every
+    dense layer, then every MoE layer; in a layer the MLA part first,
+    then the FFN in field order), so the same seed gives JAX's state bit
+    for bit."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    wa, mk, lin = _makers(fq, rng, dev)
+
+    def dense_layer():
+        attn = _init_mla_fq(cfg, fq, rng, dev)
+        return {"attn": attn, "ffn": {
+            "up_gate_trans": mk(cfg.dim) if wa else None,
+            "down_trans": mk(cfg.inter_dim) if wa else None,
+            "w1_lin": lin(cfg.inter_dim), "w2_lin": lin(cfg.dim),
+            "w3_lin": lin(cfg.inter_dim)}}
+
+    def moe_layer():
+        attn = _init_mla_fq(cfg, fq, rng, dev)
+        si = cfg.n_shared_experts * cfg.moe_inter_dim
+        E = cfg.n_routed_experts
+        return {"attn": attn, "ffn": {
+            "w1_trans": mk(cfg.dim) if wa else None,
+            "w2_trans": mk(si) if wa else None,
+            "routed_w2_trans": mk(cfg.moe_inter_dim) if wa else None,
+            "s_w1_lin": lin(si), "s_w2_lin": lin(cfg.dim),
+            "s_w3_lin": lin(si),
+            "e_w1_lin": _stack_linear_state(lin(cfg.moe_inter_dim), E),
+            "e_w2_lin": _stack_linear_state(lin(cfg.dim), E),
+            "e_w3_lin": _stack_linear_state(lin(cfg.moe_inter_dim), E)}}
+
+    dense = [dense_layer() for _ in range(cfg.n_dense_layers)]
+    return dense, [moe_layer() for _ in range(cfg.n_moe_layers)]
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
 
-def _linear(mode, quant, fq_cfg, x, w, use_kernel):
+def _absmax(t, dims):
+    return t.to(torch.float32).abs().amax(dim=dims)
+
+
+def _linear(mode, quant, fq_cfg, x, w, use_kernel, st=None, qa=None):
     """x [..., in] through one linear, in JAX's branch order: a native-FP8
     dict (fp8_linear, the activations unquantized), a packed int4 dict
     (per-token quant + the int4 GEMM; transforms and clips were baked in
-    at packing), a plain weight without quantization. The fake-quant
-    linear of mode="calib"/eval on raw weights is item 5's."""
+    at packing, so qa is not read), a plain weight without quantization,
+    then the fake-quant linear on a raw weight: "calib" (transform qa and
+    clips st in the weight, STE fake-quant) or any other mode (act quant
+    only)."""
     if isinstance(w, dict) and "w8" in w:
         # fp8 weights carry no folded inverse transform: a FlatQuant
         # transform on x would go unundone
@@ -336,47 +458,57 @@ def _linear(mode, quant, fq_cfg, x, w, use_kernel):
         return y.reshape(x.shape[:-1] + (w["scale"].shape[0],))
     if not quant:
         return x @ w.T.to(x.dtype)
-    raise NotImplementedError(
-        f"the fake-quant DeepSeek linear (mode={mode!r} on raw weights with "
-        f"an fq state) waits for {_CALIB}")
+    if mode == "calib":
+        return fq_linear_train(x, w, None, st, fq_cfg.w_cfg, fq_cfg.a_cfg,
+                               qa_trans=qa, lwc=fq_cfg.lwc)
+    return fq_linear_eval(x, w, None, st, fq_cfg.a_cfg)
 
 
 def _trans(fq_part, key, quant):
-    return fq_part.get(key) if quant else None
+    return fq_part[key] if quant else None
 
 
 def ds_mla(cfg: DeepSeekConfig, fq_cfg, mode, lp, fqa, x, cos, sin, mask,
-           cache=None, pos=0, use_kernel=True):
+           cache=None, pos=0, use_kernel=True, stats=None):
     """Absorbed MLA. Full sequence when cache is None (mask [1, S, S]);
     with cache = (kv_cache [B, Smax, kv_lora], pe_cache [B, Smax, rope])
     the new latents are written in place at [pos, pos + S) and the
     queries attend over the whole cache under a causal, valid-length
     mask. pos may be a per-slot [B] tensor (decode, S == 1): cos/sin are
     then [B, rope/2] rows and each slot writes and attends its own
-    prefix through a masked select."""
+    prefix through a masked select. stats (a dict) gets the absmax per
+    channel of the inputs of the qkv, wq_b and wo transforms."""
     B, S, _ = x.shape
     per_slot = torch.is_tensor(pos) and pos.dim() == 1
     if per_slot and S != 1:
         raise ValueError("per-slot positions only in decode (S == 1)")
     quant = mode != "fp" and fqa is not None
+    calib = quant and mode == "calib"
     nh, nope = cfg.n_heads, cfg.qk_nope_head_dim
 
-    def lin(inp, key):
-        return _linear(mode, quant, fq_cfg, inp, lp[key], use_kernel)
+    def lin(inp, key, st_key, qa):
+        return _linear(mode, quant, fq_cfg, inp, lp[key], use_kernel,
+                       fqa[st_key] if quant else None,
+                       qa if calib else None)
 
     h = x
+    if stats is not None:
+        stats["qkv"] = _absmax(h, (0, 1))
     t = _trans(fqa, "qkv_trans", quant)
     if t is not None:
         h = apply_decompose(t, h)
     if cfg.q_lora_rank > 0:
-        q2 = rms_norm(lin(h, "wq_a"), lp["q_norm"], cfg.rms_eps)
-        t = _trans(fqa, "wqb_trans", quant)
-        if t is not None:
-            q2 = apply_decompose(t, q2)
-        q = lin(q2, "wq_b")
+        q2 = rms_norm(lin(h, "wq_a", "wq_a_lin", t), lp["q_norm"],
+                      cfg.rms_eps)
+        if stats is not None:
+            stats["wqb"] = _absmax(q2, (0, 1))
+        tb = _trans(fqa, "wqb_trans", quant)
+        if tb is not None:
+            q2 = apply_decompose(tb, q2)
+        q = lin(q2, "wq_b", "wq_b_lin", tb)
     else:
-        q = lin(h, "wq")
-    kv_raw = lin(h, "wkv_a")
+        q = lin(h, "wq", "wq_a_lin", t)
+    kv_raw = lin(h, "wkv_a", "wkv_a_lin", t)
 
     q = q.reshape(B, S, nh, cfg.qk_head_dim)
     q_nope = q[..., :nope]
@@ -424,25 +556,40 @@ def ds_mla(cfg: DeepSeekConfig, fq_cfg, mode, lp, fqa, x, cos, sin, mask,
     o = torch.einsum("bshc,hdc->bshd", o.to(torch.float32),
                      wkv_b[:, nope:].to(torch.float32)).to(x.dtype)
     o = o.reshape(B, S, nh * cfg.v_head_dim)
+    if stats is not None:
+        stats["wo"] = _absmax(o, (0, 1))
     t = _trans(fqa, "wo_trans", quant)
     if t is not None:
         o = apply_decompose(t, o)
-    return lin(o, "wo")
+    return lin(o, "wo", "wo_lin", t)
 
 
-def _ffn_dense(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True):
+def _ffn_lin(mode, quant, fq_cfg, fqf, x, w, use_kernel, st_key, qa):
+    return _linear(mode, quant, fq_cfg, x, w, use_kernel,
+                   fqf[st_key] if quant else None,
+                   qa if quant and mode == "calib" else None)
+
+
+def _ffn_dense(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None):
     quant = mode != "fp" and fqf is not None
     h = x
+    if stats is not None:
+        stats["ffn_up"] = _absmax(h, (0, 1))
     t = _trans(fqf, "up_gate_trans", quant)
     if t is not None:
         h = apply_decompose(t, h)
-    gate = _linear(mode, quant, fq_cfg, h, lp["w1"], use_kernel)
-    up = _linear(mode, quant, fq_cfg, h, lp["w3"], use_kernel)
+    gate = _ffn_lin(mode, quant, fq_cfg, fqf, h, lp["w1"], use_kernel,
+                    "w1_lin", t)
+    up = _ffn_lin(mode, quant, fq_cfg, fqf, h, lp["w3"], use_kernel,
+                  "w3_lin", t)
     act = silu(gate) * up
+    if stats is not None:
+        stats["ffn_down"] = _absmax(act, (0, 1))
     t = _trans(fqf, "down_trans", quant)
     if t is not None:
         act = apply_decompose(t, act)
-    return _linear(mode, quant, fq_cfg, act, lp["w2"], use_kernel)
+    return _ffn_lin(mode, quant, fq_cfg, fqf, act, lp["w2"], use_kernel,
+                    "w2_lin", t)
 
 
 def _top_k(v, k):
@@ -506,11 +653,15 @@ def _expert_quant_linear(x_e, w_e, fq_cfg):
     return (acc * xs * w_e["scale"][:, None, :]).to(x_e.dtype)
 
 
-def _expert_linear(mode, quant, fq_cfg, x_e, w_e, use_kernel=True):
+def _expert_linear(mode, quant, fq_cfg, x_e, w_e, use_kernel=True, st_e=None,
+                   qa=None):
     """Batched-over-experts linear: x_e [E, T, in] (or broadcast over E),
     w_e [E, out, in] or its fp8 / packed dict. FP8: one fp8_linear call,
     one kernel launch for all experts (JAX's vmap of a pallas_call is one
-    call). Packed int4: the plain versions, on the card too (as JAX)."""
+    call). Packed int4: the plain versions, on the card too (as JAX). The
+    fake-quant linear on raw weights is vmapped over the experts, as
+    JAX's: each expert with its own weight clips st_e.clip_w_* [e], the
+    activation clips shared."""
     if isinstance(w_e, dict) and "w8" in w_e:
         if quant:
             raise ValueError("a native-FP8 expert linear cannot compose "
@@ -522,9 +673,16 @@ def _expert_linear(mode, quant, fq_cfg, x_e, w_e, use_kernel=True):
         return _expert_quant_linear(x_e, w_e, fq_cfg)
     if not quant:
         return torch.einsum("eti,eoi->eto", x_e, w_e.to(x_e.dtype))
-    raise NotImplementedError(
-        f"the fake-quant expert linear (mode={mode!r} on raw weights with "
-        f"an fq state) waits for {_CALIB}")
+
+    def one(x1, w1, cmax, cmin):
+        st = LinearQuantState(clip_w_max=cmax, clip_w_min=cmin,
+                              clip_a_max=st_e.clip_a_max,
+                              clip_a_min=st_e.clip_a_min)
+        return _linear(mode, quant, fq_cfg, x1, w1, use_kernel, st, qa)
+
+    dims = 0 if st_e.clip_w_max is not None else None
+    return torch.func.vmap(one, in_dims=(0, 0, dims, dims))(
+        x_e, w_e, st_e.clip_w_max, st_e.clip_w_min)
 
 
 def moe_dispatch(flat_e, capacity: int, n_experts: int):
@@ -542,24 +700,36 @@ def moe_dispatch(flat_e, capacity: int, n_experts: int):
 
 
 def _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel):
-    s_gate = _linear(mode, quant, fq_cfg, h, lp["s_w1"], use_kernel)
-    s_up = _linear(mode, quant, fq_cfg, h, lp["s_w3"], use_kernel)
+    t1 = _trans(fqf, "w1_trans", quant)
+    s_gate = _ffn_lin(mode, quant, fq_cfg, fqf, h, lp["s_w1"], use_kernel,
+                      "s_w1_lin", t1)
+    s_up = _ffn_lin(mode, quant, fq_cfg, fqf, h, lp["s_w3"], use_kernel,
+                    "s_w3_lin", t1)
     s_act = silu(s_gate) * s_up
     t = _trans(fqf, "w2_trans", quant)
     if t is not None:
         s_act = apply_decompose(t, s_act)
-    return _linear(mode, quant, fq_cfg, s_act, lp["s_w2"], use_kernel)
+    return _ffn_lin(mode, quant, fq_cfg, fqf, s_act, lp["s_w2"], use_kernel,
+                    "s_w2_lin", t)
 
 
-def _routed_experts(cfg, fq_cfg, mode, lp, fqf, x_e, quant, use_kernel):
-    def lin(inp, key):
-        return _expert_linear(mode, quant, fq_cfg, inp, lp[key], use_kernel)
+def _routed_experts(cfg, fq_cfg, mode, lp, fqf, x_e, quant, use_kernel,
+                    stats=None):
+    calib = quant and mode == "calib"
 
-    act_e = silu(lin(x_e, "e_w1")) * lin(x_e, "e_w3")
+    def lin(inp, key, qa):
+        return _expert_linear(mode, quant, fq_cfg, inp, lp[key], use_kernel,
+                              fqf[key + "_lin"] if quant else None,
+                              qa if calib else None)
+
+    t1 = _trans(fqf, "w1_trans", quant)
+    act_e = silu(lin(x_e, "e_w1", t1)) * lin(x_e, "e_w3", t1)
+    if stats is not None:
+        stats["moe_down"] = _absmax(act_e, (0, 1))
     t = _trans(fqf, "routed_w2_trans", quant)
     if t is not None:
         act_e = apply_decompose(t, act_e)
-    return lin(act_e, "e_w2")
+    return lin(act_e, "e_w2", t)
 
 
 def _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, x,
@@ -604,9 +774,11 @@ def _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, x,
     return (y + z).reshape(B, S, D)
 
 
-def _ffn_moe(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True):
+def _ffn_moe(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None):
     """Dense-masked MoE: every expert on every token, outputs summed under
-    the routing matrix [T, E] (drop-free)."""
+    the routing matrix [T, E] (drop-free). stats gets "moe_in" and
+    "moe_down" (JAX records no statistic of the shared experts' down
+    input, so w2_trans keeps its diag init)."""
     B, S, D = x.shape
     quant = mode != "fp" and fqf is not None
     x2d = x.reshape(-1, D)
@@ -615,12 +787,15 @@ def _ffn_moe(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True):
     weights, indices = ds_gate(cfg, lp, x2d)
     route = torch.zeros((T, E), dtype=torch.float32, device=x.device)
     route.scatter_add_(1, indices, weights)
+    if stats is not None:
+        stats["moe_in"] = _absmax(x2d, (0,))
     h = x2d
     t = _trans(fqf, "w1_trans", quant)
     if t is not None:
         h = apply_decompose(t, h)
     down_e = _routed_experts(cfg, fq_cfg, mode, lp, fqf,
-                             h[None].expand(E, T, D), quant, use_kernel)
+                             h[None].expand(E, T, D), quant, use_kernel,
+                             stats)
     y = torch.einsum("etd,te->td", down_e.to(torch.float32),
                      route).to(x.dtype)
     z = _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel)
@@ -628,26 +803,33 @@ def _ffn_moe(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True):
 
 
 def ds_layer(cfg, fq_cfg, mode, lp, lfq, x, cos, sin, mask, moe: bool,
-             cache=None, pos=0, use_kernel=True):
+             cache=None, pos=0, use_kernel=True, with_stats: bool = False):
     """One layer: RMSNorm, MLA, residual; RMSNorm, dense FFN or MoE,
     residual. moe_impl "auto" takes the gather MoE in serve mode at
-    B*S >= 256 tokens, the dense-masked MoE otherwise."""
+    B*S >= 256 tokens, the dense-masked MoE otherwise (and always for the
+    statistics). with_stats: also return the per-channel absmax of every
+    transform's input, keyed qkv, wqb, wo, ffn_up, ffn_down, moe_in,
+    moe_down (the sq-style diag init's statistics)."""
+    stats = {} if with_stats else None
     fqa = lfq["attn"] if lfq is not None else None
     fqf = lfq["ffn"] if lfq is not None else None
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     x = x + ds_mla(cfg, fq_cfg, mode, lp, fqa, h, cos, sin, mask,
-                   cache=cache, pos=pos, use_kernel=use_kernel)
+                   cache=cache, pos=pos, use_kernel=use_kernel, stats=stats)
     h2 = rms_norm(x, lp["ffn_norm"], cfg.rms_eps)
-    if not moe:
-        return x + _ffn_dense(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel)
     impl = cfg.moe_impl
     if impl == "auto":
         B, S, _ = x.shape
         impl = "gather" if mode == "serve" and B * S >= 256 else "dense"
-    if impl == "gather":
-        return x + _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, h2,
-                                     cfg.moe_capacity_factor, use_kernel)
-    return x + _ffn_moe(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel)
+    if not moe:
+        out = x + _ffn_dense(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel,
+                             stats)
+    elif impl == "gather" and stats is None:
+        out = x + _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, h2,
+                                    cfg.moe_capacity_factor, use_kernel)
+    else:
+        out = x + _ffn_moe(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel, stats)
+    return (out, stats) if with_stats else out
 
 
 def _layers(cfg, fq_cfg, mode, params, fq, x, cos, sin, mask, cache, pos,
@@ -675,25 +857,30 @@ def _layers(cfg, fq_cfg, mode, params, fq, x, cos, sin, mask, cache, pos,
     return x
 
 
+def _causal(S: int, dev):
+    """[1, S, S] float32: 0 on and below the diagonal, -1e9 above."""
+    return torch.where(torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                             device=dev)), 0.0, -1e9)[None]
+
+
 @torch.no_grad()
 def deepseek_forward(cfg: DeepSeekConfig, params, tokens, fq=None,
                      fq_cfg=None, mode: str = "fp",
                      compute_dtype=torch.bfloat16, n_fp_tail: int = 0,
                      use_kernel: bool = True, device="cuda"):
     """Full-sequence forward -> float32 logits [B, S, V]. fq: (dense_fq,
-    moe_fq) lists of baked per-layer states, or None. mode "fp" or
-    "serve" (packed int4 params with their baked fq, or native-FP8 params
-    with fq=None); n_fp_tail > 0 runs the last n MoE layers in mode
-    "fp"."""
+    moe_fq) lists of per-layer states, or None. mode "fp", "calib" / "eval"
+    (raw weights with the fq state; "calib" with the baked state is
+    DeepSeek's eval) or "serve" (packed int4 params with their baked fq,
+    or native-FP8 params with fq=None); n_fp_tail > 0 runs the last n MoE
+    layers in mode "fp"."""
     dev = resolve_device(device)
     tokens = _as_tokens(tokens, dev)
     B, S = tokens.shape
     x = params["embed"][tokens].to(compute_dtype)
     cos, sin = ds_rope_tables(cfg, S, dev)
-    mask = torch.where(torch.tril(torch.ones((S, S), dtype=torch.bool,
-                                             device=dev)), 0.0, -1e9)[None]
-    x = _layers(cfg, fq_cfg, mode, params, fq, x, cos, sin, mask, None, 0,
-                use_kernel, n_fp_tail)
+    x = _layers(cfg, fq_cfg, mode, params, fq, x, cos, sin, _causal(S, dev),
+                None, 0, use_kernel, n_fp_tail)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return (x @ params["head"].T.to(x.dtype)).to(torch.float32)
 
@@ -807,14 +994,228 @@ def build_ds_fp8_serving_params(cfg: DeepSeekConfig, params: dict,
     }
 
 
-def build_ds_serving_params(*args, **kwargs):
-    """Packing DeepSeek to int4 with the FlatQuant weight fold (LWC clips,
-    transform_weight) and bake_ds_fq are the build chain's."""
-    raise NotImplementedError(f"build_ds_serving_params waits for {_BUILD}")
+def _pack(w, st, qa, fq_cfg):
+    """One weight [out, in] with its transform qa and LWC clips folded in
+    (float32), quantized per output channel and packed planar int4."""
+    wt = transform_weight(w, st, qa, None, fq_cfg.lwc)
+    scale, zero = weight_find_params(wt, fq_cfg.w_cfg)
+    q = weight_quantize_int(wt, scale, zero, fq_cfg.w_cfg)
+    return pack_weight_planar(q), scale[:, 0].to(torch.float32)
 
 
-def calibrate_deepseek(*args, **kwargs):
-    raise NotImplementedError(f"calibrate_deepseek waits for {_CALIB}")
+def _packed(w, st, qa, fq_cfg):
+    """{"wp", "scale"[, "a_clip"]} of one linear; an expert stack [E, out,
+    in] packs expert by expert with its own weight clips and shares the
+    activation clips."""
+    if w.dim() == 3:
+        def clip(c, e):
+            return None if c is None else c[e]
+
+        packs = [_pack(w[e], LinearQuantState(clip(st.clip_w_max, e),
+                                              clip(st.clip_w_min, e),
+                                              None, None), qa, fq_cfg)
+                 for e in range(w.shape[0])]
+        d = {"wp": torch.stack([p[0] for p in packs]),
+             "scale": torch.stack([p[1] for p in packs])}
+    else:
+        wp, scale = _pack(w, st, qa, fq_cfg)
+        d = {"wp": wp, "scale": scale}
+    if st is not None and st.clip_a_max is not None:
+        d["a_clip"] = (_clip_sigmoid(st.clip_a_max),
+                       _clip_sigmoid(st.clip_a_min))
+    return d
+
+
+# the transform folded into each packed weight, by weight key
+_ATTN_QA = {"wq": "qkv_trans", "wq_a": "qkv_trans", "wkv_a": "qkv_trans",
+            "wq_b": "wqb_trans", "wo": "wo_trans"}
+_FFN_QA = {"w1": "up_gate_trans", "w3": "up_gate_trans", "w2": "down_trans",
+           "s_w1": "w1_trans", "s_w3": "w1_trans", "e_w1": "w1_trans",
+           "e_w3": "w1_trans", "s_w2": "w2_trans", "e_w2": "routed_w2_trans"}
+
+
+def build_ds_serving_layer(cfg: DeepSeekConfig, fq_cfg, lp: dict,
+                           baked_lfq: dict, dtype=torch.bfloat16) -> dict:
+    """One layer of build_ds_serving_params: every linear `_linear` applies
+    packed with its baked transform and clips (wq / wq_a's state is
+    "wq_a_lin"); wkv_b in `dtype`; the norms and the gate as they are."""
+    out = dict(lp)
+    for key, v in lp.items():
+        if key in _ATTN_QA:
+            part, qa = baked_lfq["attn"], _ATTN_QA[key]
+            st_key = "wq_a_lin" if key == "wq" else key + "_lin"
+        elif key in _FFN_QA:
+            part, qa = baked_lfq["ffn"], _FFN_QA[key]
+            st_key = key + "_lin"
+        else:
+            continue
+        out[key] = _packed(v, part[st_key], part[qa], fq_cfg)
+    out["wkv_b"] = lp["wkv_b"].to(dtype)
+    return out
+
+
+def build_ds_serving_params(cfg: DeepSeekConfig, fq_cfg, params: dict,
+                            dense_fq, moe_fq, dtype=torch.bfloat16,
+                            perm_transforms: bool = False):
+    """Pack every quantized DeepSeek linear to planar int4 + scales with
+    its transform and LWC clips folded in; the baked transforms stay in
+    the returned state for the activation side. wkv_b stays unquantized
+    (deepseekv3_utils.py:171). Packs layer by layer, on the device that
+    holds params. Returns (serving params, (baked_dense, baked_moe));
+    serve with deepseek_forward(cfg, sp, toks, fq=baked, fq_cfg=fq_cfg,
+    mode="serve")."""
+    w_cfg = fq_cfg.w_cfg
+    if not (w_cfg.sym and w_cfg.group_size <= 0):
+        raise ValueError("packed DeepSeek serving takes symmetric per-channel "
+                         "weights")
+    baked_dense, baked_moe = bake_ds_fq(dense_fq, moe_fq, perm_transforms)
+    sp = {
+        "embed": params["embed"].to(dtype),
+        "final_norm": params["final_norm"].to(torch.float32),
+        "head": params["head"].to(dtype),
+        "dense_layers": [build_ds_serving_layer(cfg, fq_cfg, lp, b, dtype)
+                         for lp, b in zip(params["dense_layers"],
+                                          baked_dense)],
+        "moe_layers": [build_ds_serving_layer(cfg, fq_cfg, lp, b, dtype)
+                       for lp, b in zip(params["moe_layers"], baked_moe)],
+    }
+    return sp, (baked_dense, baked_moe)
+
+
+# ---------------------------------------------------------------------------
+# bake / labels / diag init / calibration
+# ---------------------------------------------------------------------------
+
+_TRANSFORMS = ("qkv_trans", "wqb_trans", "wo_trans", "up_gate_trans",
+               "down_trans", "w1_trans", "w2_trans", "routed_w2_trans")
+
+
+def _bake_layer(lfq: dict, perm: bool) -> dict:
+    return {part: {k: (bake_decompose(v, perm=perm)
+                       if k in _TRANSFORMS and v is not None else v)
+                   for k, v in d.items()} for part, d in lfq.items()}
+
+
+def bake_ds_fq(dense_fq, moe_fq, perm_transforms: bool = False):
+    """Freeze every transform (FlatQuantMLA.reparameterize only calls
+    to_eval_mode, deepseekv3_utils.py:283-296: weights are quantized on
+    the fly, so DeepSeek's eval is mode="calib" with baked transforms).
+    perm_transforms=True marks each baked transform with the transposed-
+    output layout. Returns (dense, moe) state lists of the same layout."""
+    def bake(layers):
+        return None if layers is None else [
+            _bake_layer(lfq, perm_transforms) for lfq in layers]
+
+    return bake(dense_fq), bake(moe_fq)
+
+
+def build_ds_labels(layer_fq: dict) -> dict:
+    """Param-group labels (trans | diag | clip_w | clip_a) for one layer."""
+    from flatquant_torch.calib.trainer import _label_decompose, _label_linear
+
+    def lab(k, v):
+        if v is None:
+            return None
+        return _label_decompose(v) if k in _TRANSFORMS else _label_linear(v)
+
+    return {part: {k: lab(k, v) for k, v in d.items()}
+            for part, d in layer_fq.items()}
+
+
+def ds_sq_init_diag(cfg: DeepSeekConfig, lp, layer_fq, stats, alpha: float):
+    """sq-style diag init of one layer's transforms (init_diag_scale
+    analog), each from the absmax of the weights it feeds and its input
+    statistic; a transform without a statistic keeps its diag (the shared
+    experts' down: JAX records no "moe_s_down")."""
+    from flatquant_torch.calib.trainer import _get_init_scale
+
+    def upd(trans, ws, key):
+        if trans is None or trans.diag_scale is None or key not in stats:
+            return trans
+        w_smax = torch.cat([w.to(torch.float32) for w in ws], 0).abs()
+        return dataclasses.replace(trans, diag_scale=_get_init_scale(
+            w_smax.amax(0), stats[key].to(torch.float32), alpha))
+
+    a = dict(layer_fq["attn"])
+    qkv = [lp["wkv_a"], lp["wq_a"] if "wq_a" in lp else lp["wq"]]
+    a["qkv_trans"] = upd(a["qkv_trans"], qkv, "qkv")
+    if a["wqb_trans"] is not None:
+        a["wqb_trans"] = upd(a["wqb_trans"], [lp["wq_b"]], "wqb")
+    a["wo_trans"] = upd(a["wo_trans"], [lp["wo"]], "wo")
+    f = dict(layer_fq["ffn"])
+    if not is_moe_fq(layer_fq):
+        f["up_gate_trans"] = upd(f["up_gate_trans"], [lp["w1"], lp["w3"]],
+                                 "ffn_up")
+        f["down_trans"] = upd(f["down_trans"], [lp["w2"]], "ffn_down")
+        return {"attn": a, "ffn": f}
+    f["w1_trans"] = upd(f["w1_trans"], [
+        lp["s_w1"], lp["s_w3"], lp["e_w1"].reshape(-1, cfg.dim),
+        lp["e_w3"].reshape(-1, cfg.dim)], "moe_in")
+    f["w2_trans"] = upd(f["w2_trans"], [lp["s_w2"]], "moe_s_down")
+    f["routed_w2_trans"] = upd(f["routed_w2_trans"], [
+        lp["e_w2"].reshape(-1, cfg.moe_inter_dim)], "moe_down")
+    return {"attn": a, "ffn": f}
+
+
+def calibrate_deepseek(cfg: DeepSeekConfig, fq_cfg, params, dense_fq, moe_fq,
+                       train_tokens, compute_dtype=None, log=print,
+                       save_cb=None, epochs=None, skip_last: int = 0,
+                       history: Optional[list] = None):
+    """Layer-wise DeepSeek calibration (main_dpskv3.py cali_flat_quant
+    analog) on the device that holds params: the dense layers first, then
+    the MoE layers from the dense layers' fp outputs (recomputed),
+    leaving the last `skip_last` MoE layers at their init (the
+    --v3_not_last analog). save_cb(i, (dense_fq, moe_fq)) after each MoE
+    layer. Returns (dense_fq, moe_fq)."""
+    from flatquant_torch.calib.trainer import (
+        calibrate_layers,
+        capture_embeddings,
+    )
+
+    if compute_dtype is None:
+        compute_dtype = torch.float32 if fq_cfg.deactive_amp \
+            else torch.bfloat16
+    dev = params["embed"].device
+    nsamples, seqlen = np.asarray(train_tokens).shape
+    cos, sin = ds_rope_tables(cfg, seqlen, dev)
+    mask = _causal(seqlen, dev)
+    inps = capture_embeddings(cfg, params, train_tokens, compute_dtype)
+
+    def mk_fns(moe: bool):
+        def fp_fn(lp, x):
+            return ds_layer(cfg, None, "fp", lp, None, x, cos, sin, mask,
+                            moe, with_stats=True)
+
+        def calib_fn(fq_l, lp, x):
+            return ds_layer(cfg, fq_cfg, "calib", lp, fq_l, x, cos, sin, mask,
+                            moe)
+
+        return fp_fn, calib_fn
+
+    def diag_init(lp, fq_l, stats):
+        return ds_sq_init_diag(cfg, lp, fq_l, stats, fq_cfg.diag_alpha)
+
+    fp_fn, calib_fn = mk_fns(False)
+    dense_fq = calibrate_layers(
+        fq_cfg, params["dense_layers"], dense_fq, inps, fp_fn, calib_fn,
+        build_ds_labels(dense_fq[0]), num_layers=cfg.n_dense_layers,
+        diag_init_fn=diag_init, log=lambda m: log("dense " + m),
+        epochs=epochs, history=history)
+    # the MoE layers' inputs: the dense layers' fp outputs
+    cur = inps
+    with torch.no_grad():
+        for lp in params["dense_layers"]:
+            cur = torch.cat([fp_fn(lp, cur[j:j + fq_cfg.cali_bsz])[0]
+                             for j in range(0, nsamples, fq_cfg.cali_bsz)])
+    fp_fn, calib_fn = mk_fns(True)
+    moe_fq = calibrate_layers(
+        fq_cfg, params["moe_layers"], moe_fq, cur, fp_fn, calib_fn,
+        build_ds_labels(moe_fq[0]),
+        num_layers=cfg.n_moe_layers - skip_last, diag_init_fn=diag_init,
+        log=lambda m: log("moe " + m),
+        save_cb=(lambda i, st: save_cb(i, (dense_fq, st))) if save_cb
+        else None, epochs=epochs, history=history)
+    return dense_fq, moe_fq
 
 
 # ---------------------------------------------------------------------------

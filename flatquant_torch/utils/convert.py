@@ -16,7 +16,6 @@ import numpy as np
 import torch
 
 from flatquant_torch.core import transforms as _tr
-from flatquant_torch.core.transforms import BakedDecompose
 from flatquant_torch.kernels.common import resolve_device
 from flatquant_torch.quantize import linear as _lin
 from flatquant_torch.quantize import state as _st
@@ -127,49 +126,25 @@ def from_jax_ds_serving_params(sp_numpy: dict, device="cuda") -> dict:
     return out
 
 
-_DS_TRANSFORMS = {"attn": ("qkv_trans", "wqb_trans", "wo_trans"),
-                  "ffn": ("up_gate_trans", "down_trans", "w1_trans",
-                          "w2_trans", "routed_w2_trans")}
-
-
-def _baked(t, i, dev):
-    if t is None:
-        return None
-    if not hasattr(t, "left_inv"):
-        raise ValueError(f"{type(t).__name__} is not baked: convert the "
-                         "output of bake_ds_fq / build_ds_serving_params")
-
-    def pick(a):
-        return None if a is None else _to_torch(np.asarray(a)[i], dev)
-
-    return BakedDecompose(left=pick(t.left), right=pick(t.right),
-                          left_inv=pick(t.left_inv),
-                          right_inv=pick(t.right_inv),
-                          diag_scale=pick(t.diag_scale),
-                          perm=bool(getattr(t, "perm", False)))
-
-
 def from_jax_ds_fq(fq_numpy, device="cuda"):
-    """JAX's baked DeepSeek state (dense_fq, moe_fq), stacks of
-    DSDenseLayerFQ / DSMoELayerFQ with numpy leaves (jax.tree.map(
-    np.asarray, baked)) -> the port's (dense_fq, moe_fq): lists of
-    per-layer {"attn": {...}, "ffn": {...}} dicts of BakedDecompose (None
-    where JAX has none). Only the transforms cross: the serving forward
-    reads no linear state."""
+    """JAX's DeepSeek state (dense_fq, moe_fq), raw (init_ds_fq,
+    calibrate_deepseek) or baked (bake_ds_fq, build_ds_serving_params),
+    stacks of DSDenseLayerFQ / DSMoELayerFQ with numpy leaves
+    (jax.tree.map(np.asarray, fq)) -> the port's (dense_fq, moe_fq):
+    lists of per-layer {"attn": {...}, "ffn": {...}} dicts keyed by the
+    dataclasses' fields in their order, transforms and linear states of
+    the same classes by name, values unchanged (None stays None)."""
     dev = resolve_device(device)
     out = []
     for stack in fq_numpy:
         if stack is None:
             out.append(None)
             continue
-        parts = {part: {k: getattr(getattr(stack, part), k)
-                        for k in keys if hasattr(getattr(stack, part), k)}
-                 for part, keys in _DS_TRANSFORMS.items()}
-        lefts = [t.left for p in parts.values() for t in p.values()
-                 if t is not None]
-        n = np.asarray(lefts[0]).shape[0] if lefts else 0
-        out.append([{part: {k: _baked(t, i, dev) for k, t in p.items()}
-                     for part, p in parts.items()} for i in range(n)])
+        n = _first_array(stack).shape[0]
+        out.append([{part: {f.name: _fq_layer(getattr(getattr(stack, part),
+                                                      f.name), i, dev)
+                            for f in dataclasses.fields(getattr(stack, part))}
+                     for part in ("attn", "ffn")} for i in range(n)])
     return tuple(out)
 
 

@@ -535,13 +535,48 @@ def test_ds_batcher_matches_jax(models, prefill):
 
 
 def test_ds_unported_parts_raise(models):
-    tp = models["tiny"]["raw"][2]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tds.deepseek_forward(tds.TINY_DEEPSEEK, tp, np.zeros((1, 4), int),
-                             fq=models["tiny"]["w4a4"][3], fq_cfg=W4A4,
-                             mode="calib", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tds.build_ds_serving_params(tds.TINY_DEEPSEEK, W4A4, tp, None, None)
+    """Calib mode on raw weights and build_ds_serving_params raised here
+    until the calibrate -> eval slice ported them; they now match JAX:
+    deepseek_forward in "calib" mode with the baked state (DeepSeek's
+    eval) from JAX's converted state, float32 logits within 1e-4 up to
+    rounding ties; the packed params from JAX's frozen state, codes equal
+    but at ties (share at most 1e-3, one code) and scales within 1e-6
+    relative (tests/test_torch_ds_calib.py has the reasons). What still
+    raises: the int4 latent cache, and a CUDA device on a host without
+    one."""
+    from flatquant_torch.kernels.int4_matmul import unpack_weight_planar
+
+    jp, tp = models["tiny"]["raw"][0], models["tiny"]["raw"][2]
+    jsp, jbaked, tsp_want, tbaked = models["tiny"]["w4a4"]
+    toks = np.random.default_rng(3).integers(0, 256, (2, 12))
+    jl = jax.jit(lambda p, f, t: jds.deepseek_forward(
+        jds.TINY_DEEPSEEK, p, t, fq=f, fq_cfg=J_W4A4, mode="calib",
+        compute_dtype=jnp.float32))(jp, jbaked, jnp.asarray(toks))
+    tl = tds.deepseek_forward(tds.TINY_DEEPSEEK, tp, toks, fq=tbaked,
+                              fq_cfg=W4A4, mode="calib",
+                              compute_dtype=torch.float32, device="cpu")
+    _close_up_to_ties(tl.numpy(), jl, "calib-mode logits")
+    tsp, _ = tds.build_ds_serving_params(tds.TINY_DEEPSEEK, W4A4, tp,
+                                         *tbaked, dtype=torch.float32)
+    flips = total = 0
+    for group in ("dense_layers", "moe_layers"):
+        for g, w in zip(tsp[group], tsp_want[group]):
+            assert set(g) == set(w)
+            for key, v in w.items():
+                if not isinstance(v, dict):
+                    assert torch.equal(g[key], v), key
+                    continue
+                d = (unpack_weight_planar(g[key]["wp"].flatten(0, -2)).int()
+                     - unpack_weight_planar(v["wp"].flatten(0, -2)).int())
+                assert d.abs().max() <= 1, key
+                flips += int((d != 0).sum())
+                total += d.numel()
+                np.testing.assert_allclose(g[key]["scale"].numpy(),
+                                           v["scale"].numpy(), rtol=1e-6)
+                for a, b in zip(g[key].get("a_clip", ()),
+                                v.get("a_clip", ())):
+                    assert torch.equal(a, b), key
+    assert flips <= 1e-3 * total, f"{flips} of {total} codes differ"
     with pytest.raises(ValueError, match="bf16"):
         tds.ds_init_batch_cache(tds.TINY_DEEPSEEK, 1, 8, mode="int4",
                                 device="cpu")
