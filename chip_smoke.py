@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 3j,12 # phases 1-2, 3j and 12
     python3 chip_smoke.py --phases 13    # phases 1-2 and 13
     python3 chip_smoke.py --phases 14    # phases 1-2 and 14
+    python3 chip_smoke.py --phases 15    # phases 1-2 and 15
 
 Phases (any failure makes the script exit non-zero without the final
 line):
@@ -204,6 +205,27 @@ line):
      steps timed and every w4a4_matmul_i8 launch checked bit for bit.
      Seconds per calibration step, teacher pass and GPTQ layer, and peak
      memory, printed.
+  15. the eval and exchange modules on llama-2-7b's seeded weights and
+     W4A4KV4 + tpu_decompose state: (d) model_flatness on layers 0 and 31
+     over 1 x 128 tokens, every norm finite; (a) the QuaRot model built
+     through the serving registry (Hadamard pairs (64, 64) and (172, 64),
+     unmerged: the fused routes decline), build s and peak memory, a
+     1 x 2048 prefill and 32 decode steps over the int4 cache timed, every
+     launch of the same held to its plain version; (b) 4 layers baked by
+     the port's chain, saved in the reference deploy packed format and
+     loaded back: codes, scales and transforms byte-equal to
+     build_serving_params' unmerged output, a 1 x 2048 prefill with every
+     launch checked; (c) batched_loglikelihood of 16 seeded pairs
+     (contexts 64-1900, continuations 1-32) in batches of 8 at max_len
+     2048 through serving_all_logits on both models, s per batch, every
+     launch checked, and batched_generate of 4 prompts (40-600 tokens, 16
+     new) on the QuaRot model, every launch checked; (e) an HF DeepSeek
+     FP8 checkpoint at DeepSeek-V2-Lite's widths (1 dense + 2 MoE layers)
+     written, loaded with keep_fp8 (the file's bytes in every fp8 weight)
+     and dequantized (s, peak memory), the FP8 load served (1 x 512 + 16
+     decode steps, every fp8_matmul launch of a prefill and two steps
+     checked), and the CLI run with --hf_path on it (RTN, one PPL chunk).
+     Every file is written under .chipscratch/ and removed.
   Each model is freed before the next is built. Then the kernel table as
   one JSON line, then the result line.
 
@@ -5345,6 +5367,616 @@ def run_calibrate_path(torch, dev, results, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the eval and exchange modules
+# ---------------------------------------------------------------------------
+
+# (c): 16 seeded (context, continuation) pairs, contexts of 64-1900 tokens
+# and continuations of 1-32, scored in batches of 8 at max_len 2048; (c)'s
+# generation: 4 prompts of 40-600 tokens, 16 new tokens each
+LL_PAIRS, LL_BATCH, LL_MAX_LEN = 16, 8, 2048
+GEN_PROMPTS, GEN_NEW = [40, 600, 150, 333], 16
+# launches per layer of one serving_all_logits forward (the bf16-cache
+# engine on the unmerged layout, S = 2048): seven GEMMs, quant_acts_i8
+# before down (K = 11008), flash on the [B, S, nkv, hd] layout
+ALL_LOGITS_LAUNCHES = {"w4a4_matmul_i8": 7, "quant_acts_i8": 1,
+                       "flash_prefill_attention": 1}
+# (e): DeepSeek-V2-Lite's widths (DeepSeekConfig()) cut to 1 dense + 2 MoE
+# layers, its prefill and decode
+DS_FIXTURE_LAYERS, DS_PROMPT, DS_NEW = 3, 512, 16
+# (a): llama-2-7b's Hadamard pairs, (hidden, intermediate) -> the (left,
+# right) orders of ln_t and down_t: 4096 splits as a power of two, 11008
+# as the published order 172 times 64
+QUAROT_PAIRS = {(4096, 11008): [(64, 64), (172, 64)]}
+DS_CLI_ARGV = ["--model", "deepseek-v2-lite", "--w_bits", "4", "--a_bits",
+               "4", "--nsamples", "1", "--seqlen", "512", "--eval_ppl"]
+
+
+def _peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _ll_pairs(vocab, seed=15):
+    """LL_PAIRS seeded pairs: the first two at the extremes (64 + 1 and
+    1900 + 32 tokens)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ctx = rng.integers(64, 1901, LL_PAIRS)
+    cont = rng.integers(1, 33, LL_PAIRS)
+    ctx[:2], cont[:2] = (64, 1900), (1, 32)
+    return [(rng.integers(0, vocab, c).tolist(),
+             rng.integers(0, vocab, n).tolist()) for c, n in zip(ctx, cont)]
+
+
+def _scored(torch, cfg, fq, sp, pairs, label):
+    """batched_loglikelihood over `pairs` through serving_all_logits
+    (use_kernel=True, bf16): first timed (each batch's forward on the host
+    clock up to torch.cuda.synchronize(), launch counts set to 0 just
+    before and read after), then again with every launch held to its
+    plain version (_prefill_checks); both runs' results equal, each sum
+    finite and at most 0. Returns the record and the timed run's
+    launches."""
+    from flatquant_torch.evals.tasks import batched_loglikelihood
+    from flatquant_torch.kernels import common
+    from flatquant_torch.serving import engine
+
+    fwd, times = engine.serving_all_logits, []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fwd(*a, **k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    kw = dict(batch_size=LL_BATCH, max_len=LL_MAX_LEN, serving_params=sp,
+              use_kernel=True)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    with patched([(engine, "serving_all_logits", timed)]):
+        res = batched_loglikelihood(cfg, None, None, fq, "eval", pairs, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    n_batches = -(-len(pairs) // LL_BATCH)
+    if not all(math.isfinite(v) and v <= 0 for v, _ in res):
+        raise AssertionError(f"{label}: loglikelihoods {res}")
+    n = dict.fromkeys(PREFILL_CHECKED, 0)
+    worst = dict.fromkeys(PREFILL_CHECKED, 0.0)
+    with patched(_prefill_checks(torch, n, worst)):
+        again = batched_loglikelihood(cfg, None, None, fq, "eval", pairs,
+                                      **kw)
+    torch.cuda.synchronize()
+    _check_counts(n, ALL_LOGITS_LAUNCHES, cfg.num_layers * n_batches,
+                  f"{label} loglikelihood")
+    _check_counts({k: launches.get(k, 0) for k in n}, ALL_LOGITS_LAUNCHES,
+                  cfg.num_layers * n_batches, f"{label} loglikelihood (timed)")
+    if again != res:
+        raise AssertionError(f"{label}: the checked run scored otherwise")
+    log(f"  {label}: {len(pairs)} pairs in {n_batches} batches of "
+        f"{LL_BATCH} x {LL_MAX_LEN}: {wall:.2f} s in all, forward s per "
+        f"batch {[round(t, 3) for t in times]}; greedy "
+        f"{sum(g for _, g in res)} of {len(res)}; launches {launches}, "
+        f"every one held to its plain version (max abs err "
+        f"{ {k: v for k, v in worst.items() if n[k]} })")
+    return dict(wall_s=wall, forward_s=times, results=res, launches=launches,
+                per_launch_checks=dict(launches=n, max_abs_err=worst)), \
+        launches
+
+
+def _generated(torch, cfg, fq, sp, dev):
+    """batched_generate of GEN_PROMPTS (JAX's arguments: the batcher's
+    default bf16 cache, float32 compute, buckets of 16) with
+    use_kernel=True, every launch held to its plain version; 16 tokens
+    a prompt inside the vocabulary."""
+    from flatquant_torch.evals.tasks import batched_generate
+    from flatquant_torch.kernels import common
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    prompts = [torch.randint(0, cfg.vocab_size, (p,), generator=gen,
+                             device=dev).tolist() for p in GEN_PROMPTS]
+    n = dict.fromkeys(PREFILL_CHECKED, 0)
+    worst = dict.fromkeys(PREFILL_CHECKED, 0.0)
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    with patched(_prefill_checks(torch, n, worst)):
+        outs = batched_generate(cfg, fq, sp, prompts, max_new_tokens=GEN_NEW,
+                                use_kernel=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in common.LAUNCHES.items() if v}
+    if [len(t) for t in outs] != [GEN_NEW] * len(prompts) or not all(
+            0 <= x < cfg.vocab_size for t in outs for x in t):
+        raise AssertionError(f"batched_generate gave {outs}")
+    if {k: v for k, v in n.items() if v} != launches:
+        raise AssertionError(f"batched_generate: launches {launches}, "
+                             f"checked {n}")
+    log(f"  batched_generate, {len(prompts)} prompts ({GEN_PROMPTS} tokens, "
+        f"{GEN_NEW} new), float32 compute, with every launch checked: "
+        f"{wall:.2f} s; launches {launches}; max abs err "
+        f"{ {k: v for k, v in worst.items() if n[k]} }")
+    return dict(wall_s_checked=wall, tokens=outs, launches=launches,
+                per_launch_checks=dict(launches=n, max_abs_err=worst)), \
+        launches
+
+
+CACHE_INVERSES = ("k_t_inv", "v_t_inv")
+
+
+def _packs_equal(torch, got, want, label):
+    """Every tensor of two serving params byte for byte, top-level and per
+    layer (codes, scales, clip ratios, biases, transforms, norms, embed,
+    head), the key sets equal; the recomputed cache inverses' elements
+    that differ are counted and returned."""
+    def same(a, b, where):
+        if isinstance(a, dict) or isinstance(b, dict):
+            if set(a) != set(b):
+                raise AssertionError(f"{label} {where}: keys {set(a) ^ set(b)}")
+            for k in a:
+                same(a[k], b[k], f"{where} {k}")
+        elif isinstance(a, (tuple, list)):
+            if len(a) != len(b):
+                raise AssertionError(f"{label} {where}: lengths differ")
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{where}[{i}]")
+        elif not (a.dtype == b.dtype and torch.equal(a, b)):
+            raise AssertionError(f"{label} {where} not byte-equal")
+
+    same({k: v for k, v in got.items() if k != "layers"},
+         {k: v for k, v in want.items() if k != "layers"}, "top")
+    if len(got["layers"]) != len(want["layers"]):
+        raise AssertionError(f"{label}: layer counts differ")
+    inv_diff = 0
+    for i, (g, w) in enumerate(zip(got["layers"], want["layers"])):
+        same({k: v for k, v in g.items() if k not in CACHE_INVERSES},
+             {k: v for k, v in w.items() if k not in CACHE_INVERSES},
+             f"layer {i}")
+        for key in CACHE_INVERSES:
+            inv_diff += int((g[key] != w[key]).sum())
+    return inv_diff
+
+
+def _fp8_routes(sp):
+    """(kernel, plain-route) fp8 linears per forward: a dict whose K is
+    128-aligned in 128-blocks takes fp8_matmul, any other fp8_matmul_ref
+    (fp8_linear's dispatch)."""
+    kern = ref = 0
+    for lp in sp["dense_layers"] + sp["moe_layers"]:
+        for v in lp.values():
+            if isinstance(v, dict) and "w8" in v:
+                k = v["w8"].shape[-1]
+                if k % 128 == 0 and k // v["se"].shape[-2] == 128:
+                    kern += 1
+                else:
+                    ref += 1
+    return kern, ref
+
+
+def _hf_linears(sf, cfg, sp):
+    """(file name, the loaded linear) of every fp8 weight with tile
+    scales but wkv_b (which every load dequantizes); a routed expert is
+    taken at its index of the stack."""
+    from flatquant_torch.models import ds_loader as dl
+
+    maps = {**dl._ATTN_MAP, **dl._FFN_MAP, **dl._SHARED_MAP}
+    nd = cfg.n_dense_layers
+    for name in sf.keys():
+        if (name + "_scale_inv" not in sf.keys()
+                or name.endswith("kv_b_proj.weight")):
+            continue
+        li, sub = name[len("model.layers."):].split(".", 1)
+        li = int(li)
+        lp = sp["dense_layers"][li] if li < nd else sp["moe_layers"][li - nd]
+        if sub.startswith("mlp.experts."):
+            e, proj = sub[len("mlp.experts."):].split(".", 1)
+            v, e = lp[dl._EXPERT_MAP[proj.removesuffix(".weight")]], int(e)
+            yield name, ({k: t[e] for k, t in v.items()}
+                         if isinstance(v, dict) else v[e])
+        else:
+            yield name, lp[maps[sub]]
+
+
+def _loads_hold_the_file(torch, path, sp, cfg, keep_fp8):
+    """keep_fp8: every fp8 linear holds the file's own e4m3 bytes and
+    expand_fp8_scales of its tile scales; dequantized: every fp8 linear
+    is the file's codes times its tile scales, bit for bit. Returns the
+    count of weights compared."""
+    from flatquant_torch.kernels import fp8_matmul as f8
+    from flatquant_torch.native.safetensors_io import SafetensorsFile
+
+    n = 0
+    with SafetensorsFile(path, sp["embed"].device) as sf:
+        for name, got in _hf_linears(sf, cfg, sp):
+            raw = sf.raw(name)[0]
+            sc = sf.tensor_f32(name + "_scale_inv")
+            rows, cols = raw.shape
+            if keep_fp8:
+                ok = (torch.equal(got["w8"].view(torch.uint8), raw)
+                      and torch.equal(got["se"], f8.expand_fp8_scales(
+                          sc, rows, cols)))
+            else:
+                tiles = sc.repeat_interleave(128, 0)[:rows].repeat_interleave(
+                    128, 1)[:, :cols]
+                ok = torch.equal(got, f8.decode_e4m3(
+                    raw.view(torch.float8_e4m3fn)) * tiles)
+            if not ok:
+                raise AssertionError(f"{name}: the loaded weight is not the "
+                                     "file's")
+            n += 1
+    return n
+
+
+def run_deepseek_load_path(torch, dev, smi, cfg=None):
+    """Phase 15 (e): write_hf_deepseek_fixture at DeepSeek-V2-Lite's widths
+    (fp8 weights in 128-tiles, seeded on the card) into a scratch
+    directory twice: DS_FIXTURE_LAYERS layers (1 dense + 2 MoE) and the
+    MoE layers alone. The first loads dequantized (timed, peak memory;
+    every fp8 weight the file's codes times its tile scales) and is
+    refused with keep_fp8=True, as JAX's loader refuses it (the dense
+    down projection's K = 10944 is no multiple of 128); the CLI runs with
+    --hf_path on it (RTN, one PPL chunk). The second, all of whose fp8
+    linears row 16 serves, loads with keep_fp8=True (timed; every fp8
+    linear the file's bytes and expanded scales) and is served
+    (deepseek_generate of 1 x DS_PROMPT and DS_NEW decode steps, serve
+    mode, bf16) with its launches counted and every fp8_matmul launch of
+    a prefill and two steps held to its plain version. The directory is
+    removed after. Returns the FP8 run's launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from flatquant_torch import main as cli
+    from flatquant_torch.calib import data as cdata
+    from flatquant_torch.kernels import fp8_matmul as f8
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.models.ds_loader import (
+        ds_config_from_hf_json, load_hf_deepseek, write_hf_deepseek_fixture)
+
+    cfg = dataclasses.replace(_ds_cfg(cfg), n_layers=DS_FIXTURE_LAYERS)
+    fixtures = {"hf": cfg, "hf_moe": dataclasses.replace(
+        cfg, n_layers=cfg.n_moe_layers, n_dense_layers=0)}
+    scratch = os.path.abspath(".chipscratch")
+    os.makedirs(scratch, exist_ok=True)
+    root = tempfile.mkdtemp(dir=scratch, prefix="phase15_")
+    rec, cfgs, shards = {}, {}, {}
+    try:
+        for sub, c in fixtures.items():
+            path = os.path.join(root, sub)
+            t0 = time.perf_counter()
+            write_hf_deepseek_fixture(path, c, seed=0, device=dev)
+            files = sorted(os.listdir(path))
+            rec[sub] = dict(write_s=time.perf_counter() - t0, gib=sum(
+                os.path.getsize(os.path.join(path, f)) for f in files)
+                / 2**30)
+            cfgs[sub] = ds_config_from_hf_json(path, name=cfg.name)
+            shards[sub] = os.path.join(path, files[-1])
+        for sub, key, keep in (("hf", "dequantized", False),
+                               ("hf_moe", "fp8", True)):
+            lcfg = cfgs[sub]
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() / 2**30
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sp = load_hf_deepseek(os.path.join(root, sub), lcfg,
+                                  keep_fp8=keep, device=dev)
+            torch.cuda.synchronize()
+            rec[key] = dict(load_s=time.perf_counter() - t0,
+                            peak_gib=_peak_gib(torch), base_gib=base,
+                            held_gib=torch.cuda.memory_allocated() / 2**30
+                            - base, weights_compared=_loads_hold_the_file(
+                                torch, shards[sub], sp, lcfg, keep))
+            log(f"  [{smi}] (e) load_hf_deepseek ({key}), "
+                f"{lcfg.n_dense_layers} dense + {lcfg.n_moe_layers} MoE "
+                f"layers of {lcfg.name}'s widths, {rec[sub]['gib']:.2f} GiB "
+                f"on disk (written in {rec[sub]['write_s']:.1f} s): "
+                f"{rec[key]['load_s']:.1f} s, peak {rec[key]['peak_gib']:.2f}"
+                f" GiB, holding {rec[key]['held_gib']:.2f} GiB; all "
+                f"{rec[key]['weights_compared']} fp8 weights hold the file's "
+                + ("bytes and expanded scales" if keep else
+                   "codes times tile scales"))
+            if keep:
+                fp8 = sp
+            del sp
+        try:
+            load_hf_deepseek(os.path.join(root, "hf"), cfgs["hf"],
+                             keep_fp8=True, device=dev)
+        except ValueError as e:
+            if f"K={cfg.inter_dim}" not in str(e):
+                raise
+            log(f"  (e) keep_fp8 on the dense layer refused, as JAX's: {e}")
+        else:
+            raise AssertionError("(e) keep_fp8 kept a K of "
+                                 f"{cfg.inter_dim}, which JAX refuses")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        lcfg = cfgs["hf_moe"]
+        gen = torch.Generator(device=dev).manual_seed(17)
+        prompt = torch.randint(0, lcfg.vocab_size, (1, DS_PROMPT),
+                               generator=gen, device=dev)
+        max_len = DS_PROMPT + DS_NEW + 16
+        run = _timed_generate(torch, lcfg, None, None, fp8, prompt, DS_NEW,
+                              max_len, dev)
+        kern, ref = _fp8_routes(fp8)
+        if (ref or run["prefill_launches"] != {"fp8_matmul": kern}
+                or run["launches"] != {"fp8_matmul": kern * (1 + DS_NEW)}
+                or run["ref_route_calls"]):
+            raise AssertionError(f"(e) launches {run['launches']}, "
+                                 f"plain-route calls {run['ref_route_calls']}"
+                                 f" ({ref} linears off the kernel's blocks); "
+                                 f"expected {kern} a forward and none")
+        step_kw = dict(max_len=max_len, compute_dtype=torch.bfloat16)
+        n, worst = [0], [0.0]
+        with patched([(f8, "fp8_matmul", _checked_fp8(torch, n, worst))]):
+            c = ds.init_ds_cache(lcfg, 1, max_len, device=dev)
+            lg, c = ds._ds_step(lcfg, None, "serve", fp8, None, prompt, c, 0,
+                                **step_kw)
+            for i in range(2):
+                lg, c = ds._ds_step(lcfg, None, "serve", fp8, None,
+                                    lg.argmax(-1, keepdim=True), c,
+                                    DS_PROMPT + i, **step_kw)
+            torch.cuda.synchronize()
+        if n[0] != 3 * kern:
+            raise AssertionError(f"(e) {n[0]} fp8_matmul launches checked, "
+                                 f"expected {3 * kern}")
+        log(f"  [{smi}] (e) the FP8 load served: prefill 1 x {DS_PROMPT} "
+            f"{run['prefill_ms']:.1f} ms, decode median "
+            f"{run['decode_ms']:.2f} ms/step ({DS_NEW} steps); launches "
+            f"{run['launches']} ({kern} a forward, no fp8_matmul_ref "
+            f"route), by body {run['fp8_bodies']}; "
+            f"every fp8_matmul launch of a prefill and 2 steps held to its "
+            f"plain version ({n[0]}, max abs err {worst[0]:.3e})")
+        rec["served"] = dict(per_launch_checks=dict(launches=n[0],
+                                                    max_abs_err=worst[0]),
+                             **run)
+        launches = run["launches"]
+        del fp8, c, lg
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the CLI on the fixture: RTN, one PPL chunk of 512 tokens
+        orig = cdata.get_loaders
+        argv = DS_CLI_ARGV + ["--hf_path", os.path.join(root, "hf"),
+                              "--output_dir",
+                              os.path.join(root, "out")] + (
+            ["--platform", "cpu"] if dev.type == "cpu" else [])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with patched([(cdata, "get_loaders", lambda *a, **k: orig(
+                *a, **dict(k, n_test_tokens=DS_PROMPT)))]):
+            out = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ppl = out["ppl"]["synthetic"]
+        if not math.isfinite(ppl) or "load" not in out["seconds"]:
+            raise AssertionError(f"(e) the CLI's PPL {ppl}, stages "
+                                 f"{out['seconds']}")
+        rec["cli"] = dict(wall_s=wall, seconds=out["seconds"], ppl=ppl,
+                          peak_gib=_peak_gib(torch), argv=DS_CLI_ARGV)
+        log(f"  [{smi}] (e) the CLI with --hf_path ({' '.join(DS_CLI_ARGV)}"
+            f"): {wall:.1f} s, by stage {out['seconds']}, synthetic PPL "
+            f"{ppl:.4f}, peak {rec['cli']['peak_gib']:.2f} GiB")
+        del out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rec, launches
+
+
+def run_eval_exchange_path(torch, dev, results, smi):
+    """Phase 15: the eval and exchange modules at full width on one card.
+    llama-2-7b's seeded fp weights and W4A4KV4 + tpu_decompose state
+    (init_params, init_model_fq on the card) feed:
+    (d) model_flatness on layers 0 and 31 over 1 x 128 tokens, every
+        method's norms finite (no plot: the card's machine has no
+        matplotlib);
+    (a) the QuaRot model through the registry
+        (get_serving_builder("LlamaQuaRotForCausalLM"), Hadamard pairs
+        (64, 64) and (172, 64), the unmerged layout: the fused routes
+        decline), 32 layers: build s and peak memory; a 1 x 2048 prefill
+        and 32 decode steps over the int4 cache, timed; every launch of the
+        same (a prefill and 32 steps) held to its plain version;
+    (b) the port's chain (bake_model) at 4 layers, saved in the reference
+        deploy packed format (save_reference_packed) and loaded back
+        (load_reference_packed): every tensor but the recomputed cache
+        inverses byte-equal to build_serving_params' unmerged output, and
+        with the direct build's inverses swapped in, prefill logits
+        bit-identical to its; a 1 x 2048 prefill of the loaded model with
+        every launch checked; the file removed;
+    (c) batched_loglikelihood of LL_PAIRS pairs (batches of 8 at max_len
+        2048) through serving_all_logits on the QuaRot model and on (b)'s
+        loaded model, timed, then with every launch checked; and
+        batched_generate of 4 prompts (16 new tokens) on the QuaRot model,
+        every launch checked;
+    (e) the HF DeepSeek FP8 loader (run_deepseek_load_path).
+    Returns the launches of the timed runs by path."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from flatquant_torch.evals.flatness import model_flatness
+    from flatquant_torch.models.config import get_config
+    from flatquant_torch.models.llama import init_params
+    from flatquant_torch.quantize.bake import bake_model
+    from flatquant_torch.quantize.spec import W4A4KV4
+    from flatquant_torch.quantize.state import init_model_fq
+    from flatquant_torch.serving.engine import init_cache, serving_prefill
+    from flatquant_torch.serving.quantized import build_serving_params
+    from flatquant_torch.serving.registry import get_serving_builder
+    from flatquant_torch.utils.reference_convert import (
+        load_reference_packed, save_reference_packed)
+
+    cfg = get_config("llama-2-7b")
+    fq = dataclasses.replace(W4A4KV4, tpu_decompose=True)
+    L = cfg.num_layers
+    rec, paths = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    state = init_model_fq(cfg, fq, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    # (d) flatness
+    gen = torch.Generator(device=dev).manual_seed(18)
+    toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen,
+                         device=dev)
+    t0 = time.perf_counter()
+    flat = model_flatness(cfg, params, state, toks, layers=(0, L - 1))
+    flat_s = time.perf_counter() - t0
+    peaks = {}
+    for layer, methods in flat.items():
+        if set(methods) != {"vanilla", "hadamard", "smoothquant",
+                            "flatquant"}:
+            raise AssertionError(f"(d) layer {layer}: methods {set(methods)}")
+        for method, kinds in methods.items():
+            for kind, v in kinds.items():
+                if v.shape != (cfg.hidden_size,) or not np.isfinite(v).all():
+                    raise AssertionError(f"(d) layer {layer} {method} {kind}"
+                                         ": norms not finite or misshapen")
+            peaks[f"{layer}/{method}"] = float(kinds["act"].max()
+                                               / kinds["act"].mean())
+    log(f"  [{smi}] (d) model_flatness, layers (0, {L - 1}) over 1 x 128: "
+        f"{flat_s:.2f} s; every norm finite; act max / mean {peaks}")
+    rec["flatness"] = dict(seconds=flat_s, act_peakiness=peaks)
+
+    # (a) QuaRot, built through the registry
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    sp_q = get_serving_builder("LlamaQuaRotForCausalLM")(cfg, fq, params)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = _peak_gib(torch)
+    pairs_shape = [tuple(t.shape[0] for t in sp_q["layers"][0][k])
+                   for k in ("ln_t", "down_t")]
+    want = QUAROT_PAIRS.get((cfg.hidden_size, cfg.intermediate_size))
+    if (want is not None and pairs_shape != want) or "qkv" in sp_q[
+            "layers"][0]:
+        raise AssertionError(f"(a) QuaRot pairs {pairs_shape}, expected "
+                             f"{want}, unmerged")
+    log(f"  [{smi}] (a) QuaRot llama-2-7b ({L} layers) built in "
+        f"{build_s:.1f} s (seeded weights and FQ state {init_s:.1f} s "
+        f"before), max_memory_allocated {build_peak:.2f} GiB "
+        f"({base:.2f} GiB held before: the fp weights), packed "
+        f"{_nbytes(sp_q) / 2**30:.2f} GiB; Hadamard pairs ln {pairs_shape[0]}"
+        f", down {pairs_shape[1]}")
+
+    # (b) the port's chain at 4 layers -> the deploy packed format and back
+    cfg4 = dataclasses.replace(cfg, num_layers=min(4, L))
+    n4 = cfg4.num_layers
+    t0 = time.perf_counter()
+    baked, bfq = bake_model(cfg4, fq, dict(params, layers=params["layers"]
+                                           [:n4]), state[:n4])
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    direct = build_serving_params(cfg4, fq, baked, bfq)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    scratch = os.path.abspath(".chipscratch")
+    os.makedirs(scratch, exist_ok=True)
+    root = tempfile.mkdtemp(dir=scratch, prefix="phase15_")
+    try:
+        path = os.path.join(root, "deploy_packed.safetensors")
+        t0 = time.perf_counter()
+        save_reference_packed(path, cfg4, fq, baked, bfq)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path) / 2**30
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_reference_packed(path, cfg4, fq, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del baked, bfq
+    inv_diff = _packs_equal(torch, loaded, direct, "(b)")
+    B, S, NEW, MAX_LEN = 1, 2048, 32, 2304
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    kw = dict(max_len=MAX_LEN, device=dev)
+    checks_b = check_prefill_launches(torch, cfg4, fq, loaded, prompt, kw,
+                                      UNMERGED_PREFILL)
+    # the loaded model with the direct build's inverses: nothing else
+    # differs, so its logits must be the direct build's bit for bit
+    swapped = dict(loaded, layers=[dict(g, **{k: d[k] for k in
+                                              CACHE_INVERSES})
+                                   for g, d in zip(loaded["layers"],
+                                                   direct["layers"])])
+    lg = [serving_prefill(cfg4, fq, x, prompt, init_cache(
+        cfg4, B, MAX_LEN, mode="int4", device=dev), **kw)[0]
+        for x in (direct, swapped, loaded)]
+    if not torch.equal(lg[1], lg[0]):
+        raise AssertionError("(b) the loaded model with the direct build's "
+                             "cache inverses gives other prefill logits")
+    same = bool(torch.equal(lg[2], lg[0]))
+    log(f"  [{smi}] (b) {n4} layers baked and packed in {chain_s:.1f} s; "
+        f"save_reference_packed {save_s:.1f} s ({size:.2f} GiB), "
+        f"load_reference_packed {load_s:.1f} s; every tensor but the "
+        f"recomputed cache inverses byte-equal to build_serving_params' "
+        f"unmerged output (codes, scales, clips, transforms, norms, embed, "
+        f"head); with the direct build's inverses swapped in, prefill "
+        f"logits bit-identical to the direct build's; the recomputed "
+        f"inverses: {inv_diff} bf16 elements differ, logits "
+        f"{'bit-identical' if same else 'differ'} (cosine "
+        f"{_cosine(torch, lg[2], lg[0]):.6f})")
+    rec["reference_packed"] = dict(
+        chain_s=chain_s, save_s=save_s, load_s=load_s, file_gib=size,
+        inverse_elements_differing=inv_diff, swapped_logits_identical=True,
+        logits_identical=same, per_launch_checks=checks_b)
+    del direct, swapped, lg
+
+    # (a) serving the QuaRot model
+    run = _timed_serving(torch, cfg, fq, sp_q, prompt, NEW, kw, "int4")
+    del run["cache"], run["tok"]
+    _check_counts({k: run["prefill_launches"].get(k, 0)
+                   for k in UNMERGED_PREFILL}, UNMERGED_PREFILL, L,
+                  "(a) prefill")
+    log(f"  [{smi}] (a) QuaRot prefill B={B} S={S} {run['prefill_ms']:.1f} "
+        f"ms, decode median {run['decode_ms']:.2f} ms/step ({NEW} steps); "
+        f"launches {run['launches']}")
+    checks_a = check_every_launch(torch, cfg, fq, sp_q, prompt, kw, NEW,
+                                  UNMERGED_PREFILL, UNMERGED_STEP,
+                                  "(a) QuaRot")
+    rec["quarot"] = dict(init_s=init_s, build_s=build_s,
+                         build_peak_gib=build_peak, held_before_gib=base,
+                         packed_gib=_nbytes(sp_q) / 2**30,
+                         per_launch_checks=checks_a, **run)
+    paths["eval_quarot"] = run["launches"]
+
+    # (c) loglikelihood on both models, generation on QuaRot
+    pairs = _ll_pairs(cfg.vocab_size)
+    rec["loglikelihood_quarot"], paths["eval_ll_quarot"] = _scored(
+        torch, cfg, fq, sp_q, pairs, f"(c) QuaRot, {L} layers")
+    rec["loglikelihood_flatquant"], paths["eval_ll_flatquant"] = _scored(
+        torch, cfg4, fq, loaded, pairs, f"(c) FlatQuant (b), {n4} layers")
+    rec["generate"], paths["eval_generate"] = _generated(torch, cfg, fq,
+                                                         sp_q, dev)
+    del sp_q, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the HF DeepSeek FP8 loader
+    rec["deepseek_load"], paths["eval_deepseek_fp8"] = \
+        run_deepseek_load_path(torch, dev, smi)
+    results["eval_exchange_path"] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -5597,7 +6229,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
                     help="comma-separated phases to run after 1-2 (3a-3j, "
-                    "3 for all of them, 4-14; 6 runs 6a-6c); the default "
+                    "3 for all of them, 4-15; 6 runs 6a-6c); the default "
                     "is all. A partial run prints no kernel table")
     args = ap.parse_args(argv)
     only = set(filter(None, args.phases.split(",")))
@@ -5750,6 +6382,12 @@ def main(argv=None) -> int:
             "qwen-2.5-0.5b; calibration, GPTQ and serving at llama-2-7b and "
             "DeepSeek-V2-Lite widths)", run_calibrate_path, torch, dev,
             results, smi) or {})
+    if serve and want("15"):
+        paths.update(phase(
+            "phase 15: the eval and exchange modules (QuaRot serving through "
+            "the registry, the deploy packed format, loglikelihood and "
+            "generation, flatness, the HF DeepSeek FP8 loader)",
+            run_eval_exchange_path, torch, dev, results, smi) or {})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,

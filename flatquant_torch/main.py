@@ -12,10 +12,11 @@ It takes the JAX CLI's flags; --platform cpu runs everything on the CPU
 (the plain versions), and without it a host with no card raises. Works
 offline: --model tiny-llama with synthetic data exercises the whole
 pipeline; --hf_path loads a local HF Llama/Qwen checkpoint directory.
-Artifacts are written in the JAX package's formats, so each package
-loads the other's. Not ported yet (they raise): --lm_eval and
---plot_flatness (ROADMAP queue 1 item 7), --hf_path with a DeepSeek model
-(item 5).
+--hf_path with a DeepSeek model loads an HF DeepSeek checkpoint
+(models/ds_loader.py, fp8 tiles dequantized). Artifacts are written in
+the JAX package's formats, so each package loads the other's. --lm_eval
+needs the lm-eval package and its task data, --plot_flatness matplotlib
+(each imported only when its flag is given, as JAX's CLI does).
 """
 
 from __future__ import annotations
@@ -119,27 +120,13 @@ def _device(platform):
     return torch.device("cuda")
 
 
-def _unported(args, is_deepseek):
-    if args.lm_eval is not None:
-        raise NotImplementedError("--lm_eval (evals/tasks.py) waits for "
-                                  "ROADMAP queue 1 item 7")
-    if args.plot_flatness:
-        raise NotImplementedError("--plot_flatness (evals/flatness.py) waits "
-                                  "for ROADMAP queue 1 item 7")
-    if is_deepseek and args.hf_path:
-        raise NotImplementedError("--hf_path with a DeepSeek model "
-                                  "(models/ds_loader.py) waits for ROADMAP "
-                                  "queue 1 item 5")
-
-
 def main(argv=None) -> dict:
     """Run the pipeline; returns a summary: "exp_dir", "cfg", "fq_cfg",
     "seconds" by stage, "ppl" by dataset, the demo's "prompt" and
-    "tokens", and the model's "params" / "fq" / "serving" objects where
-    they were made."""
+    "tokens", the "lm_eval" summary, the "flatness" norms, and the
+    model's "params" / "fq" / "serving" objects where they were made."""
     args = parser_gen().parse_args(argv)
     is_deepseek = "deepseek" in args.model
-    _unported(args, is_deepseek)
     dev = _device(args.platform)
 
     import numpy as np
@@ -208,10 +195,21 @@ def main(argv=None) -> dict:
             init_ds_params,
         )
 
-        cfg = {"deepseek-v3": DEEPSEEK_V3,
-               "tiny-deepseek": TINY_DEEPSEEK}[args.model]
-        params = init_ds_params(cfg, seed=args.seed, device=dev)
-        log.info(f"random-init DeepSeek model {args.model}")
+        if args.hf_path:
+            from flatquant_torch.models.ds_loader import (
+                ds_config_from_hf_json,
+                load_hf_deepseek,
+            )
+
+            cfg = ds_config_from_hf_json(args.hf_path, name=args.model)
+            params = timed("load", load_hf_deepseek, args.hf_path, cfg,
+                           device=dev)
+            log.info(f"loaded HF DeepSeek checkpoint from {args.hf_path}")
+        else:
+            cfg = {"deepseek-v3": DEEPSEEK_V3,
+                   "tiny-deepseek": TINY_DEEPSEEK}[args.model]
+            params = init_ds_params(cfg, seed=args.seed, device=dev)
+            log.info(f"random-init DeepSeek model {args.model}")
     elif args.hf_path:
         cfg = config_from_hf_json(args.hf_path, name=args.model)
         params = load_hf_llama(args.hf_path, cfg, device=dev)
@@ -367,6 +365,28 @@ def main(argv=None) -> dict:
                         fq=eval_fq, fq_cfg=fq_cfg, mode=mode, seqlen=seqlen)
             out["ppl"][ds] = ppl
             log.info(f"{ds} ({d.source}) PPL: {ppl:.4f}")
+
+    if args.lm_eval is not None:
+        from flatquant_torch.evals.tasks import run_lm_eval
+
+        out["lm_eval"] = timed(
+            "lm_eval", run_lm_eval, cfg, eval_params, eval_fq, fq_cfg,
+            tasks=args.lm_eval, tokenizer=tokenizer,
+            batch_size=args.lm_eval_batch_size, log=log.info)
+        log.info(f"lm-eval: {out['lm_eval']}")
+
+    if args.plot_flatness and not is_deepseek:
+        from flatquant_torch.evals.flatness import (
+            model_flatness,
+            plot_flatness,
+        )
+
+        toks = data.train[:1, :min(seqlen, 128)]
+        fqs = fq_state if quantize else None
+        out["flatness"] = timed("flatness", model_flatness, cfg, params, fqs,
+                                toks, layers=tuple(args.flatness_layers))
+        path = plot_flatness(out["flatness"], args.plot_flatness)
+        log.info(f"flatness plot saved to {path}")
 
     if args.generate_demo > 0 and quantize:
         from flatquant_torch.serving.engine import generate

@@ -38,8 +38,8 @@ What differs from JAX:
 Modes: "fp", "calib" (raw weights, transforms and STE fake-quant
 threaded through every linear; with baked transforms it is also JAX's
 DeepSeek eval), "eval" (act quant only) and "serve" (packed or FP8
-weights). Not ported here: the HF FP8 loader (ROADMAP queue 1 item 5) and
-the EP/TP meshes (item 9).
+weights). The HF FP8 checkpoint loader is models/ds_loader.py. Not
+ported here: the EP/TP meshes (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations

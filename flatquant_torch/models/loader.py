@@ -3,13 +3,13 @@ flatquant_tpu/models/loader.py).
 
 Maps HF Llama/Qwen2 weight names (model.layers.N.self_attn.q_proj.weight,
 ...) onto the port's per-layer dicts of [out, in] tensors. Works from a
-local directory of *.safetensors, read through the port's own reader
-(utils/safetensors_io.py); no network access is attempted.
+local directory of *.safetensors, read one tensor at a time through the
+port's own reader (native/safetensors_io.py); no network access is
+attempted.
 """
 
 from __future__ import annotations
 
-import glob
 import json
 import os
 from typing import Dict
@@ -18,10 +18,11 @@ import torch
 
 from flatquant_torch.kernels.common import resolve_device
 from flatquant_torch.models.config import LlamaConfig, RopeScaling
-from flatquant_torch.utils.safetensors_io import (
-    read_safetensors,
-    write_safetensors,
+from flatquant_torch.native.safetensors_io import (
+    iter_safetensors,
+    shard_files,
 )
+from flatquant_torch.utils.safetensors_io import write_safetensors
 
 
 _LAYER_MAP = {
@@ -40,16 +41,12 @@ _LAYER_MAP = {
 }
 
 
-def _iter_safetensors(path: str):
-    """(name, tensor) over every *.safetensors file under `path`, floats
-    widened to float32 (real HF Llama/Qwen shards are BF16)."""
-    files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
-    if not files:
-        raise FileNotFoundError(f"no *.safetensors under {path}")
-    for f in files:
-        tensors, _ = read_safetensors(f)
-        for name, t in tensors.items():
-            yield name, t.to(torch.float32) if t.is_floating_point() else t
+def _iter_safetensors(path: str, device):
+    """(name, tensor on `device`) over every *.safetensors file under
+    `path`, one tensor at a time, floats widened to float32 (real HF
+    Llama/Qwen shards are BF16)."""
+    for f in shard_files(path):
+        yield from iter_safetensors(f, device)
 
 
 def params_from_named_tensors(items, cfg: LlamaConfig, dtype=torch.float32,
@@ -97,8 +94,8 @@ def params_from_named_tensors(items, cfg: LlamaConfig, dtype=torch.float32,
 def load_hf_llama(path: str, cfg: LlamaConfig, dtype=torch.float32,
                   device="cuda") -> dict:
     """Load an HF Llama/Qwen2 checkpoint directory into the port's params."""
-    return params_from_named_tensors(_iter_safetensors(path), cfg, dtype,
-                                     device)
+    return params_from_named_tensors(_iter_safetensors(path, device), cfg,
+                                     dtype, device)
 
 
 def write_hf_llama_fixture(path: str, cfg: LlamaConfig, seed: int = 0) -> None:

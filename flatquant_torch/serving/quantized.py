@@ -33,22 +33,30 @@ the packed weights' input channels). `layer_transforms` reads one
 layer's transform matrices and clip ratios out of its LayerFQ, and
 `build_serving_layer` packs one layer from those (chip_smoke.py packs a
 model from its own matrices through it). tp > 1 waits for ROADMAP queue
-1 item 9.
+1 item 9. `build_hadamard_serving_params` packs the QuaRot baseline
+(fixed Hadamard rotations, core/hadamard.py) in the unmerged layout.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
-from flatquant_torch.core.kron import kronecker_matmul_perm
+from flatquant_torch.core.hadamard import get_hadK, hadamard_matrix
+from flatquant_torch.core.kron import (
+    get_decompose_dim,
+    kronecker_matmul,
+    kronecker_matmul_perm,
+)
 from flatquant_torch.core.quant import (
     true_div,
     weight_find_params,
     weight_quantize_int,
 )
 from flatquant_torch.core.transforms import decompose_matrices, single_matrix
+from flatquant_torch.kernels.common import resolve_device
 from flatquant_torch.kernels.flat_pipeline import (
     left_quant_i8_flat,
     rmsnorm_right_flat,
@@ -596,3 +604,106 @@ def quantize_kv_asym(t, clip=None, q_max: int = 15):
 
 def dequantize_kv(q, scale, zero, dtype=torch.bfloat16):
     return ((q - zero) * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# QuaRot-style Hadamard baseline (OnlineTrans(trans="had") analog)
+# ---------------------------------------------------------------------------
+
+
+def _from_f64(a, dtype, device) -> torch.Tensor:
+    """A float64 numpy array rounded ONCE to `dtype`, as jnp.asarray casts
+    (torch goes float64 -> float32 -> bf16 / f16, which can round twice).
+    bf16 is rounded to nearest even on the float64 bits (normal range)."""
+    a = np.asarray(a, np.float64)
+    if dtype == torch.bfloat16:
+        bits = a.view(np.uint64)
+        drop = np.uint64(45)  # float64 keeps 52 mantissa bits, bf16 7
+        bits = (bits + np.uint64((1 << 44) - 1) + ((bits >> drop)
+                                                   & np.uint64(1)))
+        a = (bits & ~np.uint64((1 << 45) - 1)).view(np.float64)
+    elif dtype == torch.float16:
+        a = a.astype(np.float16)
+    elif dtype == torch.float32:
+        a = a.astype(np.float32)
+    return torch.as_tensor(a, device=device).to(dtype)
+
+
+def hadamard_pair(n: int, dtype=torch.bfloat16, device="cuda"):
+    """The normalized Kronecker pair (left, right) of an n-wide Hadamard
+    rotation: (hadK / sqrt(K), H_{n/K} / sqrt(n/K)) from get_hadK, or for
+    a power of two the balanced split's two Sylvester factors; each
+    rounded once from float64 to `dtype`, on `device`."""
+    dev = resolve_device(device)
+    mat, k, _ = get_hadK(n)
+    if k == 1:
+        a, b = get_decompose_dim(n)
+        fa, fb = hadamard_matrix(a)[0], hadamard_matrix(b)[0]
+        return (_from_f64(fa / np.sqrt(a), dtype, dev),
+                _from_f64(fb / np.sqrt(b), dtype, dev))
+    m2 = n // k
+    right = hadamard_matrix(m2)[0] / np.sqrt(m2)
+    return (_from_f64(mat / np.sqrt(k), dtype, dev),
+            _from_f64(right, dtype, dev))
+
+
+def build_hadamard_serving_params(cfg: LlamaConfig, fq_cfg: FQConfig,
+                                  params: dict,
+                                  dtype=torch.bfloat16) -> dict:
+    """QuaRot-style W4A4 serving model (JAX quantized.py:616-684): fixed
+    Hadamard rotations in place of learned transforms, in the unmerged
+    layout (q, k, v, up, gate apart). Orthonormal rotations are their own
+    inverse transpose, so the weights fold (in float32) with the same
+    dtype-rounded matrices the activations take online: ln_t / ug_t the
+    hidden pair, down_t the intermediate pair, o_t the heads' Hadamard,
+    k_t = k_t_inv = v_t_inv the head_dim's; v's output rows are rotated
+    per head and o's input rows by kron(o_t, k_t). On the device that
+    holds params."""
+    w_cfg = fq_cfg.w_cfg
+    dev = params["embed"].device
+    hd = cfg.head_dim
+    ln_pair = hadamard_pair(cfg.hidden_size, dtype, dev)
+    down_pair = hadamard_pair(cfg.intermediate_size, dtype, dev)
+    o_mat = _from_f64(hadamard_matrix(cfg.num_heads)[0]
+                      / np.sqrt(cfg.num_heads), dtype, dev)
+    k_mat = _from_f64(hadamard_matrix(hd)[0] / np.sqrt(hd), dtype, dev)
+    k32 = k_mat.to(torch.float32)
+
+    def kron_w(w, pair):
+        left, right = pair
+        return kronecker_matmul(w.to(torch.float32), left.to(torch.float32),
+                                right.to(torch.float32))
+
+    def convert_layer(lp):
+        out = {"ln1_w": lp["ln1_w"].to(torch.float32),
+               "ln2_w": lp["ln2_w"].to(torch.float32),
+               "ln_t": ln_pair, "ug_t": ln_pair, "down_t": down_pair,
+               "o_t": o_mat, "k_t": k_mat,
+               "k_t_inv": k_mat,  # orthonormal: P^{-T} == P
+               "v_t_inv": k_mat}
+        # v's output rows take the per-head rotation (in JAX's order of
+        # transposes); o undoes it on its input rows through kron(o, k)
+        v_w = lp["wv"].to(torch.float32)
+        v_w = (v_w.T.reshape(-1, hd) @ k32).reshape(
+            v_w.shape[1], v_w.shape[0]).T
+        for name, w in (("q", kron_w(lp["wq"], ln_pair)),
+                        ("k", kron_w(lp["wk"], ln_pair)),
+                        ("v", kron_w(v_w, ln_pair)),
+                        ("o", kron_w(lp["wo"], (o_mat, k_mat))),
+                        ("up", kron_w(lp["wup"], ln_pair)),
+                        ("gate", kron_w(lp["wgate"], ln_pair)),
+                        ("down", kron_w(lp["wdown"], down_pair))):
+            out[name] = _pack_linear(w, w_cfg)
+        for bkey in ("bq", "bk", "bv"):
+            if lp.get(bkey) is not None:
+                b = lp[bkey].to(torch.float32)
+                if bkey == "bv":
+                    b = (b.reshape(-1, hd) @ k32).reshape(-1)
+                out[bkey] = b
+        return out
+
+    head = params.get("lm_head", params["embed"])
+    return {"embed": params["embed"].to(dtype),
+            "final_norm_w": params["final_norm_w"].to(torch.float32),
+            "lm_head": head.to(dtype),
+            "layers": [convert_layer(lp) for lp in params["layers"]]}

@@ -283,7 +283,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "utils/convert.py", "calib/data.py", "calib/trainer.py",
                    "calib/gptq.py", "evals/ppl.py", "utils/checkpoint.py",
                    "utils/logging_utils.py", "utils/reference_convert.py",
-                   "models/loader.py", "main.py"):
+                   "models/loader.py", "main.py", "core/hadamard.py",
+                   "kernels/fused_trans_quant.py", "serving/registry.py",
+                   "evals/flatness.py", "evals/tasks.py", "native/__init__.py",
+                   "native/safetensors_io.py", "models/ds_loader.py"):
         assert "flatquant_torch/" + module in names, module
     banned = ("jax", "jaxlib", "flatquant_tpu", "msgpack", "flax", "optax",
               "safetensors")
