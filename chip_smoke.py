@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 13    # phases 1-2 and 13
     python3 chip_smoke.py --phases 14    # phases 1-2 and 14
     python3 chip_smoke.py --phases 15    # phases 1-2 and 15
+    python3 chip_smoke.py --phases 16    # phases 1-2 and 16
 
 Phases (any failure makes the script exit non-zero without the final
 line):
@@ -226,6 +227,37 @@ line):
      decode steps, every fp8_matmul launch of a prefill and two steps
      checked), and the CLI run with --hf_path on it (RTN, one PPL chunk).
      Every file is written under .chipscratch/ and removed.
+  16. parallel serving on two ranks spawned by torch.multiprocessing
+     (flatquant_torch/parallel/launch.py): with one card both ranks run on
+     cuda:0 over gloo, their collectives staged through the host; with two
+     or more, one rank a card over NCCL (the phase prints which). The
+     parent builds llama-2-7b once by the port's chain with shard-aligned
+     transforms (init_model_fq(tp=2) -> bake_model ->
+     build_serving_params at tp = 1 and tp = 2, merged, W4A4KV4 +
+     tpu_decompose) and DeepSeek-V2-Lite's widths at 4 layers (1 dense + 3
+     MoE, 64 routed experts; depth cut to bound the time), runs the
+     single-device references, hands each rank its slice and frees the
+     full tp model. (a) tp = 2: the 1 x 2048 prefill over the int4 cache
+     and 16 decode steps (rows 1, 13, 15 in the prefill; rows 1, 2, 3 in
+     a step: every fused route declines under tp, as in JAX), every launch
+     of a prefill and two steps held to its plain version on each rank,
+     the logits against the tp = 1 model's (a tripwire); (b) the batcher
+     under tp on five requests over the int4 slot cache and the paged
+     pool (equal to each other), tokens beside the single-device
+     batcher's; (c) the batcher under pp = 2 (16 layers a stage, decode
+     in 2 microbatches), tokens equal to the single-device batcher's;
+     each batcher run again with every launch held to its plain version,
+     its tokens unchanged; (d) sp = 2: the 1 x 2048 prefill on the bf16
+     cache (ring attention), the handoff (all-gather over sp) and 8
+     decode steps, the handoff cache's layer-0 K / V bit-equal to the
+     single-device prefill's, then a prefill, handoff and two steps with
+     every launch checked and every ring attention held to a dense causal
+     softmax, the logits a tripwire; (e) the DeepSeek batcher hooks under
+     ep = 2 (32 experts a rank, packed W4A4) on four requests, every
+     row-1 launch of a prefill checked, tokens equal to the single-device
+     batcher's. On the card every checked run holds as many launches as
+     its timed run made. Each run prints its wall seconds, tokens,
+     launches by row per rank and the transport.
   Each model is freed before the next is built. Then the kernel table as
   one JSON line, then the result line.
 
@@ -5977,6 +6009,735 @@ def run_eval_exchange_path(torch, dev, results, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: parallel serving (tp, the batcher under tp, pp, sp, DeepSeek ep)
+# ---------------------------------------------------------------------------
+
+# ranks of every phase-16 run, and the time limit of their one spawn
+P16_WORLD = 2
+P16_TIMEOUT_S = 600.0
+# (a) and (d): the 1 x 2048 prompt, its decode steps and the cache length
+P16_S, P16_NEW, P16_SP_NEW, P16_MAX_LEN = 2048, 16, 8, 2304
+# (b) and (c): five requests (prompt length, new tokens) through 4 slots,
+# the fifth admitted when a slot frees; few new tokens, since each batcher
+# runs twice (timed, then checked) at a host-bound ~0.4 s a tp step
+P16_REQUESTS = ((96, 4), (300, 3), (40, 4), (512, 2), (160, 3))
+# (e): DeepSeek-V2-Lite's widths cut to 4 layers (1 dense + 3 MoE)
+P16_DS_LAYERS = 4
+P16_DS_REQUESTS = ((64, 8), (200, 8), (40, 8), (120, 8))
+# launches per layer under tp (every fused route declines): the 1 x 2048
+# prefill runs qkv, o and down through row 1, the merged up||gate
+# through the swiglu GEMM (row 13, T >= 256 rows) and flash (row 15);
+# a decode step runs four row-1 GEMMs, row 2 and, at per-slot positions
+# (JAX's tp programs broadcast pos), row 3
+P16_TP_PREFILL = {"w4a4_matmul_i8": 3, "w4a4_matmul_i8_swiglu": 1,
+                  "flash_prefill_attention": 1}
+P16_TP_STEP = {"w4a4_matmul_i8": 4, "decode_attention_int4": 1,
+               "write_token": 1}
+# (a), (d): the tp and sp logits against the single-device model's, a
+# tripwire for gross faults (random W4A4 logits are chaotic, as in 6a)
+P16_COSINE_FLOOR = LONG_COSINE_FLOOR
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _to_dev(tree, dev):
+    """A tree of dicts, lists and tensors with every tensor on `dev`."""
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_dev(v, dev) for v in tree)
+    return tree.to(dev) if hasattr(tree, "to") and hasattr(tree, "dim") \
+        else tree
+
+
+# rows of the kernels phase 16's runs launch (ROW_OF, and the chunk and
+# paged attention of the batchers)
+P16_ROW = dict(ROW_OF, chunk_attention_int4=9,
+               paged_decode_attention_int4=10, paged_chunk_attention_int4=11)
+
+
+def _rows(launches):
+    """LAUNCHES (or a checked count) as {row: launches}, zeros left out."""
+    return {P16_ROW.get(k, k): v for k, v in launches.items() if v}
+
+
+def p16_transport(torch, dev, world=P16_WORLD):
+    """(backend, device of each rank): a card per rank when there are
+    enough cards, else every rank on cuda:0 (on the CPU, every rank on
+    the CPU); the backend is distributed.backend_for's (NCCL with a card
+    per rank, else gloo, whose collectives then stage through the host,
+    flatquant_torch/parallel/distributed.py)."""
+    from flatquant_torch.parallel.distributed import backend_for
+
+    if torch.device(dev).type != "cuda":
+        devices = [str(dev)] * world
+    elif backend_for("cuda", world) == "nccl":
+        devices = [f"cuda:{r}" for r in range(world)]
+    else:
+        devices = ["cuda:0"] * world
+    return backend_for(devices[0], world), devices
+
+
+def _p16_serve(torch, dev, batcher, requests, vocab):
+    """Run `batcher` on requests [(prompt, new)], launch counts set to 0
+    just before and read just after: (tokens by request, record)."""
+    from flatquant_torch.kernels import common
+
+    rids = [batcher.submit(p, m) for p, m in requests]
+    _sync(torch, dev)
+    common.reset_launches()
+    t0 = time.perf_counter()
+    out = batcher.run()
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    toks = [out[r] for r in rids]
+    for t, (_, m) in zip(toks, requests):
+        if len(t) != m or not all(0 <= x < vocab for x in t):
+            raise AssertionError(f"a request served {len(t)} of {m} tokens, "
+                                 "or a token outside the vocabulary")
+    n = sum(len(t) for t in toks)
+    return toks, dict(wall_s=wall, output_tokens=n, tokens_per_s=n / wall,
+                      launches=_rows(common.LAUNCHES))
+
+
+# every name phase 16's checked wrappers count: the serving routes'
+# kernels (rows 1-8, 12, 13, 15), the batchers' (rows 9-11) and the sp
+# prefill's ring attention (plain torch, held to a dense causal softmax)
+P16_CHECKED = PREFILL_CHECKED + [
+    "decode_attention_int4", "write_token", "chunk_attention_int4",
+    "paged_decode_attention_int4", "paged_chunk_attention_int4",
+    "ring_attention"]
+
+
+def _checked_ring(torch, n, worst):
+    """(module, name, wrapper) for parallel/sequence.py's ring_attention:
+    each call held to a dense causal softmax attention in float32 over
+    the K / V of the whole sequence (all-gathered over the axis) on the
+    same inputs, within the 'flash' tolerance; a ring without its causal
+    mask, or with the chunks rotated the wrong way, fails it."""
+    from flatquant_torch.kernels.tolerance import compare_bf16
+    from flatquant_torch.parallel import sequence
+    from flatquant_torch.parallel.distributed import all_gather
+
+    ring = sequence.ring_attention
+
+    def attn(q, k, v, sm_scale, axis):
+        y = ring(q, k, v, sm_scale, axis)
+        kf, vf = all_gather(k, 1, axis), all_gather(v, 1, axis)
+        Sl, n_rep = q.shape[1], q.shape[2] // k.shape[2]
+        kf = kf.repeat_interleave(n_rep, dim=2).float()
+        vf = vf.repeat_interleave(n_rep, dim=2).float()
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float() * sm_scale, kf)
+        row = axis.index * Sl + torch.arange(Sl, device=q.device)
+        col = torch.arange(kf.shape[1], device=q.device)
+        s = s.masked_fill(col[None, :] > row[:, None], -float("inf"))
+        ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vf)
+        err = compare_bf16(y, ref.to(y.dtype), "flash",
+                           "ring_attention on the path")
+        worst["ring_attention"] = max(worst["ring_attention"], err)
+        n["ring_attention"] += 1
+        return y
+
+    return [(sequence, "ring_attention", attn)]
+
+
+def _p16_checks(torch, n, worst):
+    """[(module, name, checked wrapper)] for every kernel phase 16's
+    serving paths call (_prefill_checks, the decode attention and
+    write_token checks, rows 9-11's) and the ring attention: each launch
+    held to its plain version on the same inputs, counted in n[name]
+    with the largest error in worst[name] (n, worst: P16_CHECKED's
+    keys)."""
+    from flatquant_torch.serving import engine
+
+    return (_prefill_checks(torch, n, worst) + [
+        (engine, "decode_attention_int4",
+         _checked_decode_attention(torch, n, worst)),
+        (engine, "write_token", _checked_write(torch, n))]
+        + _checked_batch_attention(torch, n, worst)
+        + _checked_ring(torch, n, worst))
+
+
+def _p16_same(torch, dev, checked, launched, what):
+    """On the card: the checked run held as many launches of each kernel
+    to its plain version as the timed run made ({row: n} both), so no
+    launch of the path went unchecked. (On the CPU the wrappers launch
+    nothing and the timed counts are empty.)"""
+    got = {k: v for k, v in checked.items() if k != "ring_attention"}
+    if torch.device(dev).type == "cuda" and got != launched:
+        raise AssertionError(f"{what}: launches checked {got}, launched "
+                             f"{launched}")
+
+
+def _p16_checked(torch, dev, run, prefill, step, layers, steps):
+    """run(prefill_done) under _p16_checks: each launch held to its plain
+    version on the same inputs. run calls prefill_done() between its
+    prefill and its `steps` decode steps. The checks counted against
+    `prefill` / `step`, the launches per layer, times `layers` (None:
+    not counted here)."""
+    n = dict.fromkeys(P16_CHECKED, 0)
+    worst = dict.fromkeys(P16_CHECKED, 0.0)
+    mark = {}
+    with patched(_p16_checks(torch, n, worst)):
+        run(lambda: mark.update(n))
+    _sync(torch, dev)
+    steps_n = {k: n[k] - mark[k] for k in n}
+    if prefill is not None:
+        _check_counts(mark, prefill, layers, "the prefill")
+        _check_counts(steps_n, step, layers * steps, f"{steps} decode steps")
+    return dict(prefill=_rows(mark), steps=_rows(steps_n),
+                max_abs_err={k: v for k, v in worst.items() if n[k]})
+
+
+def _p16_tp(torch, dev, spec, shared, sp, mesh):
+    """(a): the 1 x 2048 prefill and P16_NEW decode steps through
+    tp_serving_programs on this rank's shard, timed; then every launch of
+    a prefill and two decode steps checked."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.parallel import serving_tp as stp
+
+    cfg, fq, sz = spec["cfg"], spec["fq"], spec["sizes"]
+    prompt = shared["prompt"].to(dev)
+    S = prompt.shape[1]
+    prefill, decode, _ = stp.tp_serving_programs(
+        cfg, fq, mesh, use_kernel=True, max_len=sz["max_len"],
+        compute_dtype=torch.bfloat16)
+
+    def cache():
+        return stp.make_sharded_cache(cfg, 1, sz["max_len"], mesh,
+                                      mode="int4")
+
+    prefill(sp, prompt, cache())  # warm-up
+    _sync(torch, dev)
+    common.reset_launches()
+    c = cache()
+    t0 = time.perf_counter()
+    logits, c = prefill(sp, prompt, c)
+    _sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    first = logits.float().cpu()
+    pre = dict(common.LAUNCHES)
+    toks, step_s = [], []
+    for i in range(sz["new"]):
+        tok = logits.argmax(-1, keepdim=True)
+        toks.append(int(tok[0, 0]))
+        t0 = time.perf_counter()
+        logits, c = decode(sp, tok, c, S + i)
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t0)
+    if not (torch.isfinite(logits).all()
+            and tuple(logits.shape) == (1, cfg.vocab_size)):
+        raise AssertionError("tp logits not finite or not [1, vocab]")
+    steps = {k: v - pre[k] for k, v in common.LAUNCHES.items()}
+    del c
+
+    def checked(prefill_done):
+        c2 = cache()
+        lg, c2 = prefill(sp, prompt, c2)
+        prefill_done()
+        for i in range(2):
+            lg, c2 = decode(sp, lg.argmax(-1, keepdim=True), c2, S + i)
+
+    L = cfg.num_layers
+    chk = _p16_checked(torch, dev, checked, P16_TP_PREFILL, P16_TP_STEP, L,
+                       2)
+    _p16_same(torch, dev, chk["prefill"], _rows(pre), "(a) prefill")
+    _p16_same(torch, dev, {k: v * sz["new"] // 2 for k, v in
+                           chk["steps"].items()}, _rows(steps),
+              f"(a) {sz['new']} decode steps")
+    return dict(prefill_s=prefill_s, decode_s_median=sorted(step_s)[
+        len(step_s) // 2], tokens=toks, logits=first,
+        launches_prefill=_rows(pre), launches_steps=_rows(steps),
+        checked=chk)
+
+
+def _p16_batchers(torch, dev, spec, shared, tp_sp, tp_mesh, pp_sp,
+                  pp_mesh):
+    """(b) the batcher under tp on the int4 slot cache and the paged pool,
+    (c) the batcher under pp on the int4 slot cache, all on the same
+    requests; each run timed, then run again with every launch held to
+    its plain version (_p16_checks), its tokens equal to the timed run's
+    and, on the card, its checks as many as the timed run's launches."""
+    from flatquant_torch.serving.batcher import ContinuousBatcher
+
+    cfg, fq, sz = spec["cfg"], spec["fq"], spec["sizes"]
+    requests = shared["requests"]
+    out = {}
+    for name, sp, kw in (
+            ("b_int4", tp_sp, dict(mesh=tp_mesh, cache_mode="int4")),
+            ("b_paged", tp_sp, dict(mesh=tp_mesh, cache_mode="paged")),
+            ("c_pp_int4", pp_sp, dict(pp_mesh=pp_mesh, pp_microbatches=2,
+                                      cache_mode="int4"))):
+        def batcher():
+            return ContinuousBatcher(cfg, fq, sp, batch_slots=BATCH_SLOTS,
+                                     max_len=sz["batch_max_len"],
+                                     use_kernel=True,
+                                     compute_dtype=torch.bfloat16,
+                                     device=dev, **kw)
+
+        b = batcher()
+        toks, rec = _p16_serve(torch, dev, b, requests, cfg.vocab_size)
+        if b.cache_mode == "paged" and b.alloc.free_count != \
+                b.alloc.n_blocks - 1:
+            raise AssertionError("pool blocks not all returned")
+        del b
+
+        def checked(prefill_done):
+            again, _ = _p16_serve(torch, dev, batcher(), requests,
+                                  cfg.vocab_size)
+            if again != toks:
+                raise AssertionError(f"({name}) the checked run's tokens "
+                                     "differ from the timed run's")
+            prefill_done()
+
+        chk = _p16_checked(torch, dev, checked, None, None, 0, 0)
+        _p16_same(torch, dev, chk["prefill"], rec["launches"], f"({name})")
+        out[name] = dict(rec, tokens=toks, checked=chk["prefill"],
+                         max_abs_err=chk["max_abs_err"])
+    return out
+
+
+def _p16_sp(torch, dev, spec, shared, sp, mesh):
+    """(d): sp_serving_prefill of the 1 x 2048 prompt on the bf16 cache
+    (each rank 1024 tokens, ring attention), the handoff (the caches
+    all-gathered over sp), P16_SP_NEW decode steps on the gathered cache,
+    timed; the handoff cache's layer 0 against the single-device
+    prefill's (shared["kv0"]: only per-token ops come before it, so it
+    must be bit-equal, which holds the positions, the chunks' order and
+    the gather); then a prefill, the handoff and two decode steps with
+    every launch and every ring attention checked (_p16_checks)."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.parallel.distributed import all_gather
+    from flatquant_torch.parallel.sequence import (
+        sp_gather_cache_for_decode, sp_serving_prefill)
+    from flatquant_torch.serving.engine import serving_decode_step
+
+    cfg, fq, sz = spec["cfg"], spec["fq"], spec["sizes"]
+    prompt = shared["prompt"].to(dev)
+    S = prompt.shape[1]
+    axis = mesh.axis("sp")
+
+    def prefill():
+        logits, cache = sp_serving_prefill(cfg, fq, sp, prompt, mesh,
+                                           use_kernel=True,
+                                           compute_dtype=torch.bfloat16)
+        return all_gather(logits[:, -1:].contiguous(), 1, axis)[:, -1], \
+            cache
+
+    def handoff(cache):
+        return sp_gather_cache_for_decode(cfg, cache, mesh, sz["max_len"],
+                                          mode="bf16")
+
+    def step(lg, c, i):
+        return serving_decode_step(cfg, fq, sp, lg.argmax(-1, keepdim=True),
+                                   c, S + i, use_kernel=True,
+                                   max_len=sz["max_len"],
+                                   compute_dtype=torch.bfloat16, device=dev)
+
+    _sync(torch, dev)
+    common.reset_launches()
+    t0 = time.perf_counter()
+    last, cache = prefill()
+    _sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    pre = dict(common.LAUNCHES)
+    t0 = time.perf_counter()
+    c = handoff(cache)
+    _sync(torch, dev)
+    handoff_s = time.perf_counter() - t0
+    del cache
+    kv0 = {name: dict(equal=torch.equal(c[name][0][:, :S], ref),
+                      max_abs=(c[name][0][:, :S].float() - ref.float())
+                      .abs().max().item())
+           for name, ref in zip(("k", "v"), shared["kv0"])}
+    first = last.float().cpu()
+    toks, lg = [], last
+    t0 = time.perf_counter()
+    for i in range(sz["sp_new"]):
+        toks.append(int(lg.argmax(-1)[0]))
+        lg, c = step(lg, c, i)
+    _sync(torch, dev)
+    decode_s = time.perf_counter() - t0
+    if not torch.isfinite(lg).all():
+        raise AssertionError("sp decode logits not finite")
+    steps = _rows({k: v - pre[k] for k, v in common.LAUNCHES.items()})
+    del c
+
+    def checked(prefill_done):
+        lg2, cache2 = prefill()
+        prefill_done()
+        c2 = handoff(cache2)
+        del cache2
+        for i in range(2):
+            lg2, c2 = step(lg2, c2, i)
+
+    chk = _p16_checked(torch, dev, checked, None, None, 0, 0)
+    L = cfg.num_layers
+    if chk["prefill"].get("ring_attention") != L:
+        raise AssertionError(f"(d) {chk['prefill'].get('ring_attention')} "
+                             f"ring attentions checked, expected {L}")
+    _p16_same(torch, dev, chk["prefill"], _rows(pre), "(d) prefill")
+    _p16_same(torch, dev, {k: v * sz["sp_new"] // 2 for k, v in
+                           chk["steps"].items()}, steps,
+              f"(d) {sz['sp_new']} decode steps")
+    return dict(prefill_s=prefill_s, handoff_s=handoff_s, decode_s=decode_s,
+                tokens=toks, logits=first, kv0=kv0,
+                launches_prefill=_rows(pre), launches_decode=steps,
+                checked=chk)
+
+
+def _p16_ep(torch, dev, spec, shared, bundle, mesh):
+    """(e): the DeepSeek batcher hooks under ep on P16_DS_REQUESTS (4
+    slots), then every row-1 launch of one prefill of the first prompt
+    checked bit for bit."""
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.quantize.spec import W4A4
+    from flatquant_torch.serving import quantized
+    from flatquant_torch.serving.batcher import ContinuousBatcher
+
+    cfg, sz = spec["ds_cfg"], spec["sizes"]
+    bundle = dict(bundle, ep=mesh.axis("ep"))
+    b = ContinuousBatcher(cfg, W4A4, bundle, batch_slots=BATCH_SLOTS,
+                          max_len=sz["batch_max_len"], use_kernel=True,
+                          compute_dtype=torch.bfloat16, device=dev,
+                          forward_fn=ds.ds_batch_forward,
+                          init_cache_fn=ds.ds_init_batch_cache)
+    toks, rec = _p16_serve(torch, dev, b, shared["ds_requests"],
+                           cfg.vocab_size)
+    del b
+    n = [0]
+    prompt = torch.as_tensor(shared["ds_requests"][0][0], device=dev)[None]
+    with patched([(quantized, "w4a4_matmul_i8", _checked_w4a4(torch, n))]):
+        cache = ds.ds_init_batch_cache(cfg, 1, sz["batch_max_len"],
+                                       dtype=torch.bfloat16, device=dev)
+        ds.ds_batch_forward(cfg, W4A4, bundle, prompt.long(), cache, 0,
+                            "prefill", True, sz["batch_max_len"],
+                            torch.bfloat16)
+    _sync(torch, dev)
+    if n[0] == 0:
+        raise AssertionError("no w4a4_matmul_i8 launch in the ep prefill")
+    return dict(rec, tokens=toks, checked_w4a4=n[0],
+                experts=int(bundle["params"]["moe_layers"][0]["e_w1"]["wp"]
+                            .shape[0]))
+
+
+def _p16_rank(rank, world, spec, shared, local):
+    """One rank of phase 16: the meshes (one process group per axis),
+    then (a)-(e) on this rank's shards. Returns plain numbers, tokens and
+    CPU logits."""
+    import torch
+    import torch.distributed as dist
+
+    from flatquant_torch.parallel import distributed as pd
+    from flatquant_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(spec["devices"][rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    local = _to_dev(local, dev)
+    shared = _to_dev(shared, dev)
+    meshes = {a: make_mesh({a: world}, dev) for a in ("tp", "pp", "sp",
+                                                      "ep")}
+    out = dict(rank=rank, device=str(dev), backend=dist.get_backend())
+    t0 = time.perf_counter()
+    pd.TRANSPORT.clear()
+    out["a"] = _p16_tp(torch, dev, spec, shared, local["tp"], meshes["tp"])
+    out.update(_p16_batchers(torch, dev, spec, shared, local["tp"],
+                             meshes["tp"], local["pp"], meshes["pp"]))
+    out["d"] = _p16_sp(torch, dev, spec, shared, shared["sp1"],
+                       meshes["sp"])
+    out["e"] = _p16_ep(torch, dev, spec, shared, local["ds"], meshes["ep"])
+    out["transport"] = dict(pd.TRANSPORT)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _p16_reference(torch, dev, cfg, fq, sp1, prompt, sz):
+    """The single-device runs phase 16 compares with: the 1 x 2048
+    prefill's logits and greedy tokens over the int4 cache (the fused
+    routes), and over the bf16 cache, whose layer-0 K / V after the
+    prefill come back too (out["bf16"]["kv0"])."""
+    from flatquant_torch.serving.engine import (
+        init_cache, serving_decode_step, serving_prefill)
+
+    out = {}
+    for mode, new in (("int4", sz["new"]), ("bf16", sz["sp_new"])):
+        c = init_cache(cfg, 1, sz["max_len"], mode=mode, device=dev)
+        lg, c = serving_prefill(cfg, fq, sp1, prompt, c, use_kernel=True,
+                                max_len=sz["max_len"], device=dev)
+        first, toks = lg.float().cpu(), []
+        kv0 = (None if mode == "int4" else
+               tuple(c[k][0][:, :prompt.shape[1]].clone() for k in "kv"))
+        for i in range(new):
+            tok = lg.argmax(-1, keepdim=True)
+            toks.append(int(tok[0, 0]))
+            lg, c = serving_decode_step(cfg, fq, sp1, tok, c,
+                                        prompt.shape[1] + i,
+                                        use_kernel=True,
+                                        max_len=sz["max_len"], device=dev)
+        out[mode] = dict(logits=first, tokens=toks, kv0=kv0)
+        del c
+    return out
+
+
+def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
+                      sizes=None):
+    """Phase 16: parallel serving on P16_WORLD ranks. The parent builds
+    llama-2-7b once by the port's chain (init_model_fq(tp=2) ->
+    bake_model -> build_serving_params at tp = 1 and tp = 2, merged, W4A4KV4
+    + tpu_decompose) and DeepSeek-V2-Lite's widths at P16_DS_LAYERS layers
+    (packed W4A4), runs the single-device references, cuts each rank's
+    slice (the tp shard, the pp stage, the ep experts), frees the full tp
+    model, and spawns the ranks (p16_transport: gloo with host staging on
+    one card, NCCL with a card per rank), each handed its slice. (a) tp
+    = 2: the 1 x 2048 prefill over the int4 cache and P16_NEW decode
+    steps, every launch of a prefill and two steps checked, the logits
+    against the tp = 1 model's (a tripwire); (b) the batcher under tp on
+    P16_REQUESTS, int4 and paged, tokens beside the single-device
+    batcher's; (c) the batcher under pp = 2, tokens equal to the
+    single-device batcher's; each batcher run twice, the second with
+    every launch checked; (d) sp = 2: the prefill on the bf16 cache, the
+    handoff and P16_SP_NEW decode steps, layer 0 of the handoff cache
+    bit-equal to the single-device prefill's, every launch and ring
+    attention of a prefill, handoff and two steps checked, the logits a
+    tripwire; (e) the DeepSeek batcher under ep = 2, every row-1 launch
+    of a prefill checked, tokens equal to the single-device batcher's.
+    cfg, ds_cfg and
+    sizes replace llama-2-7b, V2-Lite's 4 layers and the sizes (a CPU
+    rehearsal). Returns {path: launches} of rank 0's timed runs."""
+    import dataclasses
+
+    import numpy as np
+
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.models.config import get_config
+    from flatquant_torch.models.llama import init_params
+    from flatquant_torch.parallel.launch import run_ranks
+    from flatquant_torch.parallel.mesh import (
+        plan_mesh, shard_ds_serving_params)
+    from flatquant_torch.parallel.pipeline import stage_serving_params
+    from flatquant_torch.parallel.serving_tp import shard_serving_params
+    from flatquant_torch.quantize.bake import bake_model
+    from flatquant_torch.quantize.spec import W4A4, W4A4KV4
+    from flatquant_torch.quantize.state import init_model_fq
+    from flatquant_torch.serving.batcher import ContinuousBatcher
+    from flatquant_torch.serving.quantized import build_serving_params
+
+    W = P16_WORLD
+    cfg = cfg or get_config("llama-2-7b")
+    ds_cfg = ds_cfg or dataclasses.replace(ds.DeepSeekConfig(),
+                                           n_layers=P16_DS_LAYERS)
+    sz = dict(S=P16_S, new=P16_NEW, sp_new=P16_SP_NEW, max_len=P16_MAX_LEN,
+              batch_max_len=BATCH_MAX_LEN, requests=P16_REQUESTS,
+              ds_requests=P16_DS_REQUESTS)
+    sz.update(sizes or {})
+    fq = dataclasses.replace(W4A4KV4, tpu_decompose=True)
+    rec = {}
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    state = init_model_fq(cfg, fq, seed=0, tp=W, device=dev)
+    baked, bfq = bake_model(cfg, fq, params, state)
+    del params, state
+    sp1 = build_serving_params(cfg, fq, baked, bfq, dtype=torch.bfloat16,
+                               merge_projections=True)
+    sp2 = build_serving_params(cfg, fq, baked, bfq, dtype=torch.bfloat16,
+                               merge_projections=True, tp=W)
+    del baked, bfq
+    gc.collect()
+    _sync(torch, dev)
+    rec["build_s"] = time.perf_counter() - t0
+    log(f"  [{smi}] built {cfg.name} ({cfg.num_layers} layers) with "
+        f"shard-aligned transforms (tp={W}), packed at tp = 1 and tp = {W}: "
+        f"{rec['build_s']:.1f} s")
+
+    gen = np.random.default_rng(16)
+    prompt = torch.as_tensor(gen.integers(0, cfg.vocab_size, (1, sz["S"])),
+                             device=dev)
+    requests = [(gen.integers(0, cfg.vocab_size, (n,)).astype(np.int32), m)
+                for n, m in sz["requests"]]
+    ds_requests = [(gen.integers(0, ds_cfg.vocab_size, (n,))
+                    .astype(np.int32), m) for n, m in sz["ds_requests"]]
+
+    # the single-device references
+    t0 = time.perf_counter()
+    ref = _p16_reference(torch, dev, cfg, fq, sp1, prompt, sz)
+    for mode in ("int4", "paged"):
+        b = ContinuousBatcher(cfg, fq, sp1, batch_slots=BATCH_SLOTS,
+                              max_len=sz["batch_max_len"], use_kernel=True,
+                              compute_dtype=torch.bfloat16, device=dev,
+                              cache_mode=mode)
+        ref["batcher_" + mode] = _p16_serve(torch, dev, b, requests,
+                                            cfg.vocab_size)
+        del b
+    ds_sp, ds_baked = build_ds_w4a4_model(torch, dev, 0, ds_cfg)
+    bundle = {"params": ds_sp, "fq": ds_baked}
+    b = ContinuousBatcher(ds_cfg, W4A4, bundle, batch_slots=BATCH_SLOTS,
+                          max_len=sz["batch_max_len"], use_kernel=True,
+                          compute_dtype=torch.bfloat16, device=dev,
+                          forward_fn=ds.ds_batch_forward,
+                          init_cache_fn=ds.ds_init_batch_cache)
+    ref["ds_batcher"] = _p16_serve(torch, dev, b, ds_requests,
+                                   ds_cfg.vocab_size)
+    del b
+    log(f"  single-device references (1 x {sz['S']} int4 and bf16, two "
+        f"batchers, DeepSeek's batcher): {time.perf_counter() - t0:.1f} s; "
+        f"batcher int4 {ref['batcher_int4'][1]}")
+
+    # each rank's slice; the full tp model is freed before the spawn
+    local = []
+    for r in range(W):
+        ds_r = shard_ds_serving_params(bundle, plan_mesh({"ep": W}, r, dev))
+        ds_r.pop("ep")  # the rank sets its own axis
+        local.append(dict(
+            tp=shard_serving_params(sp2, plan_mesh({"tp": W}, r, dev)),
+            pp=stage_serving_params(sp1, plan_mesh({"pp": W}, r, dev)),
+            ds=ds_r))
+    del sp2, bundle, ds_sp
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    backend, devices = p16_transport(torch, dev, W)
+    spec = dict(cfg=cfg, fq=fq, ds_cfg=ds_cfg, sizes=sz, devices=devices)
+    shared = dict(sp1=sp1, prompt=prompt, requests=requests,
+                  ds_requests=ds_requests, kv0=ref["bf16"].pop("kv0"))
+    log(f"  spawning {W} ranks: backend {backend}, devices {devices} "
+        f"(torch.cuda.device_count() = "
+        f"{torch.cuda.device_count() if torch.cuda.is_available() else 0})")
+    t0 = time.perf_counter()
+    # the ranks share the host's cores (their torch threads are the
+    # host-side ops and the host staging)
+    ranks = run_ranks(_p16_rank, W, args=(spec, shared),
+                      rank_args=[(x,) for x in local], device=devices[0],
+                      timeout_s=P16_TIMEOUT_S,
+                      threads=max(1, (os.cpu_count() or W) // W))
+    rec["spawn_s"] = time.perf_counter() - t0
+    del local, shared
+    if torch.device(dev).type == "cuda":
+        torch.cuda.ipc_collect()
+
+    def cos(a, b):
+        return _cosine(torch, a, b)
+
+    ref_b = ref["batcher_int4"][0]
+    for r in ranks:
+        a, d, e = r["a"], r["d"], r["e"]
+        log(f"  rank {r['rank']} on {r['device']} ({r['backend']}; "
+            f"transport {r['transport']}), {r['seconds']:.1f} s of work")
+        log(f"   (a) tp={W} 1 x {sz['S']}: prefill {a['prefill_s']:.3f} s, "
+            f"decode step median {a['decode_s_median'] * 1e3:.1f} ms, "
+            f"{len(a['tokens'])} tokens {a['tokens']} (tp = 1: "
+            f"{ref['int4']['tokens']}); launches by row: prefill "
+            f"{a['launches_prefill']}, {sz['new']} steps "
+            f"{a['launches_steps']}; checked (prefill + 2 steps) "
+            f"{a['checked']}; logits cosine vs tp = 1 "
+            f"{cos(a['logits'], ref['int4']['logits']):.4f}")
+        for name in ("b_int4", "b_paged", "c_pp_int4"):
+            x = r[name]
+            log(f"   ({name[0]}) {name[2:]}: {x['wall_s']:.2f} s, "
+                f"{x['output_tokens']} tokens, {x['tokens_per_s']:.1f} "
+                f"tokens/s, launches by row {x['launches']}; checked run "
+                f"(same tokens) {x['checked']}, max abs err "
+                f"{x['max_abs_err']}; tokens {x['tokens']} (single device: "
+                f"{ref_b})")
+        log(f"   (d) sp={W}: prefill {d['prefill_s']:.3f} s, handoff "
+            f"{d['handoff_s']:.3f} s, {sz['sp_new']} steps "
+            f"{d['decode_s']:.3f} s; tokens {d['tokens']} (single device "
+            f"bf16: {ref['bf16']['tokens']}); launches by row: prefill "
+            f"{d['launches_prefill']}, decode {d['launches_decode']}; "
+            f"checked (prefill + handoff + 2 steps) {d['checked']}; layer-0 "
+            f"K / V vs single device {d['kv0']}; logits cosine vs single "
+            f"device {cos(d['logits'], ref['bf16']['logits']):.4f}")
+        log(f"   (e) DeepSeek {ds_cfg.n_layers} layers (depth cut from "
+            f"{ds.DeepSeekConfig().n_layers}), ep={W} "
+            f"({e['experts']} of {ds_cfg.n_routed_experts} experts): "
+            f"{e['wall_s']:.2f} s, {e['output_tokens']} tokens, launches "
+            f"by row {e['launches']}, {e['checked_w4a4']} row-1 launches "
+            f"of a prefill checked; tokens {e['tokens']} (single device: "
+            f"{ref['ds_batcher'][0]})")
+    log(f"  phase 16 spawn (ranks' start, work and exit): "
+        f"{rec['spawn_s']:.1f} s")
+    # the checks across ranks and against the single device
+    for r in ranks[1:]:
+        for key in ("a", "d"):
+            if not torch.equal(r[key]["logits"], ranks[0][key]["logits"]):
+                raise AssertionError(f"({key}) ranks returned different "
+                                     "logits")
+    for r in ranks:
+        c_a = cos(r["a"]["logits"], ref["int4"]["logits"])
+        c_d = cos(r["d"]["logits"], ref["bf16"]["logits"])
+        if min(c_a, c_d) < P16_COSINE_FLOOR:
+            raise AssertionError(f"tp / sp logits cosine {c_a:.3f} / "
+                                 f"{c_d:.3f} below {P16_COSINE_FLOOR}")
+        if r["c_pp_int4"]["tokens"] != ref_b:
+            raise AssertionError(f"(c) pp tokens {r['c_pp_int4']['tokens']}"
+                                 f" differ from the single-device "
+                                 f"batcher's {ref_b}")
+        if not all(x["equal"] for x in r["d"]["kv0"].values()):
+            raise AssertionError(f"(d) the handoff cache's layer-0 K / V "
+                                 f"differ from the single-device "
+                                 f"prefill's: {r['d']['kv0']}")
+        if r["e"]["experts"] != ds_cfg.n_routed_experts // W:
+            raise AssertionError("(e) a rank holds the wrong experts")
+        # each rank sums its experts' share before the all-reduce, another
+        # float32 order than one device's; on these seeded inputs the
+        # tokens agree (the CPU test and the card), and a flip would be a
+        # near tie worth a look, so it fails the phase
+        if r["e"]["tokens"] != ref["ds_batcher"][0]:
+            raise AssertionError(f"(e) ep tokens {r['e']['tokens']} differ "
+                                 f"from the single device's "
+                                 f"{ref['ds_batcher'][0]}")
+        if torch.device(dev).type == "cuda":
+            for name, rows in (("a prefill", r["a"]["launches_prefill"]),
+                               ("a steps", r["a"]["launches_steps"])):
+                need = {1, 15} if name == "a prefill" else {1, 2, 3}
+                if not need <= set(rows):
+                    raise AssertionError(f"({name}) rows {sorted(need)} not "
+                                         f"all launched: {rows}")
+    for r in ranks:
+        if r["b_paged"]["tokens"] != r["b_int4"]["tokens"]:
+            raise AssertionError("(b) the paged pool's tokens differ from "
+                                 "the int4 slot cache's under tp")
+
+    def kept(x):
+        return {k: v for k, v in x.items() if k != "logits"}
+
+    results["parallel_path"] = dict(
+        rec, backend=backend, devices=devices,
+        reference=dict(int4_tokens=ref["int4"]["tokens"],
+                       bf16_tokens=ref["bf16"]["tokens"],
+                       batcher_tokens=ref_b,
+                       ds_batcher_tokens=ref["ds_batcher"][0],
+                       batcher=[ref[k][1] for k in ("batcher_int4",
+                                                     "batcher_paged",
+                                                     "ds_batcher")]),
+        ranks=[dict({k: r[k] for k in ("b_int4", "b_paged", "c_pp_int4", "e",
+                                       "seconds", "transport")},
+                    a=kept(r["a"]), d=kept(r["d"])) for r in ranks])
+    del sp1
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    r0 = ranks[0]
+    return {"tp_prefill": _names(r0["a"]["launches_prefill"]),
+            "tp_decode": _names(r0["a"]["launches_steps"]),
+            "tp_batcher": _names(r0["b_int4"]["launches"]),
+            "pp_batcher": _names(r0["c_pp_int4"]["launches"]),
+            "sp_prefill": _names(r0["d"]["launches_prefill"]),
+            "ep_batcher": _names(r0["e"]["launches"])}
+
+
+def _names(rows):
+    """{row: launches} back to {kernel name: launches}."""
+    names = {v: k for k, v in P16_ROW.items()}
+    return {names.get(k, k): v for k, v in rows.items()}
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -6229,7 +6990,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
                     help="comma-separated phases to run after 1-2 (3a-3j, "
-                    "3 for all of them, 4-15; 6 runs 6a-6c); the default "
+                    "3 for all of them, 4-16; 6 runs 6a-6c); the default "
                     "is all. A partial run prints no kernel table")
     args = ap.parse_args(argv)
     only = set(filter(None, args.phases.split(",")))
@@ -6388,6 +7149,13 @@ def main(argv=None) -> int:
             "the registry, the deploy packed format, loglikelihood and "
             "generation, flatness, the HF DeepSeek FP8 loader)",
             run_eval_exchange_path, torch, dev, results, smi) or {})
+    if serve and want("16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(phase(
+            "phase 16: parallel serving (tp = 2 and its batcher, pp = 2, "
+            "sp = 2, DeepSeek under ep = 2) on two ranks",
+            run_parallel_path, torch, dev, results, smi) or {})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,

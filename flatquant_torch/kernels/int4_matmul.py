@@ -191,16 +191,21 @@ def w4a4_matmul_i8(x_q, x_scale, w_packed, w_scale,
 # ---------------------------------------------------------------------------
 
 
-def quant_acts_i8_ref(x, clip=None, q_max: int = 7):
+def quant_acts_i8_ref(x, clip=None, q_max: int = 7, extrema=None):
     """Plain version (the serving engine's per-token quant chain, JAX's
     `_act_codes_i8`): (int8 codes [T, K], f32 scales [T, 1]).
 
     xmax/xmin clip separately by their LAC ratios, absmax = max(|xmin|,
     xmax), scale = absmax / q_max (1 for an all-zero row), codes =
-    clamp(round(x / scale), -q_max-1, q_max) with round half to even."""
+    clamp(round(x / scale), -q_max-1, q_max) with round half to even.
+    extrema: a function (xmax, xmin) -> (xmax, xmin) applied to the row
+    extrema before the clip (tensor parallelism reduces them over the
+    ranks that hold the row's other channels)."""
     xf = x.to(torch.float32)
     xmax = torch.clamp(xf.amax(dim=-1, keepdim=True), min=0.0)
     xmin = torch.clamp(xf.amin(dim=-1, keepdim=True), max=0.0)
+    if extrema is not None:
+        xmax, xmin = extrema(xmax, xmin)
     if clip is not None:
         xmax = xmax * clip[0]
         xmin = xmin * clip[1]

@@ -38,8 +38,13 @@ What differs from JAX:
 Modes: "fp", "calib" (raw weights, transforms and STE fake-quant
 threaded through every linear; with baked transforms it is also JAX's
 DeepSeek eval), "eval" (act quant only) and "serve" (packed or FP8
-weights). The HF FP8 checkpoint loader is models/ds_loader.py. Not
-ported here: the EP/TP meshes (ROADMAP queue 1 item 9).
+weights). The HF FP8 checkpoint loader is models/ds_loader.py. Expert
+parallelism: the batcher hook `ds_batch_forward` takes a bundle whose
+routed experts are split over an "ep" mesh axis (parallel/mesh.py
+shard_ds_serving_params); each rank runs its experts for every token and
+the partial MoE sums are all-reduced, attention, the gate and the shared
+experts replicated. JAX's calibration meshes (deepseek_param_specs) wait
+for ROADMAP queue 1 item 9's slice 20.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from flatquant_torch.kernels.int4_matmul import (
     quant_acts_i8_ref,
 )
 from flatquant_torch.models.llama import rms_norm, silu
+from flatquant_torch.parallel.distributed import all_reduce
 from flatquant_torch.quantize.linear import (
     LinearQuantState,
     fq_linear_eval,
@@ -732,13 +738,33 @@ def _routed_experts(cfg, fq_cfg, mode, lp, fqf, x_e, quant, use_kernel,
     return lin(act_e, "e_w2", t)
 
 
+def _expert_block(lp, E: int, ep):
+    """(first expert, count) of this rank's routed experts: all E, or its
+    block of E/ep under expert parallelism (the params then hold only
+    those experts, parallel/mesh.py shard_ds_serving_params)."""
+    if ep is None:
+        return 0, E
+    blk = ep.block(E)
+    return blk.start, blk.stop - blk.start
+
+
+def _ep_sum(y, ep):
+    """The float32 partial MoE sum of this rank's experts, summed over
+    the ep ranks (one all-reduce)."""
+    return y if ep is None else all_reduce(y, "sum", ep)
+
+
 def _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, x,
-                      capacity_factor: float = 2.0, use_kernel=True):
+                      capacity_factor: float = 2.0, use_kernel=True,
+                      ep=None):
     """Capacity-gather MoE: tokens go into [E, C, D] expert buffers
     (C = ceil(T*K/E * capacity_factor); assignments past C go to a spill
     slot and drop silently), the experts run batched over their C slots,
     and each token sums its K weighted outputs in assignment order (k = 0
-    first, float32, as JAX's scatter-add on the CPU), not by atomics."""
+    first, float32, as JAX's scatter-add on the CPU), not by atomics.
+    ep: the expert-parallel Axis; the rank fills and runs only its
+    experts' buffers (the dispatch is global) and the partial sums are
+    all-reduced."""
     B, S, D = x.shape
     quant = mode != "fp" and fqf is not None
     x2d = x.reshape(-1, D)
@@ -754,31 +780,39 @@ def _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, x,
 
     flat_e = indices.reshape(-1)
     rank, keep = moe_dispatch(flat_e, C, E)
+    e0, n_e = _expert_block(lp, E, ep)
+    local_e = flat_e - e0
+    keep = keep & (local_e >= 0) & (local_e < n_e)
     tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
-    # buffers flattened to [E*C + 1, D], the last row the spill slot
-    dest = torch.where(keep, flat_e * C + rank, E * C)
-    buf = torch.zeros((E * C + 1, h.shape[-1]), dtype=h.dtype,
+    # buffers flattened to [n_e*C + 1, D], the last row the spill slot
+    dest = torch.where(keep, local_e * C + rank, n_e * C)
+    buf = torch.zeros((n_e * C + 1, h.shape[-1]), dtype=h.dtype,
                       device=x.device)
     buf[dest] = h[tok_idx]
     down_e = _routed_experts(cfg, fq_cfg, mode, lp, fqf,
-                             buf[:E * C].view(E, C, -1), quant, use_kernel)
+                             buf[:n_e * C].view(n_e, C, -1), quant,
+                             use_kernel)
 
-    gathered = down_e[flat_e, rank.clamp(0, C - 1)]  # [T*K, D]
+    gathered = down_e[local_e.clamp(0, n_e - 1),
+                      rank.clamp(0, C - 1)]  # [T*K, D]
     w_flat = torch.where(keep, weights.reshape(-1), 0.0)
     part = (gathered.to(torch.float32) * w_flat[:, None]).view(T, K, D)
     y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
     for k in range(K):
         y = y + part[:, k]
-    y = y.to(x.dtype)
+    y = _ep_sum(y, ep).to(x.dtype)
     z = _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel)
     return (y + z).reshape(B, S, D)
 
 
-def _ffn_moe(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None):
+def _ffn_moe(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None,
+             ep=None):
     """Dense-masked MoE: every expert on every token, outputs summed under
     the routing matrix [T, E] (drop-free). stats gets "moe_in" and
     "moe_down" (JAX records no statistic of the shared experts' down
-    input, so w2_trans keeps its diag init)."""
+    input, so w2_trans keeps its diag init). ep: the expert-parallel
+    Axis; the rank runs its experts on every token under its columns of
+    the routing matrix and the partial sums are all-reduced."""
     B, S, D = x.shape
     quant = mode != "fp" and fqf is not None
     x2d = x.reshape(-1, D)
@@ -793,17 +827,20 @@ def _ffn_moe(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None):
     t = _trans(fqf, "w1_trans", quant)
     if t is not None:
         h = apply_decompose(t, h)
+    e0, n_e = _expert_block(lp, E, ep)
     down_e = _routed_experts(cfg, fq_cfg, mode, lp, fqf,
-                             h[None].expand(E, T, D), quant, use_kernel,
+                             h[None].expand(n_e, T, D), quant, use_kernel,
                              stats)
     y = torch.einsum("etd,te->td", down_e.to(torch.float32),
-                     route).to(x.dtype)
+                     route[:, e0:e0 + n_e])
+    y = _ep_sum(y, ep).to(x.dtype)
     z = _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel)
     return (y + z).reshape(B, S, D)
 
 
 def ds_layer(cfg, fq_cfg, mode, lp, lfq, x, cos, sin, mask, moe: bool,
-             cache=None, pos=0, use_kernel=True, with_stats: bool = False):
+             cache=None, pos=0, use_kernel=True, with_stats: bool = False,
+             ep=None):
     """One layer: RMSNorm, MLA, residual; RMSNorm, dense FFN or MoE,
     residual. moe_impl "auto" takes the gather MoE in serve mode at
     B*S >= 256 tokens, the dense-masked MoE otherwise (and always for the
@@ -826,14 +863,15 @@ def ds_layer(cfg, fq_cfg, mode, lp, lfq, x, cos, sin, mask, moe: bool,
                              stats)
     elif impl == "gather" and stats is None:
         out = x + _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, h2,
-                                    cfg.moe_capacity_factor, use_kernel)
+                                    cfg.moe_capacity_factor, use_kernel, ep)
     else:
-        out = x + _ffn_moe(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel, stats)
+        out = x + _ffn_moe(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel, stats,
+                           ep)
     return (out, stats) if with_stats else out
 
 
 def _layers(cfg, fq_cfg, mode, params, fq, x, cos, sin, mask, cache, pos,
-            use_kernel, n_fp_tail=0):
+            use_kernel, n_fp_tail=0, ep=None):
     dense_fq, moe_fq = fq if fq is not None else (None, None)
     for i, lp in enumerate(params["dense_layers"]):
         c = None if cache is None else (cache["dense_kv"][i],
@@ -850,10 +888,10 @@ def _layers(cfg, fq_cfg, mode, params, fq, x, cos, sin, mask, cache, pos,
         if i < n_q:
             x = ds_layer(cfg, fq_cfg, mode, lp, None if moe_fq is None
                          else moe_fq[i], x, cos, sin, mask, True, c, pos,
-                         use_kernel)
+                         use_kernel, ep=ep)
         else:  # the full-precision tail
             x = ds_layer(cfg, None, "fp", lp, None, x, cos, sin, mask, True,
-                         c, pos, use_kernel)
+                         c, pos, use_kernel, ep=ep)
     return x
 
 
@@ -1243,14 +1281,16 @@ def ds_batch_forward(cfg: DeepSeekConfig, fq_cfg, spfq, tokens, cache, pos,
     and chunk at a scalar pos, decode at a scalar or per-slot [B] pos, over
     the latent caches (written in place) -> float32 logits [B, V] of the
     last (or last_idx) token. spfq = {"params": serving params, "fq":
-    (dense_fq, moe_fq) or None}. `phase` is not read: the cache, the
+    (dense_fq, moe_fq) or None}, with "ep" (a mesh Axis) when the routed
+    experts are split over expert-parallel ranks (parallel/mesh.py
+    shard_ds_serving_params). `phase` is not read: the cache, the
     position and moe_impl "auto" decide the route, as in JAX."""
     sp, fq = spfq["params"], spfq["fq"]
     B, S = tokens.shape
     x = sp["embed"][tokens].to(compute_dtype)
     cos, sin = _rope_rows(cfg, max_len, pos, S, x.device)
     x = _layers(cfg, fq_cfg, mode, sp, fq, x, cos, sin, None, cache, pos,
-                use_kernel)
+                use_kernel, ep=spfq.get("ep"))
     x = rms_norm(x, sp["final_norm"], cfg.rms_eps)
     h = (x[:, -1] if last_idx is None
          else x[torch.arange(B, device=x.device), last_idx])

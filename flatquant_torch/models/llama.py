@@ -182,14 +182,12 @@ def llama_layer(cfg: LlamaConfig, fq_cfg: Optional[FQConfig], mode: str,
     quantized-linear inputs {ln, up, down} (the sq-style diag init's
     statistics). with_linear_inputs (eval mode): also return the
     pre-act-quant inputs of the four linear groups {qkv, o, upgate, down}
-    (the GPTQ capture points). attn_fn (ring attention) waits for ROADMAP
-    queue 1 item 9."""
+    (the GPTQ capture points). attn_fn(q, k, v) replaces the eager
+    attention core, same [B, S, nh|nkv, hd] contract (the
+    sequence-parallel ring, parallel/sequence.py); `mask` is then
+    unused."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
-    if attn_fn is not None:
-        raise NotImplementedError(
-            "attn_fn (ring attention, sequence parallelism) waits for "
-            "ROADMAP queue 1 item 9")
     B, S, _ = x.shape
     quant = mode != "fp" and fq is not None and fq_cfg is not None
     stats, captures = {}, {}
@@ -250,7 +248,10 @@ def llama_layer(cfg: LlamaConfig, fq_cfg: Optional[FQConfig], mode: str,
             v = act_fake_quant(v, _head_cfg(fq_cfg.v_cfg, hd),
                                a.v_cache.clip_a_max, a.v_cache.clip_a_min)
 
-    attn = _attention_core(cfg, q, k, v, mask)
+    if attn_fn is None:
+        attn = _attention_core(cfg, q, k, v, mask)
+    else:
+        attn = attn_fn(q, k, v)
 
     if quant and a.o_trans is not None:
         # per-head mixing on the output: contraction over the heads axis
@@ -325,11 +326,9 @@ def llama_forward(cfg: LlamaConfig, params: dict, tokens, fq=None,
                   attn_fn=None):
     """Full forward over tokens [B, S] -> float32 logits [B, S, V], on the
     device that holds params. fq: the list of LayerFQ (None in "fp").
-    attn_fn (ring attention) waits for ROADMAP queue 1 item 9."""
-    if attn_fn is not None:
-        raise NotImplementedError(
-            "attn_fn (ring attention, sequence parallelism) waits for "
-            "ROADMAP queue 1 item 9")
+    attn_fn: a replacement for the eager attention core (the
+    sequence-parallel ring); `positions` then carries the global
+    positions of this shard's tokens and no causal mask is built."""
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev).to(torch.long)
     S = tokens.shape[1]
@@ -337,10 +336,11 @@ def llama_forward(cfg: LlamaConfig, params: dict, tokens, fq=None,
     if positions is None:
         positions = torch.arange(S, device=dev)
     cos, sin = rope_tables(cfg, torch.as_tensor(positions, device=dev))
-    mask = causal_mask(S, dev)
+    mask = None if attn_fn is not None else causal_mask(S, dev)
     fqs = fq if fq is not None else [None] * len(params["layers"])
     for lp, lfq in zip(params["layers"], fqs):
-        x = llama_layer(cfg, fq_cfg, mode, lp, lfq, x, cos, sin, mask)
+        x = llama_layer(cfg, fq_cfg, mode, lp, lfq, x, cos, sin, mask,
+                        attn_fn=attn_fn)
     x = rms_norm(x, params["final_norm_w"], cfg.rms_eps)
     head = params.get("lm_head", params["embed"])
     return (x @ head.T.to(x.dtype)).to(torch.float32)

@@ -88,12 +88,16 @@ class LayerFQ:
 
 def init_layer_fq(cfg: LlamaConfig, fq: FQConfig, rng: np.random.Generator,
                   tp: int = 1, device="cuda") -> LayerFQ:
-    """One layer's state, its factors drawn from `rng`. tp > 1
-    (shard-aligned transforms) waits for ROADMAP queue 1 item 9."""
-    if tp != 1:
-        raise NotImplementedError(
-            "shard-aligned transforms (tp > 1) wait for ROADMAP queue 1 "
-            "item 9")
+    """One layer's state, its factors drawn from `rng`. tp > 1 builds
+    shard-aligned transforms: the ones on row-parallel dims (o_trans on
+    heads, down_trans on the intermediate) at size dim // tp, which the
+    transforms' reshape then applies block-diagonally, one identical
+    block per tensor-parallel shard, with no collective (JAX
+    quantize/state.py:79-140)."""
+    if cfg.intermediate_size % tp or cfg.num_heads % tp:
+        raise ValueError(f"tp={tp} must divide num_heads "
+                         f"{cfg.num_heads} and intermediate_size "
+                         f"{cfg.intermediate_size}")
     dev = resolve_device(device)
     wa_quant = fq.w_bits < 16 or fq.a_bits < 16
     ln_trans = o_trans = kcache = vcache = None
@@ -102,9 +106,9 @@ def init_layer_fq(cfg: LlamaConfig, fq: FQConfig, rng: np.random.Generator,
               rn128=fq.tpu_decompose, device=dev)
     if wa_quant:
         ln_trans = init_decompose(cfg.hidden_size, rng, **kw)
-        o_trans = init_single(cfg.num_heads, rng, fq.direct_inv, dev)
+        o_trans = init_single(cfg.num_heads // tp, rng, fq.direct_inv, dev)
         up_gate = init_decompose(cfg.hidden_size, rng, **kw)
-        down = init_decompose(cfg.intermediate_size, rng, **kw)
+        down = init_decompose(cfg.intermediate_size // tp, rng, **kw)
     if fq.k_bits < 16 or fq.q_bits < 16:
         kcache = init_single(cfg.head_dim, rng, fq.direct_inv, dev)
     if fq.v_bits < 16 or wa_quant:
@@ -130,7 +134,8 @@ def init_layer_fq(cfg: LlamaConfig, fq: FQConfig, rng: np.random.Generator,
 def init_model_fq(cfg: LlamaConfig, fq: FQConfig, seed: int = 0,
                   tp: int = 1, device="cuda") -> List[LayerFQ]:
     """Every layer's state from one np.random.default_rng(seed), layer 0
-    first: JAX's draws, as a list of LayerFQ."""
+    first: JAX's draws, as a list of LayerFQ (tp > 1: shard-aligned, see
+    init_layer_fq)."""
     rng = np.random.default_rng(seed)
     return [init_layer_fq(cfg, fq, rng, tp=tp, device=device)
             for _ in range(cfg.num_layers)]

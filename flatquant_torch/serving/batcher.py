@@ -13,7 +13,13 @@ Greedy results equal single-request generation, and the paged pool's
 equal the int4 slot cache's token for token. The engine hooks
 `forward_fn` / `init_cache_fn` serve another model family through the
 same scheduler (models/deepseek.py ds_batch_forward and
-ds_init_batch_cache: DeepSeek over its latent caches).
+ds_init_batch_cache: DeepSeek over its latent caches; under expert
+parallelism the bundle of parallel/mesh.py `shard_ds_serving_params`).
+`mesh` runs every call tensor-parallel (parallel/serving_tp.py) and
+`pp_mesh` pipelines the layers over stages (parallel/pipeline.py): each
+rank runs this same scheduler on the same requests with its own shard of
+the weights and the cache, and gets the full logits back, so every rank
+takes the same tokens.
 
 What differs from JAX: there is no jit and no program cache. Prefill,
 decode and chunk are direct calls of the forward function, and every
@@ -94,22 +100,50 @@ class ContinuousBatcher:
         ds_init_batch_cache for DeepSeek; they run the bf16-cache
         scheduler only.
 
-        Not ported yet: mesh/tp_axis (tensor-parallel serving) and pp_mesh
-        (pipelined layers) wait for ROADMAP queue 1 item 9."""
-        if mesh is not None or pp_mesh is not None:
-            raise NotImplementedError(
-                "mesh/tp_axis and pp_mesh (tensor-parallel and pipelined "
-                "serving) wait for ROADMAP queue 1 item 9")
+        mesh: a parallel/mesh.py Mesh with a `tp_axis` axis runs every
+        call tensor-parallel (serving_params: build_serving_params(tp=tp)
+        from shard-aligned transforms, or this rank's slice of it from
+        serving_tp.shard_serving_params); the cache holds the rank's kv
+        heads. pp_mesh: a Mesh with a "pp" axis pipelines the layers
+        (serving_params: all layers or this stage's,
+        pipeline.stage_serving_params); the cache holds the stage's
+        layers, decode runs pp_microbatches microbatches, a prefill or
+        chunk one. Greedy outputs equal the unsharded batcher's (pp: the
+        same numbers; tp: up to the order of the partial sums)."""
+        if mesh is not None and pp_mesh is not None:
+            raise ValueError("mesh (tp) and pp_mesh are separate program "
+                             "sets, as in JAX")
         if forward_fn is not None and cache_mode != "bf16":
             raise ValueError("engine hooks run the bf16-cache scheduler; "
                              f"cache_mode {cache_mode!r} is the Llama "
                              "engine's")
+        if forward_fn is not None and (mesh is not None
+                                       or pp_mesh is not None):
+            raise ValueError("engine hooks run the plain scheduler; tp and "
+                             "pp run the Llama engine's layers")
         self._forward = forward_fn if forward_fn is not None else _forward
         self._init_cache = (init_cache_fn if init_cache_fn is not None
                             else init_cache)
         self.cfg = cfg
         self.fq_cfg = fq_cfg
         self.sp = serving_params
+        self._cache_cfg = cfg
+        if mesh is not None:
+            from flatquant_torch.parallel import serving_tp as stp
+
+            self.sp = stp.shard_serving_params(serving_params, mesh,
+                                               tp_axis)
+            self._cache_cfg = stp.tp_local_config(cfg, mesh.shape[tp_axis])
+            self._forward = stp.tp_forward(cfg, mesh, tp_axis)
+        elif pp_mesh is not None:
+            from flatquant_torch.parallel import pipeline as pl
+
+            if batch_slots % pp_microbatches:
+                raise ValueError(f"batch_slots {batch_slots} % "
+                                 f"pp_microbatches {pp_microbatches} != 0")
+            self.sp = pl.stage_serving_params(serving_params, pp_mesh)
+            self._cache_cfg = pl.stage_config(cfg, pp_mesh)
+            self._forward = pl.pipeline_forward_fn(pp_mesh, pp_microbatches)
         self.B = batch_slots
         self.max_len = max_len
         self.use_kernel = use_kernel
@@ -127,7 +161,8 @@ class ContinuousBatcher:
             self._mb = -(-max_len // block_size)
             if n_blocks <= 0:
                 n_blocks = 1 + max(1, (batch_slots * self._mb + 1) // 2)
-            pool = init_cache(cfg, batch_slots, max_len, mode="paged",
+            pool = init_cache(self._cache_cfg, batch_slots, max_len,
+                              mode="paged",
                               n_blocks=n_blocks, block_size=block_size,
                               device=self.dev)
             pool.pop("tbl")  # the batcher manages tables host-side
@@ -191,7 +226,7 @@ class ContinuousBatcher:
     # -- internals ----------------------------------------------------------
 
     def _new_cache(self, batch):
-        return self._init_cache(self.cfg, batch, self.max_len,
+        return self._init_cache(self._cache_cfg, batch, self.max_len,
                                 dtype=self.compute_dtype,
                                 mode=self.cache_mode, device=self.dev)
 

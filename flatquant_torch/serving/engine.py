@@ -47,9 +47,17 @@ gate), each with the standard or the perm transforms (ln_tp, ug_tp,
 down_tp through kron_transform_perm, o_tp as a minor-dim head mix); the
 fused routes qualify under JAX's conditions, which key on ln_t, down_t
 and the merged qkv, so a perm or unmerged model takes the composed
-routes, as in JAX. Branches not ported yet raise NotImplementedError
-naming the ROADMAP item that ports them, before any cache write
-(`_check_ported`): tp and ring attention.
+routes, as in JAX.
+
+Tensor parallelism (`tp_axis`, a parallel/mesh.py Axis; cfg is then the
+rank's local config, parallel/serving_tp.py): the row-parallel o and down
+all-reduce their partial sums over the axis and quantize with the global
+per-token extrema (`_quant_linear(axis_name=...)`), and every fused route
+declines, as in JAX, because its in-kernel scales are shard-local: a rank
+runs the composed glue with w4a4_matmul_i8, the int4 decode attention,
+write_token, and flash at S >= 1024. `attn_fn` replaces the prefill
+attention of `serving_layer` (sequence parallelism passes ring attention,
+parallel/sequence.py).
 """
 
 from __future__ import annotations
@@ -95,6 +103,7 @@ from flatquant_torch.models.llama import (
     rotate_half,
     silu,
 )
+from flatquant_torch.parallel.distributed import all_reduce
 from flatquant_torch.quantize.spec import FQConfig
 from flatquant_torch.serving.quantized import (
     _grouped_attn_in,
@@ -155,12 +164,14 @@ def _apply_head_matrix(t, mat):
     return t.to(mat.dtype) @ mat
 
 
-def _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
+def _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel,
+                     tp_axis=None):
     """JAX's condition for the fused prefill attention
     (flatquant_tpu/serving/engine.py:409-414: the merged qkv, o_t (not
-    the perm layout's o_tp); tp is not ported)."""
+    the perm layout's o_tp), no tp)."""
     a_cfg = fq_cfg.a_cfg
     return (use_kernel and phase == "prefill" and "qkv" in sl
+            and tp_axis is None
             and cfg.head_dim == 128
             and S % 128 == 0 and S >= 256 and not per_slot and "k_t" in sl
             and sl.get("o_t") is not None
@@ -168,45 +179,43 @@ def _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
             and a_cfg.enabled and a_cfg.q_max == 7)
 
 
-def _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis=None,
-                  attn_fn=None):
-    """Check the phase, then raise NotImplementedError, before any cache
-    write, for every branch of JAX's serving_layer /
-    serving_layer_int4cache that the port does not have yet (each names
-    the ROADMAP item that will), instead of taking another route."""
+def _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis=None):
+    """Check the phase and the tp axis before any cache write."""
     if phase not in ("prefill", "decode", "chunk") or (
             phase == "decode" and S != 1):
         raise ValueError(f"phase {phase!r} with {S} tokens: 'prefill', "
                          "'chunk', or 'decode' of one token")
     if per_slot and phase != "decode":
         raise ValueError("per-slot positions only in single-token decode")
-    if tp_axis is not None:
-        raise NotImplementedError("tp waits for ROADMAP queue 1 item 9")
-    if attn_fn is not None:
-        raise NotImplementedError(
-            "attn_fn (ring attention, sequence-parallel serving) waits for "
-            "ROADMAP queue 1 item 9")
+    if tp_axis is not None and not hasattr(tp_axis, "group"):
+        raise TypeError(f"tp_axis {tp_axis!r}: a parallel/mesh.py Axis "
+                        "(mesh.axis('tp')), not an axis name")
 
 
-def _qlin(fq_cfg, h, lin, use_kernel, compute_dtype, bias=None):
+def _qlin(fq_cfg, h, lin, use_kernel, compute_dtype, bias=None, axis=None):
     """The quantized linear of h [..., K] -> [..., N] (+ bias): per-token
     quant and the quantized-weight GEMM, or the weight-only branch when
-    activations are not quantized."""
+    activations are not quantized. axis: the tp Axis of a row-parallel
+    linear, whose partial outputs are summed over its ranks (JAX's
+    psum)."""
     y = _quant_linear(h.reshape(-1, h.shape[-1]), lin, use_kernel,
                       compute_dtype, quant_acts=fq_cfg.a_cfg.enabled,
-                      a_q_max=fq_cfg.a_cfg.q_max)
+                      a_q_max=fq_cfg.a_cfg.q_max, axis_name=axis)
     y = y.reshape(h.shape[:-1] + (lin["scale"].shape[0],))
+    if axis is not None:
+        y = all_reduce(y, "sum", axis)
     return y if bias is None else y + bias.to(y.dtype)
 
 
-def _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
+def _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype, tp_axis=None):
     """The attention input projections: the merged qkv [B, S, q_dim +
     2*kv_dim] (with use_kernel and quantized activations through the
     fused flat-pipeline input route where it qualifies, else RMSNorm, the
     Kronecker transform and the quantized linear), or, for an unmerged
-    layer, the tuple (q, k, v) of three quantized linears."""
+    layer, the tuple (q, k, v) of three quantized linears. Under tp the
+    fused route declines (its scales are shard-local)."""
     B, S, H = x.shape
-    if use_kernel and fq_cfg.a_cfg.enabled:
+    if use_kernel and fq_cfg.a_cfg.enabled and tp_axis is None:
         qkv_g = _grouped_attn_in(x.reshape(-1, H), sl, cfg.rms_eps,
                                  compute_dtype, fq_cfg.a_cfg.q_max)
         if qkv_g is not None:
@@ -254,7 +263,8 @@ def _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot):
     return q, k, v
 
 
-def _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype):
+def _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype,
+            tp_axis=None):
     """x plus the o projection of attn [B, S, nh, hd]: the o_t head mixing
     (einsum), the perm layout's o_tp head mixing ([.., g, hd]^T @ o_tp over
     the minor dim: (group, d, i) channel order, which the packed o weight
@@ -274,7 +284,8 @@ def _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype):
     elif sl.get("v_t_inv") is not None:
         attn = attn @ sl["v_t_inv"].T.to(attn.dtype)
     attn = attn.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return x + _qlin(fq_cfg, attn, sl["o"], use_kernel, compute_dtype)
+    return x + _qlin(fq_cfg, attn, sl["o"], use_kernel, compute_dtype,
+                     axis=tp_axis)
 
 
 def _cache_attention(q, ck, cv, pos, compute_dtype):
@@ -311,11 +322,13 @@ def serving_layer(cfg, fq_cfg, sl, x, cos, sin, ck, cv, pos, phase,
     masked select). K/V go through quantize -> dequantize at write when
     their bits are < 16. Prefill attends with the unquantized K/V through
     `prefill_attention`; decode attends over the cache. Returns the layer
-    output."""
+    output. tp_axis: see the module docstring. attn_fn(q, k, v, sm_scale)
+    replaces the prefill attention (ring attention under sequence
+    parallelism: the K/V just written are this rank's chunk)."""
     S = x.shape[1]
     per_slot = torch.is_tensor(pos) and pos.ndim == 1
-    _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis, attn_fn=attn_fn)
-    qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
+    _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis)
+    qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype, tp_axis)
     q, k, v = _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot)
 
     stores = []
@@ -338,12 +351,15 @@ def serving_layer(cfg, fq_cfg, sl, x, cos, sin, ck, cv, pos, phase,
             cache[:, pos:pos + S] = new
 
     sm_scale = 1.0 / float(np.sqrt(cfg.head_dim))
-    if phase == "prefill":
+    if phase == "prefill" and attn_fn is not None:
+        attn = attn_fn(q, k, v, sm_scale).to(compute_dtype)
+    elif phase == "prefill":
         attn = prefill_attention(q, k, v, sm_scale, use_kernel, compute_dtype)
     else:
         attn = _cache_attention(q, ck, cv, pos, compute_dtype)
-    x = _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype)
-    return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
+    x = _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype, tp_axis)
+    return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype,
+                        tp_axis)
 
 
 def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
@@ -359,13 +375,15 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
     attends over the cache (chunk_attention_int4 or, paged,
     paged_chunk_attention_int4); decode writes one token and attends over
     the cache through decode_attention_int4 or, paged,
-    paged_decode_attention_int4. Returns the layer output."""
+    paged_decode_attention_int4. Returns the layer output. tp_axis: see
+    the module docstring."""
     B, S, H = x.shape
     per_slot = torch.is_tensor(pos) and pos.ndim == 1
     _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis)
-    qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
+    qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype, tp_axis)
 
-    if _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel):
+    if _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel,
+                        tp_axis):
         x = _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp,
                                      kparam, vp, vparam, pos, compute_dtype,
                                      tbl)
@@ -433,11 +451,13 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
                 q[:, 0], kp, kparam[..., 0:1], kparam[..., 1:2], vp,
                 vparam[..., 0:1], vparam[..., 1:2], valid, sm_scale)
         attn = attn[:, None]
-    x = _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype)
-    return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
+    x = _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype, tp_axis)
+    return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype,
+                        tp_axis)
 
 
-def _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
+def _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype,
+                 tp_axis=None):
     """The MLP half of a serving layer (both cache modes): with use_kernel
     and quantized activations the fully fused flat pipeline
     (_quant_mlp_grouped_full) or its tail after an eager ln2
@@ -445,10 +465,11 @@ def _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
     (eager ln2 + Kronecker glue (the perm form under ug_tp), the merged
     up||gate projection with silu (_quant_swiglu: the fused swiglu GEMM at
     256+ rows) or the unmerged up and gate linears, the down transform
-    (down_tp: the perm form) and the down linear)."""
+    (down_tp: the perm form) and the down linear, all-reduced over
+    tp_axis when given; the fused routes decline under tp)."""
     H = x.shape[-1]
     a_cfg = fq_cfg.a_cfg
-    fused = use_kernel and a_cfg.enabled
+    fused = use_kernel and a_cfg.enabled and tp_axis is None
     if fused:
         y_full = _quant_mlp_grouped_full(x.reshape(-1, H), sl, cfg.rms_eps,
                                          compute_dtype, a_cfg.q_max)
@@ -476,7 +497,8 @@ def _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype):
         act = kron_transform_perm(act, sl["down_tp"])
     elif "down_t" in sl:
         act = kron_transform(act, sl["down_t"])
-    return x + _qlin(fq_cfg, act, sl["down"], use_kernel, compute_dtype)
+    return x + _qlin(fq_cfg, act, sl["down"], use_kernel, compute_dtype,
+                     axis=tp_axis)
 
 
 def _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp, kparam,
@@ -519,10 +541,12 @@ def _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp, kparam,
 
 
 def _forward(cfg, fq_cfg, sp, tokens, cache, pos, phase, use_kernel, max_len,
-             compute_dtype=torch.bfloat16, last_idx=None):
+             compute_dtype=torch.bfloat16, last_idx=None, tp_axis=None):
     """Embed, run every layer (cache updated in place; a paged cache's
     "tbl" goes to every layer and stays in the dict), final norm and
-    lm_head on the last (or last_idx) token -> float32 logits [B, V]."""
+    lm_head on the last (or last_idx) token -> float32 logits [B, V]
+    (under tp_axis, with the rank's local cfg and params: this rank's
+    vocab block [B, V/tp] of the vocab-parallel head)."""
     x = sp["embed"][tokens].to(compute_dtype)
     cos, sin = rope_tables(cfg, torch.arange(max_len, device=x.device))
     if "kp" in cache:
@@ -534,12 +558,13 @@ def _forward(cfg, fq_cfg, sp, tokens, cache, pos, phase, use_kernel, max_len,
             x = serving_layer_int4cache(
                 cfg, fq_cfg, sl, x, cos, sin, cache["kp"][i],
                 cache["kparam"][i], cache["vp"][i], cache["vparam"][i], pos,
-                phase, use_kernel, compute_dtype, tbl=cache.get("tbl"))
+                phase, use_kernel, compute_dtype, tp_axis=tp_axis,
+                tbl=cache.get("tbl"))
     else:
         for i, sl in enumerate(sp["layers"]):
             x = serving_layer(cfg, fq_cfg, sl, x, cos, sin, cache["k"][i],
                               cache["v"][i], pos, phase, use_kernel,
-                              compute_dtype)
+                              compute_dtype, tp_axis=tp_axis)
     x = rms_norm(x, sp["final_norm_w"], cfg.rms_eps)
     last = (x[:, -1] if last_idx is None
             else x[torch.arange(x.shape[0], device=x.device), last_idx])

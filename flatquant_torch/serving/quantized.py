@@ -32,9 +32,12 @@ gate: JAX's default) layout, with or without the perm layouts
 the packed weights' input channels). `layer_transforms` reads one
 layer's transform matrices and clip ratios out of its LayerFQ, and
 `build_serving_layer` packs one layer from those (chip_smoke.py packs a
-model from its own matrices through it). tp > 1 waits for ROADMAP queue
-1 item 9. `build_hadamard_serving_params` packs the QuaRot baseline
-(fixed Hadamard rotations, core/hadamard.py) in the unmerged layout.
+model from its own matrices through it). tp > 1 lays the packed weights
+out per tensor-parallel shard (parallel/serving_tp.py cuts them), and
+`_quant_linear(axis_name=...)` takes the global per-token extrema of a
+row-parallel input over the tp ranks. `build_hadamard_serving_params`
+packs the QuaRot baseline (fixed Hadamard rotations, core/hadamard.py)
+in the unmerged layout.
 """
 
 from __future__ import annotations
@@ -81,6 +84,7 @@ from flatquant_torch.kernels.int4_matmul import (
 )
 from flatquant_torch.models.config import LlamaConfig
 from flatquant_torch.models.llama import silu
+from flatquant_torch.parallel.distributed import all_reduce
 from flatquant_torch.quantize.spec import FQConfig
 
 # minimum input width at which JAX routes per-token act quant through the
@@ -108,11 +112,20 @@ def _pack_linear(w: torch.Tensor, w_cfg, w_q=None) -> Dict[str, Any]:
 
 
 def _pack_linear_rp(w, w_cfg, tp: int, w_q=None) -> Dict[str, Any]:
-    """_pack_linear for a row-parallel weight (o, down); at tp > 1 each
-    shard's input block packs on its own (ROADMAP queue 1 item 9)."""
-    if tp != 1:
-        raise NotImplementedError("tp > 1 waits for ROADMAP queue 1 item 9")
-    return _pack_linear(w, w_cfg, w_q)
+    """_pack_linear for a row-parallel weight (o, down) under tensor
+    parallelism: planar int4 pairs channel c with c + K/2 over the whole
+    row, which would give an input-channel shard channels it does not own;
+    so each shard's K/tp block packs on its own and the byte dim splits
+    into valid local packings (per-output-channel scales do not depend on
+    the blocking; JAX quantized.py:91-105)."""
+    if tp == 1 or w_cfg.bits == 8:
+        return _pack_linear(w, w_cfg, w_q)
+    scale, zero = weight_find_params(w, w_cfg)
+    q = weight_quantize_int(w if w_q is None else w_q, scale, zero, w_cfg)
+    kb = q.shape[1] // tp
+    wp = torch.cat([pack_weight_planar(q[:, s * kb:(s + 1) * kb])
+                    for s in range(tp)], dim=1)
+    return {"wp": wp, "scale": scale[:, 0].contiguous()}
 
 
 def _clip_sigmoid(c) -> Optional[torch.Tensor]:
@@ -120,18 +133,25 @@ def _clip_sigmoid(c) -> Optional[torch.Tensor]:
 
 
 def _interleave_rows(ws, tp: int):
-    """Merged-projection row order; at tp=1 a plain concatenation
-    [a; b; ...] (tp > 1 interleaves per-shard blocks, ROADMAP queue 1
-    item 9)."""
-    if tp != 1:
-        raise NotImplementedError("tp > 1 waits for ROADMAP queue 1 item 9")
-    return torch.cat(ws, dim=0)
+    """Stack per-shard row blocks of several [out_i, ...] tensors: [a0,
+    b0, ..., a1, b1, ...], so that cutting the merged out dim into tp
+    blocks gives each shard its own contiguous [a_s; b_s; ...] (JAX
+    quantized.py:75-88); a plain concatenation at tp = 1."""
+    if tp == 1:
+        return torch.cat(ws, dim=0)
+    blocks = []
+    for s in range(tp):
+        for w in ws:
+            o = w.shape[0] // tp
+            blocks.append(w[s * o:(s + 1) * o])
+    return torch.cat(blocks, dim=0)
 
 
 def _perm_in_channels(w, ln: int, rn: int):
     """A weight's [out, in] input channels from the standard (i*rn+j) to
     the transposed (j*ln+i) order that kron_transform_perm emits, per
-    ln*rn block."""
+    ln*rn block (a shard-aligned transform of init_model_fq(tp=...) is
+    block-diagonal, in = tp * ln * rn, and permutes block by block)."""
     out, ind = w.shape
     if ind % (ln * rn):
         raise ValueError(f"{ind} input channels do not tile {ln} x {rn}")
@@ -206,7 +226,16 @@ def build_serving_layer(cfg: LlamaConfig, fq_cfg: FQConfig, lp: dict,
     Clip values are the sigmoid-applied ratios, not the raw factors.
     perm_transforms stores the Kronecker pairs as "ln_tp" / "ug_tp" /
     "down_tp" and o_t as "o_tp", and permutes the packed weights' input
-    channels to the order those transforms emit."""
+    channels to the order those transforms emit.
+
+    tp > 1 lays the weights out for tensor-parallel serving
+    (parallel/serving_tp.py): merged projections interleave per-shard
+    row blocks (_interleave_rows) and the row-parallel o / down pack per
+    input-channel block (_pack_linear_rp), so cutting the out (resp.
+    packed in) dim into tp blocks gives every rank a whole local layer.
+    It needs shard-aligned transforms (init_model_fq(tp=tp)) and tp
+    dividing the kv heads; the perm layout with tp > 1 is refused, as
+    JAX's build_serving_params refuses it."""
     w_cfg = fq_cfg.w_cfg
     if not (w_cfg.sym and w_cfg.group_size <= 0):
         raise NotImplementedError(
@@ -214,6 +243,17 @@ def build_serving_layer(cfg: LlamaConfig, fq_cfg: FQConfig, lp: dict,
     if w_cfg.bits not in (4, 8):
         raise ValueError(f"real-quant weights are int4 or int8, not "
                          f"{w_cfg.bits} bits")
+    if tp > 1:
+        if perm_transforms:
+            raise NotImplementedError(
+                "perm layout + tp not combined yet (as JAX's "
+                "build_serving_params)")
+        if (cfg.num_heads % tp or cfg.num_kv_heads % tp
+                or cfg.intermediate_size % tp):
+            raise ValueError(
+                f"head-granular tp rule: tp={tp} must divide num_heads "
+                f"{cfg.num_heads}, num_kv_heads {cfg.num_kv_heads} and "
+                f"intermediate_size {cfg.intermediate_size}")
     same = elp is None or elp is lp
     elp = lp if same else elp
     out = {
@@ -309,8 +349,8 @@ def build_serving_params(cfg: LlamaConfig, fq_cfg: FQConfig,
     these on-grid weights, the scales from baked_params.
     perm_transforms=True stores the Kronecker transforms in the
     transposed-output form (kron_transform_perm) with the packed weights'
-    input channels permuted to match. tp > 1 waits for ROADMAP queue 1
-    item 9."""
+    input channels permuted to match. tp > 1: the tensor-parallel layout
+    (build_serving_layer)."""
     eval_layers = (eval_params or baked_params)["layers"]
     layers = [build_serving_layer(cfg, fq_cfg, lp, layer_transforms(lfq),
                                   dtype, merge_projections, tp,
@@ -367,9 +407,19 @@ def _int8_matmul(xq, w8):
     return torch._int_mm(xq.contiguous(), w8.T)[:t]
 
 
+def _global_extrema(axis):
+    """The per-token (max, min) of a row over every rank of `axis`, in one
+    all-reduce: MAX of [max, -min] (negation is exact)."""
+    def reduce(xmax, xmin):
+        both = all_reduce(torch.cat([xmax, -xmin], dim=-1), "max", axis)
+        return both[:, :1], -both[:, 1:]
+
+    return reduce
+
+
 def _quant_linear(x2d, lin, use_kernel: bool, out_dtype=torch.bfloat16,
                   quant_acts: bool = True, a_q_max: int = 7,
-                  axis_name: Optional[str] = None):
+                  axis_name=None):
     """Per-token quant + quantized-weight matmul. x2d: [T, K] fp; returns
     [T, N]. JAX's branches, in its order:
 
@@ -383,9 +433,14 @@ def _quant_linear(x2d, lin, use_kernel: bool, out_dtype=torch.bfloat16,
     with use_kernel, the one-pass quant_acts_i8 kernel, else the eager
     chain (_act_codes_i8); then "w8" as an exact int8 x int8 -> int32
     product, or "wp" through w4a4_matmul_i8 (use_kernel) or its plain
-    version. The scale rule is a_q_max = 7 (A4) or 127 (A8)."""
-    if axis_name is not None:
-        raise NotImplementedError("tp waits for ROADMAP queue 1 item 9")
+    version. The scale rule is a_q_max = 7 (A4) or 127 (A8).
+
+    axis_name: the mesh Axis (parallel/mesh.py) that shards THIS linear's
+    input channels (the row-parallel o / down under tensor parallelism).
+    The per-token [T, 1] max and min are then reduced over its ranks
+    before the clip, so the codes equal single-device codes (JAX's pmax /
+    pmin), and the one-pass quant kernel, whose extrema are shard-local,
+    is not taken (as in JAX)."""
     w8 = lin.get("w8")
     if not quant_acts:
         if w8 is not None:
@@ -398,7 +453,10 @@ def _quant_linear(x2d, lin, use_kernel: bool, out_dtype=torch.bfloat16,
                                lin["scale"], out_dtype)
         return w4a8_matmul_ref(x2d, ones, lin["wp"], lin["scale"], out_dtype)
     clip = lin.get("a_clip")
-    if (use_kernel and x2d.shape[0] >= 256
+    if axis_name is not None:
+        xq, xs = _act_codes_i8(x2d, clip, a_q_max,
+                               extrema=_global_extrema(axis_name))
+    elif (use_kernel and x2d.shape[0] >= 256
             and x2d.shape[1] >= PALLAS_QUANT_MIN_K
             and x2d.shape[1] % 128 == 0):
         xq, xs = quant_acts_i8(x2d, clip=clip, q_max=a_q_max)
@@ -448,7 +506,7 @@ def _quant_mlp_grouped(x2d, sl, out_dtype=torch.bfloat16, a_q_max: int = 7):
             and x2d.shape[0] >= 256 and a_q_max == 7):
         return None
     left, right = sl["down_t"]
-    if right.shape[0] != 128:
+    if right.shape[0] != 128 or not _down_t_spans(sl):
         return None
     xq, xs = _act_codes_i8(x2d, sl["upgate"].get("a_clip"), a_q_max)
     ug = sl["upgate"]
@@ -474,12 +532,22 @@ def _attn_in_qualifies(x2d, sl, a_q_max: int) -> bool:
             and sl["ln_t"][1].shape[0] == 128)
 
 
+def _down_t_spans(sl) -> bool:
+    """The down transform covers the whole intermediate. A shard-aligned
+    one (init_model_fq(tp=...)) served on one device is block-diagonal,
+    one block per tp shard: the composed kron_transform applies it so,
+    the fused routes' left factor cannot (JAX's left_quant_i8_flat
+    asserts there; the port declines the route instead)."""
+    left, right = sl["down_t"]
+    return left.shape[0] * right.shape[0] * 2 == sl["upgate"]["wp"].shape[0]
+
+
 def _mlp_full_qualifies(x2d, sl, a_q_max: int) -> bool:
     return ("upgate" in sl and "down" in sl and "down_t" in sl
             and "ug_t" in sl and "wp" in sl["upgate"] and "wp" in sl["down"]
             and x2d.shape[0] >= 256 and a_q_max == 7
             and sl["ug_t"][1].shape[0] == 128
-            and sl["down_t"][1].shape[0] == 128)
+            and sl["down_t"][1].shape[0] == 128 and _down_t_spans(sl))
 
 
 def _grouped_attn_in(x2d, sl, eps: float, out_dtype=torch.bfloat16,

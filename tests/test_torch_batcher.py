@@ -455,10 +455,15 @@ def _near_state(jcache, tcache):
 
 
 def test_unported_batcher_options_raise(tiny):
+    """mesh (tp) and pp_mesh serve since the parallel slice
+    (tests/test_torch_serving_tp.py, test_torch_pipeline.py); what the
+    batcher refuses, as JAX's asserts do: both at once, and engine hooks
+    under either."""
     cfg, fq, tsp = tiny["cfg"], tiny["fq"], tiny["tsp"]
-    for kw, item in ((dict(mesh=object()), "item 9"),
-                     (dict(pp_mesh=object()), "item 9")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+    for kw, msg in ((dict(mesh=object(), pp_mesh=object()), "separate"),
+                    (dict(mesh=object(), forward_fn=len), "plain"),
+                    (dict(pp_mesh=object(), forward_fn=len), "plain")):
+        with pytest.raises(ValueError, match=msg):
             ContinuousBatcher(cfg, fq, tsp, device="cpu", **kw)
     # engine hooks (DeepSeek, tests/test_torch_deepseek.py) run the bf16
     # cache only, as JAX's

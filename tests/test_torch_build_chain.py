@@ -163,8 +163,14 @@ def test_init_model_fq_bit_equal_splits(shape):
 
 
 def test_init_model_fq_tp_raises_naming_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        init_model_fq(get_config("tiny-llama"), W4A4KV4, tp=2, device="cpu")
+    """tp > 1 (shard-aligned transforms) is ported since the parallel
+    slice (bit-equal to JAX's, tests/test_torch_serving_tp.py); a tp that
+    does not divide the heads and the intermediate is refused."""
+    fq = init_model_fq(get_config("tiny-llama"), W4A4KV4, tp=2,
+                       device="cpu")
+    assert fq[0].attn.o_trans.size == get_config("tiny-llama").num_heads // 2
+    with pytest.raises(ValueError, match="tp=3"):
+        init_model_fq(get_config("tiny-llama"), W4A4KV4, tp=3, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -559,10 +565,23 @@ def test_llama_layer_stats_and_captures_match_jax(tiny):
 
 
 def test_llama_attn_fn_raises_naming_item_9(tiny):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tl.llama_forward(tiny["cfg"], from_jax_params(_np(tiny["jp"]),
-                                                      "cpu"),
-                         tiny["toks"], attn_fn=lambda *a: None)
+    """attn_fn is ported since the parallel slice (ring attention,
+    tests/test_torch_sequence.py): a replacement attention core that
+    computes the eager core's function gives the same logits, and is
+    called once per layer."""
+    params = from_jax_params(_np(tiny["jp"]), "cpu")
+    S = np.asarray(tiny["toks"]).shape[1]
+    mask = tl.causal_mask(S, "cpu")
+    calls = []
+
+    def attn(q, k, v):
+        calls.append(q.shape)
+        return tl._attention_core(tiny["cfg"], q, k, v, mask)
+
+    want = tl.llama_forward(tiny["cfg"], params, tiny["toks"])
+    got = tl.llama_forward(tiny["cfg"], params, tiny["toks"], attn_fn=attn)
+    assert len(calls) == tiny["cfg"].num_layers
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

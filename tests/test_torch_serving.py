@@ -352,9 +352,10 @@ def test_default_device_raises_without_a_card(model):
 
 
 def test_unported_routes_raise(model):
-    """Branches the port does not have yet raise, naming their ROADMAP
-    item, instead of taking another route: tp and ring attention (item
-    9). Unmerged projections and the perm layouts serve
+    """tp and ring attention serve since the parallel slice
+    (tests/test_torch_serving_tp.py, test_torch_sequence.py); a tp axis
+    given by name, not as a mesh Axis, is refused before any cache write.
+    Unmerged projections and the perm layouts serve
     (tests/test_torch_build_chain.py). Weight-only
     serving, serving without the o transform, the quant_acts_i8 route (T
     >= 256, K >= 8192) and the fused swiglu GEMM (T >= 256) run
@@ -374,14 +375,15 @@ def test_unported_routes_raise(model):
         te.serving_layer_int4cache(cfg, fq, sl, x, None, None, *layer_cache,
                                    0, "chunk", False, torch.float32, **kw)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(TypeError, match="mesh.py Axis"):
         chunk_layer(tp_axis="tp")
     bf16 = te.init_cache(cfg, 1, MAX_LEN, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(TypeError, match="mesh.py Axis"):
         te.serving_layer(cfg, fq, sl, x, None, None, bf16["k"][0],
                          bf16["v"][0], 0, "chunk", False, torch.float32,
-                         attn_fn=lambda *a: None)
+                         tp_axis="tp")
     assert not any(bool(t.any()) for t in layer_cache)  # nothing written
+    assert not any(bool(t.any()) for t in bf16["k"] + bf16["v"])
 
     # the routes that raised before this slice: rows 12 and 13 run (their
     # plain versions, on CPU tensors)
