@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 14    # phases 1-2 and 14
     python3 chip_smoke.py --phases 15    # phases 1-2 and 15
     python3 chip_smoke.py --phases 16    # phases 1-2 and 16
+    python3 chip_smoke.py --phases 16,17 # phases 1-2, 16 and 17 (one spawn)
 
 Phases (any failure makes the script exit non-zero without the final
 line):
@@ -118,8 +119,9 @@ line):
      comparator (serving/baseline.py) on a random bf16 llama-2-7b:
      prefill and 32 decode steps timed, its flash launches checked, then
      freed.
-  7. the continuous batcher (serving/batcher.py) over the phase-4 model,
-     rebuilt from its seed (use_kernel=True, bf16 compute, 4 slots,
+  7. the continuous batcher (serving/batcher.py) over the phase-4 model
+     rebuilt from its seed at P7_LAYERS (16) of its 32 layers, the model
+     phases 11 and 12 share too (use_kernel=True, bf16 compute, 4 slots,
      max_len 2048): (a) the int4 slot cache with chunked prefill of 256
      on eight requests (prompts of 40 to 1500 tokens, 16 to 32 new
      tokens each), (b) the same over the paged pool (block 256, the
@@ -192,7 +194,8 @@ line):
      cut to 2 layers (bf16 on the kernels, a tripwire; float32 on the
      plain versions, floor 0.99).
   14. the calibrate -> eval pipeline (main.py's path): (a) the port's CLI
-     in process on qwen-2.5-0.5b (24 layers, full width): W4A4KV4 with
+     in process on qwen-2.5-0.5b (full width, CLI_LAYERS = 6 of its 24
+     layers): W4A4KV4 with
      every learnable group, 1 epoch of 16 x 2048 synthetic tokens, GPTQ,
      PPL, the three exports and a 16-token demo on the kernels, every
      w4a4_matmul_i8 launch of the run checked bit for bit; each export
@@ -234,8 +237,8 @@ line):
      parent builds llama-2-7b once by the port's chain with shard-aligned
      transforms (init_model_fq(tp=2) -> bake_model ->
      build_serving_params at tp = 1 and tp = 2, merged, W4A4KV4 +
-     tpu_decompose) and DeepSeek-V2-Lite's widths at 4 layers (1 dense + 3
-     MoE, 64 routed experts; depth cut to bound the time), runs the
+     tpu_decompose) and DeepSeek-V2-Lite's widths at 2 layers (1 dense + 1
+     MoE, 64 routed experts; depth cut for time and memory), runs the
      single-device references, hands each rank its slice and frees the
      full tp model. (a) tp = 2: the 1 x 2048 prefill over the int4 cache
      and 16 decode steps (rows 1, 13, 15 in the prefill; rows 1, 2, 3 in
@@ -258,6 +261,35 @@ line):
      batcher's. On the card every checked run holds as many launches as
      its timed run made. Each run prints its wall seconds, tokens,
      launches by row per rank and the transport.
+  17. calibration under a mesh, in phase 16's spawn (new meshes over the
+     same two ranks; `--phases 17` alone spawns them for it): (a)
+     llama-2-7b's widths at 2 layers, W4A4KV4 + tpu_decompose, calibrate
+     (4 x 512 tokens in one batch: a step a layer) under {tp 2} and
+     {dp 2} with JAX's default state and under {tp 2} with shard-aligned
+     state, float32 and (default state) bf16, each against the same
+     calibration on one device on the card. Float32 is gated layer by
+     layer: every step's MSE within JAX's rtol 1e-5; the state's
+     elements outside JAX's 5e-4 counted as first-step sign flips (none
+     beyond two first steps of its rate, at most half the elements); each
+     leaf's first-step gradient within 2% of its norm. Each limit is
+     loosened to four times the single device's own noise floor (the
+     same run on an embedding times 1 + 1e-7 N(0, 1)) where that is
+     looser (P17_*; most gradient leaves' floors are loud, and the
+     leaves held loosely are counted). bf16
+     is a tripwire, its numbers printed. Three faults are planted on the
+     ranks (the dp gradient sum left out, a rank's partial sum added
+     twice, reduce-from's all-reduce removed) and each must fail the
+     gradient gate; (b) the {tp 2} float32 run written by save_sharded
+     on the ranks and read whole by the parent, bit-equal to the weights
+     and the ranks' state, then baked, RTN-packed (merged) and served: a
+     1 x 2048 prefill and 8 decode steps timed and every launch held to
+     its plain version; (c) DeepSeek-V2-Lite's widths at 1 dense + 1 MoE
+     layer (64 experts) under {ep 2} and {tp 2}: the float32 fp forward
+     within JAX's 3e-4 (rtol = atol) of one device's, the calib forward
+     within its relative limit, and calibrate_deepseek (2 x 256 tokens)
+     against one device's, gated as (a) in both layers. Seconds per
+     sharded step, collectives by transport and peak GiB per rank
+     printed.
   Each model is freed before the next is built. Then the kernel table as
   one JSON line, then the result line.
 
@@ -2151,9 +2183,10 @@ def check_grouped_kernels(torch, dev, gen, results):
 # ---------------------------------------------------------------------------
 
 
-def build_model(torch, dev, seed, name="llama-2-7b", fq=None):
-    """A random model of the registry's `name` at full width and depth,
-    built through the port's build_serving_layer one layer at a time:
+def build_model(torch, dev, seed, name="llama-2-7b", fq=None, layers=None):
+    """A random model of the registry's `name` at full width and depth (or
+    cut to `layers`), built through the port's build_serving_layer one
+    layer at a time:
     seeded N(0, 0.02^2) weights (and qkv bias, where the model has one),
     random orthogonal transforms in fq's Kronecker split (core/kron.py:
     rn128 under tpu_decompose, else FlatQuant's balanced split) baked into
@@ -2170,6 +2203,8 @@ def build_model(torch, dev, seed, name="llama-2-7b", fq=None):
 
     t0 = time.perf_counter()
     cfg = get_config(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     fq = fq or dataclasses.replace(W4A4KV4, tpu_decompose=True)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -3339,6 +3374,9 @@ def run_bf16_comparator(torch, dev, results, smi):
 BATCH_PROMPTS = [48, 300, 1100, 96, 700, 1500, 200, 40]
 BATCH_NEW = [32, 24, 16, 32, 24, 16, 32, 24]
 BATCH_MAX_LEN, BATCH_SLOTS = 2048, 4
+# the depth of the model phases 7, 11 and 12 share (llama-2-7b's width; 16
+# of its 32 layers: their runs are host-bound, ~4 ms a layer a step)
+P7_LAYERS = 16
 
 
 def _checked_batch_attention(torch, n, worst):
@@ -5088,8 +5126,11 @@ def run_build_chain_path(torch, dev, results, smi):
 # phase 14: the calibrate -> eval pipeline (main.py's path)
 # ---------------------------------------------------------------------------
 
-# (a): the CLI on qwen-2.5-0.5b at full width and depth, W4A4KV4 with
-# every learnable group, GPTQ, PPL, the three artifacts and the demo
+# (a): the CLI on qwen-2.5-0.5b at full width, its depth cut to CLI_LAYERS
+# of 24 (its GPTQ and PPL stages are eager host loops, ~3 s a layer),
+# W4A4KV4 with every learnable group, GPTQ, PPL, the three artifacts and
+# the demo
+CLI_LAYERS = 6
 CLI_ARGV = ["--model", "qwen-2.5-0.5b", "--w_bits", "4", "--a_bits", "4",
             "--k_bits", "4", "--v_bits", "4", "--k_asym", "--v_asym",
             "--k_groupsize", "64", "--v_groupsize", "64", "--cali_trans",
@@ -5131,7 +5172,8 @@ def _leaves_equal(torch, a, b, what):
 
 def run_cli_path(torch, dev, smi):
     """Phase 14 (a): flatquant_torch.main.main(CLI_ARGV), in process, on
-    qwen-2.5-0.5b (24 layers, hidden 896, vocab 151,936) over the
+    qwen-2.5-0.5b (hidden 896, vocab 151,936; CLI_LAYERS of its 24 layers:
+    the registry's config is cut while the CLI runs) over the
     synthetic corpus: calibration, bake, GPTQ, PPL, the flat_parameters,
     flat_matrices and packed safetensors exports and a 16-token demo
     through the kernels. Launch counts set to 0 before the run and read
@@ -5153,11 +5195,22 @@ def run_cli_path(torch, dev, smi):
     from flatquant_torch.utils.reference_convert import (
         matrices_fq_template, matrices_state)
 
+    import dataclasses
+
+    from flatquant_torch.models import config as mconfig
+
     scratch = os.path.abspath(".chipscratch")
     os.makedirs(scratch, exist_ok=True)
     out_dir = tempfile.mkdtemp(dir=scratch, prefix="phase14_")
     argv = CLI_ARGV + ["--output_dir", out_dir] + (
         ["--platform", "cpu"] if dev.type == "cpu" else [])
+    real_config = mconfig.get_config
+
+    def cut_config(name):
+        cfg = real_config(name)
+        return dataclasses.replace(cfg, num_layers=min(cfg.num_layers,
+                                                       CLI_LAYERS))
+
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -5165,7 +5218,8 @@ def run_cli_path(torch, dev, smi):
         common.reset_launches()
         t0 = time.perf_counter()
         with patched([(quantized, "w4a4_matmul_i8",
-                       _checked_w4a4(torch, n))]):
+                       _checked_w4a4(torch, n)),
+                      (mconfig, "get_config", cut_config)]):
             out = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -5274,28 +5328,39 @@ def run_calib_llama_path(torch, dev, smi):
     log(f"  (b) MSE by (layer, epoch): "
         f"{[h['epoch_mse'] for h in hist]}; by step "
         f"{[h['step_mse'] for h in hist]}")
-    B, S, NEW = 1, 2048, 8
-    gen = torch.Generator(device=dev).manual_seed(7)
-    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                           device=dev)
-    kw = dict(max_len=S + 256, device=dev)
-    run = _timed_serving(torch, cfg, fq, sp, prompt, NEW, kw, "int4")
-    del run["cache"], run["tok"]
-    _check_counts({k: run["prefill_launches"][k]
-                   for k in LONG_PREFILL_LAUNCHES}, LONG_PREFILL_LAUNCHES,
-                  cfg.num_layers, "(b) prefill")
-    log(f"  [{smi}] (b) prefill B={B} S={S} {run['prefill_ms']:.1f} ms, "
-        f"decode median {run['decode_ms']:.2f} ms/step ({NEW} steps); "
-        f"launches {run['launches']}")
-    checks = check_every_launch(torch, cfg, fq, sp, prompt, kw, NEW,
-                                LONG_PREFILL_LAUNCHES, CALIB_STEP,
-                                "(b) calibrated llama-2-7b, 2 layers")
+    serve = _serve_calibrated(torch, dev, smi, cfg, fq, sp, 2048, 8,
+                              "(b) calibrated llama-2-7b, 2 layers")
     del sp
     gc.collect()
     torch.cuda.empty_cache()
     return dict(model="llama-2-7b", layers=cfg.num_layers, calibrate_s=calib_s,
-                gptq_s=gptq_s, gptq_layers=ghist, peak_gib=peak,
-                per_launch_checks=checks, serve=run, **calib), run["launches"]
+                gptq_s=gptq_s, gptq_layers=ghist, peak_gib=peak, **serve,
+                **calib), serve["serve"]["launches"]
+
+
+def _serve_calibrated(torch, dev, smi, cfg, fq, sp, S, new, what):
+    """A calibrated model's 1 x S prefill over the int4 cache and `new`
+    decode steps, timed (_timed_serving; on the card the prefill's
+    launches counted against LONG_PREFILL_LAUNCHES), then again with
+    every launch held to its plain version (check_every_launch, CALIB_STEP
+    a step). Returns {"serve": the timed run, "per_launch_checks"}."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device=dev)
+    kw = dict(max_len=S + 256, device=dev)
+    run = _timed_serving(torch, cfg, fq, sp, prompt, new, kw, "int4")
+    del run["cache"], run["tok"]
+    if torch.device(dev).type == "cuda":
+        _check_counts({k: run["prefill_launches"][k]
+                       for k in LONG_PREFILL_LAUNCHES},
+                      LONG_PREFILL_LAUNCHES, cfg.num_layers,
+                      f"{what} prefill")
+    log(f"  [{smi}] {what}: prefill B=1 S={S} {run['prefill_ms']:.1f} ms, "
+        f"decode median {run['decode_ms']:.2f} ms/step ({new} steps); "
+        f"launches {run['launches']}")
+    checks = check_every_launch(torch, cfg, fq, sp, prompt, kw, new,
+                                LONG_PREFILL_LAUNCHES, CALIB_STEP, what)
+    return dict(serve=run, per_launch_checks=checks)
 
 
 def run_calib_deepseek_path(torch, dev, smi):
@@ -6021,8 +6086,10 @@ P16_S, P16_NEW, P16_SP_NEW, P16_MAX_LEN = 2048, 16, 8, 2304
 # the fifth admitted when a slot frees; few new tokens, since each batcher
 # runs twice (timed, then checked) at a host-bound ~0.4 s a tp step
 P16_REQUESTS = ((96, 4), (300, 3), (40, 4), (512, 2), (160, 3))
-# (e): DeepSeek-V2-Lite's widths cut to 4 layers (1 dense + 3 MoE)
-P16_DS_LAYERS = 4
+# (e): DeepSeek-V2-Lite's widths cut to 2 layers (1 dense + 1 MoE): the
+# parent holds each rank's experts through the one spawn of phases 16 and
+# 17, where a V2-Lite MoE step of phase 17 takes ~27 GiB a rank under tp
+P16_DS_LAYERS = 2
 P16_DS_REQUESTS = ((64, 8), (200, 8), (40, 8), (120, 8))
 # launches per layer under tp (every fused route declines): the 1 x 2048
 # prefill runs qkv, o and down through row 1, the merged up||gate
@@ -6425,9 +6492,10 @@ def _p16_ep(torch, dev, spec, shared, bundle, mesh):
 
 
 def _p16_rank(rank, world, spec, shared, local):
-    """One rank of phase 16: the meshes (one process group per axis),
-    then (a)-(e) on this rank's shards. Returns plain numbers, tokens and
-    CPU logits."""
+    """One rank of phases 16 and 17: the meshes (one process group per
+    axis), then phase 16's (a)-(e) on this rank's shards and phase 17's
+    calibrations (_p17_rank), each when spec asks for it. Returns plain
+    numbers, tokens and CPU tensors."""
     import torch
     import torch.distributed as dist
 
@@ -6442,18 +6510,30 @@ def _p16_rank(rank, world, spec, shared, local):
     local = _to_dev(local, dev)
     shared = _to_dev(shared, dev)
     meshes = {a: make_mesh({a: world}, dev) for a in ("tp", "pp", "sp",
-                                                      "ep")}
+                                                      "ep", "dp")}
     out = dict(rank=rank, device=str(dev), backend=dist.get_backend())
-    t0 = time.perf_counter()
-    pd.TRANSPORT.clear()
-    out["a"] = _p16_tp(torch, dev, spec, shared, local["tp"], meshes["tp"])
-    out.update(_p16_batchers(torch, dev, spec, shared, local["tp"],
-                             meshes["tp"], local["pp"], meshes["pp"]))
-    out["d"] = _p16_sp(torch, dev, spec, shared, shared["sp1"],
-                       meshes["sp"])
-    out["e"] = _p16_ep(torch, dev, spec, shared, local["ds"], meshes["ep"])
-    out["transport"] = dict(pd.TRANSPORT)
-    out["seconds"] = time.perf_counter() - t0
+    if spec["do16"]:
+        t0 = time.perf_counter()
+        pd.TRANSPORT.clear()
+        out["a"] = _p16_tp(torch, dev, spec, shared, local["tp"],
+                           meshes["tp"])
+        out.update(_p16_batchers(torch, dev, spec, shared, local["tp"],
+                                 meshes["tp"], local["pp"], meshes["pp"]))
+        out["d"] = _p16_sp(torch, dev, spec, shared, shared["sp1"],
+                           meshes["sp"])
+        out["e"] = _p16_ep(torch, dev, spec, shared, local["ds"],
+                           meshes["ep"])
+        out["transport"] = dict(pd.TRANSPORT)
+        out["seconds"] = time.perf_counter() - t0
+    del local
+    if spec["do17"]:
+        # phase 16's blocks go back to the card first: the two ranks and the
+        # parent share one card's memory
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["p17"] = _p17_rank(torch, dev, spec["p17"], shared["p17"],
+                               meshes)
     return out
 
 
@@ -6485,31 +6565,10 @@ def _p16_reference(torch, dev, cfg, fq, sp1, prompt, sz):
     return out
 
 
-def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
-                      sizes=None):
-    """Phase 16: parallel serving on P16_WORLD ranks. The parent builds
-    llama-2-7b once by the port's chain (init_model_fq(tp=2) ->
-    bake_model -> build_serving_params at tp = 1 and tp = 2, merged, W4A4KV4
-    + tpu_decompose) and DeepSeek-V2-Lite's widths at P16_DS_LAYERS layers
-    (packed W4A4), runs the single-device references, cuts each rank's
-    slice (the tp shard, the pp stage, the ep experts), frees the full tp
-    model, and spawns the ranks (p16_transport: gloo with host staging on
-    one card, NCCL with a card per rank), each handed its slice. (a) tp
-    = 2: the 1 x 2048 prefill over the int4 cache and P16_NEW decode
-    steps, every launch of a prefill and two steps checked, the logits
-    against the tp = 1 model's (a tripwire); (b) the batcher under tp on
-    P16_REQUESTS, int4 and paged, tokens beside the single-device
-    batcher's; (c) the batcher under pp = 2, tokens equal to the
-    single-device batcher's; each batcher run twice, the second with
-    every launch checked; (d) sp = 2: the prefill on the bf16 cache, the
-    handoff and P16_SP_NEW decode steps, layer 0 of the handoff cache
-    bit-equal to the single-device prefill's, every launch and ring
-    attention of a prefill, handoff and two steps checked, the logits a
-    tripwire; (e) the DeepSeek batcher under ep = 2, every row-1 launch
-    of a prefill checked, tokens equal to the single-device batcher's.
-    cfg, ds_cfg and
-    sizes replace llama-2-7b, V2-Lite's 4 layers and the sizes (a CPU
-    rehearsal). Returns {path: launches} of rank 0's timed runs."""
+def _p16_prepare(torch, dev, smi, cfg=None, ds_cfg=None, sizes=None):
+    """Phase 16's parent side before the spawn (run_parallel_path):
+    the models, the single-device references and each rank's slice.
+    Returns the context its ranks and _p16_report read."""
     import dataclasses
 
     import numpy as np
@@ -6517,7 +6576,6 @@ def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
     from flatquant_torch.models import deepseek as ds
     from flatquant_torch.models.config import get_config
     from flatquant_torch.models.llama import init_params
-    from flatquant_torch.parallel.launch import run_ranks
     from flatquant_torch.parallel.mesh import (
         plan_mesh, shard_ds_serving_params)
     from flatquant_torch.parallel.pipeline import stage_serving_params
@@ -6601,24 +6659,22 @@ def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
     gc.collect()
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
-    backend, devices = p16_transport(torch, dev, W)
-    spec = dict(cfg=cfg, fq=fq, ds_cfg=ds_cfg, sizes=sz, devices=devices)
+    spec = dict(cfg=cfg, fq=fq, ds_cfg=ds_cfg, sizes=sz)
     shared = dict(sp1=sp1, prompt=prompt, requests=requests,
                   ds_requests=ds_requests, kv0=ref["bf16"].pop("kv0"))
-    log(f"  spawning {W} ranks: backend {backend}, devices {devices} "
-        f"(torch.cuda.device_count() = "
-        f"{torch.cuda.device_count() if torch.cuda.is_available() else 0})")
-    t0 = time.perf_counter()
-    # the ranks share the host's cores (their torch threads are the
-    # host-side ops and the host staging)
-    ranks = run_ranks(_p16_rank, W, args=(spec, shared),
-                      rank_args=[(x,) for x in local], device=devices[0],
-                      timeout_s=P16_TIMEOUT_S,
-                      threads=max(1, (os.cpu_count() or W) // W))
-    rec["spawn_s"] = time.perf_counter() - t0
-    del local, shared
-    if torch.device(dev).type == "cuda":
-        torch.cuda.ipc_collect()
+    return dict(cfg=cfg, ds_cfg=ds_cfg, sz=sz, rec=rec, ref=ref,
+                local=local, spec=spec, shared=shared)
+
+
+def _p16_report(torch, dev, results, ranks, ctx, backend, devices):
+    """Phase 16's checks across ranks and against the single device,
+    after the spawn; returns {path: launches} of rank 0's timed
+    runs."""
+    from flatquant_torch.models import deepseek as ds
+
+    cfg, ds_cfg, sz, rec, ref = (ctx[k] for k in ("cfg", "ds_cfg", "sz",
+                                                  "rec", "ref"))
+    W = P16_WORLD
 
     def cos(a, b):
         return _cosine(torch, a, b)
@@ -6659,8 +6715,6 @@ def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
             f"by row {e['launches']}, {e['checked_w4a4']} row-1 launches "
             f"of a prefill checked; tokens {e['tokens']} (single device: "
             f"{ref['ds_batcher'][0]})")
-    log(f"  phase 16 spawn (ranks' start, work and exit): "
-        f"{rec['spawn_s']:.1f} s")
     # the checks across ranks and against the single device
     for r in ranks[1:]:
         for key in ("a", "d"):
@@ -6718,7 +6772,6 @@ def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
         ranks=[dict({k: r[k] for k in ("b_int4", "b_paged", "c_pp_int4", "e",
                                        "seconds", "transport")},
                     a=kept(r["a"]), d=kept(r["d"])) for r in ranks])
-    del sp1
     gc.collect()
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
@@ -6729,6 +6782,786 @@ def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
             "pp_batcher": _names(r0["c_pp_int4"]["launches"]),
             "sp_prefill": _names(r0["d"]["launches_prefill"]),
             "ep_batcher": _names(r0["e"]["launches"])}
+
+
+def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
+                      sizes=None, phases=("16",), p17=None):
+    """Phase 16: parallel serving on P16_WORLD ranks. The parent builds
+    llama-2-7b once by the port's chain (init_model_fq(tp=2) ->
+    bake_model -> build_serving_params at tp = 1 and tp = 2, merged, W4A4KV4
+    + tpu_decompose) and DeepSeek-V2-Lite's widths at P16_DS_LAYERS layers
+    (packed W4A4), runs the single-device references, cuts each rank's
+    slice (the tp shard, the pp stage, the ep experts), frees the full tp
+    model, and spawns the ranks (p16_transport: gloo with host staging on
+    one card, NCCL with a card per rank), each handed its slice. (a) tp
+    = 2: the 1 x 2048 prefill over the int4 cache and P16_NEW decode
+    steps, every launch of a prefill and two steps checked, the logits
+    against the tp = 1 model's (a tripwire); (b) the batcher under tp on
+    P16_REQUESTS, int4 and paged, tokens beside the single-device
+    batcher's; (c) the batcher under pp = 2, tokens equal to the
+    single-device batcher's; each batcher run twice, the second with
+    every launch checked; (d) sp = 2: the prefill on the bf16 cache, the
+    handoff and P16_SP_NEW decode steps, layer 0 of the handoff cache
+    bit-equal to the single-device prefill's, every launch and ring
+    attention of a prefill, handoff and two steps checked, the logits a
+    tripwire; (e) the DeepSeek batcher under ep = 2, every row-1 launch
+    of a prefill checked, tokens equal to the single-device batcher's.
+    cfg, ds_cfg and
+    sizes replace llama-2-7b, V2-Lite's 2 layers and the sizes (a CPU
+    rehearsal).
+
+    phases: "16", "17" or both. Phase 17 (calibration under a mesh,
+    _p17_prepare's docstring) runs its rank work in the same spawn, on
+    new meshes over the same two ranks; p17 replaces its models and sizes
+    (a CPU rehearsal, _p17_setup). Returns {path: launches} of rank 0's
+    timed runs; phase 17's seconds (its parent side and its rank work,
+    the spawn's start and exit left to 16) go to results["phase17_s"]."""
+    import shutil
+
+    from flatquant_torch.parallel.launch import run_ranks
+
+    W = P16_WORLD
+    do16, do17 = "16" in phases, "17" in phases
+    ctx = (_p16_prepare(torch, dev, smi, cfg, ds_cfg, sizes) if do16
+           else dict(local=[{} for _ in range(W)], spec={}, shared={}))
+    spec, shared = ctx["spec"], ctx["shared"]
+    spec.update(do16=do16, do17=do17)
+    t17 = time.perf_counter()
+    if do17:
+        ctx17 = _p17_prepare(torch, dev, smi, p17)
+        spec["p17"], shared["p17"] = ctx17["spec"], ctx17["shared"]
+    parent17_s = time.perf_counter() - t17
+    backend, devices = p16_transport(torch, dev, W)
+    spec["devices"] = devices
+    gc.collect()  # the card's free memory goes to the ranks
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"  spawning {W} ranks: backend {backend}, devices {devices} "
+        f"(torch.cuda.device_count() = "
+        f"{torch.cuda.device_count() if torch.cuda.is_available() else 0})")
+    t0 = time.perf_counter()
+    # the ranks share the host's cores (their torch threads are the
+    # host-side ops and the host staging)
+    try:
+        ranks = run_ranks(_p16_rank, W, args=(spec, shared),
+                          rank_args=[(x,) for x in ctx.pop("local")],
+                          device=devices[0], timeout_s=P16_TIMEOUT_S,
+                          threads=max(1, (os.cpu_count() or W) // W))
+    except BaseException:
+        if do17:  # the checkpoint's directory goes with a failed spawn too
+            shutil.rmtree(ctx17["ckpt"], ignore_errors=True)
+        raise
+    spawn_s = time.perf_counter() - t0
+    log(f"  phase {'16 and 17' if do16 and do17 else phases[0]} spawn "
+        f"(ranks' start, work and exit): {spawn_s:.1f} s")
+    del shared, spec
+    ctx.pop("shared", None)
+    ctx.pop("spec", None)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.ipc_collect()
+    paths = {}
+    if do16:
+        ctx["rec"]["spawn_s"] = spawn_s
+        paths.update(_p16_report(torch, dev, results, ranks, ctx, backend,
+                                 devices))
+    if do17:
+        t17 = time.perf_counter()
+        try:
+            paths.update(_p17_report(torch, dev, results, smi, ranks, ctx17))
+        finally:
+            shutil.rmtree(ctx17["ckpt"], ignore_errors=True)
+        rank17_s = max(r["p17"]["seconds"] for r in ranks)
+        results["phase17_s"] = round(parent17_s + rank17_s
+                                     + time.perf_counter() - t17, 1)
+        log(f"  [{smi}] phase 17: {results['phase17_s']:.1f} s (parent "
+            f"{parent17_s:.1f} s before the spawn, ranks "
+            f"{rank17_s:.1f} s, checks and (b) "
+            f"{time.perf_counter() - t17:.1f} s)")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 17: calibration under a mesh (in phase 16's spawn)
+# ---------------------------------------------------------------------------
+
+# (a): llama-2-7b's widths cut to 2 layers; 4 samples of 512 tokens in one
+# batch, 1 epoch (one step a layer). One step a layer: each step then
+# starts from the same state on both sides, as JAX's sharded-step test
+# does; a second AdamW step amplifies float-level differences chaotically
+# (on the CPU, the embedding scaled by 1 + 1e-6 moves a second step's MSE
+# by 4% on one device). The runs: (key, mesh axis, the FQ state's tp,
+# dtypes): JAX's default state (o / down transforms as wide as the dim:
+# gathered under tp) under tp and dp in float32 and bf16, the {tp 2}
+# float32 run the one (b) saves; the shard-aligned state (init_model_fq(
+# tp=2): block by block, cross-shard extrema) under tp in float32
+P17_LAYERS, P17_SAMPLES, P17_SEQ, P17_BSZ = 2, 4, 512, 4
+P17_RUNS = (("tp", "tp", 1, ("f32", "bf16")), ("dp", "dp", 1, ("f32", "bf16")),
+            ("tpa", "tp", P16_WORLD, ("f32",)))
+# (c): DeepSeek-V2-Lite's widths cut to 1 dense + 1 MoE layer (all 64
+# experts); 2 samples of 256 tokens in one batch (a step a layer), float32.
+# The MoE step's fake-quant copies of 64 experts' weights take ~27 GiB a
+# rank under tp, where the experts are whole (half under ep); two ranks
+# and the parent share the card
+P17_DS_SAMPLES, P17_DS_SEQ = 2, 256
+P17_DS_MESHES = ({"ep": 2}, {"tp": 2})
+# JAX's tolerances (tests/test_parallel.py): every step's MSE (rtol), the
+# state after calibration (rtol = atol) and DeepSeek's forward (rtol =
+# atol, held in "fp", where no quantizer turns float noise into rounding
+# flips)
+P17_MSE_RTOL, P17_STATE_TOL, P17_DS_FWD_TOL = 1e-5, 5e-4, 3e-4
+# JAX's tolerances hold where the two sides' float noise is below them.
+# Fake quantization turns float-level differences (partial sums added in
+# another order) into rounding flips, and how far those move a step grows
+# as the batch shrinks and with the layer: on the CPU at hidden 256 one
+# device moved its second layer's first MSE by 3.2e-4, and 1020 state
+# elements past 5e-4, on an embedding scaled by 1 + 1e-7. So a float32
+# run is held to JAX's tolerances or to P17_NOISE_MULT times the single
+# device's own noise floor, whichever is looser, up to a cap: the same
+# calibration on the embedding times 1 + P17_NOISE * N(0, 1), the largest
+# over P17_NOISE_DRAWS seeded draws, measured here
+P17_NOISE, P17_NOISE_MULT, P17_NOISE_DRAWS = 1e-7, 4.0, 3
+# The first-step gradient of every layer decides a wrong backward: AdamW's
+# first step moves an element by lr * g / (|g| + 1e-8), so the state sees
+# only the gradient's sign, and a doubled gradient not at all. Each leaf's
+# gradient is held by ||got - want|| / ||want|| to P17_GRAD_RTOL, or to
+# P17_NOISE_MULT times that leaf's noise floor where that is looser. On
+# the card most leaves' floors are far above 2%: the 1e-7 embedding noise
+# moves 37 of layer 0's 62 leaves by more than P17_GRAD_CAP / 4 of their
+# norm (these leaves are counted and printed as loose), the sharded runs
+# stay within 0.37 of every limit, and each planted fault passes 24-49
+# leaves' limits by 25-75 times (NVIDIA H100 80GB HBM3, 700 W)
+P17_GRAD_RTOL, P17_GRAD_CAP = 0.02, 0.25
+# The state: elements outside rtol = atol = P17_STATE_TOL are first-step
+# sign flips where the gradient is as small as its float noise; at least
+# P17_FLIP_SHARE of a layer's elements may be (or P17_NOISE_MULT times
+# the floor's count), at most P17_COUNT_CAP of them (a reversed gradient
+# moves nearly all), and none farther than two first steps of its rate
+P17_FLIP_SHARE, P17_COUNT_CAP = 1e-3, 0.5
+# DeepSeek's calib forward (routing and codes follow float noise): its
+# logits' ||got - want|| / ||want|| within P17_DS_FWD_TOL or
+# P17_NOISE_MULT times the floor, at most P17_DS_CALIB_CAP (zeros: 1)
+P17_DS_CALIB_CAP = 0.25
+# Faults planted on the ranks to show the gates have teeth: each runs
+# (a)'s float32 calibration under its mesh with one collective broken,
+# and at least one layer's gradient must then fail its gate: the dp
+# gradient sum left out, this rank's partial sum added twice in copy-to's
+# backward all-reduce, and reduce-from's all-reduce removed
+P17_FAULTS = (("dp_sum_left_out", "dp"), ("partial_sum_doubled", "tp"),
+              ("reduce_from_removed", "tp"))
+# (b): the served model's prompt and decode steps
+P17_S, P17_NEW = 2048, 8
+
+
+def _p17_setup(p17=None):
+    """Phase 17's models and sizes: {"cfg", "f32", "bf16" (its FQ configs),
+    "ds_cfg", "ds_fq", "sizes"}, each replaced by p17's (a CPU
+    rehearsal)."""
+    import dataclasses
+
+    from flatquant_torch.models.config import get_config
+    from flatquant_torch.models.deepseek import DeepSeekConfig
+    from flatquant_torch.quantize.spec import W4A4, W4A4KV4
+
+    p17 = p17 or {}
+    sz = dict(samples=P17_SAMPLES, seq=P17_SEQ, bsz=P17_BSZ,
+              ds_samples=P17_DS_SAMPLES, ds_seq=P17_DS_SEQ, S=P17_S,
+              new=P17_NEW)
+    sz.update(p17.get("sizes", {}))
+    cfg = p17.get("cfg") or dataclasses.replace(get_config("llama-2-7b"),
+                                                num_layers=P17_LAYERS)
+    f32 = dataclasses.replace(W4A4KV4, tpu_decompose=True, epochs=1,
+                              nsamples=sz["samples"], cali_bsz=sz["bsz"],
+                              deactive_amp=True)
+    ds_cfg = p17.get("ds_cfg") or dataclasses.replace(
+        DeepSeekConfig(), n_layers=2, n_dense_layers=1)
+    ds_fq = dataclasses.replace(W4A4, epochs=1, nsamples=sz["ds_samples"],
+                                cali_bsz=sz["ds_samples"], deactive_amp=True)
+    return dict(cfg=cfg, f32=f32,
+                bf16=dataclasses.replace(f32, deactive_amp=False),
+                ds_cfg=ds_cfg, ds_fq=ds_fq, sizes=sz)
+
+
+def _p17_states(dev, m):
+    """The initial FQ states, drawn once by the parent and handed to the
+    ranks (their factors are drawn on the host in numpy, whose BLAS
+    threads two ranks would fight over): ({state tp: llama state},
+    DeepSeek state)."""
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.quantize.state import init_model_fq
+
+    return ({tp: init_model_fq(m["cfg"], m["f32"], seed=0, tp=tp, device=dev)
+             for tp in sorted({r[2] for r in P17_RUNS})},
+            ds.init_ds_fq(m["ds_cfg"], m["ds_fq"], seed=0, device=dev))
+
+
+def _p17_excess(torch, got, want):
+    """How far logits `got` pass the relative part of JAX's DeepSeek
+    forward tolerance: max(|got - want| - P17_DS_FWD_TOL |want|), which
+    JAX's atol (P17_DS_FWD_TOL) bounds."""
+    return float(((got - want).abs() - P17_DS_FWD_TOL * want.abs()).max())
+
+
+def _p17_rel(torch, got, want):
+    """||got - want|| / ||want|| in float64 (0 where both are zero)."""
+    d = float((got.double() - want.double()).norm())
+    n = float(want.double().norm())
+    return d / n if n > 0 else (0.0 if d == 0 else math.inf)
+
+
+def _p17_noisy(torch, embed, seed):
+    """The embedding times 1 + P17_NOISE * N(0, 1), seeded (a noise
+    floor's input)."""
+    gen = torch.Generator(device=embed.device).manual_seed(seed)
+    return embed * (1 + P17_NOISE * torch.randn(
+        embed.shape, generator=gen, device=embed.device, dtype=embed.dtype))
+
+
+def _p17_calib(torch, dev, fn):
+    """Run one calibration fn(history, grad_cb) -> state, timed: (record
+    of its seconds, every step's MSE and seconds, the state's leaves and
+    every layer's first-step gradient of every leaf (trainer.py
+    calibrate_layers' grad_cb; zeros for a frozen leaf), on the CPU; the
+    state)."""
+    from flatquant_torch.utils.tree import tree_leaves
+
+    hist, grads = [], []
+
+    def grad_cb(i, step, state):
+        if step == 0:
+            grads.append([t.grad.detach().cpu() if t.grad is not None
+                          else torch.zeros_like(t, device="cpu")
+                          for t in tree_leaves(state)])
+
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    state = fn(hist, grad_cb)
+    _sync(torch, dev)
+    return dict(seconds=time.perf_counter() - t0,
+                mses=[h["step_mse"] for h in hist],
+                step_s=[s for h in hist for s in h["step_s"]],
+                leaves=[t.detach().cpu() for t in tree_leaves(state)],
+                grads=grads), state
+
+
+def _p17_llama(cfg, fq, params, state0, toks, mesh):
+    from flatquant_torch.calib.trainer import calibrate
+
+    return lambda hist, cb: calibrate(cfg, fq, params, state0, toks,
+                                      log=lambda m: None, history=hist,
+                                      mesh=mesh, grad_cb=cb)
+
+
+def _p17_ds(cfg, fq, params, state0, toks, mesh):
+    from flatquant_torch.models import deepseek as ds
+
+    return lambda hist, cb: ds.calibrate_deepseek(
+        cfg, fq, params, state0[0], state0[1], toks, log=lambda m: None,
+        history=hist, mesh=mesh, grad_cb=cb)
+
+
+@contextlib.contextmanager
+def _p17_fault(name):
+    """One of P17_FAULTS planted for the block's duration: the calibration
+    code broken as a wrong port of it would be."""
+    from flatquant_torch.calib import trainer
+    from flatquant_torch.parallel import tp_autograd as ta
+    from flatquant_torch.parallel.distributed import all_reduce
+
+    def copy_to_backward(ctx, g):  # this rank's partial counted twice
+        return all_reduce(g.contiguous(), "sum", ctx.axis) + g, None
+
+    def reduce_from_forward(ctx, x, axis):  # the partial sums kept apart
+        return x.view_as(x)
+
+    where, attr, value = {
+        "dp_sum_left_out": (trainer, "_sum_grads", lambda opt, axis: None),
+        "partial_sum_doubled": (ta._CopyTo, "backward",
+                                staticmethod(copy_to_backward)),
+        "reduce_from_removed": (ta._ReduceFrom, "forward",
+                                staticmethod(reduce_from_forward)),
+    }[name]
+    saved = vars(where)[attr]
+    setattr(where, attr, value)
+    try:
+        yield
+    finally:
+        setattr(where, attr, saved)
+
+
+def _p17_prepare(torch, dev, smi, p17=None):
+    """Phase 17's parent side before phase 16's spawn. Phase 17 is
+    calibration under a mesh on phase 16's two ranks (one card over gloo,
+    or a card each over NCCL), on new meshes over the same world: (a)
+    llama-2-7b's widths at 2 layers, W4A4KV4 + tpu_decompose, calibrated
+    (4 x 512 tokens, 1 epoch) under {tp 2} and under {dp 2}, float32 and
+    bf16, each against the single-device calibrate on the card (float32
+    gated, P17_*; bf16 a tripwire, its numbers printed), and again with
+    each of P17_FAULTS planted, which the gates must catch; (b) the
+    {tp 2} float32 run saved with save_sharded on the ranks, loaded whole
+    here and compared bit for bit with the params and the ranks' state,
+    then bake_model, RTN packing by build_serving_params(
+    merge_projections=True), a 1 x 2048 prefill and 8 decode steps timed
+    and again with every launch held to its plain version
+    (check_every_launch); (c) DeepSeek-V2-Lite's widths at 1 dense + 1
+    MoE layer under {ep 2} and {tp 2}: the float32 fp forward at JAX's
+    3e-4 and the calib forward against the single device's, and
+    calibrate_deepseek (2 x 256 tokens) against the single device's.
+    Here: the single-device references with their noise floors, the
+    tokens and the checkpoint's directory."""
+    import tempfile
+
+    from flatquant_torch.calib.data import get_loaders
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.models.llama import init_params
+
+    m = _p17_setup(p17)
+    sz, cfg, ds_cfg = m["sizes"], m["cfg"], m["ds_cfg"]
+    toks = get_loaders("synthetic", cfg.vocab_size, nsamples=sz["samples"],
+                       seqlen=sz["seq"], seed=17).train
+    ds_toks = get_loaders("synthetic", ds_cfg.vocab_size,
+                          nsamples=sz["ds_samples"], seqlen=sz["ds_seq"],
+                          seed=17).train
+    t0 = time.perf_counter()
+    # the seeded fp weights: every rank draws the same
+    params = init_params(cfg, seed=0, device=dev)
+    dparams = ds.init_ds_params(ds_cfg, seed=0, device=dev)
+    states0, dstate0 = _p17_states(dev, m)
+    ref, states = {}, {}
+    for tp in states0:
+        for name in ("f32", "bf16") if tp == 1 else ("f32",):
+            key = name if tp == 1 else f"{name}_tp{tp}"
+            ref[key], states[key] = _p17_calib(torch, dev, _p17_llama(
+                cfg, m[name], params, states0[tp], toks, None))
+    for seed in range(P17_NOISE_DRAWS):
+        noisy = dict(params, embed=_p17_noisy(torch, params["embed"], seed))
+        for tp in states0:
+            ref[("f32" if tp == 1 else f"f32_tp{tp}") + f"_noise{seed}"], _ \
+                = _p17_calib(torch, dev, _p17_llama(
+                    cfg, m["f32"], noisy, states0[tp], toks, None))
+    del noisy
+
+    def ds_fwd(p, mode):
+        return ds.deepseek_forward(
+            ds_cfg, p, ds_toks[:1], fq=dstate0 if mode == "calib" else None,
+            fq_cfg=m["ds_fq"], mode=mode, compute_dtype=torch.float32,
+            device=dev)
+
+    ds_logits = {mode: ds_fwd(dparams, mode) for mode in ("fp", "calib")}
+    ref["ds"], _ = _p17_calib(torch, dev, _p17_ds(
+        ds_cfg, m["ds_fq"], dparams, dstate0, ds_toks, None))
+    ref["ds_calib_fwd_floor"] = 0.0
+    for seed in range(P17_NOISE_DRAWS):
+        noisy = dict(dparams, embed=_p17_noisy(torch, dparams["embed"],
+                                               seed))
+        ref["ds_calib_fwd_floor"] = max(ref["ds_calib_fwd_floor"], _p17_rel(
+            torch, ds_fwd(noisy, "calib"), ds_logits["calib"]))
+        ref[f"ds_noise{seed}"], _ = _p17_calib(torch, dev, _p17_ds(
+            ds_cfg, m["ds_fq"], noisy, dstate0, ds_toks, None))
+    # the weights are drawn again after the spawn: the card's memory goes
+    # to the ranks meanwhile
+    del noisy, dparams, params
+    secs = {k: round(v["seconds"], 2) for k, v in ref.items()
+            if isinstance(v, dict)}
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"  [{smi}] phase 17 single-device references ({cfg.name} "
+        f"{cfg.num_layers} layers, {sz['samples']} x {sz['seq']} tokens, "
+        f"float32 and bf16; {ds_cfg.name} {ds_cfg.n_dense_layers} dense + "
+        f"{ds_cfg.n_moe_layers} MoE layers, its fp and calib forwards and "
+        f"{sz['ds_samples']} x {sz['ds_seq']} tokens): "
+        f"{time.perf_counter() - t0:.1f} s (noise floors included); seconds "
+        f"by calibration {secs}")
+    scratch = os.path.abspath(".chipscratch")
+    os.makedirs(scratch, exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=scratch, prefix="phase17_")
+    # (b)'s template of the checkpoint: a calibrated state's structure and
+    # shapes (the sq-style init widens a shard-aligned diag)
+    return dict(m=m, ref=ref, ckpt=ckpt, template=states["f32"],
+                spec=dict(m=m, ckpt=ckpt),
+                shared=dict(toks=toks, ds_toks=ds_toks, ds_logits=ds_logits,
+                            states0=states0, dstate0=dstate0))
+
+
+def _p17_rank(torch, dev, spec, shared, meshes):
+    """Phase 17 on one rank: (a) the calibrations of P17_RUNS (the {tp 2}
+    float32 run saved sharded, (b)), and the float32 one under each of
+    P17_FAULTS; (c) DeepSeek's fp and calib forwards, held here to the
+    single device's logits, and calibrate_deepseek under each of
+    P17_DS_MESHES. Returns the records, the collectives by transport and
+    the peak memory."""
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.models.llama import init_params
+    from flatquant_torch.parallel import distributed as pd
+    from flatquant_torch.parallel.mesh import (
+        deepseek_param_specs, llama_param_specs, shard_tree)
+    from flatquant_torch.utils.dist_checkpoint import save_sharded
+    from flatquant_torch.utils.tree import tree_map
+
+    m = spec["m"]
+    cfg, ds_cfg = m["cfg"], m["ds_cfg"]
+    t_all = time.perf_counter()
+    pd.TRANSPORT.clear()
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, seed=0, device=dev)
+    states0, dstate0 = tree_map(lambda t: t.to(dev), (shared["states0"],
+                                                      shared["dstate0"]))
+    out = {}
+    for key, axis, state_tp, dtypes in P17_RUNS:
+        mesh = meshes[axis]
+        specs = llama_param_specs(cfg, params, tp_size=mesh.shape.get("tp"))
+        lp = shard_tree(params, specs, mesh)
+        for name in dtypes:
+            rec, st = _p17_calib(torch, dev, _p17_llama(
+                cfg, m[name], lp, states0[state_tp], shared["toks"], mesh))
+            out[f"{key}_{name}"] = rec
+            if key == "tp" and name == "f32":
+                t0 = time.perf_counter()
+                save_sharded(spec["ckpt"], {"params": lp, "fq": st},
+                             mesh=mesh, specs={"params": specs, "fq": None})
+                out["save_s"] = time.perf_counter() - t0
+            del st
+        for fault, fault_axis in P17_FAULTS:
+            if state_tp == 1 and fault_axis == axis:
+                with _p17_fault(fault):
+                    out[f"fault_{fault}"], _ = _p17_calib(
+                        torch, dev, _p17_llama(cfg, m["f32"], lp, states0[1],
+                                               shared["toks"], mesh))
+        del lp
+    del params, states0
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    ref = shared["ds_logits"]
+    for axes in P17_DS_MESHES:
+        key = "ds_" + next(iter(axes))
+        mesh = meshes[next(iter(axes))]
+        # drawn for each mesh and cut at once: the whole weights are not
+        # held beside the step (a MoE step takes ~27 GiB under tp)
+        dparams = ds.init_ds_params(ds_cfg, seed=0, device=dev)
+        dlp = shard_tree(dparams, deepseek_param_specs(ds_cfg, dparams),
+                         mesh)
+        del dparams
+        fwd = {}
+        for mode in ("fp", "calib"):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            logits = ds.deepseek_forward(
+                ds_cfg, dlp, shared["ds_toks"][:1],
+                fq=dstate0 if mode == "calib" else None, fq_cfg=m["ds_fq"],
+                mode=mode, compute_dtype=torch.float32, device=dev,
+                mesh=mesh)
+            _sync(torch, dev)
+            fwd[mode] = dict(
+                seconds=time.perf_counter() - t0,
+                max_abs=float((logits - ref[mode]).abs().max()),
+                excess=_p17_excess(torch, logits, ref[mode]),
+                rel=_p17_rel(torch, logits, ref[mode]))
+            del logits
+        rec, _ = _p17_calib(torch, dev, _p17_ds(
+            ds_cfg, m["ds_fq"], dlp, dstate0, shared["ds_toks"], mesh))
+        out[key] = dict(rec, forward=fwd,
+                        experts=int(dlp["moe_layers"][0]["e_w1"].shape[0]))
+        del dlp
+    out["transport"] = dict(pd.TRANSPORT)
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                       if cuda else 0.0)
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def _p17_rates(m):
+    """Each state leaf's first-step learning rate, in tree_leaves order,
+    layer by layer: {"llama": [per layer], "ds": [dense, then MoE]}."""
+    from flatquant_torch.calib.trainer import build_labels, group_base_lr
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.quantize.state import init_model_fq
+    from flatquant_torch.utils.tree import tree_leaves
+
+    def rates(labels, fq):
+        return [group_base_lr(fq, lab) for lab in tree_leaves(labels)]
+
+    state = init_model_fq(m["cfg"], m["f32"], seed=0, tp=P16_WORLD,
+                          device="cpu")
+    dense, moe = ds.init_ds_fq(m["ds_cfg"], m["ds_fq"], seed=0, device="cpu")
+    return dict(llama=[rates(build_labels(lf), m["f32"]) for lf in state],
+                ds=[rates(ds.build_ds_labels(lf), m["ds_fq"])
+                    for lf in dense + moe])
+
+
+def _p17_keys():
+    """(a rank's run, the single-device reference it is held to) of every
+    calibration phase 17 runs, the planted faults' last."""
+    out = [(f"{key}_{d}", d if state_tp == 1 else f"{d}_tp{state_tp}")
+           for key, _, state_tp, dtypes in P17_RUNS for d in dtypes]
+    return out + [("ds_ep", "ds"), ("ds_tp", "ds")] + [
+        (f"fault_{f}", "f32") for f, _ in P17_FAULTS]
+
+
+def _p17_close(got, want, what, rates):
+    """A calibration against the single device's, layer by layer (rates:
+    each layer's per-leaf first-step rates): the largest relative
+    difference of a step's MSE, the largest absolute state difference,
+    the state elements outside rtol = atol = P17_STATE_TOL, of those the
+    ones farther than two first steps of their rate, which no sign flip
+    explains, and each leaf's first-step gradient difference (_p17_rel)."""
+    import numpy as np
+
+    import torch
+
+    if len(got["mses"]) != len(want["mses"]) or len(rates) != len(
+            want["mses"]) or sum(map(len, rates)) != len(want["leaves"]) \
+            or len(got["grads"]) != len(want["grads"]) or any(
+                len(g) != len(w) for g, w in zip(got["grads"],
+                                                 want["grads"])):
+        raise AssertionError(f"{what}: {len(got['mses'])} layers, single "
+                             f"device {len(want['mses'])}, {len(rates)} "
+                             "rates, or gradients of other leaves")
+    out, first = [], 0
+    for gm, wm, lrs, gg, wg in zip(got["mses"], want["mses"], rates,
+                                   got["grads"], want["grads"]):
+        gm, wm = np.asarray(gm), np.asarray(wm)
+        worst, outside, unexplained, total = 0.0, 0, 0, 0
+        for i, lr in enumerate(lrs):
+            a = got["leaves"][first + i].double()
+            b = want["leaves"][first + i].double()
+            d = (a - b).abs()
+            tol = P17_STATE_TOL + P17_STATE_TOL * b.abs()
+            worst = max(worst, float(d.max()))
+            outside += int((d > tol).sum())
+            unexplained += int((d > tol + 2 * lr).sum())
+            total += d.numel()
+        first += len(lrs)
+        out.append(dict(mse_rel=float(np.max(np.abs(gm - wm) / np.abs(wm))),
+                        state_max_abs=worst, outside=outside,
+                        unexplained=unexplained, elements=total,
+                        grad_rel=[_p17_rel(torch, a, b)
+                                  for a, b in zip(gg, wg)]))
+    return out
+
+
+def _p17_floor(draws):
+    """The noise floor of a reference, layer by layer, from _p17_close of
+    each noisy draw: every number the largest over the draws (per leaf
+    for the gradients)."""
+    out = []
+    for layer in zip(*draws):
+        f = {k: max(c[k] for c in layer) for k in layer[0]
+             if k != "grad_rel"}
+        f["grad_rel"] = [max(v) for v in zip(*(c["grad_rel"]
+                                               for c in layer))]
+        out.append(f)
+    return out
+
+
+def _p17_limits(c, floor):
+    """The limits layer record c is held to: JAX's tolerances, or
+    P17_NOISE_MULT times the noise floor's record (floor) where that is
+    looser, for its MSE; for its count of state elements outside
+    P17_STATE_TOL that or P17_FLIP_SHARE of the elements, capped at
+    P17_COUNT_CAP of them, none beyond a flipped first step; for each
+    leaf's gradient P17_GRAD_RTOL or the floor's multiple. Returns (MSE
+    limit, count limit, gradient limits, the gates that fail: a subset of
+    ("mse", "state", "grad"))."""
+    mse_limit = max(P17_MSE_RTOL, P17_NOISE_MULT * floor["mse_rel"])
+    out_limit = min(max(P17_FLIP_SHARE * c["elements"],
+                        P17_NOISE_MULT * floor["outside"]),
+                    P17_COUNT_CAP * c["elements"])
+    grad_limits = [max(P17_GRAD_RTOL, P17_NOISE_MULT * f)
+                   for f in floor["grad_rel"]]
+    failed = []
+    if not c["mse_rel"] <= mse_limit:
+        failed.append("mse")
+    if not (c["outside"] <= out_limit and not c["unexplained"]):
+        failed.append("state")
+    if not all(r <= lim for r, lim in zip(c["grad_rel"], grad_limits)):
+        failed.append("grad")
+    return mse_limit, out_limit, grad_limits, failed
+
+
+def _p17_grad_worst(c, grad_limits):
+    """(the leaf nearest its gradient limit, its difference, its limit,
+    the count of leaves past theirs, the count of loose leaves: limits
+    past P17_GRAD_CAP)."""
+    rel = c["grad_rel"]
+    i = max(range(len(rel)), key=lambda j: rel[j] / grad_limits[j])
+    return i, rel[i], grad_limits[i], sum(
+        r > lim for r, lim in zip(rel, grad_limits)), sum(
+            lim > P17_GRAD_CAP for lim in grad_limits)
+
+
+def _p17_report(torch, dev, results, smi, ranks, ctx):
+    """Phase 17's checks after the spawn ((a) and (c) against the single
+    device, the same state on every rank, each planted fault caught) and
+    (b) the checkpoint's reload and the served model. Returns {path:
+    launches} of (b)."""
+    from flatquant_torch.quantize.bake import bake_model
+    from flatquant_torch.serving.quantized import build_serving_params
+    from flatquant_torch.utils.dist_checkpoint import load_sharded
+
+    from flatquant_torch.models.llama import init_params
+
+    m, ref = ctx["m"], ctx["ref"]
+    params = init_params(m["cfg"], seed=0, device=dev)  # the ranks' draw
+    cfg, sz = m["cfg"], m["sizes"]
+    rates = _p17_rates(m)
+    # the noise floor of every float32 reference: {reference: layers}
+    floor = {}
+    for k in [k for k in ref if k + "_noise0" in ref]:
+        floor[k] = _p17_floor([
+            _p17_close(ref[f"{k}_noise{d}"], ref[k], "noise floor",
+                       rates["ds" if k == "ds" else "llama"])
+            for d in range(P17_NOISE_DRAWS)])
+    for k, f in floor.items():
+        log(f"  [{smi}] noise floor of {k} (the single device's calibration "
+            f"on its embedding times 1 + {P17_NOISE} N(0, 1)), by layer: MSE "
+            f"relative difference {['%.2e' % c['mse_rel'] for c in f]}, "
+            f"state elements outside {P17_STATE_TOL} "
+            f"{[c['outside'] for c in f]} of {[c['elements'] for c in f]}, "
+            f"first-step gradients' largest leaf difference "
+            f"{['%.2e' % max(c['grad_rel']) for c in f]} (median "
+            f"{['%.2e' % sorted(c['grad_rel'])[len(c['grad_rel']) // 2] for c in f]})")
+    calib_fwd_limit = min(max(P17_DS_FWD_TOL,
+                              P17_NOISE_MULT * ref["ds_calib_fwd_floor"]),
+                          P17_DS_CALIB_CAP)
+    rec = dict(reference={k: dict(seconds=v["seconds"], mses=v["mses"])
+                          for k, v in ref.items() if isinstance(v, dict)
+                          and "_noise" not in k},
+               ds_calib_forward_floor=ref["ds_calib_fwd_floor"],
+               noise_floor=floor, ranks=[])
+    faults = []
+    for r in ranks:
+        p = r["p17"]
+        row = dict(rank=r["rank"], transport=p["transport"],
+                   peak_gib=p["peak_gib"], seconds=p["seconds"],
+                   save_s=p.get("save_s"))
+        for key, want_key in _p17_keys():
+            ds_run, bf16 = key.startswith("ds"), key.endswith("bf16")
+            planted = key.startswith("fault_")
+            want = ref[want_key]
+            layers = _p17_close(p[key], want, key,
+                                rates["ds" if ds_run else "llama"])
+            row[key] = dict(seconds=p[key]["seconds"],
+                            step_s=p[key]["step_s"], mses=p[key]["mses"],
+                            layers=layers)
+            log(f"  [{smi}] rank {r['rank']} {key}: {p[key]['seconds']:.2f} "
+                f"s, seconds per sharded step "
+                f"{[round(t, 3) for t in p[key]['step_s']]}; MSE by step "
+                f"{p[key]['mses']} (single device {want['mses']})")
+            if ds_run:
+                fwd = p[key]["forward"]
+                row[key].update(forward=fwd, experts=p[key]["experts"],
+                                calib_forward_limit=calib_fwd_limit)
+                fp_ok = fwd["fp"]["excess"] <= P17_DS_FWD_TOL
+                calib_ok = fwd["calib"]["rel"] <= calib_fwd_limit
+                log(f"   fp forward {fwd['fp']['seconds']:.2f} s, largest "
+                    f"abs difference {fwd['fp']['max_abs']:.2e}, past "
+                    f"{P17_DS_FWD_TOL} relative by {fwd['fp']['excess']:.2e} "
+                    f"(JAX's atol {P17_DS_FWD_TOL}); calib forward "
+                    f"{fwd['calib']['seconds']:.2f} s, relative difference "
+                    f"{fwd['calib']['rel']:.2e} (limit {calib_fwd_limit:.2e}"
+                    f"; the noise floor {ref['ds_calib_fwd_floor']:.2e}), "
+                    f"largest abs difference {fwd['calib']['max_abs']:.2e}; "
+                    f"{p[key]['experts']} experts here")
+                if not fp_ok:
+                    faults.append(f"rank {r['rank']} {key}: the fp forward "
+                                  "differs from the single device's past "
+                                  f"{P17_DS_FWD_TOL}")
+                if not calib_ok:
+                    faults.append(f"rank {r['rank']} {key}: the calib "
+                                  "forward differs from the single "
+                                  "device's")
+            fired = set()
+            for i, c in enumerate(layers):
+                mse_lim, out_lim, glims, failed = _p17_limits(
+                    c, floor[want_key][i]) if not bf16 else (
+                        0, 0, [math.inf] * len(c["grad_rel"]), [])
+                fired.update(failed)
+                gi, grel, glim, gpast, loose = _p17_grad_worst(c, glims)
+                c.update(failed=failed, grad_past=gpast, grad_loose=loose)
+                log(f"   layer {i}: MSE relative difference "
+                    f"{c['mse_rel']:.2e}, state largest abs difference "
+                    f"{c['state_max_abs']:.2e}, {c['outside']} of "
+                    f"{c['elements']} elements outside {P17_STATE_TOL}, "
+                    f"{c['unexplained']} beyond a flipped first step; "
+                    f"first-step gradient: leaf #{gi} nearest its limit, "
+                    f"{grel:.2e} of its norm apart, {gpast} of "
+                    f"{len(glims)} leaves past their limits, {loose} loose "
+                    f"(limits over {P17_GRAD_CAP}) ("
+                    + ("printed" if bf16 else
+                       f"limits {mse_lim:.2e}, {out_lim:.0f} and "
+                       f"{glim:.2e}; failed: {failed or 'none'}") + ")")
+                if failed and not planted:
+                    faults.append(
+                        f"rank {r['rank']} {key} layer {i}: {failed} "
+                        f"(MSE {c['mse_rel']:.2e}, limit {mse_lim:.2e}; "
+                        f"{c['outside']} state elements outside "
+                        f"{P17_STATE_TOL}, limit {out_lim:.0f}, "
+                        f"{c['unexplained']} beyond a flipped first step; "
+                        f"{gpast} gradient leaves past their limits)")
+            row[key]["failed"] = sorted(fired)
+            if planted:
+                log(f"   planted fault {key[6:]}: gates failed "
+                    f"{sorted(fired) or 'none'}")
+                if "grad" not in fired:
+                    faults.append(f"rank {r['rank']}: the gradient gate let "
+                                  f"the planted fault {key[6:]} pass")
+            elif not all(math.isfinite(v) for s_ in p[key]["mses"]
+                         for v in s_):
+                faults.append(f"rank {r['rank']} {key}: MSE not finite")
+        log(f"  [{smi}] rank {r['rank']} phase 17: {p['seconds']:.1f} s of "
+            f"work, peak {p['peak_gib']:.2f} GiB (max_memory_allocated), "
+            f"collectives by transport {p['transport']}, save_sharded "
+            f"{p.get('save_s', 0.0):.2f} s")
+        rec["ranks"].append(row)
+    for r in ranks[1:]:
+        for key, _ in _p17_keys():
+            if key.startswith("fault_"):
+                continue
+            if not all(torch.equal(a, b) for a, b in zip(
+                    r["p17"][key]["leaves"], ranks[0]["p17"][key]["leaves"])):
+                faults.append(f"{key}: the ranks hold different states")
+
+    # (b) the sharded checkpoint, reloaded whole, then served
+    from flatquant_torch.utils.tree import tree_leaves
+
+    f32 = m["f32"]
+    t0 = time.perf_counter()
+    got = load_sharded(ctx["ckpt"], {"params": params,
+                                     "fq": ctx.pop("template")}, device=dev)
+    load_s = time.perf_counter() - t0
+    n_params = _leaves_equal(torch, got["params"], params,
+                             "(b) params from the sharded checkpoint")
+    state_leaves = tree_leaves(got["fq"])
+    want = ranks[0]["p17"]["tp_f32"]["leaves"]
+    if len(state_leaves) != len(want) or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(state_leaves, want)):
+        raise AssertionError("(b) the reloaded state differs from the "
+                             "ranks'")
+    log(f"  (b) load_sharded whole: {load_s:.2f} s; {n_params} param "
+        f"tensors and {len(state_leaves)} state tensors bit-equal to the "
+        "parent's weights and the ranks' state")
+    baked, bfq = bake_model(cfg, f32, params, got["fq"])
+    del got, params
+    sp = build_serving_params(cfg, f32, baked, bfq, dtype=torch.bfloat16,
+                              merge_projections=True)
+    del baked, bfq
+    gc.collect()
+    serve = _serve_calibrated(torch, dev, smi, cfg, f32, sp, sz["S"],
+                              sz["new"], "(b) mesh-calibrated "
+                              f"{cfg.name}, {cfg.num_layers} layers")
+    del sp
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    rec["b"] = dict(load_s=load_s, params=n_params,
+                    state=len(state_leaves), **serve)
+    results["mesh_calib_path"] = rec
+    if faults:  # (a) and (c)'s, raised once every run has been printed
+        raise AssertionError("; ".join(faults))
+    return {"mesh_calib_serve": serve["serve"]["launches"]}
 
 
 def _names(rows):
@@ -6990,8 +7823,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
                     help="comma-separated phases to run after 1-2 (3a-3j, "
-                    "3 for all of them, 4-16; 6 runs 6a-6c); the default "
-                    "is all. A partial run prints no kernel table")
+                    "3 for all of them, 4-17; 6 runs 6a-6c; 16 and 17 share "
+                    "one spawn of ranks); the default is all. A partial run "
+                    "prints no kernel table")
     args = ap.parse_args(argv)
     only = set(filter(None, args.phases.split(",")))
 
@@ -7017,8 +7851,18 @@ def main(argv=None) -> int:
     dev = torch.device("cuda:0")
     failed, results, paths = [], {}, {}
 
+    phase_s = {}
+    t_start = time.perf_counter()
+
     def phase(name, fn, *a):
+        """Run one phase; its wall seconds go to phase_s under its number
+        ("3a", "16") or, for a model build, "build" plus the phases it
+        serves, and are printed as `phase N: X.X s`."""
         log(f"== {name}")
+        key = (name.split(":")[0][len("phase "):] if name.startswith(
+            "phase ") else "build " + name.rsplit("phases ", 1)[-1]
+            .rstrip(")"))
+        t0 = time.perf_counter()
         try:
             return fn(*a)
         except Exception:  # reported, and the run fails at the end
@@ -7026,6 +7870,9 @@ def main(argv=None) -> int:
             sys.stdout.flush()
             failed.append(name)
             return None
+        finally:
+            phase_s[key] = round(time.perf_counter() - t0, 1)
+            print(f"phase {key}: {phase_s[key]:.1f} s", flush=True)
 
     secs = phase("phase 1: build kernels (nvcc, sm_90a)", common.build, True)
     if secs is not None:
@@ -7099,8 +7946,9 @@ def main(argv=None) -> int:
                 "phase 6c: the bf16 comparator, llama-2-7b 1 x 2048",
                 run_bf16_comparator, torch, dev, results, smi) or {}
     if serve and want("7", "11", "12"):
-        model = phase("rebuild the random llama-2-7b (seed 0) for phases 7, "
-                      "11 and 12", build_model, torch, dev, 0)
+        model = phase(f"rebuild the random llama-2-7b (seed 0) at {P7_LAYERS}"
+                      " layers for phases 7, 11 and 12", build_model, torch,
+                      dev, 0, "llama-2-7b", None, P7_LAYERS)
     if model is not None:
         if want("7"):
             paths.update(phase(
@@ -7149,17 +7997,36 @@ def main(argv=None) -> int:
             "the registry, the deploy packed format, loglikelihood and "
             "generation, flatness, the HF DeepSeek FP8 loader)",
             run_eval_exchange_path, torch, dev, results, smi) or {})
-    if serve and want("16"):
+    p1617 = tuple(k for k in ("16", "17") if want(k))
+    if serve and p1617:
         gc.collect()
         torch.cuda.empty_cache()
+        what = {"16": "16: parallel serving (tp = 2 and its batcher, pp = 2, "
+                "sp = 2, DeepSeek under ep = 2)",
+                "17": "17: calibration under a mesh (llama-2-7b's widths "
+                "under tp = 2 and dp = 2, the sharded checkpoint served, "
+                "DeepSeek-V2-Lite's under ep = 2 and tp = 2)"}
         paths.update(phase(
-            "phase 16: parallel serving (tp = 2 and its batcher, pp = 2, "
-            "sp = 2, DeepSeek under ep = 2) on two ranks",
-            run_parallel_path, torch, dev, results, smi) or {})
+            "phase " + "; phase ".join(what[k] for k in p1617) + ", on two "
+            "ranks in one spawn", run_parallel_path, torch, dev, results,
+            smi, None, None, None, p1617) or {})
+        if len(p1617) == 2 and "phase17_s" in results:
+            # the one phase's seconds, split: phase 17's parent side and
+            # rank work, the rest (the spawn's start and exit too) to 16
+            both = phase_s.pop("16")
+            phase_s["17"] = results["phase17_s"]
+            phase_s["16"] = round(both - phase_s["17"], 1)
+            print(f"phase 16: {phase_s['16']:.1f} s\nphase 17: "
+                  f"{phase_s['17']:.1f} s (both in one spawn: {both:.1f} s)",
+                  flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,
-                       failed=failed, results=results), f, indent=1)
+                       failed=failed, phase_s=phase_s, results=results),
+                  f, indent=1)
+    log(f"  [{smi}] seconds by phase {phase_s}; whole script "
+        f"{time.perf_counter() - t_start:.1f} s after the interpreter's "
+        "start")
     if failed:
         log(f"FAILED phases: {failed}")
         return 1

@@ -19,11 +19,22 @@ sorts its leaves into the four groups. The master state is float32; the
 layer computes in the inputs' dtype (bf16, or float32 with deactive_amp).
 Activations stay on the device that holds them (JAX pages them through
 the host).
+
+Under a mesh (`calibrate(..., mesh=)`, JAX's GSPMD-sharded step written
+out per rank): each "dp" rank takes its block of every step's batch, the
+layer runs on this rank's "tp" blocks of the weights (models/llama.py
+`llama_layer(tp_axis=)`, whose collectives leave every replicated leaf's
+gradient whole on each tp rank), the MSE that normalises the loss is the
+global one (all-reduced over dp before mse / mse), every gradient is
+summed over dp, and AdamW then runs identically on every rank. The
+statistics of the sq-style init are cross-rank maxima. Logs and save_cb
+come from global rank 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Callable, Optional
@@ -32,7 +43,15 @@ import numpy as np
 import torch
 
 from flatquant_torch.models.config import LlamaConfig
-from flatquant_torch.models.llama import causal_mask, llama_layer, rope_tables
+from flatquant_torch.models.llama import (
+    causal_mask,
+    embed_lookup,
+    llama_layer,
+    rope_tables,
+)
+from flatquant_torch.parallel.distributed import all_gather, all_reduce
+from flatquant_torch.parallel.mesh import mesh_axis
+from flatquant_torch.parallel.tp_autograd import active
 from flatquant_torch.quantize.linear import LinearQuantState
 from flatquant_torch.quantize.spec import FQConfig
 from flatquant_torch.quantize.state import (
@@ -204,21 +223,32 @@ def _get_init_scale(w_smax, x_smax, alpha):
     return torch.clamp_min(v, 1e-5)
 
 
-def _absmax_cols(ws):
-    return torch.cat([w.to(torch.float32) for w in ws], 0).abs().amax(0)
+def _absmax_cols(ws, n: Optional[int] = None, tp_axis=None):
+    """The column absmax of the stacked weights ws, n columns wide. Under
+    a tensor-parallel axis, weights split by rows take the max over its
+    ranks, and weights split by columns (fewer than n here) gather."""
+    cols = torch.cat([w.to(torch.float32) for w in ws], 0).abs().amax(0)
+    if not active(tp_axis):
+        return cols
+    if cols.shape[0] < n:
+        return all_gather(cols, 0, tp_axis)
+    return all_reduce(cols, "max", tp_axis)
 
 
 def sq_init_diag(lp: dict, fq_l: LayerFQ, stats: dict,
-                 alpha: float) -> LayerFQ:
+                 alpha: float, tp_axis=None) -> LayerFQ:
     """SmoothQuant-style diag init from weight / activation absmax
-    (llama_utils.py init_diag_scale, :95-104, 308-315)."""
+    (llama_utils.py init_diag_scale, :95-104, 308-315). tp_axis: lp holds
+    this rank's blocks over it (llama_param_specs); the statistics are
+    whole."""
     a, m = fq_l.attn, fq_l.mlp
 
     def upd(t, ws, key):
         if t is None or t.diag_scale is None:
             return t
+        st = stats[key].to(torch.float32)
         return dataclasses.replace(t, diag_scale=_get_init_scale(
-            _absmax_cols(ws), stats[key].to(torch.float32), alpha))
+            _absmax_cols(ws, st.shape[0], tp_axis), st, alpha))
 
     a = dataclasses.replace(
         a, ln_trans=upd(a.ln_trans, [lp["wq"], lp["wk"], lp["wv"]], "ln"))
@@ -234,13 +264,87 @@ def sq_init_diag(lp: dict, fq_l: LayerFQ, stats: dict,
 
 
 @torch.no_grad()
-def capture_embeddings(cfg, params, tokens, compute_dtype, bsz: int = 8):
+def capture_embeddings(cfg, params, tokens, compute_dtype, bsz: int = 8,
+                       tp_axis=None):
     """Layer-0 inputs of every calibration sample -> [N, S, H] in
-    compute_dtype, on the device that holds params."""
+    compute_dtype, on the device that holds params (a vocab-parallel
+    table over tp_axis looks up by models/llama.py embed_lookup)."""
     embed = params["embed"]
     tok = torch.as_tensor(np.asarray(tokens), device=embed.device).long()
-    return torch.cat([embed[tok[i:i + bsz]].to(compute_dtype)
+    return torch.cat([embed_lookup(embed, tok[i:i + bsz], cfg.vocab_size,
+                                   tp_axis).to(compute_dtype)
                       for i in range(0, tok.shape[0], bsz)], 0)
+
+
+def dp_rows(nsamples: int, bsz: int, dp_axis) -> np.ndarray:
+    """The sample rows of this dp rank: its block of every step's batch
+    of bsz (step j's batch is rows [j * bsz, (j + 1) * bsz), as on one
+    device)."""
+    if nsamples % bsz or bsz % dp_axis.size:
+        raise ValueError(f"under dp={dp_axis.size} the batch {bsz} must "
+                         f"split over it and tile the {nsamples} samples")
+    lb = bsz // dp_axis.size
+    return (np.arange(0, nsamples, bsz)[:, None] + dp_axis.index * lb
+            + np.arange(lb)[None, :]).reshape(-1)
+
+
+def _sum_grads(opt: GroupAdamW, dp_axis) -> None:
+    """Every trainable leaf's gradient summed over the dp ranks (one
+    all-reduce of them all, flattened)."""
+    if opt.opt is None:
+        return
+    ps = [p for g in opt.opt.param_groups for p in g["params"]
+          if p.grad is not None]
+    if not ps:
+        return
+    flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in ps]), "sum",
+                      dp_axis)
+    off = 0
+    for p in ps:
+        n = p.grad.numel()
+        p.grad.copy_(flat[off:off + n].view_as(p.grad))
+        off += n
+
+
+def calib_step(opt: GroupAdamW, calib_fn, state, lp, x, teacher,
+               dp_axis=None, after_backward=None) -> float:
+    """One update of `state` (train_utils.py:139-152): calib_backward,
+    after_backward() when given (the gradients in .grad), then AdamW.
+    Returns the (global) MSE."""
+    mse = calib_backward(opt, calib_fn, state, lp, x, teacher, dp_axis)
+    if after_backward is not None:
+        after_backward()
+    opt.step()
+    return mse
+
+
+def calib_backward(opt: GroupAdamW, calib_fn, state, lp, x, teacher,
+                   dp_axis=None) -> float:
+    """The gradient half of a step: the calib forward calib_fn(state, lp,
+    x), the loss MSE / detach(MSE) against the fp teacher outputs, and
+    backward into the trainable leaves' .grad. dp_axis: x and teacher are
+    this rank's rows of the batch; the MSE that normalises is the global
+    one and the gradients are summed over the axis. Returns the (global)
+    MSE."""
+    out = calib_fn(state, lp, x)
+    diff = out.to(torch.float32) - teacher.to(torch.float32)
+    mse = torch.mean(diff * diff)
+    if active(dp_axis):
+        # the global MSE's value, this rank's share of its gradient
+        mse = all_reduce(mse.detach(), "sum", dp_axis) / dp_axis.size \
+            + (mse - mse.detach()) / dp_axis.size
+        (mse / mse.detach()).backward()
+        _sum_grads(opt, dp_axis)
+    else:
+        (mse / mse.detach()).backward()
+    return float(mse.detach())
+
+
+def is_rank0() -> bool:
+    """Whether this process is global rank 0 (or alone)."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _master(tree):
@@ -259,7 +363,8 @@ def calibrate_layers(fq_cfg: FQConfig, layers_params, fq_state, inps,
                      log: Callable[[str], None] = print,
                      save_cb: Optional[Callable[[int, object], None]] = None,
                      epochs: Optional[int] = None, layer_params_fn=None,
-                     history: Optional[list] = None):
+                     history: Optional[list] = None, dp_axis=None,
+                     grad_cb=None):
     """Model-agnostic layer-wise calibration core.
 
     fp_fn(lp, x) -> (teacher_out, stats); calib_fn(fq_l, lp, x) -> out;
@@ -269,9 +374,21 @@ def calibrate_layers(fq_cfg: FQConfig, layers_params, fq_state, inps,
     overrides layers_params[i]. inps [N, S, H] is not written. Returns
     the new state list. history, when given, gets one dict per layer:
     teacher seconds, seconds and MSE of every step, MSE of every epoch.
+
+    dp_axis: the data-parallel Axis; inps then holds this rank's rows
+    (dp_rows), each step its cali_bsz / dp of them, and the MSE recorded
+    is the global one. fp_fn / calib_fn / diag_init_fn carry any tensor
+    parallelism themselves.
+
+    grad_cb(i, step, state), when given, is called after each step's
+    backward and before its update, the trainable leaves of `state`
+    holding their (dp-summed) gradients in .grad: a check's view of the
+    step; calibration does not read what it does.
     """
     nsamples = inps.shape[0]
     bsz = fq_cfg.cali_bsz
+    if active(dp_axis):
+        bsz //= dp_axis.size
     n_epochs = fq_cfg.epochs if epochs is None else epochs
     steps_per_epoch = max(1, nsamples // bsz)
     total_steps = max(1, n_epochs * steps_per_epoch)
@@ -293,6 +410,9 @@ def calibrate_layers(fq_cfg: FQConfig, layers_params, fq_state, inps,
                 outs[j:j + bsz] = o
                 run_stats = st if run_stats is None else {
                     k: torch.maximum(run_stats[k], st[k]) for k in st}
+        if active(dp_axis):
+            run_stats = {k: all_reduce(v, "max", dp_axis)
+                         for k, v in run_stats.items()}
         _sync(dev)
         teacher_s = time.time() - t0
 
@@ -310,13 +430,10 @@ def calibrate_layers(fq_cfg: FQConfig, layers_params, fq_state, inps,
             for j in range(steps_per_epoch):
                 ts = time.time()
                 lo = j * bsz
-                out = calib_fn(state, lp, inps[lo:lo + bsz])
-                diff = out.to(torch.float32) - outs[lo:lo + bsz].to(
-                    torch.float32)
-                mse = torch.mean(diff * diff)
-                (mse / mse.detach()).backward()
-                opt.step()
-                m = float(mse.detach())
+                m = calib_step(opt, calib_fn, state, lp, inps[lo:lo + bsz],
+                               outs[lo:lo + bsz], dp_axis, None
+                               if grad_cb is None else functools.partial(
+                                   grad_cb, i, len(rec["step_mse"]), state))
                 mse_sum += m
                 rec["step_mse"].append(m)
                 rec["step_s"].append(time.time() - ts)
@@ -339,31 +456,46 @@ def calibrate(cfg: LlamaConfig, fq_cfg: FQConfig, params: dict, fq_state,
               log: Callable[[str], None] = print,
               save_cb: Optional[Callable[[int, object], None]] = None,
               epochs: Optional[int] = None,
-              history: Optional[list] = None):
+              history: Optional[list] = None, mesh=None, grad_cb=None):
     """Llama-family layer-wise calibration (calibrate_layers over
     llama_layer), on the device that holds params. train_tokens [nsamples,
     seqlen] int; save_cb(i, fq_state) after each layer (the incremental
     resume artifact, train_utils.py:157-159). Returns the trained list of
-    LayerFQ."""
+    LayerFQ.
+
+    mesh (parallel/mesh.py, every rank calling with the same arguments):
+    params are this rank's blocks by llama_param_specs, fq_state and
+    train_tokens whole; the batch splits over "dp" and the layers over
+    "tp" (either axis may be absent). Every rank returns the same
+    state. grad_cb: as calibrate_layers'."""
     if compute_dtype is None:
         compute_dtype = torch.float32 if fq_cfg.deactive_amp \
             else torch.bfloat16
+    tp, dp = mesh_axis(mesh, "tp"), mesh_axis(mesh, "dp")
+    if mesh is not None and not is_rank0():
+        log, save_cb = (lambda m: None), None
     dev = params["embed"].device
-    seqlen = np.asarray(train_tokens).shape[1]
+    tokens = np.asarray(train_tokens)
+    if dp is not None:
+        tokens = tokens[dp_rows(tokens.shape[0], fq_cfg.cali_bsz, dp)]
+    seqlen = tokens.shape[1]
     cos, sin = rope_tables(cfg, torch.arange(seqlen, device=dev))
     mask = causal_mask(seqlen, dev)
-    inps = capture_embeddings(cfg, params, train_tokens, compute_dtype)
+    inps = capture_embeddings(cfg, params, tokens, compute_dtype,
+                              tp_axis=tp)
 
     def fp_fn(lp, x):
         return llama_layer(cfg, None, "fp", lp, None, x, cos, sin, mask,
-                           with_stats=True)
+                           with_stats=True, tp_axis=tp)
 
     def calib_fn(fq_l, lp, x):
-        return llama_layer(cfg, fq_cfg, "calib", lp, fq_l, x, cos, sin, mask)
+        return llama_layer(cfg, fq_cfg, "calib", lp, fq_l, x, cos, sin, mask,
+                           tp_axis=tp)
 
     return calibrate_layers(
         fq_cfg, params["layers"], fq_state, inps, fp_fn, calib_fn,
         build_labels(fq_state[0]), num_layers=cfg.num_layers,
         diag_init_fn=lambda lp, fq_l, stats: sq_init_diag(
-            lp, fq_l, stats, fq_cfg.diag_alpha),
-        log=log, save_cb=save_cb, epochs=epochs, history=history)
+            lp, fq_l, stats, fq_cfg.diag_alpha, tp_axis=tp),
+        log=log, save_cb=save_cb, epochs=epochs, history=history,
+        dp_axis=dp, grad_cb=grad_cb)

@@ -144,16 +144,34 @@ def _group_reshape(x, group_size: int):
     return x
 
 
-def act_scale_zero(x, cfg: ActQuantCfg, clip_max=None, clip_min=None):
+def local_reduce(t, dim: int, op: str):
+    """The reduction of a row that lies whole in `t`: op "max", "min" or
+    "sum" along `dim`, kept. A caller whose rows are split over shards
+    passes its own `row_reduce` of this signature, whose result spans
+    them (parallel/tp_autograd.py `row_reducer`)."""
+    if op == "max":
+        return t.amax(dim=dim, keepdim=True)
+    if op == "min":
+        return t.amin(dim=dim, keepdim=True)
+    return t.sum(dim=dim, keepdim=True)
+
+
+def act_scale_zero(x, cfg: ActQuantCfg, clip_max=None, clip_min=None,
+                   row_reduce=None):
     """(scale, zero) of per-token (or per-group) activation quantization,
     each with a trailing singleton axis that broadcasts against the
     group-reshaped x. min / max clamp through zero; LAC multiplies them by
     sigmoid(clip factor), else a static clip_ratio; all-zero rows get
-    scale 1 (sym) or the range [-1, 1] (asym)."""
+    scale 1 (sym) or the range [-1, 1] (asym). row_reduce: as
+    `local_reduce`, for a token whose last dim is split over shards (a
+    row-parallel input); a group lies inside a shard and reduces
+    locally."""
     xg = _group_reshape(x, cfg.group_size)
     zero_t = _const(xg, 0.0)
-    xmax = torch.maximum(xg.amax(dim=-1, keepdim=True), zero_t)
-    xmin = torch.minimum(xg.amin(dim=-1, keepdim=True), zero_t)
+    red = row_reduce if row_reduce is not None and cfg.group_size <= 0 \
+        else local_reduce
+    xmax = torch.maximum(red(xg, -1, "max"), zero_t)
+    xmin = torch.minimum(red(xg, -1, "min"), zero_t)
     if cfg.lac and clip_max is not None:
         xmax = xmax * torch.sigmoid(clip_max)
         xmin = xmin * torch.sigmoid(clip_min)
@@ -175,13 +193,14 @@ def act_scale_zero(x, cfg: ActQuantCfg, clip_max=None, clip_min=None):
 
 
 def act_fake_quant(x, cfg: ActQuantCfg, clip_max=None, clip_min=None,
-                   enabled: bool = True):
+                   enabled: bool = True, row_reduce=None):
     """Fake-quantize activations per token (STE-differentiable); the
-    identity when bits >= 16 or not enabled."""
+    identity when bits >= 16 or not enabled. row_reduce: as
+    act_scale_zero."""
     if not cfg.enabled or not enabled:
         return x
     xf = x.to(torch.float32)
-    scale, zero = act_scale_zero(xf, cfg, clip_max, clip_min)
+    scale, zero = act_scale_zero(xf, cfg, clip_max, clip_min, row_reduce)
     xg = _group_reshape(xf, cfg.group_size)
     if cfg.sym:
         out = sym_quant_dequant(xg, scale, cfg.q_max)
@@ -205,15 +224,20 @@ def _weight_rows(w, cfg: WeightQuantCfg):
     return w.reshape(1, -1)
 
 
-def weight_find_params(w, cfg: WeightQuantCfg):
+def weight_find_params(w, cfg: WeightQuantCfg, row_reduce=None):
     """(scale, zero) of weight w [out, in], each [rows, 1] float32 (rows as
     `_weight_rows`), with the optional MSE shrink search. Differentiable
-    with respect to w."""
+    with respect to w. row_reduce: as `local_reduce`, for a weight whose
+    in features are split over shards (a row-parallel weight): a row's
+    extrema and the search's errors span them (per channel or per
+    tensor; a group lies inside a shard and reduces locally)."""
     rows = _weight_rows(w.to(torch.float32), cfg)
     q_max = float(cfg.q_max)
     zero_t = _const(rows, 0.0)
-    xmin = torch.minimum(rows.amin(dim=1), zero_t)
-    xmax = torch.maximum(rows.amax(dim=1), zero_t)
+    red = row_reduce if row_reduce is not None and not (
+        cfg.perchannel and cfg.group_size > 0) else local_reduce
+    xmin = torch.minimum(red(rows, 1, "min")[:, 0], zero_t)
+    xmax = torch.maximum(red(rows, 1, "max")[:, 0], zero_t)
     if cfg.sym:
         absmax = _clip(torch.maximum(xmin.abs(), xmax), 1e-5, np.inf)
         scale = true_div(absmax, q_max)
@@ -226,16 +250,20 @@ def weight_find_params(w, cfg: WeightQuantCfg):
         zero = torch.round(-xmin_ / scale)
     if cfg.mse:
         if cfg.sym:
-            scale, zero = _mse_shrink(rows, -absmax, absmax, scale, zero, cfg)
+            scale, zero = _mse_shrink(rows, -absmax, absmax, scale, zero, cfg,
+                                      red)
         else:
-            scale, zero = _mse_shrink(rows, xmin_, xmax_, scale, zero, cfg)
+            scale, zero = _mse_shrink(rows, xmin_, xmax_, scale, zero, cfg,
+                                      red)
     return scale[:, None], zero[:, None]
 
 
-def _mse_shrink(rows, xmin, xmax, scale0, zero0, cfg: WeightQuantCfg):
+def _mse_shrink(rows, xmin, xmax, scale0, zero0, cfg: WeightQuantCfg,
+                row_reduce=local_reduce):
     """Grid search shrinking [xmin, xmax] by p = 1 - i / grid for i <
     int(max_shrink * grid), keeping the first step of least
-    sum(|q - w|^norm) per row (strict <, as JAX's loop)."""
+    sum(|q - w|^norm) per row (strict <, as JAX's loop; the sum by
+    row_reduce)."""
     q_max = float(cfg.q_max)
     best = torch.full((rows.shape[0],), float("inf"), dtype=torch.float32,
                       device=rows.device)
@@ -253,7 +281,7 @@ def _mse_shrink(rows, xmin, xmax, scale0, zero0, cfg: WeightQuantCfg):
             zero1 = torch.round(-xmin1 / scale1)
             q = asym_quant_dequant(rows, scale1[:, None], zero1[:, None],
                                    q_max)
-        err = torch.sum((q - rows).abs() ** cfg.norm, dim=1)
+        err = row_reduce((q - rows).abs() ** cfg.norm, 1, "sum")[:, 0]
         better = err < best
         best = torch.where(better, err, best)
         scale = torch.where(better, scale1, scale)

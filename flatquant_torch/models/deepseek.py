@@ -43,8 +43,11 @@ parallelism: the batcher hook `ds_batch_forward` takes a bundle whose
 routed experts are split over an "ep" mesh axis (parallel/mesh.py
 shard_ds_serving_params); each rank runs its experts for every token and
 the partial MoE sums are all-reduced, attention, the gate and the shared
-experts replicated. JAX's calibration meshes (deepseek_param_specs) wait
-for ROADMAP queue 1 item 9's slice 20.
+experts replicated. Calibration under a mesh (JAX's GSPMD meshes over
+deepseek_param_specs): `deepseek_forward(..., mesh=)` and
+`calibrate_deepseek(..., mesh=)` run on each rank's blocks, the heads and
+the dense and shared FFNs over "tp", the routed experts over "ep", the
+batch over "dp", with the collectives of parallel/tp_autograd.py.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from flatquant_torch.core.quant import weight_find_params, weight_quantize_int
 from flatquant_torch.core.transforms import (
@@ -69,8 +73,17 @@ from flatquant_torch.kernels.int4_matmul import (
     pack_weight_planar,
     quant_acts_i8_ref,
 )
-from flatquant_torch.models.llama import rms_norm, silu
-from flatquant_torch.parallel.distributed import all_reduce
+from flatquant_torch.models.llama import _local_state, rms_norm, silu
+from flatquant_torch.parallel.distributed import all_gather, all_reduce
+from flatquant_torch.parallel.mesh import mesh_axis
+from flatquant_torch.parallel.tp_autograd import (
+    active,
+    copy_to,
+    copy_tree,
+    gather_from,
+    reduce_from,
+    scatter_to,
+)
 from flatquant_torch.quantize.linear import (
     LinearQuantState,
     fq_linear_eval,
@@ -475,7 +488,7 @@ def _trans(fq_part, key, quant):
 
 
 def ds_mla(cfg: DeepSeekConfig, fq_cfg, mode, lp, fqa, x, cos, sin, mask,
-           cache=None, pos=0, use_kernel=True, stats=None):
+           cache=None, pos=0, use_kernel=True, stats=None, tp=None):
     """Absorbed MLA. Full sequence when cache is None (mask [1, S, S]);
     with cache = (kv_cache [B, Smax, kv_lora], pe_cache [B, Smax, rope])
     the new latents are written in place at [pos, pos + S) and the
@@ -483,19 +496,30 @@ def ds_mla(cfg: DeepSeekConfig, fq_cfg, mode, lp, fqa, x, cos, sin, mask,
     mask. pos may be a per-slot [B] tensor (decode, S == 1): cos/sin are
     then [B, rope/2] rows and each slot writes and attends its own
     prefix through a masked select. stats (a dict) gets the absmax per
-    channel of the inputs of the qkv, wq_b and wo transforms."""
+    channel of the inputs of the qkv, wq_b and wo transforms. tp: the
+    tensor-parallel Axis lp's heads are split over (deepseek_param_specs;
+    full sequence only): wq / wq_b and wkv_b hold this rank's heads, the
+    latents enter its heads' compute, and wo runs as _row_lin."""
     B, S, _ = x.shape
     per_slot = torch.is_tensor(pos) and pos.dim() == 1
     if per_slot and S != 1:
         raise ValueError("per-slot positions only in decode (S == 1)")
+    if active(tp) and cache is not None:
+        raise NotImplementedError("MLA over the latent caches under a "
+                                  "tensor-parallel axis")
     quant = mode != "fp" and fqa is not None
     calib = quant and mode == "calib"
-    nh, nope = cfg.n_heads, cfg.qk_nope_head_dim
+    nope = cfg.qk_nope_head_dim
+    nh = lp["wkv_b"].shape[0] // (nope + cfg.v_head_dim)  # this rank's
 
     def lin(inp, key, st_key, qa):
         return _linear(mode, quant, fq_cfg, inp, lp[key], use_kernel,
                        fqa[st_key] if quant else None,
                        qa if calib else None)
+
+    def col(inp, key, st_key, qa):
+        return _col_lin(mode, quant, fq_cfg, fqa, inp, lp[key], use_kernel,
+                        st_key, qa, tp)
 
     h = x
     if stats is not None:
@@ -511,9 +535,9 @@ def ds_mla(cfg: DeepSeekConfig, fq_cfg, mode, lp, fqa, x, cos, sin, mask,
         tb = _trans(fqa, "wqb_trans", quant)
         if tb is not None:
             q2 = apply_decompose(tb, q2)
-        q = lin(q2, "wq_b", "wq_b_lin", tb)
+        q = col(q2, "wq_b", "wq_b_lin", tb)
     else:
-        q = lin(h, "wq", "wq_a_lin", t)
+        q = col(h, "wq", "wq_a_lin", t)
     kv_raw = lin(h, "wkv_a", "wkv_a_lin", t)
 
     q = q.reshape(B, S, nh, cfg.qk_head_dim)
@@ -548,7 +572,7 @@ def ds_mla(cfg: DeepSeekConfig, fq_cfg, mode, lp, fqa, x, cos, sin, mask,
         pe_att = pe_cache.to(x.dtype)
         att_mask = torch.where(tids[None, None, None, :] <= sids, 0.0, -1e9)
     else:
-        kv_att, pe_att = kv, k_pe
+        kv_att, pe_att = copy_to(kv, tp), copy_to(k_pe, tp)
         att_mask = mask[:, :, None, :]
     scores = (torch.einsum("bshc,btc->bsht", q_abs, kv_att)
               + torch.einsum("bshr,btr->bsht", q_pe, pe_att))
@@ -563,11 +587,10 @@ def ds_mla(cfg: DeepSeekConfig, fq_cfg, mode, lp, fqa, x, cos, sin, mask,
                      wkv_b[:, nope:].to(torch.float32)).to(x.dtype)
     o = o.reshape(B, S, nh * cfg.v_head_dim)
     if stats is not None:
-        stats["wo"] = _absmax(o, (0, 1))
-    t = _trans(fqa, "wo_trans", quant)
-    if t is not None:
-        o = apply_decompose(t, o)
-    return lin(o, "wo", "wo_lin", t)
+        stats["wo"] = all_gather(_absmax(o, (0, 1)), 0, tp) if active(tp) \
+            else _absmax(o, (0, 1))
+    return _row_lin(mode, quant, fq_cfg, fqa, o, lp["wo"], use_kernel,
+                    "wo_lin", _trans(fqa, "wo_trans", quant), tp)
 
 
 def _ffn_lin(mode, quant, fq_cfg, fqf, x, w, use_kernel, st_key, qa):
@@ -576,7 +599,39 @@ def _ffn_lin(mode, quant, fq_cfg, fqf, x, w, use_kernel, st_key, qa):
                    qa if quant and mode == "calib" else None)
 
 
-def _ffn_dense(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None):
+def _col_lin(mode, quant, fq_cfg, fqp, x, w, use_kernel, st_key, qa, tp):
+    """A column-parallel linear: w holds this rank's rows (out features)
+    over tp, x is replicated; it and every FQ leaf the rank's rows read
+    enter through parallel/tp_autograd.py (the weight clips cut to the
+    rows). Without tp, _ffn_lin."""
+    if not active(tp):
+        return _ffn_lin(mode, quant, fq_cfg, fqp, x, w, use_kernel, st_key,
+                        qa)
+    calib = quant and mode == "calib"
+    return _linear(mode, quant, fq_cfg, copy_to(x, tp), w, use_kernel,
+                   _local_state(fqp[st_key], tp, True) if quant else None,
+                   copy_tree(qa, tp) if calib else None)
+
+
+def _row_lin(mode, quant, fq_cfg, fqp, x, w, use_kernel, st_key, t, tp):
+    """A row-parallel linear after its input transform t: x holds this
+    rank's in features over tp, w its columns. Unquantized, the partial
+    products are all-reduced; quantized, DeepSeek's transforms span the
+    whole dim, so x is gathered, transformed and the linear runs whole on
+    every rank (w gathered), as GSPMD runs it. Without tp: t, then
+    _ffn_lin."""
+    if active(tp):
+        if not quant:
+            return reduce_from(x @ w.T.to(x.dtype), tp)
+        x, w = gather_from(x, -1, tp), all_gather(w, 1, tp)
+    if t is not None:
+        x = apply_decompose(t, x)
+    return _ffn_lin(mode, quant, fq_cfg, fqp, x, w, use_kernel, st_key, t)
+
+
+def _ffn_dense(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None,
+               tp=None):
+    """The dense FFN; tp: w1 / w3 column-parallel, w2 row-parallel."""
     quant = mode != "fp" and fqf is not None
     h = x
     if stats is not None:
@@ -584,18 +639,16 @@ def _ffn_dense(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None):
     t = _trans(fqf, "up_gate_trans", quant)
     if t is not None:
         h = apply_decompose(t, h)
-    gate = _ffn_lin(mode, quant, fq_cfg, fqf, h, lp["w1"], use_kernel,
-                    "w1_lin", t)
-    up = _ffn_lin(mode, quant, fq_cfg, fqf, h, lp["w3"], use_kernel,
-                  "w3_lin", t)
+    gate = _col_lin(mode, quant, fq_cfg, fqf, h, lp["w1"], use_kernel,
+                    "w1_lin", t, tp)
+    up = _col_lin(mode, quant, fq_cfg, fqf, h, lp["w3"], use_kernel,
+                  "w3_lin", t, tp)
     act = silu(gate) * up
     if stats is not None:
-        stats["ffn_down"] = _absmax(act, (0, 1))
-    t = _trans(fqf, "down_trans", quant)
-    if t is not None:
-        act = apply_decompose(t, act)
-    return _ffn_lin(mode, quant, fq_cfg, fqf, act, lp["w2"], use_kernel,
-                    "w2_lin", t)
+        stats["ffn_down"] = all_gather(_absmax(act, (0, 1)), 0, tp) \
+            if active(tp) else _absmax(act, (0, 1))
+    return _row_lin(mode, quant, fq_cfg, fqf, act, lp["w2"], use_kernel,
+                    "w2_lin", _trans(fqf, "down_trans", quant), tp)
 
 
 def _top_k(v, k):
@@ -705,28 +758,60 @@ def moe_dispatch(flat_e, capacity: int, n_experts: int):
     return rank, rank < capacity
 
 
-def _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel):
+def _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel,
+                    tp=None):
+    """The shared experts (tp: s_w1 / s_w3 column-, s_w2 row-parallel)."""
     t1 = _trans(fqf, "w1_trans", quant)
-    s_gate = _ffn_lin(mode, quant, fq_cfg, fqf, h, lp["s_w1"], use_kernel,
-                      "s_w1_lin", t1)
-    s_up = _ffn_lin(mode, quant, fq_cfg, fqf, h, lp["s_w3"], use_kernel,
-                    "s_w3_lin", t1)
+    s_gate = _col_lin(mode, quant, fq_cfg, fqf, h, lp["s_w1"], use_kernel,
+                      "s_w1_lin", t1, tp)
+    s_up = _col_lin(mode, quant, fq_cfg, fqf, h, lp["s_w3"], use_kernel,
+                    "s_w3_lin", t1, tp)
     s_act = silu(s_gate) * s_up
-    t = _trans(fqf, "w2_trans", quant)
-    if t is not None:
-        s_act = apply_decompose(t, s_act)
-    return _ffn_lin(mode, quant, fq_cfg, fqf, s_act, lp["s_w2"], use_kernel,
-                    "s_w2_lin", t)
+    return _row_lin(mode, quant, fq_cfg, fqf, s_act, lp["s_w2"], use_kernel,
+                    "s_w2_lin", _trans(fqf, "w2_trans", quant), tp)
+
+
+def _local_experts(fqf, ep):
+    """The routed experts' FQ state as this ep rank's experts read it:
+    the weight clips [E, ...] cut to its block, the shared activation
+    clips and transforms copied in (parallel/tp_autograd.py)."""
+    if fqf is None or not active(ep):
+        return fqf
+    out = dict(fqf)
+    for key in ("w1_trans", "routed_w2_trans"):
+        out[key] = copy_tree(fqf[key], ep)
+    for key in ("e_w1_lin", "e_w2_lin", "e_w3_lin"):
+        st = fqf[key]
+        out[key] = LinearQuantState(
+            clip_w_max=None if st.clip_w_max is None
+            else scatter_to(st.clip_w_max, 0, ep),
+            clip_w_min=None if st.clip_w_min is None
+            else scatter_to(st.clip_w_min, 0, ep),
+            clip_a_max=copy_tree(st.clip_a_max, ep),
+            clip_a_min=copy_tree(st.clip_a_min, ep))
+    return out
 
 
 def _routed_experts(cfg, fq_cfg, mode, lp, fqf, x_e, quant, use_kernel,
                     stats=None):
+    """The routed experts, batched over their leading dim. In "calib" each
+    of the three expert linears is checkpointed (recomputed in backward):
+    the fake-quant chain of every expert's weight at once would otherwise
+    hold ~12 copies of the [E, out, in] float32 stack for backward (27
+    GiB a MoE layer at V2-Lite's widths, 64 experts); the values are the
+    same."""
     calib = quant and mode == "calib"
 
-    def lin(inp, key, qa):
+    def lin_(inp, key, qa):
         return _expert_linear(mode, quant, fq_cfg, inp, lp[key], use_kernel,
                               fqf[key + "_lin"] if quant else None,
                               qa if calib else None)
+
+    def lin(inp, key, qa):
+        if calib and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                lin_, inp, key, qa, use_reentrant=False)
+        return lin_(inp, key, qa)
 
     t1 = _trans(fqf, "w1_trans", quant)
     act_e = silu(lin(x_e, "e_w1", t1)) * lin(x_e, "e_w3", t1)
@@ -750,8 +835,9 @@ def _expert_block(lp, E: int, ep):
 
 def _ep_sum(y, ep):
     """The float32 partial MoE sum of this rank's experts, summed over
-    the ep ranks (one all-reduce)."""
-    return y if ep is None else all_reduce(y, "sum", ep)
+    the ep ranks (one all-reduce, whose backward hands each rank the
+    whole gradient: parallel/tp_autograd.py reduce_from)."""
+    return y if ep is None else reduce_from(y, ep)
 
 
 def _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, x,
@@ -806,13 +892,14 @@ def _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, x,
 
 
 def _ffn_moe(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None,
-             ep=None):
+             ep=None, tp=None):
     """Dense-masked MoE: every expert on every token, outputs summed under
     the routing matrix [T, E] (drop-free). stats gets "moe_in" and
     "moe_down" (JAX records no statistic of the shared experts' down
     input, so w2_trans keeps its diag init). ep: the expert-parallel
     Axis; the rank runs its experts on every token under its columns of
-    the routing matrix and the partial sums are all-reduced."""
+    the routing matrix and the partial sums are all-reduced. tp: the
+    shared experts' Axis (_shared_experts)."""
     B, S, D = x.shape
     quant = mode != "fp" and fqf is not None
     x2d = x.reshape(-1, D)
@@ -828,31 +915,37 @@ def _ffn_moe(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None,
     if t is not None:
         h = apply_decompose(t, h)
     e0, n_e = _expert_block(lp, E, ep)
-    down_e = _routed_experts(cfg, fq_cfg, mode, lp, fqf,
-                             h[None].expand(n_e, T, D), quant, use_kernel,
+    h_e = copy_to(h, ep)  # into this rank's experts (identity without ep)
+    down_e = _routed_experts(cfg, fq_cfg, mode, lp, _local_experts(fqf, ep),
+                             h_e[None].expand(n_e, T, D), quant, use_kernel,
                              stats)
+    if stats is not None and active(ep):
+        stats["moe_down"] = all_reduce(stats["moe_down"], "max", ep)
     y = torch.einsum("etd,te->td", down_e.to(torch.float32),
-                     route[:, e0:e0 + n_e])
+                     copy_to(route, ep)[:, e0:e0 + n_e])
     y = _ep_sum(y, ep).to(x.dtype)
-    z = _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel)
+    z = _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel, tp)
     return (y + z).reshape(B, S, D)
 
 
 def ds_layer(cfg, fq_cfg, mode, lp, lfq, x, cos, sin, mask, moe: bool,
              cache=None, pos=0, use_kernel=True, with_stats: bool = False,
-             ep=None):
+             ep=None, tp=None):
     """One layer: RMSNorm, MLA, residual; RMSNorm, dense FFN or MoE,
     residual. moe_impl "auto" takes the gather MoE in serve mode at
     B*S >= 256 tokens, the dense-masked MoE otherwise (and always for the
     statistics). with_stats: also return the per-channel absmax of every
     transform's input, keyed qkv, wqb, wo, ffn_up, ffn_down, moe_in,
-    moe_down (the sq-style diag init's statistics)."""
+    moe_down (the sq-style diag init's statistics). ep / tp: the mesh
+    Axes lp is split over (deepseek_param_specs), x replicated over both;
+    under tp the MoE is the dense-masked one."""
     stats = {} if with_stats else None
     fqa = lfq["attn"] if lfq is not None else None
     fqf = lfq["ffn"] if lfq is not None else None
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     x = x + ds_mla(cfg, fq_cfg, mode, lp, fqa, h, cos, sin, mask,
-                   cache=cache, pos=pos, use_kernel=use_kernel, stats=stats)
+                   cache=cache, pos=pos, use_kernel=use_kernel, stats=stats,
+                   tp=tp)
     h2 = rms_norm(x, lp["ffn_norm"], cfg.rms_eps)
     impl = cfg.moe_impl
     if impl == "auto":
@@ -860,25 +953,25 @@ def ds_layer(cfg, fq_cfg, mode, lp, lfq, x, cos, sin, mask, moe: bool,
         impl = "gather" if mode == "serve" and B * S >= 256 else "dense"
     if not moe:
         out = x + _ffn_dense(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel,
-                             stats)
-    elif impl == "gather" and stats is None:
+                             stats, tp)
+    elif impl == "gather" and stats is None and not active(tp):
         out = x + _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, h2,
                                     cfg.moe_capacity_factor, use_kernel, ep)
     else:
         out = x + _ffn_moe(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel, stats,
-                           ep)
+                           ep, tp)
     return (out, stats) if with_stats else out
 
 
 def _layers(cfg, fq_cfg, mode, params, fq, x, cos, sin, mask, cache, pos,
-            use_kernel, n_fp_tail=0, ep=None):
+            use_kernel, n_fp_tail=0, ep=None, tp=None):
     dense_fq, moe_fq = fq if fq is not None else (None, None)
     for i, lp in enumerate(params["dense_layers"]):
         c = None if cache is None else (cache["dense_kv"][i],
                                         cache["dense_pe"][i])
         x = ds_layer(cfg, fq_cfg, mode, lp, None if dense_fq is None
                      else dense_fq[i], x, cos, sin, mask, False, c, pos,
-                     use_kernel)
+                     use_kernel, tp=tp)
     n_q = len(params["moe_layers"])
     if n_fp_tail > 0 and mode != "fp":
         n_q -= n_fp_tail
@@ -888,10 +981,10 @@ def _layers(cfg, fq_cfg, mode, params, fq, x, cos, sin, mask, cache, pos,
         if i < n_q:
             x = ds_layer(cfg, fq_cfg, mode, lp, None if moe_fq is None
                          else moe_fq[i], x, cos, sin, mask, True, c, pos,
-                         use_kernel, ep=ep)
+                         use_kernel, ep=ep, tp=tp)
         else:  # the full-precision tail
             x = ds_layer(cfg, None, "fp", lp, None, x, cos, sin, mask, True,
-                         c, pos, use_kernel, ep=ep)
+                         c, pos, use_kernel, ep=ep, tp=tp)
     return x
 
 
@@ -905,22 +998,34 @@ def _causal(S: int, dev):
 def deepseek_forward(cfg: DeepSeekConfig, params, tokens, fq=None,
                      fq_cfg=None, mode: str = "fp",
                      compute_dtype=torch.bfloat16, n_fp_tail: int = 0,
-                     use_kernel: bool = True, device="cuda"):
+                     use_kernel: bool = True, device="cuda", mesh=None):
     """Full-sequence forward -> float32 logits [B, S, V]. fq: (dense_fq,
     moe_fq) lists of per-layer states, or None. mode "fp", "calib" / "eval"
     (raw weights with the fq state; "calib" with the baked state is
     DeepSeek's eval) or "serve" (packed int4 params with their baked fq,
     or native-FP8 params with fq=None); n_fp_tail > 0 runs the last n MoE
-    layers in mode "fp"."""
+    layers in mode "fp".
+
+    mesh (JAX's sharded forward, parallel/mesh.py): params are this
+    rank's blocks by deepseek_param_specs, fq whole; "dp" splits the
+    batch, "ep" the routed experts, "tp" the heads, the dense and shared
+    FFNs and the vocab of the head. Every rank returns the whole
+    logits."""
     dev = resolve_device(device)
     tokens = _as_tokens(tokens, dev)
+    dp, ep, tp = (mesh_axis(mesh, a) for a in ("dp", "ep", "tp"))
+    if dp is not None:
+        tokens = tokens[dp.block(tokens.shape[0])]
     B, S = tokens.shape
     x = params["embed"][tokens].to(compute_dtype)
     cos, sin = ds_rope_tables(cfg, S, dev)
     x = _layers(cfg, fq_cfg, mode, params, fq, x, cos, sin, _causal(S, dev),
-                None, 0, use_kernel, n_fp_tail)
+                None, 0, use_kernel, n_fp_tail, ep=ep, tp=tp)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return (x @ params["head"].T.to(x.dtype)).to(torch.float32)
+    logits = x @ params["head"].T.to(x.dtype)
+    if active(tp) and params["head"].shape[0] < cfg.vocab_size:
+        logits = gather_from(logits, -1, tp)
+    return gather_from(logits.to(torch.float32), 0, dp)
 
 
 # ---------------------------------------------------------------------------
@@ -1160,91 +1265,119 @@ def build_ds_labels(layer_fq: dict) -> dict:
             for part, d in layer_fq.items()}
 
 
-def ds_sq_init_diag(cfg: DeepSeekConfig, lp, layer_fq, stats, alpha: float):
+def ds_sq_init_diag(cfg: DeepSeekConfig, lp, layer_fq, stats, alpha: float,
+                    tp=None, ep=None):
     """sq-style diag init of one layer's transforms (init_diag_scale
     analog), each from the absmax of the weights it feeds and its input
     statistic; a transform without a statistic keeps its diag (the shared
-    experts' down: JAX records no "moe_s_down")."""
-    from flatquant_torch.calib.trainer import _get_init_scale
+    experts' down: JAX records no "moe_s_down"). tp / ep: the Axes lp is
+    split over (deepseek_param_specs); the statistics are whole."""
+    from flatquant_torch.calib.trainer import _absmax_cols, _get_init_scale
 
-    def upd(trans, ws, key):
+    def upd(trans, groups, key):
+        """groups: (weights, the Axis they are split over) pairs."""
         if trans is None or trans.diag_scale is None or key not in stats:
             return trans
-        w_smax = torch.cat([w.to(torch.float32) for w in ws], 0).abs()
+        st = stats[key].to(torch.float32)
+        w_smax = None
+        for ws, axis in groups:
+            c = _absmax_cols(ws, st.shape[0], axis)
+            w_smax = c if w_smax is None else torch.maximum(w_smax, c)
         return dataclasses.replace(trans, diag_scale=_get_init_scale(
-            w_smax.amax(0), stats[key].to(torch.float32), alpha))
+            w_smax, st, alpha))
 
     a = dict(layer_fq["attn"])
     qkv = [lp["wkv_a"], lp["wq_a"] if "wq_a" in lp else lp["wq"]]
-    a["qkv_trans"] = upd(a["qkv_trans"], qkv, "qkv")
+    a["qkv_trans"] = upd(a["qkv_trans"], [(qkv, tp)], "qkv")
     if a["wqb_trans"] is not None:
-        a["wqb_trans"] = upd(a["wqb_trans"], [lp["wq_b"]], "wqb")
-    a["wo_trans"] = upd(a["wo_trans"], [lp["wo"]], "wo")
+        a["wqb_trans"] = upd(a["wqb_trans"], [([lp["wq_b"]], tp)], "wqb")
+    a["wo_trans"] = upd(a["wo_trans"], [([lp["wo"]], tp)], "wo")
     f = dict(layer_fq["ffn"])
     if not is_moe_fq(layer_fq):
-        f["up_gate_trans"] = upd(f["up_gate_trans"], [lp["w1"], lp["w3"]],
-                                 "ffn_up")
-        f["down_trans"] = upd(f["down_trans"], [lp["w2"]], "ffn_down")
+        f["up_gate_trans"] = upd(f["up_gate_trans"],
+                                 [([lp["w1"], lp["w3"]], tp)], "ffn_up")
+        f["down_trans"] = upd(f["down_trans"], [([lp["w2"]], tp)],
+                              "ffn_down")
         return {"attn": a, "ffn": f}
     f["w1_trans"] = upd(f["w1_trans"], [
-        lp["s_w1"], lp["s_w3"], lp["e_w1"].reshape(-1, cfg.dim),
-        lp["e_w3"].reshape(-1, cfg.dim)], "moe_in")
-    f["w2_trans"] = upd(f["w2_trans"], [lp["s_w2"]], "moe_s_down")
+        ([lp["s_w1"], lp["s_w3"]], tp),
+        ([lp["e_w1"].reshape(-1, cfg.dim), lp["e_w3"].reshape(-1, cfg.dim)],
+         ep)], "moe_in")
+    f["w2_trans"] = upd(f["w2_trans"], [([lp["s_w2"]], tp)], "moe_s_down")
     f["routed_w2_trans"] = upd(f["routed_w2_trans"], [
-        lp["e_w2"].reshape(-1, cfg.moe_inter_dim)], "moe_down")
+        ([lp["e_w2"].reshape(-1, cfg.moe_inter_dim)], ep)], "moe_down")
     return {"attn": a, "ffn": f}
 
 
 def calibrate_deepseek(cfg: DeepSeekConfig, fq_cfg, params, dense_fq, moe_fq,
                        train_tokens, compute_dtype=None, log=print,
                        save_cb=None, epochs=None, skip_last: int = 0,
-                       history: Optional[list] = None):
+                       history: Optional[list] = None, mesh=None,
+                       grad_cb=None):
     """Layer-wise DeepSeek calibration (main_dpskv3.py cali_flat_quant
     analog) on the device that holds params: the dense layers first, then
     the MoE layers from the dense layers' fp outputs (recomputed),
     leaving the last `skip_last` MoE layers at their init (the
     --v3_not_last analog). save_cb(i, (dense_fq, moe_fq)) after each MoE
-    layer. Returns (dense_fq, moe_fq)."""
+    layer. Returns (dense_fq, moe_fq).
+
+    mesh (JAX's "shard with deepseek_param_specs; run calibrate_deepseek
+    unchanged"): params are this rank's blocks by deepseek_param_specs,
+    the state and tokens whole; "dp" splits every step's batch, "ep" the
+    routed experts, "tp" the heads and the dense and shared FFNs
+    (calib/trainer.py's mesh rules). Every rank returns the same state.
+    grad_cb: as calibrate_layers', its layer index counting the dense
+    layers first, then the MoE layers."""
     from flatquant_torch.calib.trainer import (
         calibrate_layers,
         capture_embeddings,
+        dp_rows,
+        is_rank0,
     )
 
     if compute_dtype is None:
         compute_dtype = torch.float32 if fq_cfg.deactive_amp \
             else torch.bfloat16
+    dp, ep, tp = (mesh_axis(mesh, a) for a in ("dp", "ep", "tp"))
+    if mesh is not None and not is_rank0():
+        log, save_cb = (lambda m: None), None
     dev = params["embed"].device
-    nsamples, seqlen = np.asarray(train_tokens).shape
+    tokens = np.asarray(train_tokens)
+    if dp is not None:
+        tokens = tokens[dp_rows(tokens.shape[0], fq_cfg.cali_bsz, dp)]
+    nsamples, seqlen = tokens.shape
+    bsz = fq_cfg.cali_bsz // (dp.size if dp is not None else 1)
     cos, sin = ds_rope_tables(cfg, seqlen, dev)
     mask = _causal(seqlen, dev)
-    inps = capture_embeddings(cfg, params, train_tokens, compute_dtype)
+    inps = capture_embeddings(cfg, params, tokens, compute_dtype)
 
     def mk_fns(moe: bool):
         def fp_fn(lp, x):
             return ds_layer(cfg, None, "fp", lp, None, x, cos, sin, mask,
-                            moe, with_stats=True)
+                            moe, with_stats=True, ep=ep, tp=tp)
 
         def calib_fn(fq_l, lp, x):
             return ds_layer(cfg, fq_cfg, "calib", lp, fq_l, x, cos, sin, mask,
-                            moe)
+                            moe, ep=ep, tp=tp)
 
         return fp_fn, calib_fn
 
     def diag_init(lp, fq_l, stats):
-        return ds_sq_init_diag(cfg, lp, fq_l, stats, fq_cfg.diag_alpha)
+        return ds_sq_init_diag(cfg, lp, fq_l, stats, fq_cfg.diag_alpha,
+                               tp=tp, ep=ep)
 
     fp_fn, calib_fn = mk_fns(False)
     dense_fq = calibrate_layers(
         fq_cfg, params["dense_layers"], dense_fq, inps, fp_fn, calib_fn,
         build_ds_labels(dense_fq[0]), num_layers=cfg.n_dense_layers,
         diag_init_fn=diag_init, log=lambda m: log("dense " + m),
-        epochs=epochs, history=history)
+        epochs=epochs, history=history, dp_axis=dp, grad_cb=grad_cb)
     # the MoE layers' inputs: the dense layers' fp outputs
     cur = inps
     with torch.no_grad():
         for lp in params["dense_layers"]:
-            cur = torch.cat([fp_fn(lp, cur[j:j + fq_cfg.cali_bsz])[0]
-                             for j in range(0, nsamples, fq_cfg.cali_bsz)])
+            cur = torch.cat([fp_fn(lp, cur[j:j + bsz])[0]
+                             for j in range(0, nsamples, bsz)])
     fp_fn, calib_fn = mk_fns(True)
     moe_fq = calibrate_layers(
         fq_cfg, params["moe_layers"], moe_fq, cur, fp_fn, calib_fn,
@@ -1252,7 +1385,9 @@ def calibrate_deepseek(cfg: DeepSeekConfig, fq_cfg, params, dense_fq, moe_fq,
         num_layers=cfg.n_moe_layers - skip_last, diag_init_fn=diag_init,
         log=lambda m: log("moe " + m),
         save_cb=(lambda i, st: save_cb(i, (dense_fq, st))) if save_cb
-        else None, epochs=epochs, history=history)
+        else None, epochs=epochs, history=history, dp_axis=dp,
+        grad_cb=(lambda i, k, st: grad_cb(cfg.n_dense_layers + i, k, st))
+        if grad_cb else None)
     return dense_fq, moe_fq
 
 

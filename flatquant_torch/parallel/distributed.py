@@ -15,7 +15,9 @@ every helper copies through the host: that is written once, here
 (`_host`), and counted in `TRANSPORT` by the name of the route that ran
 ("nccl", "gloo", or "gloo+host" for host staging), so a run can say how
 its ranks talked. It is a transport, not a fallback: the kernels still run
-on the card, on each rank's shard.
+on the card, on each rank's shard. These collectives are not
+differentiable; parallel/tp_autograd.py wraps them with a stated backward
+for training under a mesh.
 """
 
 from __future__ import annotations

@@ -57,18 +57,18 @@ def tp_local_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
         intermediate_size=cfg.intermediate_size // tp)
 
 
-def serving_param_specs(sp: dict) -> dict:
-    """Which dim of each build_serving_params(tp=...) leaf is cut over tp
-    (None: replicated), JAX's PartitionSpec tree on the port's per-layer
-    layout: column-parallel codes and scales on dim 0 (out), row-parallel
-    codes on dim 1 (the packed in), their scales (full out) replicated,
-    biases on dim 0, lm_head on dim 0 (vocab-parallel); norms, transform
-    factors (the o / down ones already shard-aligned) and clips
-    replicated."""
+def serving_param_specs(sp: dict, tp_axis: str = "tp") -> dict:
+    """The spec of each build_serving_params(tp=...) leaf ((tp_axis, dim),
+    parallel/mesh.py's form, or None: replicated), JAX's PartitionSpec
+    tree on the port's per-layer layout: column-parallel codes and scales
+    on dim 0 (out), row-parallel codes on dim 1 (the packed in), their
+    scales (full out) replicated, biases on dim 0, lm_head on dim 0
+    (vocab-parallel); norms, transform factors (the o / down ones already
+    shard-aligned) and clips replicated."""
     def leaf(v, dim):
         if isinstance(v, (list, tuple)):
             return type(v)(leaf(u, None) for u in v)
-        return dim
+        return None if dim is None else (tp_axis, dim)
 
     def layer(sl):
         out = {}
@@ -80,13 +80,13 @@ def serving_param_specs(sp: dict) -> dict:
                 out[name] = {k: leaf(u, 1 if k in ("wp", "w8") else None)
                              for k, u in v.items()}
             elif name in _BIAS:
-                out[name] = 0
+                out[name] = (tp_axis, 0)
             else:
                 out[name] = leaf(v, None)
         return out
 
     specs = {k: leaf(v, None) for k, v in sp.items() if k != "layers"}
-    specs["lm_head"] = 0
+    specs["lm_head"] = (tp_axis, 0)
     specs["layers"] = [layer(sl) for sl in sp["layers"]]
     return specs
 
@@ -99,9 +99,8 @@ def shard_serving_params(sp: dict, mesh: Mesh, tp_axis: str = "tp"):
     rank its slice and free the full model."""
     if "tp_local" in sp:
         return sp
-    axis = mesh.axis(tp_axis)
-    local = shard_tree(sp, serving_param_specs(sp), axis)
-    local["tp_local"] = axis.size
+    local = shard_tree(sp, serving_param_specs(sp, tp_axis), mesh)
+    local["tp_local"] = mesh.shape[tp_axis]
     return local
 
 

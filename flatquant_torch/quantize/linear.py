@@ -25,6 +25,7 @@ from flatquant_torch.core.quant import (
     WeightQuantCfg,
     _clip,
     act_fake_quant,
+    local_reduce,
     weight_fake_quant,
     weight_find_params,
 )
@@ -63,12 +64,12 @@ def init_linear_state(out_features: int, lwc: bool, lac: bool,
         clip_a_min=full(1) if lac else None)
 
 
-def _apply_wclip(w, st: LinearQuantState):
+def _apply_wclip(w, st: LinearQuantState, row_reduce=None):
     """Learnable weight clipping: clip to sigmoid(c) * the row's min and
-    max."""
-    wmin = w.amin(dim=1, keepdim=True) * torch.sigmoid(st.clip_w_min)
-    wmax = w.amax(dim=1, keepdim=True) * torch.sigmoid(st.clip_w_max)
-    return _clip(w, wmin, wmax)
+    max (row_reduce: core/quant.py's hook, for rows split over shards)."""
+    red = row_reduce or local_reduce
+    return _clip(w, red(w, 1, "min") * torch.sigmoid(st.clip_w_min),
+                 red(w, 1, "max") * torch.sigmoid(st.clip_w_max))
 
 
 QaTrans = Union[AnyDecompose, Sequence[torch.Tensor], None]
@@ -89,13 +90,14 @@ def _apply_qa_trans(w, qa_trans: QaTrans):
 def transform_weight(w, st: Optional[LinearQuantState],
                      qa_trans: QaTrans = None,
                      out_trans: Optional[AnySingle] = None,
-                     lwc: bool = False):
+                     lwc: bool = False, row_reduce=None):
     """Transform and clip a weight in float32 (shared by the train forward
-    and the bake)."""
+    and the bake). row_reduce: core/quant.py's hook, when w holds one
+    shard of its in features (qa_trans then acts on that block alone)."""
     w = w.to(torch.float32)
     w = _apply_qa_trans(w, qa_trans)
     if lwc and st is not None and st.clip_w_max is not None:
-        w = _apply_wclip(w, st)
+        w = _apply_wclip(w, st, row_reduce)
     if out_trans is not None:
         # a Single transform on the output dim (per-head blocks)
         w = apply_single(out_trans, w.T).T
@@ -104,14 +106,19 @@ def transform_weight(w, st: Optional[LinearQuantState],
 
 def fq_linear_train(x, w, bias, st: LinearQuantState, w_cfg: WeightQuantCfg,
                     a_cfg: ActQuantCfg, qa_trans: QaTrans = None,
-                    out_trans: Optional[AnySingle] = None, lwc: bool = False):
+                    out_trans: Optional[AnySingle] = None, lwc: bool = False,
+                    row_reduce=None):
     """Calibration forward: fake-quantize the transformed weight (its
     scales re-derived in the autograd graph, as the reference's
-    find_params-per-step) and the activation, then the matmul."""
-    wt = transform_weight(w, st, qa_trans, out_trans, lwc)
-    scale, zero = weight_find_params(wt, w_cfg)
+    find_params-per-step) and the activation, then the matmul.
+    row_reduce: core/quant.py's hook, when x and w hold one shard of the
+    in features (a row-parallel linear): every per-row reduction spans
+    the shards, and the product is this shard's partial sum."""
+    wt = transform_weight(w, st, qa_trans, out_trans, lwc, row_reduce)
+    scale, zero = weight_find_params(wt, w_cfg, row_reduce)
     wq = weight_fake_quant(wt, scale, zero, w_cfg)
-    xq = act_fake_quant(x, a_cfg, st.clip_a_max, st.clip_a_min)
+    xq = act_fake_quant(x, a_cfg, st.clip_a_max, st.clip_a_min,
+                        row_reduce=row_reduce)
     y = xq @ wq.T.to(xq.dtype)
     if bias is not None:
         b = apply_single(out_trans, bias) if out_trans is not None else bias
@@ -119,9 +126,12 @@ def fq_linear_train(x, w, bias, st: LinearQuantState, w_cfg: WeightQuantCfg,
     return y
 
 
-def fq_linear_eval(x, w, bias, st: LinearQuantState, a_cfg: ActQuantCfg):
-    """Eval forward on baked weights: act quant + a plain linear."""
-    xq = act_fake_quant(x, a_cfg, st.clip_a_max, st.clip_a_min)
+def fq_linear_eval(x, w, bias, st: LinearQuantState, a_cfg: ActQuantCfg,
+                   row_reduce=None):
+    """Eval forward on baked weights: act quant + a plain linear
+    (row_reduce: as fq_linear_train)."""
+    xq = act_fake_quant(x, a_cfg, st.clip_a_max, st.clip_a_min,
+                        row_reduce=row_reduce)
     y = xq @ w.T.to(xq.dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)

@@ -26,8 +26,8 @@ from flatquant_tpu.serving.batcher import ContinuousBatcher as JBatcher
 from flatquant_torch.models import deepseek as tds
 from flatquant_torch.parallel.launch import run_ranks
 from flatquant_torch.parallel.mesh import (
-    Axis,
     deepseek_serving_specs,
+    plan_mesh,
     shard_tree,
 )
 from flatquant_torch.utils.convert import from_jax_ds_serving_params
@@ -93,7 +93,7 @@ def test_deepseek_serving_specs_split_experts_only(jax_side):
     specs = deepseek_serving_specs(sp)
     E = tds.TINY_DEEPSEEK.n_routed_experts
     for r in range(2):
-        local = shard_tree(sp, specs, Axis("ep", 2, r, (0, 1)))
+        local = shard_tree(sp, specs, plan_mesh({"ep": 2}, r, "cpu"))
         for lp, full in zip(local["moe_layers"], sp["moe_layers"]):
             for key, v in lp.items():
                 if key in ("e_w1", "e_w2", "e_w3"):

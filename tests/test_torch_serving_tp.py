@@ -47,7 +47,7 @@ from flatquant_tpu.serving.quantized import (
 from flatquant_torch.models.config import get_config
 from flatquant_torch.parallel import serving_tp as tstp
 from flatquant_torch.parallel.launch import RankFailure, run_ranks
-from flatquant_torch.parallel.mesh import Axis, shard_tree
+from flatquant_torch.parallel.mesh import plan_mesh, shard_tree
 from flatquant_torch.quantize.spec import W4A4, W4A4KV4
 from flatquant_torch.quantize.state import init_model_fq
 from flatquant_torch.serving import engine as te
@@ -257,7 +257,7 @@ def test_tp_packing_byte_equal_to_jax(jax_side, key):
     jspecs = jstp.serving_param_specs(jsp)
     specs = tstp.serving_param_specs(got)
     for r in range(2):
-        local = shard_tree(got, specs, Axis("tp", 2, r, (0, 1)))
+        local = shard_tree(got, specs, plan_mesh({"tp": 2}, r, "cpu"))
         for i, lt in enumerate(local["layers"]):
             for n in names:
                 for sub in ("wp", "scale"):
@@ -366,13 +366,25 @@ def test_parallel_modules_keep_the_import_rule():
 
 
 def test_calibration_meshes_raise_naming_slice_20():
-    """What item 9 still lacks (calibration under a mesh) raises, naming
-    the ROADMAP item and the slice that ports it."""
+    """Item 9's calibration half, now ported: the calibration
+    meshes' spec rules no longer raise; they name an axis and a dim per
+    leaf (tests/test_torch_parallel_calib.py holds them to JAX's)."""
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.models.llama import init_params
     from flatquant_torch.parallel import mesh
 
-    for fn in (mesh.llama_param_specs, mesh.deepseek_param_specs):
-        with pytest.raises(NotImplementedError, match="item 9, slice 20"):
-            fn(get_config("tiny-llama"), {})
+    cfg = get_config("tiny-llama")
+    specs = mesh.llama_param_specs(cfg, init_params(cfg, device="cpu"))
+    assert specs["layers"][0]["wq"] == ("tp", 0)
+    assert specs["layers"][0]["wdown"] == ("tp", 1)
+    dcfg = ds.DeepSeekConfig(dim=64, inter_dim=128, moe_inter_dim=48,
+                             n_layers=2, n_dense_layers=1, n_heads=4,
+                             n_routed_experts=4, n_activated_experts=2,
+                             kv_lora_rank=32, vocab_size=64)
+    dspecs = mesh.deepseek_param_specs(
+        dcfg, ds.init_ds_params(dcfg, device="cpu"))
+    assert dspecs["moe_layers"][0]["e_w1"] == ("ep", 0)
+    assert dspecs["head"] == ("tp", 0)
 
 
 def test_init_distributed_and_backend_rule(monkeypatch):
