@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 15    # phases 1-2 and 15
     python3 chip_smoke.py --phases 16    # phases 1-2 and 16
     python3 chip_smoke.py --phases 16,17 # phases 1-2, 16 and 17 (one spawn)
+    python3 chip_smoke.py --phases 18    # phases 1-2 and 18
 
 Phases (any failure makes the script exit non-zero without the final
 line):
@@ -290,6 +291,32 @@ line):
      against one device's, gated as (a) in both layers. Seconds per
      sharded step, collectives by transport and peak GiB per rank
      printed.
+  18. configurations under a mesh: (a) pp = 2 x dp = 2 serving on four
+     ranks (gloo, one card): llama-2-7b's widths at 4 layers (2 a
+     stage), W4A4KV4 + tpu_decompose by the port's chain, merged, the
+     head sharpened 6x; 8 prompts of 256 tokens in 2 microbatches of 4
+     (each dp rank feeds 2 x 256 = 512 rows a microbatch, the fused
+     routes), then 8 decode steps at per-slot positions, over the int4
+     slot cache (each rank its rows) and the paged pool (written through
+     each rank's table rows); every launch of a prefill and two steps
+     held to its plain version, every rank's greedy tokens equal to the
+     single-device engine's, the logits a tripwire. In phase 16's spawn
+     of two ranks (`--phases 18` alone spawns them): (b)
+     DeepSeek-V2-Lite's widths at 1 dense + 1 MoE layer under tp = 2:
+     deepseek_generate (mode "fp", float32, the head sharpened) of a
+     1 x 256 prompt, 8 new tokens equal to one device's, each
+     teacher-forced step's logits within JAX's 3e-4 relative or four
+     times one device's noise floor; (c) gptq_model under tp = 2 on one
+     llama-2-7b-width layer (shard-aligned transforms) against one
+     device's: the share of codes a step apart (1e-3, JAX's), the value
+     grid (each row's scale) and the layer's output error (1%), each
+     within JAX's tolerance or four times one device's noise floor, and
+     a planted fault (a row-parallel weight quantized from its own K)
+     failing that gate.
+     (d) the port's device timers (flatquant_torch/utils/benchmark.py):
+     device_compare of row 1's qkv at M = 2048 within 10% of cuda_ms,
+     device_time_loop of a B = 4 decode step within 10% of
+     profile_steps' busy ms.
   Each model is freed before the next is built. Then the kernel table as
   one JSON line, then the result line.
 
@@ -2710,17 +2737,20 @@ def _prefill_checks(torch, n, worst):
         return y
 
     def pro(qkv, cos, sin, k_t, k_t_inv, kc, vc, nh, nkv, cache, pos):
-        ref_cache = [t.clone() for t in cache]
+        # without a cache (the paged prefill) the codes come back fresh
+        ref_cache = None if cache is None else [t.clone() for t in cache]
         out = ap.attn_prologue(qkv, cos, sin, k_t, k_t_inv, kc, vc, nh=nh,
                                nkv=nkv, cache=cache, pos=pos)
         ref = ap.attn_prologue_ref(qkv, cos, sin, k_t, k_t_inv, kc, vc,
                                    nh=nh, nkv=nkv, cache=ref_cache, pos=pos)
         err = max(compare_bf16(out[0], ref[0], mode, "q_rot on the path"),
                   compare_bf16(out[1], ref[1], mode, "k_rot on the path"))
-        compare_kv(cache[0], cache[1], ref_cache[0], ref_cache[1], mode,
+        got, want = (out[3:], ref[3:]) if cache is None else (cache,
+                                                              ref_cache)
+        compare_kv(got[0], got[1], want[0], want[1], mode,
                    "K cache on the path")
-        compare_kv(cache[2], cache[3], ref_cache[2], ref_cache[3],
-                   "identity", "V cache on the path")
+        compare_kv(got[2], got[3], want[2], want[3], "identity",
+                   "V cache on the path")
         worst["attn_prologue"] = max(worst["attn_prologue"], err)
         n["attn_prologue"] += 1
         return out
@@ -6492,10 +6522,11 @@ def _p16_ep(torch, dev, spec, shared, bundle, mesh):
 
 
 def _p16_rank(rank, world, spec, shared, local):
-    """One rank of phases 16 and 17: the meshes (one process group per
-    axis), then phase 16's (a)-(e) on this rank's shards and phase 17's
-    calibrations (_p17_rank), each when spec asks for it. Returns plain
-    numbers, tokens and CPU tensors."""
+    """One rank of phases 16, 17 and 18 (b, c): the meshes (one process
+    group per axis), then phase 16's (a)-(e) on this rank's shards, phase
+    18's (b) and (c) (_p18_rank) and phase 17's calibrations (_p17_rank),
+    each when spec asks for it. Returns plain numbers, tokens and CPU
+    tensors."""
     import torch
     import torch.distributed as dist
 
@@ -6526,6 +6557,14 @@ def _p16_rank(rank, world, spec, shared, local):
         out["transport"] = dict(pd.TRANSPORT)
         out["seconds"] = time.perf_counter() - t0
     del local
+    if spec.get("do18"):
+        # (b) and (c) of phase 18 first: phase 17's MoE steps take the most
+        # memory
+        out["p18"] = _p18_rank(torch, dev, spec["p18"], shared["p18"],
+                               meshes)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     if spec["do17"]:
         # phase 16's blocks go back to the card first: the two ranks and the
         # parent share one card's memory
@@ -6785,7 +6824,7 @@ def _p16_report(torch, dev, results, ranks, ctx, backend, devices):
 
 
 def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
-                      sizes=None, phases=("16",), p17=None):
+                      sizes=None, phases=("16",), p17=None, p18=None):
     """Phase 16: parallel serving on P16_WORLD ranks. The parent builds
     llama-2-7b once by the port's chain (init_model_fq(tp=2) ->
     bake_model -> build_serving_params at tp = 1 and tp = 2, merged, W4A4KV4
@@ -6810,22 +6849,29 @@ def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
     sizes replace llama-2-7b, V2-Lite's 2 layers and the sizes (a CPU
     rehearsal).
 
-    phases: "16", "17" or both. Phase 17 (calibration under a mesh,
-    _p17_prepare's docstring) runs its rank work in the same spawn, on
-    new meshes over the same two ranks; p17 replaces its models and sizes
-    (a CPU rehearsal, _p17_setup). Returns {path: launches} of rank 0's
-    timed runs; phase 17's seconds (its parent side and its rank work,
-    the spawn's start and exit left to 16) go to results["phase17_s"]."""
+    phases: any of "16", "17" and "18". Phase 17 (calibration under a
+    mesh, _p17_prepare's docstring) and phase 18's (b) and (c)
+    (_p18_prepare's) run their rank work in the same spawn, on new meshes
+    over the same two ranks; p17 and p18 replace their models and sizes
+    (a CPU rehearsal, _p17_setup, _p18_setup). Returns {path: launches}
+    of rank 0's timed runs; phase 17's seconds (its parent side and its
+    rank work, the spawn's start and exit left to the first phase) go to
+    results["phase17_s"], phase 18's (b, c) to results["phase18bc_s"]."""
     import shutil
 
     from flatquant_torch.parallel.launch import run_ranks
 
     W = P16_WORLD
-    do16, do17 = "16" in phases, "17" in phases
+    do16, do17, do18 = "16" in phases, "17" in phases, "18" in phases
     ctx = (_p16_prepare(torch, dev, smi, cfg, ds_cfg, sizes) if do16
            else dict(local=[{} for _ in range(W)], spec={}, shared={}))
     spec, shared = ctx["spec"], ctx["shared"]
-    spec.update(do16=do16, do17=do17)
+    spec.update(do16=do16, do17=do17, do18=do18)
+    t18 = time.perf_counter()
+    if do18:
+        ctx18 = _p18_prepare(torch, dev, smi, p18)
+        spec["p18"], shared["p18"] = ctx18.pop("spec"), ctx18.pop("shared")
+    parent18_s = time.perf_counter() - t18
     t17 = time.perf_counter()
     if do17:
         ctx17 = _p17_prepare(torch, dev, smi, p17)
@@ -6852,8 +6898,8 @@ def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
             shutil.rmtree(ctx17["ckpt"], ignore_errors=True)
         raise
     spawn_s = time.perf_counter() - t0
-    log(f"  phase {'16 and 17' if do16 and do17 else phases[0]} spawn "
-        f"(ranks' start, work and exit): {spawn_s:.1f} s")
+    log(f"  phase {' and '.join(phases)} spawn (ranks' start, work and "
+        f"exit): {spawn_s:.1f} s")
     del shared, spec
     ctx.pop("shared", None)
     ctx.pop("spec", None)
@@ -6864,6 +6910,15 @@ def run_parallel_path(torch, dev, results, smi, cfg=None, ds_cfg=None,
         ctx["rec"]["spawn_s"] = spawn_s
         paths.update(_p16_report(torch, dev, results, ranks, ctx, backend,
                                  devices))
+    if do18:
+        t18 = time.perf_counter()
+        paths.update(_p18_report(torch, dev, results, smi, ranks, ctx18))
+        rank18_s = max(r["p18"]["seconds"] for r in ranks)
+        results["phase18bc_s"] = round(parent18_s + rank18_s
+                                       + time.perf_counter() - t18, 1)
+        log(f"  [{smi}] phase 18 (b, c): {results['phase18bc_s']:.1f} s "
+            f"(parent {parent18_s:.1f} s before the spawn, ranks "
+            f"{rank18_s:.1f} s)")
     if do17:
         t17 = time.perf_counter()
         try:
@@ -7564,6 +7619,707 @@ def _p17_report(torch, dev, results, smi, ranks, ctx):
     return {"mesh_calib_serve": serve["serve"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: configurations under a mesh ((a) pp x dp serving on four ranks,
+# (d) the device timers; (b) DeepSeek generation and (c) GPTQ under tp in
+# phase 16's spawn)
+# ---------------------------------------------------------------------------
+
+# (a): llama-2-7b's widths cut to 4 layers (2 a stage); 8 prompts of 256
+# tokens in 2 microbatches of 4, so each dp rank feeds 2 x 256 = 512 rows
+# a microbatch (the fused routes, as the sequential engine's 2048 rows);
+# then P18_NEW decode steps at per-slot positions; the head sharpened
+# against greedy ties (random W4A4 logits are chaotic, 6a)
+P18_WORLD, P18_AXES = 4, {"dp": 2, "pp": 2}
+P18_LAYERS, P18_B, P18_S, P18_NEW, P18_MICRO = 4, 8, 256, 8, 2
+P18_MAX_LEN, P18_SHARPEN, P18_TIMEOUT_S = 512, 6.0, 400.0
+# a decode step's launches per layer and microbatch (every slot at its own
+# position: row 3 writes the token)
+P18_STEP = {"w4a4_matmul_i8": 4, "decode_attention_int4": 1,
+            "write_token": 1}
+# (b): DeepSeek-V2-Lite's widths at 1 dense + 1 MoE layer (64 experts),
+# float32, mode "fp": a 1 x 256 prompt and 8 new tokens. (In calib mode
+# the fake quantizers turn float noise into code flips: on the card one
+# device's logits move 8.5e-2 on an embedding times 1 + 1e-7 N(0, 1), tp's
+# 5.5e-2 to 6.9e-2, and greedy tokens part after 3; calib mode under tp is
+# held to JAX on the CPU, tests/test_torch_parallel_calib.py)
+P18_DS_S, P18_DS_NEW, P18_DS_MAX_LEN = 256, 8, 512
+# (c): one llama-2-7b-width layer, W4A4KV4 + tpu_decompose with
+# shard-aligned transforms (the o and down captures gathered), GPTQ on 4
+# samples of 512 tokens
+P18_GPTQ_SAMPLES, P18_GPTQ_SEQ = 4, 512
+# JAX's gptq_model tolerances (tests/test_torch_gptq.py): at most this
+# share of codes a step apart, the rest within this fraction of a step
+# (the value grid, each row's scale: exact whatever the float noise), and
+# the quantized layer's output error (against the unquantized weights,
+# on the calibration tokens) within this relative difference; each
+# loosened to P17_NOISE_MULT times the single device's own noise floor
+# (the same GPTQ on an embedding times 1 + P17_NOISE N(0, 1)) where that
+# is looser. GPTQ's error feedback carries a flipped code into every
+# later column, so on the card the floor of the share is loud (23% of a
+# llama-2-7b layer's codes); the grid and the output error keep their
+# teeth
+P18_CODE_FLIPS, P18_CODE_REST, P18_OUT_TOL = 1e-3, 1e-3, 1e-2
+# (d): the device timers of flatquant_torch/utils/benchmark.py against
+# chip_smoke's own: row 1's qkv at M = 2048 (device_compare against
+# cuda_ms's CUDA graph) and a B = 4 decode step of (a)'s model
+# (device_time_loop against profile_steps' busy ms), within this fraction
+P18_TIMER_TOL, P18_TIMER_STEPS = 0.10, 8
+
+
+def _p18_sizes(p18):
+    sz = dict(B=P18_B, S=P18_S, new=P18_NEW, micro=P18_MICRO,
+              max_len=P18_MAX_LEN, ds_S=P18_DS_S, ds_new=P18_DS_NEW,
+              ds_max_len=P18_DS_MAX_LEN, gptq_samples=P18_GPTQ_SAMPLES,
+              gptq_seq=P18_GPTQ_SEQ)
+    sz.update((p18 or {}).get("sizes", {}))
+    return sz
+
+
+def _p18_engine(torch, dev, cfg, fq, sp, prompt, sz, mode):
+    """The single-device engine at (a)'s depth: the prefill and sz["new"]
+    decode steps at per-slot positions over the `mode` cache -> (greedy
+    tokens [B][new], the prefill's float32 logits on the host)."""
+    from flatquant_torch.serving.engine import (
+        init_cache, serving_decode_step, serving_prefill)
+
+    B, S = prompt.shape
+    c = init_cache(cfg, B, sz["max_len"], mode=mode, device=dev)
+    lg, c = serving_prefill(cfg, fq, sp, prompt, c, use_kernel=True,
+                            max_len=sz["max_len"], device=dev)
+    first, toks = lg.float().cpu(), []
+    for i in range(sz["new"]):
+        tok = lg.argmax(-1, keepdim=True)
+        toks.append(tok[:, 0].cpu())
+        pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+        lg, c = serving_decode_step(cfg, fq, sp, tok, c, pos,
+                                    use_kernel=True, max_len=sz["max_len"],
+                                    device=dev)
+    return torch.stack(toks, 1).tolist(), first
+
+
+def _p18a_serve(torch, dev, spec, shared, sp, mesh, mode):
+    """(a) on one rank: the 8 x 256 prefill and P18_NEW decode steps
+    through pipeline_serving_forward(dp_axis="dp") over this rank's slot
+    cache rows (int4) or the whole paged pool (written through its slots'
+    table rows), timed; then a prefill and two steps with every launch
+    held to its plain version (_p16_checks), as many on the card as the
+    timed run launched."""
+    from flatquant_torch.kernels import common
+    from flatquant_torch.parallel.pipeline import (
+        pipeline_serving_forward, stage_config)
+    from flatquant_torch.serving.engine import init_cache
+
+    cfg, fq, sz = spec["cfg"], spec["fq"], spec["sizes"]
+    prompt = shared["prompt"]
+    B, S = prompt.shape
+    scfg = stage_config(cfg, mesh)
+    slots = B if mode == "paged" else B // mesh.shape["dp"]
+
+    def cache():
+        return init_cache(scfg, slots, sz["max_len"], mode=mode, device=dev)
+
+    def fwd(tokens, c, pos, phase):
+        return pipeline_serving_forward(
+            cfg, fq, sp, tokens, c, pos, phase, mesh,
+            n_microbatches=sz["micro"], use_kernel=True,
+            max_len=sz["max_len"], dp_axis="dp")[0]
+
+    def pos_at(i):
+        return torch.full((B,), S + i, dtype=torch.int32, device=dev)
+
+    _sync(torch, dev)
+    common.reset_launches()
+    c = cache()
+    t0 = time.perf_counter()
+    lg = fwd(prompt, c, 0, "prefill")
+    _sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    first = lg.float().cpu()
+    pre = dict(common.LAUNCHES)
+    toks, step_s = [], []
+    for i in range(sz["new"]):
+        tok = lg.argmax(-1, keepdim=True)
+        toks.append(tok[:, 0].cpu())
+        t0 = time.perf_counter()
+        lg = fwd(tok, c, pos_at(i), "decode")
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t0)
+    if not (torch.isfinite(lg).all()
+            and tuple(lg.shape) == (B, cfg.vocab_size)):
+        raise AssertionError(f"({mode}) logits not finite or not [B, vocab]")
+    steps = {k: v - pre.get(k, 0) for k, v in common.LAUNCHES.items()}
+    del c
+
+    def checked(prefill_done):
+        c2 = cache()
+        lg2 = fwd(prompt, c2, 0, "prefill")
+        prefill_done()
+        for i in range(2):
+            lg2 = fwd(lg2.argmax(-1, keepdim=True), c2, pos_at(i), "decode")
+
+    # launches of each kernel: per layer of the stage and microbatch
+    n_lm = scfg.num_layers * sz["micro"]
+    int4 = mode == "int4"
+    chk = _p16_checked(torch, dev, checked, PREFILL_LAUNCHES if int4
+                       else None, P18_STEP if int4 else None, n_lm, 2)
+    _p16_same(torch, dev, chk["prefill"], _rows(pre), f"(a) {mode} prefill")
+    _p16_same(torch, dev, {k: v * sz["new"] // 2 for k, v in
+                           chk["steps"].items()}, _rows(steps),
+              f"(a) {mode} {sz['new']} decode steps")
+    return dict(prefill_s=prefill_s,
+                decode_s_median=sorted(step_s)[len(step_s) // 2],
+                tokens=torch.stack(toks, 1).tolist(), logits=first,
+                launches_prefill=_rows(pre), launches_steps=_rows(steps),
+                checked=chk)
+
+
+def _p18a_rank(rank, world, spec, shared, local):
+    """One rank of (a): the {dp 2, pp 2} mesh, its stage's layers
+    (`local`), the int4 and the paged run."""
+    import torch
+
+    from flatquant_torch.parallel import distributed as pd
+    from flatquant_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(spec["devices"][rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    local, shared = _to_dev(local, dev), _to_dev(shared, dev)
+    mesh = make_mesh(P18_AXES, dev)
+    t0 = time.perf_counter()
+    pd.TRANSPORT.clear()
+    out = dict(rank=rank, device=str(dev), dp=mesh.axis("dp").index,
+               pp=mesh.axis("pp").index, stage_layers=len(local["layers"]))
+    for mode in ("int4", "paged"):
+        out[mode] = _p18a_serve(torch, dev, spec, shared, local, mesh, mode)
+    out["transport"] = dict(pd.TRANSPORT)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _p18_timers(torch, dev, smi, cfg, fq, sp, results):
+    """(d): flatquant_torch/utils/benchmark.py's device timers against
+    chip_smoke's: device_compare of row 1's qkv at M = 2048 against
+    cuda_ms (a CUDA graph of launches cycling through cold weight copies)
+    on the same launch, and device_time_loop of P18_TIMER_STEPS B = 4
+    decode steps of (a)'s model against profile_steps' busy ms of the
+    same steps; each within P18_TIMER_TOL."""
+    from flatquant_torch.kernels import int4_matmul as im
+    from flatquant_torch.serving.engine import (
+        init_cache, serving_decode_step, serving_prefill)
+    from flatquant_torch.utils.benchmark import (
+        device_compare, device_time_loop)
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    n, k = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim, \
+        cfg.hidden_size
+    xq, xs = _codes_scales(torch, dev, gen, 2048, k)
+    ws = _rand_weights(torch, dev, gen, n, k)
+    args = [(xq, xs, wp, sw) for wp, sw in ws]
+    graph_ms = cuda_ms(torch, im.w4a4_matmul_i8, args, 20)
+    dc_ms = device_compare({"row 1": (im.w4a4_matmul_i8, args[0])},
+                           iters=20)["row 1"] * 1e3
+    ref3a = [r["ms"] for r in results.get("w4a4_matmul_i8", {}).get(
+        "rows", []) if r.get("m") == 2048 and r.get("proj") == "qkv"]
+    del ws, args
+    B, P = 4, 64
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    c = init_cache(cfg, B, P + P18_TIMER_STEPS, mode="int4", device=dev)
+    lg, c = serving_prefill(cfg, fq, sp, prompt, c, max_len=P +
+                            P18_TIMER_STEPS, device=dev)
+    tok = lg.argmax(-1, keepdim=True)
+
+    def step(i):
+        serving_decode_step(cfg, fq, sp, tok, c, P + i, max_len=P +
+                            P18_TIMER_STEPS, device=dev)
+
+    for i in range(2):  # warm
+        step(i)
+    prof = profile_steps(torch, step, P18_TIMER_STEPS, "(d) B=4 decode")
+    loop_s, loop_ops = device_time_loop(
+        lambda: [step(i) for i in range(P18_TIMER_STEPS)])
+    loop_ms = loop_s * 1e3 / P18_TIMER_STEPS
+    if prof is None or loop_ops == 0:
+        raise AssertionError("(d) no device time recorded")
+    rec = dict(row1_device_compare_ms=dc_ms, row1_cuda_ms=graph_ms,
+               row1_phase3a_ms=ref3a[0] if ref3a else None,
+               decode_device_time_loop_ms=loop_ms,
+               decode_device_ops_per_step=loop_ops / P18_TIMER_STEPS,
+               decode_profile_busy_ms=prof["busy_ms"],
+               decode_profile_kernels_per_step=prof["kernels_per_step"])
+    log(f"  [{smi}] (d) row 1 qkv M=2048: device_compare {dc_ms:.4f} ms, "
+        f"cuda_ms {graph_ms:.4f} ms (phase 3a: "
+        f"{'%.4f' % ref3a[0] if ref3a else 'not run'}); B=4 decode step "
+        f"of the {cfg.num_layers}-layer model: device_time_loop "
+        f"{loop_ms:.3f} ms ({loop_ops / P18_TIMER_STEPS:.0f} device ops), "
+        f"profile_steps busy {prof['busy_ms']:.3f} ms "
+        f"({prof['kernels_per_step']:.0f} device rows)")
+    for what, a, b in (("row 1", dc_ms, graph_ms),
+                       ("the decode step", loop_ms, prof["busy_ms"])):
+        if not abs(a - b) <= P18_TIMER_TOL * b:
+            raise AssertionError(f"(d) {what}: the port's device timer "
+                                 f"reads {a:.4f} ms against {b:.4f} ms")
+    return rec
+
+
+def run_mesh_serving_path(torch, dev, results, smi, p18=None):
+    """Phase 18 (a) and (d). The parent builds llama-2-7b's widths at
+    P18_LAYERS layers by the port's chain (init_model_fq -> bake_model ->
+    build_serving_params, merged, W4A4KV4 + tpu_decompose), sharpens its
+    head, runs the single-device engine on 8 x 256 prompts and P18_NEW
+    decode steps over the int4 slot cache and the paged pool, hands each
+    of four ranks ({dp 2, pp 2}, gloo; one card) its stage, and holds
+    every rank's greedy tokens to the single device's and its logits to
+    them (a tripwire, P16_COSINE_FLOOR). Then (d) on the parent's model.
+    p18 replaces the model and sizes (a CPU rehearsal; "timers": False
+    leaves out (d), whose timers need a card). Returns {path: launches}
+    of rank 0."""
+    import dataclasses
+
+    import numpy as np
+
+    from flatquant_torch.models.config import get_config
+    from flatquant_torch.models.llama import init_params
+    from flatquant_torch.parallel.launch import run_ranks
+    from flatquant_torch.parallel.mesh import plan_mesh
+    from flatquant_torch.parallel.pipeline import stage_serving_params
+    from flatquant_torch.quantize.bake import bake_model
+    from flatquant_torch.quantize.spec import W4A4KV4
+    from flatquant_torch.quantize.state import init_model_fq
+    from flatquant_torch.serving.quantized import build_serving_params
+
+    p18 = p18 or {}
+    sz = _p18_sizes(p18)
+    cfg = p18.get("cfg") or dataclasses.replace(get_config("llama-2-7b"),
+                                                num_layers=P18_LAYERS)
+    fq = dataclasses.replace(W4A4KV4, tpu_decompose=True)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    baked, bfq = bake_model(cfg, fq, params, init_model_fq(
+        cfg, fq, seed=0, device=dev))
+    del params
+    sp = build_serving_params(cfg, fq, baked, bfq, dtype=torch.bfloat16,
+                              merge_projections=True)
+    del baked, bfq
+    sp["lm_head"] = sp["lm_head"] * P18_SHARPEN
+    _sync(torch, dev)
+    build_s = time.perf_counter() - t0
+    prompt = torch.as_tensor(np.random.default_rng(18).integers(
+        0, cfg.vocab_size, (sz["B"], sz["S"])), device=dev)
+    t0 = time.perf_counter()
+    ref = {mode: _p18_engine(torch, dev, cfg, fq, sp, prompt, sz, mode)
+           for mode in ("int4", "paged")}
+    ref_s = time.perf_counter() - t0
+    if ref["paged"][0] != ref["int4"][0]:
+        raise AssertionError("(a) the single device's paged tokens differ "
+                             "from its int4 tokens")
+    log(f"  [{smi}] (a) {cfg.name} at {cfg.num_layers} layers built in "
+        f"{build_s:.1f} s; single-device references ({sz['B']} x "
+        f"{sz['S']}, {sz['new']} steps, int4 and paged) {ref_s:.1f} s")
+    local = [stage_serving_params(sp, plan_mesh(P18_AXES, r, dev))
+             for r in range(P18_WORLD)]
+    backend, devices = p16_transport(torch, dev, P18_WORLD)
+    spec = dict(cfg=cfg, fq=fq, sizes=sz, devices=devices)
+    t0 = time.perf_counter()
+    ranks = run_ranks(_p18a_rank, P18_WORLD, args=(spec, dict(
+        prompt=prompt)), rank_args=[(x,) for x in local],
+        device=devices[0], timeout_s=P18_TIMEOUT_S,
+        threads=max(1, (os.cpu_count() or P18_WORLD) // P18_WORLD))
+    spawn_s = time.perf_counter() - t0
+    del local
+    if torch.device(dev).type == "cuda":
+        torch.cuda.ipc_collect()
+    faults = []
+    for r in ranks:
+        log(f"  rank {r['rank']} (dp {r['dp']}, pp {r['pp']}: "
+            f"{r['stage_layers']} layers) on {r['device']} ({backend}; "
+            f"transport {r['transport']}), {r['seconds']:.1f} s of work")
+        for mode in ("int4", "paged"):
+            x = r[mode]
+            c = _cosine(torch, x["logits"], ref[mode][1])
+            log(f"   {mode}: prefill {x['prefill_s']:.3f} s, decode step "
+                f"median {x['decode_s_median'] * 1e3:.1f} ms; launches by "
+                f"row: prefill {x['launches_prefill']}, {sz['new']} steps "
+                f"{x['launches_steps']}; checked (prefill + 2 steps) "
+                f"{x['checked']}; prefill logits cosine vs single device "
+                f"{c:.4f}; tokens of slot 0 {x['tokens'][0]} (single "
+                f"device {ref[mode][0][0]})")
+            if x["tokens"] != ref[mode][0]:
+                faults.append(f"rank {r['rank']} {mode}: tokens differ "
+                              "from the single device's")
+            if c < P16_COSINE_FLOOR:
+                faults.append(f"rank {r['rank']} {mode}: logits cosine "
+                              f"{c:.3f} below {P16_COSINE_FLOOR}")
+            if not torch.equal(x["logits"], ranks[0][mode]["logits"]):
+                faults.append(f"rank {r['rank']} {mode}: logits differ "
+                              "from rank 0's")
+            if torch.device(dev).type == "cuda":
+                need = {1, 2, 3} if mode == "int4" else {1, 10}
+                if not need <= set(x["launches_steps"]):
+                    faults.append(f"rank {r['rank']} {mode}: rows "
+                                  f"{sorted(need)} not all launched in the "
+                                  f"steps: {x['launches_steps']}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+    def kept(x):
+        return {k: v for k, v in x.items() if k != "logits"}
+
+    rec = dict(build_s=build_s, reference_s=ref_s, spawn_s=spawn_s,
+               backend=backend, devices=devices,
+               reference_tokens={m: v[0] for m, v in ref.items()},
+               ranks=[dict({k: r[k] for k in ("rank", "dp", "pp",
+                                              "transport", "seconds")},
+                           int4=kept(r["int4"]), paged=kept(r["paged"]))
+                      for r in ranks])
+    log(f"  [{smi}] (a) pp 2 x dp 2 on {P18_WORLD} ranks: spawn (start, "
+        f"work, exit) {spawn_s:.1f} s; every rank's greedy tokens equal "
+        f"the single device's in both cache modes")
+    if p18.get("timers", True):
+        rec["d"] = _p18_timers(torch, dev, smi, cfg, fq, sp, results)
+    results["mesh_serving_path"] = rec
+    del sp
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    r0 = ranks[0]
+    return {"pp_dp_prefill": _names(r0["int4"]["launches_prefill"]),
+            "pp_dp_decode": _names(r0["int4"]["launches_steps"]),
+            "pp_dp_paged_decode": _names(r0["paged"]["launches_steps"])}
+
+
+def _p18_setup(p18=None):
+    """(b) and (c)'s models and sizes, each replaced by p18's (a CPU
+    rehearsal)."""
+    import dataclasses
+
+    from flatquant_torch.models.config import get_config
+    from flatquant_torch.models.deepseek import DeepSeekConfig
+    from flatquant_torch.quantize.spec import W4A4, W4A4KV4
+
+    p18 = p18 or {}
+    return dict(
+        ds_cfg=p18.get("ds_cfg") or dataclasses.replace(
+            DeepSeekConfig(), n_layers=2, n_dense_layers=1),
+        ds_fq=W4A4,
+        gptq_cfg=p18.get("gptq_cfg") or dataclasses.replace(
+            get_config("llama-2-7b"), num_layers=1),
+        gptq_fq=dataclasses.replace(W4A4KV4, tpu_decompose=True),
+        sizes=_p18_sizes(p18))
+
+
+def _p18_steps(torch, dev, m, params, prompt, feed, mesh):
+    """(b)'s teacher-forced steps: the prompt's prefill, then one decode
+    step for each of feed[:-1] (the single device's greedy tokens) ->
+    each step's float32 logits [1, V] on the host (the steps that give
+    the new tokens)."""
+    from flatquant_torch.models import deepseek as ds
+
+    cfg, sz = m["ds_cfg"], m["sizes"]
+    cache = ds.init_ds_cache(cfg, prompt.shape[0], sz["ds_max_len"],
+                             dtype=torch.float32, device=dev)
+    out, tok, pos = [], prompt, 0
+    for t in [None] + list(feed[:-1]):
+        if t is not None:
+            tok = torch.tensor([[t]], device=dev)
+        lg, cache = ds._ds_step(cfg, m["ds_fq"], "fp", params, None, tok,
+                                cache, pos, sz["ds_max_len"], torch.float32,
+                                mesh=mesh)
+        out.append(lg.cpu())
+        pos += tok.shape[1]
+    return out
+
+
+def _p18_generate(torch, dev, m, params, prompt, mesh, feed=None):
+    """deepseek_generate (mode "fp", float32) timed, then _p18_steps fed
+    `feed` (its own tokens when None): {seconds, tokens, logits}."""
+    from flatquant_torch.models import deepseek as ds
+
+    sz = m["sizes"]
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    toks = ds.deepseek_generate(
+        m["ds_cfg"], params, None, m["ds_fq"], prompt,
+        max_new_tokens=sz["ds_new"], max_len=sz["ds_max_len"], mode="fp",
+        compute_dtype=torch.float32, device=dev, mesh=mesh)
+    _sync(torch, dev)
+    secs = time.perf_counter() - t0
+    toks = [int(t) for t in toks[0]]
+    return dict(seconds=secs, tokens=toks, logits=_p18_steps(
+        torch, dev, m, params, prompt, feed or toks, mesh))
+
+
+def _p18_codes(torch, got, want):
+    """GPTQ's weights against a reference, over every weight of the layer
+    (got, want: {key: tensor}): codes a step or more apart (the step: the
+    reference row's largest |value| / 7) and the largest difference of
+    the rest, in steps."""
+    flips = total = 0
+    rest = 0.0
+    for key in ("wq", "wk", "wv", "wo", "wup", "wgate", "wdown"):
+        w = want[key].float()
+        rel = (got[key].float() - w).abs() / (
+            w.abs().amax(dim=1, keepdim=True) / 7.0 + 1e-12)
+        near = rel <= 0.5
+        flips += int((~near).sum())
+        total += rel.numel()
+        if near.any():
+            rest = max(rest, float(rel[near].max()))
+    return dict(flips=flips, total=total, share=flips / total, rest=rest)
+
+
+def _p18_gptq_limits(c, floor):
+    """(flip-share limit, rest limit, output-error limit, the gates record
+    c fails: a subset of ("share", "grid", "output")): JAX's tolerances
+    or P17_NOISE_MULT times the noise floor's, the looser."""
+    share = max(P18_CODE_FLIPS, P17_NOISE_MULT * floor["share"])
+    rest = max(P18_CODE_REST, P17_NOISE_MULT * floor["rest"])
+    out = max(P18_OUT_TOL, P17_NOISE_MULT * floor["out_rel"])
+    failed = [g for g, ok in (("share", c["share"] <= share),
+                              ("grid", c["rest"] <= rest),
+                              ("output", c["out_rel"] <= out)) if not ok]
+    return share, rest, out, failed
+
+
+def _p18_out_err(torch, dev, m, lp_w, layer_q, bfq, x, mesh):
+    """The GPTQ'd layer's output error: ||f(Q) - f(W)|| / ||f(W)|| of the
+    eval-mode layer on x, with the quantized weights (layer_q) against
+    the unquantized ones (lp_w), under mesh's tp (both this rank's
+    blocks) or on one device."""
+    from flatquant_torch.models.llama import (
+        causal_mask, llama_layer, rope_tables)
+    from flatquant_torch.parallel.mesh import mesh_axis
+
+    cfg, S = m["gptq_cfg"], x.shape[1]
+    cos, sin = rope_tables(cfg, torch.arange(S, device=dev))
+    mask = causal_mask(S, dev)
+    tp = mesh_axis(mesh, "tp")
+
+    def f(lp):
+        with torch.no_grad():
+            return llama_layer(cfg, m["gptq_fq"], "eval", lp, bfq[0], x, cos,
+                               sin, mask, tp_axis=tp)
+
+    return _p17_rel(torch, f(dict(lp_w, **layer_q)), f(lp_w))
+
+
+@contextlib.contextmanager
+def _p18_gptq_fault():
+    """The planted fault of (c): a row-parallel weight quantized from its
+    own block of K only (its block of the weight against its block of the
+    Hessian), as a port that skipped the gather would."""
+    from flatquant_torch.calib import gptq
+
+    def local_k(w, hessian, tp, row_parallel, **kw):
+        if row_parallel:
+            blk = tp.block(hessian.shape[0])
+            hessian = hessian[blk][:, blk]
+        return gptq.gptq_quantize_weight(w, hessian, **kw)
+
+    with patched([(gptq, "_quantize_sharded", local_k)]):
+        yield
+
+
+def _p18_gptq(torch, dev, m, params, bfq, toks, mesh):
+    """gptq_model timed -> (seconds, its one layer)."""
+    from flatquant_torch.calib.gptq import gptq_model
+
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    out = gptq_model(m["gptq_cfg"], m["gptq_fq"], params, bfq, toks,
+                     log=lambda s: None, mesh=mesh)
+    _sync(torch, dev)
+    return time.perf_counter() - t0, out["layers"][0]
+
+
+def _p18_prepare(torch, dev, smi, p18=None):
+    """(b) and (c)'s parent side before phase 16's spawn: the single-device
+    references and their noise floors. (b) DeepSeek-V2-Lite's widths at 1
+    dense + 1 MoE layer, seeded raw weights (the ranks draw the same),
+    head sharpened: deepseek_generate (mode "fp") of a 1 x 256 prompt (8
+    new tokens) and the teacher-forced steps' logits; the floor the
+    largest relative difference of those logits on an embedding times 1 +
+    P17_NOISE N(0, 1). (c) one llama-2-7b-width layer baked from
+    init_model_fq(tp=2): gptq_model on one device and its output error,
+    and again on the noisy embedding (the floors)."""
+    from flatquant_torch.calib.data import get_loaders
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.models.llama import init_params
+    from flatquant_torch.quantize.bake import bake_model
+    from flatquant_torch.quantize.state import init_model_fq
+
+    import numpy as np
+
+    m = _p18_setup(p18)
+    sz, dcfg, gcfg = m["sizes"], m["ds_cfg"], m["gptq_cfg"]
+    t0 = time.perf_counter()
+    dparams = ds.init_ds_params(dcfg, seed=0, device=dev)
+    dparams["head"] = dparams["head"] * P18_SHARPEN
+    prompt = torch.as_tensor(np.random.default_rng(18).integers(
+        0, dcfg.vocab_size, (1, sz["ds_S"])), device=dev)
+    ref_b = _p18_generate(torch, dev, m, dparams, prompt, None)
+    floor_b = 0.0
+    for seed in range(P17_NOISE_DRAWS):
+        noisy = dict(dparams, embed=_p17_noisy(torch, dparams["embed"],
+                                               seed))
+        got = _p18_steps(torch, dev, m, noisy, prompt, ref_b["tokens"],
+                         None)
+        floor_b = max([floor_b] + [_p17_rel(torch, a, b) for a, b in
+                                   zip(got, ref_b["logits"])])
+    del dparams, noisy
+    b_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = init_params(gcfg, seed=0, device=dev)
+    baked, bfq = bake_model(gcfg, m["gptq_fq"], params, init_model_fq(
+        gcfg, m["gptq_fq"], seed=0, tp=P16_WORLD, device=dev))
+    del params
+    toks = get_loaders("synthetic", gcfg.vocab_size,
+                       nsamples=sz["gptq_samples"], seqlen=sz["gptq_seq"],
+                       seed=18).train
+    one_s, one = _p18_gptq(torch, dev, m, baked, bfq, toks, None)
+    _, noisy_c = _p18_gptq(torch, dev, m, dict(baked, embed=_p17_noisy(
+        torch, baked["embed"], 0)), bfq, toks, None)
+    x = baked["embed"][torch.as_tensor(toks[:1], device=dev)].float()
+    one_err = _p18_out_err(torch, dev, m, baked["layers"][0], one, bfq, x,
+                           None)
+    floor_c = dict(_p18_codes(torch, noisy_c, one), out_rel=abs(
+        _p18_out_err(torch, dev, m, baked["layers"][0], noisy_c, bfq, x,
+                     None) - one_err) / one_err)
+    del noisy_c
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"  [{smi}] phase 18 (b) single device: {dcfg.name} "
+        f"{dcfg.n_dense_layers} dense + {dcfg.n_moe_layers} MoE layers, "
+        f"1 x {sz['ds_S']} prompt, deepseek_generate {ref_b['seconds']:.2f} "
+        f"s, tokens {ref_b['tokens']}; logits noise floor {floor_b:.2e} "
+        f"({b_s:.1f} s with the floor); (c) gptq_model on one "
+        f"{gcfg.name}-width layer {one_s:.2f} s, its output error "
+        f"{one_err:.4e}; noise floor: {floor_c['flips']} of "
+        f"{floor_c['total']} codes a step apart (rest "
+        f"{floor_c['rest']:.2e} of a step), output error "
+        f"{floor_c['out_rel']:.2e} relative")
+    return dict(ref_b=ref_b, floor_b=floor_b, floor_c=floor_c, one_s=one_s,
+                one_err=one_err, spec=dict(m=m),
+                shared=dict(prompt=prompt, feed=ref_b["tokens"],
+                            gptq_bp=baked, gptq_bfq=bfq, gptq_toks=toks,
+                            gptq_one=dict(baked, layers=[one]), gptq_x=x,
+                            gptq_err=one_err))
+
+
+def _p18_rank(torch, dev, spec, shared, meshes):
+    """(b) and (c) on one rank of phase 16's spawn, under {tp 2}: (b)
+    deepseek_generate on the rank's blocks (deepseek_param_specs) and the
+    teacher-forced steps; (c) gptq_model on its blocks (llama_param_specs)
+    held here to its block of the single device's layer, then again with
+    the planted fault."""
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.parallel.mesh import (
+        deepseek_param_specs, llama_param_specs, shard_tree)
+
+    m = spec["m"]
+    mesh = meshes["tp"]
+    t_all = time.perf_counter()
+    dparams = ds.init_ds_params(m["ds_cfg"], seed=0, device=dev)
+    dparams["head"] = dparams["head"] * P18_SHARPEN
+    dlp = shard_tree(dparams, deepseek_param_specs(m["ds_cfg"], dparams),
+                     mesh)
+    del dparams
+    out = {"b": _p18_generate(torch, dev, m, dlp, shared["prompt"], mesh,
+                              shared["feed"])}
+    del dlp
+    gc.collect()
+    bp = shared["gptq_bp"]
+    specs = llama_param_specs(m["gptq_cfg"], bp, tp_size=mesh.shape["tp"])
+    lp = shard_tree(bp, specs, mesh)
+    want = shard_tree(shared["gptq_one"], specs, mesh)["layers"][0]
+    out["c"] = {}
+    for name in ("tp", "fault"):
+        ctx = _p18_gptq_fault() if name == "fault" else \
+            contextlib.nullcontext()
+        with ctx:
+            secs, got = _p18_gptq(torch, dev, m, lp, shared["gptq_bfq"],
+                                  shared["gptq_toks"], mesh)
+        err = _p18_out_err(torch, dev, m, lp["layers"][0], got,
+                           shared["gptq_bfq"], shared["gptq_x"], mesh)
+        out["c"][name] = dict(_p18_codes(torch, got, want), seconds=secs,
+                              out_err=err, out_rel=abs(
+                                  err - shared["gptq_err"])
+                              / shared["gptq_err"])
+        del got
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def _p18_report(torch, dev, results, smi, ranks, ctx):
+    """(b) and (c)'s checks after the spawn: every rank's DeepSeek tokens
+    equal the single device's, each step's logits within the limit
+    (JAX's DeepSeek forward 3e-4 relative, or P17_NOISE_MULT times the
+    floor, at most P17_DS_CALIB_CAP); GPTQ's codes and output error within
+    _p18_gptq_limits on every rank, and the planted fault failing
+    them."""
+    ref_b, floor_b, floor_c = ctx["ref_b"], ctx["floor_b"], ctx["floor_c"]
+    limit_b = min(max(P17_DS_FWD_TOL, P17_NOISE_MULT * floor_b),
+                  P17_DS_CALIB_CAP)
+    faults, rows = [], []
+    for r in ranks:
+        p = r["p18"]
+        b, c = p["b"], p["c"]
+        rel = [_p17_rel(torch, a, w) for a, w in zip(b["logits"],
+                                                     ref_b["logits"])]
+        share_lim, rest_lim, out_lim, failed = _p18_gptq_limits(c["tp"],
+                                                                floor_c)
+        ok = not failed
+        fault_failed = _p18_gptq_limits(c["fault"], floor_c)[3]
+        fault_ok = not fault_failed
+        log(f"  [{smi}] rank {r['rank']} (b) tp={P16_WORLD}: "
+            f"deepseek_generate {b['seconds']:.2f} s, tokens {b['tokens']} "
+            f"(single device {ref_b['tokens']}); teacher-forced steps' "
+            f"logits relative difference {['%.2e' % x for x in rel]} "
+            f"(limit {limit_b:.2e})")
+        log(f"   (c) gptq_model under tp={P16_WORLD}: {c['tp']['seconds']:.2f}"
+            f" s (one device {ctx['one_s']:.2f} s); {c['tp']['flips']} of "
+            f"{c['tp']['total']} codes ({c['tp']['share']:.2e}) a step from "
+            f"the single device's, the rest within {c['tp']['rest']:.2e} of "
+            f"a step, the layer's output error {c['tp']['out_err']:.4e} "
+            f"({c['tp']['out_rel']:.2e} from one device's; limits "
+            f"{share_lim:.2e}, {rest_lim:.2e}, {out_lim:.2e}: failed "
+            f"{failed or 'none'}); planted fault (a row-parallel weight "
+            f"from its own K): {c['fault']['flips']} codes "
+            f"({c['fault']['share']:.2e}), rest {c['fault']['rest']:.2e}, "
+            f"output error {c['fault']['out_err']:.4e} "
+            f"({c['fault']['out_rel']:.2e}): failed {fault_failed or 'none'}")
+        if b["tokens"] != ref_b["tokens"]:
+            faults.append(f"rank {r['rank']} (b): tokens differ from the "
+                          "single device's")
+        if not all(x <= limit_b for x in rel):
+            faults.append(f"rank {r['rank']} (b): a step's logits differ "
+                          f"past {limit_b:.2e}")
+        if not ok:
+            faults.append(f"rank {r['rank']} (c): GPTQ codes past the gate")
+        if fault_ok:
+            faults.append(f"rank {r['rank']} (c): the gate let the planted "
+                          "fault pass")
+        rows.append(dict(rank=r["rank"], seconds=p["seconds"],
+                         b=dict(seconds=b["seconds"], tokens=b["tokens"],
+                                logits_rel=rel),
+                         c=dict(c, limits=[share_lim, rest_lim, out_lim],
+                                passed=ok, failed=failed,
+                                fault_failed=fault_failed,
+                                fault_passed=fault_ok)))
+    results["mesh_configs_path"] = dict(
+        reference=dict(ds_tokens=ref_b["tokens"],
+                       ds_generate_s=ref_b["seconds"], ds_floor=floor_b,
+                       ds_limit=limit_b, gptq_s=ctx["one_s"],
+                       gptq_out_err=ctx["one_err"], gptq_floor=floor_c),
+        ranks=rows)
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return {}
+
+
 def _names(rows):
     """{row: launches} back to {kernel name: launches}."""
     names = {v: k for k, v in P16_ROW.items()}
@@ -7823,9 +8579,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
                     help="comma-separated phases to run after 1-2 (3a-3j, "
-                    "3 for all of them, 4-17; 6 runs 6a-6c; 16 and 17 share "
-                    "one spawn of ranks); the default is all. A partial run "
-                    "prints no kernel table")
+                    "3 for all of them, 4-18; 6 runs 6a-6c; 16, 17 and 18's "
+                    "(b, c) share one spawn of ranks); the default is all. "
+                    "A partial run prints no kernel table")
     args = ap.parse_args(argv)
     only = set(filter(None, args.phases.split(",")))
 
@@ -7997,28 +8753,44 @@ def main(argv=None) -> int:
             "the registry, the deploy packed format, loglikelihood and "
             "generation, flatness, the HF DeepSeek FP8 loader)",
             run_eval_exchange_path, torch, dev, results, smi) or {})
-    p1617 = tuple(k for k in ("16", "17") if want(k))
-    if serve and p1617:
+    spawned = tuple(k for k in ("16", "17", "18") if want(k))
+    if serve and spawned:
         gc.collect()
         torch.cuda.empty_cache()
         what = {"16": "16: parallel serving (tp = 2 and its batcher, pp = 2, "
                 "sp = 2, DeepSeek under ep = 2)",
                 "17": "17: calibration under a mesh (llama-2-7b's widths "
                 "under tp = 2 and dp = 2, the sharded checkpoint served, "
-                "DeepSeek-V2-Lite's under ep = 2 and tp = 2)"}
+                "DeepSeek-V2-Lite's under ep = 2 and tp = 2)",
+                "18": "18bc: DeepSeek-V2-Lite generation and GPTQ at "
+                "llama-2-7b width under tp = 2"}
         paths.update(phase(
-            "phase " + "; phase ".join(what[k] for k in p1617) + ", on two "
-            "ranks in one spawn", run_parallel_path, torch, dev, results,
-            smi, None, None, None, p1617) or {})
-        if len(p1617) == 2 and "phase17_s" in results:
-            # the one phase's seconds, split: phase 17's parent side and
-            # rank work, the rest (the spawn's start and exit too) to 16
-            both = phase_s.pop("16")
-            phase_s["17"] = results["phase17_s"]
-            phase_s["16"] = round(both - phase_s["17"], 1)
-            print(f"phase 16: {phase_s['16']:.1f} s\nphase 17: "
-                  f"{phase_s['17']:.1f} s (both in one spawn: {both:.1f} s)",
-                  flush=True)
+            "phase " + "; phase ".join(what[k] for k in spawned) + ", on "
+            "two ranks in one spawn", run_parallel_path, torch, dev,
+            results, smi, None, None, None, spawned) or {})
+        # the one phase's seconds, split: phase 17's and 18 (b, c)'s parent
+        # side and rank work, the rest (the spawn's start and exit too) to
+        # the first phase of the spawn
+        first = "18bc" if spawned[0] == "18" else spawned[0]
+        if first in phase_s:
+            total = phase_s.pop(first)
+            parts = {k: results[f"phase{k}_s"] for k in ("17", "18bc")
+                     if f"phase{k}_s" in results and k != first}
+            parts[first] = round(total - sum(parts.values()), 1)
+            phase_s.update(parts)
+            print("\n".join(f"phase {k}: {v:.1f} s" for k, v in
+                            parts.items())
+                  + f" (in one spawn: {total:.1f} s)", flush=True)
+    if serve and want("18"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(phase(
+            "phase 18a: llama-2-7b's widths at 4 layers served under pp = 2 "
+            "x dp = 2 on four ranks; (d) the port's device timers",
+            run_mesh_serving_path, torch, dev, results, smi) or {})
+        phase_s["18"] = round(phase_s.pop("18a", 0.0)
+                              + phase_s.pop("18bc", 0.0), 1)
+        print(f"phase 18: {phase_s['18']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,

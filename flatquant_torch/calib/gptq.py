@@ -38,6 +38,8 @@ from flatquant_torch.core.quant import (
 )
 from flatquant_torch.models.config import LlamaConfig
 from flatquant_torch.models.llama import causal_mask, llama_layer, rope_tables
+from flatquant_torch.parallel.distributed import all_gather
+from flatquant_torch.parallel.mesh import mesh_axis
 from flatquant_torch.quantize.spec import FQConfig
 
 
@@ -182,6 +184,25 @@ def _clips_equal(a, b) -> bool:
     return eq(a.clip_a_max, b.clip_a_max) and eq(a.clip_a_min, b.clip_a_min)
 
 
+# the weights whose in features llama_param_specs splits over tp
+ROW_PARALLEL = ("wo", "wdown")
+
+
+def _quantize_sharded(w, hessian, tp, row_parallel: bool, **kw):
+    """gptq_quantize_weight on this rank's block of w. A column-parallel
+    block (its own output rows) is quantized against the full Hessian
+    as it is: GPTQ treats every row alone given H, so that is exact. A
+    row-parallel block (its in features) needs every column's error
+    feedback: the whole weight is gathered, quantized and cut back to
+    this rank's block, as GSPMD runs JAX's loop on a weight sharded over
+    K."""
+    if not row_parallel:
+        return gptq_quantize_weight(w, hessian, **kw)
+    whole = all_gather(w.contiguous(), 1, tp)
+    return gptq_quantize_weight(whole, hessian, **kw)[
+        :, tp.block(whole.shape[1])]
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -191,13 +212,22 @@ def _sync(dev):
 def gptq_model(cfg: LlamaConfig, fq_cfg: FQConfig, params: dict, fq_state,
                train_tokens: np.ndarray, log: Callable[[str], None] = print,
                compute_dtype=torch.float32, bsz: int = 4,
-               history: Optional[list] = None) -> dict:
+               history: Optional[list] = None, mesh=None) -> dict:
     """GPTQ over every layer of a *baked* model (bake_model's params and
     list of baked LayerFQ, not RTN-quantized), on the device that holds
     params -> new params (the caller's are not changed). The Hessian of a
     linear is the plain sum of 2 X^T X over its act-quantized inputs;
     linears with equal activation clips share one. history, when given,
-    gets one dict per layer: its seconds and columns."""
+    gets one dict per layer: its seconds and columns.
+
+    mesh: params are this rank's blocks by llama_param_specs and fq_state
+    is whole; the layer forwards run under its "tp" axis (the captures
+    come back full width), every rank builds the same full Hessians, and
+    the result is this rank's blocks. Column-parallel weights (wq, wk,
+    wv, wup, wgate) are quantized by their own rows; row-parallel ones
+    (wo, wdown) are gathered, quantized whole and cut back
+    (_quantize_sharded). Other axes replicate the work."""
+    tp = mesh_axis(mesh, "tp")
     layers = [dict(lp) for lp in params["layers"]]
     dev = params["embed"].device
     seqlen = np.asarray(train_tokens).shape[1]
@@ -211,7 +241,7 @@ def gptq_model(cfg: LlamaConfig, fq_cfg: FQConfig, params: dict, fq_state,
 
     def eval_step(lp, fq_l, x):
         return llama_layer(cfg, fq_cfg, "eval", lp, fq_l, x, cos, sin, mask,
-                           with_linear_inputs=True)
+                           with_linear_inputs=True, tp_axis=tp)
 
     for i in range(cfg.num_layers):
         t0 = time.time()
@@ -237,8 +267,10 @@ def gptq_model(cfg: LlamaConfig, fq_cfg: FQConfig, params: dict, fq_state,
                     hess[wk] = contrib if hess[wk] is None \
                         else hess[wk] + contrib
             for wk in weight_keys:
-                lp[wk] = gptq_quantize_weight(
-                    lp[wk], hess[rep[wk]], w_cfg,
+                h = hess[rep[wk]]
+                lp[wk] = _quantize_sharded(
+                    lp[wk], h, tp, tp is not None and wk in ROW_PARALLEL
+                    and lp[wk].shape[1] < h.shape[0], w_cfg=w_cfg,
                     percdamp=fq_cfg.gptq_percdamp,
                     act_order=fq_cfg.gptq_act_order).to(lp[wk].dtype)
                 cols += lp[wk].shape[1]

@@ -215,6 +215,22 @@ def quant_acts_i8_ref(x, clip=None, q_max: int = 7, extrema=None):
     return xq.to(torch.int8), xs
 
 
+def quantize_acts_sym(x, q_max: int = 7, clip_max=None):
+    """Per-token symmetric quant on the [-q_max-1, q_max] grid, JAX's plain
+    helper (deploy/nn/quantization.py:5-44): scale = absmax / q_max (1 for
+    an all-zero row), absmax times sigmoid(clip_max) when a LAC factor is
+    given. Returns (codes as bf16, exact small integers; float32 scales
+    [T, 1])."""
+    xf = x.to(torch.float32)
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    if clip_max is not None:
+        absmax = absmax * torch.sigmoid(torch.as_tensor(
+            clip_max, device=xf.device))
+    scale = torch.where(absmax == 0, 1.0, true_div(absmax, q_max))
+    q = torch.clamp(torch.round(xf / scale), -q_max - 1, q_max)
+    return q.to(torch.bfloat16), scale
+
+
 def quant_acts_i8(x, clip=None, q_max: int = 7):
     """Per-token symmetric quant of x [M, K] (bf16 or f32, K % 128 == 0)
     in one read of x: (int8 codes [M, K], f32 scales [M, 1]). clip: the

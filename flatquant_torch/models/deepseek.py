@@ -43,9 +43,10 @@ parallelism: the batcher hook `ds_batch_forward` takes a bundle whose
 routed experts are split over an "ep" mesh axis (parallel/mesh.py
 shard_ds_serving_params); each rank runs its experts for every token and
 the partial MoE sums are all-reduced, attention, the gate and the shared
-experts replicated. Calibration under a mesh (JAX's GSPMD meshes over
-deepseek_param_specs): `deepseek_forward(..., mesh=)` and
-`calibrate_deepseek(..., mesh=)` run on each rank's blocks, the heads and
+experts replicated. Calibration and generation under a mesh (JAX's
+GSPMD meshes over deepseek_param_specs): `deepseek_forward(..., mesh=)`,
+`calibrate_deepseek(..., mesh=)` and `deepseek_generate(..., mesh=)` run
+on each rank's blocks, the heads and
 the dense and shared FFNs over "tp", the routed experts over "ep", the
 batch over "dp", with the collectives of parallel/tp_autograd.py.
 """
@@ -497,16 +498,16 @@ def ds_mla(cfg: DeepSeekConfig, fq_cfg, mode, lp, fqa, x, cos, sin, mask,
     then [B, rope/2] rows and each slot writes and attends its own
     prefix through a masked select. stats (a dict) gets the absmax per
     channel of the inputs of the qkv, wq_b and wo transforms. tp: the
-    tensor-parallel Axis lp's heads are split over (deepseek_param_specs;
-    full sequence only): wq / wq_b and wkv_b hold this rank's heads, the
-    latents enter its heads' compute, and wo runs as _row_lin."""
+    tensor-parallel Axis lp's heads are split over (deepseek_param_specs):
+    wq / wq_b and wkv_b hold this rank's heads, the latents (wkv_a is
+    replicated) enter its heads' compute, and wo runs as _row_lin. Over
+    the caches every rank keeps the whole latent cache, writes the same
+    latents and attends with its own heads (the reference's per-rank
+    kv_cache, deepseek_v3/model.py:413)."""
     B, S, _ = x.shape
     per_slot = torch.is_tensor(pos) and pos.dim() == 1
     if per_slot and S != 1:
         raise ValueError("per-slot positions only in decode (S == 1)")
-    if active(tp) and cache is not None:
-        raise NotImplementedError("MLA over the latent caches under a "
-                                  "tensor-parallel axis")
     quant = mode != "fp" and fqa is not None
     calib = quant and mode == "calib"
     nope = cfg.qk_nope_head_dim
@@ -1058,33 +1059,45 @@ def _rope_rows(cfg, max_len, pos, S, dev):
 
 @torch.no_grad()
 def _ds_step(cfg, fq_cfg, mode, params, fq, tokens, cache, pos, max_len,
-             compute_dtype=torch.bfloat16, use_kernel=True):
+             compute_dtype=torch.bfloat16, use_kernel=True, mesh=None):
     """One prefill or decode step at scalar pos over the latent caches ->
-    (last-token float32 logits [B, V], cache)."""
+    (last-token float32 logits [B, V], cache). mesh: deepseek_forward's
+    rules (params this rank's blocks by deepseek_param_specs, fq whole);
+    tokens stay whole, "dp" cuts them to this rank's rows, whose caches
+    `cache` holds, and the logits come back whole on every rank."""
+    dp, ep, tp = (mesh_axis(mesh, a) for a in ("dp", "ep", "tp"))
+    if dp is not None:
+        tokens = tokens[dp.block(tokens.shape[0])]
     B, S = tokens.shape
     x = params["embed"][tokens].to(compute_dtype)
     cos, sin = _rope_rows(cfg, max_len, pos, S, x.device)
     x = _layers(cfg, fq_cfg, mode, params, fq, x, cos, sin, None, cache, pos,
-                use_kernel)
+                use_kernel, ep=ep, tp=tp)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
     logits = x[:, 0] @ params["head"].T.to(x.dtype)
-    return logits.to(torch.float32), cache
+    if active(tp) and params["head"].shape[0] < cfg.vocab_size:
+        logits = gather_from(logits, -1, tp)
+    return gather_from(logits.to(torch.float32), 0, dp), cache
 
 
 @torch.no_grad()
 def deepseek_generate(cfg: DeepSeekConfig, params, fq, fq_cfg, prompt,
                       max_new_tokens: int = 16, max_len: int = 128,
                       mode: str = "calib", compute_dtype=torch.bfloat16,
-                      use_kernel: bool = True, device="cuda"):
+                      use_kernel: bool = True, device="cuda", mesh=None):
     """Greedy generation over the absorbed-MLA latent caches -> int tokens
-    [B, max_new_tokens] (numpy)."""
+    [B, max_new_tokens] (numpy). mesh: _ds_step's rules (the heads over
+    "tp", the routed experts over "ep", the batch over "dp", each rank's
+    caches its rows); every rank returns the same tokens."""
     dev = resolve_device(device)
     prompt = _as_tokens(prompt, dev)
     B, S = prompt.shape
-    cache = init_ds_cache(cfg, B, max_len, dtype=compute_dtype, device=dev)
+    dp = mesh_axis(mesh, "dp")
+    cache = init_ds_cache(cfg, B // dp.size if dp is not None else B,
+                          max_len, dtype=compute_dtype, device=dev)
     step = functools.partial(_ds_step, cfg, fq_cfg, mode, params, fq,
                              max_len=max_len, compute_dtype=compute_dtype,
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel, mesh=mesh)
     logits, cache = step(prompt, cache, 0)
     tok = logits.argmax(-1, keepdim=True)
     out = []

@@ -257,9 +257,10 @@ def llama_layer(cfg: LlamaConfig, fq_cfg: Optional[FQConfig], mode: str,
     quantized-linear inputs {ln, up, down} (the sq-style diag init's
     statistics). with_linear_inputs (eval mode): also return the
     pre-act-quant inputs of the four linear groups {qkv, o, upgate, down}
-    (the GPTQ capture points). attn_fn(q, k, v) replaces the eager
-    attention core, same [B, S, nh|nkv, hd] contract (the
-    sequence-parallel ring, parallel/sequence.py); `mask` is then
+    (the GPTQ capture points), full width on every rank under tp (o and
+    down gathered). attn_fn(q, k, v) replaces the eager attention core,
+    same [B, S, nh|nkv, hd] contract (the sequence-parallel ring,
+    parallel/sequence.py), this rank's heads under tp; `mask` is then
     unused.
 
     tp_axis: the mesh Axis lp is split over by llama_param_specs (x
@@ -278,9 +279,6 @@ def llama_layer(cfg: LlamaConfig, fq_cfg: Optional[FQConfig], mode: str,
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
     tp = tp_axis if active(tp_axis) else None
-    if tp is not None and (with_linear_inputs or attn_fn is not None):
-        raise NotImplementedError("GPTQ captures and attn_fn under a "
-                                  "tensor-parallel axis")
     B, S, _ = x.shape
     hd = cfg.head_dim
     quant = mode != "fp" and fq is not None and fq_cfg is not None
@@ -382,7 +380,7 @@ def llama_layer(cfg: LlamaConfig, fq_cfg: Optional[FQConfig], mode: str,
         attn = attn @ v_inv.T.to(attn.dtype)
     attn = attn.reshape(B, S, -1)
     if with_linear_inputs:
-        captures["o"] = attn
+        captures["o"] = attn if o_whole else gather_from(attn, -1, tp)
     qa_o = None
     if calib and a.o_trans is not None and a.vcache_trans is not None:
         qa_o = (single_matrix(reg(a.o_trans, not o_whole), inv_t=True),
@@ -428,7 +426,8 @@ def llama_layer(cfg: LlamaConfig, fq_cfg: Optional[FQConfig], mode: str,
     if dt is not None:
         act = apply_decompose(dt, act)
     if with_linear_inputs:
-        captures["down"] = act
+        captures["down"] = act if d_whole or tp is None else \
+            gather_from(act, -1, tp)
     qa3 = dt if calib else None
     d_st = m.down_lin if quant else None
     if d_whole:

@@ -126,7 +126,8 @@ def pipeline_apply(layer_fn, mesh: Mesh, stacked_layers: list, x_mb,
 def pipeline_serving_forward(cfg, fq_cfg, sp, tokens, cache, pos, phase,
                              mesh: Mesh, n_microbatches: int = 2,
                              use_kernel: bool = False, max_len: int = 2048,
-                             compute_dtype=torch.bfloat16, last_idx=None,
+                             compute_dtype=torch.bfloat16,
+                             dp_axis: Optional[str] = None, last_idx=None,
                              pp_axis: str = "pp"):
     """The real-quant serving forward (packed weights over the int4, bf16
     or paged cache) with the layer loop pipelined over `pp_axis`.
@@ -139,8 +140,16 @@ def pipeline_serving_forward(cfg, fq_cfg, sp, tokens, cache, pos, phase,
     same on every rank; pos: an int or a per-slot [B] tensor; last_idx:
     the per-slot last real token. Returns (float32 last-token logits
     [B, V] on every rank, cache), equal to the sequential engine's
-    (engine._forward) on the same inputs. JAX's dp_axis has no
-    counterpart: every rank of another axis runs the whole batch."""
+    (engine._forward) on the same inputs.
+
+    dp_axis: each dp rank runs its block of every microbatch's rows
+    (pipeline_apply's split; the microbatch size must divide over dp),
+    and the last hidden states are gathered over dp before the head. The
+    slot caches and the block table may hold the whole batch (the rank
+    writes only its rows) or this rank's rows, microbatch by microbatch
+    (B / dp slots); the paged pool is never cut over dp: each rank writes
+    it only through its own slots' table rows. tokens, pos and last_idx
+    stay whole."""
     from flatquant_torch.models.llama import rms_norm, rope_tables
     from flatquant_torch.serving.engine import (
         serving_layer,
@@ -148,6 +157,8 @@ def pipeline_serving_forward(cfg, fq_cfg, sp, tokens, cache, pos, phase,
     )
 
     axis = mesh.axis(pp_axis)
+    dp = mesh.axis(dp_axis) if dp_axis is not None else None
+    n_dp, i_dp = (dp.size, dp.index) if dp is not None else (1, 0)
     dev = mesh.device
     tokens = torch.as_tensor(tokens, device=dev).to(torch.long)
     B, S = tokens.shape
@@ -155,6 +166,13 @@ def pipeline_serving_forward(cfg, fq_cfg, sp, tokens, cache, pos, phase,
     if B % M:
         raise ValueError(f"batch {B} % microbatches {M} != 0")
     mb = B // M
+    if mb % n_dp:
+        raise ValueError(f"microbatch {mb} % dp {n_dp} != 0")
+    mb_l = mb // n_dp
+    # this rank's rows of the batch, microbatch by microbatch
+    mine = torch.cat([torch.arange(m * mb + i_dp * mb_l,
+                                   m * mb + (i_dp + 1) * mb_l, device=dev)
+                      for m in range(M)])
     L = cfg.num_layers
     layers = _stage(sp["layers"], L, axis)
     int4 = "kp" in cache
@@ -163,43 +181,55 @@ def pipeline_serving_forward(cfg, fq_cfg, sp, tokens, cache, pos, phase,
     tbl = cache.get("tbl")
     per_slot = torch.is_tensor(pos) and pos.ndim == 1
     if per_slot:
-        pos = pos.to(dev)
+        pos = pos.to(dev)[mine]
     if int4 and (fq_cfg.k_cfg.bits != 4 or fq_cfg.v_cfg.bits != 4):
         raise ValueError("the packed cache holds int4 nibbles; kv8/kv16 "
                          "configs use the bf16 cache mode")
     cos, sin = rope_tables(cfg, torch.arange(max_len, device=dev))
     H = sp["embed"].shape[1]
 
+    def slots(t, m):
+        """Microbatch m's rows (this rank's) of a per-slot tensor that
+        holds the whole batch or this rank's B / dp rows."""
+        if t.shape[0] == B:
+            return t[m * mb + i_dp * mb_l:m * mb + (i_dp + 1) * mb_l]
+        if t.shape[0] == B // n_dp:
+            return t[m * mb_l:(m + 1) * mb_l]
+        raise ValueError(f"{t.shape[0]} slots: neither the batch's {B} nor "
+                         f"a dp rank's {B // n_dp}")
+
     def stage_fn(h, m):
-        rows = slice(m * mb, (m + 1) * mb)
-        p = pos[rows] if per_slot else pos
+        p = pos[m * mb_l:(m + 1) * mb_l] if per_slot else pos
         for i, sl in enumerate(layers):
             if tbl is not None:
                 # the pool is shared by every slot: writes go through this
                 # microbatch's table rows
                 h = serving_layer_int4cache(
                     cfg, fq_cfg, sl, h, cos, sin, *(st[i] for st in state),
-                    p, phase, use_kernel, compute_dtype, tbl=tbl[rows])
+                    p, phase, use_kernel, compute_dtype, tbl=slots(tbl, m))
             elif int4:
                 h = serving_layer_int4cache(
                     cfg, fq_cfg, sl, h, cos, sin,
-                    *(st[i][rows] for st in state), p, phase, use_kernel,
-                    compute_dtype)
+                    *(slots(st[i], m) for st in state), p, phase,
+                    use_kernel, compute_dtype)
             else:
                 h = serving_layer(cfg, fq_cfg, sl, h, cos, sin,
-                                  state[0][i][rows], state[1][i][rows], p,
-                                  phase, use_kernel, compute_dtype)
+                                  slots(state[0][i], m),
+                                  slots(state[1][i], m), p, phase,
+                                  use_kernel, compute_dtype)
         return h
 
     def inject(m):
-        return sp["embed"][tokens[m * mb:(m + 1) * mb]].to(compute_dtype)
+        return sp["embed"][tokens[mine[m * mb_l:(m + 1) * mb_l]]].to(
+            compute_dtype)
 
-    y = _gpipe(axis, M, inject, stage_fn, (mb, S, H), compute_dtype, dev)
-    x = y.reshape(B, S, H)
-    x = rms_norm(x, sp["final_norm_w"], cfg.rms_eps)
+    y = _gpipe(axis, M, inject, stage_fn, (mb_l, S, H), compute_dtype, dev)
+    x = rms_norm(y.reshape(M * mb_l, S, H), sp["final_norm_w"], cfg.rms_eps)
     last = (x[:, -1] if last_idx is None
-            else x[torch.arange(B, device=dev),
-                   torch.as_tensor(last_idx, device=dev)])
+            else x[torch.arange(M * mb_l, device=dev),
+                   torch.as_tensor(last_idx, device=dev)[mine]])
+    if dp is not None:  # the head runs on the whole batch, as JAX's
+        last = all_gather(last.reshape(M, mb_l, -1), 1, dp).reshape(B, -1)
     logits = (last @ sp["lm_head"].T.to(x.dtype)).to(torch.float32)
     return logits, cache
 

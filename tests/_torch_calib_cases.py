@@ -229,7 +229,118 @@ def calib_cases(rank, world, payload):
                                log=lambda m: None, history=hist, mesh=emesh)
     out["ds_calibrate"] = ([h["step_mse"] for h in hist], _leaves(st))
     out["experts"] = int(dlp["moe_layers"][0]["e_w1"].shape[0])
+    out["ds_generate"] = ds_generate_cases(payload["ds"], {
+        "dp2_tp2": mesh, "ep2_tp2": emesh})
+    out["gptq"] = gptq_cases(payload["gptq"], mesh)
+    out["attn_fn"] = attn_fn_case(cfg, params, toks, mesh)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the configurations under a mesh that JAX's GSPMD runs (world 4)
+# ---------------------------------------------------------------------------
+
+
+def ds_generate_cases(d, meshes, n_new=4, max_len=16):
+    """DeepSeek generation on each mesh's blocks (deepseek_param_specs),
+    TINY_DEEPSEEK's head sharpened 6x against greedy ties: {mesh name:
+    ({mode: deepseek_generate's tokens} in "fp" and "calib", the float32
+    last-token logits of "calib" _ds_step's prefill and two greedy decode
+    steps)}."""
+    from flatquant_torch.models import deepseek as ds
+    from flatquant_torch.parallel.mesh import (
+        deepseek_param_specs,
+        mesh_axis,
+        shard_tree,
+    )
+
+    cfg, params, fq = _ds(d)
+    params = dict(params, head=params["head"] * 6.0)
+    w4a4 = _fq_cfg("W4A4")
+    prompt = torch.as_tensor(d["gen_prompt"]).long()
+    out = {}
+    for name, mesh in meshes.items():
+        lp = shard_tree(params, deepseek_param_specs(cfg, params), mesh)
+        toks = {mode: ds.deepseek_generate(
+            cfg, lp, fq if mode == "calib" else None, w4a4, prompt,
+            max_new_tokens=n_new, max_len=max_len, mode=mode,
+            compute_dtype=torch.float32, device="cpu", mesh=mesh)
+            for mode in ("fp", "calib")}
+        dp = mesh_axis(mesh, "dp")
+        cache = ds.init_ds_cache(cfg, prompt.shape[0] // (dp.size if dp
+                                                          else 1),
+                                 max_len, dtype=torch.float32, device="cpu")
+        logits, tok, pos = [], prompt, 0
+        for _ in range(3):
+            lg, cache = ds._ds_step(cfg, w4a4, "calib", lp, fq, tok, cache,
+                                    pos, max_len, torch.float32, mesh=mesh)
+            logits.append(_np(lg))
+            pos += tok.shape[1]
+            tok = lg.argmax(-1, keepdim=True)
+        out[name] = (toks, logits)
+    return out
+
+
+def gptq_cases(g, mesh):
+    """gptq_model under the mesh's tp on tiny-llama's baked params (this
+    rank's blocks by llama_param_specs), for a baked state as wide as the
+    dim (tp = 1) and a shard-aligned one (tp = 2): {state tp: this rank's
+    blocks of the quantized weights, layer by layer}."""
+    from flatquant_torch.calib.gptq import gptq_model
+    from flatquant_torch.models.config import get_config
+    from flatquant_torch.parallel.mesh import llama_param_specs, shard_tree
+    from flatquant_torch.utils.convert import from_jax_fq, from_jax_params
+
+    cfg = get_config("tiny-llama")
+    out = {}
+    for tps in (1, 2):
+        bp = from_jax_params(g["bp"][tps], "cpu")
+        lp = shard_tree(bp, llama_param_specs(cfg, bp, tp_size=2), mesh)
+        got = gptq_model(cfg, _fq_cfg("W4A4KV4"), lp,
+                         from_jax_fq(g["bfq"][tps], "cpu"), g["train"],
+                         log=lambda m: None, mesh=mesh)
+        out[tps] = [{k: _np(v) for k, v in layer.items()}
+                    for layer in got["layers"]]
+    return out
+
+
+def attn_fn_case(cfg, params, toks, mesh):
+    """llama_layer under tp with attn_fn set to the eager core on the
+    rank's heads, against attn_fn=None: (bit-equal, the heads attn_fn
+    received)."""
+    from flatquant_torch.models.llama import (
+        _attention_core,
+        causal_mask,
+        llama_layer,
+        rope_tables,
+    )
+    from flatquant_torch.parallel.mesh import (
+        llama_param_specs,
+        mesh_axis,
+        shard_tree,
+    )
+
+    tp = mesh_axis(mesh, "tp")
+    lp = shard_tree(params, llama_param_specs(cfg, params, tp_size=2),
+                    mesh)["layers"][0]
+    S = toks.shape[1]
+    x = params["embed"][torch.as_tensor(toks).long()]
+    cos, sin = rope_tables(cfg, torch.arange(S))
+    mask = causal_mask(S, "cpu")
+    heads = []
+
+    def core(q, k, v):
+        heads.append((q.shape[2], k.shape[2]))
+        return _attention_core(dataclasses.replace(
+            cfg, num_heads=q.shape[2], num_kv_heads=k.shape[2]), q, k, v,
+            mask)
+
+    with torch.no_grad():
+        want = llama_layer(cfg, None, "fp", lp, None, x, cos, sin, mask,
+                           tp_axis=tp)
+        got = llama_layer(cfg, None, "fp", lp, None, x, cos, sin, mask,
+                          attn_fn=core, tp_axis=tp)
+    return bool(torch.equal(got, want)), heads
 
 
 # ---------------------------------------------------------------------------

@@ -140,11 +140,55 @@ def _pp_serving(cfg, fq_cfg, sp, mesh, toks, cache_mode, max_len):
     return run(pipe), run(seq)
 
 
+def _pp_dp_serving(cfg, fq_cfg, sp, mesh, toks, cache_mode, max_len):
+    """pp 2 x dp 2 serving (dp_axis="dp") through prefill + 2 decode steps
+    at per-slot positions, against the sequential engine: (pipelined
+    logits, sequential logits, this rank's slot cache rows equal to the
+    sequential cache's in the stage's layers). The slot caches are this
+    rank's B / dp rows; the
+    paged pool is whole, written through the rank's table rows."""
+    from flatquant_torch.parallel.pipeline import pipeline_serving_forward
+    from flatquant_torch.serving.engine import _forward, init_cache
+
+    B, S = toks.shape
+    dp = mesh.axis("dp")
+    M, mb_l = 2, B // 4
+    mine = [m * (B // M) + dp.index * mb_l + i for m in range(M)
+            for i in range(mb_l)]
+    local = cache_mode != "paged"
+    caches = [init_cache(cfg, B // 2 if local and pipe else B, max_len,
+                         dtype=torch.float32, mode=cache_mode, device="cpu")
+              for pipe in (True, False)]
+    outs = ([], [])
+    for step in range(3):
+        pos = 0 if step == 0 else torch.full((B,), S + step - 1,
+                                             dtype=torch.int32)
+        phase = "prefill" if step == 0 else "decode"
+        tokens = toks if step == 0 else _greedy(torch.as_tensor(outs[1][-1]))
+        outs[0].append(_np(pipeline_serving_forward(
+            cfg, fq_cfg, sp, tokens, caches[0], pos, phase, mesh,
+            n_microbatches=M, use_kernel=False, max_len=max_len,
+            compute_dtype=torch.float32, dp_axis="dp")[0]))
+        outs[1].append(_np(_forward(cfg, fq_cfg, sp, tokens.to(torch.long),
+                                    caches[1], pos, phase, False, max_len,
+                                    torch.float32)))
+    same = True
+    if local:  # the stage's own layers
+        blk = mesh.axis("pp").block(cfg.num_layers)
+        same = all(torch.equal(a, b[mine]) for k in caches[0]
+                   for a, b in zip(caches[0][k][blk], caches[1][k][blk]))
+    return outs[0], outs[1], same
+
+
 def pp_cases(rank, world, payload):
     from flatquant_torch.models.llama import llama_forward
     from flatquant_torch.parallel.mesh import make_mesh
-    from flatquant_torch.parallel.pipeline import pipeline_llama_forward
+    from flatquant_torch.parallel.pipeline import (
+        pipeline_llama_forward,
+        pipeline_serving_forward,
+    )
     from flatquant_torch.serving.batcher import ContinuousBatcher
+    from flatquant_torch.serving.engine import init_cache
     from flatquant_torch.utils.convert import from_jax_fq, from_jax_params
 
     meshes = {4: make_mesh({"pp": 4}, device="cpu"),
@@ -158,6 +202,14 @@ def pp_cases(rank, world, payload):
         for mode in ("bf16", "int4", "paged"):
             out[f"serve_pp{pp}_{mode}"] = _pp_serving(
                 cfg, fq_cfg, sp, mesh, toks, mode, 16)
+    for mode in ("bf16", "int4", "paged"):
+        out[f"serve_dp2_pp2_{mode}"] = _pp_dp_serving(
+            cfg, fq_cfg, sp, meshes[2], _t(payload["dp_toks"]), mode, 16)
+        out[f"prefill4_dp2_pp2_{mode}"] = _np(pipeline_serving_forward(
+            cfg, fq_cfg, sp, toks, init_cache(cfg, 4, 16, torch.float32,
+                                              mode, device="cpu"),
+            0, "prefill", meshes[2], use_kernel=False, max_len=16,
+            compute_dtype=torch.float32, dp_axis="dp")[0])
     params = from_jax_params(payload["params"], "cpu")
     fq = from_jax_fq(payload["fq"], "cpu")
     for name, mesh, n_micro, kw, dp in (

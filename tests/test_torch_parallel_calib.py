@@ -30,6 +30,7 @@ import torch
 from jax.sharding import NamedSharding
 
 import _torch_calib_cases as cases
+from flatquant_tpu.calib import gptq as jg
 from flatquant_tpu.calib.trainer import build_labels as j_build_labels
 from flatquant_tpu.calib.trainer import make_optimizer as j_make_optimizer
 from flatquant_tpu.models import deepseek as jds
@@ -40,6 +41,7 @@ from flatquant_tpu.models.llama import llama_forward as j_llama_forward
 from flatquant_tpu.models.llama import llama_layer as j_llama_layer
 from flatquant_tpu.models.llama import rope_tables as j_rope_tables
 from flatquant_tpu.parallel import mesh as jmesh
+from flatquant_tpu.quantize import bake as jbake
 from flatquant_tpu.quantize.spec import W4A4 as J_W4A4
 from flatquant_tpu.quantize.spec import W4A4KV4 as J_W4A4KV4
 from flatquant_tpu.quantize.state import init_model_fq as j_init_model_fq
@@ -64,6 +66,8 @@ RANK_TIMEOUT_S = 240.0
 # differences chaotically, on one device too)
 RECIPE = dict(deactive_amp=True, epochs=1, nsamples=4, cali_bsz=4)
 DS_RECIPE = dict(deactive_amp=True, epochs=1, nsamples=2, cali_bsz=2)
+# DeepSeek generation: new tokens and the cache length
+GEN_NEW, GEN_LEN = 4, 16
 
 
 def _np(tree):
@@ -142,7 +146,25 @@ def jax_side():
         compute_dtype=jnp.float32))
     out["ds"] = dict(cfg=dcfg, params=dparams, fq=dfq, toks=dtoks,
                      forward=np.asarray(dfwd(dparams, jnp.asarray(dtoks),
-                                             fq=dfq)))
+                                             fq=dfq)),
+                     gen_prompt=np.random.default_rng(3).integers(
+                         0, dcfg.vocab_size, (2, 6)).astype(np.int32))
+    # generation on the sharpened head (greedy ties), JAX's fp mode (its
+    # calib-mode generate compiles for ~20 s on the CPU)
+    out["ds"]["generate"] = jds.deepseek_generate(
+        dcfg, dict(dparams, head=dparams["head"] * 6.0), None, J_W4A4,
+        out["ds"]["gen_prompt"], max_new_tokens=GEN_NEW, max_len=GEN_LEN,
+        mode="fp", compute_dtype=jnp.float32)
+    # GPTQ: baked tiny-llama (a state as wide as the dim, a shard-aligned
+    # one), JAX's gptq_model on each
+    out["gptq_train"] = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    bake = jax.jit(functools.partial(jbake.bake_model, cfg, J_W4A4KV4))
+    out["gptq"] = {}
+    for tp in (1, 2):
+        bp, bfq = bake(params, fq[tp])
+        out["gptq"][tp] = dict(bp=bp, bfq=bfq, jax=jg.gptq_model(
+            cfg, J_W4A4KV4, bp, bfq, out["gptq_train"], log=lambda m: None))
     return out
 
 
@@ -168,7 +190,11 @@ def _payload(jax_side):
                    toks=jax_side["toks"], step_x=jax_side["step_x"],
                    calib_toks=jax_side["calib_toks"]),
         ds=dict(cfg=dataclasses.asdict(d["cfg"]), params=_np(d["params"]),
-                fq=_np(d["fq"]), toks=d["toks"]))
+                fq=_np(d["fq"]), toks=d["toks"], gen_prompt=d["gen_prompt"]),
+        gptq=dict(bp={tp: _np(g["bp"]) for tp, g in jax_side["gptq"].items()},
+                  bfq={tp: _np(g["bfq"])
+                       for tp, g in jax_side["gptq"].items()},
+                  train=jax_side["gptq_train"]))
 
 
 @pytest.fixture(scope="module")
@@ -425,3 +451,114 @@ def test_sharded_calibrate_deepseek_matches_single_device(jax_side, ranks):
         np.testing.assert_allclose(mses, want, rtol=1e-5)
         _close_leaves(leaves, [t.numpy() for t in tree_leaves(ref)], 5e-4,
                       5e-4, f"rank {r}")
+
+
+# ---------------------------------------------------------------------------
+# the configurations JAX's GSPMD runs: DeepSeek generation, GPTQ and
+# attn_fn under tp
+# ---------------------------------------------------------------------------
+
+
+def _close_up_to_ties(got, want, what):
+    """float32 rows within 1e-4, but for rows a W4A4 rounding tie moved:
+    at most 10% of the rows beyond 1e-4, every row within 1% of its norm
+    (tests/test_torch_deepseek.py's bound for the DeepSeek forwards)."""
+    got, want = np.asarray(got), np.asarray(want)
+    d = np.abs(got - want).max(axis=-1)
+    rel = (d / np.maximum(np.linalg.norm(want, axis=-1), 1e-30)).max()
+    frac = (d > 1e-4).mean()
+    assert frac <= 0.1 and rel <= 0.01, (what, frac, rel)
+
+
+@pytest.mark.parametrize("mesh_name", ["dp2_tp2", "ep2_tp2"])
+def test_sharded_deepseek_generate_matches_jax(jax_side, ranks, mesh_name):
+    """deepseek_generate on TINY_DEEPSEEK's blocks under {dp 2, tp 2} and
+    {ep 2, tp 2} (heads over tp, each rank the whole latent cache of its
+    dp rows), head sharpened 6x: every rank's tokens equal JAX's
+    deepseek_generate and the port's single device in mode "fp", and the
+    single device's in "calib"; calib _ds_step's logits of the prefill
+    and two decode steps within the DeepSeek port tests' bound of the
+    single device's."""
+    d = jax_side["ds"]
+    cfg = ds.DeepSeekConfig(**dataclasses.asdict(d["cfg"]))
+    params = from_jax_ds_serving_params(_np(d["params"]), "cpu")
+    params = dict(params, head=params["head"] * 6.0)
+    fq = from_jax_ds_fq(_np(d["fq"]), "cpu")
+    prompt = torch.as_tensor(d["gen_prompt"]).long()
+    want = {mode: ds.deepseek_generate(
+        cfg, params, fq if mode == "calib" else None, W4A4, prompt,
+        max_new_tokens=GEN_NEW, max_len=GEN_LEN, mode=mode,
+        compute_dtype=torch.float32, device="cpu")
+        for mode in ("fp", "calib")}
+    np.testing.assert_array_equal(want["fp"], d["generate"])
+    cache = ds.init_ds_cache(cfg, 2, GEN_LEN, torch.float32, device="cpu")
+    logits, tok, pos = [], prompt, 0
+    for _ in range(3):
+        lg, cache = ds._ds_step(cfg, W4A4, "calib", params, fq, tok, cache,
+                                pos, GEN_LEN, torch.float32)
+        logits.append(lg.numpy())
+        pos += tok.shape[1]
+        tok = lg.argmax(-1, keepdim=True)
+    for r, res in enumerate(ranks):
+        toks, got = res["ds_generate"][mesh_name]
+        for mode in want:
+            np.testing.assert_array_equal(toks[mode], want[mode],
+                                          err_msg=f"rank {r} {mode}")
+        for i, (g, w) in enumerate(zip(got, logits)):
+            _close_up_to_ties(g, w, f"rank {r} step {i}")
+
+
+def _code_step(q):
+    """Each weight's code step: its row's max |value| / 7
+    (tests/test_torch_gptq.py)."""
+    return np.abs(q).max(axis=1, keepdims=True) / 7.0 + 1e-12
+
+
+GPTQ_KEYS = ("wq", "wk", "wv", "wo", "wup", "wgate", "wdown")
+
+
+@pytest.mark.parametrize("state_tp", [1, 2])
+def test_sharded_gptq_matches_single_device(jax_side, ranks, state_tp):
+    """gptq_model under {dp 2, tp 2} on tiny-llama's baked blocks (a state
+    as wide as the dim, and a shard-aligned one): every rank's blocks are
+    the port's single-device GPTQ's blocks (llama_param_specs at tp = 2)
+    with at most 1e-3 of the codes a step apart (float32 ties: the
+    sharded forwards sum in another order) and the rest within 1e-3 of a
+    step, and within tests/test_torch_gptq.py's bound of JAX's
+    gptq_model (the same share of flipped codes, 1e-3 of a step)."""
+    from flatquant_torch.calib.gptq import gptq_model
+
+    cfg = get_config("tiny-llama")
+    g = jax_side["gptq"][state_tp]
+    bp = from_jax_params(_np(g["bp"]), "cpu")
+    one = gptq_model(cfg, W4A4KV4, bp, from_jax_fq(_np(g["bfq"]), "cpu"),
+                     jax_side["gptq_train"], log=lambda m: None)
+    specs = tmesh.llama_param_specs(cfg, bp, tp_size=2)
+    jwant = from_jax_params(_np(g["jax"]), "cpu")
+    for r, res in enumerate(ranks):
+        m = tmesh.plan_mesh({"dp": 2, "tp": 2}, r, "cpu")
+        blocks = tmesh.shard_tree(one, specs, m)["layers"]
+        jblocks = tmesh.shard_tree(jwant, specs, m)["layers"]
+        flips = total = 0
+        for i, layer in enumerate(res["gptq"][state_tp]):
+            for key in GPTQ_KEYS:
+                got = layer[key]
+                for ref in (blocks[i][key].numpy(),
+                            jblocks[i][key].numpy()):
+                    assert got.shape == ref.shape, (r, i, key)
+                    rel = np.abs(got - ref) / _code_step(ref)
+                    flips += int((rel > 0.5).sum())
+                    total += rel.size
+                    assert rel[rel <= 0.5].max() <= 1e-3, (r, i, key)
+        assert flips <= 1e-3 * total, f"rank {r}: {flips} of {total} codes"
+
+
+def test_attn_fn_under_tp_equals_the_eager_core(ranks):
+    """llama_layer under tp = 2 with attn_fn set to the eager core on the
+    heads it receives equals attn_fn=None bit for bit, and receives this
+    rank's heads (tiny-llama: 2 of 4 q heads, 1 of 2 kv heads)."""
+    cfg = get_config("tiny-llama")
+    for r, res in enumerate(ranks):
+        same, heads = res["attn_fn"]
+        assert same, f"rank {r}"
+        assert heads == [(cfg.num_heads // 2, cfg.num_kv_heads // 2)]

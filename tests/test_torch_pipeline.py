@@ -68,6 +68,11 @@ def jax_side():
         cfg, J_W4A4KV4, seed=1), sp=_build(cfg, params, fq),
         batcher_sp=_build(cfg, sharp, fq),
         toks=rng.integers(0, cfg.vocab_size, (4, 12)).astype(np.int32),
+        # 8 rows: 2 microbatches of 4, 2 rows a dp rank (a one-row GEMM
+        # sums in another order than a multi-row one on the CPU, so one
+        # row a rank would not be bit-equal to the sequential batch)
+        dp_toks=np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (8, 12)).astype(np.int32),
         fwd_toks={k: rng.integers(0, cfg.vocab_size, s).astype(np.int32)
                   for k, s in FWD.items()})
     rng = np.random.default_rng(0)
@@ -84,7 +89,8 @@ def pp_ranks(jax_side, tmp_path_factory):
     payload = dict(sp=_np(jax_side["sp"]),
                    batcher_sp=_np(jax_side["batcher_sp"]),
                    params=_np(jax_side["params"]), fq=_np(jax_side["fq1"]),
-                   toks=jax_side["toks"], fwd_toks=jax_side["fwd_toks"],
+                   toks=jax_side["toks"], dp_toks=jax_side["dp_toks"],
+                   fwd_toks=jax_side["fwd_toks"],
                    prompts=jax_side["prompts"],
                    chunk_prompts=jax_side["chunk_prompts"])
     return run_ranks(cases.pp_cases, 4, args=(payload,), device="cpu",
@@ -92,15 +98,17 @@ def pp_ranks(jax_side, tmp_path_factory):
                      rendezvous_dir=str(tmp_path_factory.mktemp("rdzv")))
 
 
-def _jax_serving(side, cache_mode):
-    cfg, sp, toks = side["cfg"], side["sp"], side["toks"]
-    cache = j_init_cache(cfg, 4, 16, dtype=jnp.float32, mode=cache_mode)
+def _jax_serving(side, cache_mode, toks=None):
+    cfg, sp = side["cfg"], side["sp"]
+    toks = side["toks"] if toks is None else toks
+    cache = j_init_cache(cfg, toks.shape[0], 16, dtype=jnp.float32,
+                         mode=cache_mode)
     logits, cache = j_prefill(cfg, J_W4A4KV4, sp, jnp.asarray(toks), cache,
                               use_kernel=False, max_len=16,
                               compute_dtype=jnp.float32)
     outs = [np.asarray(logits)]
     tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
-    for pos in (12, 13):
+    for pos in (toks.shape[1], toks.shape[1] + 1):
         logits, cache = j_decode(cfg, J_W4A4KV4, sp, tok, cache,
                                  jnp.int32(pos), use_kernel=False,
                                  max_len=16, compute_dtype=jnp.float32)
@@ -124,6 +132,55 @@ def test_pipeline_real_quant_serving_exact(jax_side, pp_ranks, pp,
         for i, (g, s, w) in enumerate(zip(got, seq, want)):
             np.testing.assert_array_equal(g, s, err_msg=f"rank {rank} {i}")
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
+def _jax_dp_prefill(side, cache_mode):
+    """JAX's pipeline_serving_forward(dp_axis="dp") prefill of the 4
+    prompts on a pp 2 x dp 2 mesh of the host's CPU devices: last-token
+    logits [4, V]. This is as far as JAX's dp serving runs: its stage body
+    cuts a whole microbatch's cache rows (B / M) beside a hidden state of
+    B / M / dp rows, which broadcasts only at one row a rank and leaves
+    the slot caches wrong, so its decode steps fail in the attention's
+    reshape, and 8 prompts fail at once."""
+    from flatquant_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from flatquant_tpu.parallel.pipeline import (
+        pipeline_serving_forward as j_pipe)
+
+    cfg = side["cfg"]
+    mesh = j_make_mesh({"pp": 2, "dp": 2}, devices=jax.devices()[:4])
+    cache = j_init_cache(cfg, 4, 16, dtype=jnp.float32, mode=cache_mode)
+    logits, _ = j_pipe(cfg, J_W4A4KV4, side["sp"], jnp.asarray(side["toks"]),
+                       cache, jnp.int32(0), "prefill", mesh,
+                       n_microbatches=2, use_kernel=False, max_len=16,
+                       compute_dtype=jnp.float32, dp_axis="dp")
+    return np.asarray(logits)
+
+
+@pytest.mark.parametrize("cache_mode", ["bf16", "int4", "paged"])
+def test_pipeline_serving_dp_exact(jax_side, pp_ranks, cache_mode):
+    """pp 2 x dp 2 serving of 8 prompts (each dp rank its block of every
+    microbatch's rows; bf16 and int4 slot caches cut to the rank's rows,
+    the paged pool whole and written through the rank's table rows),
+    prefill + 2 decode steps at per-slot positions: bit-equal on every
+    rank to the sequential engine, the rank's cache rows bit-equal to the
+    sequential cache's, within 1e-5 of JAX's sequential engine. The
+    prefill of the 4 prompts is within 1e-5 of JAX's
+    pipeline_serving_forward(dp_axis="dp") and bit-equal to the port's
+    sequential prefill of them."""
+    want = _jax_serving(jax_side, cache_mode, jax_side["dp_toks"])
+    want4 = _jax_serving(jax_side, cache_mode)[0]
+    want_dp = _jax_dp_prefill(jax_side, cache_mode)
+    np.testing.assert_allclose(want_dp, want4, rtol=1e-5, atol=1e-5)
+    for rank, res in enumerate(pp_ranks):
+        got, seq, cache_same = res[f"serve_dp2_pp2_{cache_mode}"]
+        assert cache_same, f"rank {rank}: cache rows differ"
+        for i, (g, s, w) in enumerate(zip(got, seq, want)):
+            np.testing.assert_array_equal(g, s, err_msg=f"rank {rank} {i}")
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+        got4 = res[f"prefill4_dp2_pp2_{cache_mode}"]
+        np.testing.assert_array_equal(
+            got4, res[f"serve_pp2_{cache_mode}"][1][0])
+        np.testing.assert_allclose(got4, want_dp, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", list(FWD))
