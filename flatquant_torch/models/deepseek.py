@@ -49,6 +49,17 @@ GSPMD meshes over deepseek_param_specs): `deepseek_forward(..., mesh=)`,
 on each rank's blocks, the heads and
 the dense and shared FFNs over "tp", the routed experts over "ep", the
 batch over "dp", with the collectives of parallel/tp_autograd.py.
+
+Tracing (utils/tracing.py, off by default): `ds_batch_forward` records
+`embed`, `rope_tables` and `head`; every forward over `_layers` a
+`layer` span per layer (attribute `i`, dense layers first) with children
+`mla` and `ffn` or `moe`, and `moe` with `moe.gate`, `moe.routed_experts`
+and `moe.shared`. Counters: `moe.rows_useful`, the T*K token-expert
+assignments of a MoE layer, and `moe.rows_computed`, the rows its routed
+experts compute (E*T dense-masked, E*C in the capacity gather; this
+rank's experts under ep). Both come from shapes, with no host read: the
+assignments the gather drops past capacity are not subtracted from
+`rows_useful`.
 """
 
 from __future__ import annotations
@@ -94,6 +105,7 @@ from flatquant_torch.quantize.linear import (
 )
 from flatquant_torch.serving.engine import _as_tokens
 from flatquant_torch.serving.quantized import _clip_sigmoid, _quant_linear
+from flatquant_torch.utils import tracing
 
 
 # ---------------------------------------------------------------------------
@@ -859,36 +871,41 @@ def _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, x,
     E, K = cfg.n_routed_experts, cfg.n_activated_experts
     C = max(1, int(np.ceil(T * K / E * capacity_factor)))
 
-    weights, indices = ds_gate(cfg, lp, x2d)
+    with tracing.span("moe.gate"):
+        weights, indices = ds_gate(cfg, lp, x2d)
     h = x2d
     t = _trans(fqf, "w1_trans", quant)
     if t is not None:
         h = apply_decompose(t, h)
 
-    flat_e = indices.reshape(-1)
-    rank, keep = moe_dispatch(flat_e, C, E)
     e0, n_e = _expert_block(lp, E, ep)
-    local_e = flat_e - e0
-    keep = keep & (local_e >= 0) & (local_e < n_e)
-    tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
-    # buffers flattened to [n_e*C + 1, D], the last row the spill slot
-    dest = torch.where(keep, local_e * C + rank, n_e * C)
-    buf = torch.zeros((n_e * C + 1, h.shape[-1]), dtype=h.dtype,
-                      device=x.device)
-    buf[dest] = h[tok_idx]
-    down_e = _routed_experts(cfg, fq_cfg, mode, lp, fqf,
-                             buf[:n_e * C].view(n_e, C, -1), quant,
-                             use_kernel)
+    tracing.count("moe.rows_useful", T * K)
+    tracing.count("moe.rows_computed", n_e * C)
+    with tracing.span("moe.routed_experts"):
+        flat_e = indices.reshape(-1)
+        rank, keep = moe_dispatch(flat_e, C, E)
+        local_e = flat_e - e0
+        keep = keep & (local_e >= 0) & (local_e < n_e)
+        tok_idx = torch.arange(T, device=x.device).repeat_interleave(K)
+        # buffers flattened to [n_e*C + 1, D], the last row the spill slot
+        dest = torch.where(keep, local_e * C + rank, n_e * C)
+        buf = torch.zeros((n_e * C + 1, h.shape[-1]), dtype=h.dtype,
+                          device=x.device)
+        buf[dest] = h[tok_idx]
+        down_e = _routed_experts(cfg, fq_cfg, mode, lp, fqf,
+                                 buf[:n_e * C].view(n_e, C, -1), quant,
+                                 use_kernel)
 
-    gathered = down_e[local_e.clamp(0, n_e - 1),
-                      rank.clamp(0, C - 1)]  # [T*K, D]
-    w_flat = torch.where(keep, weights.reshape(-1), 0.0)
-    part = (gathered.to(torch.float32) * w_flat[:, None]).view(T, K, D)
-    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
-    for k in range(K):
-        y = y + part[:, k]
-    y = _ep_sum(y, ep).to(x.dtype)
-    z = _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel)
+        gathered = down_e[local_e.clamp(0, n_e - 1),
+                          rank.clamp(0, C - 1)]  # [T*K, D]
+        w_flat = torch.where(keep, weights.reshape(-1), 0.0)
+        part = (gathered.to(torch.float32) * w_flat[:, None]).view(T, K, D)
+        y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+        for k in range(K):
+            y = y + part[:, k]
+        y = _ep_sum(y, ep).to(x.dtype)
+    with tracing.span("moe.shared"):
+        z = _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel)
     return (y + z).reshape(B, S, D)
 
 
@@ -906,9 +923,10 @@ def _ffn_moe(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None,
     x2d = x.reshape(-1, D)
     T = x2d.shape[0]
     E = cfg.n_routed_experts
-    weights, indices = ds_gate(cfg, lp, x2d)
-    route = torch.zeros((T, E), dtype=torch.float32, device=x.device)
-    route.scatter_add_(1, indices, weights)
+    with tracing.span("moe.gate"):
+        weights, indices = ds_gate(cfg, lp, x2d)
+        route = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+        route.scatter_add_(1, indices, weights)
     if stats is not None:
         stats["moe_in"] = _absmax(x2d, (0,))
     h = x2d
@@ -916,16 +934,22 @@ def _ffn_moe(cfg, fq_cfg, mode, lp, fqf, x, use_kernel=True, stats=None,
     if t is not None:
         h = apply_decompose(t, h)
     e0, n_e = _expert_block(lp, E, ep)
-    h_e = copy_to(h, ep)  # into this rank's experts (identity without ep)
-    down_e = _routed_experts(cfg, fq_cfg, mode, lp, _local_experts(fqf, ep),
-                             h_e[None].expand(n_e, T, D), quant, use_kernel,
-                             stats)
-    if stats is not None and active(ep):
-        stats["moe_down"] = all_reduce(stats["moe_down"], "max", ep)
-    y = torch.einsum("etd,te->td", down_e.to(torch.float32),
-                     copy_to(route, ep)[:, e0:e0 + n_e])
-    y = _ep_sum(y, ep).to(x.dtype)
-    z = _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel, tp)
+    tracing.count("moe.rows_useful", T * cfg.n_activated_experts)
+    tracing.count("moe.rows_computed", n_e * T)
+    with tracing.span("moe.routed_experts"):
+        h_e = copy_to(h, ep)  # into this rank's experts (identity without ep)
+        down_e = _routed_experts(cfg, fq_cfg, mode, lp,
+                                 _local_experts(fqf, ep),
+                                 h_e[None].expand(n_e, T, D), quant,
+                                 use_kernel, stats)
+        if stats is not None and active(ep):
+            stats["moe_down"] = all_reduce(stats["moe_down"], "max", ep)
+        y = torch.einsum("etd,te->td", down_e.to(torch.float32),
+                         copy_to(route, ep)[:, e0:e0 + n_e])
+        y = _ep_sum(y, ep).to(x.dtype)
+    with tracing.span("moe.shared"):
+        z = _shared_experts(cfg, fq_cfg, mode, lp, fqf, h, quant, use_kernel,
+                            tp)
     return (y + z).reshape(B, S, D)
 
 
@@ -943,49 +967,55 @@ def ds_layer(cfg, fq_cfg, mode, lp, lfq, x, cos, sin, mask, moe: bool,
     stats = {} if with_stats else None
     fqa = lfq["attn"] if lfq is not None else None
     fqf = lfq["ffn"] if lfq is not None else None
-    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-    x = x + ds_mla(cfg, fq_cfg, mode, lp, fqa, h, cos, sin, mask,
-                   cache=cache, pos=pos, use_kernel=use_kernel, stats=stats,
-                   tp=tp)
-    h2 = rms_norm(x, lp["ffn_norm"], cfg.rms_eps)
+    with tracing.span("mla"):
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        x = x + ds_mla(cfg, fq_cfg, mode, lp, fqa, h, cos, sin, mask,
+                       cache=cache, pos=pos, use_kernel=use_kernel,
+                       stats=stats, tp=tp)
     impl = cfg.moe_impl
     if impl == "auto":
         B, S, _ = x.shape
         impl = "gather" if mode == "serve" and B * S >= 256 else "dense"
-    if not moe:
-        out = x + _ffn_dense(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel,
-                             stats, tp)
-    elif impl == "gather" and stats is None and not active(tp):
-        out = x + _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, h2,
-                                    cfg.moe_capacity_factor, use_kernel, ep)
-    else:
-        out = x + _ffn_moe(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel, stats,
-                           ep, tp)
+    with tracing.span("moe" if moe else "ffn"):
+        h2 = rms_norm(x, lp["ffn_norm"], cfg.rms_eps)
+        if not moe:
+            out = x + _ffn_dense(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel,
+                                 stats, tp)
+        elif impl == "gather" and stats is None and not active(tp):
+            out = x + _ffn_moe_gathered(cfg, fq_cfg, mode, lp, fqf, h2,
+                                        cfg.moe_capacity_factor, use_kernel,
+                                        ep)
+        else:
+            out = x + _ffn_moe(cfg, fq_cfg, mode, lp, fqf, h2, use_kernel,
+                               stats, ep, tp)
     return (out, stats) if with_stats else out
 
 
 def _layers(cfg, fq_cfg, mode, params, fq, x, cos, sin, mask, cache, pos,
             use_kernel, n_fp_tail=0, ep=None, tp=None):
     dense_fq, moe_fq = fq if fq is not None else (None, None)
+    n_dense = len(params["dense_layers"])
     for i, lp in enumerate(params["dense_layers"]):
         c = None if cache is None else (cache["dense_kv"][i],
                                         cache["dense_pe"][i])
-        x = ds_layer(cfg, fq_cfg, mode, lp, None if dense_fq is None
-                     else dense_fq[i], x, cos, sin, mask, False, c, pos,
-                     use_kernel, tp=tp)
+        with tracing.span("layer", i=i):
+            x = ds_layer(cfg, fq_cfg, mode, lp, None if dense_fq is None
+                         else dense_fq[i], x, cos, sin, mask, False, c, pos,
+                         use_kernel, tp=tp)
     n_q = len(params["moe_layers"])
     if n_fp_tail > 0 and mode != "fp":
         n_q -= n_fp_tail
     for i, lp in enumerate(params["moe_layers"]):
         c = None if cache is None else (cache["moe_kv"][i],
                                         cache["moe_pe"][i])
-        if i < n_q:
-            x = ds_layer(cfg, fq_cfg, mode, lp, None if moe_fq is None
-                         else moe_fq[i], x, cos, sin, mask, True, c, pos,
-                         use_kernel, ep=ep, tp=tp)
-        else:  # the full-precision tail
-            x = ds_layer(cfg, None, "fp", lp, None, x, cos, sin, mask, True,
-                         c, pos, use_kernel, ep=ep, tp=tp)
+        with tracing.span("layer", i=n_dense + i):
+            if i < n_q:
+                x = ds_layer(cfg, fq_cfg, mode, lp, None if moe_fq is None
+                             else moe_fq[i], x, cos, sin, mask, True, c, pos,
+                             use_kernel, ep=ep, tp=tp)
+            else:  # the full-precision tail
+                x = ds_layer(cfg, None, "fp", lp, None, x, cos, sin, mask,
+                             True, c, pos, use_kernel, ep=ep, tp=tp)
     return x
 
 
@@ -1435,11 +1465,14 @@ def ds_batch_forward(cfg: DeepSeekConfig, fq_cfg, spfq, tokens, cache, pos,
     position and moe_impl "auto" decide the route, as in JAX."""
     sp, fq = spfq["params"], spfq["fq"]
     B, S = tokens.shape
-    x = sp["embed"][tokens].to(compute_dtype)
-    cos, sin = _rope_rows(cfg, max_len, pos, S, x.device)
+    with tracing.span("embed"):
+        x = sp["embed"][tokens].to(compute_dtype)
+    with tracing.span("rope_tables"):
+        cos, sin = _rope_rows(cfg, max_len, pos, S, x.device)
     x = _layers(cfg, fq_cfg, mode, sp, fq, x, cos, sin, None, cache, pos,
                 use_kernel, ep=spfq.get("ep"))
-    x = rms_norm(x, sp["final_norm"], cfg.rms_eps)
-    h = (x[:, -1] if last_idx is None
-         else x[torch.arange(B, device=x.device), last_idx])
-    return (h @ sp["head"].T.to(x.dtype)).to(torch.float32)
+    with tracing.span("head"):
+        x = rms_norm(x, sp["final_norm"], cfg.rms_eps)
+        h = (x[:, -1] if last_idx is None
+             else x[torch.arange(B, device=x.device), last_idx])
+        return (h @ sp["head"].T.to(x.dtype)).to(torch.float32)

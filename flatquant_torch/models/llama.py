@@ -45,6 +45,7 @@ from flatquant_torch.quantize.linear import (
     fq_linear_train,
 )
 from flatquant_torch.quantize.spec import FQConfig
+from flatquant_torch.utils import tracing
 
 MODES = ("fp", "calib", "eval")
 
@@ -131,8 +132,9 @@ def _rope_inv_freq(cfg: LlamaConfig) -> np.ndarray:
 def rope_tables(cfg: LlamaConfig, positions: torch.Tensor):
     """cos/sin tables [S, head_dim] (float32), HF half-rotation
     convention."""
-    inv_freq = torch.as_tensor(_rope_inv_freq(cfg), dtype=torch.float32,
-                               device=positions.device)
+    with tracing.sync("h2d.rope_inv_freq"):
+        inv_freq = torch.as_tensor(_rope_inv_freq(cfg), dtype=torch.float32,
+                                   device=positions.device)
     freqs = positions.to(torch.float32)[:, None] * inv_freq[None, :]
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)

@@ -25,6 +25,20 @@ What differs from JAX: there is no jit and no program cache. Prefill,
 decode and chunk are direct calls of the forward function, and every
 cache updates in place where JAX donates it (a hook's forward returns
 only the logits, as `_forward` does).
+
+Tracing (utils/tracing.py, off by default): `step` is the root span,
+with `admit`, a `queued` span per admitted request (submit -> admission,
+`rid`), the model calls `prefill`, `chunk` and `decode` (attributes
+`rids`, `rows_true`, `rows_computed`, `start`), `seat`, `first_token`
+and `sample`; counters `prefill.rows_true` / `prefill.rows_computed`
+(prefill and chunk calls, padding in computed), `decode.calls`,
+`decode.slot_rows` and `pool.deferred` (an admission stopped because
+the paged reservation does not fit). Every site where the host waits for
+the device is a `sync` span: the H2D copies of tokens, last_idx, the
+decode positions and the block table (pageable numpy, not
+non-blocking), and the D2H reads of the first token and of the decode
+argmax. Each request is stamped with its submit time (one clock read a
+request) whether or not tracing is on.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from flatquant_torch.models.config import LlamaConfig
 from flatquant_torch.quantize.spec import FQConfig
 from flatquant_torch.serving.engine import _forward, init_cache
 from flatquant_torch.serving.paged import BlockAllocator, blocks_needed
+from flatquant_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -49,6 +64,7 @@ class Request:
     max_new_tokens: int
     eos_id: Optional[int] = None
     out_tokens: Optional[List[int]] = None
+    submit_t: float = 0.0  # tracing.now() at submit
 
 
 class ContinuousBatcher:
@@ -187,7 +203,8 @@ class ContinuousBatcher:
         rid = self._rid
         self._rid += 1
         self.queue.append(Request(rid, np.asarray(prompt, np.int32),
-                                  max_new_tokens, eos_id, []))
+                                  max_new_tokens, eos_id, [],
+                                  tracing.now()))
         return rid
 
     @property
@@ -206,9 +223,11 @@ class ContinuousBatcher:
 
     @torch.no_grad()
     def _call(self, tokens, cache, pos, phase, last_idx=None):
-        tokens = torch.as_tensor(tokens, device=self.dev).to(torch.long)
+        with tracing.sync("h2d.tokens"):
+            tokens = torch.as_tensor(tokens, device=self.dev).to(torch.long)
         if last_idx is not None:
-            last_idx = torch.as_tensor(last_idx, device=self.dev)
+            with tracing.sync("h2d.last_idx"):
+                last_idx = torch.as_tensor(last_idx, device=self.dev)
         return self._forward(self.cfg, self.fq_cfg, self.sp, tokens, cache,
                              pos, phase, self.use_kernel, self.max_len,
                              self.compute_dtype, last_idx=last_idx)
@@ -217,7 +236,9 @@ class ContinuousBatcher:
         return self._call(tokens, cache1, 0, "prefill", last_idx)
 
     def _decode_multi(self, toks, cache, pos_vec):
-        pos = torch.tensor(pos_vec, device=self.dev)  # a copy of the host's
+        with tracing.sync("h2d.pos"):
+            # a copy of the host's
+            pos = torch.tensor(pos_vec, device=self.dev)
         return self._call(toks, cache, pos, "decode")
 
     def _chunk_one(self, tokens, cache1, pos, last_idx):
@@ -236,15 +257,17 @@ class ContinuousBatcher:
 
     def _paged_cache(self, tbl):
         """The pool with a device copy of a host block table."""
-        return dict(self.cache,
-                    tbl=torch.as_tensor(tbl, device=self.dev))
+        with tracing.sync("h2d.tbl"):
+            return dict(self.cache,
+                        tbl=torch.as_tensor(tbl, device=self.dev))
 
     def _seat(self, slot, cache1):
         """Copy a staging cache's whole row into the slot, in place (stale
         entries of the slot's last request are cleared with it)."""
-        for key, layers in self.cache.items():
-            for dst, src in zip(layers, cache1[key]):
-                dst[slot].copy_(src[0])
+        with tracing.span("seat"):
+            for key, layers in self.cache.items():
+                for dst, src in zip(layers, cache1[key]):
+                    dst[slot].copy_(src[0])
 
     def _reserve(self, slot, req):
         """Paged: allocate the request's reservation and point the slot's
@@ -269,14 +292,27 @@ class ContinuousBatcher:
                                      self.queue[0].max_new_tokens,
                                      self.block_size)
                 if need > self.alloc.free_count:
+                    tracing.count("pool.deferred")
                     break  # FIFO: wait until the reservation fits
             if self.prefill_chunk > 0:
                 if self.pending is not None:
                     break  # one in-flight chunked prefill at a time
-                self._start_pending(slot, self.queue.pop(0))
+                self._start_pending(slot, self._dequeue())
                 pending_slot = slot
             else:
-                self._prefill_into_slot(slot, self.queue.pop(0))
+                self._prefill_into_slot(slot, self._dequeue())
+
+    def _dequeue(self) -> Request:
+        """The queue's head, admitted now (its `queued` span)."""
+        req = self.queue.pop(0)
+        if tracing.ON:
+            tracing.record("queued", req.submit_t, tracing.now(), rid=req.rid)
+        return req
+
+    @staticmethod
+    def _prefill_counts(rows_true, rows_computed):
+        tracing.count("prefill.rows_true", rows_true)
+        tracing.count("prefill.rows_computed", rows_computed)
 
     def _start_pending(self, slot: int, req: Request):
         S = len(req.prompt)
@@ -304,11 +340,18 @@ class ContinuousBatcher:
         final = p["ci"] == p["n"] - 1
         last = (p["S"] - 1 - start) if final else (C - 1)
         slot = p["slot"]
-        if self.cache_mode == "paged":
-            cache = self._paged_cache(self.tbl[slot:slot + 1])
-        else:
-            cache = p["cache1"]
-        logits = self._chunk_one(chunk[None, :], cache, start, [last])
+        attrs = {}
+        if tracing.ON:
+            rows = min(C, p["S"] - start)
+            attrs = dict(rids=[p["req"].rid], rows_true=rows,
+                         rows_computed=C, start=start)
+            self._prefill_counts(rows, C)
+        with tracing.span("chunk", **attrs):
+            if self.cache_mode == "paged":
+                cache = self._paged_cache(self.tbl[slot:slot + 1])
+            else:
+                cache = p["cache1"]
+            logits = self._chunk_one(chunk[None, :], cache, start, [last])
         p["ci"] += 1
         if not final:
             return
@@ -327,15 +370,22 @@ class ContinuousBatcher:
             S_pad = -(-S // self.prefill_bucket) * self.prefill_bucket
             S_pad = min(S_pad, self.max_len)
             toks = np.pad(toks, (0, S_pad - S))
+        attrs = {}
+        if tracing.ON:
+            attrs = dict(rids=[req.rid], rows_true=S,
+                         rows_computed=len(toks), start=0)
+            self._prefill_counts(S, len(toks))
         if self.cache_mode == "paged":
             # the prompt writes straight into the pool through the table
             self._reserve(slot, req)
-            logits = self._prefill_one(
-                toks[None, :], self._paged_cache(self.tbl[slot:slot + 1]),
-                [S - 1])
+            with tracing.span("prefill", **attrs):
+                logits = self._prefill_one(
+                    toks[None, :], self._paged_cache(self.tbl[slot:slot + 1]),
+                    [S - 1])
         else:
             cache1 = self._new_cache1()
-            logits = self._prefill_one(toks[None, :], cache1, [S - 1])
+            with tracing.span("prefill", **attrs):
+                logits = self._prefill_one(toks[None, :], cache1, [S - 1])
             self._seat(slot, cache1)
         self._activate(slot, req, S, logits)
         self._maybe_finish(slot)
@@ -343,7 +393,8 @@ class ContinuousBatcher:
     def _activate(self, slot, req, S, logits):
         """Seat a prefilled request: its first token from the prompt's
         last logits."""
-        tok = int(torch.argmax(logits[0]))
+        with tracing.span("first_token"), tracing.sync("d2h.first_token"):
+            tok = int(torch.argmax(logits[0]))
         req.out_tokens.append(tok)
         self.slot_req[slot] = req
         self.pos[slot] = S
@@ -367,24 +418,38 @@ class ContinuousBatcher:
                 self.tbl[slot, :] = 0
 
     def step(self):
-        self._admit()
+        with tracing.span("step"):
+            self._step()
+
+    def _step(self):
+        with tracing.span("admit"):
+            self._admit()
         if self.pending is not None:
             self._advance_pending()
         active = [s for s in range(self.B) if self.slot_req[s] is not None]
         if not active:
             return
-        cache = self.cache
-        if self.cache_mode == "paged":
-            # inactive slots (no request, or a chunked prefill in flight)
-            # decode garbage tokens; their writes go to the trash block, or
-            # they would clobber a pending slot's freshly written chunks
-            # (the slot cache instead overwrites the whole row when the
-            # staged prefill is seated)
-            mask = np.array([r is not None for r in self.slot_req])
-            cache = self._paged_cache(
-                np.where(mask[:, None], self.tbl, 0).astype(np.int32))
-        logits = self._decode_multi(self.next_tok, cache, self.pos)
-        toks = torch.argmax(logits, dim=-1).cpu().numpy()
+        attrs = {}
+        if tracing.ON:
+            attrs = dict(rids=[self.slot_req[s].rid for s in active],
+                         rows_true=len(active), rows_computed=self.B,
+                         start=None)
+            tracing.count("decode.calls")
+            tracing.count("decode.slot_rows", len(active))
+        with tracing.span("decode", **attrs):
+            cache = self.cache
+            if self.cache_mode == "paged":
+                # inactive slots (no request, or a chunked prefill in
+                # flight) decode garbage tokens; their writes go to the
+                # trash block, or they would clobber a pending slot's
+                # freshly written chunks (the slot cache instead overwrites
+                # the whole row when the staged prefill is seated)
+                mask = np.array([r is not None for r in self.slot_req])
+                cache = self._paged_cache(
+                    np.where(mask[:, None], self.tbl, 0).astype(np.int32))
+            logits = self._decode_multi(self.next_tok, cache, self.pos)
+        with tracing.span("sample"), tracing.sync("d2h.sample"):
+            toks = torch.argmax(logits, dim=-1).cpu().numpy()
         for slot in active:
             req = self.slot_req[slot]
             tok = int(toks[slot])

@@ -58,6 +58,12 @@ runs the composed glue with w4a4_matmul_i8, the int4 decode attention,
 write_token, and flash at S >= 1024. `attn_fn` replaces the prefill
 attention of `serving_layer` (sequence parallelism passes ring attention,
 parallel/sequence.py).
+
+Tracing (utils/tracing.py, off by default): `_forward` records `embed`,
+`rope_tables`, a `layer` span per layer (attribute `i`) and `head`; each
+layer of either cache mode records `qkv`, `kv_write` (split, RoPE, pack
+and cache write), `attn`, `o_proj` and `mlp`, and on the fused prefill
+route `attn_fused` in place of `kv_write`, `attn` and `o_proj`.
 """
 
 from __future__ import annotations
@@ -116,6 +122,7 @@ from flatquant_torch.serving.quantized import (
     kron_transform_perm,
     quantize_kv_asym,
 )
+from flatquant_torch.utils import tracing
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, mode: str = "bf16", n_blocks: int = 0,
@@ -328,38 +335,45 @@ def serving_layer(cfg, fq_cfg, sl, x, cos, sin, ck, cv, pos, phase,
     S = x.shape[1]
     per_slot = torch.is_tensor(pos) and pos.ndim == 1
     _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis)
-    qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype, tp_axis)
-    q, k, v = _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot)
-
-    stores = []
-    for t, bits_cfg, clip, cache in ((k, fq_cfg.k_cfg, sl.get("kc_clip"), ck),
-                                     (v, fq_cfg.v_cfg, sl.get("vc_clip"), cv)):
-        if bits_cfg.enabled:
-            # serving KV is asymmetric, so the grid is 2^bits - 1 whatever
-            # the sym flag (as in JAX)
-            tq, ts, tz = quantize_kv_asym(t, clip, q_max=(1 << bits_cfg.bits)
-                                          - 1)
-            stores.append(dequantize_kv(tq, ts, tz, cache.dtype))
-        else:
-            stores.append(t.to(cache.dtype))
-    for cache, new in zip((ck, cv), stores):
-        if per_slot:
-            row = torch.arange(cache.shape[1], device=x.device)
-            hit = row[None, :, None, None] == pos[:, None, None, None]
-            cache.copy_(torch.where(hit, new, cache))
-        else:
-            cache[:, pos:pos + S] = new
+    with tracing.span("qkv"):
+        qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype, tp_axis)
+    with tracing.span("kv_write"):
+        q, k, v = _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot)
+        stores = []
+        for t, bits_cfg, clip, cache in (
+                (k, fq_cfg.k_cfg, sl.get("kc_clip"), ck),
+                (v, fq_cfg.v_cfg, sl.get("vc_clip"), cv)):
+            if bits_cfg.enabled:
+                # serving KV is asymmetric, so the grid is 2^bits - 1
+                # whatever the sym flag (as in JAX)
+                tq, ts, tz = quantize_kv_asym(
+                    t, clip, q_max=(1 << bits_cfg.bits) - 1)
+                stores.append(dequantize_kv(tq, ts, tz, cache.dtype))
+            else:
+                stores.append(t.to(cache.dtype))
+        for cache, new in zip((ck, cv), stores):
+            if per_slot:
+                row = torch.arange(cache.shape[1], device=x.device)
+                hit = row[None, :, None, None] == pos[:, None, None, None]
+                cache.copy_(torch.where(hit, new, cache))
+            else:
+                cache[:, pos:pos + S] = new
 
     sm_scale = 1.0 / float(np.sqrt(cfg.head_dim))
-    if phase == "prefill" and attn_fn is not None:
-        attn = attn_fn(q, k, v, sm_scale).to(compute_dtype)
-    elif phase == "prefill":
-        attn = prefill_attention(q, k, v, sm_scale, use_kernel, compute_dtype)
-    else:
-        attn = _cache_attention(q, ck, cv, pos, compute_dtype)
-    x = _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype, tp_axis)
-    return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype,
-                        tp_axis)
+    with tracing.span("attn"):
+        if phase == "prefill" and attn_fn is not None:
+            attn = attn_fn(q, k, v, sm_scale).to(compute_dtype)
+        elif phase == "prefill":
+            attn = prefill_attention(q, k, v, sm_scale, use_kernel,
+                                     compute_dtype)
+        else:
+            attn = _cache_attention(q, ck, cv, pos, compute_dtype)
+    with tracing.span("o_proj"):
+        x = _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype,
+                    tp_axis)
+    with tracing.span("mlp"):
+        return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype,
+                            tp_axis)
 
 
 def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
@@ -380,80 +394,93 @@ def serving_layer_int4cache(cfg, fq_cfg, sl, x, cos, sin, kp, kparam, vp,
     B, S, H = x.shape
     per_slot = torch.is_tensor(pos) and pos.ndim == 1
     _check_ported(fq_cfg, sl, S, per_slot, phase, tp_axis)
-    qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype, tp_axis)
+    with tracing.span("qkv"):
+        qkv = _qkv(cfg, fq_cfg, sl, x, use_kernel, compute_dtype, tp_axis)
 
     if _fused_attention(cfg, fq_cfg, sl, S, per_slot, phase, use_kernel,
                         tp_axis):
-        x = _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin, kp,
-                                     kparam, vp, vparam, pos, compute_dtype,
-                                     tbl)
-        return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype)
+        with tracing.span("attn_fused"):
+            x = _fused_prefill_attention(cfg, fq_cfg, sl, x, qkv, cos, sin,
+                                         kp, kparam, vp, vparam, pos,
+                                         compute_dtype, tbl)
+        with tracing.span("mlp"):
+            return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel,
+                                compute_dtype)
 
-    q, k, v = _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot)
-    kq, kpar = pack_kv_token_major(k, sl.get("kc_clip"))  # [B, nkv, S, .]
-    vq, vpar = pack_kv_token_major(v, sl.get("vc_clip"))
-    if tbl is not None and phase == "prefill":
-        assert pos == 0, "a paged prefill starts at position 0"
-        write_prompt_paged(kp, kparam, kq, kpar, tbl)
-        write_prompt_paged(vp, vparam, vq, vpar, tbl)
-    elif tbl is not None and phase == "chunk":
-        write_chunk_paged(kp, kparam, kq, kpar, tbl, pos)
-        write_chunk_paged(vp, vparam, vq, vpar, tbl, pos)
-    elif tbl is not None:
-        pos_vec = pos if per_slot else torch.full((B,), pos, device=x.device)
-        write_token_paged(kp, kparam, kq[:, :, 0], kpar[:, :, 0], tbl,
-                          pos_vec)
-        write_token_paged(vp, vparam, vq[:, :, 0], vpar[:, :, 0], tbl,
-                          pos_vec)
-    elif per_slot:
-        put = write_token if use_kernel else write_token_ref
-        put(kp, kparam, vp, vparam, kq, kpar, vq, vpar, pos)
-    else:
-        kp[:, :, pos:pos + S] = kq
-        kparam[:, :, pos:pos + S] = kpar
-        vp[:, :, pos:pos + S] = vq
-        vparam[:, :, pos:pos + S] = vpar
+    with tracing.span("kv_write"):
+        q, k, v = _split_rope(cfg, sl, qkv, cos, sin, pos, per_slot)
+        kq, kpar = pack_kv_token_major(k, sl.get("kc_clip"))  # [B, nkv, S, .]
+        vq, vpar = pack_kv_token_major(v, sl.get("vc_clip"))
+        if tbl is not None and phase == "prefill":
+            assert pos == 0, "a paged prefill starts at position 0"
+            write_prompt_paged(kp, kparam, kq, kpar, tbl)
+            write_prompt_paged(vp, vparam, vq, vpar, tbl)
+        elif tbl is not None and phase == "chunk":
+            write_chunk_paged(kp, kparam, kq, kpar, tbl, pos)
+            write_chunk_paged(vp, vparam, vq, vpar, tbl, pos)
+        elif tbl is not None:
+            pos_vec = (pos if per_slot
+                       else torch.full((B,), pos, device=x.device))
+            write_token_paged(kp, kparam, kq[:, :, 0], kpar[:, :, 0], tbl,
+                              pos_vec)
+            write_token_paged(vp, vparam, vq[:, :, 0], vpar[:, :, 0], tbl,
+                              pos_vec)
+        elif per_slot:
+            put = write_token if use_kernel else write_token_ref
+            put(kp, kparam, vp, vparam, kq, kpar, vq, vpar, pos)
+        else:
+            kp[:, :, pos:pos + S] = kq
+            kparam[:, :, pos:pos + S] = kpar
+            vp[:, :, pos:pos + S] = vq
+            vparam[:, :, pos:pos + S] = vpar
 
     sm_scale = 1.0 / float(np.sqrt(cfg.head_dim))
-    if phase == "prefill":
-        attn = prefill_attention(q, k, v, sm_scale, use_kernel, compute_dtype)
-    elif phase == "chunk":
-        pos_vec = torch.full((B,), pos, dtype=torch.int32, device=x.device)
-        if tbl is not None:
-            chunk_fn = (paged_chunk_attention_int4 if use_kernel
-                        else paged_chunk_attention_ref)
-            attn = chunk_fn(q, kp, kparam, vp, vparam, tbl, pos_vec,
-                            sm_scale).to(compute_dtype)
-        elif use_kernel:
-            attn = chunk_attention_int4(q, kp, kparam, vp, vparam, pos_vec,
+    with tracing.span("attn"):
+        if phase == "prefill":
+            attn = prefill_attention(q, k, v, sm_scale, use_kernel,
+                                     compute_dtype)
+        elif phase == "chunk":
+            pos_vec = torch.full((B,), pos, dtype=torch.int32,
+                                 device=x.device)
+            if tbl is not None:
+                chunk_fn = (paged_chunk_attention_int4 if use_kernel
+                            else paged_chunk_attention_ref)
+                attn = chunk_fn(q, kp, kparam, vp, vparam, tbl, pos_vec,
+                                sm_scale).to(compute_dtype)
+            elif use_kernel:
+                attn = chunk_attention_int4(q, kp, kparam, vp, vparam,
+                                            pos_vec, sm_scale
+                                            ).to(compute_dtype)
+            else:
+                # JAX's chain casts its float32 result to compute_dtype
+                # directly (engine.py:538-560), not through q's dtype
+                attn = chunk_scores_ref(q, kp, kparam, vp, vparam, pos,
                                         sm_scale).to(compute_dtype)
         else:
-            # JAX's chain casts its float32 result to compute_dtype
-            # directly (engine.py:538-560), not through q's dtype
-            attn = chunk_scores_ref(q, kp, kparam, vp, vparam, pos,
-                                    sm_scale).to(compute_dtype)
-    else:
-        if per_slot:
-            valid = (pos + 1).to(torch.int32)
-        else:
-            valid = torch.full((B,), pos + 1, dtype=torch.int32,
-                               device=x.device)
-        if tbl is not None:
-            paged_fn = (paged_decode_attention_int4 if use_kernel
-                        else paged_decode_attention_ref)
-            attn = paged_fn(q[:, 0], kp, kparam, vp, vparam, tbl, valid,
-                            sm_scale)
-        elif use_kernel:
-            attn = decode_attention_int4(q[:, 0], kp, kparam, vp, vparam,
-                                         valid, sm_scale)
-        else:
-            attn = decode_attention_ref(
-                q[:, 0], kp, kparam[..., 0:1], kparam[..., 1:2], vp,
-                vparam[..., 0:1], vparam[..., 1:2], valid, sm_scale)
-        attn = attn[:, None]
-    x = _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype, tp_axis)
-    return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype,
-                        tp_axis)
+            if per_slot:
+                valid = (pos + 1).to(torch.int32)
+            else:
+                valid = torch.full((B,), pos + 1, dtype=torch.int32,
+                                   device=x.device)
+            if tbl is not None:
+                paged_fn = (paged_decode_attention_int4 if use_kernel
+                            else paged_decode_attention_ref)
+                attn = paged_fn(q[:, 0], kp, kparam, vp, vparam, tbl, valid,
+                                sm_scale)
+            elif use_kernel:
+                attn = decode_attention_int4(q[:, 0], kp, kparam, vp, vparam,
+                                             valid, sm_scale)
+            else:
+                attn = decode_attention_ref(
+                    q[:, 0], kp, kparam[..., 0:1], kparam[..., 1:2], vp,
+                    vparam[..., 0:1], vparam[..., 1:2], valid, sm_scale)
+            attn = attn[:, None]
+    with tracing.span("o_proj"):
+        x = _o_proj(cfg, fq_cfg, sl, x, attn, use_kernel, compute_dtype,
+                    tp_axis)
+    with tracing.span("mlp"):
+        return _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype,
+                            tp_axis)
 
 
 def _serving_mlp(cfg, fq_cfg, sl, x, use_kernel, compute_dtype,
@@ -547,28 +574,33 @@ def _forward(cfg, fq_cfg, sp, tokens, cache, pos, phase, use_kernel, max_len,
     lm_head on the last (or last_idx) token -> float32 logits [B, V]
     (under tp_axis, with the rank's local cfg and params: this rank's
     vocab block [B, V/tp] of the vocab-parallel head)."""
-    x = sp["embed"][tokens].to(compute_dtype)
-    cos, sin = rope_tables(cfg, torch.arange(max_len, device=x.device))
+    with tracing.span("embed"):
+        x = sp["embed"][tokens].to(compute_dtype)
+    with tracing.span("rope_tables"):
+        cos, sin = rope_tables(cfg, torch.arange(max_len, device=x.device))
     if "kp" in cache:
         if fq_cfg.k_cfg.bits != 4 or fq_cfg.v_cfg.bits != 4:
             raise ValueError(
                 "the packed cache holds int4 nibbles; kv8/kv16 configs use "
                 "the bf16 cache mode (kv8 quantizes at write there)")
         for i, sl in enumerate(sp["layers"]):
-            x = serving_layer_int4cache(
-                cfg, fq_cfg, sl, x, cos, sin, cache["kp"][i],
-                cache["kparam"][i], cache["vp"][i], cache["vparam"][i], pos,
-                phase, use_kernel, compute_dtype, tp_axis=tp_axis,
-                tbl=cache.get("tbl"))
+            with tracing.span("layer", i=i):
+                x = serving_layer_int4cache(
+                    cfg, fq_cfg, sl, x, cos, sin, cache["kp"][i],
+                    cache["kparam"][i], cache["vp"][i], cache["vparam"][i],
+                    pos, phase, use_kernel, compute_dtype, tp_axis=tp_axis,
+                    tbl=cache.get("tbl"))
     else:
         for i, sl in enumerate(sp["layers"]):
-            x = serving_layer(cfg, fq_cfg, sl, x, cos, sin, cache["k"][i],
-                              cache["v"][i], pos, phase, use_kernel,
-                              compute_dtype, tp_axis=tp_axis)
-    x = rms_norm(x, sp["final_norm_w"], cfg.rms_eps)
-    last = (x[:, -1] if last_idx is None
-            else x[torch.arange(x.shape[0], device=x.device), last_idx])
-    return (last @ sp["lm_head"].T.to(x.dtype)).to(torch.float32)
+            with tracing.span("layer", i=i):
+                x = serving_layer(cfg, fq_cfg, sl, x, cos, sin,
+                                  cache["k"][i], cache["v"][i], pos, phase,
+                                  use_kernel, compute_dtype, tp_axis=tp_axis)
+    with tracing.span("head"):
+        x = rms_norm(x, sp["final_norm_w"], cfg.rms_eps)
+        last = (x[:, -1] if last_idx is None
+                else x[torch.arange(x.shape[0], device=x.device), last_idx])
+        return (last @ sp["lm_head"].T.to(x.dtype)).to(torch.float32)
 
 
 @torch.no_grad()

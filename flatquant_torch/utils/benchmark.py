@@ -11,8 +11,7 @@ Two measurement modes:
     the end-to-end time of a step; for a small kernel it measures the
     host's launch rate.
 `device_time_loop` traces an arbitrary call sequence that threads its own
-state (a decode loop over one cache). `roofline_gemm` keeps JAX's formula
-with the H100's peaks.
+state (a decode loop over one cache).
 """
 
 from __future__ import annotations
@@ -26,11 +25,6 @@ import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
-
-# NVIDIA H100 80GB HBM3 (SXM, 700 W), the data sheet's dense bf16 tensor
-# rate and memory rate (the figures PERF.md's bounds use)
-H100_BF16_TFLOPS = 989.0
-H100_HBM_GBS = 3350.0
 
 # the trace categories that are device work: kernels, copies and fills
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -236,21 +230,3 @@ def device_time_loop(run_loop: Callable[[], None],
         if trace_dir is None:
             shutil.rmtree(base, ignore_errors=True)
 
-
-def roofline_gemm(m: int, k: int, n: int, t_seconds: float,
-                  bytes_weights: int, peak_tflops: float = H100_BF16_TFLOPS,
-                  peak_gbs: float = H100_HBM_GBS) -> Dict[str, float]:
-    """Roofline accounting for a GEMM (JAX's formula and keys); the
-    default peaks are the H100's (NVIDIA H100 80GB HBM3, 700 W: 989 dense
-    bf16 TFLOP/s, 3,350 GB/s)."""
-    flops = 2.0 * m * k * n
-    t_compute = flops / (peak_tflops * 1e12)
-    t_memory = bytes_weights / (peak_gbs * 1e9)
-    sol = max(t_compute, t_memory)
-    return {
-        "achieved_tflops": flops / t_seconds / 1e12,
-        "weight_stream_gbs": bytes_weights / t_seconds / 1e9,
-        "speed_of_light_s": sol,
-        "sol_fraction": sol / t_seconds,
-        "bound": "compute" if t_compute > t_memory else "memory",
-    }

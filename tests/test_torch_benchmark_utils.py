@@ -3,7 +3,6 @@ quantize_acts_sym (flatquant_torch/kernels/int4_matmul.py) against the
 JAX package's (flatquant_tpu/utils/benchmark.py,
 flatquant_tpu/kernels/int4_matmul.py:87), on the CPU.
 
-roofline_gemm is the same formula: equal to JAX's for explicit peaks.
 quantize_acts_sym: codes and scales bit for bit (IEEE division on both
 sides; the LAC factors are values at which torch.sigmoid equals
 jax.nn.sigmoid, tests/test_torch_fake_quant.py). The wall-clock timers
@@ -18,22 +17,8 @@ import jax.numpy as jnp
 import torch
 
 from flatquant_tpu.kernels.int4_matmul import quantize_acts_sym as j_qas
-from flatquant_tpu.utils import benchmark as jb
 from flatquant_torch.kernels.int4_matmul import quantize_acts_sym
 from flatquant_torch.utils import benchmark as tb
-
-
-@pytest.mark.parametrize("m,k,n,t,nbytes", [
-    (1, 4096, 12288, 3e-5, 4096 * 12288 // 2),     # memory-bound decode
-    (2048, 4096, 11008, 2e-4, 4096 * 11008 // 2),  # compute-bound prefill
-])
-def test_roofline_gemm_matches_jax(m, k, n, t, nbytes):
-    peaks = dict(peak_tflops=989.0, peak_gbs=3350.0)
-    got = tb.roofline_gemm(m, k, n, t, nbytes, **peaks)
-    want = jb.roofline_gemm(m, k, n, t, nbytes, **peaks)
-    assert got == want
-    # the port's defaults are the H100's, never a TPU's
-    assert tb.roofline_gemm(m, k, n, t, nbytes) == got
 
 
 @pytest.mark.parametrize("clip", [None, 4.0, 1.0, -1.0])
